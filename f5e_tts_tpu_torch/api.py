@@ -1,0 +1,130 @@
+"""Python API: the `F5TTS` class (counterpart of `f5e_tts_tpu/api.py`).
+
+Loads a model preset, a checkpoint (or seeded random weights when none is
+given) and the Vocos vocoder, and exposes `infer(ref_file, ref_text,
+gen_text, ...)`. Runs on the card unless `device="cpu"` is passed.
+(reference: src/f5_tts/api.py:23-149)
+
+Not ported yet: ASR transcription of an empty ref_text, int8 quantization,
+AOT engine files, YAML configs, an explicit ODE grid (`timesteps=`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import random
+from typing import Optional
+
+import numpy as np
+import torch
+
+from f5e_tts_tpu_torch.config import CFMConfig, ModelConfig, preset
+from f5e_tts_tpu_torch.infer import audio as faudio
+from f5e_tts_tpu_torch.infer.pipeline import TTSEngine, preprocess_ref_audio_text
+from f5e_tts_tpu_torch.models.dit import fuse_qkv, init_dit
+from f5e_tts_tpu_torch.models.vocos import VocosConfig, init_vocos, vocos_decode, vocos_from_torch
+from f5e_tts_tpu_torch.utils import text as ftext
+from f5e_tts_tpu_torch.utils.convert import (dit_from_reference_state_dict, load_state_dict,
+                                             to_tensors)
+from f5e_tts_tpu_torch.utils.device import resolve_device
+
+
+def _cast(tree, dtype):
+    """Floating-point fp32 leaves -> dtype."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.dtype == torch.float32 else tree
+
+
+def load_vocoder(vocoder_path: Optional[str] = None, compute_dtype=torch.bfloat16,
+                 device="cuda", seed: int = 0):
+    """A Vocos decode callable, mel (B, N, 100) tensor -> float32 numpy wav.
+    Weights from a vocos .pt/.bin/.safetensors state dict, else seeded
+    random (the reference downloads charactr/vocos-mel-24khz)."""
+    dev = resolve_device(device)
+    cfg = VocosConfig()
+    if vocoder_path:
+        if vocoder_path.endswith(".safetensors"):
+            from safetensors.torch import load_file
+
+            sd = load_file(vocoder_path)
+        else:
+            sd = torch.load(vocoder_path, map_location="cpu", weights_only=True)
+        params = to_tensors(vocos_from_torch(sd, cfg), dev)
+    else:
+        params = init_vocos(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    params = _cast(params, compute_dtype)
+
+    @torch.inference_mode()
+    def decode(mel: torch.Tensor) -> np.ndarray:
+        wav = vocos_decode(params, cfg, mel.to(dev, compute_dtype), compute_dtype=compute_dtype)
+        return wav.float().cpu().numpy()
+
+    return decode
+
+
+class F5TTS:
+    """reference: api.py:23-149 (same call surface, PyTorch execution)."""
+
+    def __init__(self, model: str = "F5TTS_v1_Base", ckpt_file: str = "", vocab_file: str = "",
+                 ode_method: str = "euler", use_ema: bool = True,
+                 vocoder_local_path: Optional[str] = None, compute_dtype=torch.bfloat16,
+                 model_cfg: Optional[dict] = None, device="cuda", seed: int = 0):
+        self.device = resolve_device(device)
+        self.model_cfg: ModelConfig = preset(model)
+        arch = self.model_cfg.arch
+        if model_cfg:
+            known = {f.name for f in dataclasses.fields(arch)}
+            arch = dataclasses.replace(arch, **{k: v for k, v in model_cfg.items() if k in known})
+        self.target_sample_rate = self.model_cfg.mel.target_sample_rate
+
+        if vocab_file:
+            vocab, vocab_size = ftext.get_tokenizer(vocab_file, "custom")
+            tokenizer = "custom"
+        else:
+            # no vocab.txt: the byte tokenizer, as the JAX API falls back to
+            vocab, vocab_size, tokenizer = None, self.model_cfg.vocab_size, "byte"
+
+        if ckpt_file:
+            params = to_tensors(dit_from_reference_state_dict(load_state_dict(ckpt_file, use_ema),
+                                                              arch), self.device)
+        else:
+            params = init_dit(arch, vocab_size, torch.Generator(device=self.device).manual_seed(seed),
+                              self.device)
+        params = fuse_qkv(_cast(params, compute_dtype))
+
+        self.engine = TTSEngine(
+            params=params, arch=arch, vocab=vocab, mel=self.model_cfg.mel,
+            cfm=CFMConfig(ode_method=ode_method), infer_cfg=self.model_cfg.infer,
+            tokenizer=tokenizer,
+            vocoder_decode=load_vocoder(vocoder_local_path, compute_dtype, self.device, seed),
+            compute_dtype=compute_dtype, device=self.device)
+        self.seed: Optional[int] = None
+
+    def export_wav(self, wav: np.ndarray, file_wave: str, remove_silence: bool = False):
+        if remove_silence:
+            wav = faudio.remove_silence_edges(wav, self.target_sample_rate)
+        faudio.write_wav(file_wave, wav, self.target_sample_rate)
+
+    @torch.inference_mode()
+    def infer(self, ref_file: str, ref_text: str, gen_text: str, *,
+              cross_fade_duration: float = 0.15, sway_sampling_coef: float = -1.0,
+              cfg_strength: float = 2.0, nfe_step: int = 32, speed: float = 1.0,
+              fix_duration: Optional[float] = None, remove_silence: bool = False,
+              file_wave: Optional[str] = None, seed: Optional[int] = None):
+        """Synthesize `gen_text` in the voice of `ref_file`. Returns
+        (wav, sample_rate, generated mel)."""
+        if seed is None:
+            seed = random.randint(0, 2**31 - 1)
+        self.seed = seed
+        wav, sr = faudio.read_wav(ref_file)
+        wav, ref_text = preprocess_ref_audio_text(wav, sr, ref_text)
+        out, sr, spec = self.engine.infer(
+            wav, sr, ref_text, gen_text, seed=seed, speed=speed, fix_duration=fix_duration,
+            nfe_steps=nfe_step, cfg_strength=cfg_strength, sway=sway_sampling_coef,
+            cross_fade_duration=cross_fade_duration)
+        if file_wave is not None:
+            self.export_wav(out, file_wave, remove_silence)
+        return out, sr, spec

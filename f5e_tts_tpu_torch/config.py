@@ -1,0 +1,181 @@
+"""Configuration dataclasses and model presets (the port's copy of
+`f5e_tts_tpu/config.py`: plain data, no behaviour).
+
+Only the inference-side configs are kept; training, mesh and YAML loading
+stay in the JAX package until the port reaches them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MelConfig:
+    """Log-mel frontend (reference: src/f5_tts/model/modules.py:104-143)."""
+
+    n_fft: int = 1024
+    hop_length: int = 256
+    win_length: int = 1024
+    n_mel_channels: int = 100
+    target_sample_rate: int = 24_000
+    mel_spec_type: str = "vocos"  # "vocos" (HTK mel, center=True) | "bigvgan"
+
+
+@dataclass(frozen=True)
+class PPGConfig:
+    """PPG conditioning path (not run by the port yet; kept so DiTConfig
+    matches the reference's fields)."""
+
+    use_ppg: bool = False
+    ppg_dim: int = 256
+    use_transformer: bool = False
+    transformer_nhead: int = 4
+    transformer_dim_feedforward: int = 1024
+    transformer_dropout: float = 0.1
+    transformer_num_layers: int = 2
+    combined_cond_drop_prob: Tuple[float, float, float, float] = (0.3, 0.1, 0.5, 0.1)
+    use_cross_mask: bool = False
+    cross_mask_prob: float = 0.5
+    frame_length: int = 20
+    mel_frame_shift: int = 10
+    output_type: str = "ppg"
+    map_mix_ratio: float = 1.0
+
+
+@dataclass(frozen=True)
+class CodebookConfig:
+    """Shared Gumbel-VQ codebook (training only; kept for field parity)."""
+
+    use_codebook: bool = False
+    num_vars: int = 100
+    temp_start: float = 2.0
+    temp_stop: float = 0.5
+    temp_decay: float = 0.999995
+    groups: int = 2
+    combine_groups: bool = False
+    weight_proj_depth: int = 1
+    weight_proj_factor: int = 1
+    use_perplex_loss: bool = False
+    perplex_loss_prob: float = 0.1
+    perplex_loss_weight: float = 0.1
+    use_align_loss: bool = False
+    align_loss_weight: float = 1.0
+
+
+@dataclass(frozen=True)
+class DiTConfig:
+    """DiT backbone (reference: src/f5_tts/model/backbones/dit.py:183-271)."""
+
+    dim: int = 1024
+    depth: int = 22
+    heads: int = 16
+    dim_head: int = 64
+    ff_mult: int = 2
+    mel_dim: int = 100
+    text_num_embeds: int = 256
+    text_dim: int = 512
+    text_mask_padding: bool = True
+    qk_norm: Optional[str] = None  # None | "rms_norm"
+    conv_layers: int = 4
+    pe_attn_head: Optional[int] = None  # rope only on the first N heads
+    long_skip_connection: bool = False
+    checkpoint_activations: bool = False
+    remat_policy: str = "block"
+    dropout: float = 0.1
+    ppg: PPGConfig = field(default_factory=PPGConfig)
+    codebook: CodebookConfig = field(default_factory=CodebookConfig)
+    max_pos: int = 4096  # abs/rope position table length
+    scan_unroll: int = 1
+
+
+@dataclass(frozen=True)
+class UNetTConfig:
+    """UNetT (E2-TTS) hyperparameters; the port has no UNetT backbone yet."""
+
+    dim: int = 1024
+    depth: int = 24
+    heads: int = 16
+    dim_head: int = 64
+    ff_mult: int = 4
+    mel_dim: int = 100
+    text_num_embeds: int = 256
+    text_dim: Optional[int] = None
+    text_mask_padding: bool = False
+    qk_norm: Optional[str] = None
+    conv_layers: int = 0
+    pe_attn_head: Optional[int] = 1
+    skip_connect_type: str = "concat"
+    dropout: float = 0.1
+    max_pos: int = 4096
+    scan_unroll: int = 1
+
+
+@dataclass(frozen=True)
+class CFMConfig:
+    """Conditional flow matching (reference: src/f5_tts/model/cfm.py:34-87)."""
+
+    sigma: float = 0.0
+    audio_drop_prob: float = 0.3
+    cond_drop_prob: float = 0.2
+    frac_lengths_mask: Tuple[float, float] = (0.7, 1.0)
+    ode_method: str = "euler"  # "euler" | "midpoint"
+    ode_unroll: int = 1
+
+
+@dataclass(frozen=True)
+class InferConfig:
+    """Inference defaults (reference: src/f5_tts/infer/utils_infer.py:49-62)."""
+
+    nfe_steps: int = 32
+    cfg_strength: float = 2.0
+    sway_sampling_coef: float = -1.0
+    speed: float = 1.0
+    max_duration: int = 4096
+    cross_fade_duration: float = 0.15
+    target_rms: float = 0.1
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Top-level bundle: backbone + mel + cfm + tokenizer."""
+
+    name: str = "F5TTS_v1_Base"
+    backbone: str = "DiT"
+    tokenizer: str = "pinyin"
+    tokenizer_path: Optional[str] = None
+    vocab_size: int = 2545  # F5TTS_v1_Base vocab.txt size
+    arch: Any = field(default_factory=DiTConfig)
+    mel: MelConfig = field(default_factory=MelConfig)
+    cfm: CFMConfig = field(default_factory=CFMConfig)
+    infer: InferConfig = field(default_factory=InferConfig)
+
+
+def preset(name: str) -> ModelConfig:
+    """Architecture presets (reference: src/f5_tts/train/finetune_cli.py:88-139)."""
+    if name == "F5TTS_v1_Base":
+        return ModelConfig(
+            name=name, backbone="DiT",
+            arch=DiTConfig(dim=1024, depth=22, heads=16, ff_mult=2, text_dim=512, conv_layers=4),
+        )
+    if name == "F5TTS_Base":
+        return ModelConfig(
+            name=name, backbone="DiT",
+            arch=DiTConfig(dim=1024, depth=22, heads=16, ff_mult=2, text_dim=512,
+                           text_mask_padding=False, conv_layers=4, pe_attn_head=1),
+        )
+    if name == "F5TTS_Small":
+        return ModelConfig(
+            name=name, backbone="DiT",
+            arch=DiTConfig(dim=768, depth=18, heads=12, ff_mult=2, text_dim=512,
+                           text_mask_padding=False, conv_layers=4, pe_attn_head=1,
+                           checkpoint_activations=True),
+        )
+    if name == "E2TTS_Base":
+        return ModelConfig(
+            name=name, backbone="UNetT",
+            arch=UNetTConfig(dim=1024, depth=24, heads=16, ff_mult=4,
+                             text_mask_padding=False, pe_attn_head=1),
+        )
+    raise ValueError(f"unknown preset {name!r}")

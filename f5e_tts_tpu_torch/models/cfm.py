@@ -1,0 +1,155 @@
+"""Conditional flow matching sampler (counterpart of the sampling half of
+`f5e_tts_tpu/models/cfm.py`).
+
+The ODE over the sway-sampled grid is a Python loop; the two CFG branches
+(cond, and audio+text dropped) are folded into one (2B)-batch backbone call
+per step with per-sample drop flags; the text embeddings are computed once,
+before the loop.
+
+reference: src/f5_tts/model/cfm.py:348-482 (CFM.sample).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from f5e_tts_tpu_torch.config import CFMConfig, DiTConfig
+from f5e_tts_tpu_torch.models import backbone as fbb
+from f5e_tts_tpu_torch.utils.device import resolve_device
+from f5e_tts_tpu_torch.utils.masks import lens_to_mask
+
+
+def sway_timesteps(steps: int, sway_coef: Optional[float], t_start: float = 0.0) -> np.ndarray:
+    """t = linspace + sway * (cos(pi/2 t) - 1 + t), in float64, cast to
+    float32 (reference: cfm.py:467-469)."""
+    t = np.linspace(t_start, 1.0, steps + 1, dtype=np.float64)
+    if sway_coef is not None:
+        t = t + sway_coef * (np.cos(np.pi / 2 * t) - 1 + t)
+    return t.astype(np.float32)
+
+
+def noise_like(generator: torch.Generator, batch: int, length: int, channels: int,
+               durations: torch.Tensor) -> torch.Tensor:
+    """Standard normal (B, length, channels) noise from `generator` (on the
+    generator's device), zero past each sample's duration."""
+    y0 = torch.randn((batch, length, channels), generator=generator,
+                     device=generator.device, dtype=torch.float32)
+    keep = lens_to_mask(durations.to(generator.device), length)
+    return y0.masked_fill(~keep[:, :, None], 0.0)
+
+
+def _ode_scan(step_fn: Callable, y0: torch.Tensor, ts: np.ndarray, method: str = "euler"):
+    """Integrate dy/dt = step_fn(t, y) over the float32 grid ts.
+
+    Euler: y += (t1 - t0) * f(t0, y). Midpoint: classic RK2. Returns
+    (y_final, trajectory (steps + 1, ...) including y0), as torchdiffeq's
+    odeint does (reference: cfm.py:471).
+    """
+    ts = np.asarray(ts, np.float32)
+    y = y0
+    traj = [y0]
+    for t0, t1 in zip(ts[:-1], ts[1:]):
+        dt = t1 - t0  # float32 arithmetic, as on the JAX grid
+        if method == "euler":
+            y = y + float(dt) * step_fn(float(t0), y)
+        elif method == "midpoint":
+            half = np.float32(0.5) * dt
+            k1 = step_fn(float(t0), y)
+            y_mid = y + float(half) * k1
+            y = y + float(dt) * step_fn(float(t0 + half), y_mid)
+        else:
+            raise ValueError(f"unknown ode method {method!r}")
+        traj.append(y)
+    return y, torch.stack(traj)
+
+
+class SamplerInputs(NamedTuple):
+    cond: torch.Tensor  # (B, N, mel) reference mel padded to N, zero outside the prompt
+    cond_mask: torch.Tensor  # (B, N) True where the prompt is kept
+    duration: torch.Tensor  # (B,) total output frames
+    text_ids: Optional[torch.Tensor]  # (B, NT), pad -1, or None
+
+
+def prepare_inputs(cond: torch.Tensor, lens: torch.Tensor, duration: torch.Tensor,
+                   max_duration: int, text_ids: Optional[torch.Tensor] = None) -> SamplerInputs:
+    """Pad cond to the bucket length and build the prompt-keep mask
+    (reference: cfm.py:393-428)."""
+    cond_len = cond.shape[1]
+    if cond_len < max_duration:
+        cond = F.pad(cond, (0, 0, 0, max_duration - cond_len))
+    else:
+        cond = cond[:, :max_duration]
+    cond_mask = lens_to_mask(lens.to(cond.device), max_duration)
+    step_cond = cond.masked_fill(~cond_mask[:, :, None], 0.0)
+    return SamplerInputs(cond=step_cond, cond_mask=cond_mask, duration=duration,
+                         text_ids=text_ids)
+
+
+def _folded_cfg_flow(params, arch: DiTConfig, inputs: SamplerInputs, branches: Sequence[dict],
+                     weights: Sequence[float], mask: torch.Tensor, compute_dtype):
+    """step_fn(t, x) evaluating all CFG branches in ONE (K*B)-batch call;
+    the flow is sum_k weights[k] * flow_k."""
+    b, n, _ = inputs.cond.shape
+    k = len(branches)
+    device = inputs.cond.device
+    text_embed_k = torch.cat([
+        fbb.precompute_text_embed(params, arch, inputs.text_ids, b, n,
+                                  torch.full((b,), br["drop_text"], device=device),
+                                  compute_dtype)
+        for br in branches])
+    cond_k = inputs.cond.repeat(k, 1, 1)
+    drop_audio_k = torch.cat([torch.full((b,), br["drop_audio"], device=device)
+                              for br in branches])
+    mask_k = mask.repeat(k, 1)
+    w = torch.tensor(weights, dtype=torch.float32, device=device)
+
+    def step_fn(t: float, x: torch.Tensor) -> torch.Tensor:
+        pred = fbb.sample_step(
+            params, arch, x=x.repeat(k, 1, 1).to(compute_dtype), cond=cond_k,
+            text_embed=text_embed_k,
+            time=torch.full((k * b,), t, dtype=torch.float32, device=device),
+            drop_audio_cond=drop_audio_k, mask=mask_k, compute_dtype=compute_dtype)
+        return torch.einsum("k,kbnd->bnd", w, pred.reshape(k, b, n, -1))
+
+    return step_fn
+
+
+def sample(params, arch: DiTConfig, cfm: CFMConfig, inputs: SamplerInputs, *,
+           steps: int = 32, cfg_strength: float = 2.0, sway_coef: Optional[float] = -1.0,
+           generator: Optional[torch.Generator] = None, y0: Optional[torch.Tensor] = None,
+           compute_dtype: torch.dtype = torch.bfloat16, device="cuda"):
+    """2-branch CFG sampler: (1 + cfg) * cond_flow - cfg * null_flow; a single
+    branch when cfg < 1e-5. The noise is `y0` when given, else drawn from
+    `generator`. Returns (out, trajectory); the prompt frames of `out` are the
+    conditioning mel (reference: cfm.py:476)."""
+    if fbb.uses_ppg(arch):
+        raise NotImplementedError("PPG conditioning is not ported yet")
+    dev = resolve_device(device)
+    param_dev = params["proj_out"]["w"].device
+    if param_dev.type != dev.type:
+        raise ValueError(f"params are on {param_dev}, sampling on {dev}")
+    inputs = SamplerInputs(*(None if t is None else t.to(dev) for t in inputs))
+    b, n, mel_dim = inputs.cond.shape
+    mask = lens_to_mask(inputs.duration, n)
+
+    if cfg_strength < 1e-5:
+        branches = [dict(drop_audio=False, drop_text=False)]
+        weights = [1.0]
+    else:
+        branches = [dict(drop_audio=False, drop_text=False),
+                    dict(drop_audio=True, drop_text=True)]
+        weights = [1.0 + cfg_strength, -cfg_strength]
+    step_fn = _folded_cfg_flow(params, arch, inputs, branches, weights, mask, compute_dtype)
+
+    if y0 is None:
+        if generator is None:
+            raise ValueError("sample needs a generator or an explicit y0")
+        y0 = noise_like(generator, b, n, mel_dim, inputs.duration)
+    y0 = y0.to(device=dev, dtype=torch.float32)
+    y_final, traj = _ode_scan(step_fn, y0, sway_timesteps(steps, sway_coef), cfm.ode_method)
+    out = torch.where(inputs.cond_mask[:, :, None], inputs.cond, y_final)
+    return out, traj

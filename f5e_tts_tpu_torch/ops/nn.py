@@ -1,0 +1,121 @@
+"""Core NN primitives over parameter dicts (counterpart of
+`f5e_tts_tpu/ops/nn.py`).
+
+Conventions, kept from the JAX package so its parameter trees load as plain
+copies:
+- activations are channels-last: (B, N, D);
+- linear params {"w": (in, out), "b": (out,)};
+- conv1d params {"w": (k, in/groups, out), "b": (out,)};
+- matmuls run in the caller's compute dtype with fp32 accumulation, and the
+  bias is added before the one rounding to the compute dtype;
+- norms and activations compute in fp32 and round back to the input dtype.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def linear(p, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x @ w + b with fp32 accumulation and one rounding after the bias.
+
+    A plain bf16 `x @ w + b` would round the product before the bias add.
+    On the card `addmm` hands the bias to cuBLASLt's epilogue, which adds it
+    in the fp32 accumulator; on the CPU the product is formed in fp32.
+    """
+    dtype = compute_dtype or x.dtype
+    w = p["w"].to(dtype)
+    b = p.get("b")
+    lead = x.shape[:-1]
+    x2 = x.to(dtype).reshape(-1, x.shape[-1])
+    if dtype == torch.float32 or x2.is_cuda:
+        y = x2 @ w if b is None else torch.addmm(b.to(dtype), x2, w)
+    else:
+        y = x2.float() @ w.float()
+        if b is not None:
+            y = y + b.float()
+        y = y.to(dtype)
+    return y.reshape(*lead, w.shape[1])
+
+
+def embedding(p, ids: torch.Tensor) -> torch.Tensor:
+    return F.embedding(ids, p["w"])
+
+
+def conv1d(p, x: torch.Tensor, groups: int = 1, padding="SAME", dilation: int = 1,
+           stride: int = 1, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Channels-last 1-D conv: (B, N, D_in) -> (B, N_out, D_out).
+
+    padding: "SAME" (odd k), an int, or (lo, hi). The weight is stored
+    (k, in/groups, out) and viewed as torch's (out, in/groups, k).
+    """
+    dtype = compute_dtype or x.dtype
+    w = p["w"].to(dtype)
+    k = w.shape[0]
+    if isinstance(padding, str):
+        if padding != "SAME" or k % 2 == 0:
+            raise ValueError(f"padding {padding!r} needs an odd kernel, got k={k}")
+        lo = hi = dilation * (k - 1) // 2
+    elif isinstance(padding, int):
+        lo = hi = padding
+    else:
+        lo, hi = padding
+    xt = F.pad(x.to(dtype).transpose(1, 2), (lo, hi))
+    wt = w.permute(2, 1, 0)
+    b = p.get("b")
+    if dtype == torch.float32 or xt.is_cuda:
+        y = F.conv1d(xt, wt, None if b is None else b.to(dtype), stride, 0, dilation, groups)
+    else:
+        y = F.conv1d(xt.float(), wt.float(), None if b is None else b.float(),
+                     stride, 0, dilation, groups).to(dtype)
+    return y.transpose(1, 2)
+
+
+def layernorm(p: Optional[dict], x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm in fp32 with var = mean((x - mean)^2); p=None: no affine."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if p is not None:
+        y = y * p["g"].float() + p["b"].float()
+    return y.to(x.dtype)
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    return (xf * torch.tanh(F.softplus(xf))).to(x.dtype)
+
+
+def gelu(x: torch.Tensor, approximate: str = "none") -> torch.Tensor:
+    """GELU: "none" = exact erf, "tanh" = the tanh approximation."""
+    return F.gelu(x.float(), approximate=approximate).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    return (xf * torch.sigmoid(xf)).to(x.dtype)
+
+
+def sinus_time_embedding(t: torch.Tensor, dim: int, scale: float = 1000.0) -> torch.Tensor:
+    """(B,) -> (B, dim) = [sin | cos] (reference: modules.py:149-161)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=t.device) / (half - 1))
+    args = scale * t.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+def precompute_freqs_cis(dim: int, end: int, theta: float = 10000.0,
+                         theta_rescale_factor: float = 1.0) -> np.ndarray:
+    """Absolute sinusoidal table (end, dim) = [cos | sin], float64 math,
+    float32 out (reference: modules.py:196-207)."""
+    theta = theta * theta_rescale_factor ** (dim / (dim - 2))
+    freqs = 1.0 / (theta ** (np.arange(0, dim, 2)[: dim // 2].astype(np.float64) / dim))
+    angles = np.outer(np.arange(end, dtype=np.float64), freqs)
+    return np.concatenate([np.cos(angles), np.sin(angles)], axis=-1).astype(np.float32)

@@ -1,0 +1,156 @@
+"""Weight converters into the port's parameter dicts.
+
+- `dit_from_jax` / `vocos_from_jax`: the JAX package's parameter trees, given
+  as nested dicts of numpy arrays. The port keeps the JAX layouts (linear
+  (in, out), conv (k, in/groups, out)) and the JAX q/k feature order, so this
+  is a plain copy; only the DiT's depth-stacked block arrays are split into
+  a list of per-block dicts.
+- `dit_from_reference_state_dict`: a reference-layout F5-TTS state dict
+  (`transformer.*` keys, torch layouts). Linear weights are transposed and
+  conv weights moved (out, in/g, k) -> (k, in/g, out).
+
+RoPE order: the reference rotates interleaved feature pairs (2j, 2j+1). The
+port, like the JAX package, keeps each head's q/k features in half-split
+order (pair j at (j, j + dh/2)), so the attention kernel rotates with a
+contiguous rot_half. The reference loader therefore permutes the output
+features of to_q/to_k (weights and biases) and q_norm/k_norm at ingest, as
+f5e_tts_tpu/utils/torch_ckpt.py: dit_from_torch does; attention scores are
+unchanged because q.k is invariant under a permutation shared by q and k.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from f5e_tts_tpu_torch.config import DiTConfig
+from f5e_tts_tpu_torch.ops.rope import half_split_perm, permute_qk_bias, permute_qk_weight
+
+_DROP_KEYS = ("initted", "step", "mel_spec.mel_stft.mel_scale.fb",
+              "mel_spec.mel_stft.spectrogram.window")
+
+
+def to_tensors(tree, device="cpu", dtype=None):
+    """Map every array leaf of a nested dict/list to a torch tensor."""
+    if isinstance(tree, Mapping):
+        return {k: to_tensors(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_tensors(v, device, dtype) for v in tree]
+    t = tree if isinstance(tree, torch.Tensor) else torch.from_numpy(np.array(tree))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def dit_from_jax(params_np: Mapping, cfg: DiTConfig) -> dict:
+    """The JAX DiT tree (blocks stacked on a leading depth axis) -> port params."""
+    tree = to_tensors(params_np)
+    stacked = tree["blocks"]
+
+    def block(i, node):
+        if isinstance(node, Mapping):
+            return {k: block(i, v) for k, v in node.items()}
+        return node[i].clone()
+
+    return {**tree, "blocks": [block(i, stacked) for i in range(cfg.depth)]}
+
+
+def vocos_from_jax(params_np: Mapping, cfg) -> dict:
+    """The JAX Vocos tree -> port params (same names and layouts)."""
+    return to_tensors(params_np)
+
+
+def dit_from_reference_state_dict(sd: Mapping, cfg: DiTConfig, prefix: str = "transformer.") -> dict:
+    """A reference F5-TTS DiT state dict (numpy arrays or tensors) -> port params.
+
+    Key names follow the reference module tree (dit.py:183-271,
+    modules.py:610-641). to_q/to_k and q_norm/k_norm are permuted into the
+    half-split RoPE order.
+    """
+    if cfg.ppg.use_ppg or cfg.codebook.use_codebook or cfg.long_skip_connection:
+        raise NotImplementedError("PPG, codebook and long-skip DiTs are not ported yet")
+    sd = {k[len(prefix):]: np.asarray(v, dtype=np.float32)
+          for k, v in sd.items() if k.startswith(prefix)}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    def lin(key):
+        p = {"w": t(sd[f"{key}.weight"].T)}
+        if f"{key}.bias" in sd:
+            p["b"] = t(sd[f"{key}.bias"])
+        return p
+
+    def qk_lin(key):
+        p = {"w": t(permute_qk_weight(sd[f"{key}.weight"].T, cfg.heads))}
+        if f"{key}.bias" in sd:
+            p["b"] = t(permute_qk_bias(sd[f"{key}.bias"], cfg.heads))
+        return p
+
+    def conv(key):
+        return {"w": t(sd[f"{key}.weight"].transpose(2, 1, 0)), "b": t(sd[f"{key}.bias"])}
+
+    def convnext_v2(key):
+        return {
+            "dwconv": conv(f"{key}.dwconv"),
+            "norm": {"g": t(sd[f"{key}.norm.weight"]), "b": t(sd[f"{key}.norm.bias"])},
+            "pwconv1": lin(f"{key}.pwconv1"),
+            "grn": {"gamma": t(sd[f"{key}.grn.gamma"].reshape(-1)),
+                    "beta": t(sd[f"{key}.grn.beta"].reshape(-1))},
+            "pwconv2": lin(f"{key}.pwconv2"),
+        }
+
+    def count(pattern):
+        return len({m.group(1) for k in sd if (m := re.match(pattern, k))})
+
+    depth = count(r"transformer_blocks\.(\d+)\.")
+    if depth != cfg.depth:
+        raise ValueError(f"checkpoint depth {depth} != config depth {cfg.depth}")
+    perm = half_split_perm(cfg.dim_head)
+    blocks = []
+    for i in range(depth):
+        b = f"transformer_blocks.{i}"
+        attn = {"to_q": qk_lin(f"{b}.attn.to_q"), "to_k": qk_lin(f"{b}.attn.to_k"),
+                "to_v": lin(f"{b}.attn.to_v"), "to_out": lin(f"{b}.attn.to_out.0")}
+        if cfg.qk_norm == "rms_norm":
+            attn["q_norm"] = {"g": t(sd[f"{b}.attn.q_norm.weight"][perm])}
+            attn["k_norm"] = {"g": t(sd[f"{b}.attn.k_norm.weight"][perm])}
+        # FeedForward: Sequential(Sequential(Linear, GELU), Dropout, Linear)
+        blocks.append({"attn_norm": lin(f"{b}.attn_norm.linear"), "attn": attn,
+                       "ff1": lin(f"{b}.ff.ff.0.0"), "ff2": lin(f"{b}.ff.ff.2")})
+    return {
+        "time_embed": {"mlp1": lin("time_embed.time_mlp.0"), "mlp2": lin("time_embed.time_mlp.2")},
+        "text_embed": {
+            "embed": {"w": t(sd["text_embed.text_embed.weight"])},
+            "blocks": [convnext_v2(f"text_embed.text_blocks.{i}")
+                       for i in range(count(r"text_embed\.text_blocks\.(\d+)\."))],
+        },
+        "input_embed": {"proj": lin("input_embed.proj"),
+                        "conv1": conv("input_embed.conv_pos_embed.conv1d.0"),
+                        "conv2": conv("input_embed.conv_pos_embed.conv1d.2")},
+        "blocks": blocks,
+        "norm_out": lin("norm_out.linear"),
+        "proj_out": lin("proj_out"),
+    }
+
+
+def load_state_dict(path: str, use_ema: bool = True) -> Dict[str, np.ndarray]:
+    """A reference checkpoint (.safetensors EMA export or .pt training dict)
+    as a flat {key: float32 numpy array} dict, EMA prefix stripped."""
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        sd = load_file(path)
+        if use_ema:
+            sd = {k.replace("ema_model.", ""): v for k, v in sd.items()}
+    else:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        if use_ema and "ema_model_state_dict" in ckpt:
+            sd = {k.replace("ema_model.", ""): v for k, v in ckpt["ema_model_state_dict"].items()}
+        else:
+            sd = ckpt.get("model_state_dict", ckpt)
+    return {k: np.asarray(torch.as_tensor(v).float().numpy()) for k, v in sd.items()
+            if k not in _DROP_KEYS and not k.endswith("num_batches_tracked")}

@@ -1,0 +1,18 @@
+"""Device resolution shared by the port's entry points."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = "cuda") -> torch.device:
+    """The device an entry point runs on: the card unless the caller asked
+    for the CPU. A CUDA request with no CUDA device raises; nothing falls
+    back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU")
+    return dev
