@@ -1,8 +1,9 @@
 """Configuration dataclasses and model presets (the port's copy of
 `f5e_tts_tpu/config.py`: plain data, no behaviour).
 
-Only the inference-side configs are kept; training, mesh and YAML loading
-stay in the JAX package until the port reaches them.
+The inference configs and the single-device training config are kept; the
+mesh, pipeline microbatching, the PRNG choice and YAML loading stay in the
+JAX package until the port reaches them.
 """
 
 from __future__ import annotations
@@ -135,6 +136,39 @@ class InferConfig:
     max_duration: int = 4096
     cross_fade_duration: float = 0.15
     target_rms: float = 0.1
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training loop config (reference: src/f5_tts/model/trainer.py:25-141 and
+    src/f5_tts/configs/example.yaml optim/ckpts sections), one device."""
+
+    epochs: int = 100
+    learning_rate: float = 7.5e-5
+    num_warmup_updates: int = 20_000
+    # `update` counts OPTIMIZER updates (micro-steps / accumulation), like the
+    # reference's global_update (trainer.py:416); save cadence, EMA gating and
+    # the LR schedule run in update units.
+    grad_accumulation_steps: int = 1
+    max_grad_norm: float = 1.0
+    batch_size_per_device: int = 19_200
+    max_samples: int = 64
+    # EMA: ema_pytorch defaults, which the reference trainer uses unmodified
+    # (trainer.py:104); see train/step.py
+    ema_beta: float = 0.9999
+    ema_update_after_step: int = 100
+    ema_update_every: int = 10
+    ema_inv_gamma: float = 1.0
+    ema_power: float = 2.0 / 3.0
+    ema_min_value: float = 0.0
+    save_per_updates: int = 50_000
+    last_per_updates: int = 5_000
+    keep_last_n_checkpoints: int = -1
+    save_dir: str = "ckpts"
+    seed: int = 666
+    # numerics: fp32 master weights, matmuls in the compute dtype
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
 
 
 @dataclass(frozen=True)

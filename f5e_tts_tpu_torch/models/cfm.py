@@ -1,5 +1,5 @@
-"""Conditional flow matching sampler (counterpart of the sampling half of
-`f5e_tts_tpu/models/cfm.py`).
+"""Conditional flow matching (counterpart of `f5e_tts_tpu/models/cfm.py`):
+the sampler and the training loss `cfm_loss`.
 
 The ODE over the sway-sampled grid is a Python loop; the two CFG branches
 (cond, and audio+text dropped) are folded into one (2B)-batch backbone call
@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from f5e_tts_tpu_torch.config import CFMConfig, DiTConfig
 from f5e_tts_tpu_torch.models import backbone as fbb
 from f5e_tts_tpu_torch.utils.device import resolve_device
-from f5e_tts_tpu_torch.utils.masks import lens_to_mask
+from f5e_tts_tpu_torch.utils.masks import lens_to_mask, mask_from_frac_lengths
 
 
 def sway_timesteps(steps: int, sway_coef: Optional[float], t_start: float = 0.0) -> np.ndarray:
@@ -153,3 +153,80 @@ def sample(params, arch: DiTConfig, cfm: CFMConfig, inputs: SamplerInputs, *,
     y_final, traj = _ode_scan(step_fn, y0, sway_timesteps(steps, sway_coef), cfm.ode_method)
     out = torch.where(inputs.cond_mask[:, :, None], inputs.cond, y_final)
     return out, traj
+
+
+# ---------------------------------------------------------------------------
+# training loss
+# ---------------------------------------------------------------------------
+
+
+class CFMLossOut(NamedTuple):
+    loss: torch.Tensor  # fp32 scalar
+    flow_loss: torch.Tensor  # fp32 scalar (equal to loss: no extra losses are ported)
+    cond: torch.Tensor  # (B, N, mel) the masked conditioning mel
+    pred: torch.Tensor  # (B, N, mel) fp32 predicted flow
+
+
+class LossDraws(NamedTuple):
+    """The random draws of one `cfm_loss` call. Fields left None are drawn
+    from the call's generator; tests hand over draws made from a JAX key."""
+
+    frac: Optional[torch.Tensor] = None  # (B,) span fraction in [frac_lo, frac_hi)
+    span: Optional[torch.Tensor] = None  # (B,) U[0, 1) placing each span's start
+    x0: Optional[torch.Tensor] = None  # (B, N, mel) standard normal noise
+    time: Optional[torch.Tensor] = None  # (B,) U[0, 1) flow time
+    u1: Optional[torch.Tensor] = None  # () U[0, 1): audio drop when < audio_drop_prob
+    u2: Optional[torch.Tensor] = None  # () U[0, 1): drop all when < cond_drop_prob
+
+
+def cfm_loss(params, arch: DiTConfig, cfm: CFMConfig, *, mel: torch.Tensor,
+             mel_lens: torch.Tensor, text_ids: Optional[torch.Tensor],
+             generator: Optional[torch.Generator] = None, draws: Optional[LossDraws] = None,
+             training: bool = True, compute_dtype=torch.bfloat16) -> CFMLossOut:
+    """Flow-matching infilling loss (reference: cfm.py:484-590, CFM.forward).
+
+    One random span per sample covering frac (70-100 %) of its valid frames
+    is hidden from the conditioning; x_t = (1 - t) x0 + t x1; the
+    condition-drop decision is one draw for the whole batch (audio drop with
+    p = audio_drop_prob, everything dropped with p = cond_drop_prob); the
+    loss is the MSE of the predicted flow x1 - x0 over the span only. As the
+    reference, training passes no attention mask, so every key is valid,
+    padding included. Draws missing from `draws` come from `generator`, as
+    does the trunk's dropout.
+    """
+    if fbb.uses_ppg(arch):
+        raise NotImplementedError("PPG conditioning is not ported yet")
+    b, n, mel_dim = mel.shape
+    dev = mel.device
+    d = draws or LossDraws()
+
+    def uniform(value, shape):
+        if value is not None:
+            return torch.as_tensor(value, dtype=torch.float32).to(dev)
+        return torch.rand(shape, generator=generator, device=dev)
+
+    mask = lens_to_mask(mel_lens.to(dev), n)
+    lo, hi = cfm.frac_lengths_mask
+    frac = d.frac.to(dev).float() if d.frac is not None else lo + (hi - lo) * uniform(None, (b,))
+    span = mask_from_frac_lengths(mel_lens.to(dev), frac, n, rand=uniform(d.span, (b,))) & mask
+
+    x1 = mel.float()
+    x0 = (d.x0.to(dev).float() if d.x0 is not None
+          else torch.randn(x1.shape, generator=generator, device=dev))
+    time = uniform(d.time, (b,))
+    t = time[:, None, None]
+    phi = (1 - t) * x0 + t * x1
+    flow = x1 - x0
+    cond = x1.masked_fill(span[:, :, None], 0.0)
+
+    drop_all = uniform(d.u2, ()) < cfm.cond_drop_prob
+    drop_audio = (uniform(d.u1, ()) < cfm.audio_drop_prob) | drop_all
+    pred = fbb.forward_train(
+        params, arch, x=phi.to(compute_dtype), cond=cond.to(compute_dtype), text_ids=text_ids,
+        time=time, drop_audio_cond=drop_audio.expand(b), drop_text=drop_all.expand(b),
+        mask=None, training=training, generator=generator, compute_dtype=compute_dtype)
+
+    se = (pred.float() - flow).square()
+    w = span[:, :, None].float()
+    flow_loss = (se * w).sum() / torch.clamp(w.sum() * mel_dim, min=1.0)
+    return CFMLossOut(loss=flow_loss, flow_loss=flow_loss, cond=cond, pred=pred)

@@ -1,4 +1,7 @@
-"""DiT backbone, inference half (counterpart of `f5e_tts_tpu/models/dit.py`).
+"""DiT backbone (counterpart of `f5e_tts_tpu/models/dit.py`): the sampler's
+forward with a precomputed text embedding, and the training forward
+(`dit_forward`, with dropout), both differentiable through the kernels'
+autograd Functions.
 
 Parameters are nested dicts of tensors with the JAX package's names and
 layouts, except that the per-block tensors are a list of `depth` dicts
@@ -19,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from f5e_tts_tpu_torch.config import DiTConfig
-from f5e_tts_tpu_torch.kernels.gated_adaln import gated_adaln
+from f5e_tts_tpu_torch.kernels.gated_adaln import GatedAdaLN
 from f5e_tts_tpu_torch.ops import convnext as fcnx
 from f5e_tts_tpu_torch.ops import nn as fnn
 from f5e_tts_tpu_torch.ops.attention import attention
@@ -199,8 +202,11 @@ def input_embed_fn(params, cfg: DiTConfig, x: torch.Tensor, cond: torch.Tensor,
 
 
 def _dit_block(blk, x, t_emb, mask, rope_cos, rope_sin, cfg: DiTConfig,
-               compute_dtype=torch.bfloat16):
-    """One DiT block (modules.py:610-641), with K2 after the attention."""
+               compute_dtype=torch.bfloat16, training: bool = False,
+               generator: Optional[torch.Generator] = None):
+    """One DiT block (modules.py:610-641), with K2/K5 after the attention.
+    In training, dropout (cfg.dropout, drawn from `generator`) acts on the
+    attention output and on the FF hidden, as in the JAX block."""
     mod = fnn.linear(blk["attn_norm"], fnn.silu(t_emb), compute_dtype)  # (B, 6D)
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
 
@@ -209,22 +215,28 @@ def _dit_block(blk, x, t_emb, mask, rope_cos, rope_sin, cfg: DiTConfig,
     attn_out = attention(blk["attn"], norm, cfg.heads, mask=mask, rope_cos=rope_cos,
                          rope_sin=rope_sin, pe_attn_head=cfg.pe_attn_head, qk_norm=cfg.qk_norm,
                          compute_dtype=compute_dtype)
-    # x += gate * attn_out; LN; * (1 + scale) + shift, in one pass (K2)
-    x, norm = gated_adaln(x, attn_out, gate_msa, scale_mlp, shift_mlp)
+    attn_out = fnn.dropout(attn_out, cfg.dropout, training, generator)
+    # x += gate * attn_out; LN; * (1 + scale) + shift, in one pass (K2, K5)
+    x, norm = GatedAdaLN.apply(x, attn_out, gate_msa, scale_mlp, shift_mlp)
     h = fnn.linear(blk["ff1"], norm.to(compute_dtype), compute_dtype)
-    h = fnn.linear(blk["ff2"], fnn.gelu(h, approximate="tanh"), compute_dtype)
+    h = fnn.dropout(fnn.gelu(h, approximate="tanh"), cfg.dropout, training, generator)
+    h = fnn.linear(blk["ff2"], h, compute_dtype)
     return (x + gate_mlp[:, None, :] * h).to(compute_dtype)
 
 
-def dit_trunk(params, cfg: DiTConfig, x, t_emb, mask, seq_len, compute_dtype=torch.bfloat16):
-    """The blocks, then the final AdaLN and projection; fp32 out (dit.py:459-472)."""
+def dit_trunk(params, cfg: DiTConfig, x, t_emb, mask, seq_len, compute_dtype=torch.bfloat16,
+              training: bool = False, generator: Optional[torch.Generator] = None):
+    """The blocks, then the final AdaLN and projection; fp32 out (dit.py:459-472).
+    Blocks without a fused `to_qkv` get it concatenated per call (training
+    keeps to_q/to_k/to_v as the fp32 master weights)."""
     if cfg.long_skip_connection:
         raise NotImplementedError("long_skip_connection is not ported yet")
     rope_cos, rope_sin = _rope_tables(cfg.dim_head, seq_len, x.device)
     for blk in params["blocks"]:
         if "to_qkv" not in blk["attn"]:
             blk = {**blk, "attn": _fused_attn(blk["attn"], compute_dtype)}
-        x = _dit_block(blk, x, t_emb, mask, rope_cos, rope_sin, cfg, compute_dtype)
+        x = _dit_block(blk, x, t_emb, mask, rope_cos, rope_sin, cfg, compute_dtype, training,
+                       generator)
 
     # final AdaLN (modules.py:322-336): chunk order is (scale, shift)
     scale, shift = fnn.linear(params["norm_out"], fnn.silu(t_emb), compute_dtype).chunk(2, dim=-1)
@@ -240,3 +252,18 @@ def dit_sample_step(params, cfg: DiTConfig, *, x, cond, text_embed, time, drop_a
     t_emb = time_embed(params, time, compute_dtype)
     h = input_embed_fn(params, cfg, x, cond, text_embed, drop_audio_cond, compute_dtype)
     return dit_trunk(params, cfg, h, t_emb, mask, x.shape[1], compute_dtype)
+
+
+def dit_forward(params, cfg: DiTConfig, *, x, cond, text_ids, time, drop_audio_cond, drop_text,
+                mask=None, training: bool = False, generator: Optional[torch.Generator] = None,
+                compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Training forward (dit.py:450-533, the non-PPG, non-codebook branch):
+    time, text (recomputed every call) and input embeddings, then the trunk
+    with dropout when `training`. (B, N, mel) fp32 out."""
+    if cfg.ppg.use_ppg or cfg.codebook.use_codebook:
+        raise NotImplementedError("PPG and codebook training are not ported yet")
+    b, n, _ = x.shape
+    t_emb = time_embed(params, time, compute_dtype)
+    te = text_embed_fn(params, cfg, text_ids, b, n, drop_text, compute_dtype)
+    h = input_embed_fn(params, cfg, x, cond, te, drop_audio_cond, compute_dtype)
+    return dit_trunk(params, cfg, h, t_emb, mask, n, compute_dtype, training, generator)

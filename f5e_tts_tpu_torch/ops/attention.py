@@ -2,8 +2,9 @@
 `f5e_tts_tpu/ops/attention.py: attention`).
 
 Fused q|k|v projection, (B, N, H, dh) heads, key lengths from the padding
-mask, the fused RoPE + attention kernel (K1), the output projection, and
-zeroed output rows where the mask is False.
+mask, the fused RoPE + attention kernels (K1 forward, K4 backward, joined by
+an autograd Function), the output projection, and zeroed output rows where
+the mask is False. Gradients flow through all of them.
 
 reference semantics: src/f5_tts/model/modules.py:435-503 (AttnProcessor).
 """
@@ -14,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from f5e_tts_tpu_torch.kernels.rope_attention import rope_attention
+from f5e_tts_tpu_torch.kernels.rope_attention import RopeAttention
 from f5e_tts_tpu_torch.ops import nn as fnn
 
 
@@ -51,7 +52,7 @@ def attention(
     else:
         kv_lens = torch.full((b,), n, dtype=torch.int32, device=x.device)
     rope_heads = pe_attn_head if pe_attn_head is not None else heads
-    o = rope_attention(q, k, v, kv_lens, rope_cos[:n], rope_sin[:n], rope_heads)
+    o = RopeAttention.apply(q, k, v, kv_lens, rope_cos[:n], rope_sin[:n], rope_heads)
     o = fnn.linear(p["to_out"], o.reshape(b, n, heads * dh), compute_dtype)
     if mask is not None:
         o = o.masked_fill(~mask[:, :, None], 0.0)

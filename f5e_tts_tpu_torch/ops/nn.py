@@ -87,6 +87,16 @@ def layernorm(p: Optional[dict], x: torch.Tensor, eps: float = 1e-6) -> torch.Te
     return y.to(x.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """where(keep, x / (1 - rate), 0) with keep ~ Bernoulli(1 - rate) drawn
+    from `generator` (uniform < 1 - rate, as jax.random.bernoulli)."""
+    if not training or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def mish(x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     return (xf * torch.tanh(F.softplus(xf))).to(x.dtype)

@@ -1,0 +1,256 @@
+"""Training loop on one device: data -> step -> EMA -> checkpoints -> logs
+(counterpart of `f5e_tts_tpu/train/trainer.py`, without the mesh).
+
+reference: src/f5_tts/model/trainer.py:25-494.
+
+- the log-mel frontend runs on the card inside the step, from the raw audio
+  the loader carries (`loss_with_device_mel`),
+- EMA, grad clip and the NaN skip live in the step (train/step.py),
+- checkpoints: the full train state with torch.save as `model_last.pt` or
+  `model_{update}.pt`, a `.meta.json` beside it, and the EMA weights in the
+  reference layout under `ema_model.` in the same file (the reference's .pt
+  dict {ema_model_state_dict, update}, trainer.py:150-163), so
+  `utils/convert.py: load_state_dict` reads the port's checkpoints as it
+  reads the reference's. Rotation keeps the last N numbered checkpoints and
+  never deletes pretrained_* (trainer.py:166-183); resume prefers model_last
+  (trainer.py:185-263),
+- a SIGTERM saves model_last at the next step boundary.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import re
+import signal
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from f5e_tts_tpu_torch.config import MelConfig, ModelConfig, TrainConfig
+from f5e_tts_tpu_torch.models import backbone as fbb
+from f5e_tts_tpu_torch.models import cfm as fcfm
+from f5e_tts_tpu_torch.ops.mel import mel_spectrogram
+from f5e_tts_tpu_torch.train import step as fstep
+from f5e_tts_tpu_torch.utils.convert import dit_to_reference_state_dict
+from f5e_tts_tpu_torch.utils.device import resolve_device
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def loss_with_device_mel(params, arch, cfm, mel_cfg: MelConfig, batch: dict,
+                         generator: Optional[torch.Generator] = None,
+                         draws: Optional[fcfm.LossDraws] = None,
+                         compute_dtype=torch.bfloat16, training: bool = True) -> fcfm.CFMLossOut:
+    """cfm_loss, computing the log-mel on the batch's device when the batch
+    carries raw audio (B, T) instead of a mel."""
+    if "mel" in batch:
+        mel = batch["mel"]
+    else:
+        n = batch["audio"].shape[1] // mel_cfg.hop_length
+        mel = mel_spectrogram(batch["audio"], mel_cfg)[:, :n, :]
+    return fcfm.cfm_loss(params, arch, cfm, mel=mel, mel_lens=batch["mel_lens"],
+                         text_ids=batch.get("text_ids"), generator=generator, draws=draws,
+                         training=training, compute_dtype=compute_dtype)
+
+
+@dataclass
+class Trainer:
+    model_cfg: ModelConfig
+    train_cfg: TrainConfig
+    vocab_size: int
+    tokenize: Callable
+    log_fn: Optional[Callable[[dict, int], None]] = None
+    device: object = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.arch = self.model_cfg.arch
+        self.cfm = self.model_cfg.cfm
+        if self.train_cfg.param_dtype != "float32":
+            raise NotImplementedError("the port keeps fp32 master weights (param_dtype float32)")
+        self.compute_dtype = _DTYPES[self.train_cfg.compute_dtype]
+        self._init_ts = None
+        os.makedirs(self.train_cfg.save_dir, exist_ok=True)
+
+    # ------------------------------------------------------------------
+    # state setup
+    # ------------------------------------------------------------------
+
+    def init_state(self, total_updates: int, rng_seed: int = 0) -> fstep.TrainState:
+        """Seeded fp32 params, AdamW state and EMA. `train` consumes a state
+        armed here instead of re-initing."""
+        gen = torch.Generator(device=self.device).manual_seed(rng_seed)
+        params = fbb.init_backbone(self.arch, self.vocab_size, gen, self.device)
+        self.optimizer = fstep.make_optimizer(self.train_cfg, total_updates)
+        ts = fstep.init_train_state(params, self.optimizer)
+        self._init_ts = ts
+        return ts
+
+    def make_step(self):
+        """step(ts, batch, generator) -> (ts, StepMetrics) for a batch of
+        device tensors carrying audio or mel."""
+        mel_cfg, arch, cfm, dtype = self.model_cfg.mel, self.arch, self.cfm, self.compute_dtype
+        optimizer = self.optimizer
+        ema = fstep.EMASettings.from_train_cfg(self.train_cfg)
+
+        def step(ts, batch, generator, draws=None):
+            def loss_fn(params):
+                return loss_with_device_mel(params, arch, cfm, mel_cfg, batch, generator, draws,
+                                            dtype)
+
+            return fstep.backward_and_apply(ts, loss_fn, optimizer=optimizer, ema=ema)
+
+        return step
+
+    def step_generator(self, ts: fstep.TrainState) -> torch.Generator:
+        """The draws of micro-step micro + skipped: a generator seeded from
+        (seed, consumed batches), so a resumed run repeats them (the JAX step
+        folds the same count into its key)."""
+        seed = self.train_cfg.seed * 1_000_003 + ts.micro + ts.skipped
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    # ------------------------------------------------------------------
+    # checkpointing (reference semantics: trainer.py:150-263)
+    # ------------------------------------------------------------------
+
+    def _ckpt_path(self, name: str) -> str:
+        return os.path.join(self.train_cfg.save_dir, name)
+
+    def save_checkpoint(self, ts: fstep.TrainState, last: bool = False):
+        name = "model_last" if last else f"model_{ts.update}"
+        cpu = lambda t: t.detach().cpu()  # noqa: E731
+        ema_sd = dit_to_reference_state_dict(ts.ema_params, self.arch)
+        state = {
+            "ema_model_state_dict": {f"ema_model.{k}": v for k, v in ema_sd.items()},
+            "update": ts.update,
+            "train_state": {
+                "params": fstep.tree_map(cpu, ts.params),
+                "ema_params": fstep.tree_map(cpu, ts.ema_params),
+                "opt_state": fstep.tree_map(cpu, ts.opt_state.state_dict()),
+                "update": ts.update, "micro": ts.micro, "skipped": ts.skipped,
+            },
+        }
+        tmp = self._ckpt_path(f"{name}.pt.tmp")
+        torch.save(state, tmp)
+        os.replace(tmp, self._ckpt_path(f"{name}.pt"))
+        with open(self._ckpt_path(f"{name}.meta.json"), "w") as f:
+            json.dump({"update": ts.update}, f)
+        if not last:
+            self._rotate()
+
+    def _rotate(self):
+        keep = self.train_cfg.keep_last_n_checkpoints
+        if keep < 0:
+            return
+        pat = re.compile(r"model_(\d+)\.pt$")
+        ckpts = sorted((int(m.group(1)), name) for name in os.listdir(self.train_cfg.save_dir)
+                       if (m := pat.match(name)))
+        while len(ckpts) > keep:
+            upd, name = ckpts.pop(0)
+            for path in (name, f"model_{upd}.meta.json"):
+                if os.path.exists(self._ckpt_path(path)):
+                    os.remove(self._ckpt_path(path))
+
+    def load_checkpoint(self, ts: fstep.TrainState) -> fstep.TrainState:
+        """Resume: model_last > the highest numbered (trainer.py:185-205);
+        `ts` unchanged when there is none."""
+        d = self.train_cfg.save_dir
+        if os.path.exists(os.path.join(d, "model_last.pt")):
+            name = "model_last.pt"
+        else:
+            pat = re.compile(r"model_(\d+)\.pt$")
+            nums = sorted((int(m.group(1)), n) for n in os.listdir(d) if (m := pat.match(n)))
+            if not nums:
+                return ts
+            name = nums[-1][1]
+        st = torch.load(os.path.join(d, name), map_location="cpu", weights_only=True)["train_state"]
+        dev = lambda t: t.to(self.device)  # noqa: E731
+        opt = st["opt_state"]
+        return fstep.TrainState(
+            params=fstep.tree_map(lambda t: dev(t).requires_grad_(True), st["params"]),
+            ema_params=fstep.tree_map(dev, st["ema_params"]),
+            opt_state=fstep.AdamWState(
+                mu=[dev(t) for t in opt["mu"]], nu=[dev(t) for t in opt["nu"]],
+                count=opt["count"], mini_step=opt["mini_step"],
+                acc=None if opt["acc"] is None else [dev(t) for t in opt["acc"]]),
+            update=st["update"], micro=st["micro"], skipped=st["skipped"])
+
+    # ------------------------------------------------------------------
+    # loop
+    # ------------------------------------------------------------------
+
+    def device_batch(self, batch: dict) -> dict:
+        return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+
+    def train(self, loader, epochs: Optional[int] = None, resume: bool = True,
+              max_updates: Optional[int] = None):
+        tc = self.train_cfg
+        epochs = epochs if epochs is not None else tc.epochs
+        # schedule horizon in OPTIMIZER updates (reference trainer.py:334)
+        total_updates = max_updates or (math.ceil(len(loader) / tc.grad_accumulation_steps)
+                                        * epochs)
+        ts = self._init_ts if self._init_ts is not None else self.init_state(
+            total_updates, rng_seed=tc.seed)
+        self._init_ts = None
+        if resume:
+            ts = self.load_checkpoint(ts)
+        step = self.make_step()
+
+        # preemption: a SIGTERM requests a final model_last save at the next
+        # step boundary, so the job resumes exactly where it stopped
+        preempted = {"flag": False}
+
+        def _on_sigterm(signum, frame):
+            preempted["flag"] = True
+
+        try:
+            prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+        except ValueError:  # not on the main thread
+            prev_handler = None
+
+        start_update = ts.update
+        t0 = time.time()
+        done = False
+        # dataloader fast-forward on resume (reference trainer.py:347-352):
+        # skip the batches already consumed (micro-steps incl. NaN skips)
+        consumed = ts.micro + ts.skipped
+        skip_epochs, skip_batches = divmod(consumed, max(len(loader), 1))
+        try:
+            for epoch in range(skip_epochs, epochs):
+                if done:
+                    break
+                loader.sampler.set_epoch(epoch)
+                batch_iter = iter(loader)
+                for _ in range(skip_batches if epoch == skip_epochs else 0):
+                    if next(batch_iter, None) is None:
+                        break
+                for batch in batch_iter:
+                    t_step = time.time()
+                    prev_update = ts.update
+                    ts, metrics = step(ts, self.device_batch(batch), self.step_generator(ts))
+                    if self.log_fn is not None:
+                        self.log_fn({"loss": metrics.loss, "grad_norm": metrics.grad_norm,
+                                     "step_seconds": time.time() - t_step}, ts.update)
+                    # cadenced actions fire once per optimizer update
+                    advanced = ts.update != prev_update
+                    if advanced and ts.update % tc.last_per_updates == 0:
+                        self.save_checkpoint(ts, last=True)
+                    if advanced and ts.update % tc.save_per_updates == 0:
+                        self.save_checkpoint(ts)
+                    if preempted["flag"]:
+                        print("SIGTERM received — checkpointing and exiting")
+                        done = True
+                        break
+                    if max_updates and ts.update >= max_updates:
+                        done = True
+                        break
+        finally:
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+        self.save_checkpoint(ts, last=True)
+        return ts, {"updates": ts.update - start_update, "seconds": time.time() - t0,
+                    "preempted": preempted["flag"]}

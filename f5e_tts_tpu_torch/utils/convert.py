@@ -8,14 +8,18 @@
 - `dit_from_reference_state_dict`: a reference-layout F5-TTS state dict
   (`transformer.*` keys, torch layouts). Linear weights are transposed and
   conv weights moved (out, in/g, k) -> (k, in/g, out).
+- `dit_to_reference_state_dict`: its inverse, the export the trainer's
+  checkpoints carry (the port's copy of f5e_tts_tpu/utils/torch_ckpt.py:
+  dit_to_torch).
 
 RoPE order: the reference rotates interleaved feature pairs (2j, 2j+1). The
 port, like the JAX package, keeps each head's q/k features in half-split
 order (pair j at (j, j + dh/2)), so the attention kernel rotates with a
 contiguous rot_half. The reference loader therefore permutes the output
 features of to_q/to_k (weights and biases) and q_norm/k_norm at ingest, as
-f5e_tts_tpu/utils/torch_ckpt.py: dit_from_torch does; attention scores are
-unchanged because q.k is invariant under a permutation shared by q and k.
+f5e_tts_tpu/utils/torch_ckpt.py: dit_from_torch does, and the export
+undoes it; attention scores are unchanged because q.k is invariant under a
+permutation shared by q and k.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import numpy as np
 import torch
 
 from f5e_tts_tpu_torch.config import DiTConfig
-from f5e_tts_tpu_torch.ops.rope import half_split_perm, permute_qk_bias, permute_qk_weight
+from f5e_tts_tpu_torch.ops.rope import (half_split_perm, permute_qk_bias, permute_qk_weight,
+                                        unpermute_qk_bias, unpermute_qk_weight)
 
 _DROP_KEYS = ("initted", "step", "mel_spec.mel_stft.mel_scale.fb",
               "mel_spec.mel_stft.spectrogram.window")
@@ -135,6 +140,72 @@ def dit_from_reference_state_dict(sd: Mapping, cfg: DiTConfig, prefix: str = "tr
         "norm_out": lin("norm_out.linear"),
         "proj_out": lin("proj_out"),
     }
+
+
+def dit_to_reference_state_dict(params: Mapping, cfg: DiTConfig,
+                                prefix: str = "transformer.") -> Dict[str, torch.Tensor]:
+    """Port DiT params -> a reference-layout state dict of contiguous fp32 CPU
+    tensors (the inverse of `dit_from_reference_state_dict`). A fused
+    `to_qkv` is split back into to_q/to_k/to_v; to_q/to_k and q_norm/k_norm
+    go back to the reference's interleaved RoPE order."""
+    if cfg.ppg.use_ppg or cfg.codebook.use_codebook or cfg.long_skip_connection:
+        raise NotImplementedError("PPG, codebook and long-skip DiTs are not ported yet")
+    out: Dict[str, torch.Tensor] = {}
+
+    def a(t):
+        return t.detach().float().cpu().numpy()
+
+    def put(key, arr):
+        out[f"{prefix}{key}"] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+
+    def lin(key, p, qk=False):
+        w = unpermute_qk_weight(a(p["w"]), cfg.heads) if qk else a(p["w"])
+        put(f"{key}.weight", w.T)
+        if "b" in p:
+            put(f"{key}.bias", unpermute_qk_bias(a(p["b"]), cfg.heads) if qk else a(p["b"]))
+
+    def conv(key, p):
+        put(f"{key}.weight", a(p["w"]).transpose(2, 1, 0))
+        put(f"{key}.bias", a(p["b"]))
+
+    lin("time_embed.time_mlp.0", params["time_embed"]["mlp1"])
+    lin("time_embed.time_mlp.2", params["time_embed"]["mlp2"])
+    put("text_embed.text_embed.weight", a(params["text_embed"]["embed"]["w"]))
+    for i, blk in enumerate(params["text_embed"]["blocks"]):
+        k = f"text_embed.text_blocks.{i}"
+        conv(f"{k}.dwconv", blk["dwconv"])
+        put(f"{k}.norm.weight", a(blk["norm"]["g"]))
+        put(f"{k}.norm.bias", a(blk["norm"]["b"]))
+        lin(f"{k}.pwconv1", blk["pwconv1"])
+        put(f"{k}.grn.gamma", a(blk["grn"]["gamma"]).reshape(1, 1, -1))
+        put(f"{k}.grn.beta", a(blk["grn"]["beta"]).reshape(1, 1, -1))
+        lin(f"{k}.pwconv2", blk["pwconv2"])
+    lin("input_embed.proj", params["input_embed"]["proj"])
+    conv("input_embed.conv_pos_embed.conv1d.0", params["input_embed"]["conv1"])
+    conv("input_embed.conv_pos_embed.conv1d.2", params["input_embed"]["conv2"])
+
+    inv_perm = np.argsort(half_split_perm(cfg.dim_head))
+    for i, blk in enumerate(params["blocks"]):
+        b = f"transformer_blocks.{i}"
+        attn = blk["attn"]
+        if "to_qkv" in attn:
+            ws = attn["to_qkv"]["w"].chunk(3, dim=-1)
+            bs = attn["to_qkv"]["b"].chunk(3, dim=-1) if "b" in attn["to_qkv"] else None
+            attn = {**attn, **{name: {"w": ws[j], **({"b": bs[j]} if bs else {})}
+                               for j, name in enumerate(("to_q", "to_k", "to_v"))}}
+        lin(f"{b}.attn_norm.linear", blk["attn_norm"])
+        lin(f"{b}.attn.to_q", attn["to_q"], qk=True)
+        lin(f"{b}.attn.to_k", attn["to_k"], qk=True)
+        lin(f"{b}.attn.to_v", attn["to_v"])
+        lin(f"{b}.attn.to_out.0", attn["to_out"])
+        lin(f"{b}.ff.ff.0.0", blk["ff1"])
+        lin(f"{b}.ff.ff.2", blk["ff2"])
+        if "q_norm" in attn:
+            put(f"{b}.attn.q_norm.weight", a(attn["q_norm"]["g"])[inv_perm])
+            put(f"{b}.attn.k_norm.weight", a(attn["k_norm"]["g"])[inv_perm])
+    lin("norm_out.linear", params["norm_out"])
+    lin("proj_out", params["proj_out"])
+    return out
 
 
 def load_state_dict(path: str, use_ema: bool = True) -> Dict[str, np.ndarray]:
