@@ -10,33 +10,47 @@
    weights, NFE 32, cfg 2, sway -1, a ~5 s seeded reference wav and
    fix_duration so the chunk lands in the 1536 bucket. Checks a finite wav
    with nonzero RMS, that the sampler output equals the cond mel on the
-   prompt frames, and that each kernel launched exactly depth x NFE times in
-   every run. A warm-up run, then three timed runs (wall time and RTF, the
-   median and each), then one run
-   under torch.profiler: device time by layer and by kernel, and the
-   device's busy share of the timed run's wall time.
-4. One phase per forward kernel (K1, K2) at the synthesis shapes: kernel vs
-   its plain PyTorch version on the same inputs (bf16 tolerance below),
-   kernel, plain and library times, and the least time the card could take.
-5. Full-width training through the user entry point: Trainer("F5TTS_v1_Base",
+   prompt frames, and the launch counts of every run: depth x NFE of K1 and
+   K2, 0 of every other kernel. A warm-up run, then three timed runs (wall
+   time and RTF, the median and each), then one run under torch.profiler:
+   device time by layer and by kernel, and the device's busy share of the
+   timed run's wall time.
+4. Full-width training through the user entry point: Trainer("F5TTS_v1_Base",
    device="cuda").train(loader, ...) with fp32 master weights, bf16 compute,
    dropout 0.1 and the byte tokenizer, on one batch of 8 seeded speech-like
    clips of 21.9-24.5 s packed by the port's build_loader under the
-   19,200-frame budget (8 x N=2304); the mel runs on the card. Four updates
-   (a warm-up step, then three timed ones), checked in train()'s log_fn:
-   every step launches each of K1, K2, K4 and K5 exactly depth times, gives
-   a finite loss and gradient norm and moves the params; the EMA follows
-   ema_decay_at. A fixed-draw, dropout-free evaluation of cfm_loss is lower
-   after the steps than before; the save cadence and rotation leave the
-   expected checkpoints, and model_last loads back equal. Step walls, valid
-   frames per second, peak memory, one profiled step, then a resumed
-   train() that fast-forwards the loader and repeats that step's loss.
-6. Gradient phase: a 2-block Base-width model's cfm_loss and every gradient
-   at B=2, N=1024, fixed draws, dropout 0, once through the kernels and once
-   with this script swapping the four wrappers for their plain versions:
-   loss within 1e-2 relative, each parameter's gradient at cosine >= 0.99.
-7. One phase per backward kernel (K4, K5) at the training shapes, as in 4.
-8. Prints one JSON line with every kernel, then the device line last.
+   19,200-frame budget (8 x N=2304); the mel runs on the card. Two updates (a
+   warm-up step, then a timed one), checked in train()'s log_fn: every step
+   launches each of K1, K2, K4 and K5 exactly depth times and no other
+   kernel, gives a finite loss and gradient norm and moves the params; the
+   EMA follows ema_decay_at. A fixed-draw, dropout-free evaluation of
+   cfm_loss is lower after the steps than before; model_last loads back
+   equal and its EMA export re-ingests. The step wall, valid frames per
+   second, peak memory, one profiled step, then a resumed train() that
+   fast-forwards the loader and repeats that step's loss.
+5. Gradient phase: a 2-block Base-width DiT's cfm_loss and every gradient at
+   B=2, N=1024, fixed draws, dropout 0, once through the kernels and once
+   with this script swapping the wrappers for their plain versions: loss
+   within 1e-2 relative, each parameter's gradient at cosine >= 0.99.
+6. MMDiT synthesis at full width (MMDiTConfig(): dim 1024, depth 8, 16 x 64)
+   through TTSEngine.infer: the same reference and bucket, a text padded to
+   128 tokens (N + Nt = 1664). 8 x NFE launches of K7, 0 of every other
+   attention kernel; the checks and measurements of 3.
+7. MMDiT training at full width through Trainer.train: four updates on the
+   same 8 clips; 8 launches of K9 and of K10 a step and 0 of K7/K8; the
+   checks and measurements of 4 without the resumed run, the EMA export in
+   the reference MMDiT layout.
+8. The partial-RoPE preset: one synthesis through F5TTS(model="F5TTS_Base")
+   (depth x NFE launches of K3) and two Trainer updates (depth of K3 and of
+   K6 a step), counted on counters of their own; this phase saves nothing.
+9. Gradient phase of the MMDiT: 2 blocks at full width, B=2, N=1024, Nt=96,
+   with a padding mask, through backbone.forward_train and a masked MSE
+   against a seeded target, so K7 and K8 launch twice each; limits as in 5.
+10. One phase per kernel at the shapes of its path and at one ragged case:
+    kernel vs its plain PyTorch version on the same inputs (tolerances
+    below), kernel, plain and library times, and the least time the card
+    could take.
+11. Prints one JSON line with every kernel, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository. fp32 matmuls and convolutions run with TF32 off
@@ -67,19 +81,65 @@ sys.path.insert(0, str(ROOT))
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-DEPTH, NFE = 22, 32
+DEPTH, MMDIT_DEPTH, NFE = 22, 8, 32
 # kernel vs plain on unit-scale bf16 inputs: both round the same fp32 values
 # to bf16, so they differ by accumulation order and at most ~1 bf16 ulp
 ATOL, RTOL = 2e-2, 1e-2
-# K4's gradients are small sums of many rounded terms, and the kernel forms
-# delta from the bf16 output where the plain version sums P * dP in fp32:
-# max |kernel - plain| <= K4_REL * max |plain| for each of dq, dk, dv
-K4_REL = 2e-2
-TRAIN_CLIPS, TRAIN_N, TRAIN_STEPS = 8, 2304, 4
+# the backward kernels' gradients are small sums of many rounded terms, and
+# they form delta from the bf16 output where the plain versions sum P * dP
+# in fp32: max |kernel - plain| <= BWD_REL * max |plain| for each of dq, dk, dv
+BWD_REL = 2e-2
+TRAIN_CLIPS, TRAIN_N = 8, 2304
+REF_TEXT = "Some call me nature, others call me mother nature."
+GEN_TEXT = "I love the way the light falls across the water early in the morning."
+FIX_DURATION = 15.11  # int(15.11 * 24000 / 256) = 1416 frames -> bucket 1536
+PALLAS = "f5e_tts_tpu/ops/pallas_attention.py"
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# launch counts: one counter per TPU kernel's counterpart
+# ---------------------------------------------------------------------------
+
+COUNTERS: dict = {}  # name -> (module, attribute); filled by main()
+
+
+def register_counters(ra, ga, ka) -> None:
+    COUNTERS.update({
+        "rope_attention": (ra, "launches"), "rope_attention_bwd": (ra, "bwd_launches"),
+        "partial_rope_attention": (ra, "partial_launches"),
+        "partial_rope_attention_bwd": (ra, "partial_bwd_launches"),
+        "gated_adaln": (ga, "launches"), "gated_adaln_bwd": (ga, "bwd_launches"),
+        "masked_attention": (ka, "masked_launches"),
+        "masked_attention_bwd": (ka, "masked_bwd_launches"),
+        "joint_attention": (ka, "joint_launches"),
+        "joint_attention_bwd": (ka, "joint_bwd_launches")})
+
+
+def reset_counts() -> None:
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
+
+
+def read_counts() -> dict:
+    """Every counter's value, then all set to 0."""
+    counts = {name: getattr(module, attr) for name, (module, attr) in COUNTERS.items()}
+    reset_counts()
+    return counts
+
+
+def expected_counts(**nonzero) -> dict:
+    return {name: nonzero.get(name, 0) for name in COUNTERS}
+
+
+def check_counts(tag: str, counts: dict, expected: dict) -> None:
+    if counts != expected:
+        want = {k: v for k, v in expected.items() if v}
+        got = {k: v for k, v in counts.items() if v or expected[k]}
+        raise AssertionError(f"{tag}: launches {got}, expected {want} and 0 of every other kernel")
 
 
 def cuda_ms(fns, iters: int = 24, warmup: int = 3) -> float:
@@ -117,6 +177,18 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
     return max_abs
 
 
+def check_close_rel(name: str, got: torch.Tensor, ref: torch.Tensor, rel: float) -> float:
+    got, ref = got.float(), ref.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: kernel output is not finite")
+    err, top = (got - ref).abs().max().item(), ref.abs().max().item()
+    log(f"[{name}] max|kernel - plain| = {err:.3e}, max|plain| = {top:.3e} "
+        f"(tolerance {rel} * max|plain|)")
+    if err > rel * top:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
 def speech_like(seconds: float, sr: int = 24_000, seed: int = 0) -> np.ndarray:
     """A seeded speech-like signal: harmonics of a gliding pitch under a
     syllable-rate envelope, plus a little noise."""
@@ -139,33 +211,37 @@ def write_reference_wav(path: Path, seconds: float = 5.03, sr: int = 24_000, see
         f.writeframes(pcm.tobytes())
 
 
-def synthesis_phase(ra, ga) -> dict:
-    """Full-width F5TTS.infer; returns the launch counts of the timed run."""
-    from f5e_tts_tpu_torch.api import F5TTS
+def seed_modulation_(params, gen) -> None:
+    """AdaLN-zero leaves every block an identity at init and the output
+    projection zero, so no gradient would reach the trunk on the first step
+    and no kernel would shape a wav; small seeded modulation (`attn_norm*`,
+    `norm_out`) and output (`proj_out`) weights make every kernel carry one."""
+    def walk(node):
+        if isinstance(node, list):
+            for sub in node:
+                walk(sub)
+        elif isinstance(node, dict):
+            for key, sub in node.items():
+                if key.startswith("attn_norm") or key in ("norm_out", "proj_out"):
+                    sub["w"].copy_(0.02 * torch.randn(sub["w"].shape, generator=gen,
+                                                      device=sub["w"].device))
+                else:
+                    walk(sub)
+
+    with torch.no_grad():
+        walk(params)
+
+
+# ---------------------------------------------------------------------------
+# synthesis
+# ---------------------------------------------------------------------------
+
+
+def synthesis_phase(tag: str, infer, expected: dict, runs: int, text_len=None) -> dict:
+    """`runs` timed runs of `infer()` -> (wav, sr, mel) after a warm-up, each
+    with the launch counts checked, then a profiled one; returns the counts
+    of the last timed run."""
     from f5e_tts_tpu_torch.models import cfm as fcfm
-
-    t0 = time.perf_counter()
-    tts = F5TTS(model="F5TTS_v1_Base", device="cuda", compute_dtype=torch.bfloat16, seed=0)
-    arch = tts.engine.arch
-    assert (arch.dim, arch.depth, arch.heads, arch.dim_head) == (1024, DEPTH, 16, 64), arch
-    # AdaLN-zero leaves every block an identity at init; small seeded
-    # modulation and output weights make both kernels shape the wav
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    params = tts.engine.params
-    for p in [blk["attn_norm"] for blk in params["blocks"]] + [params["norm_out"], params["proj_out"]]:
-        p["w"].copy_(0.02 * torch.randn(p["w"].shape, generator=gen, device="cuda"))
-    torch.cuda.synchronize()
-    log(f"[synthesis] model built in {time.perf_counter() - t0:.1f} s")
-
-    ref = ROOT / "build" / "smoke" / "ref.wav"
-    write_reference_wav(ref)
-    ref_text = "Some call me nature, others call me mother nature."
-    gen_text = "I love the way the light falls across the water early in the morning."
-    fix_duration = 15.11  # int(15.11 * 24000 / 256) = 1416 frames -> bucket 1536
-
-    def infer():
-        return tts.infer(str(ref), ref_text, gen_text, nfe_step=NFE, cfg_strength=2.0,
-                         sway_sampling_coef=-1.0, fix_duration=fix_duration, seed=7)
 
     captured = []
     sample = fcfm.sample
@@ -178,19 +254,18 @@ def synthesis_phase(ra, ga) -> dict:
     fcfm.sample = recording_sample
     walls = []
     try:
-        for run in ("warm-up", "timed 1", "timed 2", "timed 3"):
+        for run in ["warm-up"] + [f"timed {i + 1}" for i in range(runs)]:
             captured.clear()
-            ra.launches = ga.launches = 0
+            reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             wav, sr, mel = infer()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = {"rope_attention": ra.launches, "gated_adaln": ga.launches}
-            log(f"[synthesis] {run}: wall {wall:.3f} s, launches {counts}")
-            for name, n in counts.items():
-                if n != DEPTH * NFE:
-                    raise AssertionError(f"{name} launched {n} times, expected {DEPTH} x {NFE}")
+            counts = read_counts()
+            log(f"[{tag}] {run}: wall {wall:.3f} s, launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            check_counts(f"{tag} {run}", counts, expected)
             if run != "warm-up":
                 walls.append(wall)
     finally:
@@ -201,6 +276,8 @@ def synthesis_phase(ra, ga) -> dict:
     out, inputs, kw = captured[0]
     if tuple(out.shape) != (1, 1536, 100) or kw["steps"] != NFE or kw["cfg_strength"] != 2.0:
         raise AssertionError(f"unexpected sampler call: shape {tuple(out.shape)}, {kw}")
+    if text_len is not None and inputs.text_ids.shape[1] != text_len:
+        raise AssertionError(f"text padded to {inputs.text_ids.shape[1]}, expected {text_len}")
     keep = inputs.cond_mask[:, :, None].expand_as(out)
     if not torch.equal(out[keep], inputs.cond[keep]):
         raise AssertionError("sampler output differs from the cond mel on the prompt frames")
@@ -212,25 +289,87 @@ def synthesis_phase(ra, ga) -> dict:
     if rms <= 0:
         raise AssertionError("silent wav")
     audio_s = len(wav) / sr
-    log(f"[synthesis] prompt frames {ref_frames} preserved exactly; duration {duration} "
-        f"frames in bucket 1536; wav {len(wav)} samples ({audio_s:.3f} s), rms {rms:.4f}")
+    log(f"[{tag}] prompt frames {ref_frames} preserved exactly; duration {duration} "
+        f"frames in bucket 1536, text padded to {inputs.text_ids.shape[1]}; wav {len(wav)} "
+        f"samples ({audio_s:.3f} s), rms {rms:.4f}")
     wall = float(np.median(walls))
-    log(f"[synthesis] one warm synthesis (median of {len(walls)}): wall {wall:.3f} s, "
+    log(f"[{tag}] one warm synthesis (median of {len(walls)}): wall {wall:.3f} s, "
         f"RTF {wall / audio_s:.5f} (wall / seconds of generated audio); "
         f"RTF of each: {[round(w / audio_s, 5) for w in walls]}")
-    profile_run("profile", infer, wall)
+    profile_run(f"{tag} profile", infer, wall)
+    reset_counts()
     return counts
 
 
-# kernel-name fragments -> the layer they belong to, first match wins
-KERNEL_GROUPS = (("rope_attention_bwd", "K4 rope_attention_bwd"),
-                 ("rope_attention", "K1 rope_attention"),
-                 ("gated_adaln_bwd", "K5 gated_adaln_bwd"), ("gated_adaln", "K2 gated_adaln"),
-                 ("multi_tensor_apply", "optimizer (foreach)"),
-                 ("fprop", "convolution"), ("dgrad", "convolution"), ("wgrad", "convolution"),
-                 ("conv", "convolution"), ("fft", "fft"),
-                 ("gemm", "matmul"), ("nvjet", "matmul"), ("cutlass", "matmul"),
-                 ("xmma", "matmul"))
+def reference_wav() -> Path:
+    ref = ROOT / "build" / "smoke" / "ref.wav"
+    write_reference_wav(ref)
+    return ref
+
+
+def dit_synthesis_phase(tag: str, model: str, expected: dict, runs: int) -> dict:
+    """Full-width F5TTS(model).infer."""
+    from f5e_tts_tpu_torch.api import F5TTS
+
+    t0 = time.perf_counter()
+    tts = F5TTS(model=model, device="cuda", compute_dtype=torch.bfloat16, seed=0)
+    arch = tts.engine.arch
+    assert (arch.dim, arch.depth, arch.heads, arch.dim_head) == (1024, DEPTH, 16, 64), arch
+    seed_modulation_(tts.engine.params, torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    log(f"[{tag}] {model} built in {time.perf_counter() - t0:.1f} s")
+    ref = str(reference_wav())
+
+    def infer():
+        return tts.infer(ref, REF_TEXT, GEN_TEXT, nfe_step=NFE, cfg_strength=2.0,
+                         sway_sampling_coef=-1.0, fix_duration=FIX_DURATION, seed=7)
+
+    return synthesis_phase(tag, infer, expected, runs)
+
+
+def mmdit_synthesis_phase(expected: dict) -> dict:
+    """Full-width MMDiT through TTSEngine.infer (no preset names an MMDiT, so
+    the engine is built here as F5TTS builds its own)."""
+    from f5e_tts_tpu_torch.api import _cast, load_vocoder
+    from f5e_tts_tpu_torch.config import MMDiTConfig
+    from f5e_tts_tpu_torch.infer import audio as faudio
+    from f5e_tts_tpu_torch.infer.pipeline import TTSEngine, preprocess_ref_audio_text
+    from f5e_tts_tpu_torch.models.mmdit import init_mmdit
+
+    t0 = time.perf_counter()
+    arch = MMDiTConfig()
+    assert (arch.dim, arch.depth, arch.heads, arch.dim_head) == (1024, MMDIT_DEPTH, 16, 64), arch
+    params = init_mmdit(arch, 256, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    seed_modulation_(params, torch.Generator(device="cuda").manual_seed(1))
+    engine = TTSEngine(params=_cast(params, torch.bfloat16), arch=arch, vocab=None,
+                       vocoder_decode=load_vocoder(None, torch.bfloat16, "cuda", 0),
+                       compute_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[mmdit synthesis] MMDiT built in {time.perf_counter() - t0:.1f} s")
+    wav, sr = faudio.read_wav(str(reference_wav()))
+    wav, ref_text = preprocess_ref_audio_text(wav, sr, REF_TEXT)
+
+    def infer():
+        return engine.infer(wav, sr, ref_text, GEN_TEXT, seed=7, fix_duration=FIX_DURATION,
+                            nfe_steps=NFE, cfg_strength=2.0, sway=-1.0)
+
+    return synthesis_phase("mmdit synthesis", infer, expected, runs=3, text_len=128)
+
+
+# kernel-name fragments (all must occur) -> the layer they belong to, first
+# match wins; the attention kernels carry their variant's name
+KERNEL_GROUPS = ((("attention_bwd", "ropeattn"), "K4/K6 rope attention bwd"),
+                 (("attention_kernel", "ropeattn"), "K1/K3 rope attention"),
+                 (("attention_bwd", "maskedattn"), "K10 masked attention bwd"),
+                 (("attention_kernel", "maskedattn"), "K9 masked attention"),
+                 (("attention_bwd", "jointattn"), "K8 joint attention bwd"),
+                 (("attention_kernel", "jointattn"), "K7 joint attention"),
+                 (("gated_adaln_bwd",), "K5 gated_adaln_bwd"), (("gated_adaln",), "K2 gated_adaln"),
+                 (("multi_tensor_apply",), "optimizer (foreach)"),
+                 (("fprop",), "convolution"), (("dgrad",), "convolution"),
+                 (("wgrad",), "convolution"), (("conv",), "convolution"), (("fft",), "fft"),
+                 (("gemm",), "matmul"), (("nvjet",), "matmul"), (("cutlass",), "matmul"),
+                 (("xmma",), "matmul"))
 
 
 def profile_run(tag: str, fn, wall: float) -> None:
@@ -251,83 +390,23 @@ def profile_run(tag: str, fn, wall: float) -> None:
     groups: dict = {}
     for e in kernels:
         name = e.key.lower()
-        group = next((g for frag, g in KERNEL_GROUPS if frag in name), "elementwise and other")
+        group = next((g for frags, g in KERNEL_GROUPS if all(f in name for f in frags)),
+                     "elementwise and other")
         ms, n = groups.get(group, (0.0, 0))
         groups[group] = (ms + e.self_device_time_total / 1e3, n + e.count)
     log(f"[{tag}] device busy {busy_ms:.1f} ms of the {wall * 1e3:.1f} ms warm wall: "
-        f"busy share {busy_ms / (wall * 1e3):.3f}")
+        f"busy share {busy_ms / (wall * 1e3):.3f}; {sum(e.count for e in kernels)} device kernels")
     for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         log(f"[{tag}] {group}: {ms:.1f} ms ({ms / busy_ms:.3f} of busy), {n} launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[{tag}]   {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x {e.key[:90]}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x {e.key[:100]}")
 
 
-def attention_phase(ra, launches: int) -> dict:
-    from f5e_tts_tpu_torch.ops.rope import rot_half, rotary_cos_sin_half
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
 
-    b, n, h, dh = 2, 1536, 16, 64
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    q, k, v = (torch.randn((b, n, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
-               for _ in range(3))
-    kv_lens = torch.tensor([1416, 1100], dtype=torch.int32, device="cuda")
-    cos, sin = (torch.from_numpy(t).cuda() for t in rotary_cos_sin_half(dh, n))
-
-    out = ra.rope_attention(q, k, v, kv_lens, cos, sin, h)
-    torch.cuda.synchronize()
-    ref = ra.rope_attention_plain(q, k, v, kv_lens, cos, sin, h)
-    err = check_close("rope_attention", out, ref)
-
-    # one input set: the kernel does ~600 flops per byte, so where its 25 MB
-    # of operands come from barely matters
-    ms = cuda_ms([lambda: ra.rope_attention(q, k, v, kv_lens, cos, sin, h)])
-    plain_ms = cuda_ms([lambda: ra.rope_attention_plain(q, k, v, kv_lens, cos, sin, h)])
-    # library yardstick: SDPA on the pre-rotated q/k with a boolean key mask
-    c, s = cos[None, :, None, :], sin[None, :, None, :]
-    qr = (q.float() * c + rot_half(q.float()) * s).to(torch.bfloat16).transpose(1, 2)
-    kr = (k.float() * c + rot_half(k.float()) * s).to(torch.bfloat16).transpose(1, 2)
-    vt = v.transpose(1, 2)
-    key_mask = (torch.arange(n, device="cuda")[None, :] < kv_lens[:, None])[:, None, None, :]
-    library_ms = cuda_ms([lambda: torch.nn.functional.scaled_dot_product_attention(
-        qr, kr, vt, attn_mask=key_mask)])
-
-    # least time: the two products over the valid keys (the kernel skips key
-    # tiles past kv_len), or the bytes of q, k, v, out, cos, sin, kv_lens
-    keys = sum(int(x) if int(x) > 0 else n for x in kv_lens.tolist())
-    flops = 4.0 * h * dh * n * keys
-    nbytes = 4 * b * n * h * dh * 2 + 2 * n * dh * 4 + b * 4
-    return kernel_row("rope_attention", "rope_attention", "f5e_tts_tpu/ops/pallas_attention.py:523",
-                      launches, err, ms, plain_ms, flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES,
-                      library_ms)
-
-
-def adaln_phase(ga, launches: int) -> dict:
-    b, n, d = 2, 1536, 1024
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    x, y = (torch.randn((b, n, d), generator=gen, device="cuda").to(torch.bfloat16)
-            for _ in range(2))
-    gate, scale, shift = (torch.randn((b, d), generator=gen, device="cuda").to(torch.bfloat16)
-                          for _ in range(3))
-    new_x, out = ga.gated_adaln(x, y, gate, scale, shift)
-    torch.cuda.synchronize()
-    ref_x, ref_out = ga.gated_adaln_plain(x, y, gate, scale, shift)
-    err = max(check_close("gated_adaln new_x", new_x, ref_x),
-              check_close("gated_adaln out", out, ref_out))
-    # timed over 4 input sets (~100 MB with outputs, twice the L2): the
-    # kernel is bound by memory, and the bound counts device-memory bytes
-    sets = [(x, y)] + [tuple(torch.randn((b, n, d), generator=gen, device="cuda")
-                             .to(torch.bfloat16) for _ in range(2)) for _ in range(3)]
-    ms = cuda_ms([lambda a=a, c=c: ga.gated_adaln(a, c, gate, scale, shift) for a, c in sets])
-    plain_ms = cuda_ms([lambda a=a, c=c: ga.gated_adaln_plain(a, c, gate, scale, shift)
-                        for a, c in sets])
-    # x, y read once; new_x, out written once; ~11 fp32 flops per element
-    nbytes = 4 * b * n * d * 2 + 3 * b * d * 2
-    flops = 11.0 * b * n * d
-    return kernel_row("gated_adaln", "gated_adaln", "f5e_tts_tpu/ops/pallas_norm.py:38", launches,
-                      err, ms, plain_ms, flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES, None)
-
-
-SENTENCES = ("Some call me nature, others call me mother nature.",
-             "I love the way the light falls across the water early in the morning.",
+SENTENCES = (REF_TEXT, GEN_TEXT,
              "The quick brown fox jumps over the lazy dog near the quiet river bank.",
              "She sells sea shells by the sea shore, and the shells she sells are surely seashells.")
 
@@ -354,16 +433,6 @@ def training_loader(trainer, tc):
     return loader
 
 
-def seed_modulation_(params, gen) -> None:
-    """AdaLN-zero leaves every block an identity at init and the output
-    projection zero, so no gradient would reach the trunk on the first step;
-    small seeded modulation and output weights make every kernel carry one."""
-    with torch.no_grad():
-        for p in [blk["attn_norm"] for blk in params["blocks"]] + [params["norm_out"],
-                                                                    params["proj_out"]]:
-            p["w"].copy_(0.02 * torch.randn(p["w"].shape, generator=gen, device=p["w"].device))
-
-
 def fixed_draws(gen, b: int, n: int, mel_dim: int, k: int):
     """k sets of cfm_loss draws with no condition drop, from `gen`."""
     from f5e_tts_tpu_torch.models.cfm import LossDraws
@@ -376,44 +445,48 @@ def fixed_draws(gen, b: int, n: int, mel_dim: int, k: int):
             for _ in range(k)]
 
 
-def training_phase(ra, ga) -> dict:
-    """Full-width Trainer.train steps; returns the launch counts of the last
-    step."""
-    from f5e_tts_tpu_torch.config import TrainConfig, preset
+def training_phase(tag: str, model_cfg, expected: dict, updates: int, warmup: int,
+                   checkpoints: bool = True, resume: bool = False) -> dict:
+    """`updates` full-width Trainer.train steps of `model_cfg` (the first is
+    the warm-up); returns (the launch counts of the last step, the batch's
+    text length). Without `checkpoints` the trainer's save is switched off
+    here and nothing is written; `resume` adds a resumed train() that
+    repeats the profiled step."""
+    from f5e_tts_tpu_torch.config import TrainConfig
     from f5e_tts_tpu_torch.train import step as fstep
     from f5e_tts_tpu_torch.train.trainer import Trainer, loss_with_device_mel
-    from f5e_tts_tpu_torch.utils.convert import dit_from_reference_state_dict, load_state_dict
+    from f5e_tts_tpu_torch.utils.convert import backbone_from_reference_state_dict, load_state_dict
     from f5e_tts_tpu_torch.utils.text import list_str_to_bytes
 
     t0 = time.perf_counter()
-    model_cfg = dataclasses.replace(preset("F5TTS_v1_Base"), tokenizer="byte", vocab_size=256)
     arch = model_cfg.arch
-    assert (arch.dim, arch.depth, arch.heads, arch.dim_head, arch.dropout) == (
-        1024, DEPTH, 16, 64, 0.1), arch
     save_dir = ROOT / "build" / "smoke" / "ckpts"
     shutil.rmtree(save_dir, ignore_errors=True)
-    # the JAX defaults, with the LR warm-up cut to 2 updates so 4 steps move the
-    # weights, and a numbered checkpoint every 2 updates of which 1 is kept
-    tc = TrainConfig(num_warmup_updates=2, save_per_updates=2, keep_last_n_checkpoints=1,
-                     save_dir=str(save_dir), seed=0)
+    # the JAX defaults, with the LR warm-up cut to `warmup` updates so the few
+    # steps move the weights; only train()'s final model_last is saved
+    tc = TrainConfig(num_warmup_updates=warmup, save_dir=str(save_dir), seed=0)
 
     def make_trainer(log_fn=None):
-        return Trainer(model_cfg, tc, vocab_size=256, tokenize=list_str_to_bytes, log_fn=log_fn,
-                       device="cuda")
+        trainer = Trainer(model_cfg, tc, vocab_size=256, tokenize=list_str_to_bytes, log_fn=log_fn,
+                          device="cuda")
+        if not checkpoints:
+            trainer.save_checkpoint = lambda ts, last=False: None
+        return trainer
 
     trainer = make_trainer()
     # the state train() consumes; steps update its tensors in place
-    ts = trainer.init_state(total_updates=TRAIN_STEPS, rng_seed=0)
+    ts = trainer.init_state(total_updates=updates, rng_seed=0)
     seed_modulation_(ts.params, torch.Generator(device="cuda").manual_seed(1))
     ts.ema_params = fstep.tree_map(lambda t: t.detach().clone(), ts.params)
     n_params = sum(t.numel() for t in fstep.tree_leaves(ts.params))
     loader = training_loader(trainer, tc)
     batch = trainer.device_batch(next(iter(loader)))
     frames = int(batch["mel_lens"].sum())
+    text_len = int(batch["text_ids"].shape[1])
     torch.cuda.synchronize()
-    log(f"[training] {n_params / 1e6:.1f}M fp32 params, batch audio {tuple(batch['audio'].shape)}"
-        f" -> {TRAIN_CLIPS} x {TRAIN_N} frames, {frames} valid, text "
-        f"{tuple(batch['text_ids'].shape)}; set up in {time.perf_counter() - t0:.1f} s; "
+    log(f"[{tag}] {model_cfg.name}: {n_params / 1e6:.1f}M fp32 params, batch audio "
+        f"{tuple(batch['audio'].shape)} -> {TRAIN_CLIPS} x {TRAIN_N} frames, {frames} valid, "
+        f"text {tuple(batch['text_ids'].shape)}; set up in {time.perf_counter() - t0:.1f} s; "
         f"{shutil.disk_usage(ROOT).free / 2**30:.0f} GiB free on disk")
 
     draws = fixed_draws(torch.Generator(device="cuda").manual_seed(5), TRAIN_CLIPS, TRAIN_N,
@@ -425,34 +498,29 @@ def training_phase(ra, ga) -> dict:
                 ts.params, arch, model_cfg.cfm, model_cfg.mel, batch, draws=d,
                 compute_dtype=torch.bfloat16, training=False).loss) for d in draws]))
 
-    def read_counts() -> dict:
-        counts = {"rope_attention": ra.launches, "rope_attention_bwd": ra.bwd_launches,
-                  "gated_adaln": ga.launches, "gated_adaln_bwd": ga.bwd_launches}
-        ra.launches = ra.bwd_launches = ga.launches = ga.bwd_launches = 0
-        return counts
-
     eval_before = evaluate()
     leaves, ema = fstep.tree_leaves(ts.params), fstep.tree_leaves(ts.ema_params)
-    probe = [0, len(leaves) // 2, len(leaves) - 2]  # time_embed, a mid block, proj_out
+    mid = ts.params["blocks"][len(ts.params["blocks"]) // 2]
+    # time_embed, a mid block's feed-forward (audio stream), proj_out
+    probe = [leaves[0], mid.get("ff1", mid.get("ff1_x"))["w"], ts.params["proj_out"]["w"]]
     ema_settings = fstep.EMASettings.from_train_cfg(tc)
-    seen = {"walls": [], "counts": {}, "before": [leaves[i].detach().clone() for i in probe]}
+    seen = {"walls": [], "counts": {}, "before": [p.detach().clone() for p in probe]}
 
     def check_step(metrics: dict, update: int) -> None:
         """train()'s log_fn: the counts of this step alone, then reset."""
         counts = seen["counts"] = read_counts()
         wall = metrics["step_seconds"]  # the step ends in a host read of its loss
-        log(f"[training] step {len(seen['walls']) + 1}: update {update}, wall {wall:.3f} s, "
+        log(f"[{tag}] step {len(seen['walls']) + 1}: update {update}, wall {wall:.3f} s, "
             f"loss {metrics['loss']:.5f}, grad norm {metrics['grad_norm']:.4f}, "
-            f"launches {counts}")
+            f"launches { {k: v for k, v in counts.items() if v} }")
         if update != len(seen["walls"]) + 1:
             raise AssertionError(f"update {update} after {len(seen['walls']) + 1} steps")
-        if any(n != DEPTH for n in counts.values()):
-            raise AssertionError(f"expected {DEPTH} launches of each kernel per step: {counts}")
+        check_counts(f"{tag} step {update}", counts, expected)
         if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])):
             raise AssertionError(f"non-finite step: {metrics}")
-        if any(torch.equal(b, leaves[i]) for b, i in zip(seen["before"], probe)):
+        if any(torch.equal(b, p) for b, p in zip(seen["before"], probe)):
             raise AssertionError("a probed parameter did not change")
-        seen["before"] = [leaves[i].detach().clone() for i in probe]
+        seen["before"] = [p.detach().clone() for p in probe]
         # ema_pytorch: update u calls EMA.update() at step u-1; with update_every 10
         # only u = 1 of these is gated, and it is a hard copy (decay 0 up to u = 101)
         if fstep.ema_decay_at(update, ema_settings) != 0.0:
@@ -468,83 +536,138 @@ def training_phase(ra, ga) -> dict:
     trainer.log_fn = check_step
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    read_counts()
+    reset_counts()
     t1 = time.perf_counter()
-    ts, info = trainer.train(loader, epochs=TRAIN_STEPS, resume=False, max_updates=TRAIN_STEPS)
+    ts, info = trainer.train(loader, epochs=updates, resume=False, max_updates=updates)
     train_s = time.perf_counter() - t1
     peak = torch.cuda.max_memory_allocated()
-    if (ts.update, info["updates"], len(seen["walls"])) != (TRAIN_STEPS,) * 3:
+    if (ts.update, info["updates"], len(seen["walls"])) != (updates,) * 3:
         raise AssertionError(f"train() ran {info} over {len(seen['walls'])} logged steps")
     counts = seen["counts"]
     kept = sorted(p.name for p in save_dir.iterdir())
-    if kept != [f"model_{TRAIN_STEPS}.meta.json", f"model_{TRAIN_STEPS}.pt", "model_last.meta.json",
-                "model_last.pt"]:
-        raise AssertionError(f"unexpected checkpoints after the save cadence and rotation: {kept}")
+    if kept != (["model_last.meta.json", "model_last.pt"] if checkpoints else []):
+        raise AssertionError(f"unexpected checkpoints: {kept}")
     eval_after = evaluate()
-    log(f"[training] fixed-draw eval loss (4 draw sets, no dropout): before {eval_before:.6f}, "
+    log(f"[{tag}] fixed-draw eval loss (4 draw sets, no dropout): before {eval_before:.6f}, "
         f"after {eval_after:.6f}")
     if not eval_after < eval_before:
         raise AssertionError("the fixed-draw eval loss did not fall over the steps")
     walls = seen["walls"][1:]  # the first step is the warm-up
     wall = float(np.median(walls))
-    log(f"[training] train(): {TRAIN_STEPS} updates in {train_s:.1f} s with checkpoints {kept}; "
+    log(f"[{tag}] train(): {updates} updates in {train_s:.1f} s with checkpoints {kept}; "
         f"one warm step (median of {len(walls)}): wall {wall:.3f} s, "
         f"{frames / wall:.0f} valid frames/s; each: {[round(w, 4) for w in walls]}; "
         f"peak memory {peak / 2**30:.2f} GiB")
 
-    # the checkpoint train() saved last loads back equal, and its reference-
-    # layout EMA export re-ingests as the EMA
-    t1 = time.perf_counter()
-    path = save_dir / "model_last.pt"
-    restored = make_trainer().load_checkpoint(ts)
-    pairs = [(fstep.tree_leaves(getattr(restored, k)), fstep.tree_leaves(getattr(ts, k)))
-             for k in ("params", "ema_params")]
-    pairs.append((restored.opt_state.mu + restored.opt_state.nu, ts.opt_state.mu + ts.opt_state.nu))
-    if not all(torch.equal(a, b) for got, want in pairs for a, b in zip(got, want)):
-        raise AssertionError("the checkpoint did not round-trip")
-    if (restored.update, restored.micro, restored.opt_state.count) != (
-            ts.update, ts.micro, ts.opt_state.count):
-        raise AssertionError("the checkpoint's counters did not round-trip")
-    del restored, pairs
-    ema_export = dit_from_reference_state_dict(load_state_dict(str(path)), arch)
-    if not all(torch.equal(a.cpu(), b.detach().cpu()) for a, b in zip(
-            fstep.tree_leaves(ema_export), fstep.tree_leaves(ts.ema_params))):
-        raise AssertionError("the reference-layout EMA export does not load back")
-    del ema_export
-    log(f"[training] checkpoint {path.name} ({path.stat().st_size / 2**30:.2f} GiB) loaded back "
-        f"equal (params, EMA, moments, counters, EMA export) in {time.perf_counter() - t1:.1f} s")
+    if checkpoints:
+        # the checkpoint train() saved last loads back equal, and its reference-
+        # layout EMA export re-ingests as the EMA
+        t1 = time.perf_counter()
+        path = save_dir / "model_last.pt"
+        restored = make_trainer().load_checkpoint(ts)
+        pairs = [(fstep.tree_leaves(getattr(restored, k)), fstep.tree_leaves(getattr(ts, k)))
+                 for k in ("params", "ema_params")]
+        pairs.append((restored.opt_state.mu + restored.opt_state.nu,
+                      ts.opt_state.mu + ts.opt_state.nu))
+        if not all(torch.equal(a, b) for got, want in pairs for a, b in zip(got, want)):
+            raise AssertionError("the checkpoint did not round-trip")
+        if (restored.update, restored.micro, restored.opt_state.count) != (
+                ts.update, ts.micro, ts.opt_state.count):
+            raise AssertionError("the checkpoint's counters did not round-trip")
+        del restored, pairs
+        ema_export = backbone_from_reference_state_dict(load_state_dict(str(path)), arch)
+        if not all(torch.equal(a.cpu(), b.detach().cpu()) for a, b in zip(
+                fstep.tree_leaves(ema_export), fstep.tree_leaves(ts.ema_params))):
+            raise AssertionError("the reference-layout EMA export does not load back")
+        del ema_export
+        log(f"[{tag}] checkpoint {path.name} ({path.stat().st_size / 2**30:.2f} GiB) loaded "
+            f"back equal (params, EMA, moments, counters, EMA export) in "
+            f"{time.perf_counter() - t1:.1f} s")
 
     # one more step, profiled: the next update from the same state
     profiled = {}
     step = trainer.make_step()
-    profile_run("training profile", lambda: profiled.setdefault(
+    profile_run(f"{tag} profile", lambda: profiled.setdefault(
         "loss", step(ts, batch, trainer.step_generator(ts))[1].loss), wall)
 
-    # resume from model_last: train() fast-forwards the consumed batch and
-    # repeats the profiled step's draws on the same state, so the same loss
-    resumed = {}
-    t1 = time.perf_counter()
-    read_counts()
-    ts2, info2 = make_trainer(lambda m, u: resumed.update(m, update=u)).train(
-        loader, epochs=TRAIN_STEPS + 1, resume=True, max_updates=TRAIN_STEPS + 1)
-    counts2 = read_counts()
-    log(f"[training] resumed train(): {info2['updates']} update to {ts2.update} in "
-        f"{time.perf_counter() - t1:.1f} s, loss {resumed['loss']:.6f} (the profiled step: "
-        f"{profiled['loss']:.6f}), launches {counts2}")
-    if (info2["updates"], ts2.update, resumed["update"]) != (1, TRAIN_STEPS + 1, TRAIN_STEPS + 1):
-        raise AssertionError(f"the resumed run did not take exactly the next update: {info2}")
-    if any(n != DEPTH for n in counts2.values()):
-        raise AssertionError(f"expected {DEPTH} launches of each kernel in the resumed step")
-    if not abs(resumed["loss"] - profiled["loss"]) <= 1e-5 * abs(profiled["loss"]):
-        raise AssertionError("the resumed step's loss differs from the same step run directly")
-    del ts2
+    if resume:
+        # resume from model_last: train() fast-forwards the consumed batch and
+        # repeats the profiled step's draws on the same state, so the same loss
+        resumed = {}
+        t1 = time.perf_counter()
+        reset_counts()
+        ts2, info2 = make_trainer(lambda m, u: resumed.update(m, update=u)).train(
+            loader, epochs=updates + 1, resume=True, max_updates=updates + 1)
+        counts2 = read_counts()
+        log(f"[{tag}] resumed train(): {info2['updates']} update to {ts2.update} in "
+            f"{time.perf_counter() - t1:.1f} s, loss {resumed['loss']:.6f} (the profiled step: "
+            f"{profiled['loss']:.6f})")
+        if (info2["updates"], ts2.update, resumed["update"]) != (1, updates + 1, updates + 1):
+            raise AssertionError(f"the resumed run did not take exactly the next update: {info2}")
+        check_counts(f"{tag} resumed step", counts2, expected)
+        if not abs(resumed["loss"] - profiled["loss"]) <= 1e-5 * abs(profiled["loss"]):
+            raise AssertionError("the resumed step's loss differs from the same step run directly")
+        del ts2
     shutil.rmtree(save_dir, ignore_errors=True)
-    return counts
+    reset_counts()
+    return counts, text_len
 
 
-def gradient_phase(ra, ga) -> None:
-    """cfm_loss and all gradients of a 2-block Base-width model through the
-    kernels and through their plain versions (swapped in here)."""
+# ---------------------------------------------------------------------------
+# gradients through the kernels vs through their plain versions
+# ---------------------------------------------------------------------------
+
+
+def plain_swaps(ra, ga, ka) -> dict:
+    """(module, wrapper name) -> a stand-in that runs the plain version."""
+    def fwd(plain):
+        return lambda *a, return_stats=False: (plain(*a), None) if return_stats else plain(*a)
+
+    return {
+        (ra, "rope_attention"): fwd(ra.rope_attention_plain),
+        (ra, "rope_attention_bwd"): lambda *a: ra.rope_attention_bwd_plain(*a[:8]),
+        (ga, "gated_adaln"): ga.gated_adaln_plain,
+        (ga, "gated_adaln_bwd"): ga.gated_adaln_bwd_plain,
+        (ka, "masked_attention"): fwd(ka.masked_attention_plain),
+        (ka, "masked_attention_bwd"): lambda *a: ka.masked_attention_bwd_plain(*a[:5]),
+        (ka, "joint_attention_core"): fwd(ka.joint_attention_core_plain),
+        (ka, "joint_attention_core_bwd"): lambda *a: ka.joint_attention_core_bwd_plain(*a[:6])}
+
+
+def compare_gradients(tag: str, loss_and_grads, expected: dict, swaps: dict) -> None:
+    """`loss_and_grads()` once through the kernels (launch counts checked) and
+    once with the wrappers swapped for their plain versions (no launch)."""
+    reset_counts()
+    loss_k, grads_k = loss_and_grads()
+    check_counts(f"{tag} kernel run", read_counts(), expected)
+    saved = {key: getattr(*key) for key in swaps}
+    try:
+        for (mod, name), fn in swaps.items():
+            setattr(mod, name, fn)
+        loss_p, grads_p = loss_and_grads()
+        check_counts(f"{tag} plain run", read_counts(), expected_counts())
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cos = []
+    for gk, gp in zip(grads_k, grads_p):
+        nk, np_ = gk.double().norm().item(), gp.double().norm().item()
+        if nk == np_ == 0.0:
+            cos.append(1.0)
+        else:
+            cos.append((gk.double() * gp.double()).sum().item() / max(nk * np_, 1e-300))
+    worst = int(np.argmin(cos))
+    log(f"[{tag}] loss kernels {loss_k:.6f} vs plain {loss_p:.6f} (relative difference "
+        f"{rel:.2e}, tolerance 1e-2); gradient cosine over {len(cos)} parameters: min "
+        f"{cos[worst]:.6f} (tensor {worst}, shape {tuple(grads_k[worst].shape)}), median "
+        f"{float(np.median(cos)):.6f} (tolerance 0.99)")
+    if not math.isfinite(loss_k) or not rel <= 1e-2 or min(cos) < 0.99:
+        raise AssertionError(f"{tag}: the kernels' loss or gradients disagree with the plain versions")
+
+
+def gradient_phase(swaps: dict) -> None:
+    """cfm_loss and all gradients of a 2-block Base-width DiT."""
     from f5e_tts_tpu_torch.config import CFMConfig, preset
     from f5e_tts_tpu_torch.models import cfm as fcfm
     from f5e_tts_tpu_torch.models.dit import init_dit
@@ -574,106 +697,304 @@ def gradient_phase(ra, ga) -> None:
         out.loss.backward()
         return float(out.loss.detach()), [p.grad.detach().clone() for p in leaves]
 
-    counts = (ra.launches, ra.bwd_launches, ga.launches, ga.bwd_launches)
-    loss_k, grads_k = loss_and_grads()
-    if (ra.launches, ra.bwd_launches, ga.launches, ga.bwd_launches) != tuple(c + 2 for c in counts):
-        raise AssertionError("the kernel run did not launch each kernel once per block")
-    swapped = {(ra, "rope_attention"): lambda *a, return_stats=False: (
-                   (ra.rope_attention_plain(*a), None) if return_stats
-                   else ra.rope_attention_plain(*a)),
-               (ra, "rope_attention_bwd"): lambda *a: ra.rope_attention_bwd_plain(*a[:8]),
-               (ga, "gated_adaln"): ga.gated_adaln_plain,
-               (ga, "gated_adaln_bwd"): ga.gated_adaln_bwd_plain}
-    saved = {key: getattr(*key) for key in swapped}
-    try:
-        for (mod, name), fn in swapped.items():
-            setattr(mod, name, fn)
-        counts = (ra.launches, ra.bwd_launches, ga.launches, ga.bwd_launches)
-        loss_p, grads_p = loss_and_grads()
-        if (ra.launches, ra.bwd_launches, ga.launches, ga.bwd_launches) != counts:
-            raise AssertionError("the plain run launched a kernel")
-    finally:
-        for (mod, name), fn in saved.items():
-            setattr(mod, name, fn)
-    rel = abs(loss_k - loss_p) / abs(loss_p)
-    cos = []
-    for gk, gp in zip(grads_k, grads_p):
-        nk, np_ = gk.double().norm().item(), gp.double().norm().item()
-        if nk == np_ == 0.0:
-            cos.append(1.0)
+    compare_gradients(f"gradients DiT, 2 blocks, B={b}, N={n}", loss_and_grads,
+                      expected_counts(rope_attention=2, rope_attention_bwd=2, gated_adaln=2,
+                                      gated_adaln_bwd=2), swaps)
+
+
+MMDIT_GRAD_SHAPE = (2, 1024, 96)  # B, N, Nt of the masked MMDiT gradient phase
+
+
+def mmdit_gradient_phase(swaps: dict) -> dict:
+    """A masked MSE through backbone.forward_train of a 2-block full-width
+    MMDiT *with* a padding mask, the one path to K8: cfm_loss passes no mask."""
+    from f5e_tts_tpu_torch.config import MMDiTConfig
+    from f5e_tts_tpu_torch.models import backbone as fbb
+    from f5e_tts_tpu_torch.models.mmdit import init_mmdit
+    from f5e_tts_tpu_torch.train import step as fstep
+    from f5e_tts_tpu_torch.utils.masks import lens_to_mask
+
+    b, n, nt = MMDIT_GRAD_SHAPE
+    arch = MMDiTConfig(depth=2)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    params = init_mmdit(arch, 256, gen, "cuda")
+    seed_modulation_(params, gen)
+    params = fstep.tree_map(lambda t: t.requires_grad_(True), params)
+    x, cond, target = (torch.randn((b, n, arch.mel_dim), generator=gen, device="cuda")
+                       for _ in range(3))
+    text = torch.randint(0, 256, (b, nt), generator=gen, device="cuda")
+    text[1, 70:] = -1
+    time_ = torch.rand(b, generator=gen, device="cuda")
+    mask = lens_to_mask(torch.tensor([n, 900], device="cuda"), n)
+    drop = torch.zeros(b, dtype=torch.bool, device="cuda")
+
+    def loss_and_grads():
+        leaves = fstep.tree_leaves(params)
+        for p in leaves:
+            p.grad = None
+        pred = fbb.forward_train(params, arch, x=x.bfloat16(), cond=cond.bfloat16(),
+                                 text_ids=text, time=time_, drop_audio_cond=drop, drop_text=drop,
+                                 mask=mask, compute_dtype=torch.bfloat16)
+        w = mask[:, :, None].float()
+        loss = ((pred - target).square() * w).sum() / (w.sum() * arch.mel_dim)
+        loss.backward()
+        return float(loss.detach()), [p.grad.detach().clone() for p in leaves]
+
+    expected = expected_counts(joint_attention=2, joint_attention_bwd=2)
+    compare_gradients(f"gradients MMDiT, 2 blocks, B={b}, N={n}, Nt={nt}, masked", loss_and_grads,
+                      expected, swaps)
+    return expected
+
+
+# ---------------------------------------------------------------------------
+# one phase per kernel
+# ---------------------------------------------------------------------------
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms, ops_s, bytes_s,
+               library_ms, also=None) -> dict:
+    """One row of the kernels line. `launches` is {path: launches in one run
+    of it}; the row's `launches` is the first path's."""
+    bound_s = max(ops_s, bytes_s)
+    row = {"name": name, "route": "cuda", "source": f"f5e_tts_tpu_torch/csrc/{source}.cu",
+           "replaces": replaces, "launches": next(iter(launches.values())),
+           "launches_by_path": launches, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+           "bound_by": "operations" if ops_s >= bytes_s else "bytes", "library_ms": library_ms}
+    if also:
+        row["also"] = also
+    log(f"[{name}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_s * 1e3:.4f} ms "
+        f"({row['bound_by']}), library {library_ms if library_ms is None else round(library_ms, 4)} ms")
+    return row
+
+
+class AttentionCase:
+    """Operands of one attention kernel at one shape, with the kernel, its
+    plain version and the library call (SDPA with the equivalent boolean key
+    mask, q/k pre-rotated where the kernel rotates) as closures.
+    kind: "rope" (rope_heads of the heads rotated, prefix mask), "masked"
+    (prefix mask) or "joint" (lens are audio lengths, n_audio given)."""
+
+    def __init__(self, mods, kind, b, n, lens, gen, rope_heads=0, n_audio=None, h=16, dh=64):
+        from f5e_tts_tpu_torch.ops.rope import rot_half, rotary_cos_sin_half
+
+        ra, ka = mods
+        self.kind, self.b, self.n, self.h, self.dh = kind, b, n, h, dh
+        self.lens_list, self.n_audio, self.rope = list(lens), n_audio, kind == "rope"
+        # q, k, v as column slices of a fused projection's output where the
+        # model has one (the DiT's to_qkv); the MMDiT concatenates its streams
+        if kind == "rope":
+            qkv = torch.randn((b, n, 3 * h * dh), generator=gen, device="cuda").bfloat16()
+            q, k, v = (t.unflatten(-1, (h, dh)) for t in qkv.chunk(3, dim=-1))
         else:
-            cos.append((gk.double() * gp.double()).sum().item() / max(nk * np_, 1e-300))
-    worst = int(np.argmin(cos))
-    log(f"[gradients] 2 blocks, B={b}, N={n}: loss kernels {loss_k:.6f} vs plain {loss_p:.6f} "
-        f"(relative difference {rel:.2e}, tolerance 1e-2); gradient cosine over "
-        f"{len(cos)} parameters: min {cos[worst]:.6f} (tensor {worst}, shape "
-        f"{tuple(grads_k[worst].shape)}), median {float(np.median(cos)):.6f} (tolerance 0.99)")
-    if not rel <= 1e-2 or min(cos) < 0.99:
-        raise AssertionError("the kernels' loss or gradients disagree with the plain versions")
+            q, k, v = (torch.randn((b, n, h, dh), generator=gen, device="cuda").bfloat16()
+                       for _ in range(3))
+        self.g = torch.randn((b, n, h, dh), generator=gen, device="cuda").bfloat16()
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        col = torch.arange(n, device="cuda")
+        if kind == "rope":
+            cos, sin = (torch.from_numpy(t).cuda() for t in rotary_cos_sin_half(dh, n))
+            self.fwd = lambda **kw: ra.rope_attention(q, k, v, lens_t, cos, sin, rope_heads, **kw)
+            self.plain = lambda: ra.rope_attention_plain(q, k, v, lens_t, cos, sin, rope_heads)
+            self.bwd = lambda out, stats: ra.rope_attention_bwd(q, k, v, lens_t, cos, sin, self.g,
+                                                                rope_heads, out, stats)
+            self.bwd_plain = lambda: ra.rope_attention_bwd_plain(q, k, v, lens_t, cos, sin,
+                                                                 self.g, rope_heads)
+            c, s = cos[None, :, None, :], sin[None, :, None, :]
+            rotated = (torch.arange(h, device="cuda") < rope_heads)[None, None, :, None]
+            lib_q, lib_k = (torch.where(rotated, t.float() * c + rot_half(t.float()) * s,
+                                        t.float()).bfloat16() for t in (q, k))
+        elif kind == "masked":
+            self.fwd = lambda **kw: ka.masked_attention(q, k, v, lens_t, **kw)
+            self.plain = lambda: ka.masked_attention_plain(q, k, v, lens_t)
+            self.bwd = lambda out, stats: ka.masked_attention_bwd(q, k, v, lens_t, self.g, out,
+                                                                  stats)
+            self.bwd_plain = lambda: ka.masked_attention_bwd_plain(q, k, v, lens_t, self.g)
+            lib_q, lib_k = q, k
+        else:
+            self.fwd = lambda **kw: ka.joint_attention_core(q, k, v, lens_t, n_audio, **kw)
+            self.plain = lambda: ka.joint_attention_core_plain(q, k, v, lens_t, n_audio)
+            self.bwd = lambda out, stats: ka.joint_attention_core_bwd(q, k, v, lens_t, n_audio,
+                                                                      self.g, out, stats)
+            self.bwd_plain = lambda: ka.joint_attention_core_bwd_plain(q, k, v, lens_t, n_audio,
+                                                                       self.g)
+            lib_q, lib_k = q, k
+        valid = col[None, :] < lens_t[:, None]
+        if kind == "joint":
+            valid = valid | (col >= n_audio)[None, :]
+        # keys each sample's rows attend to; a row with none averages all n
+        self.keys = sum(int(x) if int(x) > 0 else n for x in valid.sum(dim=-1).tolist())
+        self.key_mask = None if bool(valid.all()) else valid[:, None, None, :]
+        self.lib = tuple(t.transpose(1, 2).detach() for t in (lib_q, lib_k, v))
+
+    def library(self):
+        q, k, v = self.lib
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=self.key_mask)
+
+    def library_backward(self):
+        """A callable running the backward of the library call through autograd."""
+        q, k, v = (t.detach().requires_grad_() for t in self.lib)
+        o = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=self.key_mask)
+        gt = self.g.transpose(1, 2)
+        return lambda: torch.autograd.grad(o, (q, k, v), gt, retain_graph=True)
+
+    def bound(self, backward: bool):
+        """(operation seconds, byte seconds): the 2 (forward) or 5 (backward)
+        N x keys x dh products over the valid keys; q, k, v, out (forward) or
+        q, k, v, g, dq, dk, dv (backward), the tables and the lengths."""
+        flops = (10.0 if backward else 4.0) * self.h * self.dh * self.n * self.keys
+        nbytes = (7 if backward else 4) * self.b * self.n * self.h * self.dh * 2 + self.b * 4
+        if self.rope:
+            nbytes += 2 * self.n * self.dh * 4
+        return flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+
+    def describe(self) -> str:
+        extra = f", n_audio {self.n_audio}" if self.n_audio is not None else ""
+        return f"({self.b}, {self.n}, {self.h}, {self.dh}), lens {self.lens_list}{extra}"
 
 
-def check_close_rel(name: str, got: torch.Tensor, ref: torch.Tensor, rel: float) -> float:
-    got, ref = got.float(), ref.float()
-    if not torch.isfinite(got).all():
-        raise AssertionError(f"{name}: kernel output is not finite")
-    err, top = (got - ref).abs().max().item(), ref.abs().max().item()
-    log(f"[{name}] max|kernel - plain| = {err:.3e}, max|plain| = {top:.3e} "
-        f"(tolerance {rel} * max|plain|)")
-    if err > rel * top:
-        raise AssertionError(f"{name}: kernel disagrees with its plain version")
-    return err
-
-
-def attention_bwd_phase(ra, launches: dict) -> dict:
-    from f5e_tts_tpu_torch.ops.rope import rot_half, rotary_cos_sin_half
-
-    b, n, h, dh = TRAIN_CLIPS, TRAIN_N, 16, 64
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    cos, sin = (torch.from_numpy(t).cuda() for t in rotary_cos_sin_half(dh, n))
-
-    def operands(batch, lens):
-        # q, k, v as column slices of the fused to_qkv output, as in training
-        qkv = torch.randn((batch, n, 3 * h * dh), generator=gen, device="cuda").bfloat16()
-        q, k, v = (t.unflatten(-1, (h, dh)) for t in qkv.chunk(3, dim=-1))
-        g = torch.randn((batch, n, h, dh), generator=gen, device="cuda").bfloat16()
-        kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        out, stats = ra.rope_attention(q, k, v, kv, cos, sin, h, return_stats=True)
-        return q, k, v, kv, g, out, stats
-
-    err = 0.0
-    for tag, batch, lens in (("ragged", 2, (n, 1337)), ("training", b, (n,) * b)):
-        q, k, v, kv, g, out, stats = operands(batch, lens)
-        got = ra.rope_attention_bwd(q, k, v, kv, cos, sin, g, h, out, stats)
-        torch.cuda.synchronize()
-        ref = ra.rope_attention_bwd_plain(q, k, v, kv, cos, sin, g, h)
-        for name, x, y in zip(("dq", "dk", "dv"), got, ref):
-            err = max(err, check_close_rel(f"rope_attention_bwd {tag} {name}", x, y, K4_REL))
-        del got, ref
+def attention_kernel_phase(name, source, replaces, launches, backward, cases, iters=24) -> dict:
+    """Kernel vs plain at every case (the first is the path's shape and gives
+    the row's numbers; the others are checked, and timed when `timed`), then
+    the times. cases: [(tag, make_case, timed)]."""
+    err, numbers = 0.0, {}
+    for tag, make_case, timed in cases:
+        case = make_case()
+        out, stats = case.fwd(return_stats=True)
+        if backward:
+            got = case.bwd(out, stats)
+            torch.cuda.synchronize()
+            ref = case.bwd_plain()
+            for part, x, y in zip(("dq", "dk", "dv"), got, ref):
+                err = max(err, check_close_rel(f"{name} {tag} {part}", x, y, BWD_REL))
+            again = case.bwd(out, stats)  # no atomics: the same bits
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"{name} {tag}: two backward runs differ")
+            del got, ref, again
+        else:
+            torch.cuda.synchronize()
+            err = max(err, check_close(f"{name} {tag}", out, case.plain()))
+        if timed:
+            torch.cuda.empty_cache()
+            if backward:
+                ms = cuda_ms([lambda: case.bwd(out, stats)], iters=8)
+                plain_ms = cuda_ms([case.bwd_plain], iters=4, warmup=1)
+                torch.cuda.empty_cache()
+                library_ms = cuda_ms([case.library_backward()], iters=8)
+            else:
+                # one input set: the kernels do hundreds of flops per byte, so
+                # where their operands come from barely matters
+                ms = cuda_ms([case.fwd], iters=iters)
+                plain_ms = cuda_ms([case.plain], iters=max(iters // 4, 4), warmup=1)
+                library_ms = cuda_ms([case.library], iters=iters)
+            ops_s, bytes_s = case.bound(backward)
+            numbers[tag] = {"shape": case.describe(), "ms": ms, "plain_ms": plain_ms,
+                            "library_ms": library_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
+                            "ops_s": ops_s, "bytes_s": bytes_s}
+            log(f"[{name} {tag}] {case.describe()}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"library {library_ms:.4f} ms, bound {max(ops_s, bytes_s) * 1e3:.4f} ms")
+        del case, out, stats
         torch.cuda.empty_cache()
+    first, *rest = numbers.items()
+    main = first[1]
+    also = {tag: {k: v for k, v in d.items() if k not in ("ops_s", "bytes_s")} for tag, d in rest}
+    return kernel_row(name, source, replaces, launches, err, main["ms"], main["plain_ms"],
+                      main["ops_s"], main["bytes_s"], main["library_ms"], also or None)
 
-    ms = cuda_ms([lambda: ra.rope_attention_bwd(q, k, v, kv, cos, sin, g, h, out, stats)], iters=8)
-    plain_ms = cuda_ms([lambda: ra.rope_attention_bwd_plain(q, k, v, kv, cos, sin, g, h)],
-                       iters=4, warmup=1)
+
+def attention_rows(mods, paths: dict, text_len: int) -> list:
+    """The rows of the ten attention kernels. paths: {counter name: {path:
+    launches}}; text_len: Nt of the MMDiT training batch."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    h = 16
+
+    def case(kind, b, n, lens, **kw):
+        return lambda: AttentionCase(mods, kind, b, n, lens, gen, **kw)
+
+    synth, train_b = (2, 1536, (1416, 1100)), (TRAIN_CLIPS, TRAIN_N, (TRAIN_N,) * TRAIN_CLIPS)
+    ragged_b = (2, TRAIN_N, (TRAIN_N, 1337))
+    gb, gn, gnt = MMDIT_GRAD_SHAPE
+    mm_n = TRAIN_N + text_len  # the MMDiT training step's joint length
+    both = lambda a, b: {"synthesis": a, "training_step": b}  # noqa: E731
+    # every launch of the RoPE kernel, on all or some heads, is one of the
+    # packed TPU kernels' function (the two count disjoint paths)
+    fwd_all = {**paths["rope_attention"], **paths["partial_rope_attention"]}
+    bwd_all = {**paths["rope_attention_bwd"], **paths["partial_rope_attention_bwd"]}
+    rows = []
+    with torch.inference_mode():
+        rows.append(attention_kernel_phase(
+            "rope_attention", "rope_attention", f"{PALLAS}:523", paths["rope_attention"], False,
+            [("synthesis", case("rope", *synth, rope_heads=h), True),
+             ("training", case("rope", *train_b, rope_heads=h), True)]))
+        rows.append(attention_kernel_phase(
+            "partial_rope_attention", "rope_attention", f"{PALLAS}:183",
+            paths["partial_rope_attention"], False,
+            [("synthesis", case("rope", *synth, rope_heads=1), True),
+             ("training", case("rope", *train_b, rope_heads=1), True)]))
+        rows.append(attention_kernel_phase(
+            "joint_attention", "joint_attention", f"{PALLAS}:1201", paths["joint_attention"], False,
+            [("synthesis", case("joint", 2, 1536 + 128, (1416, 1100), n_audio=1536), True),
+             ("ragged", case("joint", 3, 200 + 32, (0, 200, 57), n_audio=200), False)]))
+        rows.append(attention_kernel_phase(
+            "masked_attention", "masked_attention", f"{PALLAS}:86", paths["masked_attention"],
+            False,
+            [("training", case("masked", TRAIN_CLIPS, mm_n, (mm_n,) * TRAIN_CLIPS), True),
+             ("ragged", case("masked", 2, mm_n, (mm_n, 1337)), False)]))
+        rows.append(attention_kernel_phase(
+            "packed_rope_attention", "rope_attention", f"{PALLAS}:312", fwd_all, False,
+            [("synthesis", case("rope", *synth, rope_heads=h), True)]))
     torch.cuda.empty_cache()
-    # library yardstick: the backward of SDPA (every key valid here) on the
-    # pre-rotated q/k, through autograd
-    c, s = cos[None, :, None, :], sin[None, :, None, :]
-    qr, kr = ((t.float() * c + rot_half(t.float()) * s).bfloat16().transpose(1, 2).detach()
-              .requires_grad_() for t in (q, k))
-    vt = v.transpose(1, 2).detach().requires_grad_()
-    o = torch.nn.functional.scaled_dot_product_attention(qr, kr, vt)
-    gt = g.transpose(1, 2)
-    library_ms = cuda_ms([lambda: torch.autograd.grad(o, (qr, kr, vt), gt, retain_graph=True)],
-                         iters=8)
+    rows.append(attention_kernel_phase(
+        "rope_attention_bwd", "rope_attention", f"{PALLAS}:567", paths["rope_attention_bwd"], True,
+        [("training", case("rope", *train_b, rope_heads=h), True),
+         ("ragged", case("rope", *ragged_b, rope_heads=h), False)]))
+    rows.append(attention_kernel_phase(
+        "partial_rope_attention_bwd", "rope_attention", f"{PALLAS}:906",
+        paths["partial_rope_attention_bwd"], True,
+        [("training", case("rope", *train_b, rope_heads=1), True),
+         ("ragged", case("rope", *ragged_b, rope_heads=1), False)]))
+    rows.append(attention_kernel_phase(
+        "joint_attention_bwd", "joint_attention", f"{PALLAS}:1298", paths["joint_attention_bwd"],
+        True,
+        [("gradient phase", case("joint", gb, gn + gnt, (gn, 900), n_audio=gn), True),
+         ("training shape", case("joint", TRAIN_CLIPS, TRAIN_N + 128,
+                                 (TRAIN_N, 2000, 1337, TRAIN_N, 900, 0, 2303, 64),
+                                 n_audio=TRAIN_N), True)]))
+    rows.append(attention_kernel_phase(
+        "masked_attention_bwd", "masked_attention", f"{PALLAS}:770", paths["masked_attention_bwd"],
+        True,
+        [("training", case("masked", TRAIN_CLIPS, mm_n, (mm_n,) * TRAIN_CLIPS), True),
+         ("ragged", case("masked", 2, mm_n, (mm_n, 1337)), False)]))
+    rows.append(attention_kernel_phase(
+        "packed_rope_attention_bwd", "rope_attention", f"{PALLAS}:458", bwd_all, True,
+        [("training", case("rope", *train_b, rope_heads=h), True)]))
+    return rows
 
-    # least time: the five N x N x dh products over the valid keys, or the
-    # bytes of q, k, v, g, dq, dk, dv, cos, sin, kv_lens
-    keys = sum(int(x) if int(x) > 0 else n for x in kv.tolist())
-    flops = 10.0 * h * dh * n * keys
-    nbytes = 7 * b * n * h * dh * 2 + 2 * n * dh * 4 + b * 4
-    return kernel_row("rope_attention_bwd", "rope_attention",
-                      "f5e_tts_tpu/ops/pallas_attention.py:567", launches, err, ms, plain_ms,
-                      flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES, library_ms)
+
+def adaln_phase(ga, launches: dict) -> dict:
+    b, n, d = 2, 1536, 1024
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x, y = (torch.randn((b, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    gate, scale, shift = (torch.randn((b, d), generator=gen, device="cuda").to(torch.bfloat16)
+                          for _ in range(3))
+    new_x, out = ga.gated_adaln(x, y, gate, scale, shift)
+    torch.cuda.synchronize()
+    ref_x, ref_out = ga.gated_adaln_plain(x, y, gate, scale, shift)
+    err = max(check_close("gated_adaln new_x", new_x, ref_x),
+              check_close("gated_adaln out", out, ref_out))
+    # timed over 4 input sets (~100 MB with outputs, twice the L2): the
+    # kernel is bound by memory, and the bound counts device-memory bytes
+    sets = [(x, y)] + [tuple(torch.randn((b, n, d), generator=gen, device="cuda")
+                             .to(torch.bfloat16) for _ in range(2)) for _ in range(3)]
+    ms = cuda_ms([lambda a=a, c=c: ga.gated_adaln(a, c, gate, scale, shift) for a, c in sets])
+    plain_ms = cuda_ms([lambda a=a, c=c: ga.gated_adaln_plain(a, c, gate, scale, shift)
+                        for a, c in sets])
+    # x, y read once; new_x, out written once; ~11 fp32 flops per element
+    nbytes = 4 * b * n * d * 2 + 3 * b * d * 2
+    flops = 11.0 * b * n * d
+    return kernel_row("gated_adaln", "gated_adaln", "f5e_tts_tpu/ops/pallas_norm.py:38", launches,
+                      err, ms, plain_ms, flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES, None)
 
 
 def adaln_bwd_phase(ga, launches: dict) -> dict:
@@ -701,26 +1022,13 @@ def adaln_bwd_phase(ga, launches: dict) -> dict:
                       None)
 
 
-def kernel_row(name, source, replaces, launches, err, ms, plain_ms, ops_s, bytes_s,
-               library_ms) -> dict:
-    """One row of the kernels line. `launches` is {path: launches in one run
-    of it}; the row's `launches` is the first path's."""
-    bound_s = max(ops_s, bytes_s)
-    row = {"name": name, "route": "cuda", "source": f"f5e_tts_tpu_torch/csrc/{source}.cu",
-           "replaces": replaces, "launches": next(iter(launches.values())),
-           "launches_by_path": launches, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-           "bound_by": "operations" if ops_s >= bytes_s else "bytes", "library_ms": library_ms}
-    log(f"[{name}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_s * 1e3:.4f} ms "
-        f"({row['bound_by']}), library {library_ms if library_ms is None else round(library_ms, 4)} ms")
-    return row
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    from f5e_tts_tpu_torch.config import MMDiTConfig, ModelConfig, preset
     from f5e_tts_tpu_torch.kernels import _build
+    from f5e_tts_tpu_torch.kernels import attention as ka
     from f5e_tts_tpu_torch.kernels import gated_adaln as ga
     from f5e_tts_tpu_torch.kernels import rope_attention as ra
 
@@ -730,28 +1038,76 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     log(smi.splitlines()[0] if smi else "nvidia-smi: no output")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
 
-    t0 = time.perf_counter()
     libs = _build.build()
-    log(f"[build] {len(libs)} kernels built in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {len(libs)} kernel libraries built in {time.perf_counter() - t_start:.1f} s")
     for path in libs.values():
         build_log = path.with_name(path.name + ".log")
         for line in build_log.read_text().splitlines() if build_log.exists() else []:
             if "registers" in line or "spill" in line:
                 log(f"[build] {path.name}: {line.strip()}")
+    register_counters(ra, ga, ka)
+    swaps = plain_swaps(ra, ga, ka)
+    byte_model = lambda cfg: dataclasses.replace(cfg, tokenizer="byte", vocab_size=256)  # noqa: E731
+    runs: dict = {}  # path -> {counter: launches in one run of it}
 
+    def phase(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.empty_cache()
+        log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s "
+            f"({time.perf_counter() - t_start:.0f} s since the start)")
+        return result
+
+    # F5TTS_v1_Base: K1/K2 in synthesis, K1/K2/K4/K5 in training
     with torch.inference_mode():
-        synth = synthesis_phase(ra, ga)
-    step = training_phase(ra, ga)
-    torch.cuda.empty_cache()
-    gradient_phase(ra, ga)
-    paths = {name: {"synthesis": synth[name], "training_step": step[name]} for name in synth}
+        runs["synthesis"] = phase("synthesis", lambda: dit_synthesis_phase(
+            "synthesis", "F5TTS_v1_Base",
+            expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE), runs=3))
+    v1 = byte_model(preset("F5TTS_v1_Base"))
+    assert (v1.arch.depth, v1.arch.dropout) == (DEPTH, 0.1), v1.arch
+    runs["training_step"], _ = phase("training", lambda: training_phase(
+        "training", v1, expected_counts(rope_attention=DEPTH, rope_attention_bwd=DEPTH,
+                                        gated_adaln=DEPTH, gated_adaln_bwd=DEPTH),
+        updates=2, warmup=1, resume=True))
+    phase("gradients", lambda: gradient_phase(swaps))
+
+    # MMDiT: K7 in synthesis, K9/K10 in training, K7/K8 through a masked loss
     with torch.inference_mode():
-        rows = [attention_phase(ra, paths["rope_attention"]),
-                adaln_phase(ga, paths["gated_adaln"])]
-    torch.cuda.empty_cache()
-    rows += [attention_bwd_phase(ra, {"training_step": step["rope_attention_bwd"]}),
-             adaln_bwd_phase(ga, {"training_step": step["gated_adaln_bwd"]})]
+        runs["mmdit_synthesis"] = phase("mmdit synthesis", lambda: mmdit_synthesis_phase(
+            expected_counts(joint_attention=MMDIT_DEPTH * NFE)))
+    mmdit = ModelConfig(name="MMDiT", backbone="MMDiT", tokenizer="byte", vocab_size=256,
+                        arch=MMDiTConfig())
+    runs["mmdit_training_step"], text_len = phase("mmdit training", lambda: training_phase(
+        "mmdit training", mmdit, expected_counts(masked_attention=MMDIT_DEPTH,
+                                                 masked_attention_bwd=MMDIT_DEPTH),
+        updates=4, warmup=2))
+    runs["mmdit_masked_gradient"] = phase("mmdit gradients", lambda: mmdit_gradient_phase(swaps))
+
+    # F5TTS_Base: RoPE on the first head only, K3 and K6 (and K2/K5)
+    with torch.inference_mode():
+        runs["base_synthesis"] = phase("base synthesis", lambda: dit_synthesis_phase(
+            "base synthesis", "F5TTS_Base",
+            expected_counts(partial_rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE), runs=3))
+    base = byte_model(preset("F5TTS_Base"))
+    assert (base.arch.pe_attn_head, base.arch.text_mask_padding) == (1, False), base.arch
+    runs["base_training_step"], _ = phase("base training", lambda: training_phase(
+        "base training", base,
+        expected_counts(partial_rope_attention=DEPTH, partial_rope_attention_bwd=DEPTH,
+                        gated_adaln=DEPTH, gated_adaln_bwd=DEPTH),
+        updates=2, warmup=1, checkpoints=False))
+
+    # which paths launched each kernel, and how often in one run of the path
+    paths = {name: {p: c[name] for p, c in runs.items() if c[name]} for name in COUNTERS}
+    missing = [name for name, by_path in paths.items() if not by_path]
+    if missing:
+        raise AssertionError(f"no path launched {missing}")
+    rows = phase("attention kernels", lambda: attention_rows((ra, ka), paths, text_len))
+    with torch.inference_mode():
+        rows.append(adaln_phase(ga, paths["gated_adaln"]))
+    rows.append(adaln_bwd_phase(ga, paths["gated_adaln_bwd"]))
+    log(f"[total] {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -114,6 +114,25 @@ class UNetTConfig:
 
 
 @dataclass(frozen=True)
+class MMDiTConfig:
+    """MMDiT (SD3-style dual stream) hyperparameters
+    (reference: src/f5_tts/model/backbones/mmdit.py:84-188)."""
+
+    dim: int = 1024
+    depth: int = 8
+    heads: int = 16
+    dim_head: int = 64
+    ff_mult: int = 2
+    mel_dim: int = 100
+    text_num_embeds: int = 256
+    text_depth: int = 0  # unused placeholder for parity with upstream kwargs
+    qk_norm: Optional[str] = None
+    dropout: float = 0.1  # kept for field parity: the MMDiT forward applies none
+    max_pos: int = 4096
+    scan_unroll: int = 1
+
+
+@dataclass(frozen=True)
 class CFMConfig:
     """Conditional flow matching (reference: src/f5_tts/model/cfm.py:34-87)."""
 
@@ -176,7 +195,7 @@ class ModelConfig:
     """Top-level bundle: backbone + mel + cfm + tokenizer."""
 
     name: str = "F5TTS_v1_Base"
-    backbone: str = "DiT"
+    backbone: str = "DiT"  # "DiT" | "UNetT" | "MMDiT"; `arch` is its config
     tokenizer: str = "pinyin"
     tokenizer_path: Optional[str] = None
     vocab_size: int = 2545  # F5TTS_v1_Base vocab.txt size

@@ -18,7 +18,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from f5e_tts_tpu_torch.config import CFMConfig, DiTConfig, InferConfig, MelConfig
+from f5e_tts_tpu_torch.config import CFMConfig, InferConfig, MelConfig
 from f5e_tts_tpu_torch.infer import audio as faudio
 from f5e_tts_tpu_torch.models import cfm as fcfm
 from f5e_tts_tpu_torch.ops.mel import mel_spectrogram
@@ -135,7 +135,7 @@ class TTSEngine:
     (reference: utils_infer.py load_model -> infer_process, api.py:23-149)."""
 
     params: dict
-    arch: DiTConfig
+    arch: object  # DiTConfig or MMDiTConfig: any backbone models/backbone.py dispatches
     vocab: Optional[dict]
     mel: MelConfig = field(default_factory=MelConfig)
     cfm: CFMConfig = field(default_factory=CFMConfig)
@@ -173,6 +173,8 @@ class TTSEngine:
         duration = min(max(duration, text_ids.shape[1] + 1, ref_frames + 1), icfg.max_duration)
         bucket = pick_bucket(duration, self.buckets)
         duration = min(duration, bucket)
+        # the text pads to its own ladder, not to the bucket: the MMDiT's text
+        # stream keeps this length, the DiT pads it on to the bucket itself
         nt = min(-(-text_ids.shape[1] // TEXT_PAD_TO) * TEXT_PAD_TO, bucket)
         padded = np.full((1, nt), -1, np.int32)
         padded[0, : min(text_ids.shape[1], nt)] = text_ids[0, :nt]

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C entry point and is compiled on first
 use into its own shared library under `build/kernels/` at the repository
-root. The file name carries a hash of the source and the flags, so an edited
-kernel is rebuilt and a stale one is never loaded. `build()` starts one nvcc
+root. The file name carries a hash of the source, of the headers beside it
+(`csrc/*.cuh`) and of the flags, so an edited kernel is rebuilt and a stale
+one is never loaded. `build()` starts one nvcc
 per missing library, all at once, and waits for them together.
 """
 
@@ -20,7 +21,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NAMES = ("rope_attention", "gated_adaln")
+NAMES = ("rope_attention", "masked_attention", "joint_attention", "gated_adaln")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,7 +39,8 @@ def nvcc() -> str:
 
 def target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from f5e_tts_tpu_torch.config import CFMConfig, DiTConfig
+from f5e_tts_tpu_torch.config import CFMConfig
 from f5e_tts_tpu_torch.models import backbone as fbb
 from f5e_tts_tpu_torch.utils.device import resolve_device
 from f5e_tts_tpu_torch.utils.masks import lens_to_mask, mask_from_frac_lengths
@@ -89,10 +89,12 @@ def prepare_inputs(cond: torch.Tensor, lens: torch.Tensor, duration: torch.Tenso
                          text_ids=text_ids)
 
 
-def _folded_cfg_flow(params, arch: DiTConfig, inputs: SamplerInputs, branches: Sequence[dict],
+def _folded_cfg_flow(params, arch, inputs: SamplerInputs, branches: Sequence[dict],
                      weights: Sequence[float], mask: torch.Tensor, compute_dtype):
     """step_fn(t, x) evaluating all CFG branches in ONE (K*B)-batch call;
-    the flow is sum_k weights[k] * flow_k."""
+    the flow is sum_k weights[k] * flow_k. `arch` is any backbone config the
+    dispatch knows; the folded text embedding is (K*B, N, D) for the DiT and
+    (K*B, Nt, D) for the MMDiT, whose dropped branch keeps the text length."""
     b, n, _ = inputs.cond.shape
     k = len(branches)
     device = inputs.cond.device
@@ -118,7 +120,7 @@ def _folded_cfg_flow(params, arch: DiTConfig, inputs: SamplerInputs, branches: S
     return step_fn
 
 
-def sample(params, arch: DiTConfig, cfm: CFMConfig, inputs: SamplerInputs, *,
+def sample(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
            steps: int = 32, cfg_strength: float = 2.0, sway_coef: Optional[float] = -1.0,
            generator: Optional[torch.Generator] = None, y0: Optional[torch.Tensor] = None,
            compute_dtype: torch.dtype = torch.bfloat16, device="cuda"):
@@ -179,7 +181,7 @@ class LossDraws(NamedTuple):
     u2: Optional[torch.Tensor] = None  # () U[0, 1): drop all when < cond_drop_prob
 
 
-def cfm_loss(params, arch: DiTConfig, cfm: CFMConfig, *, mel: torch.Tensor,
+def cfm_loss(params, arch, cfm: CFMConfig, *, mel: torch.Tensor,
              mel_lens: torch.Tensor, text_ids: Optional[torch.Tensor],
              generator: Optional[torch.Generator] = None, draws: Optional[LossDraws] = None,
              training: bool = True, compute_dtype=torch.bfloat16) -> CFMLossOut:

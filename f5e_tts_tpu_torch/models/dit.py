@@ -15,7 +15,6 @@ src/f5_tts/model/modules.py:610-641 (DiTBlock).
 from __future__ import annotations
 
 import functools
-import math
 from typing import Optional
 
 import torch
@@ -35,23 +34,8 @@ from f5e_tts_tpu_torch.ops.rope import rotary_cos_sin_half
 # ---------------------------------------------------------------------------
 
 
-def _uniform(shape, bound, gen, device):
-    return (torch.rand(shape, generator=gen, device=device) * 2.0 - 1.0) * bound
-
-
-def _linear_init(d_in, d_out, gen, device, zero=False):
-    if zero:
-        return {"w": torch.zeros(d_in, d_out, device=device),
-                "b": torch.zeros(d_out, device=device)}
-    bound = 1.0 / math.sqrt(d_in)
-    return {"w": _uniform((d_in, d_out), bound, gen, device),
-            "b": _uniform((d_out,), bound, gen, device)}
-
-
-def _conv_init(d_in, d_out, kernel, groups, gen, device):
-    bound = 1.0 / math.sqrt(d_in // groups * kernel)
-    return {"w": _uniform((kernel, d_in // groups, d_out), bound, gen, device),
-            "b": _uniform((d_out,), bound, gen, device)}
+_linear_init = fnn.linear_init
+_conv_init = fnn.conv1d_init
 
 
 def _convnext_v2_init(dim, inter, gen, device):

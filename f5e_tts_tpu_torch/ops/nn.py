@@ -21,6 +21,29 @@ import torch
 import torch.nn.functional as F
 
 
+def _uniform(shape, bound: float, generator, device) -> torch.Tensor:
+    return (torch.rand(shape, generator=generator, device=device) * 2.0 - 1.0) * bound
+
+
+def linear_init(d_in: int, d_out: int, generator: torch.Generator, device="cpu",
+                zero: bool = False) -> dict:
+    """fp32 linear params: torch's default rule U(+-1/sqrt(fan_in)) for the
+    weight and the bias, or zeros (AdaLN-zero), as the JAX init."""
+    if zero:
+        return {"w": torch.zeros(d_in, d_out, device=device),
+                "b": torch.zeros(d_out, device=device)}
+    bound = 1.0 / math.sqrt(d_in)
+    return {"w": _uniform((d_in, d_out), bound, generator, device),
+            "b": _uniform((d_out,), bound, generator, device)}
+
+
+def conv1d_init(d_in: int, d_out: int, kernel: int, groups: int, generator: torch.Generator,
+                device="cpu") -> dict:
+    bound = 1.0 / math.sqrt(d_in // groups * kernel)
+    return {"w": _uniform((kernel, d_in // groups, d_out), bound, generator, device),
+            "b": _uniform((d_out,), bound, generator, device)}
+
+
 def linear(p, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x @ w + b with fp32 accumulation and one rounding after the bias.
 
@@ -85,6 +108,13 @@ def layernorm(p: Optional[dict], x: torch.Tensor, eps: float = 1e-6) -> torch.Te
     if p is not None:
         y = y * p["g"].float() + p["b"].float()
     return y.to(x.dtype)
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis with an fp32 variance (modules.py:275-294)."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * p["g"].float()).to(x.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,

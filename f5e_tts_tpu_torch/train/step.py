@@ -36,7 +36,7 @@ from typing import Callable, List, NamedTuple, Optional
 
 import torch
 
-from f5e_tts_tpu_torch.config import CFMConfig, DiTConfig, TrainConfig
+from f5e_tts_tpu_torch.config import CFMConfig, TrainConfig
 from f5e_tts_tpu_torch.models import cfm as fcfm
 
 
@@ -248,7 +248,7 @@ def backward_and_apply(ts: TrainState, loss_fn: Callable[[dict], fcfm.CFMLossOut
     return apply_gradients(ts, out, grads, optimizer=optimizer, ema=ema)
 
 
-def train_step(ts: TrainState, batch: dict, *, arch: DiTConfig, cfm: CFMConfig,
+def train_step(ts: TrainState, batch: dict, *, arch, cfm: CFMConfig,
                optimizer: AdamW, ema: EMASettings = EMASettings(),
                generator: Optional[torch.Generator] = None,
                draws: Optional[fcfm.LossDraws] = None, compute_dtype=torch.bfloat16):

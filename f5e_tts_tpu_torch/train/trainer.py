@@ -35,7 +35,7 @@ from f5e_tts_tpu_torch.models import backbone as fbb
 from f5e_tts_tpu_torch.models import cfm as fcfm
 from f5e_tts_tpu_torch.ops.mel import mel_spectrogram
 from f5e_tts_tpu_torch.train import step as fstep
-from f5e_tts_tpu_torch.utils.convert import dit_to_reference_state_dict
+from f5e_tts_tpu_torch.utils.convert import backbone_to_reference_state_dict
 from f5e_tts_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -69,6 +69,7 @@ class Trainer:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.arch = self.model_cfg.arch
+        fbb.backbone_kind(self.arch)  # raises for a backbone that is not ported
         self.cfm = self.model_cfg.cfm
         if self.train_cfg.param_dtype != "float32":
             raise NotImplementedError("the port keeps fp32 master weights (param_dtype float32)")
@@ -123,7 +124,7 @@ class Trainer:
     def save_checkpoint(self, ts: fstep.TrainState, last: bool = False):
         name = "model_last" if last else f"model_{ts.update}"
         cpu = lambda t: t.detach().cpu()  # noqa: E731
-        ema_sd = dit_to_reference_state_dict(ts.ema_params, self.arch)
+        ema_sd = backbone_to_reference_state_dict(ts.ema_params, self.arch)
         state = {
             "ema_model_state_dict": {f"ema_model.{k}": v for k, v in ema_sd.items()},
             "update": ts.update,

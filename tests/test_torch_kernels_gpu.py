@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels of the PyTorch port vs their plain versions:
-K1 and K4 (RoPE attention forward and backward), K2 and K5 (gated AdaLN
-forward and backward), and the autograd Functions that join them.
+K1/K3 and K4/K6 (RoPE attention forward and backward, on all or some of the
+heads), K9 and K10 (key-length-masked attention without RoPE), K7 and K8
+(joint [audio | text] attention), K2 and K5 (gated AdaLN forward and
+backward), and the autograd Functions that join them.
 
 These need a CUDA device and nvcc and skip without one. On a machine with
 the card (which has no JAX, so the suite's conftest is left out):
@@ -12,12 +14,14 @@ the same fp32 values, so they differ by summation order and at most ~1 bf16
 ulp: |diff| <= 2e-2 + 1e-2 * |plain| (K1, K2, K5). K4's gradients are small
 sums of many rounded terms, and the kernel forms delta from the bf16 output
 where the plain version sums P * dP in fp32, so K4 is held to
-max |diff| <= 2e-2 * max |plain| per output.
+max |diff| <= 2e-2 * max |plain| per output; K10 and K8 are the same kernels
+without RoPE and with another column rule, and are held to the same limits.
 """
 
 import pytest
 import torch
 
+from f5e_tts_tpu_torch.kernels import attention as ka
 from f5e_tts_tpu_torch.kernels import gated_adaln as ga
 from f5e_tts_tpu_torch.kernels import rope_attention as ra
 from f5e_tts_tpu_torch.ops.rope import rotary_cos_sin_half
@@ -54,10 +58,11 @@ def test_rope_attention_kernel_matches_plain(cuda, b, n, h, dh, kv, rope_heads, 
                    for _ in range(3))
     kv_lens = torch.tensor(kv, dtype=torch.int32, device="cuda")
     cos, sin = (torch.from_numpy(t).cuda() for t in rotary_cos_sin_half(dh, n))
-    before = ra.launches
+    partial = 0 < rope_heads < h  # counted as the partial-RoPE kernel's launch
+    before = (ra.launches, ra.partial_launches)
     out = ra.rope_attention(q, k, v, kv_lens, cos, sin, rope_heads)
     torch.cuda.synchronize()
-    assert ra.launches == before + 1
+    assert (ra.launches, ra.partial_launches) == (before[0] + (not partial), before[1] + partial)
     _close(out, ra.rope_attention_plain(q, k, v, kv_lens, cos, sin, rope_heads))
 
 
@@ -103,10 +108,12 @@ def test_rope_attention_bwd_kernel_matches_plain(cuda, b, n, h, dh, kv, rope_hea
     kv_lens = torch.tensor(kv, dtype=torch.int32, device="cuda")
     cos, sin = (torch.from_numpy(t).cuda() for t in rotary_cos_sin_half(dh, n))
     out, stats = ra.rope_attention(q, k, v, kv_lens, cos, sin, rope_heads, return_stats=True)
-    before = ra.bwd_launches
+    partial = 0 < rope_heads < h
+    before = (ra.bwd_launches, ra.partial_bwd_launches)
     got = ra.rope_attention_bwd(q, k, v, kv_lens, cos, sin, g, rope_heads, out, stats)
     torch.cuda.synchronize()
-    assert ra.bwd_launches == before + 1
+    assert (ra.bwd_launches, ra.partial_bwd_launches) == (before[0] + (not partial),
+                                                          before[1] + partial)
     want = ra.rope_attention_bwd_plain(q, k, v, kv_lens, cos, sin, g, rope_heads)
     for x, y in zip(got, want):
         _close_rel(x, y)
@@ -170,3 +177,128 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         ga.gated_adaln_bwd(x[..., 0, :], x[..., 0, :], x[:, 0, 0], x[:, 0, 0], x[..., 0, :],
                            x[..., 0, :])
+
+
+def _qkv(gen, b, n, h, dh, fused):
+    if fused:  # column slices of one projection's output, read through row strides
+        qkv = torch.randn((b, n, 3 * h * dh), generator=gen, device="cuda").bfloat16()
+        return tuple(t.unflatten(-1, (h, dh)) for t in qkv.chunk(3, dim=-1))
+    return tuple(torch.randn((b, n, h, dh), generator=gen, device="cuda").bfloat16()
+                 for _ in range(3))
+
+
+# (b, n, h, dh, lens, n_audio, fused); n_audio None: the key-length mask (K9/K10)
+ATTENTION_CASES = [
+    (2, 2432, 16, 64, (2432, 2432), None, False),  # MMDiT training: every key valid
+    (2, 130, 3, 64, (130, 1), None, True),         # ragged last tile, one valid key
+    (1, 200, 2, 128, (0,), None, False),           # dh 128, every key masked
+    (2, 1664, 16, 64, (1416, 1100), 1536, False),  # MMDiT synthesis: 1536 audio + 128 text
+    (2, 1632, 4, 64, (1536, 70), 1536, False),     # N + Nt = 1536 + 96: a multiple of 32 only
+    (3, 232, 2, 64, (0, 200, 57), 200, False),     # audio_len 0 and n_audio, n_audio % 64 != 0, Nt 32
+    (2, 160, 2, 128, (128, 5), 128, True),         # dh 128, Nt 32
+    (1, 192, 2, 64, (0,), 192, False),             # no text and no audio: every key masked
+]
+
+
+def _forward_and_plain(q, k, v, lens, n_audio, return_stats=False):
+    if n_audio is None:
+        return (ka.masked_attention(q, k, v, lens, return_stats=return_stats),
+                ka.masked_attention_plain(q, k, v, lens))
+    return (ka.joint_attention_core(q, k, v, lens, n_audio, return_stats=return_stats),
+            ka.joint_attention_core_plain(q, k, v, lens, n_audio))
+
+
+@pytest.mark.parametrize("b,n,h,dh,lens,n_audio,fused", ATTENTION_CASES)
+def test_attention_kernel_matches_plain(cuda, b, n, h, dh, lens, n_audio, fused):
+    q, k, v = _qkv(cuda, b, n, h, dh, fused)
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = (ka.masked_launches, ka.joint_launches)
+    out, ref = _forward_and_plain(q, k, v, lens, n_audio)
+    torch.cuda.synchronize()
+    assert (ka.masked_launches, ka.joint_launches) == (
+        before[0] + (n_audio is None), before[1] + (n_audio is not None))
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("b,n,h,dh,lens,n_audio,fused", ATTENTION_CASES)
+def test_attention_bwd_kernel_matches_plain(cuda, b, n, h, dh, lens, n_audio, fused):
+    q, k, v = _qkv(cuda, b, n, h, dh, fused)
+    g = torch.randn((b, n, h, dh), generator=cuda, device="cuda").bfloat16()
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    (out, stats), _ = _forward_and_plain(q, k, v, lens, n_audio, return_stats=True)
+    before = (ka.masked_bwd_launches, ka.joint_bwd_launches)
+    if n_audio is None:
+        run = lambda: ka.masked_attention_bwd(q, k, v, lens, g, out, stats)  # noqa: E731
+        want = ka.masked_attention_bwd_plain(q, k, v, lens, g)
+    else:
+        run = lambda: ka.joint_attention_core_bwd(q, k, v, lens, n_audio, g, out, stats)  # noqa: E731
+        want = ka.joint_attention_core_bwd_plain(q, k, v, lens, n_audio, g)
+    got = run()
+    torch.cuda.synchronize()
+    assert (ka.masked_bwd_launches, ka.joint_bwd_launches) == (
+        before[0] + (n_audio is None), before[1] + (n_audio is not None))
+    for x, y in zip(got, want):
+        _close_rel(x, y)
+    # a fully masked row: the scores depend on neither q nor k
+    for i, length in enumerate(lens.tolist()):
+        if length == 0 and (n_audio is None or n_audio >= n):
+            assert not got[0][i].any() and not got[1][i].any()
+    # no atomics: a second run gives the same bits
+    assert all(torch.equal(x, y) for x, y in zip(got, run()))
+
+
+def test_padded_audio_keys_do_not_reach_the_joint_output(cuda):
+    b, n_audio, nt, h, dh = 2, 192, 64, 2, 64
+    q, k, v = _qkv(cuda, b, n_audio + nt, h, dh, False)
+    lens = torch.tensor([n_audio, 100], dtype=torch.int32, device="cuda")
+    out = ka.joint_attention_core(q, k, v, lens, n_audio)
+    k2, v2 = k.clone(), v.clone()
+    k2[1, 100:n_audio] = 99.0
+    v2[1, 100:n_audio] = -99.0
+    assert torch.equal(out, ka.joint_attention_core(q, k2, v2, lens, n_audio))
+
+
+def test_partial_rope_launches_count_as_their_own_kernels(cuda):
+    b, n, h, dh = 1, 128, 4, 64
+    q, k, v = _qkv(cuda, b, n, h, dh, True)
+    lens = torch.tensor([n], dtype=torch.int32, device="cuda")
+    cos, sin = (torch.from_numpy(t).cuda() for t in rotary_cos_sin_half(dh, n))
+    counts = lambda: (ra.launches, ra.partial_launches, ra.bwd_launches,  # noqa: E731
+                      ra.partial_bwd_launches)
+    for rope_heads, moved in ((h, (1, 0, 1, 0)), (1, (0, 1, 0, 1)), (0, (1, 0, 1, 0))):
+        before = counts()
+        out, stats = ra.rope_attention(q, k, v, lens, cos, sin, rope_heads, return_stats=True)
+        ra.rope_attention_bwd(q, k, v, lens, cos, sin, out, rope_heads, out, stats)
+        assert counts() == tuple(x + y for x, y in zip(before, moved))
+
+
+def test_attention_functions_launch_one_forward_and_one_backward_kernel(cuda):
+    b, n_audio, nt, h, dh = 2, 160, 32, 4, 64
+    q, k, v = (t.detach().requires_grad_() for t in _qkv(cuda, b, n_audio + nt, h, dh, False))
+    lens = torch.tensor([160, 90], dtype=torch.int32, device="cuda")
+    counts = lambda: (ka.masked_launches, ka.masked_bwd_launches, ka.joint_launches,  # noqa: E731
+                      ka.joint_bwd_launches)
+    before = counts()
+    o1 = ka.MaskedAttention.apply(q, k, v, torch.full_like(lens, n_audio + nt))
+    o2 = ka.JointAttention.apply(q, k, v, lens, n_audio)
+    (o1.float().square().sum() + o2.float().square().sum()).backward()
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before)
+    assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+    with torch.no_grad():  # no gradient wanted: no statistics, still one launch
+        ka.JointAttention.apply(q, k, v, lens, n_audio)
+    assert counts()[2] == before[2] + 2
+
+
+def test_attention_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros((1, 64, 2, 64), device="cuda")  # fp32
+    lens = torch.tensor([64], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        ka.masked_attention(x, x, x, lens)
+    xb = x.bfloat16()
+    with pytest.raises(ValueError):
+        ka.joint_attention_core(xb, xb, xb, lens, 65)
+    with pytest.raises(ValueError):  # K10 needs K9's output and statistics
+        ka.masked_attention_bwd(xb, xb, xb, lens, xb)
+    with pytest.raises(ValueError):
+        ka.joint_attention_core(xb[..., :32], xb[..., :32], xb[..., :32], lens, 32)
