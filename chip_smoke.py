@@ -4,7 +4,9 @@
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds every hand-written kernel from f5e_tts_tpu_torch/csrc with nvcc,
-   one process per source, all at once.
+   one process per source, all at once, and prints each kernel's registers,
+   spills and shared memory (ptxas's report; the backward kernels' dynamic
+   shared memory from the library).
 3. Full-width zero-shot synthesis through the user entry point:
    F5TTS(model="F5TTS_v1_Base", device="cuda") in bf16 with seeded random
    weights, NFE 32, cfg 2, sway -1, a ~5 s seeded reference wav and
@@ -49,7 +51,9 @@
 10. One phase per kernel at the shapes of its path and at one ragged case:
     kernel vs its plain PyTorch version on the same inputs (tolerances
     below), kernel, plain and library times, and the least time the card
-    could take.
+    could take. The K4 row's `also` splits one backward call's device time
+    at its training shape into its pre-pass, dq and dkdv kernels
+    (torch.profiler, measured after the build, before the model phases).
 11. Prints one JSON line with every kernel, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -63,6 +67,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -853,10 +858,55 @@ class AttentionCase:
         return f"({self.b}, {self.n}, {self.h}, {self.dh}), lens {self.lens_list}{extra}"
 
 
-def attention_kernel_phase(name, source, replaces, launches, backward, cases, iters=24) -> dict:
+BWD_PARTS = (("pre-pass", "attention_bwd_prep_kernel"), ("dq", "attention_bwd_dq_kernel"),
+             ("dkdv", "attention_bwd_dkdv_kernel"))
+
+
+def backward_split(fn, calls: int = 4) -> dict:
+    """Device ms of each of the three kernels of one backward call `fn()`:
+    the mean over `calls` calls in one torch.profiler run (as
+    `profile_run` reads it), and their sum. The calls queue behind ~10 ms
+    of device sleep: a profiler run can miss the kernels launched as it starts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    split = {}
+    for part, frag in BWD_PARTS:
+        found = [e for e in kernels if frag in e.key]
+        launched = sum(e.count for e in found)
+        split[part] = sum(e.self_device_time_total for e in found) / max(launched, 1) / 1e3
+    split["total"] = sum(split.values())
+    if min(split.values()) <= 0:
+        log(f"[backward split] torch.profiler saw no device time of some kernel: split not "
+            f"measured ({len(kernels)} device kernels seen: {[e.key[:48] for e in kernels[:4]]})")
+        return None
+    log(f"[backward split] mean of {calls} calls under torch.profiler: " +
+        ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
+    return split
+
+
+def backward_split_phase(mods):
+    """K4's device time by kernel at the training shape T, measured before
+    the model phases: in a profiled window this short late in the run the profiler
+    saw no device kernel at all."""
+    case = AttentionCase(mods, "rope", TRAIN_CLIPS, TRAIN_N, (TRAIN_N,) * TRAIN_CLIPS,
+                         torch.Generator(device="cuda").manual_seed(7), rope_heads=16)
+    out, stats = case.fwd(return_stats=True)
+    return backward_split(lambda: case.bwd(out, stats))
+
+
+def attention_kernel_phase(name, source, replaces, launches, backward, cases, iters=24,
+                           split=None) -> dict:
     """Kernel vs plain at every case (the first is the path's shape and gives
     the row's numbers; the others are checked, and timed when `timed`), then
-    the times. cases: [(tag, make_case, timed)]."""
+    the times; `split` (device ms by backward kernel) goes into the row's `also`.
+    cases: [(tag, make_case, timed)]."""
     err, numbers = 0.0, {}
     for tag, make_case, timed in cases:
         case = make_case()
@@ -898,13 +948,16 @@ def attention_kernel_phase(name, source, replaces, launches, backward, cases, it
     first, *rest = numbers.items()
     main = first[1]
     also = {tag: {k: v for k, v in d.items() if k not in ("ops_s", "bytes_s")} for tag, d in rest}
+    if split is not None:
+        also["device_ms_by_kernel"] = split
     return kernel_row(name, source, replaces, launches, err, main["ms"], main["plain_ms"],
                       main["ops_s"], main["bytes_s"], main["library_ms"], also or None)
 
 
-def attention_rows(mods, paths: dict, text_len: int) -> list:
+def attention_rows(mods, paths: dict, text_len: int, k4_split) -> list:
     """The rows of the ten attention kernels. paths: {counter name: {path:
-    launches}}; text_len: Nt of the MMDiT training batch."""
+    launches}}; text_len: Nt of the MMDiT training batch; k4_split: K4's
+    device ms by kernel (`backward_split_phase`), or None."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     h = 16
 
@@ -947,7 +1000,7 @@ def attention_rows(mods, paths: dict, text_len: int) -> list:
     rows.append(attention_kernel_phase(
         "rope_attention_bwd", "rope_attention", f"{PALLAS}:567", paths["rope_attention_bwd"], True,
         [("training", case("rope", *train_b, rope_heads=h), True),
-         ("ragged", case("rope", *ragged_b, rope_heads=h), False)]))
+         ("ragged", case("rope", *ragged_b, rope_heads=h), False)], split=k4_split))
     rows.append(attention_kernel_phase(
         "partial_rope_attention_bwd", "rope_attention", f"{PALLAS}:906",
         paths["partial_rope_attention_bwd"], True,
@@ -1022,6 +1075,31 @@ def adaln_bwd_phase(ga, launches: dict) -> dict:
                       None)
 
 
+def build_report(libs: dict, ra) -> None:
+    """Each kernel's registers, spills and static shared memory from ptxas's
+    report in the build logs, and the backward kernels' dynamic shared
+    memory from the library."""
+    for name, path in libs.items():
+        build_log = path.with_name(path.name + ".log")
+        kernel = None
+        for line in build_log.read_text().splitlines() if build_log.exists() else []:
+            found = re.search(r"Function properties for (\S+)", line)
+            if found:
+                mangled = found.group(1).split("_cu_", 1)[-1]  # past the source's name
+                parts = re.findall(r"(attention_[a-z_]*kernel|gated_adaln[a-z_]*|ILi\d+E|"
+                                   r"RopeAttn|MaskedAttn|JointAttn)", mangled)
+                kernel = " ".join(p.strip("ILiE") if p.startswith("ILi") else p
+                                  for p in parts) or mangled[:60]
+            elif kernel and "spill" in line:
+                log(f"[build] {name}: {kernel}: {line.strip()}")
+            elif kernel and "registers" in line:
+                log(f"[build] {name}: {kernel}: {line.split(':', 1)[-1].strip()}")
+    for dh in (64, 128):
+        log(f"[build] backward dynamic shared memory at dh {dh}: dq kernel "
+            f"{ra._lib().attention_bwd_smem(dh, 0)} bytes, dkdv kernel "
+            f"{ra._lib().attention_bwd_smem(dh, 1)} bytes")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1042,11 +1120,7 @@ def main() -> int:
 
     libs = _build.build()
     log(f"[build] {len(libs)} kernel libraries built in {time.perf_counter() - t_start:.1f} s")
-    for path in libs.values():
-        build_log = path.with_name(path.name + ".log")
-        for line in build_log.read_text().splitlines() if build_log.exists() else []:
-            if "registers" in line or "spill" in line:
-                log(f"[build] {path.name}: {line.strip()}")
+    build_report(libs, ra)
     register_counters(ra, ga, ka)
     swaps = plain_swaps(ra, ga, ka)
     byte_model = lambda cfg: dataclasses.replace(cfg, tokenizer="byte", vocab_size=256)  # noqa: E731
@@ -1059,6 +1133,10 @@ def main() -> int:
         log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s "
             f"({time.perf_counter() - t_start:.0f} s since the start)")
         return result
+
+    # K4's device time by kernel, for its row (launches here count on no path)
+    k4_split = phase("backward split", lambda: backward_split_phase((ra, ka)))
+    reset_counts()
 
     # F5TTS_v1_Base: K1/K2 in synthesis, K1/K2/K4/K5 in training
     with torch.inference_mode():
@@ -1103,7 +1181,7 @@ def main() -> int:
     missing = [name for name, by_path in paths.items() if not by_path]
     if missing:
         raise AssertionError(f"no path launched {missing}")
-    rows = phase("attention kernels", lambda: attention_rows((ra, ka), paths, text_len))
+    rows = phase("attention kernels", lambda: attention_rows((ra, ka), paths, text_len, k4_split))
     with torch.inference_mode():
         rows.append(adaln_phase(ga, paths["gated_adaln"]))
     rows.append(adaln_bwd_phase(ga, paths["gated_adaln_bwd"]))

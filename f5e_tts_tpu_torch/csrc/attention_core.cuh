@@ -51,8 +51,8 @@
 // q/k/v are read through batch and row strides, so the column slices of a
 // fused to_qkv projection (row stride 3*H*dh) go in without a copy; the
 // head stride must be dh and the last axis contiguous.
-// This is the first, simple version: mma.sync rather than wgmma, no TMA, no
-// software pipelining of the tile loads.
+// The forward is still the first, simple version: mma.sync rather than
+// wgmma, no TMA, no software pipelining of the tile loads.
 //
 // Backward. From q, k, v, the output cotangent g = dO, the forward's output
 // O and its row statistics (m, linv) it forms, per (batch, head),
@@ -79,26 +79,63 @@
 // instantiation forms delta this way.
 // Accumulation across the sequence: the TPU kernels add dK and dV over
 // q-blocks on their sequential grid axis. Blocks here run in no order, so
-// the backward is two kernels and uses no atomics (two runs give identical
-// gradients):
-//   1. dq kernel, one block per (q-tile of 64 rows, head, batch): computes
-//      delta for its rows (written out for kernel 2), keeps q' and dO as A
-//      fragments in registers, streams the live K/V tiles and accumulates dQ
-//      in registers.
-//   2. dkdv kernel, one block per (key tile of 64, head, batch): keeps its
-//      K and V tiles in shared memory, streams every q-tile (q', q'^T, dO,
-//      dO^T, m, linv, delta) and accumulates dK and dV in registers. A dead
-//      key tile gets dK = dV = 0, exactly what its zero probabilities give.
-// Both recompute S and dP (7 products of N x N x dh per head against the 5
-// of the math), and the RoPE adjoint of dQ and dK is done in registers: the
-// element at column c + dh/2 sits in the same thread's fragment dh/16 tiles
-// on. Bound on this card: operations (10 * B * H * N^2 * dh flops at
-// ~1,000 flops per byte at the training shapes). Simple first version, like
-// the forward: mma.sync, transposed tiles stored through shared memory, no
-// TMA.
+// the backward uses no atomics (two runs give identical gradients) and is
+// three kernels on one stream:
+//   0. pre-pass, one thread per 8 + 8 values of a (row, head): rotates q and
+//      k once per call (the TPU kernel rotates K once per head into VMEM)
+//      into head-major scratch (B, H, N, dh), q' with sm_scale folded in,
+//      with the forward's fp32 arithmetic, so the products see the
+//      forward's operands; and delta, fp32 (B, H, N). Without RoPE only q'
+//      is written and k is read in place. Memory-bound: ~230 MB at
+//      (8, 2304, 16, 64).
+//   1. dq kernel, one block per (192 query rows at dh 64, 128 at dh 128;
+//      head, batch): three (two) consumer warpgroups of 64 rows and one
+//      producer warp. The producer loads the block's q' and dO tiles once
+//      and streams the live (K', V) tiles of 64 keys through a ring of 3
+//      stages in shared memory with TMA, each stage under a full and an
+//      empty mbarrier. S = q'.K'^T and dP = dO.V^T run on wgmma with both
+//      operands K-major in shared memory, committed as two groups, so
+//      P = exp(S - m) * linv is formed while dP is still on the tensor
+//      cores. dS = P (dP - delta) is masked with selects on the column's
+//      offset in the tile: written as a per-key test with an early return,
+//      the mask compiled into a branch around every exp, and the
+//      warpgroups waited on each in turn (PERF.md, Findings). dS goes back into
+//      wgmma as a register A operand for dQ += dS.K', K' read MN-major
+//      (transposed by the descriptor). Dead key tiles are skipped (prefix:
+//      the loop ends at kv_len; joint: the gap's tiles).
+//   2. dkdv kernel, one block per (128 keys, head, batch) at dh 64 (64 keys
+//      and one warpgroup at dh 128, for the registers): K' and V tiles stay
+//      in shared memory; q', dO and each q-tile's m, linv and delta stream
+//      through the ring. S^T = K'.q'^T and dP^T = V.dO^T are K-major
+//      products; dV += P^T.dO and dK += dS^T.q' take P^T and dS^T from
+//      registers and read dO and q' MN-major, so no tile is ever transposed
+//      by hand. A block whose key tiles are all dead writes dK = dV = 0,
+//      exactly what their zero probabilities give.
+// TMA maps are 3-D, [64 rows][64 columns] boxes with 128-byte swizzle (a
+// dh = 64 bf16 row is 128 bytes; dh = 128 takes two boxes side by side),
+// encoded on the host at each launch: scratch as (dh, N, B*H), operands in
+// place as (H*dh, N, B) through their strides, so the column slices of a
+// fused to_qkv (row stride 3*H*dh) need no copy. Rows past N come in as 0;
+// p = 0 there through linv = 0 (rows) and the column rules (keys). The
+// RoPE adjoint and sm_scale are applied in registers at the end: the
+// element at column c + dh/2 sits in the same thread's accumulator dh/16
+// n8-blocks on (the wgmma accumulator layout repeats mma.sync's per warp).
+// Both kernels recompute S and dP: 7 products of N x N x dh per head
+// against the 5 of the math, the price of no atomics. Bound on this card:
+// operations (10 * B * H * N^2 * dh flops at ~1,000 flops per byte at the
+// training shapes). What holds the kernels above it is latency, not the
+// tensor cores' rate: a warpgroup's loop is serial (products, wait,
+// softmax, products, wait), and at 120-165 registers a thread an SM holds
+// one block, so two or three warpgroups, too few to cover one another's
+// softmax: without it (and then at two blocks an SM) the dq kernel's three
+// products come close to the card's bf16 peak. Turn-taking of the
+// warpgroups at the tensor cores (named barriers) gained little, and
+// deferring a group's wait to the next tile made ptxas serialize the wgmma
+// chain (PERF.md, Findings).
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -170,13 +207,10 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
 
 // Rows [row0, row0 + 64) of one head of q or k into `dst`, rotated in fp32
 // when `rope`, multiplied by `scale`, rounded to bf16. Rows past n are zero.
-// When `dst_t` is given, the same bf16 values also go there transposed:
-// dst_t[d][row].
 template <int DH>
-__device__ __forceinline__ void load_rotated(bf16 (*dst)[DH + 8], bf16 (*dst_t)[kBlockK + 8],
-                                             const bf16* src, long long row_stride, int row0,
-                                             int n, bool rope, const float* cos,
-                                             const float* sin, float scale) {
+__device__ __forceinline__ void load_rotated(bf16 (*dst)[DH + 8], const bf16* src,
+                                             long long row_stride, int row0, int n, bool rope,
+                                             const float* cos, const float* sin, float scale) {
   constexpr int kHalf = DH / 2;
   constexpr int kChunks = kHalf / 8;  // 8-value chunks in each half of a row
   for (int idx = threadIdx.x; idx < kBlockK * kChunks; idx += kThreads) {
@@ -224,15 +258,6 @@ __device__ __forceinline__ void load_rotated(bf16 (*dst)[DH + 8], bf16 (*dst_t)[
     pb.w = pack_bf16x2(hi[6], hi[7]);
     *reinterpret_cast<uint4*>(&dst[r][c]) = pa;
     *reinterpret_cast<uint4*>(&dst[r][c + kHalf]) = pb;
-    if (dst_t != nullptr) {
-      const bf16* ta = reinterpret_cast<const bf16*>(&pa);
-      const bf16* tb = reinterpret_cast<const bf16*>(&pb);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        dst_t[c + i][r] = ta[i];
-        dst_t[c + i + kHalf][r] = tb[i];
-      }
-    }
   }
 }
 
@@ -345,7 +370,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
   const bf16* vb = v + b * v_bs + static_cast<long long>(h) * DH;
 
   // Q: rotate, fold in sm_scale, round to bf16, keep as A fragments.
-  load_rotated<DH>(ks, nullptr, qb, q_rs, q0, n, rope, cos, sin, sm_scale);
+  load_rotated<DH>(ks, qb, q_rs, q0, n, rope, cos, sin, sm_scale);
   __syncthreads();
   uint32_t qf[DH / 16][4];
   const int wr = warp * 16;
@@ -364,7 +389,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
   const int kv_end = (MASK == kMaskPrefix && len > 0) ? min(len, n) : n;
   for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
     if (MASK != kMaskPrefix && tile_dead<MASK>(k0, len, n_audio, n)) continue;
-    load_rotated<DH>(ks, nullptr, kb, k_rs, k0, n, rope, cos, sin, 1.f);
+    load_rotated<DH>(ks, kb, k_rs, k0, n, rope, cos, sin, 1.f);
     load_v_transposed<DH>(vts, vb, v_rs, k0, n);
     __syncthreads();
 
@@ -456,120 +481,482 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
   }
 }
 
-// Scores of masked keys take the finite mask value, keys past n are no keys
-// at all; then p = exp(s - m) * linv for a row with statistics (m, linv).
-__device__ __forceinline__ float masked_prob(float s, int key, bool valid, int n, float m,
-                                             float linv) {
-  if (key >= n) return 0.f;
-  if (!valid) s = kMaskValue;
-  return __expf(s - m) * linv;
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdRows = 64;        // rows of a tile: a warpgroup's M, one step of a stream
+constexpr int kSubBytes = 64 * 64 * 2;  // a [64 rows][64 columns] bf16 sub-tile, 128-byte rows
+constexpr int kStages = 3;          // depth of the ring of streamed tiles
+constexpr int kPrepThreads = 256;
+constexpr long long kWaitCycles = 20000000000LL;  // ~10 s: a wait this long is a lost arrival
+
+// A [64][DH] tile: DH / 64 sub-tiles side by side.
+template <int DH>
+__host__ __device__ constexpr int tile_bytes() {
+  return kBwdRows * DH * 2;
+}
+// Consumer warpgroups of a dq block (64 query rows each): three at dh 64
+// (one block of 416 threads at <= 157 registers fills an SM), two at dh 128.
+template <int DH>
+__host__ __device__ constexpr int dq_groups() {
+  return DH == 64 ? 3 : 2;
+}
+// Of a dk/dv block (64 keys each); at dh 128 one, for the registers.
+template <int DH>
+__host__ __device__ constexpr int dkdv_groups() {
+  return DH == 64 ? 2 : 1;
 }
 
-// Backward, kernel 1: dQ of one q-tile of one head, and delta for its rows.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Arrive and add `bytes` to the transactions the current phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait of ~10 s
+// means an arrival was lost: trap rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long start = 0;
+  for (int spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin == 0) {
+      start = clock64();
+    } else if ((spin & 1023) == 0 && clock64() - start > kWaitCycles) {
+      __trap();
+    }
+  }
+}
+
+// Box (c0, c1, c2) of a 3-D tensor map into shared memory at `dst`; the
+// bytes count towards barrier `bar`. Elements outside the tensor read as 0.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Rows [row, row + 64) of head h, batch b of one operand, as DH / 64
+// swizzled [64][64] sub-tiles at `dst`. A head-major map is over the
+// scratch (B, H, N, DH) as (DH, N, B*H); an in-place one over (B, N, H, DH)
+// through its strides as (H*DH, N, B).
+template <int DH>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap& map, bool head_major,
+                                          uint32_t bar, int row, int h, int b, int heads) {
+#pragma unroll
+  for (int s = 0; s < DH / 64; ++s) {
+    tma_load_3d(dst + s * kSubBytes, &map, bar, (head_major ? 0 : h * DH) + s * 64, row,
+                head_major ? b * heads + h : b);
+  }
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 128B.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ULL << 62);
+}
+
+// A [64][DH] tile as a K-major operand: its rows are M (or N), columns
+// [16kk, 16kk + 16) are K; 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  return smem_desc(tile + (kk / 4) * kSubBytes + (kk % 4) * 32, 16, 1024);
+}
+
+// A [64][DH] tile as an MN-major operand (read transposed): rows
+// [16kk, 16kk + 16) are K, its DH columns are N, 64 of them per sub-tile.
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  return smem_desc(tile + kk * 16 * 128, kSubBytes, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of wgmma are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of registers that an asynchronous
+// wgmma reads or writes across the wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+  }
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+  }
+}
+
+// d (64 x 64 fp32) += A (64 x 16, K-major in shared memory, descriptor da) *
+// B (16 x 64, K-major in shared memory, descriptor db).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64 fp32) += A (64 x 16 bf16, registers a: the m16n8k16 A fragment of
+// each warp's 16 rows) * B (16 x 64, MN-major in shared memory, descriptor db).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128 fp32) += A (64 x 16 bf16, registers a: the m16n8k16 A fragment of
+// each warp's 16 rows) * B (16 x 128, MN-major in shared memory, descriptor db).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DH>
+__device__ __forceinline__ void wgmma_rs(float (&d)[DH / 8][4], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (DH == 64) {
+    wgmma_rs_n64(d, a, db);
+  } else {
+    wgmma_rs_n128(d, a, db);
+  }
+}
+
+// s = A1.B1^T and d = A2.B2^T, 64 x 64 each over depth DH, every operand a
+// [64][DH] tile in shared memory read K-major: issued and committed as two
+// groups, s's first, not waited for.
+template <int DH>
+__device__ __forceinline__ void issue_pair(float (&s)[8][4], float (&d)[8][4], uint32_t a1,
+                                           uint32_t b1, uint32_t a2, uint32_t b2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = d[j][e] = 0.f;
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss_n64(s, desc_kmajor(a1, kk), desc_kmajor(b1, kk));
+  wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss_n64(d, desc_kmajor(a2, kk), desc_kmajor(b2, kk));
+  wgmma_commit();
+}
+
+// acc += A.B for A 64 x 64 as register fragments and B the [64][DH] tile at
+// `b` read MN-major (its 64 rows are the depth); issued, not committed.
+template <int DH>
+__device__ __forceinline__ void issue_rs(float (&acc)[DH / 8][4], const uint32_t (&a)[4][4],
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<DH>(acc, a[kk], desc_mnmajor(b, kk));
+}
+
+// Backward, pre-pass: q' = bf16(sm_scale * rot(q)) and, with RoPE compiled
+// in, k' = bf16(rot(k)) into head-major scratch (B, H, N, DH), with the
+// forward's arithmetic (load_rotated); delta = rowsum(dO * O), fp32
+// (B, H, N). A thread takes 8 values of each half of one (row, head); the
+// DH / 16 threads of a (row, head) are adjacent lanes.
 template <int DH, class V>
-__global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const bf16* __restrict__ o, long long q_bs, long long q_rs,
-    long long k_bs, long long k_rs, long long v_bs, long long v_rs, long long g_bs,
-    long long g_rs, long long o_bs, long long o_rs, const int* __restrict__ lens, int n_audio,
-    const float* __restrict__ cos, const float* __restrict__ sin,
-    const float* __restrict__ row_max, const float* __restrict__ row_linv,
-    float* __restrict__ delta, bf16* __restrict__ dq, int n, int heads, int rope_heads,
-    float sm_scale) {
+__global__ void __launch_bounds__(kPrepThreads) attention_bwd_prep_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ g,
+    const bf16* __restrict__ o, long long q_bs, long long q_rs, long long k_bs, long long k_rs,
+    long long g_bs, long long g_rs, long long o_bs, long long o_rs,
+    const float* __restrict__ cos, const float* __restrict__ sin, bf16* __restrict__ qs,
+    bf16* __restrict__ ks, float* __restrict__ delta, int batch, int n, int heads,
+    int rope_heads, float sm_scale) {
+  constexpr bool ROPE = V::kRope;
+  constexpr int kHalf = DH / 2;
+  constexpr int kChunks = kHalf / 8;
+  const long long idx = static_cast<long long>(blockIdx.x) * kPrepThreads + threadIdx.x;
+  const bool live = idx < static_cast<long long>(batch) * n * heads * kChunks;
+  const int c = static_cast<int>(idx % kChunks) * 8;
+  const long long rest = idx / kChunks;
+  const int h = static_cast<int>(rest % heads);
+  const int pos = static_cast<int>((rest / heads) % n);
+  const int b = static_cast<int>(rest / (static_cast<long long>(heads) * n));
+  const long long hd = static_cast<long long>(h) * DH + c;
+  const long long dst = ((static_cast<long long>(b) * heads + h) * n + pos) * DH + c;
+  const bool rope = ROPE && h < rope_heads;
+
+  auto rotate = [&](bf16* out, const bf16* src, float scale) {
+    const uint4 a = *reinterpret_cast<const uint4*>(src);
+    const uint4 bb = *reinterpret_cast<const uint4*>(src + kHalf);
+    const bf16* ea = reinterpret_cast<const bf16*>(&a);
+    const bf16* eb = reinterpret_cast<const bf16*>(&bb);
+    float lo[8], hi[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      lo[i] = __bfloat162float(ea[i]);
+      hi[i] = __bfloat162float(eb[i]);
+    }
+    if (rope) {
+      const float* cr = cos + static_cast<long long>(pos) * DH;
+      const float* sr = sin + static_cast<long long>(pos) * DH;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float x1 = lo[i], x2 = hi[i];
+        lo[i] = x1 * __ldg(cr + c + i) - x2 * __ldg(sr + c + i);
+        hi[i] = x2 * __ldg(cr + c + i + kHalf) + x1 * __ldg(sr + c + i + kHalf);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      lo[i] *= scale;
+      hi[i] *= scale;
+    }
+    uint4 pa, pb;
+    pa.x = pack_bf16x2(lo[0], lo[1]);
+    pa.y = pack_bf16x2(lo[2], lo[3]);
+    pa.z = pack_bf16x2(lo[4], lo[5]);
+    pa.w = pack_bf16x2(lo[6], lo[7]);
+    pb.x = pack_bf16x2(hi[0], hi[1]);
+    pb.y = pack_bf16x2(hi[2], hi[3]);
+    pb.z = pack_bf16x2(hi[4], hi[5]);
+    pb.w = pack_bf16x2(hi[6], hi[7]);
+    *reinterpret_cast<uint4*>(out) = pa;
+    *reinterpret_cast<uint4*>(out + kHalf) = pb;
+  };
+
+  float acc = 0.f;
+  if (live) {
+    rotate(qs + dst, q + b * q_bs + pos * q_rs + hd, sm_scale);
+    if (ROPE) rotate(ks + dst, k + b * k_bs + pos * k_rs + hd, 1.f);
+    const bf16* gp = g + b * g_bs + pos * g_rs + hd;
+    const bf16* op = o + b * o_bs + pos * o_rs + hd;
+#pragma unroll
+    for (int half = 0; half < DH; half += kHalf) {
+      const uint4 gv = *reinterpret_cast<const uint4*>(gp + half);
+      const uint4 ov = *reinterpret_cast<const uint4*>(op + half);
+      const bf16* ge = reinterpret_cast<const bf16*>(&gv);
+      const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc += __bfloat162float(ge[i]) * __bfloat162float(oe[i]);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < kChunks; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (live && c == 0) delta[(static_cast<long long>(b) * heads + h) * n + pos] = acc;
+}
+
+// Backward, kernel 1: dQ of 64 * dq_groups query rows of one head. The last
+// warp loads the block's q' and dO tiles once and streams the live (K', V)
+// tiles through a ring of kStages; each consumer warpgroup owns 64 rows.
+template <int DH, class V>
+__global__ void __launch_bounds__(dq_groups<DH>() * 128 + 32, 1) attention_bwd_dq_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
+    const int* __restrict__ lens, int n_audio, const float* __restrict__ cos,
+    const float* __restrict__ sin, const float* __restrict__ row_max,
+    const float* __restrict__ row_linv, const float* __restrict__ delta, bf16* __restrict__ dq,
+    int n, int heads, int rope_heads, float sm_scale) {
   constexpr bool ROPE = V::kRope;
   constexpr int MASK = V::kMask;
+  constexpr int WG = dq_groups<DH>();
+  constexpr int TILE = tile_bytes<DH>();
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16(*ks)[DH + 8] = reinterpret_cast<bf16(*)[DH + 8]>(smem);            // K tile (rotated)
-  bf16(*vs)[DH + 8] = ks + kBlockK;                                        // V tile
-  bf16(*kts)[kBlockK + 8] = reinterpret_cast<bf16(*)[kBlockK + 8]>(vs + kBlockK);  // K^T
-  float* delta_s = reinterpret_cast<float*>(kts + DH);
+  const uint32_t sq = (smem_u32(smem) + 1023) & ~1023u;  // q' tiles, one per warpgroup
+  const uint32_t sg = sq + WG * TILE;                     // dO tiles
+  const uint32_t ring = sg + WG * TILE;                   // kStages x (K' tile, V tile)
+  const uint32_t bars = ring + kStages * 2 * TILE;        // q'/dO, full[kStages], empty[kStages]
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
 
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = blockIdx.x * kBwdRows * WG;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int len = lens[b];
+  const int kv_end = (MASK == kMaskPrefix && len > 0) ? min(len, n) : n;
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), WG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == WG * 4) {  // producer
+    if (lane == 0) {
+      mbar_expect_tx(bars, 2 * WG * TILE);
+      for (int w = 0; w < WG; ++w) {
+        load_tile<DH>(sq + w * TILE, tm_q, true, bars, q0 + w * kBwdRows, h, b, heads);
+        load_tile<DH>(sg + w * TILE, tm_g, false, bars, q0 + w * kBwdRows, h, b, heads);
+      }
+      int it = 0;
+      for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
+        if (MASK != kMaskPrefix && tile_dead<MASK>(k0, len, n_audio, n)) continue;
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(empty(s), (it / kStages - 1) & 1);
+        const uint32_t dst = ring + s * 2 * TILE;
+        mbar_expect_tx(full(s), 2 * TILE);
+        load_tile<DH>(dst, tm_k, ROPE, full(s), k0, h, b, heads);
+        load_tile<DH>(dst + TILE, tm_v, false, full(s), k0, h, b, heads);
+        ++it;
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  const int wr = (warp & 3) * 16;
   const int g = lane >> 2;
   const int t = lane & 3;
   const bool rope = ROPE && h < rope_heads;
-  const int len = lens[b];
-  const int wr = warp * 16;
-
-  const long long hd = static_cast<long long>(h) * DH;
-  const bf16* qb = q + b * q_bs + hd;
-  const bf16* kb = k + b * k_bs + hd;
-  const bf16* vb = v + b * v_bs + hd;
-  const bf16* gb = dout + b * g_bs + hd;
-  const bf16* ob = o + b * o_bs + hd;
-
-  // delta = rowsum(dO * O) for this warp's 16 rows, lanes across dh
-  for (int i = 0; i < 16; ++i) {
-    const int row = q0 + wr + i;
-    float acc = 0.f;
-    if (row < n) {
-      for (int c = lane; c < DH; c += 32) {
-        acc += __bfloat162float(gb[row * g_rs + c]) * __bfloat162float(ob[row * o_rs + c]);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      delta_s[wr + i] = acc;
-      if (row < n) delta[(static_cast<long long>(b) * heads + h) * n + row] = acc;
-    }
-  }
-  // q' and dO as A fragments
-  load_rotated<DH>(ks, nullptr, qb, q_rs, q0, n, rope, cos, sin, sm_scale);
-  load_rotated<DH>(vs, nullptr, gb, g_rs, q0, n, false, cos, sin, 1.f);
-  __syncthreads();
-  uint32_t qf[DH / 16][4], gf[DH / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    load_a(qf[kk], ks, wr, kk * 16);
-    load_a(gf[kk], vs, wr, kk * 16);
-  }
-  const int r0 = q0 + wr + g;
+  const int r0 = q0 + wg * kBwdRows + wr + g;
   const int r1 = r0 + 8;
   const long long stat = (static_cast<long long>(b) * heads + h) * n;
   const float mx0 = r0 < n ? row_max[stat + r0] : 0.f, mx1 = r1 < n ? row_max[stat + r1] : 0.f;
   const float li0 = r0 < n ? row_linv[stat + r0] : 0.f, li1 = r1 < n ? row_linv[stat + r1] : 0.f;
-  const float dl0 = delta_s[wr + g], dl1 = delta_s[wr + g + 8];
-  __syncthreads();
+  const float dl0 = r0 < n ? delta[stat + r0] : 0.f, dl1 = r1 < n ? delta[stat + r1] : 0.f;
+  const uint32_t qt = sq + wg * TILE, gt = sg + wg * TILE;
 
   float acc[DH / 8][4];
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  mbar_wait(bars, 0);
+  __syncwarp();
 
-  const int kv_end = (MASK == kMaskPrefix && len > 0) ? min(len, n) : n;
+  int it = 0;
   for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
     if (MASK != kMaskPrefix && tile_dead<MASK>(k0, len, n_audio, n)) continue;
-    load_rotated<DH>(ks, kts, kb, k_rs, k0, n, rope, cos, sin, 1.f);
-    load_rotated<DH>(vs, nullptr, vb, v_rs, k0, n, false, cos, sin, 1.f);
-    __syncthreads();
+    const int s = it % kStages;
+    mbar_wait(full(s), (it / kStages) & 1);
+    __syncwarp();
+    const uint32_t kt = ring + s * 2 * TILE, vt = kt + TILE;
 
-    float s[kBlockK / 8][4], dp[kBlockK / 8][4];
+    // S = q' K'^T, then dP = dO V^T: 64 rows x 64 keys per warpgroup, two
+    // groups, so P = exp(S - m) * linv is formed while dP is still running
+    float sc[kBlockK / 8][4], dp[kBlockK / 8][4];
+    issue_pair<DH>(sc, dp, qt, kt, gt, vt);
+    wgmma_wait<1>();
+    fence_regs(sc);
 #pragma unroll
     for (int j = 0; j < kBlockK / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      for (int e = 0; e < 4; ++e)
+        sc[j][e] = __expf(sc[j][e] - (e < 2 ? mx0 : mx1)) * (e < 2 ? li0 : li1);  // P
     }
-    mma_rows(s, qf, ks);
-    mma_rows(dp, gf, vs);
+    wgmma_wait<0>();
+    fence_regs(dp);
+    // dS = P (dP - delta) at the valid keys, 0 elsewhere: column c of the
+    // tile is key k0 + c; selects, not a branch per element
+    const int c_n = n - k0, c_len = len - k0, c_audio = n_audio - k0;
 #pragma unroll
     for (int j = 0; j < kBlockK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const bool valid = col_valid<MASK>(key, len, n_audio);
-        const float p = e < 2 ? masked_prob(s[j][e], key, valid, n, mx0, li0)
-                              : masked_prob(s[j][e], key, valid, n, mx1, li1);
-        s[j][e] = valid ? p * (dp[j][e] - (e < 2 ? dl0 : dl1)) : 0.f;  // dS
+        const int c = j * 8 + 2 * t + (e & 1);
+        const bool valid =
+            c < c_n && (MASK == kMaskPrefix ? c < c_len : (c < c_len || c >= c_audio));
+        sc[j][e] = valid ? sc[j][e] * (dp[j][e] - (e < 2 ? dl0 : dl1)) : 0.f;
       }
     }
+    // dQ += dS K': dS as register A fragments, K' read transposed
     uint32_t da[kBlockK / 16][4];
-    acc_to_a(da, s);
-    mma_rows(acc, da, kts);
-    __syncthreads();
+    acc_to_a(da, sc);
+    wgmma_fence();
+    issue_rs<DH>(acc, da, kt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(da);
+    mbar_arrive(empty(s));
+    ++it;
   }
 
 #pragma unroll
@@ -578,7 +965,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(
     for (int e = 0; e < 4; ++e) acc[j][e] *= sm_scale;
   }
   if (rope) rope_adjoint<DH>(acc, r0, r1, n, cos, sin);
-  bf16* d0 = dq + (static_cast<long long>(b) * n + r0) * heads * DH + hd;
+  bf16* d0 = dq + (static_cast<long long>(b) * n + r0) * heads * DH + static_cast<long long>(h) * DH;
   bf16* d1 = d0 + 8LL * heads * DH;
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) {
@@ -588,41 +975,97 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(
   }
 }
 
-// Backward, kernel 2: dK and dV of one key tile of one head.
+// Backward, kernel 2: dK and dV of 64 * dkdv_groups keys of one head. The
+// last warp loads the block's K' and V tiles once and streams every q-tile
+// (q', dO, and the rows' m, linv, delta) through a ring of kStages; each
+// consumer warpgroup owns 64 keys.
 template <int DH, class V>
-__global__ void __launch_bounds__(kThreads) attention_bwd_dkdv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, long long q_bs, long long q_rs, long long k_bs,
-    long long k_rs, long long v_bs, long long v_rs, long long g_bs, long long g_rs,
+__global__ void __launch_bounds__(dkdv_groups<DH>() * 128 + 32, 1) attention_bwd_dkdv_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
     const int* __restrict__ lens, int n_audio, const float* __restrict__ cos,
     const float* __restrict__ sin, const float* __restrict__ row_max,
-    const float* __restrict__ row_linv, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int n, int heads, int rope_heads,
-    float sm_scale) {
+    const float* __restrict__ row_linv, const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int n, int heads, int rope_heads) {
   constexpr bool ROPE = V::kRope;
   constexpr int MASK = V::kMask;
+  constexpr int WG = dkdv_groups<DH>();
+  constexpr int TILE = tile_bytes<DH>();
+  constexpr int STAGE = 2 * TILE + 1024;  // q' tile, dO tile, m / linv / delta of its 64 rows
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16(*ks)[DH + 8] = reinterpret_cast<bf16(*)[DH + 8]>(smem);  // K tile (rotated)
-  bf16(*vs)[DH + 8] = ks + kBlockK;                              // V tile
-  bf16(*qs)[DH + 8] = vs + kBlockK;                              // q' tile
-  bf16(*gs)[DH + 8] = qs + kBlockQ;                              // dO tile
-  bf16(*qts)[kBlockQ + 8] = reinterpret_cast<bf16(*)[kBlockQ + 8]>(gs + kBlockQ);  // q'^T
-  bf16(*gts)[kBlockQ + 8] = qts + DH;                                              // dO^T
-  float* m_s = reinterpret_cast<float*>(gts + DH);
-  float* l_s = m_s + kBlockQ;
-  float* d_s = l_s + kBlockQ;
+  const uint32_t sk = (smem_u32(smem) + 1023) & ~1023u;  // K' tiles, one per warpgroup
+  const uint32_t sv = sk + WG * TILE;                     // V tiles
+  const uint32_t ring = sv + WG * TILE;                   // kStages x STAGE
+  const uint32_t bars = ring + kStages * STAGE;           // K'/V, full[kStages], empty[kStages]
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  auto stats = [&](int s) {
+    return reinterpret_cast<float*>(smem + (ring + s * STAGE + 2 * TILE - smem_u32(smem)));
+  };
 
-  const int k0 = blockIdx.x * kBlockK;
+  const int k0 = blockIdx.x * kBwdRows * WG;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int len = lens[b];
+  // a block whose key tiles (those < n) are all dead gets dK = dV = 0,
+  // exactly what their zero probabilities give
+  bool dead = true;
+#pragma unroll
+  for (int w = 0; w < WG; ++w) {
+    const int kt = k0 + w * kBwdRows;
+    if (kt < n && !tile_dead<MASK>(kt, len, n_audio, n)) dead = false;
+  }
+  if (threadIdx.x == 0 && !dead) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 32);
+      mbar_init(empty(s), WG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == WG * 4) {  // producer
+    if (dead) return;
+    const long long stat = (static_cast<long long>(b) * heads + h) * n;
+    if (lane == 0) {
+      mbar_expect_tx(bars, 2 * WG * TILE);
+      for (int w = 0; w < WG; ++w) {
+        load_tile<DH>(sk + w * TILE, tm_k, ROPE, bars, k0 + w * kBwdRows, h, b, heads);
+        load_tile<DH>(sv + w * TILE, tm_v, false, bars, k0 + w * kBwdRows, h, b, heads);
+      }
+    }
+    int it = 0;
+    for (int q0 = 0; q0 < n; q0 += kBwdRows, ++it) {
+      const int s = it % kStages;
+      if (it >= kStages) mbar_wait(empty(s), (it / kStages - 1) & 1);
+      float* st = stats(s);
+      for (int i = lane; i < kBwdRows; i += 32) {
+        const int row = q0 + i;
+        st[i] = row < n ? row_max[stat + row] : 0.f;
+        st[kBwdRows + i] = row < n ? row_linv[stat + row] : 0.f;  // rows past n: p = 0
+        st[2 * kBwdRows + i] = row < n ? delta[stat + row] : 0.f;
+      }
+      if (lane == 0) {
+        const uint32_t dst = ring + s * STAGE;
+        mbar_expect_tx(full(s), 2 * TILE);
+        load_tile<DH>(dst, tm_q, true, full(s), q0, h, b, heads);
+        load_tile<DH>(dst + TILE, tm_g, false, full(s), q0, h, b, heads);
+      } else {
+        mbar_arrive(full(s));
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  const int wr = (warp & 3) * 16;
   const int g = lane >> 2;
   const int t = lane & 3;
   const bool rope = ROPE && h < rope_heads;
-  const int len = lens[b];
-  const int wr = warp * 16;
-  const int r0 = k0 + wr + g;  // this thread's key rows
+  const int r0 = k0 + wg * kBwdRows + wr + g;  // this thread's key rows
   const int r1 = r0 + 8;
   const long long hd = static_cast<long long>(h) * DH;
 
@@ -633,57 +1076,55 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkdv_kernel(
     for (int e = 0; e < 4; ++e) ak[j][e] = av[j][e] = 0.f;
   }
 
-  if (!tile_dead<MASK>(k0, len, n_audio, n)) {
-    const bf16* qb = q + b * q_bs + hd;
-    const bf16* gb = dout + b * g_bs + hd;
-    load_rotated<DH>(ks, nullptr, k + b * k_bs + hd, k_rs, k0, n, rope, cos, sin, 1.f);
-    load_rotated<DH>(vs, nullptr, v + b * v_bs + hd, v_rs, k0, n, false, cos, sin, 1.f);
-    const long long stat = (static_cast<long long>(b) * heads + h) * n;
+  if (!dead) {
+    const bool valid0 = col_valid<MASK>(r0, len, n_audio);
+    const bool valid1 = col_valid<MASK>(r1, len, n_audio);
+    const uint32_t kt = sk + wg * TILE, vt = sv + wg * TILE;
+    mbar_wait(bars, 0);
+    __syncwarp();
+    int it = 0;
+    for (int q0 = 0; q0 < n; q0 += kBwdRows, ++it) {
+      const int s = it % kStages;
+      mbar_wait(full(s), (it / kStages) & 1);
+      __syncwarp();
+      const uint32_t qt = ring + s * STAGE, gt = qt + TILE;
+      const float* m_s = stats(s);
+      const float* l_s = m_s + kBwdRows;
+      const float* d_s = l_s + kBwdRows;
 
-    for (int q0 = 0; q0 < n; q0 += kBlockQ) {
-      load_rotated<DH>(qs, qts, qb, q_rs, q0, n, rope, cos, sin, sm_scale);
-      load_rotated<DH>(gs, gts, gb, g_rs, q0, n, false, cos, sin, 1.f);
-      for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
-        const int row = q0 + i;
-        m_s[i] = row < n ? row_max[stat + row] : 0.f;
-        l_s[i] = row < n ? row_linv[stat + row] : 0.f;  // rows past n: p = 0
-        d_s[i] = row < n ? delta[stat + row] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T and dP^T, 16 keys x 64 queries per warp
-      float st[kBlockQ / 8][4], dpt[kBlockQ / 8][4];
-#pragma unroll
-      for (int j = 0; j < kBlockQ / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-      }
-      uint32_t kf[DH / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) load_a(kf[kk], ks, wr, kk * 16);
-      mma_rows(st, kf, qs);
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) load_a(kf[kk], vs, wr, kk * 16);
-      mma_rows(dpt, kf, gs);
+      // S^T = K' q'^T and dP^T = V dO^T: 64 keys x 64 queries per warpgroup
+      float st[kBwdRows / 8][4], dpt[kBwdRows / 8][4];
+      issue_pair<DH>(st, dpt, kt, qt, vt, gt);
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
 
 #pragma unroll
-      for (int j = 0; j < kBlockQ / 8; ++j) {
+      for (int j = 0; j < kBwdRows / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = j * 8 + 2 * t + (e & 1);  // query within the tile
-          const int key = e < 2 ? r0 : r1;
-          const bool valid = col_valid<MASK>(key, len, n_audio);
+          const bool valid = e < 2 ? valid0 : valid1;
           const float p = __expf((valid ? st[j][e] : kMaskValue) - m_s[qi]) * l_s[qi];
           st[j][e] = p;
           dpt[j][e] = valid ? p * (dpt[j][e] - d_s[qi]) : 0.f;  // dS^T
         }
       }
-      uint32_t pa[kBlockQ / 16][4];
+      // dV += P^T dO and dK += dS^T q': P^T and dS^T as register A
+      // fragments, dO and q' read transposed
+      uint32_t pa[kBwdRows / 16][4], da[kBwdRows / 16][4];
       acc_to_a(pa, st);
-      mma_rows(av, pa, gts);  // dV += P^T dO
-      acc_to_a(pa, dpt);
-      mma_rows(ak, pa, qts);  // dK += dS^T q'
-      __syncthreads();        // the next q-tile overwrites the tiles
+      acc_to_a(da, dpt);
+      wgmma_fence();
+      issue_rs<DH>(av, pa, gt);
+      issue_rs<DH>(ak, da, qt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(av);
+      fence_regs(ak);
+      fence_regs(pa);
+      fence_regs(da);
+      mbar_arrive(empty(s));
     }
     if (rope) rope_adjoint<DH>(ak, r0, r1, n, cos, sin);
   }
@@ -707,32 +1148,33 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkdv_kernel(
 }
 
 template <int DH>
-constexpr int dq_smem() {
-  return (2 * kBlockK * (DH + 8) + DH * (kBlockK + 8)) * 2 + kBlockQ * 4;
+constexpr int dq_smem() {  // 1 KB to align the tiles, the tiles, the barriers
+  return 1024 + (2 * dq_groups<DH>() + 2 * kStages) * tile_bytes<DH>() + 8 * (1 + 2 * kStages);
 }
 
 template <int DH>
 constexpr int dkdv_smem() {
-  return (2 * kBlockK * (DH + 8) + 2 * kBlockQ * (DH + 8) + 2 * DH * (kBlockQ + 8)) * 2 +
-         3 * kBlockQ * 4;
+  return 1024 + 2 * dkdv_groups<DH>() * tile_bytes<DH>() +
+         kStages * (2 * tile_bytes<DH>() + 1024) + 8 * (1 + 2 * kStages);
 }
 
 // What one forward or backward call passes. q/k/v, and g (= dO) and o (the
 // forward's output) in the backward: device pointers to (B, N, H, dh) bf16
 // with the given batch and row strides (elements), head stride dh,
-// contiguous last axis, 16-byte aligned rows. lens (B,) int32; n_audio only
-// for the joint rule; cos/sin (N, dh) fp32 contiguous, null without RoPE.
-// Forward: out (B, N, H, dh) bf16 contiguous; row_max/row_linv fp32 (B, H, N)
-// to write the softmax statistics, or both null. Backward: row_max/row_linv
-// hold the forward's statistics, delta is fp32 (B, H, N) scratch, dq/dk/dv
-// are (B, N, H, dh) bf16 contiguous.
+// contiguous last axis, 16-byte aligned rows and batches. lens (B,) int32;
+// n_audio only for the joint rule; cos/sin (N, dh) fp32 contiguous, null
+// without RoPE. Forward: out (B, N, H, dh) bf16 contiguous; row_max/row_linv
+// fp32 (B, H, N) to write the softmax statistics, or both null. Backward:
+// row_max/row_linv hold the forward's statistics; qs (and, with RoPE, ks) is
+// (B, H, N, dh) bf16 scratch for q' (k') and delta fp32 (B, H, N) scratch,
+// all written by the pre-pass; dq/dk/dv are (B, N, H, dh) bf16 contiguous.
 struct Operands {
   const void *q, *k, *v, *g, *o;
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, g_bs, g_rs, o_bs, o_rs;
   const void* lens;
   int n_audio;
   const void *cos, *sin;
-  void *out, *row_max, *row_linv, *delta, *dq, *dk, *dv;
+  void *out, *row_max, *row_linv, *qs, *ks, *delta, *dq, *dk, *dv;
   int batch, n, heads, dh, rope_heads;
   float sm_scale;
   cudaStream_t stream;
@@ -751,8 +1193,77 @@ int launch_fwd(const Operands& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no link
+// to libcuda); null where it is missing.
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A TMA map of [64 rows][64 columns] boxes with 128-byte swizzle over one
+// bf16 operand (see load_tile): head-major scratch (B, H, N, dh), or
+// (B, N, H, dh) in place through batch and row strides bs, rs (elements).
+bool tile_map(CUtensorMap* map, const void* ptr, bool head_major, long long bs, long long rs,
+              const Operands& a) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[3], strides[2];
+  if (head_major) {
+    dims[0] = a.dh, dims[1] = a.n, dims[2] = static_cast<cuuint64_t>(a.batch) * a.heads;
+    strides[0] = 2ULL * a.dh, strides[1] = 2ULL * a.n * a.dh;
+  } else {
+    dims[0] = static_cast<cuuint64_t>(a.heads) * a.dh, dims[1] = a.n, dims[2] = a.batch;
+    strides[0] = 2ULL * rs, strides[1] = 2ULL * (a.batch > 1 ? bs : a.n * rs);
+  }
+  const cuuint32_t box[3] = {64, kBwdRows, 1}, unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
 template <int DH, class V>
 int launch_bwd(const Operands& a) {
+  typedef const bf16* cb;
+  typedef const float* cf;
+  const int* lens = static_cast<const int*>(a.lens);
+  const long long items = static_cast<long long>(a.batch) * a.n * a.heads * (DH / 16);
+  attention_bwd_prep_kernel<DH, V>
+      <<<static_cast<unsigned>((items + kPrepThreads - 1) / kPrepThreads), kPrepThreads, 0,
+         a.stream>>>(static_cast<cb>(a.q), static_cast<cb>(a.k), static_cast<cb>(a.g),
+                     static_cast<cb>(a.o), a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.g_bs, a.g_rs, a.o_bs,
+                     a.o_rs, static_cast<cf>(a.cos), static_cast<cf>(a.sin),
+                     static_cast<bf16*>(a.qs), static_cast<bf16*>(a.ks),
+                     static_cast<float*>(a.delta), a.batch, a.n, a.heads, a.rope_heads,
+                     a.sm_scale);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+
+  // the maps are encoded on the host at each launch and passed by value
+  CUtensorMap tq, tk, tv, tg;
+  const bool mapped = tile_map(&tq, a.qs, true, 0, 0, a) &&
+                      tile_map(&tk, V::kRope ? a.ks : a.k, V::kRope, a.k_bs, a.k_rs, a) &&
+                      tile_map(&tv, a.v, false, a.v_bs, a.v_rs, a) &&
+                      tile_map(&tg, a.g, false, a.g_bs, a.g_rs, a);
+  if (!mapped) return static_cast<int>(cudaErrorInvalidValue);
   // dynamic shared memory above 48 KB is opt-in, per kernel and per device:
   // set on every launch (a cheap host call), so any current device is ready
   cudaError_t set = cudaFuncSetAttribute(attention_bwd_dq_kernel<DH, V>,
@@ -762,25 +1273,22 @@ int launch_bwd(const Operands& a) {
     set = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<DH, V>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem<DH>());
   if (set != cudaSuccess) return static_cast<int>(set);
-  typedef const bf16* cb;
-  typedef const float* cf;
-  const int* lens = static_cast<const int*>(a.lens);
-  const dim3 grid_q((a.n + kBlockQ - 1) / kBlockQ, a.heads, a.batch);
-  attention_bwd_dq_kernel<DH, V><<<grid_q, kThreads, dq_smem<DH>(), a.stream>>>(
-      static_cast<cb>(a.q), static_cast<cb>(a.k), static_cast<cb>(a.v), static_cast<cb>(a.g),
-      static_cast<cb>(a.o), a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.v_bs, a.v_rs, a.g_bs, a.g_rs,
-      a.o_bs, a.o_rs, lens, a.n_audio, static_cast<cf>(a.cos), static_cast<cf>(a.sin),
-      static_cast<cf>(a.row_max), static_cast<cf>(a.row_linv), static_cast<float*>(a.delta),
+
+  const int rows_q = kBwdRows * dq_groups<DH>();
+  const dim3 grid_q((a.n + rows_q - 1) / rows_q, a.heads, a.batch);
+  attention_bwd_dq_kernel<DH, V><<<grid_q, dq_groups<DH>() * 128 + 32, dq_smem<DH>(), a.stream>>>(
+      tq, tk, tv, tg, lens, a.n_audio, static_cast<cf>(a.cos), static_cast<cf>(a.sin),
+      static_cast<cf>(a.row_max), static_cast<cf>(a.row_linv), static_cast<cf>(a.delta),
       static_cast<bf16*>(a.dq), a.n, a.heads, a.rope_heads, a.sm_scale);
-  const int err = static_cast<int>(cudaGetLastError());
+  err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  const dim3 grid_k((a.n + kBlockK - 1) / kBlockK, a.heads, a.batch);
-  attention_bwd_dkdv_kernel<DH, V><<<grid_k, kThreads, dkdv_smem<DH>(), a.stream>>>(
-      static_cast<cb>(a.q), static_cast<cb>(a.k), static_cast<cb>(a.v), static_cast<cb>(a.g),
-      a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.v_bs, a.v_rs, a.g_bs, a.g_rs, lens, a.n_audio,
-      static_cast<cf>(a.cos), static_cast<cf>(a.sin), static_cast<cf>(a.row_max),
-      static_cast<cf>(a.row_linv), static_cast<cf>(a.delta), static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.n, a.heads, a.rope_heads, a.sm_scale);
+  const int rows_k = kBwdRows * dkdv_groups<DH>();
+  const dim3 grid_k((a.n + rows_k - 1) / rows_k, a.heads, a.batch);
+  attention_bwd_dkdv_kernel<DH, V>
+      <<<grid_k, dkdv_groups<DH>() * 128 + 32, dkdv_smem<DH>(), a.stream>>>(
+          tq, tk, tv, tg, lens, a.n_audio, static_cast<cf>(a.cos), static_cast<cf>(a.sin),
+          static_cast<cf>(a.row_max), static_cast<cf>(a.row_linv), static_cast<cf>(a.delta),
+          static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.n, a.heads, a.rope_heads);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -795,11 +1303,14 @@ int attention_forward(const Operands& a) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The backward of variant V: the dq kernel, then the dkdv kernel, on
-// `a.stream`; cudaGetLastError() after them.
+// The backward of variant V: the pre-pass, the dq kernel, then the dkdv
+// kernel, on `a.stream`; cudaGetLastError() after them, or
+// cudaErrorInvalidValue for operands the kernels do not take.
 template <class V>
 int attention_backward(const Operands& a) {
-  if (a.batch <= 0 || a.n <= 0 || a.heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.batch <= 0 || a.n <= 0 || a.heads <= 0 || a.qs == nullptr ||
+      (V::kRope && a.ks == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (a.dh == 64) return launch_bwd<64, V>(a);
   if (a.dh == 128) return launch_bwd<128, V>(a);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -33,15 +33,16 @@ extern "C" int joint_attention_fwd(const void* q, const void* k, const void* v, 
   return attention_forward<JointAttn>(a);
 }
 
-// Backward: the dq kernel, then the dkdv kernel, on `stream`; returns
+// Backward: the pre-pass (q' into the head-major scratch qs, and delta),
+// the dq kernel, then the dkdv kernel, on `stream`; returns
 // cudaGetLastError() after them.
 extern "C" int joint_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                           const void* o, long long q_bs, long long q_rs, long long k_bs,
                           long long k_rs, long long v_bs, long long v_rs, long long g_bs,
                           long long g_rs, long long o_bs, long long o_rs, const void* audio_lens,
-                          int n_audio, const void* row_max, const void* row_linv, void* delta,
-                          void* dq, void* dk, void* dv, int batch, int n, int heads, int dh,
-                          float sm_scale, void* stream) {
+                          int n_audio, const void* row_max, const void* row_linv, void* qs,
+                          void* delta, void* dq, void* dk, void* dv, int batch, int n, int heads,
+                          int dh, float sm_scale, void* stream) {
   Operands a = {};
   a.q = q, a.k = k, a.v = v, a.g = g, a.o = o;
   a.q_bs = q_bs, a.q_rs = q_rs, a.k_bs = k_bs, a.k_rs = k_rs, a.v_bs = v_bs, a.v_rs = v_rs;
@@ -49,7 +50,7 @@ extern "C" int joint_attention_bwd(const void* q, const void* k, const void* v, 
   a.lens = audio_lens;
   a.n_audio = n_audio;
   a.row_max = const_cast<void*>(row_max), a.row_linv = const_cast<void*>(row_linv);
-  a.delta = delta, a.dq = dq, a.dk = dk, a.dv = dv;
+  a.qs = qs, a.delta = delta, a.dq = dq, a.dk = dk, a.dv = dv;
   a.batch = batch, a.n = n, a.heads = heads, a.dh = dh;
   a.sm_scale = sm_scale, a.stream = static_cast<cudaStream_t>(stream);
   return attention_backward<JointAttn>(a);

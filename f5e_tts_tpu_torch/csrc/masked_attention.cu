@@ -29,13 +29,14 @@ extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
   return attention_forward<MaskedAttn>(a);
 }
 
-// Backward: the dq kernel, then the dkdv kernel, on `stream`; returns
+// Backward: the pre-pass (q' into the head-major scratch qs, and delta),
+// the dq kernel, then the dkdv kernel, on `stream`; returns
 // cudaGetLastError() after them.
 extern "C" int masked_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                           const void* o, long long q_bs, long long q_rs, long long k_bs,
                           long long k_rs, long long v_bs, long long v_rs, long long g_bs,
                           long long g_rs, long long o_bs, long long o_rs, const void* kv_lens,
-                          const void* row_max, const void* row_linv, void* delta,
+                          const void* row_max, const void* row_linv, void* qs, void* delta,
                           void* dq, void* dk, void* dv, int batch, int n, int heads, int dh,
                           float sm_scale, void* stream) {
   Operands a = {};
@@ -44,7 +45,7 @@ extern "C" int masked_attention_bwd(const void* q, const void* k, const void* v,
   a.g_bs = g_bs, a.g_rs = g_rs, a.o_bs = o_bs, a.o_rs = o_rs;
   a.lens = kv_lens;
   a.row_max = const_cast<void*>(row_max), a.row_linv = const_cast<void*>(row_linv);
-  a.delta = delta, a.dq = dq, a.dk = dk, a.dv = dv;
+  a.qs = qs, a.delta = delta, a.dq = dq, a.dk = dk, a.dv = dv;
   a.batch = batch, a.n = n, a.heads = heads, a.dh = dh;
   a.sm_scale = sm_scale, a.stream = static_cast<cudaStream_t>(stream);
   return attention_backward<MaskedAttn>(a);

@@ -1,8 +1,9 @@
 """Attention without RoPE in the kernel: the key-length mask (K9 forward, K10
 backward) and the joint [audio | text] mask of the MMDiT (K7 forward, K8
 backward); wrappers, plain versions, launch counts and the autograd
-Functions that join them. Also the plain core and the operand checks that
-`kernels/rope_attention.py` shares.
+Functions that join them. Also what `kernels/rope_attention.py` shares: the
+plain core of the forward and the one plain backward, the plain twin of the
+backward's pre-pass (`attention_bwd_prep_plain`), and the operand checks.
 
 Ports of f5e_tts_tpu/ops/pallas_attention.py: mha_fullkv (K9), mha_fullkv_bwd
 (K10), mha_fullkv_joint (K7) and mha_fullkv_joint_bwd (K8). The kernels are
@@ -35,6 +36,7 @@ from typing import Optional
 import torch
 
 from f5e_tts_tpu_torch.kernels import _build
+from f5e_tts_tpu_torch.ops.rope import rot_half
 
 masked_launches = 0  # K9 kernel launches since the caller last set it to 0
 masked_bwd_launches = 0  # K10
@@ -60,16 +62,41 @@ def joint_valid(audio_lens: torch.Tensor, n_audio: int, n: int, device) -> torch
     return valid[:, None, None, :]
 
 
-def scaled(q: torch.Tensor) -> torch.Tensor:
-    """q' = q / sqrt(dh) formed in fp32 (fp64 for fp64 inputs), rounded to q's
-    dtype, returned in the math dtype."""
+def attention_bwd_prep_plain(q, k, dout=None, o=None, cos=None, sin=None, rope_heads: int = 0):
+    """The backward kernels' pre-pass in plain PyTorch: (q', k', delta) with
+    their rounding points. q' = sm_scale * rot(q) formed in fp32 (fp64 for
+    fp64 inputs) and rounded to q's dtype; k' = rot(k) rounded to k's dtype;
+    both (B, N, H, dh) in the math dtype. rot is RoPE on heads h <
+    rope_heads from the half-split tables cos/sin (>= N, dh), the identity
+    without them. delta = rowsum(dO * O) in the math dtype, (B, H, N), from
+    the output cotangent `dout` and the forward's output `o`; None without
+    them. The forwards' plain versions take q' and k' from here too."""
+    b, n, h, dh = q.shape
     ct = torch.promote_types(q.dtype, torch.float32)
-    return (q.to(ct) * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype).to(ct)
+    qf, kf = q.to(ct), k.to(ct)
+    if cos is not None:
+        c, s, rope = rope_tables(cos, sin, n, h, rope_heads, ct)
+        qf = torch.where(rope, qf * c + rot_half(qf) * s, qf)
+        kf = torch.where(rope, kf * c + rot_half(kf) * s, kf)
+    qs = (qf * (1.0 / math.sqrt(dh))).to(q.dtype).to(ct)
+    ks = kf.to(k.dtype).to(ct)
+    delta = None
+    if dout is not None and o is not None:
+        delta = (dout.to(ct) * o.to(ct)).sum(dim=-1).transpose(1, 2)
+    return qs, ks, delta
+
+
+def rope_tables(cos, sin, n: int, heads: int, rope_heads: int, ct):
+    """(cos, sin, rotated-head mask) broadcastable against (B, N, H, dh)."""
+    c = cos[:n].to(ct)[None, :, None, :]
+    s = sin[:n].to(ct)[None, :, None, :]
+    rope = (torch.arange(heads, device=cos.device) < rope_heads)[None, None, :, None]
+    return c, s, rope
 
 
 def core_plain(qs, ks, v, valid, dtype) -> torch.Tensor:
     """softmax(q'.k'^T, valid columns) v with the kernels' rounding points.
-    qs, ks: the scaled (and rotated) q' and k' in the math dtype; valid
+    qs, ks: q' and k' of `attention_bwd_prep_plain` in the math dtype; valid
     (B, 1, 1, N) bool; `dtype` is the operands' dtype, in which P and the
     output are rounded."""
     scores = torch.einsum("bqhd,bkhd->bhqk", qs, ks).masked_fill(~valid, -1e30)
@@ -79,16 +106,19 @@ def core_plain(qs, ks, v, valid, dtype) -> torch.Tensor:
     return (o / l.transpose(1, 2)).to(dtype)
 
 
-def core_bwd_plain(qs, ks, v, valid, g, dtype):
-    """(dq', dk', dv) of `core_plain` in the math dtype, as the TPU kernels
-    compute them (pallas_attention.py:709-751): P recomputed from q', k';
-    linv = 1 / max(sum p~, 1e-30); delta = linv * sum p~ dP; dS = round(p~
-    (dP - delta) linv); dV = round(p~)^T round(dO linv); dq' = sm_scale dS k'
-    and dk' = dS^T q', before any RoPE adjoint and before the rounding to the
-    output dtype. dS is 0 at masked keys (the derivative of the mask): the
-    same as the TPU kernels except in a row whose keys are all masked, whose
-    dq and dk are 0 here, as in jax.vjp of the XLA reference."""
-    ct = qs.dtype
+def core_bwd_plain(q, k, v, valid, g, cos=None, sin=None, rope_heads: int = 0):
+    """(dq, dk, dv) of `core_plain` over the q', k' of
+    `attention_bwd_prep_plain`, as the TPU kernels compute them
+    (pallas_attention.py:709-751): P recomputed from q', k'; linv = 1 /
+    max(sum p~, 1e-30); delta = linv * sum p~ dP; dS = round(p~ (dP - delta)
+    linv); dV = round(p~)^T round(dO linv); dq' = sm_scale dS k' and dk' =
+    dS^T q', then the RoPE adjoint x cos - rot_half(x sin) on the rotated
+    heads, rounded to the operands' dtypes. dS is 0 at masked keys (the
+    derivative of the mask): the same as the TPU kernels except in a row
+    whose keys are all masked, whose dq and dk are 0 here, as in jax.vjp of
+    the XLA reference. The one plain backward of the three kernel variants."""
+    qs, ks, _ = attention_bwd_prep_plain(q, k, cos=cos, sin=sin, rope_heads=rope_heads)
+    ct, dtype = qs.dtype, q.dtype
     scores = torch.einsum("bqhd,bkhd->bhqk", qs, ks).masked_fill(~valid, -1e30)
     pt = torch.exp(scores - scores.amax(dim=-1, keepdim=True))  # (B, H, Nq, Nk)
     linv = 1.0 / pt.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -100,37 +130,33 @@ def core_bwd_plain(qs, ks, v, valid, g, dtype):
     dv = torch.einsum("bhqk,bqhd->bkhd", pt.to(dtype).to(ct), dol)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, ks) * (1.0 / math.sqrt(qs.shape[-1]))
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
-    return dq, dk, dv
-
-
-def _keys(k: torch.Tensor) -> torch.Tensor:
-    return k.to(torch.promote_types(k.dtype, torch.float32))
+    if cos is not None:
+        c, s, rope = rope_tables(cos, sin, q.shape[1], q.shape[2], rope_heads, ct)
+        dq = torch.where(rope, dq * c - rot_half(dq * s), dq)
+        dk = torch.where(rope, dk * c - rot_half(dk * s), dk)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def masked_attention_plain(q, k, v, kv_lens) -> torch.Tensor:
     """K9 in plain PyTorch."""
-    valid = prefix_valid(kv_lens, q.shape[1], q.device)
-    return core_plain(scaled(q), _keys(k), v, valid, q.dtype)
+    qs, ks, _ = attention_bwd_prep_plain(q, k)
+    return core_plain(qs, ks, v, prefix_valid(kv_lens, q.shape[1], q.device), q.dtype)
 
 
 def masked_attention_bwd_plain(q, k, v, kv_lens, g):
     """K10 in plain PyTorch: (dq, dk, dv) of `masked_attention_plain`."""
-    valid = prefix_valid(kv_lens, q.shape[1], q.device)
-    dq, dk, dv = core_bwd_plain(scaled(q), _keys(k), v, valid, g, q.dtype)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return core_bwd_plain(q, k, v, prefix_valid(kv_lens, q.shape[1], q.device), g)
 
 
 def joint_attention_core_plain(q, k, v, audio_lens, n_audio: int) -> torch.Tensor:
     """K7 in plain PyTorch."""
-    valid = joint_valid(audio_lens, n_audio, q.shape[1], q.device)
-    return core_plain(scaled(q), _keys(k), v, valid, q.dtype)
+    qs, ks, _ = attention_bwd_prep_plain(q, k)
+    return core_plain(qs, ks, v, joint_valid(audio_lens, n_audio, q.shape[1], q.device), q.dtype)
 
 
 def joint_attention_core_bwd_plain(q, k, v, audio_lens, n_audio: int, g):
     """K8 in plain PyTorch: (dq, dk, dv) of `joint_attention_core_plain`."""
-    valid = joint_valid(audio_lens, n_audio, q.shape[1], q.device)
-    dq, dk, dv = core_bwd_plain(scaled(q), _keys(k), v, valid, g, q.dtype)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return core_bwd_plain(q, k, v, joint_valid(audio_lens, n_audio, q.shape[1], q.device), g)
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +202,16 @@ def strides(*tensors) -> list:
     return [s for t in tensors for s in (t.stride(0), t.stride(1))]
 
 
+def bwd_scratch(q: torch.Tensor, rotated: int):
+    """What a backward kernel's pre-pass writes: `rotated` head-major (B, H,
+    N, dh) bf16 buffers (q', and k' where RoPE is compiled in), then delta,
+    fp32 (B, H, N)."""
+    b, n, h, dh = q.shape
+    return (*(torch.empty((b, h, n, dh), dtype=torch.bfloat16, device=q.device)
+              for _ in range(rotated)),
+            torch.empty((b, h, n), dtype=torch.float32, device=q.device))
+
+
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -189,7 +225,7 @@ def _lib(name: str) -> ctypes.CDLL:
     extra = [i] if name == "joint_attention" else []
     fwd, bwd = getattr(lib, f"{name}_fwd"), getattr(lib, f"{name}_bwd")
     fwd.argtypes = [p, p, p] + [ll] * 6 + [p] + extra + [p, p, p, i, i, i, i, f, p]
-    bwd.argtypes = [p] * 5 + [ll] * 10 + [p] + extra + [p] * 6 + [i, i, i, i, f, p]
+    bwd.argtypes = [p] * 5 + [ll] * 10 + [p] + extra + [p] * 7 + [i, i, i, i, f, p]
     fwd.restype = bwd.restype = i
     return lib
 
@@ -224,13 +260,13 @@ def _backward(name: str, q, k, v, lens, n_audio: Optional[int], g, out, stats):
     lens = lens.to(torch.int32).contiguous()
     dq, dk, dv = (torch.empty((b, n, h, dh), dtype=torch.bfloat16, device=q.device)
                   for _ in range(3))
-    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    qs, delta = bwd_scratch(q, 1)
     extra = [] if n_audio is None else [int(n_audio)]
     err = getattr(_lib(name), f"{name}_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(),
         *strides(q, k, v, g, out), lens.data_ptr(), *extra, stats[0].data_ptr(),
-        stats[1].data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, n, h, dh, 1.0 / math.sqrt(dh), stream(q))
+        stats[1].data_ptr(), qs.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, n, h, dh, 1.0 / math.sqrt(dh), stream(q))
     if err != 0:
         raise RuntimeError(f"{name}_bwd kernel launch failed: CUDA error {err}")
     return dq, dk, dv

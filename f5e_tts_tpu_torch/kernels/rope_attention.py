@@ -34,10 +34,10 @@ import math
 import torch
 
 from f5e_tts_tpu_torch.kernels import _build
-from f5e_tts_tpu_torch.kernels.attention import (check_operands, check_stats, core_bwd_plain,
+from f5e_tts_tpu_torch.kernels.attention import (attention_bwd_prep_plain, bwd_scratch,
+                                                 check_operands, check_stats, core_bwd_plain,
                                                  core_plain, kernel_operand, prefix_valid,
                                                  stream, strides)
-from f5e_tts_tpu_torch.ops.rope import rot_half
 
 launches = 0  # K1: launches with RoPE on all or none of the heads since last set to 0
 bwd_launches = 0  # K4: backward launches, likewise
@@ -45,27 +45,11 @@ partial_launches = 0  # K3: launches with 0 < rope_heads < H
 partial_bwd_launches = 0  # K6: backward launches, likewise
 
 
-def _rotated(q, k, cos, sin, rope_heads: int):
-    """(q', k') with the kernels' rounding points: rot(q) in fp32 (fp64 for
-    fp64 inputs), scaled by 1/sqrt(dh) and rounded to q's dtype; rot(k)
-    rounded to k's dtype; both returned in the math dtype."""
-    b, n, h, dh = q.shape
-    dtype = q.dtype
-    ct = torch.promote_types(dtype, torch.float32)
-    c = cos[:n].to(ct)[None, :, None, :]
-    s = sin[:n].to(ct)[None, :, None, :]
-    rope = (torch.arange(h, device=q.device) < rope_heads)[None, None, :, None]
-    qf, kf = q.to(ct), k.to(ct)
-    qr = torch.where(rope, qf * c + rot_half(qf) * s, qf)
-    kr = torch.where(rope, kf * c + rot_half(kf) * s, kf)
-    return (qr * (1.0 / math.sqrt(dh))).to(dtype).to(ct), kr.to(dtype).to(ct), (c, s, rope)
-
-
 def rope_attention_plain(q, k, v, kv_lens, cos, sin, rope_heads: int) -> torch.Tensor:
     """The same function in plain PyTorch, with the kernel's rounding points:
     q rotated in fp32, scaled and rounded to q's dtype; k rotated in fp32 and
     rounded; scores and P.V accumulate in fp32 with P rounded to q's dtype."""
-    qs, ks, _ = _rotated(q, k, cos, sin, rope_heads)
+    qs, ks, _ = attention_bwd_prep_plain(q, k, cos=cos, sin=sin, rope_heads=rope_heads)
     return core_plain(qs, ks, v, prefix_valid(kv_lens, q.shape[1], q.device), q.dtype)
 
 
@@ -74,12 +58,8 @@ def rope_attention_bwd_plain(q, k, v, kv_lens, cos, sin, g, rope_heads: int):
     (pallas_attention.py:379-453; `kernels/attention.py: core_bwd_plain`), dQ
     and dK each through the RoPE adjoint x cos - rot_half(x sin) on the
     rotated heads."""
-    qs, ks, (c, s, rope) = _rotated(q, k, cos, sin, rope_heads)
-    valid = prefix_valid(kv_lens, q.shape[1], q.device)
-    dq, dk, dv = core_bwd_plain(qs, ks, v, valid, g, q.dtype)
-    dq = torch.where(rope, dq * c - rot_half(dq * s), dq)
-    dk = torch.where(rope, dk * c - rot_half(dk * s), dk)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return core_bwd_plain(q, k, v, prefix_valid(kv_lens, q.shape[1], q.device), g, cos, sin,
+                          rope_heads)
 
 
 @functools.cache
@@ -89,8 +69,10 @@ def _lib() -> ctypes.CDLL:
     lib.rope_attention_fwd.argtypes = [p, p, p, ll, ll, ll, ll, ll, ll, p, p, p, p, p, p,
                                        i, i, i, i, i, f, p]
     lib.rope_attention_fwd.restype = i
-    lib.rope_attention_bwd.argtypes = [p, p, p, p, p] + [ll] * 10 + [p] * 9 + [i] * 5 + [f, p]
+    lib.rope_attention_bwd.argtypes = [p, p, p, p, p] + [ll] * 10 + [p] * 11 + [i] * 5 + [f, p]
     lib.rope_attention_bwd.restype = i
+    lib.attention_bwd_smem.argtypes = [i, i]
+    lib.attention_bwd_smem.restype = i
     return lib
 
 
@@ -166,13 +148,13 @@ def rope_attention_bwd(q, k, v, kv_lens, cos, sin, g, rope_heads: int, out=None,
     kv_lens, cos, sin = _tables(kv_lens, cos, sin, n)
     dq, dk, dv = (torch.empty((b, n, h, dh), dtype=torch.bfloat16, device=q.device)
                   for _ in range(3))
-    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    qs, ks, delta = bwd_scratch(q, 2)
     err = _lib().rope_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(),
         *strides(q, k, v, g, out), kv_lens.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        stats[0].data_ptr(), stats[1].data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, n, h, dh, int(rope_heads), 1.0 / math.sqrt(dh),
-        stream(q))
+        stats[0].data_ptr(), stats[1].data_ptr(), qs.data_ptr(), ks.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, h, dh,
+        int(rope_heads), 1.0 / math.sqrt(dh), stream(q))
     if err != 0:
         raise RuntimeError(f"rope_attention_bwd kernel launch failed: CUDA error {err}")
     if _partial(rope_heads, h):

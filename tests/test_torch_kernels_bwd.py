@@ -4,6 +4,14 @@ package's Pallas kernels in interpret mode and against jax.vjp of its XLA
 references, on the same numpy-seeded inputs; and torch.autograd.gradcheck
 of the two autograd Functions' CPU path in float64.
 
+Also the plain twin of the backward kernels' pre-pass
+(`attention_bwd_prep_plain`): its q' and k' are bitwise the operands the
+plain versions formed before it existed, and its delta = rowsum(dO * O),
+with O the Pallas forward's bf16 output in interpret mode, stays within the
+per-row bound that `csrc/attention_core.cuh` states against the TPU
+kernels' delta = linv * sum p~ dP: 2^-8 * sum_d |dO * O| (one bf16 rounding
+of O per term) plus 1e-5 * max(1, |delta|) for fp32 summation order.
+
 Tolerances:
 - fp32 vs the Pallas kernels and the XLA vjp: rtol/atol 2e-3, the tolerance
   of the JAX package's own test of mha_chunked_rope_bwd (summation order);
@@ -24,9 +32,10 @@ import torch
 
 from f5e_tts_tpu.ops import pallas_attention as pa
 from f5e_tts_tpu.ops import pallas_norm as pn
+from f5e_tts_tpu_torch.kernels import attention as ka
 from f5e_tts_tpu_torch.kernels import gated_adaln as ga
 from f5e_tts_tpu_torch.kernels import rope_attention as ra
-from f5e_tts_tpu_torch.ops.rope import rotary_cos_sin_half
+from f5e_tts_tpu_torch.ops.rope import rot_half, rotary_cos_sin_half
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -168,3 +177,59 @@ def test_rope_attention_bwd_fully_masked_row():
     assert not dq.any() and not dk.any()
     torch.testing.assert_close(dv, g.mean(dim=1, keepdim=True).expand_as(dv),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rope_heads", [4, 1, 0])
+def test_bwd_prep_plain_operands_are_the_plain_versions_own(attn_inputs, dtype, rope_heads):
+    """q' and k' bitwise what the plain versions formed inline before the
+    pre-pass's twin existed (rotate in the math dtype, scale q, round)."""
+    q, k, _, _, _, cos, sin = attn_inputs
+    td = DTYPES[dtype][1]
+    qt, kt = (torch.from_numpy(a).to(td) for a in (q, k))
+    c, s = (torch.from_numpy(t)[None, :, None, :] for t in (cos, sin))
+    rope = (torch.arange(q.shape[2]) < rope_heads)[None, None, :, None]
+    qf, kf = qt.float(), kt.float()
+    want_q = (torch.where(rope, qf * c + rot_half(qf) * s, qf) * 0.125).to(td).float()
+    want_k = torch.where(rope, kf * c + rot_half(kf) * s, kf).to(td).float()
+    got_q, got_k, delta = ka.attention_bwd_prep_plain(qt, kt, cos=torch.from_numpy(cos),
+                                                      sin=torch.from_numpy(sin),
+                                                      rope_heads=rope_heads)
+    assert delta is None
+    assert torch.equal(got_q, want_q) and torch.equal(got_k, want_k)
+    # without tables: q scaled and rounded, k as it is
+    got_q, got_k, _ = ka.attention_bwd_prep_plain(qt, kt)
+    assert torch.equal(got_q, (qf * 0.125).to(td).float()) and torch.equal(got_k, kf)
+
+
+@pytest.mark.parametrize("rope", [True, False])
+def test_bwd_prep_plain_delta_within_the_stated_bound_of_the_tpu_delta(attn_inputs, rope):
+    """delta = rowsum(dO * O) from the Pallas forward's bf16 output against
+    linv * sum_j p~ dP formed as the TPU backward kernels form it
+    (pallas_attention.py:395-410), every row of every head."""
+    q, k, v, g, kv_lens, cos, sin = attn_inputs
+    b, n, h, dh = q.shape
+    jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g))
+    lens, jc, js = jnp.asarray(kv_lens), jnp.asarray(cos), jnp.asarray(sin)
+    if rope:
+        o = pa.mha_chunked_rope(jq, jk, jv, lens, jc, js, h, head_chunk=2, block_q=128,
+                                interpret=True)
+    else:
+        o = pa.mha_fullkv_rope(jq, jk, jv, lens, jc, js, 0, block_q=128, interpret=True)
+    tq, tk, tg = (torch.from_numpy(a).bfloat16() for a in (q, k, g))
+    to = torch.from_numpy(np.array(_np(o))).bfloat16()
+    tables = dict(cos=torch.from_numpy(cos), sin=torch.from_numpy(sin), rope_heads=h) if rope \
+        else {}
+    qs, ks, delta = ka.attention_bwd_prep_plain(tq, tk, tg, to, **tables)
+    assert delta.shape == (b, h, n) and delta.dtype == torch.float32
+    # the TPU kernels' delta, in fp32 from the same bf16 q', k', v, dO
+    jqs, jks = (jnp.asarray(t.numpy()) for t in (qs, ks))
+    s = jnp.einsum("bqhd,bkhd->bhqk", jqs, jks)
+    s = jnp.where(jnp.arange(n)[None, None, None, :] < lens[:, None, None, None], s, -1e30)
+    pt = jnp.exp(s - s.max(axis=-1, keepdims=True))
+    linv = 1.0 / jnp.maximum(pt.sum(axis=-1, keepdims=True), 1e-30)
+    dp = jnp.einsum("bqhd,bkhd->bhqk", jg.astype(jnp.float32), jv.astype(jnp.float32))
+    want = np.asarray(linv * (pt * dp).sum(axis=-1, keepdims=True))[..., 0]
+    bound = (2.0 ** -8 * (tg.float() * to.float()).abs().sum(dim=-1).transpose(1, 2).numpy()
+             + 1e-5 * np.maximum(1.0, np.abs(want)))
+    assert (np.abs(delta.numpy() - want) <= bound).all(), np.abs(delta.numpy() - want).max()

@@ -16,6 +16,10 @@ sums of many rounded terms, and the kernel forms delta from the bf16 output
 where the plain version sums P * dP in fp32, so K4 is held to
 max |diff| <= 2e-2 * max |plain| per output; K10 and K8 are the same kernels
 without RoPE and with another column rule, and are held to the same limits.
+The backward's pre-pass against its plain twin: q' and k' within one bf16
+ulp (bitwise where nvcc does not contract the rotation's products; the test
+records which as the `prepass_bitwise` property), delta within
+1e-5 * (1 + sum_d |dO * O|) per row (fp32 summation order).
 """
 
 import pytest
@@ -302,3 +306,82 @@ def test_attention_kernels_refuse_what_they_do_not_take(cuda):
         ka.masked_attention_bwd(xb, xb, xb, lens, xb)
     with pytest.raises(ValueError):
         ka.joint_attention_core(xb[..., :32], xb[..., :32], xb[..., :32], lens, 32)
+
+
+# (kind, b, n, h, dh, lens, rope_heads or n_audio, fused): the edges of the
+# backward's tiles and maps
+BWD_EDGE_CASES = [
+    ("rope", 2, 2305, 2, 64, (2305, 2000), 2, False),   # a one-row last tile
+    ("rope", 2, 40, 2, 64, (40, 17), 2, False),         # under one tile
+    ("rope", 2, 1000, 2, 128, (1000, 999), 2, False),   # dh 128
+    ("rope", 2, 1024, 16, 64, (1024, 700), 1, True),    # fused to_qkv slices, RoPE on head 0
+    ("joint", 2, 240, 2, 64, (10, 200), 200, False),    # text from mid-tile, gap over two tiles
+    ("masked", 3, 300, 2, 64, (300, 0, 129), 0, True),  # a row with len = 0
+    ("rope", 8, 2304, 16, 64, (2304,) * 8, 16, True),   # T: the v1 training step's shape
+]
+
+
+def _bwd_case(gen, kind, b, n, h, dh, lens, extra, fused):
+    """(run, plain, twin, g, out): the backward kernel, its plain version,
+    the pre-pass's plain twin, the cotangent and the forward kernel's output."""
+    q, k, v = _qkv(gen, b, n, h, dh, fused)
+    g = torch.randn((b, n, h, dh), generator=gen, device="cuda").bfloat16()
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if kind == "rope":
+        cos, sin = (torch.from_numpy(t).cuda() for t in rotary_cos_sin_half(dh, n))
+        out, stats = ra.rope_attention(q, k, v, lens, cos, sin, extra, return_stats=True)
+        return (lambda: ra.rope_attention_bwd(q, k, v, lens, cos, sin, g, extra, out, stats),
+                lambda: ra.rope_attention_bwd_plain(q, k, v, lens, cos, sin, g, extra),
+                lambda: ka.attention_bwd_prep_plain(q, k, g, out, cos, sin, extra), g, out)
+    if kind == "masked":
+        out, stats = ka.masked_attention(q, k, v, lens, return_stats=True)
+        return (lambda: ka.masked_attention_bwd(q, k, v, lens, g, out, stats),
+                lambda: ka.masked_attention_bwd_plain(q, k, v, lens, g),
+                lambda: ka.attention_bwd_prep_plain(q, k, g, out), g, out)
+    out, stats = ka.joint_attention_core(q, k, v, lens, extra, return_stats=True)
+    return (lambda: ka.joint_attention_core_bwd(q, k, v, lens, extra, g, out, stats),
+            lambda: ka.joint_attention_core_bwd_plain(q, k, v, lens, extra, g),
+            lambda: ka.attention_bwd_prep_plain(q, k, g, out), g, out)
+
+
+@pytest.mark.parametrize("kind,b,n,h,dh,lens,extra,fused", BWD_EDGE_CASES)
+def test_bwd_kernel_edges_match_plain(cuda, kind, b, n, h, dh, lens, extra, fused):
+    run, plain, *_ = _bwd_case(cuda, kind, b, n, h, dh, lens, extra, fused)
+    got = run()
+    torch.cuda.synchronize()
+    for x, y in zip(got, plain()):
+        _close_rel(x, y)
+    assert all(torch.equal(x, y) for x, y in zip(got, run()))  # no atomics: the same bits
+
+
+def _within_one_ulp(got, want):
+    """bf16 tensors equal or adjacent representable values."""
+    steps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+    return bool(((got == want) | (steps <= 1)).all())
+
+
+@pytest.mark.parametrize("kind,rope_heads", [("rope", 4), ("rope", 1), ("masked", 0)])
+def test_bwd_prepass_matches_its_twin(cuda, monkeypatch, record_property, kind, rope_heads):
+    run, _, twin, g, out = _bwd_case(cuda, kind, 2, 333, 4, 64, (333, 200), rope_heads, True)
+    scratch, written = ka.bwd_scratch, []
+
+    def capture(q, rotated):  # the buffers the pre-pass writes
+        written.append(scratch(q, rotated))
+        return written[-1]
+
+    monkeypatch.setattr(ka, "bwd_scratch", capture)
+    monkeypatch.setattr(ra, "bwd_scratch", capture)
+    run()
+    torch.cuda.synchronize()
+    *rotated, delta = written[0]
+    qs, ks, want_delta = twin()
+    assert len(rotated) == (2 if kind == "rope" else 1)  # k' only where RoPE is compiled in
+    bitwise = True
+    for got, want in zip(rotated, (qs, ks)):
+        want = want.transpose(1, 2).bfloat16()
+        assert _within_one_ulp(got, want)
+        bitwise = bitwise and torch.equal(got, want)
+    record_property("prepass_bitwise", bitwise)
+    print(f"pre-pass q'/k' bitwise equal to the twin: {bitwise}")
+    terms = (g.float() * out.float()).abs().sum(dim=-1).transpose(1, 2)
+    assert ((delta - want_delta).abs() <= 1e-5 * (1 + terms)).all()
