@@ -5,7 +5,7 @@
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds every hand-written kernel from f5e_tts_tpu_torch/csrc with nvcc,
    one process per source, all at once, and prints each kernel's registers,
-   spills and shared memory (ptxas's report; the backward kernels' dynamic
+   spills and shared memory (ptxas's report; the attention kernels' dynamic
    shared memory from the library).
 3. Full-width zero-shot synthesis through the user entry point:
    F5TTS(model="F5TTS_v1_Base", device="cuda") in bf16 with seeded random
@@ -50,9 +50,10 @@
    against a seeded target, so K7 and K8 launch twice each; limits as in 5.
 10. One phase per kernel at the shapes of its path and at one ragged case:
     kernel vs its plain PyTorch version on the same inputs (tolerances
-    below), kernel, plain and library times, and the least time the card
-    could take. The K4 row's `also` splits one backward call's device time
-    at its training shape into its pre-pass, dq and dkdv kernels
+    below), kernel, plain and library times, the least time the card could
+    take, and each forward wrapper's host time per call. The K1 and K4
+    rows' `also` split one call's device time at the training shape into
+    its kernels: pre-pass and main kernel, pre-pass, dq and dkdv
     (torch.profiler, measured after the build, before the model phases).
 11. Prints one JSON line with every kernel, then the device line last.
 
@@ -167,6 +168,25 @@ def cuda_ms(fns, iters: int = 24, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls: int = 25, batches: int = 20) -> float:
+    """Host time in us of one call of `fn` (Python, checks, allocation,
+    launch): the least mean over `batches` batches of `calls` calls, each
+    enqueued behind a device sleep so a full queue never holds the host
+    (the least, since the host's cores are shared and a batch only ever
+    runs slower than the code's own cost)."""
+    fn()
+    best = math.inf
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)  # ~0.05 s at the H100's 1.98 GHz boost clock
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best / calls * 1e6
 
 
 def check_close(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -364,11 +384,11 @@ def mmdit_synthesis_phase(expected: dict) -> dict:
 # kernel-name fragments (all must occur) -> the layer they belong to, first
 # match wins; the attention kernels carry their variant's name
 KERNEL_GROUPS = ((("attention_bwd", "ropeattn"), "K4/K6 rope attention bwd"),
-                 (("attention_kernel", "ropeattn"), "K1/K3 rope attention"),
+                 (("attention_fwd", "ropeattn"), "K1/K3 rope attention"),
                  (("attention_bwd", "maskedattn"), "K10 masked attention bwd"),
-                 (("attention_kernel", "maskedattn"), "K9 masked attention"),
+                 (("attention_fwd", "maskedattn"), "K9 masked attention"),
                  (("attention_bwd", "jointattn"), "K8 joint attention bwd"),
-                 (("attention_kernel", "jointattn"), "K7 joint attention"),
+                 (("attention_fwd", "jointattn"), "K7 joint attention"),
                  (("gated_adaln_bwd",), "K5 gated_adaln_bwd"), (("gated_adaln",), "K2 gated_adaln"),
                  (("multi_tensor_apply",), "optimizer (foreach)"),
                  (("fprop",), "convolution"), (("dgrad",), "convolution"),
@@ -858,15 +878,17 @@ class AttentionCase:
         return f"({self.b}, {self.n}, {self.h}, {self.dh}), lens {self.lens_list}{extra}"
 
 
+# (part, kernel-name fragment) of one forward and one backward call
+FWD_PARTS = (("pre-pass", "attention_fwd_prep_kernel"), ("main", "attention_fwd_kernel"))
 BWD_PARTS = (("pre-pass", "attention_bwd_prep_kernel"), ("dq", "attention_bwd_dq_kernel"),
              ("dkdv", "attention_bwd_dkdv_kernel"))
 
 
-def backward_split(fn, calls: int = 4) -> dict:
-    """Device ms of each of the three kernels of one backward call `fn()`:
-    the mean over `calls` calls in one torch.profiler run (as
-    `profile_run` reads it), and their sum. The calls queue behind ~10 ms
-    of device sleep: a profiler run can miss the kernels launched as it starts."""
+def kernel_split(tag: str, fn, parts, calls: int = 4) -> dict:
+    """Device ms of each kernel of one call `fn()`, by `parts`: the mean over
+    `calls` calls in one torch.profiler run (as `profile_run` reads it), and
+    their sum. The calls queue behind ~10 ms of device sleep: a profiler run
+    can miss the kernels launched as it starts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -877,35 +899,37 @@ def backward_split(fn, calls: int = 4) -> dict:
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     split = {}
-    for part, frag in BWD_PARTS:
+    for part, frag in parts:
         found = [e for e in kernels if frag in e.key]
         launched = sum(e.count for e in found)
         split[part] = sum(e.self_device_time_total for e in found) / max(launched, 1) / 1e3
     split["total"] = sum(split.values())
     if min(split.values()) <= 0:
-        log(f"[backward split] torch.profiler saw no device time of some kernel: split not "
+        log(f"[{tag}] torch.profiler saw no device time of some kernel: split not "
             f"measured ({len(kernels)} device kernels seen: {[e.key[:48] for e in kernels[:4]]})")
         return None
-    log(f"[backward split] mean of {calls} calls under torch.profiler: " +
+    log(f"[{tag}] mean of {calls} calls under torch.profiler: " +
         ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
     return split
 
 
-def backward_split_phase(mods):
-    """K4's device time by kernel at the training shape T, measured before
-    the model phases: in a profiled window this short late in the run the profiler
-    saw no device kernel at all."""
+def split_phase(mods):
+    """K1's and K4's device time by kernel at the training shape T, measured
+    before the model phases: in a profiled window this short late in the run
+    the profiler saw no device kernel at all."""
     case = AttentionCase(mods, "rope", TRAIN_CLIPS, TRAIN_N, (TRAIN_N,) * TRAIN_CLIPS,
                          torch.Generator(device="cuda").manual_seed(7), rope_heads=16)
     out, stats = case.fwd(return_stats=True)
-    return backward_split(lambda: case.bwd(out, stats))
+    return (kernel_split("forward split", case.fwd, FWD_PARTS),
+            kernel_split("backward split", lambda: case.bwd(out, stats), BWD_PARTS))
 
 
 def attention_kernel_phase(name, source, replaces, launches, backward, cases, iters=24,
                            split=None) -> dict:
     """Kernel vs plain at every case (the first is the path's shape and gives
     the row's numbers; the others are checked, and timed when `timed`), then
-    the times; `split` (device ms by backward kernel) goes into the row's `also`.
+    the times; `split` (device ms by kernel of one call) goes into the row's
+    `also`, and so does a forward's host time per call at the first case.
     cases: [(tag, make_case, timed)]."""
     err, numbers = 0.0, {}
     for tag, make_case, timed in cases:
@@ -926,6 +950,7 @@ def attention_kernel_phase(name, source, replaces, launches, backward, cases, it
             err = max(err, check_close(f"{name} {tag}", out, case.plain()))
         if timed:
             torch.cuda.empty_cache()
+            extra = {}
             if backward:
                 ms = cuda_ms([lambda: case.bwd(out, stats)], iters=8)
                 plain_ms = cuda_ms([case.bwd_plain], iters=4, warmup=1)
@@ -937,27 +962,32 @@ def attention_kernel_phase(name, source, replaces, launches, backward, cases, it
                 ms = cuda_ms([case.fwd], iters=iters)
                 plain_ms = cuda_ms([case.plain], iters=max(iters // 4, 4), warmup=1)
                 library_ms = cuda_ms([case.library], iters=iters)
+                extra["host_us"] = host_us(case.fwd)
             ops_s, bytes_s = case.bound(backward)
             numbers[tag] = {"shape": case.describe(), "ms": ms, "plain_ms": plain_ms,
                             "library_ms": library_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
-                            "ops_s": ops_s, "bytes_s": bytes_s}
+                            **extra, "ops_s": ops_s, "bytes_s": bytes_s}
             log(f"[{name} {tag}] {case.describe()}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"library {library_ms:.4f} ms, bound {max(ops_s, bytes_s) * 1e3:.4f} ms")
+                f"library {library_ms:.4f} ms, bound {max(ops_s, bytes_s) * 1e3:.4f} ms" +
+                (f", host {extra['host_us']:.1f} us a call" if extra else ""))
         del case, out, stats
         torch.cuda.empty_cache()
     first, *rest = numbers.items()
     main = first[1]
     also = {tag: {k: v for k, v in d.items() if k not in ("ops_s", "bytes_s")} for tag, d in rest}
+    if "host_us" in main:
+        also["host_us_per_call"] = main["host_us"]
     if split is not None:
         also["device_ms_by_kernel"] = split
     return kernel_row(name, source, replaces, launches, err, main["ms"], main["plain_ms"],
                       main["ops_s"], main["bytes_s"], main["library_ms"], also or None)
 
 
-def attention_rows(mods, paths: dict, text_len: int, k4_split) -> list:
+def attention_rows(mods, paths: dict, text_len: int, splits) -> list:
     """The rows of the ten attention kernels. paths: {counter name: {path:
-    launches}}; text_len: Nt of the MMDiT training batch; k4_split: K4's
-    device ms by kernel (`backward_split_phase`), or None."""
+    launches}}; text_len: Nt of the MMDiT training batch; splits: K1's and
+    K4's device ms by kernel (`split_phase`), each None where not measured."""
+    k1_split, k4_split = splits
     gen = torch.Generator(device="cuda").manual_seed(2)
     h = 16
 
@@ -978,7 +1008,7 @@ def attention_rows(mods, paths: dict, text_len: int, k4_split) -> list:
         rows.append(attention_kernel_phase(
             "rope_attention", "rope_attention", f"{PALLAS}:523", paths["rope_attention"], False,
             [("synthesis", case("rope", *synth, rope_heads=h), True),
-             ("training", case("rope", *train_b, rope_heads=h), True)]))
+             ("training", case("rope", *train_b, rope_heads=h), True)], split=k1_split))
         rows.append(attention_kernel_phase(
             "partial_rope_attention", "rope_attention", f"{PALLAS}:183",
             paths["partial_rope_attention"], False,
@@ -1077,8 +1107,8 @@ def adaln_bwd_phase(ga, launches: dict) -> dict:
 
 def build_report(libs: dict, ra) -> None:
     """Each kernel's registers, spills and static shared memory from ptxas's
-    report in the build logs, and the backward kernels' dynamic shared
-    memory from the library."""
+    report in the build logs, and the dynamic shared memory of the forward's
+    main kernel and the backward's kernels from the library."""
     for name, path in libs.items():
         build_log = path.with_name(path.name + ".log")
         kernel = None
@@ -1095,9 +1125,10 @@ def build_report(libs: dict, ra) -> None:
             elif kernel and "registers" in line:
                 log(f"[build] {name}: {kernel}: {line.split(':', 1)[-1].strip()}")
     for dh in (64, 128):
-        log(f"[build] backward dynamic shared memory at dh {dh}: dq kernel "
-            f"{ra._lib().attention_bwd_smem(dh, 0)} bytes, dkdv kernel "
-            f"{ra._lib().attention_bwd_smem(dh, 1)} bytes")
+        log(f"[build] dynamic shared memory at dh {dh}: forward main kernel "
+            f"{ra._lib().attention_smem(dh, 0)} bytes, backward dq kernel "
+            f"{ra._lib().attention_smem(dh, 1)} bytes, dkdv kernel "
+            f"{ra._lib().attention_smem(dh, 2)} bytes")
 
 
 def main() -> int:
@@ -1134,8 +1165,8 @@ def main() -> int:
             f"({time.perf_counter() - t_start:.0f} s since the start)")
         return result
 
-    # K4's device time by kernel, for its row (launches here count on no path)
-    k4_split = phase("backward split", lambda: backward_split_phase((ra, ka)))
+    # K1's and K4's device time by kernel, for their rows (launches here count on no path)
+    splits = phase("kernel splits", lambda: split_phase((ra, ka)))
     reset_counts()
 
     # F5TTS_v1_Base: K1/K2 in synthesis, K1/K2/K4/K5 in training
@@ -1181,7 +1212,7 @@ def main() -> int:
     missing = [name for name, by_path in paths.items() if not by_path]
     if missing:
         raise AssertionError(f"no path launched {missing}")
-    rows = phase("attention kernels", lambda: attention_rows((ra, ka), paths, text_len, k4_split))
+    rows = phase("attention kernels", lambda: attention_rows((ra, ka), paths, text_len, splits))
     with torch.inference_mode():
         rows.append(adaln_phase(ga, paths["gated_adaln"]))
     rows.append(adaln_bwd_phase(ga, paths["gated_adaln_bwd"]))

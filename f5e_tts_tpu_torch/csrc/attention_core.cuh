@@ -1,5 +1,6 @@
 // The attention kernel family of the port, written by hand for Hopper
-// (sm_90a): one forward kernel and two backward kernels, as templates over
+// (sm_90a): a forward of two kernels and a backward of three, as templates
+// over
 //   ROPE: whether RoPE is compiled in (heads h < rope_heads are rotated), and
 //   MASK: which key columns are valid, for a per-sample length `len`:
 //         kMaskPrefix  col < len                       (a padded sequence)
@@ -19,40 +20,69 @@
 // with rot(x) = x * cos + rot_half(x) * sin on rotated heads (half-split
 // tables cos/sin (N, dh) fp32; rot_half(x) = concat(-x[dh/2:], x[:dh/2]))
 // and rot(x) = x elsewhere. As on the TPU: q is rotated in fp32, scaled, then
-// rounded to bf16; each K tile is rotated in fp32 and rounded to bf16;
-// masked scores are the finite -1e30; P.V accumulates in fp32 and is divided
-// by max(l, 1e-30) at the end. A row whose keys are all masked (prefix: len
-// = 0; joint: len = 0 and no text) comes out as the uniform average over the
-// N keys, as the TPU kernels' does. When asked, the forward also writes each
-// row's softmax statistics, m (the row max) and linv = 1 / max(l, 1e-30),
-// fp32 (B, H, N): the residuals the backward needs. Without ROPE no cos/sin
-// table is read: the pointers are null and the code that would read them is
-// compiled out.
+// rounded to bf16; k is rotated in fp32 and rounded to bf16; masked scores
+// are the finite -1e30 and keys past N count as -inf; P is rounded to bf16
+// before P.V, which accumulates in fp32 and is divided by max(l, 1e-30) at
+// the end. A row whose keys are all masked (prefix: len = 0; joint: len = 0
+// and no text) comes out as the uniform average over the N keys, as the TPU
+// kernels' does. When asked, the forward also writes each row's softmax
+// statistics, m (the row max) and linv = 1 / max(l, 1e-30), fp32 (B, H, N):
+// the residuals the backward needs. Without ROPE no cos/sin table is read:
+// the pointers are null and the code that would read them is compiled out.
 //
 // Bound on this card: operations. At the synthesis shapes (B=2, N=1536,
 // H=16, dh=64) the two products are ~4*B*H*N*kv*dh flops against ~26 MB of
 // operands, ~600 flops per byte, above the H100's ~295 bf16 flops per byte.
-// Design: the TPU kernels keep one head's whole K/V in VMEM; K+V of one head
-// at N=4096 is 1 MB against 227 KB of shared memory here, so the kernel
-// streams K/V tiles with an online softmax (flash-attention style) instead.
-// One block per (q-tile of 64 rows, head, batch), 4 warps of 16 query rows.
-// The rotated, scaled Q tile lives in registers as mma.sync A fragments for
-// the whole loop; each 64-key K tile is rotated into shared memory and V is
-// stored transposed so both products read 32-bit fragment words without
-// bank conflicts. Scores, softmax state and the O accumulator stay in
-// registers (the m16n8k16 accumulator layout of S is reused as the A
-// fragment of P). Dead key tiles are skipped: a tile none of whose columns is
-// valid has probabilities of exactly 0 in fp32, so skipping it changes no
-// bit of the result. With the prefix rule the dead tiles are those at or past
-// len, and the loop simply ends there; with the joint rule they are the
-// tiles inside the gap [len, n_audio), and the tiles after it are live
-// again. A tile that straddles an edge takes the per-column test. N is any
-// length: rows and columns past N are guarded, not padded.
+// The TPU kernels keep one head's whole K/V in VMEM; K+V of one head at
+// N=4096 is 1 MB against 227 KB of shared memory here, so the forward
+// streams K/V tiles with an online softmax (flash-attention style), in two
+// kernels on one stream:
+//   0. pre-pass, the backward's without dO, O and delta: q' = bf16(sm_scale
+//      * rot(q)) and, with RoPE compiled in, k' = bf16(rot(k)) into
+//      head-major scratch (B, H, N, dh), so K is rotated once per call and
+//      not once per q-tile (a block that rotated its own K tiles spent 43 %
+//      of its time there). Without RoPE only q' is written and k is read in
+//      place. Memory-bound: ~25 MB at (2, 1536, 16, 64).
+//   1. main kernel, one block per (64 * fwd_groups query rows, head, batch):
+//      three consumer warpgroups of 64 rows at dh 64 (two at dh 128) and one
+//      producer warp. The producer loads the block's q' tiles once and
+//      streams the live (K', V) tiles of 64 keys through a ring of kStages
+//      in shared memory with TMA, each stage under a full and an empty
+//      mbarrier. S = q'.K'^T runs on wgmma with both operands K-major in
+//      shared memory. Only a tile on an edge of the valid columns (the last
+//      one before len or N, the gap's ends) is masked, with selects on the
+//      column's offset in the tile, not a branch per element. The online
+//      softmax runs in registers (the row max across the four threads of a
+//      quad at each tile, the row sum once at the end; O rescaled by
+//      exp(m_old - m_new)), p = 2^(s log2(e) - m log2(e)) as one FFMA and
+//      one ex2. P is rounded to bf16 straight from the S accumulators into
+//      register A fragments, and O += P.V is a register-A wgmma with V read
+//      MN-major through the descriptor, from its in-place map: no tile is
+//      transposed by hand. S of tile j and P.V of tile j - 1 are issued as
+//      two commit groups, so the softmax of tile j runs while P.V of tile
+//      j - 1 is on the tensor cores. At the end O * linv is rounded to bf16
+//      and written from registers, with m and linv where asked. Dead key
+//      tiles are skipped: a tile none of whose columns is valid has
+//      probabilities of exactly 0 in fp32, so skipping it changes no bit of
+//      the result. With the prefix rule the dead tiles are those at or past
+//      len, and the loop ends there; with the joint rule they are the tiles
+//      inside the gap [len, n_audio), and the tiles after it are live
+//      again. Rows and keys past N arrive as zeros from TMA's
+//      out-of-bounds fill: those rows are not written, those keys score
+//      -inf.
 // q/k/v are read through batch and row strides, so the column slices of a
 // fused to_qkv projection (row stride 3*H*dh) go in without a copy; the
 // head stride must be dh and the last axis contiguous.
-// The forward is still the first, simple version: mma.sync rather than
-// wgmma, no TMA, no software pipelining of the tile loads.
+// What holds the main kernel above its bound: at dh 64 a warpgroup's tile
+// of 64 rows x 64 keys is 2^20 flops, ~256 cycles of an SM's tensor cores
+// at the bf16 peak, and 4096 exponentials, ~256 cycles of its 16 ex2 units,
+// besides ~5 other instructions a score (max, FFMA, sum, convert, rescale).
+// The exponential is a bound as tight as the products', and one block of
+// three warpgroups an SM (at ~110 registers a thread) covers it only in part:
+// hence one instruction a score fewer (the FFMA) and no mask on inner
+// tiles. Tried and dropped (PERF.md, Findings): the serial loop (products,
+// wait, softmax, products, wait), two blocks of two warpgroups an SM or one
+// of four, and named-barrier turns of the warpgroups at the tensor cores.
 //
 // Backward. From q, k, v, the output cotangent g = dO, the forward's output
 // O and its row statistics (m, linv) it forms, per (batch, head),
@@ -81,13 +111,10 @@
 // q-blocks on their sequential grid axis. Blocks here run in no order, so
 // the backward uses no atomics (two runs give identical gradients) and is
 // three kernels on one stream:
-//   0. pre-pass, one thread per 8 + 8 values of a (row, head): rotates q and
-//      k once per call (the TPU kernel rotates K once per head into VMEM)
-//      into head-major scratch (B, H, N, dh), q' with sm_scale folded in,
-//      with the forward's fp32 arithmetic, so the products see the
-//      forward's operands; and delta, fp32 (B, H, N). Without RoPE only q'
-//      is written and k is read in place. Memory-bound: ~230 MB at
-//      (8, 2304, 16, 64).
+//   0. pre-pass, the forward's with delta = rowsum(dO * O), fp32 (B, H, N),
+//      added: q' and (with RoPE) k' once per call into the same head-major
+//      scratch with the same fp32 arithmetic, so the products see the
+//      forward's operands. Memory-bound: ~230 MB at (8, 2304, 16, 64).
 //   1. dq kernel, one block per (192 query rows at dh 64, 128 at dh 128;
 //      head, batch): three (two) consumer warpgroups of 64 rows and one
 //      producer warp. The producer loads the block's q' and dO tiles once
@@ -111,15 +138,16 @@
 //      registers and read dO and q' MN-major, so no tile is ever transposed
 //      by hand. A block whose key tiles are all dead writes dK = dV = 0,
 //      exactly what their zero probabilities give.
-// TMA maps are 3-D, [64 rows][64 columns] boxes with 128-byte swizzle (a
-// dh = 64 bf16 row is 128 bytes; dh = 128 takes two boxes side by side),
-// encoded on the host at each launch: scratch as (dh, N, B*H), operands in
-// place as (H*dh, N, B) through their strides, so the column slices of a
-// fused to_qkv (row stride 3*H*dh) need no copy. Rows past N come in as 0;
-// p = 0 there through linv = 0 (rows) and the column rules (keys). The
-// RoPE adjoint and sm_scale are applied in registers at the end: the
-// element at column c + dh/2 sits in the same thread's accumulator dh/16
-// n8-blocks on (the wgmma accumulator layout repeats mma.sync's per warp).
+// TMA maps (both directions) are 3-D, [64 rows][64 columns] boxes with
+// 128-byte swizzle (a dh = 64 bf16 row is 128 bytes; dh = 128 takes two
+// boxes side by side), encoded on the host at each launch: scratch as
+// (dh, N, B*H), operands in place as (H*dh, N, B) through their strides, so
+// the column slices of a fused to_qkv (row stride 3*H*dh) need no copy. Rows
+// past N come in as 0; p = 0 there through linv = 0 (rows) and the column
+// rules (keys). The RoPE adjoint and sm_scale are applied in registers at
+// the end: the element at column c + dh/2 sits in the same thread's
+// accumulator dh/16 n8-blocks on (the wgmma accumulator layout repeats
+// mma.sync's per warp).
 // Both kernels recompute S and dP: 7 products of N x N x dh per head
 // against the 5 of the math, the price of no atomics. Bound on this card:
 // operations (10 * B * H * N^2 * dh flops at ~1,000 flops per byte at the
@@ -143,10 +171,7 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;  // query rows per block, 16 per warp
 constexpr int kBlockK = 64;  // keys per K/V tile
-constexpr int kWarps = kBlockQ / 16;
-constexpr int kThreads = kWarps * 32;
 constexpr float kMaskValue = -1e30f;
 constexpr int kMaskPrefix = 0;  // column c valid iff c < len
 constexpr int kMaskJoint = 1;   // column c valid iff c < len || c >= n_audio
@@ -186,124 +211,18 @@ __device__ __forceinline__ bool tile_dead(int k0, int len, int n_audio, int n) {
   return MASK == kMaskPrefix ? k0 >= len : (k0 >= len && min(k0 + kBlockK, n) <= n_audio);
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x, the hardware's approximation (what __expf uses after its multiply).
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a (16x16 bf16, row-major) * b (16x8 bf16, col-major), fp32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Rows [row0, row0 + 64) of one head of q or k into `dst`, rotated in fp32
-// when `rope`, multiplied by `scale`, rounded to bf16. Rows past n are zero.
-template <int DH>
-__device__ __forceinline__ void load_rotated(bf16 (*dst)[DH + 8], const bf16* src,
-                                             long long row_stride, int row0, int n, bool rope,
-                                             const float* cos, const float* sin, float scale) {
-  constexpr int kHalf = DH / 2;
-  constexpr int kChunks = kHalf / 8;  // 8-value chunks in each half of a row
-  for (int idx = threadIdx.x; idx < kBlockK * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    const int pos = row0 + r;
-    float lo[8], hi[8];
-    if (pos < n) {
-      const uint4 a = *reinterpret_cast<const uint4*>(src + pos * row_stride + c);
-      const uint4 b = *reinterpret_cast<const uint4*>(src + pos * row_stride + c + kHalf);
-      const bf16* ea = reinterpret_cast<const bf16*>(&a);
-      const bf16* eb = reinterpret_cast<const bf16*>(&b);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        lo[i] = __bfloat162float(ea[i]);
-        hi[i] = __bfloat162float(eb[i]);
-      }
-      if (rope) {
-        const float* cr = cos + static_cast<long long>(pos) * DH;
-        const float* sr = sin + static_cast<long long>(pos) * DH;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float x1 = lo[i], x2 = hi[i];
-          lo[i] = x1 * __ldg(cr + c + i) - x2 * __ldg(sr + c + i);
-          hi[i] = x2 * __ldg(cr + c + i + kHalf) + x1 * __ldg(sr + c + i + kHalf);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        lo[i] *= scale;
-        hi[i] *= scale;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) lo[i] = hi[i] = 0.f;
-    }
-    uint4 pa, pb;
-    pa.x = pack_bf16x2(lo[0], lo[1]);
-    pa.y = pack_bf16x2(lo[2], lo[3]);
-    pa.z = pack_bf16x2(lo[4], lo[5]);
-    pa.w = pack_bf16x2(lo[6], lo[7]);
-    pb.x = pack_bf16x2(hi[0], hi[1]);
-    pb.y = pack_bf16x2(hi[2], hi[3]);
-    pb.z = pack_bf16x2(hi[4], hi[5]);
-    pb.w = pack_bf16x2(hi[6], hi[7]);
-    *reinterpret_cast<uint4*>(&dst[r][c]) = pa;
-    *reinterpret_cast<uint4*>(&dst[r][c + kHalf]) = pb;
-  }
-}
-
-// Keys [row0, row0 + 64) of one head of v, stored transposed: dst[d][key].
-template <int DH>
-__device__ __forceinline__ void load_v_transposed(bf16 (*dst)[kBlockK + 8], const bf16* src,
-                                                  long long row_stride, int row0, int n) {
-  constexpr int kChunks = DH / 8;
-  for (int idx = threadIdx.x; idx < kBlockK * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    const int pos = row0 + r;
-    uint4 a = make_uint4(0u, 0u, 0u, 0u);
-    if (pos < n) a = *reinterpret_cast<const uint4*>(src + pos * row_stride + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&a);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[c + i][r] = e[i];
-  }
-}
-
-// The A fragment of rows [r0, r0 + 16), columns [k0, k0 + 16) of a
-// row-major bf16 tile in shared memory.
-template <int W>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], bf16 (*src)[W], int r0, int k0) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  a[0] = ld_u32(&src[r0 + g][k0 + 2 * t]);
-  a[1] = ld_u32(&src[r0 + g + 8][k0 + 2 * t]);
-  a[2] = ld_u32(&src[r0 + g][k0 + 2 * t + 8]);
-  a[3] = ld_u32(&src[r0 + g + 8][k0 + 2 * t + 8]);
-}
-
-// acc[j] += A (16 x 16*KS, as fragments a[KS]) * B, where B's column n,
-// row k is src[n][k] (a [n][k] tile in shared memory), for the NT output
-// tiles of 8 columns.
-template <int KS, int NT, int W>
-__device__ __forceinline__ void mma_rows(float (&acc)[NT][4], const uint32_t (&a)[KS][4],
-                                         bf16 (*src)[W]) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      mma_16816(acc[j], a[kk], ld_u32(&src[j * 8 + g][kk * 16 + 2 * t]),
-                ld_u32(&src[j * 8 + g][kk * 16 + 2 * t + 8]));
-    }
-  }
 }
 
 // The accumulators of a 16 x 64 tile as bf16 A fragments over its 64
@@ -343,158 +262,21 @@ __device__ __forceinline__ void rope_adjoint(float (&x)[DH / 8][4], int r0, int 
   }
 }
 
-template <int DH, class V>
-__global__ void __launch_bounds__(kThreads) attention_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    long long q_bs, long long q_rs, long long k_bs, long long k_rs, long long v_bs,
-    long long v_rs, const int* __restrict__ lens, int n_audio, const float* __restrict__ cos,
-    const float* __restrict__ sin, bf16* __restrict__ out, float* __restrict__ row_max,
-    float* __restrict__ row_linv, int n, int heads, int rope_heads, float sm_scale) {
-  constexpr bool ROPE = V::kRope;
-  constexpr int MASK = V::kMask;
-  __shared__ __align__(16) bf16 ks[kBlockK][DH + 8];   // Q tile first, then K tiles
-  __shared__ __align__(16) bf16 vts[DH][kBlockK + 8];  // V tile, transposed
-
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread within the group
-  const bool rope = ROPE && h < rope_heads;
-  const int len = lens[b];
-
-  const bf16* qb = q + b * q_bs + static_cast<long long>(h) * DH;
-  const bf16* kb = k + b * k_bs + static_cast<long long>(h) * DH;
-  const bf16* vb = v + b * v_bs + static_cast<long long>(h) * DH;
-
-  // Q: rotate, fold in sm_scale, round to bf16, keep as A fragments.
-  load_rotated<DH>(ks, qb, q_rs, q0, n, rope, cos, sin, sm_scale);
-  __syncthreads();
-  uint32_t qf[DH / 16][4];
-  const int wr = warp * 16;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) load_a(qf[kk], ks, wr, kk * 16);
-  __syncthreads();
-
-  float o[DH / 8][4];
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8
-  float l0 = 0.f, l1 = 0.f;              // running sum of exp
-
-  // dead tiles hold probabilities of exactly 0: the prefix rule's lie at or
-  // past len, where the loop ends; the joint rule's inside [len, n_audio)
-  const int kv_end = (MASK == kMaskPrefix && len > 0) ? min(len, n) : n;
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
-    if (MASK != kMaskPrefix && tile_dead<MASK>(k0, len, n_audio, n)) continue;
-    load_rotated<DH>(ks, kb, k_rs, k0, n, rope, cos, sin, 1.f);
-    load_v_transposed<DH>(vts, vb, v_rs, k0, n);
-    __syncthreads();
-
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    mma_rows(s, qf, ks);
-
-    float tm0 = -INFINITY, tm1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        if (col >= n) {
-          s[j][e] = -INFINITY;  // past the sequence: not a key at all
-        } else if (!col_valid<MASK>(col, len, n_audio)) {
-          s[j][e] = kMaskValue;
-        }
-      }
-      tm0 = fmaxf(tm0, fmaxf(s[j][0], s[j][1]));
-      tm1 = fmaxf(tm1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      tm0 = fmaxf(tm0, __shfl_xor_sync(0xffffffffu, tm0, off));
-      tm1 = fmaxf(tm1, __shfl_xor_sync(0xffffffffu, tm1, off));
-    }
-    // every tile holds a key < n, so the new max is finite
-    const float mn0 = fmaxf(m0, tm0), mn1 = fmaxf(m1, tm1);
-    const float a0 = __expf(m0 - mn0), a1 = __expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-      s[j][0] = __expf(s[j][0] - mn0);
-      s[j][1] = __expf(s[j][1] - mn0);
-      s[j][2] = __expf(s[j][2] - mn1);
-      s[j][3] = __expf(s[j][3] - mn1);
-      ls0 += s[j][0] + s[j][1];
-      ls1 += s[j][2] + s[j][3];
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      ls0 += __shfl_xor_sync(0xffffffffu, ls0, off);
-      ls1 += __shfl_xor_sync(0xffffffffu, ls1, off);
-    }
-    l0 = l0 * a0 + ls0;
-    l1 = l1 * a1 + ls1;
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
-      o[j][0] *= a0;
-      o[j][1] *= a0;
-      o[j][2] *= a1;
-      o[j][3] *= a1;
-    }
-
-    // O += P V: the S accumulators are exactly the A fragments of P.
-    uint32_t pa[kBlockK / 16][4];
-    acc_to_a(pa, s);
-    mma_rows(o, pa, vts);
-    __syncthreads();  // the next tile overwrites ks / vts
-  }
-
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
-  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-  const int r0 = q0 + wr + g;
-  const int r1 = r0 + 8;
-  bf16* o0 = out + (static_cast<long long>(b) * n + r0) * heads * DH + static_cast<long long>(h) * DH;
-  bf16* o1 = o0 + 8LL * heads * DH;
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j) {
-    const int col = j * 8 + 2 * t;
-    if (r0 < n) *reinterpret_cast<uint32_t*>(o0 + col) = pack_bf16x2(o[j][0] * inv0, o[j][1] * inv0);
-    if (r1 < n) *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16x2(o[j][2] * inv1, o[j][3] * inv1);
-  }
-  if (row_max != nullptr && t == 0) {
-    const long long stat = (static_cast<long long>(b) * heads + h) * n;
-    if (r0 < n) {
-      row_max[stat + r0] = m0;
-      row_linv[stat + r0] = inv0;
-    }
-    if (r1 < n) {
-      row_max[stat + r1] = m1;
-      row_linv[stat + r1] = inv1;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Backward
+// Asynchronous copies and wgmma: what the forward's main kernel and the
+// backward's kernels share
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdRows = 64;        // rows of a tile: a warpgroup's M, one step of a stream
+constexpr int kRows = 64;               // rows of a tile: a warpgroup's M, one step of a stream
 constexpr int kSubBytes = 64 * 64 * 2;  // a [64 rows][64 columns] bf16 sub-tile, 128-byte rows
-constexpr int kStages = 3;          // depth of the ring of streamed tiles
+constexpr int kStages = 3;              // depth of the ring of streamed tiles
 constexpr int kPrepThreads = 256;
 constexpr long long kWaitCycles = 20000000000LL;  // ~10 s: a wait this long is a lost arrival
 
 // A [64][DH] tile: DH / 64 sub-tiles side by side.
 template <int DH>
 __host__ __device__ constexpr int tile_bytes() {
-  return kBwdRows * DH * 2;
+  return kRows * DH * 2;
 }
 // Consumer warpgroups of a dq block (64 query rows each): three at dh 64
 // (one block of 416 threads at <= 157 registers fills an SM), two at dh 128.
@@ -506,6 +288,12 @@ __host__ __device__ constexpr int dq_groups() {
 template <int DH>
 __host__ __device__ constexpr int dkdv_groups() {
   return DH == 64 ? 2 : 1;
+}
+// Of a forward block (64 query rows each): three at dh 64 (one block of 416
+// threads an SM), two at dh 128, for the registers.
+template <int DH>
+__host__ __device__ constexpr int fwd_groups() {
+  return DH == 64 ? 3 : 2;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -743,19 +531,20 @@ __device__ __forceinline__ void issue_rs(float (&acc)[DH / 8][4], const uint32_t
   for (int kk = 0; kk < 4; ++kk) wgmma_rs<DH>(acc, a[kk], desc_mnmajor(b, kk));
 }
 
-// Backward, pre-pass: q' = bf16(sm_scale * rot(q)) and, with RoPE compiled
-// in, k' = bf16(rot(k)) into head-major scratch (B, H, N, DH), with the
-// forward's arithmetic (load_rotated); delta = rowsum(dO * O), fp32
-// (B, H, N). A thread takes 8 values of each half of one (row, head); the
-// DH / 16 threads of a (row, head) are adjacent lanes.
-template <int DH, class V>
-__global__ void __launch_bounds__(kPrepThreads) attention_bwd_prep_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ g,
-    const bf16* __restrict__ o, long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-    long long g_bs, long long g_rs, long long o_bs, long long o_rs,
-    const float* __restrict__ cos, const float* __restrict__ sin, bf16* __restrict__ qs,
-    bf16* __restrict__ ks, float* __restrict__ delta, int batch, int n, int heads,
-    int rope_heads, float sm_scale) {
+// Pre-pass of both directions: q' = bf16(sm_scale * rot(q)) and, with RoPE
+// compiled in, k' = bf16(rot(k)) into head-major scratch (B, H, N, DH),
+// rotated in fp32; in the backward (DELTA) also delta = rowsum(dO * O),
+// fp32 (B, H, N). A thread takes 8 values of each half of one (row, head);
+// the DH / 16 threads of a (row, head) are adjacent lanes.
+template <int DH, class V, bool DELTA>
+__device__ __forceinline__ void prep(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                     const bf16* __restrict__ g, const bf16* __restrict__ o,
+                                     long long q_bs, long long q_rs, long long k_bs,
+                                     long long k_rs, long long g_bs, long long g_rs,
+                                     long long o_bs, long long o_rs, const float* __restrict__ cos,
+                                     const float* __restrict__ sin, bf16* __restrict__ qs,
+                                     bf16* __restrict__ ks, float* __restrict__ delta, int batch,
+                                     int n, int heads, int rope_heads, float sm_scale) {
   constexpr bool ROPE = V::kRope;
   constexpr int kHalf = DH / 2;
   constexpr int kChunks = kHalf / 8;
@@ -809,10 +598,13 @@ __global__ void __launch_bounds__(kPrepThreads) attention_bwd_prep_kernel(
     *reinterpret_cast<uint4*>(out + kHalf) = pb;
   };
 
-  float acc = 0.f;
   if (live) {
     rotate(qs + dst, q + b * q_bs + pos * q_rs + hd, sm_scale);
     if (ROPE) rotate(ks + dst, k + b * k_bs + pos * k_rs + hd, 1.f);
+  }
+  if (!DELTA) return;
+  float acc = 0.f;
+  if (live) {
     const bf16* gp = g + b * g_bs + pos * g_rs + hd;
     const bf16* op = o + b * o_bs + pos * o_rs + hd;
 #pragma unroll
@@ -829,6 +621,256 @@ __global__ void __launch_bounds__(kPrepThreads) attention_bwd_prep_kernel(
   for (int off = 1; off < kChunks; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (live && c == 0) delta[(static_cast<long long>(b) * heads + h) * n + pos] = acc;
 }
+
+// The forward's pre-pass: q' and, with RoPE, k'.
+template <int DH, class V>
+__global__ void __launch_bounds__(kPrepThreads) attention_fwd_prep_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, long long q_bs, long long q_rs,
+    long long k_bs, long long k_rs, const float* __restrict__ cos, const float* __restrict__ sin,
+    bf16* __restrict__ qs, bf16* __restrict__ ks, int batch, int n, int heads, int rope_heads,
+    float sm_scale) {
+  prep<DH, V, false>(q, k, nullptr, nullptr, q_bs, q_rs, k_bs, k_rs, 0, 0, 0, 0, cos, sin, qs, ks,
+                     nullptr, batch, n, heads, rope_heads, sm_scale);
+}
+
+// The backward's pre-pass: q', with RoPE k', and delta.
+template <int DH, class V>
+__global__ void __launch_bounds__(kPrepThreads) attention_bwd_prep_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ g,
+    const bf16* __restrict__ o, long long q_bs, long long q_rs, long long k_bs, long long k_rs,
+    long long g_bs, long long g_rs, long long o_bs, long long o_rs,
+    const float* __restrict__ cos, const float* __restrict__ sin, bf16* __restrict__ qs,
+    bf16* __restrict__ ks, float* __restrict__ delta, int batch, int n, int heads,
+    int rope_heads, float sm_scale) {
+  prep<DH, V, true>(q, k, g, o, q_bs, q_rs, k_bs, k_rs, g_bs, g_rs, o_bs, o_rs, cos, sin, qs, ks,
+                    delta, batch, n, heads, rope_heads, sm_scale);
+}
+
+// Forward, main kernel: the output of 64 * fwd_groups query rows of one
+// head. The last warp loads the block's q' tiles once and streams the live
+// (K', V) tiles through a ring of kStages; each consumer warpgroup owns 64
+// rows.
+template <int DH, class V>
+__global__ void __launch_bounds__(fwd_groups<DH>() * 128 + 32, 1) attention_fwd_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ lens, int n_audio,
+    bf16* __restrict__ out, float* __restrict__ row_max, float* __restrict__ row_linv, int n,
+    int heads) {
+  constexpr bool ROPE = V::kRope;
+  constexpr int MASK = V::kMask;
+  constexpr int WG = fwd_groups<DH>();
+  constexpr int TILE = tile_bytes<DH>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t sq = (smem_u32(smem) + 1023) & ~1023u;  // q' tiles, one per warpgroup
+  const uint32_t ring = sq + WG * TILE;                   // kStages x (K' tile, V tile)
+  const uint32_t bars = ring + kStages * 2 * TILE;        // q', full[kStages], empty[kStages]
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+
+  const int q0 = blockIdx.x * kRows * WG;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int len = lens[b];
+  // dead tiles hold probabilities of exactly 0: the prefix rule's lie at or
+  // past len, where the loop ends; the joint rule's inside [len, n_audio)
+  const int kv_end = (MASK == kMaskPrefix && len > 0) ? min(len, n) : n;
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), WG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == WG * 4) {  // producer
+    if (lane == 0) {
+      mbar_expect_tx(bars, WG * TILE);
+      for (int w = 0; w < WG; ++w)
+        load_tile<DH>(sq + w * TILE, tm_q, true, bars, q0 + w * kRows, h, b, heads);
+      int it = 0;
+      for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
+        if (MASK != kMaskPrefix && tile_dead<MASK>(k0, len, n_audio, n)) continue;
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(empty(s), (it / kStages - 1) & 1);
+        const uint32_t dst = ring + s * 2 * TILE;
+        mbar_expect_tx(full(s), 2 * TILE);
+        load_tile<DH>(dst, tm_k, ROPE, full(s), k0, h, b, heads);
+        load_tile<DH>(dst + TILE, tm_v, false, full(s), k0, h, b, heads);
+        ++it;
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  const int wr = (warp & 3) * 16;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = q0 + wg * kRows + wr + g;  // this thread's rows
+  const int r1 = r0 + 8;
+  const uint32_t qt = sq + wg * TILE;
+
+  float o[DH / 8][4];
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows r0 and r1
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of their running sums
+  // P of the tile before as bf16 A fragments, its V tile and its stage,
+  // released once P.V is done; before the first tile P = 0, which adds
+  // nothing, over the first tile's V (stage 0)
+  uint32_t pa[kBlockK / 16][4] = {};
+  uint32_t vt = ring + TILE;
+  int held = -1;
+  mbar_wait(bars, 0);
+  __syncwarp();
+
+  int it = 0;
+  for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
+    if (MASK != kMaskPrefix && tile_dead<MASK>(k0, len, n_audio, n)) continue;
+    const int s = it % kStages;
+    mbar_wait(full(s), (it / kStages) & 1);
+    __syncwarp();
+    const uint32_t kt = ring + s * 2 * TILE;
+
+    // S = q' K'^T, then O += P V of the tile before: two groups, so this
+    // tile's softmax runs while P V is on the tensor cores
+    float sc[kBlockK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_n64(sc, desc_kmajor(qt, kk), desc_kmajor(kt, kk));
+    wgmma_commit();
+    issue_rs<DH>(o, pa, vt);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    // column c of the tile is key k0 + c: past n not a key at all (-inf),
+    // masked -1e30; only a tile on an edge of the valid columns is masked,
+    // with selects, not a branch per element
+    const int c_n = n - k0, c_len = len - k0, c_audio = n_audio - k0;
+    const bool edge = MASK == kMaskPrefix
+                          ? kBlockK > min(c_len, c_n)
+                          : !(kBlockK <= c_n && (kBlockK <= c_len || c_audio <= 0));
+    float tm0 = -INFINITY, tm1 = -INFINITY;
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + 2 * t + (e & 1);
+          const bool valid = MASK == kMaskPrefix ? c < c_len : (c < c_len || c >= c_audio);
+          sc[j][e] = c >= c_n ? -INFINITY : (valid ? sc[j][e] : kMaskValue);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j) {
+      tm0 = fmaxf(tm0, fmaxf(sc[j][0], sc[j][1]));
+      tm1 = fmaxf(tm1, fmaxf(sc[j][2], sc[j][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      tm0 = fmaxf(tm0, __shfl_xor_sync(0xffffffffu, tm0, off));
+      tm1 = fmaxf(tm1, __shfl_xor_sync(0xffffffffu, tm1, off));
+    }
+    // every tile holds a key < n, so the new max is finite
+    const float mn0 = fmaxf(m0, tm0), mn1 = fmaxf(m1, tm1);
+    const float a0 = __expf(m0 - mn0), a1 = __expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    // p = 2^(s log2(e) - m log2(e)): one FFMA and one ex2 a score. A row
+    // whose keys are all masked so far (max -1e30) takes the scale 0, so each
+    // of its masked keys gives exactly 1, as exp(s - m) does; its keys past n
+    // (-inf * 0) are set to 0 below.
+    const float e0 = mn0 == kMaskValue ? 0.f : kLog2e, e1 = mn1 == kMaskValue ? 0.f : kLog2e;
+    const float b0 = -mn0 * e0, b1 = -mn1 * e1;
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j) {
+      sc[j][0] = ex2_approx(fmaf(sc[j][0], e0, b0));
+      sc[j][1] = ex2_approx(fmaf(sc[j][1], e0, b0));
+      sc[j][2] = ex2_approx(fmaf(sc[j][2], e1, b1));
+      sc[j][3] = ex2_approx(fmaf(sc[j][3], e1, b1));
+    }
+    if (c_n < kBlockK) {
+#pragma unroll
+      for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = j * 8 + 2 * t + (e & 1) < c_n ? sc[j][e] : 0.f;
+      }
+    }
+    float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j) {
+      ls0 += sc[j][0] + sc[j][1];
+      ls1 += sc[j][2] + sc[j][3];
+    }
+    l0 = l0 * a0 + ls0;
+    l1 = l1 * a1 + ls1;
+
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    if (held >= 0) mbar_arrive(empty(held));
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      o[j][0] *= a0;
+      o[j][1] *= a0;
+      o[j][2] *= a1;
+      o[j][3] *= a1;
+    }
+    acc_to_a(pa, sc);
+    held = s;
+    vt = kt + TILE;
+    ++it;
+  }
+  // the last tile's P V. The loop ran at least once, so vt is a loaded V
+  // tile: tile_dead skips no tile of a row whose keys are all masked (the
+  // joint rule's len 0 with no text included), and a row with a valid key
+  // has a live tile.
+  wgmma_fence();
+  issue_rs<DH>(o, pa, vt);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  bf16* o0 = out + (static_cast<long long>(b) * n + r0) * heads * DH + static_cast<long long>(h) * DH;
+  bf16* o1 = o0 + 8LL * heads * DH;
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (r0 < n) *reinterpret_cast<uint32_t*>(o0 + col) = pack_bf16x2(o[j][0] * inv0, o[j][1] * inv0);
+    if (r1 < n) *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16x2(o[j][2] * inv1, o[j][3] * inv1);
+  }
+  if (row_max != nullptr && t == 0) {
+    const long long stat = (static_cast<long long>(b) * heads + h) * n;
+    if (r0 < n) {
+      row_max[stat + r0] = m0;
+      row_linv[stat + r0] = inv0;
+    }
+    if (r1 < n) {
+      row_max[stat + r1] = m1;
+      row_linv[stat + r1] = inv1;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
 
 // Backward, kernel 1: dQ of 64 * dq_groups query rows of one head. The last
 // warp loads the block's q' and dO tiles once and streams the live (K', V)
@@ -853,7 +895,7 @@ __global__ void __launch_bounds__(dq_groups<DH>() * 128 + 32, 1) attention_bwd_d
   auto full = [&](int s) { return bars + 8 * (1 + s); };
   auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
 
-  const int q0 = blockIdx.x * kBwdRows * WG;
+  const int q0 = blockIdx.x * kRows * WG;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
@@ -874,8 +916,8 @@ __global__ void __launch_bounds__(dq_groups<DH>() * 128 + 32, 1) attention_bwd_d
     if (lane == 0) {
       mbar_expect_tx(bars, 2 * WG * TILE);
       for (int w = 0; w < WG; ++w) {
-        load_tile<DH>(sq + w * TILE, tm_q, true, bars, q0 + w * kBwdRows, h, b, heads);
-        load_tile<DH>(sg + w * TILE, tm_g, false, bars, q0 + w * kBwdRows, h, b, heads);
+        load_tile<DH>(sq + w * TILE, tm_q, true, bars, q0 + w * kRows, h, b, heads);
+        load_tile<DH>(sg + w * TILE, tm_g, false, bars, q0 + w * kRows, h, b, heads);
       }
       int it = 0;
       for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
@@ -897,7 +939,7 @@ __global__ void __launch_bounds__(dq_groups<DH>() * 128 + 32, 1) attention_bwd_d
   const int g = lane >> 2;
   const int t = lane & 3;
   const bool rope = ROPE && h < rope_heads;
-  const int r0 = q0 + wg * kBwdRows + wr + g;
+  const int r0 = q0 + wg * kRows + wr + g;
   const int r1 = r0 + 8;
   const long long stat = (static_cast<long long>(b) * heads + h) * n;
   const float mx0 = r0 < n ? row_max[stat + r0] : 0.f, mx1 = r1 < n ? row_max[stat + r1] : 0.f;
@@ -1003,7 +1045,7 @@ __global__ void __launch_bounds__(dkdv_groups<DH>() * 128 + 32, 1) attention_bwd
     return reinterpret_cast<float*>(smem + (ring + s * STAGE + 2 * TILE - smem_u32(smem)));
   };
 
-  const int k0 = blockIdx.x * kBwdRows * WG;
+  const int k0 = blockIdx.x * kRows * WG;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
@@ -1014,7 +1056,7 @@ __global__ void __launch_bounds__(dkdv_groups<DH>() * 128 + 32, 1) attention_bwd
   bool dead = true;
 #pragma unroll
   for (int w = 0; w < WG; ++w) {
-    const int kt = k0 + w * kBwdRows;
+    const int kt = k0 + w * kRows;
     if (kt < n && !tile_dead<MASK>(kt, len, n_audio, n)) dead = false;
   }
   if (threadIdx.x == 0 && !dead) {
@@ -1033,20 +1075,20 @@ __global__ void __launch_bounds__(dkdv_groups<DH>() * 128 + 32, 1) attention_bwd
     if (lane == 0) {
       mbar_expect_tx(bars, 2 * WG * TILE);
       for (int w = 0; w < WG; ++w) {
-        load_tile<DH>(sk + w * TILE, tm_k, ROPE, bars, k0 + w * kBwdRows, h, b, heads);
-        load_tile<DH>(sv + w * TILE, tm_v, false, bars, k0 + w * kBwdRows, h, b, heads);
+        load_tile<DH>(sk + w * TILE, tm_k, ROPE, bars, k0 + w * kRows, h, b, heads);
+        load_tile<DH>(sv + w * TILE, tm_v, false, bars, k0 + w * kRows, h, b, heads);
       }
     }
     int it = 0;
-    for (int q0 = 0; q0 < n; q0 += kBwdRows, ++it) {
+    for (int q0 = 0; q0 < n; q0 += kRows, ++it) {
       const int s = it % kStages;
       if (it >= kStages) mbar_wait(empty(s), (it / kStages - 1) & 1);
       float* st = stats(s);
-      for (int i = lane; i < kBwdRows; i += 32) {
+      for (int i = lane; i < kRows; i += 32) {
         const int row = q0 + i;
         st[i] = row < n ? row_max[stat + row] : 0.f;
-        st[kBwdRows + i] = row < n ? row_linv[stat + row] : 0.f;  // rows past n: p = 0
-        st[2 * kBwdRows + i] = row < n ? delta[stat + row] : 0.f;
+        st[kRows + i] = row < n ? row_linv[stat + row] : 0.f;  // rows past n: p = 0
+        st[2 * kRows + i] = row < n ? delta[stat + row] : 0.f;
       }
       if (lane == 0) {
         const uint32_t dst = ring + s * STAGE;
@@ -1065,7 +1107,7 @@ __global__ void __launch_bounds__(dkdv_groups<DH>() * 128 + 32, 1) attention_bwd
   const int g = lane >> 2;
   const int t = lane & 3;
   const bool rope = ROPE && h < rope_heads;
-  const int r0 = k0 + wg * kBwdRows + wr + g;  // this thread's key rows
+  const int r0 = k0 + wg * kRows + wr + g;  // this thread's key rows
   const int r1 = r0 + 8;
   const long long hd = static_cast<long long>(h) * DH;
 
@@ -1083,24 +1125,24 @@ __global__ void __launch_bounds__(dkdv_groups<DH>() * 128 + 32, 1) attention_bwd
     mbar_wait(bars, 0);
     __syncwarp();
     int it = 0;
-    for (int q0 = 0; q0 < n; q0 += kBwdRows, ++it) {
+    for (int q0 = 0; q0 < n; q0 += kRows, ++it) {
       const int s = it % kStages;
       mbar_wait(full(s), (it / kStages) & 1);
       __syncwarp();
       const uint32_t qt = ring + s * STAGE, gt = qt + TILE;
       const float* m_s = stats(s);
-      const float* l_s = m_s + kBwdRows;
-      const float* d_s = l_s + kBwdRows;
+      const float* l_s = m_s + kRows;
+      const float* d_s = l_s + kRows;
 
       // S^T = K' q'^T and dP^T = V dO^T: 64 keys x 64 queries per warpgroup
-      float st[kBwdRows / 8][4], dpt[kBwdRows / 8][4];
+      float st[kRows / 8][4], dpt[kRows / 8][4];
       issue_pair<DH>(st, dpt, kt, qt, vt, gt);
       wgmma_wait<0>();
       fence_regs(st);
       fence_regs(dpt);
 
 #pragma unroll
-      for (int j = 0; j < kBwdRows / 8; ++j) {
+      for (int j = 0; j < kRows / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = j * 8 + 2 * t + (e & 1);  // query within the tile
@@ -1112,7 +1154,7 @@ __global__ void __launch_bounds__(dkdv_groups<DH>() * 128 + 32, 1) attention_bwd
       }
       // dV += P^T dO and dK += dS^T q': P^T and dS^T as register A
       // fragments, dO and q' read transposed
-      uint32_t pa[kBwdRows / 16][4], da[kBwdRows / 16][4];
+      uint32_t pa[kRows / 16][4], da[kRows / 16][4];
       acc_to_a(pa, st);
       acc_to_a(da, dpt);
       wgmma_fence();
@@ -1158,16 +1200,22 @@ constexpr int dkdv_smem() {
          kStages * (2 * tile_bytes<DH>() + 1024) + 8 * (1 + 2 * kStages);
 }
 
+template <int DH>
+constexpr int fwd_smem() {  // 1 KB to align the tiles, the tiles, the barriers
+  return 1024 + (fwd_groups<DH>() + 2 * kStages) * tile_bytes<DH>() + 8 * (1 + 2 * kStages);
+}
+
 // What one forward or backward call passes. q/k/v, and g (= dO) and o (the
 // forward's output) in the backward: device pointers to (B, N, H, dh) bf16
 // with the given batch and row strides (elements), head stride dh,
 // contiguous last axis, 16-byte aligned rows and batches. lens (B,) int32;
 // n_audio only for the joint rule; cos/sin (N, dh) fp32 contiguous, null
-// without RoPE. Forward: out (B, N, H, dh) bf16 contiguous; row_max/row_linv
-// fp32 (B, H, N) to write the softmax statistics, or both null. Backward:
-// row_max/row_linv hold the forward's statistics; qs (and, with RoPE, ks) is
-// (B, H, N, dh) bf16 scratch for q' (k') and delta fp32 (B, H, N) scratch,
-// all written by the pre-pass; dq/dk/dv are (B, N, H, dh) bf16 contiguous.
+// without RoPE. qs (and, with RoPE, ks) is (B, H, N, dh) bf16 scratch for q'
+// (k'), written by the pre-pass of either direction. Forward: out (B, N, H,
+// dh) bf16 contiguous; row_max/row_linv fp32 (B, H, N) to write the softmax
+// statistics, or both null. Backward: row_max/row_linv hold the forward's
+// statistics; delta fp32 (B, H, N) scratch, written by the pre-pass;
+// dq/dk/dv are (B, N, H, dh) bf16 contiguous.
 struct Operands {
   const void *q, *k, *v, *g, *o;
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, g_bs, g_rs, o_bs, o_rs;
@@ -1179,19 +1227,6 @@ struct Operands {
   float sm_scale;
   cudaStream_t stream;
 };
-
-template <int DH, class V>
-int launch_fwd(const Operands& a) {
-  typedef const bf16* cb;
-  const dim3 grid((a.n + kBlockQ - 1) / kBlockQ, a.heads, a.batch);
-  attention_kernel<DH, V><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<cb>(a.q), static_cast<cb>(a.k), static_cast<cb>(a.v), a.q_bs, a.q_rs, a.k_bs,
-      a.k_rs, a.v_bs, a.v_rs, static_cast<const int*>(a.lens), a.n_audio,
-      static_cast<const float*>(a.cos), static_cast<const float*>(a.sin),
-      static_cast<bf16*>(a.out), static_cast<float*>(a.row_max), static_cast<float*>(a.row_linv),
-      a.n, a.heads, a.rope_heads, a.sm_scale);
-  return static_cast<int>(cudaGetLastError());
-}
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -1233,11 +1268,41 @@ bool tile_map(CUtensorMap* map, const void* ptr, bool head_major, long long bs, 
     dims[0] = static_cast<cuuint64_t>(a.heads) * a.dh, dims[1] = a.n, dims[2] = a.batch;
     strides[0] = 2ULL * rs, strides[1] = 2ULL * (a.batch > 1 ? bs : a.n * rs);
   }
-  const cuuint32_t box[3] = {64, kBwdRows, 1}, unit[3] = {1, 1, 1};
+  const cuuint32_t box[3] = {64, kRows, 1}, unit[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
+}
+
+template <int DH, class V>
+int launch_fwd(const Operands& a) {
+  typedef const bf16* cb;
+  const long long items = static_cast<long long>(a.batch) * a.n * a.heads * (DH / 16);
+  attention_fwd_prep_kernel<DH, V>
+      <<<static_cast<unsigned>((items + kPrepThreads - 1) / kPrepThreads), kPrepThreads, 0,
+         a.stream>>>(static_cast<cb>(a.q), static_cast<cb>(a.k), a.q_bs, a.q_rs, a.k_bs, a.k_rs,
+                     static_cast<const float*>(a.cos), static_cast<const float*>(a.sin),
+                     static_cast<bf16*>(a.qs), static_cast<bf16*>(a.ks), a.batch, a.n, a.heads,
+                     a.rope_heads, a.sm_scale);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+
+  // the maps are encoded on the host at each launch and passed by value
+  CUtensorMap tq, tk, tv;
+  const bool mapped = tile_map(&tq, a.qs, true, 0, 0, a) &&
+                      tile_map(&tk, V::kRope ? a.ks : a.k, V::kRope, a.k_bs, a.k_rs, a) &&
+                      tile_map(&tv, a.v, false, a.v_bs, a.v_rs, a);
+  if (!mapped) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaFuncSetAttribute(
+      attention_fwd_kernel<DH, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem<DH>());
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int rows = kRows * fwd_groups<DH>();
+  const dim3 grid((a.n + rows - 1) / rows, a.heads, a.batch);
+  attention_fwd_kernel<DH, V><<<grid, fwd_groups<DH>() * 128 + 32, fwd_smem<DH>(), a.stream>>>(
+      tq, tk, tv, static_cast<const int*>(a.lens), a.n_audio, static_cast<bf16*>(a.out),
+      static_cast<float*>(a.row_max), static_cast<float*>(a.row_linv), a.n, a.heads);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int DH, class V>
@@ -1274,7 +1339,7 @@ int launch_bwd(const Operands& a) {
                                cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem<DH>());
   if (set != cudaSuccess) return static_cast<int>(set);
 
-  const int rows_q = kBwdRows * dq_groups<DH>();
+  const int rows_q = kRows * dq_groups<DH>();
   const dim3 grid_q((a.n + rows_q - 1) / rows_q, a.heads, a.batch);
   attention_bwd_dq_kernel<DH, V><<<grid_q, dq_groups<DH>() * 128 + 32, dq_smem<DH>(), a.stream>>>(
       tq, tk, tv, tg, lens, a.n_audio, static_cast<cf>(a.cos), static_cast<cf>(a.sin),
@@ -1282,7 +1347,7 @@ int launch_bwd(const Operands& a) {
       static_cast<bf16*>(a.dq), a.n, a.heads, a.rope_heads, a.sm_scale);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  const int rows_k = kBwdRows * dkdv_groups<DH>();
+  const int rows_k = kRows * dkdv_groups<DH>();
   const dim3 grid_k((a.n + rows_k - 1) / rows_k, a.heads, a.batch);
   attention_bwd_dkdv_kernel<DH, V>
       <<<grid_k, dkdv_groups<DH>() * 128 + 32, dkdv_smem<DH>(), a.stream>>>(
@@ -1292,11 +1357,13 @@ int launch_bwd(const Operands& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The forward of variant V on `a.stream`: cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for sizes the kernels do not take.
+// The forward of variant V: the pre-pass, then the main kernel, on
+// `a.stream`; cudaGetLastError() after them, or cudaErrorInvalidValue for
+// operands the kernels do not take.
 template <class V>
 int attention_forward(const Operands& a) {
-  if (a.batch <= 0 || a.n <= 0 || a.heads <= 0 || (a.row_max == nullptr) != (a.row_linv == nullptr))
+  if (a.batch <= 0 || a.n <= 0 || a.heads <= 0 || a.qs == nullptr ||
+      (V::kRope && a.ks == nullptr) || (a.row_max == nullptr) != (a.row_linv == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.dh == 64) return launch_fwd<64, V>(a);
   if (a.dh == 128) return launch_fwd<128, V>(a);

@@ -12,18 +12,19 @@
 
 #include "attention_core.cuh"
 
-// Forward. Operands as `Operands` in the header, without cos/sin; returns
-// cudaGetLastError() after the launch.
+// Forward: the pre-pass (q' into the head-major scratch qs), then the
+// main kernel, on `stream`. Operands as `Operands` in the header, without
+// cos/sin; returns cudaGetLastError() after the launches.
 extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v, long long q_bs,
                           long long q_rs, long long k_bs, long long k_rs, long long v_bs,
                           long long v_rs, const void* kv_lens, void* out,
-                          void* row_max, void* row_linv, int batch, int n, int heads, int dh,
-                          float sm_scale, void* stream) {
+                          void* row_max, void* row_linv, void* qs, int batch, int n,
+                          int heads, int dh, float sm_scale, void* stream) {
   Operands a = {};
   a.q = q, a.k = k, a.v = v;
   a.q_bs = q_bs, a.q_rs = q_rs, a.k_bs = k_bs, a.k_rs = k_rs, a.v_bs = v_bs, a.v_rs = v_rs;
   a.lens = kv_lens;
-  a.out = out, a.row_max = row_max, a.row_linv = row_linv;
+  a.out = out, a.row_max = row_max, a.row_linv = row_linv, a.qs = qs;
   a.batch = batch, a.n = n, a.heads = heads, a.dh = dh;
   a.sm_scale = sm_scale, a.stream = static_cast<cudaStream_t>(stream);
   return attention_forward<MaskedAttn>(a);

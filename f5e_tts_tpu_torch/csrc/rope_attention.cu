@@ -15,19 +15,20 @@
 
 #include "attention_core.cuh"
 
-// Forward. Operands as `Operands` in the header; returns cudaGetLastError()
-// after the launch.
+// Forward: the pre-pass (q' and k' into the head-major scratch qs, ks), then
+// the main kernel, on `stream`. Operands as `Operands` in the header;
+// returns cudaGetLastError() after the launches.
 extern "C" int rope_attention_fwd(const void* q, const void* k, const void* v, long long q_bs,
                                   long long q_rs, long long k_bs, long long k_rs, long long v_bs,
                                   long long v_rs, const void* kv_lens, const void* cos,
                                   const void* sin, void* out, void* row_max, void* row_linv,
-                                  int batch, int n, int heads, int dh, int rope_heads,
-                                  float sm_scale, void* stream) {
+                                  void* qs, void* ks, int batch, int n, int heads, int dh,
+                                  int rope_heads, float sm_scale, void* stream) {
   Operands a = {};
   a.q = q, a.k = k, a.v = v;
   a.q_bs = q_bs, a.q_rs = q_rs, a.k_bs = k_bs, a.k_rs = k_rs, a.v_bs = v_bs, a.v_rs = v_rs;
   a.lens = kv_lens, a.cos = cos, a.sin = sin;
-  a.out = out, a.row_max = row_max, a.row_linv = row_linv;
+  a.out = out, a.row_max = row_max, a.row_linv = row_linv, a.qs = qs, a.ks = ks;
   a.batch = batch, a.n = n, a.heads = heads, a.dh = dh, a.rope_heads = rope_heads;
   a.sm_scale = sm_scale, a.stream = static_cast<cudaStream_t>(stream);
   return attention_forward<RopeAttn>(a);
@@ -57,10 +58,12 @@ extern "C" int rope_attention_bwd(const void* q, const void* k, const void* v, c
   return attention_backward<RopeAttn>(a);
 }
 
-// Dynamic shared memory of the backward's dq (kernel 0) or dkdv (kernel 1)
-// kernel at head width dh, in bytes; -1 for what is not built.
-extern "C" int attention_bwd_smem(int dh, int kernel) {
-  if (dh == 64) return kernel == 0 ? dq_smem<64>() : dkdv_smem<64>();
-  if (dh == 128) return kernel == 0 ? dq_smem<128>() : dkdv_smem<128>();
+// Dynamic shared memory of the forward's main kernel (kernel 0), the
+// backward's dq (1) or dkdv (2) kernel at head width dh, in bytes; -1 for
+// what is not built.
+extern "C" int attention_smem(int dh, int kernel) {
+  if (dh == 64) return kernel == 0 ? fwd_smem<64>() : kernel == 1 ? dq_smem<64>() : dkdv_smem<64>();
+  if (dh == 128)
+    return kernel == 0 ? fwd_smem<128>() : kernel == 1 ? dq_smem<128>() : dkdv_smem<128>();
   return -1;
 }

@@ -3,7 +3,9 @@ backward) and the joint [audio | text] mask of the MMDiT (K7 forward, K8
 backward); wrappers, plain versions, launch counts and the autograd
 Functions that join them. Also what `kernels/rope_attention.py` shares: the
 plain core of the forward and the one plain backward, the plain twin of the
-backward's pre-pass (`attention_bwd_prep_plain`), and the operand checks.
+pre-pass of both directions (`attention_prep_plain`), the plain twin of
+the forward's row statistics (`attention_stats_plain`), and the operand
+checks.
 
 Ports of f5e_tts_tpu/ops/pallas_attention.py: mha_fullkv (K9), mha_fullkv_bwd
 (K10), mha_fullkv_joint (K7) and mha_fullkv_joint_bwd (K8). The kernels are
@@ -62,8 +64,9 @@ def joint_valid(audio_lens: torch.Tensor, n_audio: int, n: int, device) -> torch
     return valid[:, None, None, :]
 
 
-def attention_bwd_prep_plain(q, k, dout=None, o=None, cos=None, sin=None, rope_heads: int = 0):
-    """The backward kernels' pre-pass in plain PyTorch: (q', k', delta) with
+def attention_prep_plain(q, k, dout=None, o=None, cos=None, sin=None, rope_heads: int = 0):
+    """The kernels' pre-pass in plain PyTorch, the backward's and (without
+    dout and o) the forward's: (q', k', delta) with
     their rounding points. q' = sm_scale * rot(q) formed in fp32 (fp64 for
     fp64 inputs) and rounded to q's dtype; k' = rot(k) rounded to k's dtype;
     both (B, N, H, dh) in the math dtype. rot is RoPE on heads h <
@@ -96,7 +99,7 @@ def rope_tables(cos, sin, n: int, heads: int, rope_heads: int, ct):
 
 def core_plain(qs, ks, v, valid, dtype) -> torch.Tensor:
     """softmax(q'.k'^T, valid columns) v with the kernels' rounding points.
-    qs, ks: q' and k' of `attention_bwd_prep_plain` in the math dtype; valid
+    qs, ks: q' and k' of `attention_prep_plain` in the math dtype; valid
     (B, 1, 1, N) bool; `dtype` is the operands' dtype, in which P and the
     output are rounded."""
     scores = torch.einsum("bqhd,bkhd->bhqk", qs, ks).masked_fill(~valid, -1e30)
@@ -106,9 +109,22 @@ def core_plain(qs, ks, v, valid, dtype) -> torch.Tensor:
     return (o / l.transpose(1, 2)).to(dtype)
 
 
+def attention_stats_plain(qs, ks, valid):
+    """The forward kernels' row statistics in plain PyTorch: (m, linv), each
+    (B, H, N) in the math dtype, for q', k' of `attention_prep_plain` and
+    valid (B, 1, 1, N) bool. m is the row max of the scores q'.k'^T with
+    masked keys at -1e30, linv = 1 / max(sum_keys exp(s - m), 1e-30); so
+    m - log(linv) is the row's logsumexp, and a row whose keys are all
+    masked has m = -1e30 and linv = 1/N."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", qs, ks).masked_fill(~valid, -1e30)
+    m = scores.amax(dim=-1)
+    linv = 1.0 / torch.exp(scores - m[..., None]).sum(dim=-1).clamp_min(1e-30)
+    return m, linv
+
+
 def core_bwd_plain(q, k, v, valid, g, cos=None, sin=None, rope_heads: int = 0):
     """(dq, dk, dv) of `core_plain` over the q', k' of
-    `attention_bwd_prep_plain`, as the TPU kernels compute them
+    `attention_prep_plain`, as the TPU kernels compute them
     (pallas_attention.py:709-751): P recomputed from q', k'; linv = 1 /
     max(sum p~, 1e-30); delta = linv * sum p~ dP; dS = round(p~ (dP - delta)
     linv); dV = round(p~)^T round(dO linv); dq' = sm_scale dS k' and dk' =
@@ -117,7 +133,7 @@ def core_bwd_plain(q, k, v, valid, g, cos=None, sin=None, rope_heads: int = 0):
     derivative of the mask): the same as the TPU kernels except in a row
     whose keys are all masked, whose dq and dk are 0 here, as in jax.vjp of
     the XLA reference. The one plain backward of the three kernel variants."""
-    qs, ks, _ = attention_bwd_prep_plain(q, k, cos=cos, sin=sin, rope_heads=rope_heads)
+    qs, ks, _ = attention_prep_plain(q, k, cos=cos, sin=sin, rope_heads=rope_heads)
     ct, dtype = qs.dtype, q.dtype
     scores = torch.einsum("bqhd,bkhd->bhqk", qs, ks).masked_fill(~valid, -1e30)
     pt = torch.exp(scores - scores.amax(dim=-1, keepdim=True))  # (B, H, Nq, Nk)
@@ -139,7 +155,7 @@ def core_bwd_plain(q, k, v, valid, g, cos=None, sin=None, rope_heads: int = 0):
 
 def masked_attention_plain(q, k, v, kv_lens) -> torch.Tensor:
     """K9 in plain PyTorch."""
-    qs, ks, _ = attention_bwd_prep_plain(q, k)
+    qs, ks, _ = attention_prep_plain(q, k)
     return core_plain(qs, ks, v, prefix_valid(kv_lens, q.shape[1], q.device), q.dtype)
 
 
@@ -150,7 +166,7 @@ def masked_attention_bwd_plain(q, k, v, kv_lens, g):
 
 def joint_attention_core_plain(q, k, v, audio_lens, n_audio: int) -> torch.Tensor:
     """K7 in plain PyTorch."""
-    qs, ks, _ = attention_bwd_prep_plain(q, k)
+    qs, ks, _ = attention_prep_plain(q, k)
     return core_plain(qs, ks, v, joint_valid(audio_lens, n_audio, q.shape[1], q.device), q.dtype)
 
 
@@ -202,14 +218,15 @@ def strides(*tensors) -> list:
     return [s for t in tensors for s in (t.stride(0), t.stride(1))]
 
 
-def bwd_scratch(q: torch.Tensor, rotated: int):
-    """What a backward kernel's pre-pass writes: `rotated` head-major (B, H,
-    N, dh) bf16 buffers (q', and k' where RoPE is compiled in), then delta,
-    fp32 (B, H, N)."""
+def prep_scratch(q: torch.Tensor, rotated: int, delta: bool = False):
+    """What a kernel's pre-pass writes, for either direction: q' and, where
+    RoPE is compiled in (rotated = 2), k', head-major (B, H, N, dh) bf16
+    views of one buffer; then delta, fp32 (B, H, N), for the backward
+    (`delta`), else None."""
     b, n, h, dh = q.shape
-    return (*(torch.empty((b, h, n, dh), dtype=torch.bfloat16, device=q.device)
-              for _ in range(rotated)),
-            torch.empty((b, h, n), dtype=torch.float32, device=q.device))
+    rot = torch.empty((rotated, b, h, n, dh), dtype=torch.bfloat16, device=q.device)
+    return (*rot.unbind(0),
+            torch.empty((b, h, n), dtype=torch.float32, device=q.device) if delta else None)
 
 
 def stream(t: torch.Tensor) -> int:
@@ -224,7 +241,7 @@ def _lib(name: str) -> ctypes.CDLL:
     p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     extra = [i] if name == "joint_attention" else []
     fwd, bwd = getattr(lib, f"{name}_fwd"), getattr(lib, f"{name}_bwd")
-    fwd.argtypes = [p, p, p] + [ll] * 6 + [p] + extra + [p, p, p, i, i, i, i, f, p]
+    fwd.argtypes = [p, p, p] + [ll] * 6 + [p] + extra + [p, p, p, p, i, i, i, i, f, p]
     bwd.argtypes = [p] * 5 + [ll] * 10 + [p] + extra + [p] * 7 + [i, i, i, i, f, p]
     fwd.restype = bwd.restype = i
     return lib
@@ -240,11 +257,13 @@ def _forward(name: str, q, k, v, lens, n_audio: Optional[int], return_stats: boo
     if return_stats:
         stats = tuple(torch.empty((b, h, n), dtype=torch.float32, device=q.device)
                       for _ in range(2))
+    qs, _ = prep_scratch(q, 1)
     extra = [] if n_audio is None else [int(n_audio)]
     err = getattr(_lib(name), f"{name}_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides(q, k, v), lens.data_ptr(), *extra,
         out.data_ptr(), stats[0].data_ptr() if stats else None,
-        stats[1].data_ptr() if stats else None, b, n, h, dh, 1.0 / math.sqrt(dh), stream(q))
+        stats[1].data_ptr() if stats else None, qs.data_ptr(), b, n, h, dh,
+        1.0 / math.sqrt(dh), stream(q))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out, stats
@@ -260,7 +279,7 @@ def _backward(name: str, q, k, v, lens, n_audio: Optional[int], g, out, stats):
     lens = lens.to(torch.int32).contiguous()
     dq, dk, dv = (torch.empty((b, n, h, dh), dtype=torch.bfloat16, device=q.device)
                   for _ in range(3))
-    qs, delta = bwd_scratch(q, 1)
+    qs, delta = prep_scratch(q, 1, delta=True)
     extra = [] if n_audio is None else [int(n_audio)]
     err = getattr(_lib(name), f"{name}_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(),

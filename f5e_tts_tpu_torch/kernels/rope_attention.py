@@ -34,9 +34,9 @@ import math
 import torch
 
 from f5e_tts_tpu_torch.kernels import _build
-from f5e_tts_tpu_torch.kernels.attention import (attention_bwd_prep_plain, bwd_scratch,
-                                                 check_operands, check_stats, core_bwd_plain,
-                                                 core_plain, kernel_operand, prefix_valid,
+from f5e_tts_tpu_torch.kernels.attention import (attention_prep_plain, check_operands,
+                                                 check_stats, core_bwd_plain, core_plain,
+                                                 kernel_operand, prefix_valid, prep_scratch,
                                                  stream, strides)
 
 launches = 0  # K1: launches with RoPE on all or none of the heads since last set to 0
@@ -49,7 +49,7 @@ def rope_attention_plain(q, k, v, kv_lens, cos, sin, rope_heads: int) -> torch.T
     """The same function in plain PyTorch, with the kernel's rounding points:
     q rotated in fp32, scaled and rounded to q's dtype; k rotated in fp32 and
     rounded; scores and P.V accumulate in fp32 with P rounded to q's dtype."""
-    qs, ks, _ = attention_bwd_prep_plain(q, k, cos=cos, sin=sin, rope_heads=rope_heads)
+    qs, ks, _ = attention_prep_plain(q, k, cos=cos, sin=sin, rope_heads=rope_heads)
     return core_plain(qs, ks, v, prefix_valid(kv_lens, q.shape[1], q.device), q.dtype)
 
 
@@ -66,13 +66,12 @@ def rope_attention_bwd_plain(q, k, v, kv_lens, cos, sin, g, rope_heads: int):
 def _lib() -> ctypes.CDLL:
     lib = _build.library("rope_attention")
     p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    lib.rope_attention_fwd.argtypes = [p, p, p, ll, ll, ll, ll, ll, ll, p, p, p, p, p, p,
-                                       i, i, i, i, i, f, p]
+    lib.rope_attention_fwd.argtypes = [p, p, p, ll, ll, ll, ll, ll, ll] + [p] * 8 + [i] * 5 + [f, p]
     lib.rope_attention_fwd.restype = i
     lib.rope_attention_bwd.argtypes = [p, p, p, p, p] + [ll] * 10 + [p] * 11 + [i] * 5 + [f, p]
     lib.rope_attention_bwd.restype = i
-    lib.attention_bwd_smem.argtypes = [i, i]
-    lib.attention_bwd_smem.restype = i
+    lib.attention_smem.argtypes = [i, i]
+    lib.attention_smem.restype = i
     return lib
 
 
@@ -117,11 +116,12 @@ def rope_attention(q, k, v, kv_lens, cos, sin, rope_heads: int, return_stats: bo
     if return_stats:
         stats = tuple(torch.empty((b, h, n), dtype=torch.float32, device=q.device)
                       for _ in range(2))
+    qs, ks, _ = prep_scratch(q, 2)
     err = _lib().rope_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides(q, k, v), kv_lens.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), out.data_ptr(), stats[0].data_ptr() if stats else None,
-        stats[1].data_ptr() if stats else None, b, n, h, dh, int(rope_heads),
-        1.0 / math.sqrt(dh), stream(q))
+        stats[1].data_ptr() if stats else None, qs.data_ptr(), ks.data_ptr(), b, n, h, dh,
+        int(rope_heads), 1.0 / math.sqrt(dh), stream(q))
     if err != 0:
         raise RuntimeError(f"rope_attention kernel launch failed: CUDA error {err}")
     if _partial(rope_heads, h):
@@ -148,7 +148,7 @@ def rope_attention_bwd(q, k, v, kv_lens, cos, sin, g, rope_heads: int, out=None,
     kv_lens, cos, sin = _tables(kv_lens, cos, sin, n)
     dq, dk, dv = (torch.empty((b, n, h, dh), dtype=torch.bfloat16, device=q.device)
                   for _ in range(3))
-    qs, ks, delta = bwd_scratch(q, 2)
+    qs, ks, delta = prep_scratch(q, 2, delta=True)
     err = _lib().rope_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(),
         *strides(q, k, v, g, out), kv_lens.data_ptr(), cos.data_ptr(), sin.data_ptr(),

@@ -2,8 +2,11 @@
 Pallas kernels in interpret mode and its XLA references, on the same
 numpy-seeded inputs: K3/K6 (RoPE on some heads), K7/K8 (the joint
 [audio | text] mask), K9/K10 (the key-length mask, no RoPE) and K11a/K11b
-(the packed-heads RoPE kernels, the function K1/K4 compute); and
-torch.autograd.gradcheck of `MaskedAttention` and `JointAttention` in float64.
+(the packed-heads RoPE kernels, the function K1/K4 compute);
+torch.autograd.gradcheck of `MaskedAttention` and `JointAttention` in float64;
+and the plain twin of the forward kernels' row statistics
+(`attention_stats_plain`): m - log(linv) is the logsumexp of the masked
+scores formed with the JAX package's own RoPE helper.
 
 mha_fullkv (K9) has no `interpret` argument: it runs here through its kernel
 body in an interpreted pallas_call, as the JAX package's own test does, and
@@ -17,7 +20,8 @@ Tolerances:
   order, and the references normalise before P.V);
 - bf16 vs the Pallas kernel: both round at the same points, so they differ
   by accumulation order and at most ~1 bf16 ulp: atol 1e-2 * max|ref|;
-- gradcheck: float64 defaults (eps 1e-6, atol 1e-5, rtol 1e-3).
+- gradcheck: float64 defaults (eps 1e-6, atol 1e-5, rtol 1e-3);
+- row statistics, fp32 on both sides: 1e-5 relative (summation order).
 """
 
 import functools
@@ -320,3 +324,48 @@ def test_joint_attention_refuses_n_audio_outside_the_keys():
     x = torch.zeros(1, 8, 1, 4)
     with pytest.raises(ValueError, match="n_audio"):
         ka.joint_attention_core(x, x, x, torch.tensor([3]), 9)
+
+
+# ---------------------------------------------------------------------------
+# the forward kernels' row statistics
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rule,rope_heads,lens,n_audio", [
+    ("prefix", 3, (96, 40), None),  # RoPE on 3 of 4 heads, padded keys
+    ("joint", 0, (70, 0), 80),      # 80 audio keys + 16 text; one sample without audio
+    ("prefix", 4, (96, 0), None),   # a sample whose keys are all masked
+    ("joint", 0, (50, 0), 96),      # no text: the sample without audio has every key masked
+])
+def test_attention_stats_plain_is_the_rows_logsumexp(rule, rope_heads, lens, n_audio):
+    """m - log(linv) equals jax.nn.logsumexp of the masked scores that the
+    JAX package's helpers give (RoPE by apply_rotary_half, as
+    `_reference_rope_attn` applies it); a row whose keys are all masked has
+    m = -1e30 and linv = 1/N."""
+    from f5e_tts_tpu.ops.rope import apply_rotary_half
+
+    b, n, h, dh = 2, 96, 4, 64
+    q, k = _inputs(5, b, n, h, dh, count=2)
+    cos, sin = rotary_cos_sin_half(dh, n)
+    col = np.arange(n)
+    valid = col[None, :] < np.asarray(lens)[:, None]
+    if rule == "joint":
+        valid |= (col >= n_audio)[None, :]
+
+    flag = (jnp.arange(h) < rope_heads)[None, None, :, None]
+    c, s = jnp.asarray(cos)[None, :, None, :], jnp.asarray(sin)[None, :, None, :]
+    qr = jnp.where(flag, apply_rotary_half(jnp.asarray(q), c, s), q) / math.sqrt(dh)
+    kr = jnp.where(flag, apply_rotary_half(jnp.asarray(k), c, s), k)
+    scores = jnp.where(jnp.asarray(valid)[:, None, None, :],
+                       jnp.einsum("bqhd,bkhd->bhqk", qr, kr), -1e30)
+    want = np.asarray(jax.nn.logsumexp(scores, axis=-1))
+
+    qs, ks, _ = ka.attention_prep_plain(*_torch((q, k), torch.float32),
+                                        cos=torch.from_numpy(cos), sin=torch.from_numpy(sin),
+                                        rope_heads=rope_heads)
+    m, linv = ka.attention_stats_plain(qs, ks, torch.from_numpy(valid)[:, None, None, :])
+    assert m.shape == linv.shape == (b, h, n) and m.dtype == linv.dtype == torch.float32
+    np.testing.assert_allclose((m - torch.log(linv)).numpy(), want, rtol=1e-5, atol=0)
+    dead = torch.from_numpy(~valid.any(axis=1))
+    assert (m[dead] == -1e30).all()
+    assert torch.allclose(linv[dead], torch.full_like(linv[dead], 1.0 / n))

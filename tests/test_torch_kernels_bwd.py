@@ -4,8 +4,8 @@ package's Pallas kernels in interpret mode and against jax.vjp of its XLA
 references, on the same numpy-seeded inputs; and torch.autograd.gradcheck
 of the two autograd Functions' CPU path in float64.
 
-Also the plain twin of the backward kernels' pre-pass
-(`attention_bwd_prep_plain`): its q' and k' are bitwise the operands the
+Also the plain twin of the attention kernels' pre-pass
+(`attention_prep_plain`): its q' and k' are bitwise the operands the
 plain versions formed before it existed, and its delta = rowsum(dO * O),
 with O the Pallas forward's bf16 output in interpret mode, stays within the
 per-row bound that `csrc/attention_core.cuh` states against the TPU
@@ -192,13 +192,13 @@ def test_bwd_prep_plain_operands_are_the_plain_versions_own(attn_inputs, dtype, 
     qf, kf = qt.float(), kt.float()
     want_q = (torch.where(rope, qf * c + rot_half(qf) * s, qf) * 0.125).to(td).float()
     want_k = torch.where(rope, kf * c + rot_half(kf) * s, kf).to(td).float()
-    got_q, got_k, delta = ka.attention_bwd_prep_plain(qt, kt, cos=torch.from_numpy(cos),
-                                                      sin=torch.from_numpy(sin),
-                                                      rope_heads=rope_heads)
+    got_q, got_k, delta = ka.attention_prep_plain(qt, kt, cos=torch.from_numpy(cos),
+                                                  sin=torch.from_numpy(sin),
+                                                  rope_heads=rope_heads)
     assert delta is None
     assert torch.equal(got_q, want_q) and torch.equal(got_k, want_k)
     # without tables: q scaled and rounded, k as it is
-    got_q, got_k, _ = ka.attention_bwd_prep_plain(qt, kt)
+    got_q, got_k, _ = ka.attention_prep_plain(qt, kt)
     assert torch.equal(got_q, (qf * 0.125).to(td).float()) and torch.equal(got_k, kf)
 
 
@@ -220,7 +220,7 @@ def test_bwd_prep_plain_delta_within_the_stated_bound_of_the_tpu_delta(attn_inpu
     to = torch.from_numpy(np.array(_np(o))).bfloat16()
     tables = dict(cos=torch.from_numpy(cos), sin=torch.from_numpy(sin), rope_heads=h) if rope \
         else {}
-    qs, ks, delta = ka.attention_bwd_prep_plain(tq, tk, tg, to, **tables)
+    qs, ks, delta = ka.attention_prep_plain(tq, tk, tg, to, **tables)
     assert delta.shape == (b, h, n) and delta.dtype == torch.float32
     # the TPU kernels' delta, in fp32 from the same bf16 q', k', v, dO
     jqs, jks = (jnp.asarray(t.numpy()) for t in (qs, ks))

@@ -16,10 +16,17 @@ sums of many rounded terms, and the kernel forms delta from the bf16 output
 where the plain version sums P * dP in fp32, so K4 is held to
 max |diff| <= 2e-2 * max |plain| per output; K10 and K8 are the same kernels
 without RoPE and with another column rule, and are held to the same limits.
-The backward's pre-pass against its plain twin: q' and k' within one bf16
-ulp (bitwise where nvcc does not contract the rotation's products; the test
-records which as the `prepass_bitwise` property), delta within
-1e-5 * (1 + sum_d |dO * O|) per row (fp32 summation order).
+The pre-pass of either direction against its plain twin: q' and k' within
+one bf16 ulp (bitwise where nvcc does not contract the rotation's products;
+the tests record which as the `prepass_bitwise` property; the forward's
+edge cases also take 2^-20 absolute, the fp32 rounding of the rotation's
+products of unit-scale inputs where the two cancel near 0, which the
+contraction changes by more than one ulp of the small result), delta within
+1e-5 * (1 + sum_d |dO * O|) per row (fp32 summation order). The forward's
+row statistics against `attention_stats_plain` on the same q', k': m within
+1e-2 absolute, linv within 1e-2 relative (fp32 sums in another order, over
+scores of bf16 operands; a row with every key masked has m = -1e30 on both
+sides).
 """
 
 import pytest
@@ -316,6 +323,7 @@ BWD_EDGE_CASES = [
     ("rope", 2, 1000, 2, 128, (1000, 999), 2, False),   # dh 128
     ("rope", 2, 1024, 16, 64, (1024, 700), 1, True),    # fused to_qkv slices, RoPE on head 0
     ("joint", 2, 240, 2, 64, (10, 200), 200, False),    # text from mid-tile, gap over two tiles
+    ("joint", 2, 200, 2, 64, (0, 150), 200, False),     # no text, len = 0: the uniform average
     ("masked", 3, 300, 2, 64, (300, 0, 129), 0, True),  # a row with len = 0
     ("rope", 8, 2304, 16, 64, (2304,) * 8, 16, True),   # T: the v1 training step's shape
 ]
@@ -332,16 +340,16 @@ def _bwd_case(gen, kind, b, n, h, dh, lens, extra, fused):
         out, stats = ra.rope_attention(q, k, v, lens, cos, sin, extra, return_stats=True)
         return (lambda: ra.rope_attention_bwd(q, k, v, lens, cos, sin, g, extra, out, stats),
                 lambda: ra.rope_attention_bwd_plain(q, k, v, lens, cos, sin, g, extra),
-                lambda: ka.attention_bwd_prep_plain(q, k, g, out, cos, sin, extra), g, out)
+                lambda: ka.attention_prep_plain(q, k, g, out, cos, sin, extra), g, out)
     if kind == "masked":
         out, stats = ka.masked_attention(q, k, v, lens, return_stats=True)
         return (lambda: ka.masked_attention_bwd(q, k, v, lens, g, out, stats),
                 lambda: ka.masked_attention_bwd_plain(q, k, v, lens, g),
-                lambda: ka.attention_bwd_prep_plain(q, k, g, out), g, out)
+                lambda: ka.attention_prep_plain(q, k, g, out), g, out)
     out, stats = ka.joint_attention_core(q, k, v, lens, extra, return_stats=True)
     return (lambda: ka.joint_attention_core_bwd(q, k, v, lens, extra, g, out, stats),
             lambda: ka.joint_attention_core_bwd_plain(q, k, v, lens, extra, g),
-            lambda: ka.attention_bwd_prep_plain(q, k, g, out), g, out)
+            lambda: ka.attention_prep_plain(q, k, g, out), g, out)
 
 
 @pytest.mark.parametrize("kind,b,n,h,dh,lens,extra,fused", BWD_EDGE_CASES)
@@ -354,23 +362,24 @@ def test_bwd_kernel_edges_match_plain(cuda, kind, b, n, h, dh, lens, extra, fuse
     assert all(torch.equal(x, y) for x, y in zip(got, run()))  # no atomics: the same bits
 
 
-def _within_one_ulp(got, want):
-    """bf16 tensors equal or adjacent representable values."""
+def _within_one_ulp(got, want, atol: float = 0.0):
+    """bf16 tensors equal or adjacent representable values, or within `atol`."""
     steps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
-    return bool(((got == want) | (steps <= 1)).all())
+    near = (got.float() - want.float()).abs() <= atol
+    return bool(((got == want) | (steps <= 1) | near).all())
 
 
 @pytest.mark.parametrize("kind,rope_heads", [("rope", 4), ("rope", 1), ("masked", 0)])
 def test_bwd_prepass_matches_its_twin(cuda, monkeypatch, record_property, kind, rope_heads):
     run, _, twin, g, out = _bwd_case(cuda, kind, 2, 333, 4, 64, (333, 200), rope_heads, True)
-    scratch, written = ka.bwd_scratch, []
+    scratch, written = ka.prep_scratch, []
 
-    def capture(q, rotated):  # the buffers the pre-pass writes
-        written.append(scratch(q, rotated))
+    def capture(q, rotated, delta=False):  # the buffers the pre-pass writes
+        written.append(scratch(q, rotated, delta))
         return written[-1]
 
-    monkeypatch.setattr(ka, "bwd_scratch", capture)
-    monkeypatch.setattr(ra, "bwd_scratch", capture)
+    monkeypatch.setattr(ka, "prep_scratch", capture)
+    monkeypatch.setattr(ra, "prep_scratch", capture)
     run()
     torch.cuda.synchronize()
     *rotated, delta = written[0]
@@ -385,3 +394,72 @@ def test_bwd_prepass_matches_its_twin(cuda, monkeypatch, record_property, kind, 
     print(f"pre-pass q'/k' bitwise equal to the twin: {bitwise}")
     terms = (g.float() * out.float()).abs().sum(dim=-1).transpose(1, 2)
     assert ((delta - want_delta).abs() <= 1e-5 * (1 + terms)).all()
+
+
+# (kind, b, n, h, dh, lens, rope_heads or n_audio, fused): the edges of the
+# forward's tiles and maps
+FWD_EDGE_CASES = [
+    ("rope", 2, 2305, 2, 64, (2305, 2000), 2, False),   # a one-row last tile
+    ("rope", 2, 40, 2, 64, (40, 17), 2, False),         # under one tile
+    ("rope", 2, 1000, 2, 128, (1000, 999), 2, False),   # dh 128
+    ("rope", 2, 1024, 16, 64, (1024, 700), 1, True),    # fused to_qkv slices, RoPE on head 0
+    ("joint", 2, 240, 2, 64, (10, 200), 200, False),    # text from mid-tile, gap over two tiles
+    ("joint", 2, 200, 2, 64, (0, 150), 200, False),     # no text, len = 0: the uniform average
+    ("masked", 3, 300, 2, 64, (300, 0, 129), 0, True),  # a row with len = 0
+    ("rope", 8, 2304, 16, 64, (2304,) * 8, 16, True),   # T: the v1 training step's shape
+]
+
+
+def _fwd_case(gen, kind, b, n, h, dh, lens, extra, fused):
+    """(run, plain, twin, valid): the forward kernel with its statistics, its
+    plain version, the pre-pass's plain twin and the valid key columns."""
+    q, k, v = _qkv(gen, b, n, h, dh, fused)
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if kind == "rope":
+        cos, sin = (torch.from_numpy(t).cuda() for t in rotary_cos_sin_half(dh, n))
+        return (lambda: ra.rope_attention(q, k, v, lens, cos, sin, extra, return_stats=True),
+                lambda: ra.rope_attention_plain(q, k, v, lens, cos, sin, extra),
+                lambda: ka.attention_prep_plain(q, k, cos=cos, sin=sin, rope_heads=extra),
+                ka.prefix_valid(lens, n, q.device))
+    if kind == "masked":
+        return (lambda: ka.masked_attention(q, k, v, lens, return_stats=True),
+                lambda: ka.masked_attention_plain(q, k, v, lens),
+                lambda: ka.attention_prep_plain(q, k), ka.prefix_valid(lens, n, q.device))
+    return (lambda: ka.joint_attention_core(q, k, v, lens, extra, return_stats=True),
+            lambda: ka.joint_attention_core_plain(q, k, v, lens, extra),
+            lambda: ka.attention_prep_plain(q, k),
+            ka.joint_valid(lens, extra, n, q.device))
+
+
+@pytest.mark.parametrize("kind,b,n,h,dh,lens,extra,fused", FWD_EDGE_CASES)
+def test_fwd_kernel_edges_match_plain(cuda, monkeypatch, record_property, kind, b, n, h, dh,
+                                      lens, extra, fused):
+    run, plain, twin, valid = _fwd_case(cuda, kind, b, n, h, dh, lens, extra, fused)
+    scratch, written = ka.prep_scratch, []
+
+    def capture(q, rotated, delta=False):  # the buffers the pre-pass writes
+        written.append(scratch(q, rotated, delta))
+        return written[-1]
+
+    monkeypatch.setattr(ka, "prep_scratch", capture)
+    monkeypatch.setattr(ra, "prep_scratch", capture)
+    out, (m, linv) = run()
+    torch.cuda.synchronize()
+    _close(out, plain())
+    qs, ks, _ = twin()
+    want_m, want_linv = ka.attention_stats_plain(qs, ks, valid)
+    assert (m - want_m).abs().max().item() <= 1e-2
+    assert ((linv - want_linv).abs() <= 1e-2 * want_linv.abs()).all()
+    # the pre-pass: q' (and k' where RoPE is compiled in) within one bf16 ulp,
+    # or within 2^-20 where the rotation's two fp32 products cancel
+    *rotated, delta = written[0]
+    assert len(rotated) == (2 if kind == "rope" else 1) and delta is None
+    bitwise = True
+    for got, want in zip(rotated, (qs, ks)):
+        want = want.transpose(1, 2).bfloat16()
+        assert _within_one_ulp(got, want, atol=2**-20), (got.float() - want.float()).abs().max()
+        bitwise = bitwise and torch.equal(got, want)
+    record_property("prepass_bitwise", bitwise)
+    # no atomics: a second run gives the same bits
+    again, (m2, linv2) = run()
+    assert torch.equal(out, again) and torch.equal(m, m2) and torch.equal(linv, linv2)
