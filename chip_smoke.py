@@ -51,10 +51,12 @@
 10. One phase per kernel at the shapes of its path and at one ragged case:
     kernel vs its plain PyTorch version on the same inputs (tolerances
     below), kernel, plain and library times, the least time the card could
-    take, and each forward wrapper's host time per call. The K1 and K4
-    rows' `also` split one call's device time at the training shape into
-    its kernels: pre-pass and main kernel, pre-pass, dq and dkdv
-    (torch.profiler, measured after the build, before the model phases).
+    take, and the host time per call of each forward wrapper and of K5's.
+    The K1, K4 and K5 rows' `also` split one call's device time at the
+    training shape into its kernels: pre-pass and main kernel; pre-pass,
+    dq and dkdv; row pass and combine (torch.profiler, measured after the
+    build, before the model phases). The backward kernels, K5 included,
+    must give the same bits in two runs.
 11. Prints one JSON line with every kernel, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -882,6 +884,8 @@ class AttentionCase:
 FWD_PARTS = (("pre-pass", "attention_fwd_prep_kernel"), ("main", "attention_fwd_kernel"))
 BWD_PARTS = (("pre-pass", "attention_bwd_prep_kernel"), ("dq", "attention_bwd_dq_kernel"),
              ("dkdv", "attention_bwd_dkdv_kernel"))
+# the two passes of one K5 call
+K5_PARTS = (("row pass", "gated_adaln_bwd_kernel"), ("combine", "gated_adaln_bwd_reduce_kernel"))
 
 
 def kernel_split(tag: str, fn, parts, calls: int = 4) -> dict:
@@ -913,15 +917,28 @@ def kernel_split(tag: str, fn, parts, calls: int = 4) -> dict:
     return split
 
 
-def split_phase(mods):
-    """K1's and K4's device time by kernel at the training shape T, measured
-    before the model phases: in a profiled window this short late in the run
-    the profiler saw no device kernel at all."""
+def adaln_bwd_operands(seed: int = 6):
+    """K5's operands at the training step's shape: x, y, gate, scale, g_newx,
+    g_out, with gate and scale column slices of the (B, 6D) modulation."""
+    b, n, d = TRAIN_CLIPS, TRAIN_N, 1024
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, y, g_newx, g_out = (torch.randn((b, n, d), generator=gen, device="cuda").bfloat16()
+                           for _ in range(4))
+    mod = torch.randn((b, 6 * d), generator=gen, device="cuda").bfloat16()
+    return x, y, mod[:, 2 * d:3 * d], mod[:, 4 * d:5 * d], g_newx, g_out
+
+
+def split_phase(mods, ga):
+    """K1's, K4's and K5's device time by kernel at the training shape T,
+    measured before the model phases: in a profiled window this short late in
+    the run the profiler saw no device kernel at all."""
     case = AttentionCase(mods, "rope", TRAIN_CLIPS, TRAIN_N, (TRAIN_N,) * TRAIN_CLIPS,
                          torch.Generator(device="cuda").manual_seed(7), rope_heads=16)
     out, stats = case.fwd(return_stats=True)
+    adaln = adaln_bwd_operands()
     return (kernel_split("forward split", case.fwd, FWD_PARTS),
-            kernel_split("backward split", lambda: case.bwd(out, stats), BWD_PARTS))
+            kernel_split("backward split", lambda: case.bwd(out, stats), BWD_PARTS),
+            kernel_split("gated_adaln_bwd split", lambda: ga.gated_adaln_bwd(*adaln), K5_PARTS))
 
 
 def attention_kernel_phase(name, source, replaces, launches, backward, cases, iters=24,
@@ -985,9 +1002,10 @@ def attention_kernel_phase(name, source, replaces, launches, backward, cases, it
 
 def attention_rows(mods, paths: dict, text_len: int, splits) -> list:
     """The rows of the ten attention kernels. paths: {counter name: {path:
-    launches}}; text_len: Nt of the MMDiT training batch; splits: K1's and
-    K4's device ms by kernel (`split_phase`), each None where not measured."""
-    k1_split, k4_split = splits
+    launches}}; text_len: Nt of the MMDiT training batch; splits: from
+    `split_phase`, K1's and K4's device ms by kernel first, each None where
+    not measured."""
+    k1_split, k4_split = splits[:2]
     gen = torch.Generator(device="cuda").manual_seed(2)
     h = 16
 
@@ -1080,29 +1098,36 @@ def adaln_phase(ga, launches: dict) -> dict:
                       err, ms, plain_ms, flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES, None)
 
 
-def adaln_bwd_phase(ga, launches: dict) -> dict:
-    b, n, d = TRAIN_CLIPS, TRAIN_N, 1024
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    x, y, g_newx, g_out = (torch.randn((b, n, d), generator=gen, device="cuda").bfloat16()
-                           for _ in range(4))
-    # gate and scale as column slices of the (B, 6D) modulation
-    mod = torch.randn((b, 6 * d), generator=gen, device="cuda").bfloat16()
-    gate, scale = mod[:, 2 * d:3 * d], mod[:, 4 * d:5 * d]
-    got = ga.gated_adaln_bwd(x, y, gate, scale, g_newx, g_out)
+def adaln_bwd_phase(ga, launches: dict, split) -> dict:
+    """K5 at the training step's shape; its wrapper's host time a call and
+    `split` (device ms of its row pass and combine, from `split_phase`) go
+    into the row's `also`."""
+    args = adaln_bwd_operands()
+    b, n, d = args[0].shape
+    got = ga.gated_adaln_bwd(*args)
     torch.cuda.synchronize()
-    ref = ga.gated_adaln_bwd_plain(x, y, gate, scale, g_newx, g_out)
+    ref = ga.gated_adaln_bwd_plain(*args)
     err = max(check_close(f"gated_adaln_bwd {name}", a, r) for name, a, r in
               zip(("dx", "dy", "dgate", "dscale", "dshift"), got, ref))
+    again = ga.gated_adaln_bwd(*args)  # no atomics: the same bits
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        raise AssertionError("gated_adaln_bwd: two runs differ")
+    log("[gated_adaln_bwd] two runs give the same bits")
+    del got, ref, again
     # one input set: 4 inputs and 2 outputs of 38 MB each, 4.5x the L2
-    ms = cuda_ms([lambda: ga.gated_adaln_bwd(x, y, gate, scale, g_newx, g_out)])
-    plain_ms = cuda_ms([lambda: ga.gated_adaln_bwd_plain(x, y, gate, scale, g_newx, g_out)])
+    ms = cuda_ms([lambda: ga.gated_adaln_bwd(*args)])
+    plain_ms = cuda_ms([lambda: ga.gated_adaln_bwd_plain(*args)])
+    also = {"host_us_per_call": host_us(lambda: ga.gated_adaln_bwd(*args))}
+    if split is not None:
+        also["device_ms_by_kernel"] = split
+    log(f"[gated_adaln_bwd] host {also['host_us_per_call']:.1f} us a call")
     # x, y, g_newx, g_out read once; dx, dy written once; gate/scale read and
     # dgate/dscale/dshift written once; ~20 fp32 flops per element
     nbytes = 6 * b * n * d * 2 + 5 * b * d * 2
     flops = 20.0 * b * n * d
     return kernel_row("gated_adaln_bwd", "gated_adaln", "f5e_tts_tpu/ops/pallas_norm.py:159",
                       launches, err, ms, plain_ms, flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES,
-                      None)
+                      None, also)
 
 
 def build_report(libs: dict, ra) -> None:
@@ -1165,8 +1190,8 @@ def main() -> int:
             f"({time.perf_counter() - t_start:.0f} s since the start)")
         return result
 
-    # K1's and K4's device time by kernel, for their rows (launches here count on no path)
-    splits = phase("kernel splits", lambda: split_phase((ra, ka)))
+    # K1's, K4's and K5's device time by kernel, for their rows (launches here count on no path)
+    splits = phase("kernel splits", lambda: split_phase((ra, ka), ga))
     reset_counts()
 
     # F5TTS_v1_Base: K1/K2 in synthesis, K1/K2/K4/K5 in training
@@ -1215,7 +1240,7 @@ def main() -> int:
     rows = phase("attention kernels", lambda: attention_rows((ra, ka), paths, text_len, splits))
     with torch.inference_mode():
         rows.append(adaln_phase(ga, paths["gated_adaln"]))
-    rows.append(adaln_bwd_phase(ga, paths["gated_adaln_bwd"]))
+    rows.append(adaln_bwd_phase(ga, paths["gated_adaln_bwd"], splits[2]))
     log(f"[total] {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -74,9 +74,9 @@ def _lib() -> ctypes.CDLL:
     p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     lib.gated_adaln_fwd.argtypes = [p, p, p, p, p, ll, ll, ll, p, p, i, i, i, f, p]
     lib.gated_adaln_fwd.restype = i
-    lib.gated_adaln_bwd.argtypes = [p, p, p, p, ll, ll, p, p, p, p, p, p, p, p, i, i, i, f, p]
+    lib.gated_adaln_bwd.argtypes = [p, p, p, p, ll, ll, p, p, p, p, p, i, p, p, p, i, i, i, f, p]
     lib.gated_adaln_bwd.restype = i
-    lib.gated_adaln_bwd_groups.argtypes = [i]
+    lib.gated_adaln_bwd_groups.argtypes = [i, i, i]
     lib.gated_adaln_bwd_groups.restype = i
     return lib
 
@@ -139,16 +139,19 @@ def gated_adaln_bwd(x, y, gate, scale, g_newx, g_out):
     x, y, g_newx, g_out = (t.contiguous() for t in (x, y, g_newx, g_out))
     gate, scale = _row_operand(gate), _row_operand(scale)
     lib = _lib()
+    groups = lib.gated_adaln_bwd_groups(b, n, d)  # blocks a sample: from the card's SM count
+    if groups <= 0:
+        raise RuntimeError(f"gated_adaln_bwd: planning the launch failed: CUDA error {-groups}")
     dx, dy = torch.empty_like(x), torch.empty_like(y)
-    partial = torch.empty((b, lib.gated_adaln_bwd_groups(n), 3, d), dtype=torch.float32,
-                          device=x.device)
+    # fp32 partial column sums of each block of rows, added in order by pass 2
+    partial = torch.empty((b, groups, 3, d), dtype=torch.float32, device=x.device)
     dgate, dscale, dshift = (torch.empty((b, d), dtype=torch.bfloat16, device=x.device)
                              for _ in range(3))
     err = lib.gated_adaln_bwd(
         x.data_ptr(), y.data_ptr(), gate.data_ptr(), scale.data_ptr(), gate.stride(0),
         scale.stride(0), g_newx.data_ptr(), g_out.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-        partial.data_ptr(), dgate.data_ptr(), dscale.data_ptr(), dshift.data_ptr(), b, n, d, EPS,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        partial.data_ptr(), groups, dgate.data_ptr(), dscale.data_ptr(), dshift.data_ptr(), b, n,
+        d, EPS, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gated_adaln_bwd kernel launch failed: CUDA error {err}")
     bwd_launches += 1

@@ -11,7 +11,8 @@ the card (which has no JAX, so the suite's conftest is left out):
 
 Tolerances: bf16 outputs of unit-scale inputs; kernel and plain version round
 the same fp32 values, so they differ by summation order and at most ~1 bf16
-ulp: |diff| <= 2e-2 + 1e-2 * |plain| (K1, K2, K5). K4's gradients are small
+ulp: |diff| <= 2e-2 + 1e-2 * |plain| (K1, K2, K5; K5 adds its (B, D) sums
+in a fixed order, so two runs give the same bits). K4's gradients are small
 sums of many rounded terms, and the kernel forms delta from the bf16 output
 where the plain version sums P * dP in fp32, so K4 is held to
 max |diff| <= 2e-2 * max |plain| per output; K10 and K8 are the same kernels
@@ -133,23 +134,53 @@ def test_rope_attention_bwd_kernel_matches_plain(cuda, b, n, h, dh, kv, rope_hea
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
-@pytest.mark.parametrize("b,n,d,strided", [(2, 2304, 1024, True), (1, 100, 520, False),
-                                           (2, 33, 3072, True)])
-def test_gated_adaln_bwd_kernel_matches_plain(cuda, b, n, d, strided):
-    x, y, g_newx, g_out = (torch.randn((b, n, d), generator=cuda, device="cuda").bfloat16()
+def _adaln_bwd_inputs(gen, b, n, d, strided):
+    x, y, g_newx, g_out = (torch.randn((b, n, d), generator=gen, device="cuda").bfloat16()
                            for _ in range(4))
-    if strided:
-        mod = torch.randn((b, 6 * d), generator=cuda, device="cuda").bfloat16()
+    if strided:  # column slices of the (B, 6D) modulation, as in the DiT block
+        mod = torch.randn((b, 6 * d), generator=gen, device="cuda").bfloat16()
         gate, scale = mod[:, 2 * d:3 * d], mod[:, 4 * d:5 * d]
     else:
-        gate, scale = (torch.randn((b, d), generator=cuda, device="cuda").bfloat16()
+        gate, scale = (torch.randn((b, d), generator=gen, device="cuda").bfloat16()
                        for _ in range(2))
+    return x, y, gate, scale, g_newx, g_out
+
+
+@pytest.mark.parametrize("b,n,d,strided", [
+    (2, 2304, 1024, True), (1, 100, 520, False), (2, 33, 3072, True),
+    (8, 2304, 1024, True),   # the training step's shape
+    (3, 1000, 1024, False),  # N not a multiple of the rows per block
+    (1, 1, 1024, False),     # one row: one warp of one block works
+    (2, 77, 520, True),      # D = 520: lanes with 3 vectors beside lanes with 2
+    (2, 130, 4096, True),    # the widest D: column sums in shared memory
+    (8, 2305, 768, True),    # F5TTS_Small's width, one row past the step's N
+])
+def test_gated_adaln_bwd_kernel_matches_plain(cuda, b, n, d, strided):
+    args = _adaln_bwd_inputs(cuda, b, n, d, strided)
     before = ga.bwd_launches
-    got = ga.gated_adaln_bwd(x, y, gate, scale, g_newx, g_out)
+    got = ga.gated_adaln_bwd(*args)
     torch.cuda.synchronize()
     assert ga.bwd_launches == before + 1
-    for x_, y_ in zip(got, ga.gated_adaln_bwd_plain(x, y, gate, scale, g_newx, g_out)):
+    for x_, y_ in zip(got, ga.gated_adaln_bwd_plain(*args)):
         _close(x_, y_)
+
+
+@pytest.mark.parametrize("b,n,d", [(8, 2304, 1024), (3, 1000, 1024), (2, 130, 4096)])
+def test_gated_adaln_bwd_kernel_gives_the_same_bits_twice(cuda, b, n, d):
+    args = _adaln_bwd_inputs(cuda, b, n, d, True)
+    first = ga.gated_adaln_bwd(*args)
+    again = ga.gated_adaln_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
+def test_gated_adaln_bwd_split_fills_the_card_in_one_wave(cuda):
+    """At the training step's shape a block of 8 warps takes one SM, and each
+    sample's rows go to as many blocks as fill the SMs once."""
+    b, n, d = 8, 2304, 1024
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    groups = ga._lib().gated_adaln_bwd_groups(b, n, d)
+    assert b * groups <= sms < b * (groups + 1)
 
 
 def test_functions_launch_one_forward_and_one_backward_kernel(cuda):
