@@ -48,7 +48,25 @@
 9. Gradient phase of the MMDiT: 2 blocks at full width, B=2, N=1024, Nt=96,
    with a padding mask, through backbone.forward_train and a masked MSE
    against a seeded target, so K7 and K8 launch twice each; limits as in 5.
-10. One phase per kernel at the shapes of its path and at one ragged case:
+10. EPSS synthesis: the v1 synthesis of 3 through F5TTS.infer(timesteps=)
+    with the 8-of-32 pruned grid of scripts/quality_proxy.py
+    (pruned_sway_timesteps((0, 1, 2, 3, 4, 6, 10, 18, 32))): depth x 8
+    launches of K1 and K2, the measurements of 3; the full keep set
+    range(33) gives the bits of the default 32-step run.
+11. Captured synthesis: the v1 sampler of bucket 1536 captured as a CUDA
+    graph at NFE 32 and on the EPSS grid (utils/aot.py), with the capture's
+    seconds, the memory it reserved and its launch counts (depth x (steps +
+    1) of K1 and K2 an engine: the loop and one warm-up step). A replay from
+    the eager run's noise gives the eager sampler output's bits and counts
+    no launch; one replay under torch.profiler runs K1's pre-pass and main
+    kernel and K2's kernel depth x NFE times each. The sampler's device time
+    eager and replayed, then three timed warm syntheses through F5TTS.infer
+    on each engine (wall, RTF, busy share, device kernels) whose wav is the
+    eager run's.
+12. Device-resident decode and streaming: the vocoder's `.device` decode of
+    a slice_gen window gives the host decode's wav for the same mel, and a
+    one-chunk request's streamed pieces concatenate to its wav.
+13. One phase per kernel at the shapes of its path and at one ragged case:
     kernel vs its plain PyTorch version on the same inputs (tolerances
     below), kernel, plain and library times, the least time the card could
     take, and the host time per call of each forward wrapper and of K5's.
@@ -57,7 +75,7 @@
     dq and dkdv; row pass and combine (torch.profiler, measured after the
     build, before the model phases). The backward kernels, K5 included,
     must give the same bits in two runs.
-11. Prints one JSON line with every kernel, then the device line last.
+14. Prints one JSON line with every kernel, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository. fp32 matmuls and convolutions run with TF32 off
@@ -264,10 +282,12 @@ def seed_modulation_(params, gen) -> None:
 # ---------------------------------------------------------------------------
 
 
-def synthesis_phase(tag: str, infer, expected: dict, runs: int, text_len=None) -> dict:
+def synthesis_phase(tag: str, infer, expected: dict, runs: int, text_len=None,
+                    timesteps=None) -> dict:
     """`runs` timed runs of `infer()` -> (wav, sr, mel) after a warm-up, each
     with the launch counts checked, then a profiled one; returns the counts
-    of the last timed run."""
+    of the last timed run. The sampler must have run NFE steps, or over
+    `timesteps` when given."""
     from f5e_tts_tpu_torch.models import cfm as fcfm
 
     captured = []
@@ -301,7 +321,8 @@ def synthesis_phase(tag: str, infer, expected: dict, runs: int, text_len=None) -
     if len(captured) != 1:
         raise AssertionError(f"expected one chunk, the sampler ran {len(captured)} times")
     out, inputs, kw = captured[0]
-    if tuple(out.shape) != (1, 1536, 100) or kw["steps"] != NFE or kw["cfg_strength"] != 2.0:
+    if (tuple(out.shape) != (1, 1536, 100) or kw["steps"] != NFE or kw["cfg_strength"] != 2.0
+            or kw.get("timesteps") != timesteps):
         raise AssertionError(f"unexpected sampler call: shape {tuple(out.shape)}, {kw}")
     if text_len is not None and inputs.text_ids.shape[1] != text_len:
         raise AssertionError(f"text padded to {inputs.text_ids.shape[1]}, expected {text_len}")
@@ -399,34 +420,68 @@ KERNEL_GROUPS = ((("attention_bwd", "ropeattn"), "K4/K6 rope attention bwd"),
                  (("xmma",), "matmul"))
 
 
+def device_kernels(prof) -> list:
+    """The device kernels of a torch.profiler run, one event a launch, the
+    device sleep left out."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "sleep" not in e.name.lower()]
+
+
+def kernel_ms(kernels) -> float:
+    """The summed durations of `kernels`, in ms."""
+    return sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3
+
+
+def busy_ms(kernels) -> float:
+    """The ms in which at least one of `kernels` ran: the union of their
+    intervals. Kernels that run at once on several streams (cuDNN launches a
+    grouped convolution's groups on streams of its own, and a graph replays
+    them concurrently) count once, where `kernel_ms` counts each."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total / 1e3
+
+
 def profile_run(tag: str, fn, wall: float) -> None:
     """Device time of one more run of `fn` by kernel and by layer
     (torch.profiler), and the device's busy share of the unprofiled warm
-    wall time `wall`."""
-    from torch.autograd import DeviceType
+    wall time `wall`. Busy is the union of the kernels' intervals; a
+    layer's kernel time sums its kernels, and its busy time is the union of
+    its own, on the streams named."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy_ms <= 0:
+    kernels = device_kernels(prof)
+    busy = busy_ms(kernels)
+    if busy <= 0:
         log(f"[{tag}] torch.profiler saw no device time: busy share not measured")
         return
     groups: dict = {}
     for e in kernels:
-        name = e.key.lower()
+        name = e.name.lower()
         group = next((g for frags, g in KERNEL_GROUPS if all(f in name for f in frags)),
                      "elementwise and other")
-        ms, n = groups.get(group, (0.0, 0))
-        groups[group] = (ms + e.self_device_time_total / 1e3, n + e.count)
-    log(f"[{tag}] device busy {busy_ms:.1f} ms of the {wall * 1e3:.1f} ms warm wall: "
-        f"busy share {busy_ms / (wall * 1e3):.3f}; {sum(e.count for e in kernels)} device kernels")
-    for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        log(f"[{tag}] {group}: {ms:.1f} ms ({ms / busy_ms:.3f} of busy), {n} launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"[{tag}]   {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x {e.key[:100]}")
+        groups.setdefault(group, []).append(e)
+    log(f"[{tag}] device busy {busy:.1f} ms of the {wall * 1e3:.1f} ms warm wall: "
+        f"busy share {busy / (wall * 1e3):.3f}; kernel time {kernel_ms(kernels):.1f} ms in "
+        f"{len(kernels)} device kernels")
+    for group, ev in sorted(groups.items(), key=lambda kv: -kernel_ms(kv[1])):
+        ms = kernel_ms(ev)
+        streams = sorted({e.device_resource_id for e in ev})
+        log(f"[{tag}] {group}: {ms:.1f} ms kernel time ({ms / busy:.3f} of busy), busy "
+            f"{busy_ms(ev):.1f} ms on {len(streams)} stream(s), {len(ev)} launches")
+    by_name: dict = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e)
+    for name, ev in sorted(by_name.items(), key=lambda kv: -kernel_ms(kv[1]))[:10]:
+        log(f"[{tag}]   {kernel_ms(ev):8.2f} ms {len(ev):6d}x {name[:100]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1156,6 +1211,213 @@ def build_report(libs: dict, ra) -> None:
             f"{ra._lib().attention_smem(dh, 2)} bytes")
 
 
+# ---------------------------------------------------------------------------
+# serving: EPSS grids, captured engines, device-resident decode, streaming
+# ---------------------------------------------------------------------------
+
+EPSS_KEEP = (0, 1, 2, 3, 4, 6, 10, 18, 32)  # the 8-of-32 grid of scripts/quality_proxy.py
+EPSS_NFE = len(EPSS_KEEP) - 1
+FIX_FRAMES = int(FIX_DURATION * 24_000 / 256)
+
+
+class Serving:
+    """One full-width F5TTS_v1_Base for the serving phases, its reference,
+    and the sampler inputs of its one-chunk request."""
+
+    def __init__(self):
+        from f5e_tts_tpu_torch.api import F5TTS
+        from f5e_tts_tpu_torch.infer import audio as faudio
+        from f5e_tts_tpu_torch.infer.pipeline import preprocess_ref_audio_text
+        from f5e_tts_tpu_torch.models.cfm import pruned_sway_timesteps
+
+        self.tts = F5TTS(model="F5TTS_v1_Base", device="cuda", compute_dtype=torch.bfloat16,
+                         seed=0)
+        seed_modulation_(self.tts.engine.params, torch.Generator(device="cuda").manual_seed(1))
+        self.engine = self.tts.engine
+        self.ref = str(reference_wav())
+        self.grid = pruned_sway_timesteps(EPSS_KEEP, base_steps=NFE)
+        wav, sr = faudio.read_wav(self.ref)
+        self.wav, self.sr = wav, sr
+        wav, ref_text = preprocess_ref_audio_text(wav, sr, REF_TEXT, show_info=lambda *_: None)
+        self.ref_mel = self.engine._reference(wav, sr)[2]
+        self.text = ref_text + GEN_TEXT
+
+    def infer(self, timesteps=None):
+        return self.tts.infer(self.ref, REF_TEXT, GEN_TEXT, nfe_step=NFE, cfg_strength=2.0,
+                              sway_sampling_coef=-1.0, fix_duration=FIX_DURATION, seed=7,
+                              timesteps=timesteps)
+
+    def sampler_out(self, timesteps=None, eager=False) -> torch.Tensor:
+        """The sampler output (1, 1536, 100) of the request's chunk, replayed
+        where an engine matches unless `eager`."""
+        engines = self.engine.engines
+        if eager:
+            self.engine.engines = {}
+        try:
+            out = self.engine.synthesize_chunk(self.ref_mel, self.text, FIX_FRAMES, seed=7,
+                                               nfe_steps=NFE, cfg_strength=2.0, sway=-1.0,
+                                               timesteps=timesteps, device_out=True)[0]
+            torch.cuda.synchronize()
+            return out.clone()
+        finally:
+            self.engine.engines = engines
+
+
+def device_busy(tag: str, fn) -> tuple:
+    """(device busy ms, device kernels, {kernel name: launches}) of one call
+    of `fn` under torch.profiler, behind ~10 ms of device sleep (a profiler
+    run can miss the kernels launched as it starts), the sleep not counted.
+    Busy is the union of the kernels' intervals (`busy_ms`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    busy = busy_ms(kernels)
+    conv = [e for e in kernels if "fprop" in e.name]
+    log(f"[{tag}] device busy {busy:.1f} ms (kernel time {kernel_ms(kernels):.1f} ms) in "
+        f"{len(kernels)} device kernels; the convolution's {len(conv)}: kernel time "
+        f"{kernel_ms(conv):.1f} ms, busy {busy_ms(conv):.1f} ms on "
+        f"{len({e.device_resource_id for e in conv})} stream(s)")
+    by_kernel: dict = {}
+    for e in kernels:
+        by_kernel[e.name] = by_kernel.get(e.name, 0) + 1
+    return busy, len(kernels), by_kernel
+
+
+def epss_phase(sv: Serving) -> dict:
+    """F5TTS.infer on the EPSS grid; then the full keep set against the
+    default 32-step run, bit for bit."""
+    from f5e_tts_tpu_torch.models.cfm import pruned_sway_timesteps
+
+    counts = synthesis_phase("epss synthesis", lambda: sv.infer(sv.grid),
+                             expected_counts(rope_attention=DEPTH * EPSS_NFE,
+                                             gated_adaln=DEPTH * EPSS_NFE),
+                             runs=3, timesteps=sv.grid)
+    full = sv.infer(pruned_sway_timesteps(range(NFE + 1), base_steps=NFE))
+    default = sv.infer()
+    reset_counts()
+    if not (np.array_equal(full[0], default[0]) and np.array_equal(full[2], default[2])):
+        raise AssertionError("the full keep set range(33) differs from the default 32-step run")
+    log("[epss synthesis] the full keep set range(33) gives the default run's wav and mel bits")
+    return counts
+
+
+def captured_phase(sv: Serving) -> dict:
+    """Capture the v1 sampler of bucket 1536 at NFE 32 and on the EPSS grid,
+    hold replays against the eager sampler, profile one replay, and time
+    warm syntheses on each engine; returns the launch counts of the
+    captures (a replay counts none)."""
+    from f5e_tts_tpu_torch.utils.aot import capture_sampler_buckets
+
+    engine = sv.engine
+    reset_counts()
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    names = capture_sampler_buckets(engine, buckets=(1536,), nfe=NFE)
+    names += capture_sampler_buckets(engine, buckets=(1536,), timesteps=sv.grid)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    steps = NFE + 1 + EPSS_NFE + 1  # each engine's loop and its warm-up step
+    log(f"[captured synthesis] captured {names} in {seconds:.2f} s; memory reserved "
+        f"{(torch.cuda.memory_reserved() - reserved) / 2**20:.1f} MiB more (the shared pool "
+        f"and the static buffers); launches counted at capture "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    check_counts("captured synthesis capture", counts,
+                 expected_counts(rope_attention=DEPTH * steps, gated_adaln=DEPTH * steps))
+
+    for timesteps, nfe in ((None, NFE), (sv.grid, EPSS_NFE)):
+        tag = f"captured synthesis nfe {nfe}"
+        replayed = sv.sampler_out(timesteps)
+        check_counts(f"{tag} replay", read_counts(), expected_counts())
+        eager = sv.sampler_out(timesteps, eager=True)
+        check_counts(f"{tag} eager", read_counts(),
+                     expected_counts(rope_attention=DEPTH * nfe, gated_adaln=DEPTH * nfe))
+        if not torch.equal(replayed, eager):
+            diff = (replayed.float() - eager.float()).abs().max().item()
+            raise AssertionError(f"{tag}: replay differs from the eager sampler (max {diff})")
+        log(f"[{tag}] the replay from the eager run's noise gives its bits")
+        device_busy(f"{tag} eager sampler", lambda: sv.sampler_out(timesteps, eager=True))
+        device_busy(f"{tag} replayed sampler", lambda: sv.sampler_out(timesteps))
+        reset_counts()
+
+    graph = engine.engines[names[0]].graph
+    _, _, by_kernel = device_busy("captured synthesis one replay", graph.replay)
+    seen = {part: sum(c for k, c in by_kernel.items() if frag in k)
+            for part, frag in (("K1 pre-pass", "attention_fwd_prep_kernel"),
+                               ("K1 main", "attention_fwd_kernel"),
+                               ("K2", "gated_adaln_kernel"))}
+    log(f"[captured synthesis] one profiled replay: {seen}")
+    if any(c != DEPTH * NFE for c in seen.values()):
+        raise AssertionError(f"one replay ran {seen}, expected {DEPTH * NFE} of each")
+
+    for timesteps, nfe in ((None, NFE), (sv.grid, EPSS_NFE)):
+        tag = f"captured synthesis nfe {nfe}"
+        walls = []
+        for run in ["warm-up"] + [f"timed {i + 1}" for i in range(3)]:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wav, sr, mel = sv.infer(timesteps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check_counts(f"{tag} {run}", read_counts(), expected_counts())
+            log(f"[{tag}] {run}: wall {wall:.3f} s")
+            if run != "warm-up":
+                walls.append(wall)
+        engines, engine.engines = engine.engines, {}
+        eager_wav = sv.infer(timesteps)[0]
+        engine.engines = engines
+        reset_counts()
+        if not (np.isfinite(wav).all() and np.sqrt(np.mean(np.square(wav))) > 0):
+            raise AssertionError(f"{tag}: non-finite or silent wav")
+        if not np.array_equal(wav, eager_wav):
+            raise AssertionError(f"{tag}: the wav differs from the eager run's")
+        audio_s = len(wav) / sr
+        wall = float(np.median(walls))
+        log(f"[{tag}] wav {audio_s:.3f} s, the eager run's bits; one warm synthesis (median "
+            f"of 3): wall {wall:.3f} s, RTF {wall / audio_s:.5f}; RTF of each: "
+            f"{[round(w / audio_s, 5) for w in walls]}")
+        profile_run(f"{tag} profile", lambda: sv.infer(timesteps), wall)
+    reset_counts()
+    return counts
+
+
+def decode_stream_phase(sv: Serving) -> None:
+    """The device-resident decode against the host decode of the same mel,
+    and a streamed request against the same request in one piece."""
+    from f5e_tts_tpu_torch.infer.pipeline import slice_gen
+
+    engine = sv.engine
+    rf = sv.ref_mel.shape[1]
+    out = sv.sampler_out()
+    gl = FIX_FRAMES - rf
+    mel_dev = slice_gen(out, torch.tensor([rf], device="cuda"), torch.tensor([gl], device="cuda"),
+                        gl)
+    wav_dev, trim = engine.decode_mel(mel_dev, device_out=True)
+    wav_dev = wav_dev[0, :trim].float().cpu().numpy()
+    wav_host = engine.decode_mel(out[0, rf:FIX_FRAMES].float().cpu().numpy())
+    if not np.array_equal(wav_dev, wav_host):
+        raise AssertionError("the device-resident decode differs from the host decode")
+    log(f"[device decode] {gl} generated frames: the device-resident decode gives the host "
+        f"decode's {len(wav_host)} samples bit for bit")
+
+    kw = dict(seed=7, fix_duration=FIX_DURATION, nfe_steps=NFE, cfg_strength=2.0, sway=-1.0)
+    wav, _, _ = engine.infer(sv.wav, sv.sr, REF_TEXT, GEN_TEXT, **kw)
+    pieces = [p for p, _ in engine.infer(sv.wav, sv.sr, REF_TEXT, GEN_TEXT, streaming=True,
+                                         chunk_size=4096, **kw)]
+    reset_counts()
+    if not (all(len(p) == 4096 for p in pieces[:-1]) and np.array_equal(np.concatenate(pieces),
+                                                                       wav)):
+        raise AssertionError("the streamed pieces do not concatenate to the wav")
+    log(f"[streaming] {len(pieces)} pieces of <= 4096 samples concatenate to the "
+        f"{len(wav)}-sample wav")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1231,6 +1493,15 @@ def main() -> int:
         expected_counts(partial_rope_attention=DEPTH, partial_rope_attention_bwd=DEPTH,
                         gated_adaln=DEPTH, gated_adaln_bwd=DEPTH),
         updates=2, warmup=1, checkpoints=False))
+
+    # serving on one v1 model: EPSS grid, captured engines, device decode, streaming
+    with torch.inference_mode():
+        sv = Serving()
+        runs["epss_synthesis"] = phase("epss synthesis", lambda: epss_phase(sv))
+        runs["captured_synthesis_capture"] = phase("captured synthesis",
+                                                   lambda: captured_phase(sv))
+        phase("device decode and streaming", lambda: decode_stream_phase(sv))
+        del sv
 
     # which paths launched each kernel, and how often in one run of the path
     paths = {name: {p: c[name] for p, c in runs.items() if c[name]} for name in COUNTERS}

@@ -3,27 +3,31 @@
 Loads a model preset, a checkpoint (or seeded random weights when none is
 given) and the Vocos vocoder, and exposes `infer(ref_file, ref_text,
 gen_text, ...)`. Runs on the card unless `device="cpu"` is passed.
+`capture_buckets` captures the default sampler of those buckets as CUDA
+graphs (utils/aot.py), the counterpart of the JAX `engine_dir`.
 (reference: src/f5_tts/api.py:23-149)
 
-Not ported yet: ASR transcription of an empty ref_text, int8 quantization,
-AOT engine files, YAML configs, an explicit ODE grid (`timesteps=`).
+Not ported yet: the Whisper transcriber (an empty ref_text needs a
+`transcribe` callable), int8 quantization, YAML configs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import random
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from f5e_tts_tpu_torch.config import CFMConfig, ModelConfig, preset
 from f5e_tts_tpu_torch.infer import audio as faudio
-from f5e_tts_tpu_torch.infer.pipeline import TTSEngine, preprocess_ref_audio_text
+from f5e_tts_tpu_torch.infer.pipeline import (CachedTranscriber, TTSEngine,
+                                              preprocess_ref_audio_text)
 from f5e_tts_tpu_torch.models.dit import fuse_qkv, init_dit
 from f5e_tts_tpu_torch.models.vocos import VocosConfig, init_vocos, vocos_decode, vocos_from_torch
 from f5e_tts_tpu_torch.utils import text as ftext
+from f5e_tts_tpu_torch.utils.aot import capture_sampler_buckets
 from f5e_tts_tpu_torch.utils.convert import (dit_from_reference_state_dict, load_state_dict,
                                              to_tensors)
 from f5e_tts_tpu_torch.utils.device import resolve_device
@@ -40,9 +44,11 @@ def _cast(tree, dtype):
 
 def load_vocoder(vocoder_path: Optional[str] = None, compute_dtype=torch.bfloat16,
                  device="cuda", seed: int = 0):
-    """A Vocos decode callable, mel (B, N, 100) tensor -> float32 numpy wav.
-    Weights from a vocos .pt/.bin/.safetensors state dict, else seeded
-    random (the reference downloads charactr/vocos-mel-24khz)."""
+    """A Vocos decode callable, mel (B, N, 100) tensor -> float32 numpy wav;
+    its `.device` decodes the same way and leaves the wav tensor on the card
+    (no host copy either way). Weights from a vocos .pt/.bin/.safetensors
+    state dict, else seeded random (the reference downloads
+    charactr/vocos-mel-24khz)."""
     dev = resolve_device(device)
     cfg = VocosConfig()
     if vocoder_path:
@@ -58,10 +64,13 @@ def load_vocoder(vocoder_path: Optional[str] = None, compute_dtype=torch.bfloat1
     params = _cast(params, compute_dtype)
 
     @torch.inference_mode()
-    def decode(mel: torch.Tensor) -> np.ndarray:
-        wav = vocos_decode(params, cfg, mel.to(dev, compute_dtype), compute_dtype=compute_dtype)
-        return wav.float().cpu().numpy()
+    def decode_device(mel: torch.Tensor) -> torch.Tensor:
+        return vocos_decode(params, cfg, mel.to(dev, compute_dtype), compute_dtype=compute_dtype)
 
+    def decode(mel: torch.Tensor) -> np.ndarray:
+        return decode_device(mel).float().cpu().numpy()
+
+    decode.device = decode_device
     return decode
 
 
@@ -71,7 +80,14 @@ class F5TTS:
     def __init__(self, model: str = "F5TTS_v1_Base", ckpt_file: str = "", vocab_file: str = "",
                  ode_method: str = "euler", use_ema: bool = True,
                  vocoder_local_path: Optional[str] = None, compute_dtype=torch.bfloat16,
-                 model_cfg: Optional[dict] = None, device="cuda", seed: int = 0):
+                 model_cfg: Optional[dict] = None, device="cuda", seed: int = 0,
+                 transcribe: Optional[Callable[[np.ndarray, int], str]] = None,
+                 capture_buckets: Optional[Sequence[int]] = None):
+        """`transcribe(wav, sr) -> str` transcribes an empty ref_text (behind
+        a `CachedTranscriber`); without it an empty ref_text raises.
+        `capture_buckets` captures the default sampler (NFE 32) of each of
+        those buckets; `utils.aot.capture_sampler_buckets(self.engine, ...)`
+        captures others."""
         self.device = resolve_device(device)
         self.model_cfg: ModelConfig = preset(model)
         arch = self.model_cfg.arch
@@ -100,31 +116,44 @@ class F5TTS:
             cfm=CFMConfig(ode_method=ode_method), infer_cfg=self.model_cfg.infer,
             tokenizer=tokenizer,
             vocoder_decode=load_vocoder(vocoder_local_path, compute_dtype, self.device, seed),
-            compute_dtype=compute_dtype, device=self.device)
+            compute_dtype=compute_dtype, device=self.device,
+            use_intersperse=(arch.codebook.use_align_loss or arch.ppg.use_cross_mask)
+            if hasattr(arch, "codebook") else False)
+        self._transcriber = CachedTranscriber(transcribe) if transcribe is not None else None
         self.seed: Optional[int] = None
+        if capture_buckets:
+            capture_sampler_buckets(self.engine, capture_buckets)
 
     def export_wav(self, wav: np.ndarray, file_wave: str, remove_silence: bool = False):
         if remove_silence:
             wav = faudio.remove_silence_edges(wav, self.target_sample_rate)
         faudio.write_wav(file_wave, wav, self.target_sample_rate)
 
+    def export_spectrogram(self, spec: np.ndarray, file_spec: str):
+        """Save the (N, mel) log-mel to .npy."""
+        np.save(file_spec, spec)
+
     @torch.inference_mode()
     def infer(self, ref_file: str, ref_text: str, gen_text: str, *,
               cross_fade_duration: float = 0.15, sway_sampling_coef: float = -1.0,
               cfg_strength: float = 2.0, nfe_step: int = 32, speed: float = 1.0,
               fix_duration: Optional[float] = None, remove_silence: bool = False,
-              file_wave: Optional[str] = None, seed: Optional[int] = None):
-        """Synthesize `gen_text` in the voice of `ref_file`. Returns
-        (wav, sample_rate, generated mel)."""
+              file_wave: Optional[str] = None, file_spec: Optional[str] = None,
+              seed: Optional[int] = None, timesteps: Optional[Sequence[float]] = None):
+        """Synthesize `gen_text` in the voice of `ref_file`; `timesteps` is an
+        explicit ODE grid (e.g. `cfm.pruned_sway_timesteps`) that overrides
+        nfe_step and the sway. Returns (wav, sample_rate, generated mel)."""
         if seed is None:
             seed = random.randint(0, 2**31 - 1)
         self.seed = seed
         wav, sr = faudio.read_wav(ref_file)
-        wav, ref_text = preprocess_ref_audio_text(wav, sr, ref_text)
+        wav, ref_text = preprocess_ref_audio_text(wav, sr, ref_text, transcribe=self._transcriber)
         out, sr, spec = self.engine.infer(
             wav, sr, ref_text, gen_text, seed=seed, speed=speed, fix_duration=fix_duration,
             nfe_steps=nfe_step, cfg_strength=cfg_strength, sway=sway_sampling_coef,
-            cross_fade_duration=cross_fade_duration)
+            cross_fade_duration=cross_fade_duration, timesteps=timesteps)
         if file_wave is not None:
             self.export_wav(out, file_wave, remove_silence)
+        if file_spec is not None:
+            self.export_spectrogram(spec, file_spec)
         return out, sr, spec

@@ -2,28 +2,37 @@
 
 Host-side text chunking, byte-ratio duration estimate and cross-fade
 stitching in Python; each chunk is one sampler run on a static duration
-bucket, then one vocoder decode. (reference: src/f5_tts/infer/
-utils_infer.py:367-556)
+bucket, then one vocoder decode. With a vocoder that decodes on the card
+(`load_vocoder`'s `decode.device`), the generated mel never leaves it: the
+sampler output is sliced there (`slice_gen`) and decoded. A captured
+sampler engine (`utils/aot.py`) replays the ODE loop of a matching request
+as one CUDA graph. (reference: src/f5_tts/infer/utils_infer.py:367-556)
 
-Not ported yet: the dynamic batcher, AOT engine files, streaming, the
-reference-mel cache and the `tts`/`vc` sampler modes.
+Not ported yet: the dynamic batcher and the `tts`/`vc` sampler modes.
 """
 
 from __future__ import annotations
 
+import hashlib
 import re
+import threading
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from f5e_tts_tpu_torch.config import CFMConfig, InferConfig, MelConfig
 from f5e_tts_tpu_torch.infer import audio as faudio
 from f5e_tts_tpu_torch.models import cfm as fcfm
 from f5e_tts_tpu_torch.ops.mel import mel_spectrogram
 from f5e_tts_tpu_torch.utils import text as ftext
+from f5e_tts_tpu_torch.utils.aot import find_sampler_engine
 from f5e_tts_tpu_torch.utils.device import resolve_device
+
+# the log-mel silence floor (ops/mel.py clamps at 1e-5): vocoder padding
+MEL_FLOOR = float(np.log(1e-5))
 
 
 def chunk_text(text: str, max_chars: int = 135) -> List[str]:
@@ -58,9 +67,10 @@ def estimate_duration(ref_audio_len: int, ref_text: str, gen_text: str, speed: f
 
 
 DEFAULT_BUCKETS = (256, 512, 768, 1024, 1280, 1536, 1792, 2048, 3072, 4096)
-TEXT_PAD_TO = 32  # text length granularity
-# vocoder input length ladder: generated mels are padded with the log-mel
-# silence floor to a multiple of this, and the wav is trimmed back
+TEXT_PAD_TO = 32  # default text length granularity (TTSEngine.text_pad_to)
+# default vocoder input length ladder (TTSEngine.vocoder_pad_to): generated
+# mels are padded with the log-mel silence floor to a multiple of this, and
+# the wav is trimmed back
 VOCODER_PAD_TO = 128
 
 
@@ -70,6 +80,22 @@ def pick_bucket(duration: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
         if duration <= b:
             return b
     return buckets[-1]
+
+
+def slice_gen(out: torch.Tensor, starts: torch.Tensor, gen_lens: torch.Tensor,
+              L: int) -> torch.Tensor:
+    """Each row's generated window on the device: row i is out[i, starts[i]:
+    starts[i] + L] in fp32 (a start past N is clamped to N, as
+    `lax.dynamic_slice` clamps it), frames at or past gen_lens[i] replaced by
+    the mel silence floor. (B, L, mel); the vocoder reads it with no host
+    round trip (reference: f5e_tts_tpu pipeline.py:79-98, slice_gen_core and
+    slice_gen in one)."""
+    b, n, d = out.shape
+    opad = F.pad(out.float(), (0, 0, 0, L))
+    idx = starts.to(out.device, torch.long).clamp(0, n)[:, None] + torch.arange(L, device=out.device)
+    g = torch.gather(opad, 1, idx[:, :, None].expand(b, L, d))
+    keep = torch.arange(L, device=out.device)[None, :] < gen_lens.to(out.device)[:, None]
+    return torch.where(keep[:, :, None], g, torch.full((), MEL_FLOOR, device=out.device))
 
 
 def cross_fade_stitch(waves: List[np.ndarray], sr: int, cross_fade_duration: float) -> np.ndarray:
@@ -89,14 +115,32 @@ def cross_fade_stitch(waves: List[np.ndarray], sr: int, cross_fade_duration: flo
     return final.astype(np.float32)
 
 
+class CachedTranscriber:
+    """An ASR callable `transcribe(wav, sr) -> str` behind a cache keyed on
+    the md5 of the fp32 samples, so a repeated reference skips ASR
+    (reference: utils_infer.py:148-179, 334-348)."""
+
+    def __init__(self, transcribe: Callable[[np.ndarray, int], str]):
+        self._transcribe = transcribe
+        self._cache: dict = {}
+
+    def __call__(self, wav: np.ndarray, sr: int) -> str:
+        key = hashlib.md5(np.ascontiguousarray(wav, np.float32).tobytes()).hexdigest()
+        if key not in self._cache:
+            self._cache[key] = self._transcribe(wav, sr)
+        return self._cache[key]
+
+
 def preprocess_ref_audio_text(wav: np.ndarray, sr: int, ref_text: str = "", *,
-                              transcribe=None, show_info=print) -> Tuple[np.ndarray, str]:
-    """Reference preparation (utils_infer.py:293-361): clip to <= 12 s at a
-    silence (long, then short, else a hard cut), trim the edge silence,
-    transcribe an empty ref_text with the injected `transcribe(wav, sr)`
-    callable (raises when there is none), end the text with punctuation."""
+                              clip_short: bool = True, transcribe=None,
+                              show_info=print) -> Tuple[np.ndarray, str]:
+    """Reference preparation (utils_infer.py:293-361): with `clip_short`,
+    clip to <= 12 s at a silence (long, then short, else a hard cut) and trim
+    the edge silence; transcribe an empty ref_text with the injected
+    `transcribe(wav, sr)` callable (raises when there is none); end the text
+    with punctuation."""
     max_samples = 12 * sr
-    if len(wav) > max_samples:
+    if clip_short and len(wav) > max_samples:
         clipped = None
         for thresh_ms in (500, 200):
             pos, step = 6 * sr, int(0.05 * sr)
@@ -132,7 +176,12 @@ def preprocess_ref_audio_text(wav: np.ndarray, sr: int, ref_text: str = "", *,
 @dataclass
 class TTSEngine:
     """Model params + configs; serves synthesis requests on `device`
-    (reference: utils_infer.py load_model -> infer_process, api.py:23-149)."""
+    (reference: utils_infer.py load_model -> infer_process, api.py:23-149).
+
+    `engines` holds the captured samplers by name (utils/aot.py:
+    `capture_sampler_buckets`), all in the one memory pool `graph_pool`,
+    replayed one at a time under `graph_lock`; a request that one of them
+    matches replays it, any other runs eagerly."""
 
     params: dict
     arch: object  # DiTConfig or MMDiTConfig: any backbone models/backbone.py dispatches
@@ -141,27 +190,58 @@ class TTSEngine:
     cfm: CFMConfig = field(default_factory=CFMConfig)
     infer_cfg: InferConfig = field(default_factory=InferConfig)
     tokenizer: str = "byte"
+    # mel (B, L, mel) tensor -> wav; numpy on the host, and with a `.device`
+    # attribute the same decode with the wav left on the card
     vocoder_decode: Optional[Callable[[torch.Tensor], np.ndarray]] = None
     compute_dtype: torch.dtype = torch.bfloat16
     buckets: Sequence[int] = DEFAULT_BUCKETS
     device: object = "cuda"
+    text_pad_to: int = TEXT_PAD_TO  # text length ladder
+    vocoder_pad_to: int = VOCODER_PAD_TO  # vocoder length ladder; 0 decodes the exact length
+    use_intersperse: bool = False  # align-loss/cross-mask models intersperse the text
+    engines: dict = field(default_factory=dict, repr=False)
+    graph_pool: Optional[tuple] = field(default=None, repr=False)
+    graph_lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    _ref_mel_cache: dict = field(default_factory=dict, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
 
     def tokenize(self, texts: Sequence[str]) -> np.ndarray:
+        """(B, NT) int32 ids, -1 padded: UTF-8 bytes without a vocab, else the
+        characters of each text (char/custom), interspersed when
+        `use_intersperse`. The pinyin and g2p-mix front ends are not ported."""
         if self.vocab is None:
             return ftext.list_str_to_bytes(list(texts))
-        if self.tokenizer == "custom":
-            return ftext.list_str_to_idx([list(t) for t in texts], self.vocab)
-        raise NotImplementedError(f"tokenizer {self.tokenizer!r} is not ported yet")
+        if self.tokenizer in ("pinyin", "char-level-pinyin", "phone-level-pinyin", "g2p-mix"):
+            raise NotImplementedError(f"tokenizer {self.tokenizer!r} is not ported yet "
+                                      "(it needs pypinyin or g2p_mix)")
+        toks = [list(t) for t in texts]
+        if self.use_intersperse:
+            toks = ftext.intersperse(toks)
+        return ftext.list_str_to_idx(toks, self.vocab)
+
+    def _aot_sampler(self, nfe: int, bucket: int, timesteps=None, cfg_strength=None):
+        """The captured engine for (nfe or grid, bucket, variant), or None
+        (the JAX engine-file match without the prompt and text lengths,
+        which are data here, not shape)."""
+        found = find_sampler_engine(self.engines, nfe, bucket, timesteps=timesteps,
+                                    cfg_strength=cfg_strength)
+        return self.engines[found] if found else None
 
     def synthesize_chunk(self, ref_mel: np.ndarray, full_text: str, duration: int, *,
                          seed: int = 0, nfe_steps: Optional[int] = None,
-                         cfg_strength: Optional[float] = None,
-                         sway: Optional[float] = None) -> np.ndarray:
+                         cfg_strength: Optional[float] = None, sway: Optional[float] = None,
+                         timesteps: Optional[Sequence[float]] = None, device_out: bool = False):
         """One sampler run on a static bucket -> generated mel (frames, mel).
-        ref_mel is (1, ref_frames, mel)."""
+        ref_mel is (1, ref_frames, mel). `timesteps` is an explicit ODE grid
+        (e.g. `pruned_sway_timesteps`) that overrides nfe and sway. A
+        captured engine for this configuration is replayed when one matches
+        (plain CFG at the engine's default sway), else the sampler runs
+        eagerly; the noise comes from `seed` either way.
+
+        With `device_out` returns (out (1, bucket, mel) on the device,
+        ref_frames, duration) and copies nothing to the host."""
         icfg = self.infer_cfg
         nfe = nfe_steps if nfe_steps is not None else icfg.nfe_steps
         cfg = cfg_strength if cfg_strength is not None else icfg.cfg_strength
@@ -175,7 +255,7 @@ class TTSEngine:
         duration = min(duration, bucket)
         # the text pads to its own ladder, not to the bucket: the MMDiT's text
         # stream keeps this length, the DiT pads it on to the bucket itself
-        nt = min(-(-text_ids.shape[1] // TEXT_PAD_TO) * TEXT_PAD_TO, bucket)
+        nt = min(-(-text_ids.shape[1] // self.text_pad_to) * self.text_pad_to, bucket)
         padded = np.full((1, nt), -1, np.int32)
         padded[0, : min(text_ids.shape[1], nt)] = text_ids[0, :nt]
 
@@ -185,41 +265,85 @@ class TTSEngine:
             torch.tensor([ref_frames], device=dev), torch.tensor([duration], device=dev),
             bucket, text_ids=torch.as_tensor(padded, device=dev))
         gen = torch.Generator(device=dev).manual_seed(seed)
-        out, _ = fcfm.sample(self.params, self.arch, self.cfm, inputs, steps=nfe,
-                             cfg_strength=cfg, sway_coef=sway, generator=gen,
-                             compute_dtype=self.compute_dtype, device=dev)
+        engine = None
+        if sway == icfg.sway_sampling_coef:
+            engine = self._aot_sampler(nfe, bucket, timesteps=timesteps,
+                                       cfg_strength=None if cfg == icfg.cfg_strength else cfg)
+        if engine is not None:
+            out = engine.sample(inputs, fcfm.noise_like(gen, 1, bucket, inputs.cond.shape[-1],
+                                                        inputs.duration))
+        else:
+            out, _ = fcfm.sample(self.params, self.arch, self.cfm, inputs, steps=nfe,
+                                 cfg_strength=cfg, sway_coef=sway, generator=gen,
+                                 timesteps=timesteps, compute_dtype=self.compute_dtype,
+                                 device=dev)
+        if device_out:
+            return out, ref_frames, duration
         return out[0, ref_frames:duration].float().cpu().numpy()
 
-    def decode_mel(self, mel_gen: np.ndarray) -> np.ndarray:
-        """Vocoder decode, (L, mel) -> (L * hop,). The mel is padded with the
-        log-mel silence floor to the vocoder ladder and the wav trimmed."""
-        length = mel_gen.shape[0]
+    def decode_mel(self, mel_gen, device_out: bool = False):
+        """Vocoder decode, (L, mel) -> (L * hop,) or (B, L, mel) -> (B, L * hop),
+        from a numpy array or a tensor. The mel is padded with the log-mel
+        silence floor to the vocoder ladder and the wav trimmed. With
+        `device_out`, returns (the untrimmed wav tensor on the card, the trim
+        length), which needs a vocoder with `.device`."""
+        m = torch.as_tensor(mel_gen, dtype=torch.float32, device=self.device)
+        single = m.dim() == 2
+        if single:
+            m = m[None]
+        b, length, d = m.shape
+        trim = length * self.mel.hop_length
         if self.vocoder_decode is None:
-            return np.zeros(length * self.mel.hop_length, np.float32)
-        m = np.asarray(mel_gen, np.float32)[None]
-        lp = max(-(-max(length, 1) // VOCODER_PAD_TO) * VOCODER_PAD_TO, VOCODER_PAD_TO)
-        if lp != length:
-            floor = np.full((1, lp - length, m.shape[-1]), np.log(1e-5), np.float32)
-            m = np.concatenate([m, floor], axis=1)
-        wav = self.vocoder_decode(torch.as_tensor(m, device=self.device))
-        return wav[0, : length * self.mel.hop_length]
+            if device_out:
+                return torch.zeros((b, trim), device=self.device), trim
+            w = np.zeros((b, trim), np.float32)
+            return w[0] if single else w
+        pad = self.vocoder_pad_to
+        if pad:
+            lp = max(-(-max(length, 1) // pad) * pad, pad)
+            if lp != length:
+                m = F.pad(m, (0, 0, 0, lp - length), value=MEL_FLOOR)
+        if device_out:
+            return self.vocoder_decode.device(m), trim
+        wav = self.vocoder_decode(m)[:, :trim]
+        return wav[0] if single else wav
+
+    def _reference(self, ref_wav: np.ndarray, ref_sr: int):
+        """(audio at the model's rate, its rms before normalising, ref mel (1,
+        frames, mel) numpy), cached on the md5 of the raw samples and the
+        rate: at most 8 entries, the oldest dropped first."""
+        key = (hashlib.md5(ref_wav.tobytes()).hexdigest(), ref_sr)
+        hit = self._ref_mel_cache.get(key)
+        if hit is not None:
+            return hit
+        audio, orig_rms = faudio.normalize_rms(ref_wav.astype(np.float32),
+                                               self.infer_cfg.target_rms)
+        audio = faudio.resample(audio, ref_sr, self.mel.target_sample_rate)
+        ref_mel = mel_spectrogram(torch.as_tensor(audio[None, :], device=self.device),
+                                  self.mel).cpu().numpy()
+        if len(self._ref_mel_cache) >= 8:
+            self._ref_mel_cache.pop(next(iter(self._ref_mel_cache)))
+        self._ref_mel_cache[key] = (audio, orig_rms, ref_mel)
+        return audio, orig_rms, ref_mel
 
     def infer(self, ref_wav: np.ndarray, ref_sr: int, ref_text: str, gen_text: str, *,
               seed: int = 0, speed: Optional[float] = None, fix_duration: Optional[float] = None,
               nfe_steps: Optional[int] = None, cfg_strength: Optional[float] = None,
-              sway: Optional[float] = None, cross_fade_duration: Optional[float] = None):
+              sway: Optional[float] = None, cross_fade_duration: Optional[float] = None,
+              timesteps: Optional[Sequence[float]] = None, streaming: bool = False,
+              chunk_size: int = 2048):
         """Normalise the reference -> chunk the text -> sample -> vocode ->
-        stitch (utils_infer.py:367-556). Returns (wav, sample_rate, mel)."""
+        stitch (utils_infer.py:367-556). Returns (wav, sample_rate, mel), or
+        with `streaming` a generator of (wav piece of <= chunk_size samples,
+        sample_rate). `timesteps` is an explicit ODE grid for every chunk.
+        With a vocoder that decodes on the card, each chunk's mel is sliced
+        and decoded there; the host gets the wav and, after the decode, the mel."""
         icfg = self.infer_cfg
         speed = speed if speed is not None else icfg.speed
         xf = cross_fade_duration if cross_fade_duration is not None else icfg.cross_fade_duration
-        sr = self.mel.target_sample_rate
-
-        audio, orig_rms = faudio.normalize_rms(ref_wav.astype(np.float32), icfg.target_rms)
-        audio = faudio.resample(audio, ref_sr, sr)
-        ref_mel = mel_spectrogram(torch.as_tensor(audio[None, :], device=self.device),
-                                  self.mel).cpu().numpy()
-        ref_audio_len = audio.shape[-1] // self.mel.hop_length
+        sr, hop = self.mel.target_sample_rate, self.mel.hop_length
+        audio, orig_rms, ref_mel = self._reference(ref_wav, ref_sr)
+        ref_audio_len = audio.shape[-1] // hop
 
         if ref_text and len(ref_text[-1].encode("utf-8")) == 1:
             ref_text = ref_text + " "
@@ -227,16 +351,40 @@ class TTSEngine:
         # ref-length-derived chunk budget (utils_infer.py:386-388)
         max_chars = (int(len(ref_text.encode("utf-8")) / max(ref_s, 1e-6) * (22 - ref_s))
                      if ref_text else 135)
+        chunks = chunk_text(gen_text, max_chars=max(max_chars, 10))
+        dev_decode = getattr(self.vocoder_decode, "device", None)
+
+        def gen():
+            for i, chunk in enumerate(chunks):
+                duration = estimate_duration(ref_audio_len, ref_text, chunk, speed, fix_duration,
+                                             sr, hop)
+                kw = dict(seed=seed + i, nfe_steps=nfe_steps, cfg_strength=cfg_strength,
+                          sway=sway, timesteps=timesteps)
+                if dev_decode is not None:
+                    out, rf, dur = self.synthesize_chunk(ref_mel, ref_text + chunk, duration,
+                                                         device_out=True, **kw)
+                    gl = dur - rf
+                    mel_dev = slice_gen(out, torch.tensor([rf], device=self.device),
+                                        torch.tensor([gl], device=self.device), gl)
+                    wav_dev, trim = self.decode_mel(mel_dev, device_out=True)
+                    wav = wav_dev[0, :trim].float().cpu().numpy()
+                    mel_gen = mel_dev[0].cpu().numpy()
+                else:
+                    mel_gen = self.synthesize_chunk(ref_mel, ref_text + chunk, duration, **kw)
+                    wav = self.decode_mel(mel_gen)
+                if 0 < orig_rms < icfg.target_rms:
+                    wav = wav * orig_rms / icfg.target_rms
+                yield wav, mel_gen
+
+        if streaming:
+            def stream():
+                for wav, _ in gen():
+                    for j in range(0, len(wav), chunk_size):
+                        yield wav[j : j + chunk_size], sr
+            return stream()
+
         waves, mels = [], []
-        for i, chunk in enumerate(chunk_text(gen_text, max_chars=max(max_chars, 10))):
-            duration = estimate_duration(ref_audio_len, ref_text, chunk, speed, fix_duration,
-                                         sr, self.mel.hop_length)
-            mel_gen = self.synthesize_chunk(ref_mel, ref_text + chunk, duration, seed=seed + i,
-                                            nfe_steps=nfe_steps, cfg_strength=cfg_strength,
-                                            sway=sway)
-            wav = self.decode_mel(mel_gen)
-            if 0 < orig_rms < icfg.target_rms:
-                wav = wav * orig_rms / icfg.target_rms
+        for wav, mel_gen in gen():
             waves.append(wav)
             mels.append(mel_gen)
         final = cross_fade_stitch(waves, sr, xf)

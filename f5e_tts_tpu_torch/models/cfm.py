@@ -1,10 +1,12 @@
 """Conditional flow matching (counterpart of `f5e_tts_tpu/models/cfm.py`):
 the sampler and the training loss `cfm_loss`.
 
-The ODE over the sway-sampled grid is a Python loop; the two CFG branches
-(cond, and audio+text dropped) are folded into one (2B)-batch backbone call
-per step with per-sample drop flags; the text embeddings are computed once,
-before the loop.
+The ODE over the sway-sampled grid (or an explicit one, e.g. an EPSS-pruned
+grid) is a Python loop; the two CFG branches (cond, and audio+text dropped)
+are folded into one (2B)-batch backbone call per step with per-sample drop
+flags; the text embeddings are computed once, before the loop
+(`fold_inputs`), so the loop itself (`folded_step_fn` under `_ode_scan`)
+holds no host work and can be captured as a CUDA graph (utils/aot.py).
 
 reference: src/f5_tts/model/cfm.py:348-482 (CFM.sample).
 """
@@ -32,6 +34,19 @@ def sway_timesteps(steps: int, sway_coef: Optional[float], t_start: float = 0.0)
     return t.astype(np.float32)
 
 
+def pruned_sway_timesteps(keep, base_steps: int = 32, sway_coef: Optional[float] = -1.0,
+                          t_start: float = 0.0) -> tuple:
+    """EPSS-style pruned grid (arXiv 2505.19931): the `base_steps` sway grid
+    taken at the indices `keep`, which must start at 0, end at `base_steps`
+    and increase strictly. A hashable tuple of floats, the `timesteps=` of
+    `sample` (reference: f5e_tts_tpu cfm.py:46-62)."""
+    keep = tuple(int(i) for i in keep)
+    if keep[0] != 0 or keep[-1] != base_steps or list(keep) != sorted(set(keep)):
+        raise ValueError(f"keep must be strictly increasing 0..{base_steps}, got {keep}")
+    grid = sway_timesteps(base_steps, sway_coef, t_start)
+    return tuple(float(grid[i]) for i in keep)
+
+
 def noise_like(generator: torch.Generator, batch: int, length: int, channels: int,
                durations: torch.Tensor) -> torch.Tensor:
     """Standard normal (B, length, channels) noise from `generator` (on the
@@ -42,16 +57,18 @@ def noise_like(generator: torch.Generator, batch: int, length: int, channels: in
     return y0.masked_fill(~keep[:, :, None], 0.0)
 
 
-def _ode_scan(step_fn: Callable, y0: torch.Tensor, ts: np.ndarray, method: str = "euler"):
+def _ode_scan(step_fn: Callable, y0: torch.Tensor, ts: np.ndarray, method: str = "euler",
+              trajectory: bool = True):
     """Integrate dy/dt = step_fn(t, y) over the float32 grid ts.
 
     Euler: y += (t1 - t0) * f(t0, y). Midpoint: classic RK2. Returns
     (y_final, trajectory (steps + 1, ...) including y0), as torchdiffeq's
-    odeint does (reference: cfm.py:471).
+    odeint does (reference: cfm.py:471); the trajectory is None when not
+    asked for (the captured sampler keeps only y_final).
     """
     ts = np.asarray(ts, np.float32)
     y = y0
-    traj = [y0]
+    traj = [y0] if trajectory else None
     for t0, t1 in zip(ts[:-1], ts[1:]):
         dt = t1 - t0  # float32 arithmetic, as on the JAX grid
         if method == "euler":
@@ -63,8 +80,9 @@ def _ode_scan(step_fn: Callable, y0: torch.Tensor, ts: np.ndarray, method: str =
             y = y + float(dt) * step_fn(float(t0 + half), y_mid)
         else:
             raise ValueError(f"unknown ode method {method!r}")
-        traj.append(y)
-    return y, torch.stack(traj)
+        if trajectory:
+            traj.append(y)
+    return y, torch.stack(traj) if trajectory else None
 
 
 class SamplerInputs(NamedTuple):
@@ -89,12 +107,33 @@ def prepare_inputs(cond: torch.Tensor, lens: torch.Tensor, duration: torch.Tenso
                          text_ids=text_ids)
 
 
-def _folded_cfg_flow(params, arch, inputs: SamplerInputs, branches: Sequence[dict],
-                     weights: Sequence[float], mask: torch.Tensor, compute_dtype):
-    """step_fn(t, x) evaluating all CFG branches in ONE (K*B)-batch call;
-    the flow is sum_k weights[k] * flow_k. `arch` is any backbone config the
-    dispatch knows; the folded text embedding is (K*B, N, D) for the DiT and
-    (K*B, Nt, D) for the MMDiT, whose dropped branch keeps the text length."""
+def cfg_branches(cfg_strength: float):
+    """(branches, weights) of the plain CFG sampler: (1 + cfg) * cond_flow -
+    cfg * null_flow, or the cond branch alone when cfg < 1e-5."""
+    if cfg_strength < 1e-5:
+        return [dict(drop_audio=False, drop_text=False)], [1.0]
+    return ([dict(drop_audio=False, drop_text=False), dict(drop_audio=True, drop_text=True)],
+            [1.0 + cfg_strength, -cfg_strength])
+
+
+class FoldedInputs(NamedTuple):
+    """The time-independent inputs of the K CFG branches, folded into one
+    (K*B) batch; what the ODE loop reads at every step."""
+
+    text_embed: torch.Tensor  # (K*B, N, text_dim) DiT, (K*B, Nt, dim) MMDiT
+    cond: torch.Tensor  # (K*B, N, mel)
+    drop_audio: torch.Tensor  # (K*B,) bool
+    mask: torch.Tensor  # (K*B, N) bool, True inside each sample's duration
+    weights: torch.Tensor  # (K,) fp32 branch weights
+
+
+def fold_inputs(params, arch, inputs: SamplerInputs, branches: Sequence[dict],
+                weights: Sequence[float], compute_dtype) -> FoldedInputs:
+    """Text embeddings of every branch (once a request), the repeated cond
+    and mask, the drop flags and the weights. Runs eagerly: it copies the
+    weights from the host. The folded text embedding is (K*B, N, D) for the
+    DiT and (K*B, Nt, D) for the MMDiT, whose dropped branch keeps the text
+    length."""
     b, n, _ = inputs.cond.shape
     k = len(branches)
     device = inputs.cond.device
@@ -103,19 +142,29 @@ def _folded_cfg_flow(params, arch, inputs: SamplerInputs, branches: Sequence[dic
                                   torch.full((b,), br["drop_text"], device=device),
                                   compute_dtype)
         for br in branches])
-    cond_k = inputs.cond.repeat(k, 1, 1)
     drop_audio_k = torch.cat([torch.full((b,), br["drop_audio"], device=device)
                               for br in branches])
-    mask_k = mask.repeat(k, 1)
-    w = torch.tensor(weights, dtype=torch.float32, device=device)
+    return FoldedInputs(text_embed=text_embed_k, cond=inputs.cond.repeat(k, 1, 1),
+                        drop_audio=drop_audio_k,
+                        mask=lens_to_mask(inputs.duration, n).repeat(k, 1),
+                        weights=torch.tensor(weights, dtype=torch.float32, device=device))
+
+
+def folded_step_fn(params, arch, folded: FoldedInputs, compute_dtype) -> Callable:
+    """step_fn(t, x) evaluating all K CFG branches in ONE (K*B)-batch call;
+    the flow is sum_k weights[k] * flow_k. `arch` is any backbone config the
+    dispatch knows. No host work: every operand is on the device already."""
+    k = folded.weights.shape[0]
+    device = folded.cond.device
 
     def step_fn(t: float, x: torch.Tensor) -> torch.Tensor:
+        b, n, _ = x.shape
         pred = fbb.sample_step(
-            params, arch, x=x.repeat(k, 1, 1).to(compute_dtype), cond=cond_k,
-            text_embed=text_embed_k,
+            params, arch, x=x.repeat(k, 1, 1).to(compute_dtype), cond=folded.cond,
+            text_embed=folded.text_embed,
             time=torch.full((k * b,), t, dtype=torch.float32, device=device),
-            drop_audio_cond=drop_audio_k, mask=mask_k, compute_dtype=compute_dtype)
-        return torch.einsum("k,kbnd->bnd", w, pred.reshape(k, b, n, -1))
+            drop_audio_cond=folded.drop_audio, mask=folded.mask, compute_dtype=compute_dtype)
+        return torch.einsum("k,kbnd->bnd", folded.weights, pred.reshape(k, b, n, -1))
 
     return step_fn
 
@@ -123,11 +172,15 @@ def _folded_cfg_flow(params, arch, inputs: SamplerInputs, branches: Sequence[dic
 def sample(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
            steps: int = 32, cfg_strength: float = 2.0, sway_coef: Optional[float] = -1.0,
            generator: Optional[torch.Generator] = None, y0: Optional[torch.Tensor] = None,
+           timesteps: Optional[Sequence[float]] = None,
            compute_dtype: torch.dtype = torch.bfloat16, device="cuda"):
     """2-branch CFG sampler: (1 + cfg) * cond_flow - cfg * null_flow; a single
-    branch when cfg < 1e-5. The noise is `y0` when given, else drawn from
-    `generator`. Returns (out, trajectory); the prompt frames of `out` are the
-    conditioning mel (reference: cfm.py:476)."""
+    branch when cfg < 1e-5. The ODE runs over `timesteps` when given (an
+    explicit grid such as `pruned_sway_timesteps`; it overrides `steps` and
+    `sway_coef`, NFE = len - 1), else over the `steps`-step sway grid. The
+    noise is `y0` when given, else drawn from `generator`. Returns (out,
+    trajectory); the prompt frames of `out` are the conditioning mel
+    (reference: cfm.py:476)."""
     if fbb.uses_ppg(arch):
         raise NotImplementedError("PPG conditioning is not ported yet")
     dev = resolve_device(device)
@@ -136,23 +189,18 @@ def sample(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
         raise ValueError(f"params are on {param_dev}, sampling on {dev}")
     inputs = SamplerInputs(*(None if t is None else t.to(dev) for t in inputs))
     b, n, mel_dim = inputs.cond.shape
-    mask = lens_to_mask(inputs.duration, n)
-
-    if cfg_strength < 1e-5:
-        branches = [dict(drop_audio=False, drop_text=False)]
-        weights = [1.0]
-    else:
-        branches = [dict(drop_audio=False, drop_text=False),
-                    dict(drop_audio=True, drop_text=True)]
-        weights = [1.0 + cfg_strength, -cfg_strength]
-    step_fn = _folded_cfg_flow(params, arch, inputs, branches, weights, mask, compute_dtype)
+    branches, weights = cfg_branches(cfg_strength)
+    step_fn = folded_step_fn(params, arch, fold_inputs(params, arch, inputs, branches, weights,
+                                                       compute_dtype), compute_dtype)
 
     if y0 is None:
         if generator is None:
             raise ValueError("sample needs a generator or an explicit y0")
         y0 = noise_like(generator, b, n, mel_dim, inputs.duration)
     y0 = y0.to(device=dev, dtype=torch.float32)
-    y_final, traj = _ode_scan(step_fn, y0, sway_timesteps(steps, sway_coef), cfm.ode_method)
+    ts = (np.asarray(timesteps, np.float32) if timesteps is not None
+          else sway_timesteps(steps, sway_coef))
+    y_final, traj = _ode_scan(step_fn, y0, ts, cfm.ode_method)
     out = torch.where(inputs.cond_mask[:, :, None], inputs.cond, y_final)
     return out, traj
 

@@ -159,3 +159,14 @@ def precompute_freqs_cis(dim: int, end: int, theta: float = 10000.0,
     freqs = 1.0 / (theta ** (np.arange(0, dim, 2)[: dim // 2].astype(np.float64) / dim))
     angles = np.outer(np.arange(end, dtype=np.float64), freqs)
     return np.concatenate([np.cos(angles), np.sin(angles)], axis=-1).astype(np.float32)
+
+
+def get_pos_embed_indices(start: torch.Tensor, length: int, max_pos: int,
+                          scale=1.0) -> torch.Tensor:
+    """(B,) start + arange(length) * scale, each product cast to start's
+    dtype (truncated toward zero for integer starts), clipped to max_pos - 1;
+    (B, length) in start's dtype (reference: src/f5_tts/model/modules.py:210-219)."""
+    scale = scale * torch.ones_like(start, dtype=torch.float32)
+    steps = torch.arange(length, dtype=torch.float32, device=start.device)[None, :]
+    pos = start[:, None] + (steps * scale[:, None]).to(start.dtype)
+    return torch.clamp(pos, max=max_pos - 1)

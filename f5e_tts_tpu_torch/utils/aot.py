@@ -1,0 +1,182 @@
+"""Per-bucket sampler engines as CUDA graphs (counterpart of
+`f5e_tts_tpu/utils/aot.py` and of `TTSEngine.engine_dir` / `_aot_sampler`).
+
+The JAX package exports the jitted sampler of each duration bucket into an
+engine file, so serving skips compilation. The port's sampler is eager
+PyTorch, and what a synthesis pays for is the host: some 30k kernel
+launches, one at a time from Python. `capture_sampler_buckets` records the
+ODE loop of `cfm.sample` once per bucket as a `torch.cuda.CUDAGraph`, which
+then replays every launch of the loop in one call. A graph cannot be
+written to a file, so an engine lives in memory, in `TTSEngine.engines`,
+under a name built like the JAX file names:
+`sampler_nfe{nfe}{tag}_b{bucket}` (`variant_tag`).
+
+What the graph holds is the loop only: NFE folded-CFG backbone calls and the
+Euler (or midpoint) updates, each step's time fixed in it. The text
+embedding, cond, mask, drop flags and CFG weights (`cfm.fold_inputs`) and the
+noise are computed eagerly for each request and copied into the engine's
+static input buffers. The prompt length and the duration are data, not
+shape, so one graph serves every reference length in its bucket (the JAX
+files are keyed on the prompt length and the text length only because
+their shapes are static). The text is no shape of the DiT's graph either:
+its embedding is computed eagerly, padded to the bucket's length, so any
+request of the bucket matches. The graph reads the params by address:
+update them in place, never rebind them.
+
+Memory: every engine of a TTSEngine is captured into one pool
+(`TTSEngine.graph_pool`), so the engines share their intermediates. That is
+safe because replays run one at a time on one stream: `SamplerGraph.sample`
+holds the TTSEngine's `graph_lock` from copying its inputs in to copying
+its output out (into a fresh tensor), and raises when it is called on
+another stream than the one its engines were captured from, whose order
+keeps a replay's work behind the last one's. Each engine's static inputs are
+allocated outside the pool, so no replay of any engine can overwrite a
+result or an input. Threads on the default stream may share an engine.
+
+Launch counts: each kernel wrapper counts once for each launch the graph
+records while the loop is captured, and not at all on replay. A capture
+runs one eager step first (the warm-up CUDA graphs need), which counts as
+one step's launches.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from f5e_tts_tpu_torch.models import backbone as fbb
+from f5e_tts_tpu_torch.models import cfm as fcfm
+from f5e_tts_tpu_torch.models import dit as fdit
+
+
+def variant_tag(timesteps=None, cfg_strength=None) -> str:
+    """Name tag of a non-default sampler variant: an explicit grid tags by a
+    hash of its values, a guidance weight by its value; the default sampler
+    has no tag (reference: f5e_tts_tpu/utils/aot.py:38-52)."""
+    tag = ""
+    if timesteps is not None:
+        key = ",".join(f"{float(t):.9e}" for t in timesteps)
+        tag += "_ts" + hashlib.sha1(key.encode()).hexdigest()[:8]
+    if cfg_strength is not None:
+        tag += f"_cfg{float(cfg_strength):g}"
+    return tag
+
+
+def engine_name(nfe: int, bucket: int, timesteps: Optional[Sequence[float]] = None,
+                cfg_strength: Optional[float] = None) -> str:
+    """The name of the engine for (nfe, bucket, variant). With `timesteps`,
+    nfe is len(timesteps) - 1."""
+    if timesteps is not None:
+        nfe = len(tuple(timesteps)) - 1
+    return f"sampler_nfe{nfe}{variant_tag(timesteps, cfg_strength)}_b{bucket}"
+
+
+def find_sampler_engine(engines: Mapping[str, object], nfe: int, bucket: int,
+                        timesteps: Optional[Sequence[float]] = None,
+                        cfg_strength: Optional[float] = None) -> Optional[str]:
+    """The name of the engine for (nfe, bucket, variant) in `engines`, or
+    None (reference: f5e_tts_tpu/utils/aot.py:108-134, without the prompt
+    and text lengths, which are data here, not shape)."""
+    name = engine_name(nfe, bucket, timesteps, cfg_strength)
+    return name if name in engines else None
+
+
+class SamplerGraph:
+    """The captured ODE loop of one (bucket, grid, guidance) on a DiT engine.
+    `sample(inputs, y0)` is `cfm.sample(..., y0=y0)` for a request of batch 1
+    in this bucket, with the same bits."""
+
+    def __init__(self, engine, bucket: int, grid: np.ndarray, cfg_strength: float):
+        self.bucket, self.grid, self.cfg_strength = bucket, grid, cfg_strength
+        self._lock = engine.graph_lock
+        self.params, self.arch, self.compute_dtype = engine.params, engine.arch, engine.compute_dtype
+        self._capture(engine)
+
+    @torch.inference_mode()
+    def _capture(self, engine) -> None:
+        dev = engine.device
+        n, mel_dim = self.bucket, self.arch.mel_dim
+        placeholder = fcfm.prepare_inputs(
+            torch.zeros((1, 1, mel_dim), device=dev), torch.ones(1, dtype=torch.long, device=dev),
+            torch.full((1,), n, device=dev), n,
+            text_ids=torch.full((1, 1), -1, dtype=torch.int32, device=dev))
+        # the static inputs, allocated outside the graph's pool
+        self._inputs = self._fold(placeholder)
+        self._y0 = torch.zeros((1, n, mel_dim), device=dev)
+        step_fn = fcfm.folded_step_fn(self.params, self.arch, self._inputs, self.compute_dtype)
+        # one eager step first, on a side stream: it builds what is built on
+        # first use (kernel libraries, library handles and workspaces, the
+        # RoPE tables of this length), none of which may happen in a capture
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step_fn(float(self.grid[0]), self._y0)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        # the graph reads the cached RoPE tables by address: hold them, so a
+        # cache eviction cannot free them
+        self._rope = fdit._rope_tables(self.arch.dim_head, n, self.params["proj_out"]["w"].device)
+        if engine.graph_pool is None:
+            engine.graph_pool = torch.cuda.graph_pool_handle()
+        self._stream = torch.cuda.current_stream(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=engine.graph_pool):
+            self._out, _ = fcfm._ode_scan(step_fn, self._y0, self.grid, engine.cfm.ode_method,
+                                          trajectory=False)
+
+    def _fold(self, inputs: fcfm.SamplerInputs) -> fcfm.FoldedInputs:
+        branches, weights = fcfm.cfg_branches(self.cfg_strength)
+        return fcfm.fold_inputs(self.params, self.arch, inputs, branches, weights,
+                                self.compute_dtype)
+
+    @torch.inference_mode()
+    def sample(self, inputs: fcfm.SamplerInputs, y0: torch.Tensor) -> torch.Tensor:
+        """(1, bucket, mel) out: the replayed loop from the noise `y0`, the
+        prompt frames replaced by the cond mel, as `cfm.sample` returns it."""
+        if tuple(inputs.cond.shape[:2]) != (1, self.bucket):
+            raise ValueError(f"engine of bucket {self.bucket} got cond {tuple(inputs.cond.shape)}")
+        stream = torch.cuda.current_stream(self._y0.device)
+        if stream != self._stream:
+            raise RuntimeError(f"engine captured on {self._stream} replayed on {stream}: the "
+                               "engines of one pool replay on one stream")
+        folded = self._fold(inputs)
+        with self._lock:
+            for static, value in zip(self._inputs, folded):
+                static.copy_(value)
+            self._y0.copy_(y0)
+            self.graph.replay()
+            return torch.where(inputs.cond_mask[:, :, None], inputs.cond, self._out)
+
+
+def capture_sampler_buckets(engine, buckets: Optional[Sequence[int]] = None, nfe: int = 32,
+                            timesteps: Optional[Sequence[float]] = None,
+                            cfg_strength: Optional[float] = None) -> list:
+    """Capture the folded-CFG sampler of `engine` (a TTSEngine on the card
+    with a DiT) for each bucket (default: `engine.buckets`) into
+    `engine.engines`; returns the engines' names. `timesteps` bakes an
+    explicit grid (nfe becomes len - 1), `cfg_strength` a non-default
+    guidance weight; the sway is the engine's default. A capture that fails
+    raises (reference: f5e_tts_tpu/utils/aot.py:55-105)."""
+    if engine.device.type != "cuda":
+        raise RuntimeError(f"CUDA-graph capture needs an engine on a CUDA device, not {engine.device}")
+    if fbb.backbone_kind(engine.arch) != "dit":
+        raise NotImplementedError("only DiT samplers are captured: the MMDiT's text length is "
+                                  "a shape of its graph")
+    ts_grid = tuple(float(t) for t in timesteps) if timesteps is not None else None
+    cfg = engine.infer_cfg.cfg_strength if cfg_strength is None else cfg_strength
+    if ts_grid is not None:
+        grid = np.asarray(ts_grid, np.float32)
+    else:
+        grid = fcfm.sway_timesteps(nfe, engine.infer_cfg.sway_sampling_coef)
+    stream = torch.cuda.current_stream(engine.device)
+    if any(g._stream != stream for g in engine.engines.values()):
+        raise RuntimeError("the engines of one pool are captured and replayed on one stream")
+    names = []
+    with engine.graph_lock:
+        for bucket in buckets or engine.buckets:
+            name = engine_name(len(grid) - 1, bucket, ts_grid, cfg_strength)
+            engine.engines[name] = SamplerGraph(engine, bucket, grid, cfg)
+            names.append(name)
+    return names

@@ -1,0 +1,194 @@
+"""Captured sampler engines (f5e_tts_tpu_torch/utils/aot.py) against the
+eager sampler on the card: a replay from a request's seed gives the eager
+run's bits, for any prompt and text length of the bucket; engines sharing
+one memory pool keep their own bits in either order of replay, and from
+several threads at once; a replay on another stream raises.
+
+These need a CUDA device and nvcc and skip without one. On a machine with
+the card (which has no JAX, so the suite's conftest is left out):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_graphs_gpu.py
+
+Tolerance: none. A replay launches the kernels the eager loop launched, on
+the same values, so every comparison is bitwise.
+"""
+
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from f5e_tts_tpu_torch.api import _cast
+from f5e_tts_tpu_torch.config import DiTConfig, InferConfig
+from f5e_tts_tpu_torch.infer.pipeline import TTSEngine
+from f5e_tts_tpu_torch.kernels import gated_adaln as ga
+from f5e_tts_tpu_torch.kernels import rope_attention as ra
+from f5e_tts_tpu_torch.models.cfm import pruned_sway_timesteps
+from f5e_tts_tpu_torch.models.dit import fuse_qkv, init_dit
+from f5e_tts_tpu_torch.utils.aot import capture_sampler_buckets
+
+pytestmark = pytest.mark.gpu
+
+DEPTH, NFE = 2, 8
+ARCH = DiTConfig(dim=256, depth=DEPTH, heads=4, dim_head=64, ff_mult=2, mel_dim=100,
+                 text_dim=128, conv_layers=1, dropout=0.0)
+EPSS = pruned_sway_timesteps((0, 1, 2, 4, 8), base_steps=NFE)
+
+
+@pytest.fixture
+def engine():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_dit(ARCH, 256, gen, "cuda")
+    for blk in params["blocks"]:  # AdaLN-zero would make every block an identity
+        blk["attn_norm"]["w"].normal_(0.0, 0.02, generator=gen)
+    params["proj_out"]["w"].normal_(0.0, 0.02, generator=gen)
+    return TTSEngine(params=fuse_qkv(_cast(params, torch.bfloat16)), arch=ARCH, vocab=None,
+                     infer_cfg=InferConfig(nfe_steps=NFE, max_duration=1024),
+                     compute_dtype=torch.bfloat16, buckets=(256, 512), device="cuda")
+
+
+def _ref_mel(frames=80, seed=1):
+    return np.random.default_rng(seed).standard_normal((1, frames, 100)).astype(np.float32)
+
+
+def _chunk(engine, text="hello there, this is a test.", duration=200, seed=7, **kw):
+    out, _, _ = engine.synthesize_chunk(_ref_mel(), text, duration, seed=seed, device_out=True,
+                                        **kw)
+    torch.cuda.synchronize()
+    return out.clone()
+
+
+def _eager(engine, **kw):
+    engines, engine.engines = engine.engines, {}
+    try:
+        return _chunk(engine, **kw)
+    finally:
+        engine.engines = engines
+
+
+def _counts():
+    counts = (ra.launches, ga.launches)
+    ra.launches = ga.launches = 0
+    return counts
+
+
+def test_replay_gives_the_eager_bits(engine):
+    want = _eager(engine)
+    _counts()
+    names = capture_sampler_buckets(engine, buckets=(256,), nfe=NFE)
+    assert names == [f"sampler_nfe{NFE}_b256"]
+    # counted once a launch while the loop was captured, plus one eager warm-up step
+    assert _counts() == (DEPTH * (NFE + 1), DEPTH * (NFE + 1))
+    for seed in (7, 7, 8):
+        got = _chunk(engine, seed=seed)
+        assert _counts() == (0, 0)  # a replay counts nothing
+        if seed == 7:
+            assert torch.equal(got, want)
+    assert not torch.equal(got, want)  # another seed, another noise
+    # another prompt length in the same bucket: the same graph, the eager bits
+    frames = 30
+    got = engine.synthesize_chunk(_ref_mel(frames), "short.", 250, seed=3, device_out=True)[0]
+    assert _counts() == (0, 0)
+    engines, engine.engines = engine.engines, {}
+    want = engine.synthesize_chunk(_ref_mel(frames), "short.", 250, seed=3, device_out=True)[0]
+    engine.engines = engines
+    assert torch.equal(got, want)
+
+
+def test_two_engines_in_one_pool_keep_their_bits(engine):
+    want_default, want_epss = _eager(engine), _eager(engine, timesteps=EPSS)
+    want_512 = _eager(engine, duration=400)
+    _counts()
+    capture_sampler_buckets(engine, buckets=(256, 512), nfe=NFE)
+    capture_sampler_buckets(engine, buckets=(256,), timesteps=EPSS)
+    assert len(engine.engines) == 3 and engine.graph_pool is not None
+    for order in ((0, 1, 2), (2, 1, 0), (1, 0, 1, 2, 2, 0)):
+        for which in order:
+            if which == 0:
+                assert torch.equal(_chunk(engine), want_default)
+            elif which == 1:
+                assert torch.equal(_chunk(engine, timesteps=EPSS), want_epss)
+            else:
+                assert torch.equal(_chunk(engine, duration=400), want_512)
+    assert _counts() == (DEPTH * (2 * (NFE + 1) + len(EPSS)),) * 2  # captures only
+
+
+def test_a_long_text_replays_with_the_eager_bits(engine):
+    """The text is no shape of the graph: a text that fills most of the
+    bucket, in 3-byte characters too, replays and gives the eager bits."""
+    texts = ("a much longer sentence, with well over two hundred bytes of it. " * 3,
+             "\u4f60\u597d\u4e16\u754c\u3002" * 13)
+    want = [_eager(engine, text=t, duration=250) for t in texts]
+    capture_sampler_buckets(engine, buckets=(256,), nfe=NFE)
+    _counts()
+    for text, w in zip(texts, want):
+        assert len(text.encode()) > 180
+        assert torch.equal(_chunk(engine, text=text, duration=250), w)
+    assert _counts() == (0, 0)  # both replayed
+
+
+def test_threads_share_an_engine_and_another_stream_raises(engine):
+    """Requests from several threads on the default stream replay one at a
+    time and each gets its own eager bits; a replay or a capture on another
+    stream than the engines' raises."""
+    seeds = (3, 4, 5, 6)
+    want = {s: _eager(engine, seed=s) for s in seeds}
+    capture_sampler_buckets(engine, buckets=(256,), nfe=NFE)
+    got, errors = {}, []
+
+    def worker(seed):
+        try:
+            for _ in range(3):
+                out = _chunk(engine, seed=seed)
+                if not torch.equal(out, want[seed]):
+                    got[seed] = out
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(s,)) for s in seeds]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors and not got
+    with torch.cuda.stream(torch.cuda.Stream()):
+        with pytest.raises(RuntimeError, match="one stream"):
+            _chunk(engine)
+        with pytest.raises(RuntimeError, match="one stream"):
+            capture_sampler_buckets(engine, buckets=(512,), nfe=NFE)
+
+
+def test_f5tts_capture_buckets_replays_in_infer(tmp_path):
+    """F5TTS(capture_buckets=) captures the default engine of each bucket;
+    infer replays it with the eager run's wav. The params are seeded after
+    the capture, in place: the graph reads them by address."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from f5e_tts_tpu_torch.api import F5TTS
+    from f5e_tts_tpu_torch.infer.audio import write_wav
+
+    tts = F5TTS(model_cfg=dict(dim=256, depth=DEPTH, heads=4, dim_head=64, text_dim=128),
+                device="cuda", capture_buckets=(512,))
+    assert list(tts.engine.engines) == ["sampler_nfe32_b512"]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    with torch.no_grad():
+        for blk in tts.engine.params["blocks"]:
+            blk["attn_norm"]["w"].normal_(0.0, 0.02, generator=gen)
+        tts.engine.params["proj_out"]["w"].normal_(0.0, 0.02, generator=gen)
+    path = str(tmp_path / "ref.wav")
+    t = np.arange(24000) / 24000
+    write_wav(path, (0.2 * np.sin(2 * np.pi * 220 * t)).astype(np.float32), 24000)
+    call = (path, "hello there.", "a test of the engine.")
+    kw = dict(fix_duration=4.0, seed=3)  # 375 frames: bucket 512
+    _counts()
+    replayed, sr, _ = tts.infer(*call, **kw)
+    assert _counts() == (0, 0)
+    engines, tts.engine.engines = tts.engine.engines, {}
+    eager, _, _ = tts.infer(*call, **kw)
+    tts.engine.engines = engines
+    assert _counts() == (DEPTH * 32, DEPTH * 32)
+    assert sr == 24000 and np.isfinite(replayed).all()
+    np.testing.assert_array_equal(replayed, eager)
