@@ -21,8 +21,8 @@
    device="cuda").train(loader, ...) with fp32 master weights, bf16 compute,
    dropout 0.1 and the byte tokenizer, on one batch of 8 seeded speech-like
    clips of 21.9-24.5 s packed by the port's build_loader under the
-   19,200-frame budget (8 x N=2304); the mel runs on the card. Two updates (a
-   warm-up step, then a timed one), checked in train()'s log_fn: every step
+   19,200-frame budget (8 x N=2304); the mel runs on the card. Four updates (a
+   warm-up step, then three timed ones), checked in train()'s log_fn: every step
    launches each of K1, K2, K4 and K5 exactly depth times and no other
    kernel, gives a finite loss and gradient norm and moves the params; the
    EMA follows ema_decay_at. A fixed-draw, dropout-free evaluation of
@@ -66,7 +66,26 @@
 12. Device-resident decode and streaming: the vocoder's `.device` decode of
     a slice_gen window gives the host decode's wav for the same mel, and a
     one-chunk request's streamed pieces concatenate to its wav.
-13. One phase per kernel at the shapes of its path and at one ragged case:
+    (10-12, 15 and 16 run on one more v1 model, after 13 and 14.)
+13. E2 synthesis: F5TTS(model="E2TTS_Base") at full width and depth (a
+    UNetT: dim 1024, depth 24, 16 x 64, ff x4, RoPE on the first head, concat
+    skips; no AdaLN), the synthesis of 3: the time token makes attention run
+    on N+1 = 1537 rows, so E2_DEPTH x NFE launches of K3 and none of K2. Its
+    sampler captured for bucket 1536 (E2_DEPTH x (NFE + 1) K3 launches
+    counted at capture): a replay gives the eager bits, the sampler's device
+    time eager and replayed, three timed warm syntheses on the engine.
+14. E2 training: two Trainer.train updates of it on the batch of 4 (N+1 =
+    2305 rows): E2_DEPTH launches of K3 and K6 a step, none of K2/K5;
+    frames/s and peak memory as in 4; nothing saved.
+15. TTS sampler mode: synthesize_chunk(mode="tts") with alpha_spk =
+    alpha_txt = 1 + cfg (one 3B batch a step, depth x NFE of K1 and K2)
+    against plain-CFG sample(cfg) from the same noise: the prompt frames
+    equal, the generated frames within TTS_REL in relative L2; the device
+    time of both samplers.
+16. Speech editing: edit_speech over one span of the seeded reference,
+    re-timed so the request lands in bucket 1536: every kept frame of the
+    sampler output equals the cond mel bit for bit, the wav is finite.
+17. One phase per kernel at the shapes of its path and at one ragged case:
     kernel vs its plain PyTorch version on the same inputs (tolerances
     below), kernel, plain and library times, the least time the card could
     take, and the host time per call of each forward wrapper and of K5's.
@@ -75,7 +94,7 @@
     dq and dkdv; row pass and combine (torch.profiler, measured after the
     build, before the model phases). The backward kernels, K5 included,
     must give the same bits in two runs.
-14. Prints one JSON line with every kernel, then the device line last.
+18. Prints one JSON line with every kernel, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository. fp32 matmuls and convolutions run with TF32 off
@@ -107,7 +126,7 @@ sys.path.insert(0, str(ROOT))
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-DEPTH, MMDIT_DEPTH, NFE = 22, 8, 32
+DEPTH, MMDIT_DEPTH, E2_DEPTH, NFE = 22, 8, 24, 32
 # kernel vs plain on unit-scale bf16 inputs: both round the same fp32 values
 # to bf16, so they differ by accumulation order and at most ~1 bf16 ulp
 ATOL, RTOL = 2e-2, 1e-2
@@ -260,14 +279,15 @@ def seed_modulation_(params, gen) -> None:
     """AdaLN-zero leaves every block an identity at init and the output
     projection zero, so no gradient would reach the trunk on the first step
     and no kernel would shape a wav; small seeded modulation (`attn_norm*`,
-    `norm_out`) and output (`proj_out`) weights make every kernel carry one."""
+    `norm_out`) and output (`proj_out`) weights make every kernel carry one.
+    The UNetT's norms are RMSNorm gains, not linears, and stay as they are."""
     def walk(node):
         if isinstance(node, list):
             for sub in node:
                 walk(sub)
         elif isinstance(node, dict):
             for key, sub in node.items():
-                if key.startswith("attn_norm") or key in ("norm_out", "proj_out"):
+                if (key.startswith("attn_norm") or key in ("norm_out", "proj_out")) and "w" in sub:
                     sub["w"].copy_(0.02 * torch.randn(sub["w"].shape, generator=gen,
                                                       device=sub["w"].device))
                 else:
@@ -355,17 +375,22 @@ def reference_wav() -> Path:
     return ref
 
 
-def dit_synthesis_phase(tag: str, model: str, expected: dict, runs: int) -> dict:
-    """Full-width F5TTS(model).infer."""
+def preset_tts(tag: str, model: str, depth: int = DEPTH):
+    """Full-width F5TTS(model) on the card with seeded weights."""
     from f5e_tts_tpu_torch.api import F5TTS
 
     t0 = time.perf_counter()
     tts = F5TTS(model=model, device="cuda", compute_dtype=torch.bfloat16, seed=0)
     arch = tts.engine.arch
-    assert (arch.dim, arch.depth, arch.heads, arch.dim_head) == (1024, DEPTH, 16, 64), arch
+    assert (arch.dim, arch.depth, arch.heads, arch.dim_head) == (1024, depth, 16, 64), arch
     seed_modulation_(tts.engine.params, torch.Generator(device="cuda").manual_seed(1))
     torch.cuda.synchronize()
     log(f"[{tag}] {model} built in {time.perf_counter() - t0:.1f} s")
+    return tts
+
+
+def preset_synthesis_phase(tag: str, tts, expected: dict, runs: int) -> dict:
+    """Full-width `tts.infer` of the reference and text, bucket 1536."""
     ref = str(reference_wav())
 
     def infer():
@@ -582,7 +607,8 @@ def training_phase(tag: str, model_cfg, expected: dict, updates: int, warmup: in
 
     eval_before = evaluate()
     leaves, ema = fstep.tree_leaves(ts.params), fstep.tree_leaves(ts.ema_params)
-    mid = ts.params["blocks"][len(ts.params["blocks"]) // 2]
+    layers = ts.params.get("blocks") or ts.params["first_half"] + ts.params["second_half"]
+    mid = layers[len(layers) // 2]
     # time_embed, a mid block's feed-forward (audio stream), proj_out
     probe = [leaves[0], mid.get("ff1", mid.get("ff1_x"))["w"], ts.params["proj_out"]["w"]]
     ema_settings = fstep.EMASettings.from_train_cfg(tc)
@@ -1069,6 +1095,10 @@ def attention_rows(mods, paths: dict, text_len: int, splits) -> list:
 
     synth, train_b = (2, 1536, (1416, 1100)), (TRAIN_CLIPS, TRAIN_N, (TRAIN_N,) * TRAIN_CLIPS)
     ragged_b = (2, TRAIN_N, (TRAIN_N, 1337))
+    # the UNetT's time token makes N+1 rows: (2, 1537) in E2 synthesis (the
+    # synthesis shape's lengths plus one), (8, 2305) in its training step
+    e2_synth = (2, 1537, (1417, 1101))
+    e2_train = (TRAIN_CLIPS, TRAIN_N + 1, (TRAIN_N + 1,) * TRAIN_CLIPS)
     gb, gn, gnt = MMDIT_GRAD_SHAPE
     mm_n = TRAIN_N + text_len  # the MMDiT training step's joint length
     both = lambda a, b: {"synthesis": a, "training_step": b}  # noqa: E731
@@ -1086,7 +1116,11 @@ def attention_rows(mods, paths: dict, text_len: int, splits) -> list:
             "partial_rope_attention", "rope_attention", f"{PALLAS}:183",
             paths["partial_rope_attention"], False,
             [("synthesis", case("rope", *synth, rope_heads=1), True),
-             ("training", case("rope", *train_b, rope_heads=1), True)]))
+             ("training", case("rope", *train_b, rope_heads=1), True),
+             ("e2 synthesis", case("rope", *e2_synth, rope_heads=1), True),
+             # the keys of E2 synthesis, but nine full 192-row query tiles: as
+             # slow as 1537 rows if the one-row last tile costs a whole tile
+             ("nine full tiles", case("rope", 2, 9 * 192, e2_synth[2], rope_heads=1), True)]))
         rows.append(attention_kernel_phase(
             "joint_attention", "joint_attention", f"{PALLAS}:1201", paths["joint_attention"], False,
             [("synthesis", case("joint", 2, 1536 + 128, (1416, 1100), n_audio=1536), True),
@@ -1108,7 +1142,8 @@ def attention_rows(mods, paths: dict, text_len: int, splits) -> list:
         "partial_rope_attention_bwd", "rope_attention", f"{PALLAS}:906",
         paths["partial_rope_attention_bwd"], True,
         [("training", case("rope", *train_b, rope_heads=1), True),
-         ("ragged", case("rope", *ragged_b, rope_heads=1), False)]))
+         ("ragged", case("rope", *ragged_b, rope_heads=1), False),
+         ("e2 training", case("rope", *e2_train, rope_heads=1), True)]))
     rows.append(attention_kernel_phase(
         "joint_attention_bwd", "joint_attention", f"{PALLAS}:1298", paths["joint_attention_bwd"],
         True,
@@ -1221,18 +1256,16 @@ FIX_FRAMES = int(FIX_DURATION * 24_000 / 256)
 
 
 class Serving:
-    """One full-width F5TTS_v1_Base for the serving phases, its reference,
-    and the sampler inputs of its one-chunk request."""
+    """One full-width preset model (F5TTS_v1_Base unless named) for the
+    serving phases, its reference, and the sampler inputs of its one-chunk
+    request."""
 
-    def __init__(self):
-        from f5e_tts_tpu_torch.api import F5TTS
+    def __init__(self, model: str = "F5TTS_v1_Base", depth: int = DEPTH, tag: str = "serving"):
         from f5e_tts_tpu_torch.infer import audio as faudio
         from f5e_tts_tpu_torch.infer.pipeline import preprocess_ref_audio_text
         from f5e_tts_tpu_torch.models.cfm import pruned_sway_timesteps
 
-        self.tts = F5TTS(model="F5TTS_v1_Base", device="cuda", compute_dtype=torch.bfloat16,
-                         seed=0)
-        seed_modulation_(self.tts.engine.params, torch.Generator(device="cuda").manual_seed(1))
+        self.tts = preset_tts(tag, model, depth)
         self.engine = self.tts.engine
         self.ref = str(reference_wav())
         self.grid = pruned_sway_timesteps(EPSS_KEEP, base_steps=NFE)
@@ -1387,6 +1420,159 @@ def captured_phase(sv: Serving) -> dict:
     return counts
 
 
+def e2_captured_phase(sv: Serving) -> dict:
+    """Capture the E2 sampler of bucket 1536 at NFE 32 (a UNetT: attention on
+    N+1 = 1537 rows, RoPE tables 1537 long); a replay from the eager run's
+    noise gives its bits; the sampler's device time eager and replayed, and
+    three timed warm syntheses on the engine whose wav is the eager run's.
+    Returns the launch counts of the capture."""
+    from f5e_tts_tpu_torch.utils.aot import capture_sampler_buckets
+
+    engine = sv.engine
+    eager = sv.sampler_out(eager=True)
+    check_counts("e2 captured synthesis eager", read_counts(),
+                 expected_counts(partial_rope_attention=E2_DEPTH * NFE))
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    names = capture_sampler_buckets(engine, buckets=(1536,), nfe=NFE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"[e2 captured synthesis] captured {names} in {seconds:.2f} s; memory reserved "
+        f"{(torch.cuda.memory_reserved() - reserved) / 2**20:.1f} MiB more; launches counted at "
+        f"capture { {k: v for k, v in counts.items() if v} }")
+    check_counts("e2 captured synthesis capture", counts,
+                 expected_counts(partial_rope_attention=E2_DEPTH * (NFE + 1)))
+    replayed = sv.sampler_out()
+    check_counts("e2 captured synthesis replay", read_counts(), expected_counts())
+    if not torch.equal(replayed, eager):
+        diff = (replayed.float() - eager.float()).abs().max().item()
+        raise AssertionError(f"e2: the replay differs from the eager sampler (max {diff})")
+    log("[e2 captured synthesis] the replay from the eager run's noise gives its bits")
+    device_busy("e2 eager sampler", lambda: sv.sampler_out(eager=True))
+    device_busy("e2 replayed sampler", sv.sampler_out)
+    reset_counts()
+
+    walls = []
+    for run in ["warm-up"] + [f"timed {i + 1}" for i in range(3)]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav, sr, _ = sv.infer()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_counts(f"e2 captured synthesis {run}", read_counts(), expected_counts())
+        if run != "warm-up":
+            walls.append(wall)
+    engines, engine.engines = engine.engines, {}
+    eager_wav = sv.infer()[0]
+    engine.engines = engines
+    reset_counts()
+    if not (np.isfinite(wav).all() and np.array_equal(wav, eager_wav)):
+        raise AssertionError("e2: the captured synthesis' wav differs from the eager run's")
+    wall, audio_s = float(np.median(walls)), len(wav) / sr
+    log(f"[e2 captured synthesis] wav {audio_s:.3f} s, the eager run's bits; one warm synthesis "
+        f"(median of 3): wall {wall:.3f} s, RTF {wall / audio_s:.5f}; RTF of each: "
+        f"{[round(w / audio_s, 5) for w in walls]}")
+    profile_run("e2 captured synthesis profile", sv.infer, wall)
+    reset_counts()
+    return counts
+
+
+# alpha_spk = alpha_txt = 1 + cfg gives the TTS sampler plain CFG's branch
+# weights; the outputs differ only by the bf16 GEMMs of a 3B batch against a
+# 2B one. The relative L2 distance of the generated frames must stay under
+# TTS_REL (PERF.md §6 states why).
+TTS_REL = 2e-2
+
+
+def tts_mode_phase(sv: Serving) -> dict:
+    """synthesize_chunk(mode="tts", alpha_spk = alpha_txt = 1 + cfg) on the
+    serving v1 model against plain-CFG sample(cfg) from the same noise; the
+    two samplers' device time."""
+    cfg = 2.0
+
+    def tts():
+        out = sv.engine.synthesize_chunk(sv.ref_mel, sv.text, FIX_FRAMES, seed=7, nfe_steps=NFE,
+                                         sway=-1.0, mode="tts", alpha_spk=1 + cfg,
+                                         alpha_txt=1 + cfg, device_out=True)[0]
+        torch.cuda.synchronize()
+        return out.clone()
+
+    reset_counts()
+    plain = sv.sampler_out(eager=True)
+    check_counts("tts mode plain cfg", read_counts(),
+                 expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE))
+    got = tts()
+    counts = read_counts()
+    check_counts("tts mode", counts,
+                 expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE))
+    rf = sv.ref_mel.shape[1]
+    gen_t, gen_p = got[0, rf:FIX_FRAMES].float(), plain[0, rf:FIX_FRAMES].float()
+    rel = ((gen_t - gen_p).norm() / gen_p.norm()).item()
+    max_abs = (gen_t - gen_p).abs().max().item()
+    log(f"[tts mode] alpha_spk = alpha_txt = {1 + cfg} vs plain cfg {cfg}: generated frames "
+        f"{FIX_FRAMES - rf}, relative L2 {rel:.3e} (tolerance {TTS_REL}), max|diff| "
+        f"{max_abs:.3e} of max|plain| {gen_p.abs().max().item():.3e}; bitwise "
+        f"{torch.equal(got, plain)}")
+    if not (torch.isfinite(got).all() and torch.equal(got[0, :rf], plain[0, :rf])
+            and rel <= TTS_REL):
+        raise AssertionError("tts mode with equal alphas disagrees with plain CFG")
+    busy_tts = device_busy("tts mode sampler (3 branches)", tts)[0]
+    busy_cfg = device_busy("plain cfg sampler (2 branches)", lambda: sv.sampler_out(eager=True))[0]
+    log(f"[tts mode] sampler device busy {busy_tts:.1f} ms vs {busy_cfg:.1f} ms: "
+        f"{busy_tts / busy_cfg:.3f}x")
+    reset_counts()
+    return counts
+
+
+EDIT_TEXT = ("Some call me nature, and in the quiet hours before dawn by the lake, "
+             "others call me mother nature.")
+
+
+def speech_edit_phase(sv: Serving) -> dict:
+    """edit_speech on the serving v1 model: the span 1.0-2.0 s of the seeded
+    reference re-timed to 10 s (1315 frames, bucket 1536). Every kept frame
+    of the sampler output equals the cond mel; the wav is finite."""
+    from f5e_tts_tpu_torch.infer.speech_edit import edit_speech
+    from f5e_tts_tpu_torch.models import cfm as fcfm
+
+    captured, sample = [], fcfm.sample
+
+    def recording_sample(params, arch, cfm, inputs, **kw):
+        out = sample(params, arch, cfm, inputs, **kw)
+        captured.append((out[0], inputs))
+        return out
+
+    fcfm.sample = recording_sample
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav, sr = edit_speech(sv.engine, sv.wav, sv.sr, REF_TEXT, EDIT_TEXT, [(1.0, 2.0)],
+                              fix_durations=[10.0], seed=7, nfe_steps=NFE, cfg_strength=2.0,
+                              sway=-1.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        fcfm.sample = sample
+    check_counts("speech edit", counts,
+                 expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE))
+    (out, inputs), = captured
+    n = int(inputs.duration[0])
+    keep = inputs.cond_mask[:, :, None].expand_as(out)
+    if tuple(out.shape) != (1, 1536, 100) or not torch.equal(out[keep], inputs.cond[keep]):
+        raise AssertionError("speech edit: a kept frame differs from the cond mel")
+    edited = int((~inputs.cond_mask[0, :n]).sum())
+    if not (0 < edited < n and np.isfinite(wav).all() and np.sqrt(np.mean(wav ** 2)) > 0):
+        raise AssertionError(f"speech edit: {edited} of {n} frames edited, or a bad wav")
+    log(f"[speech edit] {n} frames in bucket 1536, {edited} generated, {n - edited} kept equal "
+        f"to the cond mel bit for bit; wav {len(wav) / sr:.3f} s finite; wall {wall:.3f} s")
+    reset_counts()
+    return counts
+
+
 def decode_stream_phase(sv: Serving) -> None:
     """The device-resident decode against the host decode of the same mel,
     and a streamed request against the same request in one piece."""
@@ -1458,15 +1644,15 @@ def main() -> int:
 
     # F5TTS_v1_Base: K1/K2 in synthesis, K1/K2/K4/K5 in training
     with torch.inference_mode():
-        runs["synthesis"] = phase("synthesis", lambda: dit_synthesis_phase(
-            "synthesis", "F5TTS_v1_Base",
+        runs["synthesis"] = phase("synthesis", lambda: preset_synthesis_phase(
+            "synthesis", preset_tts("synthesis", "F5TTS_v1_Base"),
             expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE), runs=3))
     v1 = byte_model(preset("F5TTS_v1_Base"))
     assert (v1.arch.depth, v1.arch.dropout) == (DEPTH, 0.1), v1.arch
     runs["training_step"], _ = phase("training", lambda: training_phase(
         "training", v1, expected_counts(rope_attention=DEPTH, rope_attention_bwd=DEPTH,
                                         gated_adaln=DEPTH, gated_adaln_bwd=DEPTH),
-        updates=2, warmup=1, resume=True))
+        updates=4, warmup=1, resume=True))
     phase("gradients", lambda: gradient_phase(swaps))
 
     # MMDiT: K7 in synthesis, K9/K10 in training, K7/K8 through a masked loss
@@ -1483,8 +1669,8 @@ def main() -> int:
 
     # F5TTS_Base: RoPE on the first head only, K3 and K6 (and K2/K5)
     with torch.inference_mode():
-        runs["base_synthesis"] = phase("base synthesis", lambda: dit_synthesis_phase(
-            "base synthesis", "F5TTS_Base",
+        runs["base_synthesis"] = phase("base synthesis", lambda: preset_synthesis_phase(
+            "base synthesis", preset_tts("base synthesis", "F5TTS_Base"),
             expected_counts(partial_rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE), runs=3))
     base = byte_model(preset("F5TTS_Base"))
     assert (base.arch.pe_attn_head, base.arch.text_mask_padding) == (1, False), base.arch
@@ -1494,13 +1680,32 @@ def main() -> int:
                         gated_adaln=DEPTH, gated_adaln_bwd=DEPTH),
         updates=2, warmup=1, checkpoints=False))
 
-    # serving on one v1 model: EPSS grid, captured engines, device decode, streaming
+    # E2TTS_Base: a UNetT, attention on N+1 rows through K3 and K6, no AdaLN
+    with torch.inference_mode():
+        e2 = Serving("E2TTS_Base", E2_DEPTH, "e2 synthesis")
+        runs["e2_synthesis"] = phase("e2 synthesis", lambda: synthesis_phase(
+            "e2 synthesis", e2.infer, expected_counts(partial_rope_attention=E2_DEPTH * NFE),
+            runs=3))
+        runs["e2_captured_synthesis_capture"] = phase("e2 captured synthesis",
+                                                      lambda: e2_captured_phase(e2))
+        del e2
+    e2_cfg = byte_model(preset("E2TTS_Base"))
+    assert (e2_cfg.arch.depth, e2_cfg.arch.ff_mult, e2_cfg.arch.pe_attn_head) == (E2_DEPTH, 4, 1)
+    runs["e2_training_step"], _ = phase("e2 training", lambda: training_phase(
+        "e2 training", e2_cfg, expected_counts(partial_rope_attention=E2_DEPTH,
+                                               partial_rope_attention_bwd=E2_DEPTH),
+        updates=2, warmup=1, checkpoints=False))
+
+    # serving on one v1 model: EPSS grid, captured engines, device decode,
+    # streaming, the TTS sampler mode and speech editing
     with torch.inference_mode():
         sv = Serving()
         runs["epss_synthesis"] = phase("epss synthesis", lambda: epss_phase(sv))
         runs["captured_synthesis_capture"] = phase("captured synthesis",
                                                    lambda: captured_phase(sv))
         phase("device decode and streaming", lambda: decode_stream_phase(sv))
+        runs["tts_mode_synthesis"] = phase("tts mode", lambda: tts_mode_phase(sv))
+        runs["speech_edit"] = phase("speech edit", lambda: speech_edit_phase(sv))
         del sv
 
     # which paths launched each kernel, and how often in one run of the path

@@ -7,8 +7,11 @@ gen_text, ...)`. Runs on the card unless `device="cpu"` is passed.
 graphs (utils/aot.py), the counterpart of the JAX `engine_dir`.
 (reference: src/f5_tts/api.py:23-149)
 
+`model` names a preset of any backbone (`F5TTS_v1_Base`, `F5TTS_Base`,
+`F5TTS_Small`, `E2TTS_Base`); `config_file` loads a model YAML instead.
+
 Not ported yet: the Whisper transcriber (an empty ref_text needs a
-`transcribe` callable), int8 quantization, YAML configs.
+`transcribe` callable), int8 quantization.
 """
 
 from __future__ import annotations
@@ -20,16 +23,16 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from f5e_tts_tpu_torch.config import CFMConfig, ModelConfig, preset
+from f5e_tts_tpu_torch.config import CFMConfig, ModelConfig, load_yaml, preset
 from f5e_tts_tpu_torch.infer import audio as faudio
 from f5e_tts_tpu_torch.infer.pipeline import (CachedTranscriber, TTSEngine,
                                               preprocess_ref_audio_text)
-from f5e_tts_tpu_torch.models.dit import fuse_qkv, init_dit
+from f5e_tts_tpu_torch.models import backbone as fbb
 from f5e_tts_tpu_torch.models.vocos import VocosConfig, init_vocos, vocos_decode, vocos_from_torch
 from f5e_tts_tpu_torch.utils import text as ftext
 from f5e_tts_tpu_torch.utils.aot import capture_sampler_buckets
-from f5e_tts_tpu_torch.utils.convert import (dit_from_reference_state_dict, load_state_dict,
-                                             to_tensors)
+from f5e_tts_tpu_torch.utils.convert import (backbone_from_reference_state_dict,
+                                             load_state_dict, to_tensors)
 from f5e_tts_tpu_torch.utils.device import resolve_device
 
 
@@ -79,17 +82,19 @@ class F5TTS:
 
     def __init__(self, model: str = "F5TTS_v1_Base", ckpt_file: str = "", vocab_file: str = "",
                  ode_method: str = "euler", use_ema: bool = True,
-                 vocoder_local_path: Optional[str] = None, compute_dtype=torch.bfloat16,
-                 model_cfg: Optional[dict] = None, device="cuda", seed: int = 0,
-                 transcribe: Optional[Callable[[np.ndarray, int], str]] = None,
+                 vocoder_local_path: Optional[str] = None, config_file: Optional[str] = None,
+                 compute_dtype=torch.bfloat16, model_cfg: Optional[dict] = None, device="cuda",
+                 seed: int = 0, transcribe: Optional[Callable[[np.ndarray, int], str]] = None,
                  capture_buckets: Optional[Sequence[int]] = None):
-        """`transcribe(wav, sr) -> str` transcribes an empty ref_text (behind
-        a `CachedTranscriber`); without it an empty ref_text raises.
+        """`config_file` is a model YAML (`config.load_yaml`) used in place of
+        the preset `model`; `model_cfg` overrides fields of its arch.
+        `transcribe(wav, sr) -> str` transcribes an empty ref_text (behind a
+        `CachedTranscriber`); without it an empty ref_text raises.
         `capture_buckets` captures the default sampler (NFE 32) of each of
         those buckets; `utils.aot.capture_sampler_buckets(self.engine, ...)`
         captures others."""
         self.device = resolve_device(device)
-        self.model_cfg: ModelConfig = preset(model)
+        self.model_cfg: ModelConfig = load_yaml(config_file) if config_file else preset(model)
         arch = self.model_cfg.arch
         if model_cfg:
             known = {f.name for f in dataclasses.fields(arch)}
@@ -104,12 +109,13 @@ class F5TTS:
             vocab, vocab_size, tokenizer = None, self.model_cfg.vocab_size, "byte"
 
         if ckpt_file:
-            params = to_tensors(dit_from_reference_state_dict(load_state_dict(ckpt_file, use_ema),
-                                                              arch), self.device)
+            params = to_tensors(backbone_from_reference_state_dict(
+                load_state_dict(ckpt_file, use_ema), arch), self.device)
         else:
-            params = init_dit(arch, vocab_size, torch.Generator(device=self.device).manual_seed(seed),
-                              self.device)
-        params = fuse_qkv(_cast(params, compute_dtype))
+            params = fbb.init_backbone(arch, vocab_size,
+                                       torch.Generator(device=self.device).manual_seed(seed),
+                                       self.device)
+        params = fbb.fuse_qkv(_cast(params, compute_dtype), arch)
 
         self.engine = TTSEngine(
             params=params, arch=arch, vocab=vocab, mel=self.model_cfg.mel,
@@ -134,7 +140,7 @@ class F5TTS:
         np.save(file_spec, spec)
 
     @torch.inference_mode()
-    def infer(self, ref_file: str, ref_text: str, gen_text: str, *,
+    def infer(self, ref_file: str, ref_text: str, gen_text: str, *, target_rms: float = 0.1,
               cross_fade_duration: float = 0.15, sway_sampling_coef: float = -1.0,
               cfg_strength: float = 2.0, nfe_step: int = 32, speed: float = 1.0,
               fix_duration: Optional[float] = None, remove_silence: bool = False,
@@ -142,7 +148,10 @@ class F5TTS:
               seed: Optional[int] = None, timesteps: Optional[Sequence[float]] = None):
         """Synthesize `gen_text` in the voice of `ref_file`; `timesteps` is an
         explicit ODE grid (e.g. `cfm.pruned_sway_timesteps`) that overrides
-        nfe_step and the sway. Returns (wav, sample_rate, generated mel)."""
+        nfe_step and the sway. Returns (wav, sample_rate, generated mel).
+        `target_rms` is taken for the reference's call surface and, as in the
+        JAX `F5TTS.infer`, does not reach the engine: the loudness target is
+        the model config's `InferConfig.target_rms`."""
         if seed is None:
             seed = random.randint(0, 2**31 - 1)
         self.seed = seed

@@ -1,13 +1,15 @@
-"""Configuration dataclasses and model presets (the port's copy of
-`f5e_tts_tpu/config.py`: plain data, no behaviour).
+"""Configuration dataclasses, model presets and the YAML loaders (the port's
+copy of `f5e_tts_tpu/config.py`).
 
 The inference configs and the single-device training config are kept; the
-mesh, pipeline microbatching, the PRNG choice and YAML loading stay in the
-JAX package until the port reaches them.
+mesh, pipeline microbatching, the PRNG choice, 8-bit Adam and sample-count
+batches stay in the JAX package until the port reaches them, and
+`load_train_yaml` raises for a YAML that asks for them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
@@ -93,7 +95,9 @@ class DiTConfig:
 
 @dataclass(frozen=True)
 class UNetTConfig:
-    """UNetT (E2-TTS) hyperparameters; the port has no UNetT backbone yet."""
+    """UNetT (E2-TTS flat UNet transformer) hyperparameters
+    (reference: src/f5_tts/model/backbones/unett.py:106-250). The forward
+    applies no dropout, as the JAX one: `dropout` is kept for field parity."""
 
     dim: int = 1024
     depth: int = 24
@@ -232,3 +236,104 @@ def preset(name: str) -> ModelConfig:
                              text_mask_padding=False, pe_attn_head=1),
         )
     raise ValueError(f"unknown preset {name!r}")
+
+
+def _build(cls, data: dict):
+    """Recursively build a dataclass from a plain dict, ignoring unknown keys;
+    lists become tuples."""
+    if not dataclasses.is_dataclass(cls):
+        return data
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for key, value in data.items():
+        if key not in fields:
+            continue
+        factory = fields[key].default_factory
+        default = factory() if factory is not dataclasses.MISSING else None
+        if isinstance(value, dict) and default is not None and dataclasses.is_dataclass(default):
+            kwargs[key] = _build(type(default), value)
+        elif isinstance(value, list):
+            kwargs[key] = tuple(value)
+        else:
+            kwargs[key] = value
+    return cls(**kwargs)
+
+
+def _read_yaml(path: str) -> dict:
+    import yaml
+
+    with open(path, "r", encoding="utf-8") as f:
+        return yaml.safe_load(f)
+
+
+def load_yaml(path: str) -> ModelConfig:
+    """A training/inference YAML (configs/example.yaml layout) -> ModelConfig.
+    The reference's `ppg_config` / `codebook_config` keys map onto PPGConfig
+    and CodebookConfig (`dim` -> `ppg_dim`, `codebook_prob` ->
+    `perplex_loss_prob` with the perplexity loss on, `codebook_loss_weight`
+    -> `perplex_loss_weight`), as the JAX loader maps them."""
+    raw = _read_yaml(path)
+    model = raw.get("model", raw)
+    arch_cls = {"DiT": DiTConfig, "UNetT": UNetTConfig, "MMDiT": MMDiTConfig}[
+        model.get("backbone", "DiT")]
+    arch_raw = dict(model.get("arch", {}))
+    if "ppg_config" in model or "use_ppg" in model:
+        ppg_raw = dict(model.get("ppg_config", {}))
+        ppg_raw["use_ppg"] = model.get("use_ppg", False)
+        if "dim" in ppg_raw:
+            ppg_raw["ppg_dim"] = ppg_raw.pop("dim")
+        arch_raw["ppg"] = ppg_raw
+    if "codebook_config" in model or "use_codebook" in model:
+        cb_raw = dict(model.get("codebook_config", {}))
+        cb_raw["use_codebook"] = model.get("use_codebook", False)
+        if "codebook_prob" in cb_raw:
+            cb_raw["perplex_loss_prob"] = cb_raw.pop("codebook_prob")
+            cb_raw["use_perplex_loss"] = True
+        if "codebook_loss_weight" in cb_raw:
+            cb_raw["perplex_loss_weight"] = cb_raw.pop("codebook_loss_weight")
+        arch_raw["codebook"] = cb_raw
+    return ModelConfig(
+        name=model.get("name", "custom"),
+        backbone=model.get("backbone", "DiT"),
+        tokenizer=model.get("tokenizer", "pinyin"),
+        tokenizer_path=model.get("tokenizer_path"),
+        arch=_build(arch_cls, arch_raw),
+        mel=_build(MelConfig, model.get("mel_spec", {})),
+    )
+
+
+def load_train_yaml(path: str) -> TrainConfig:
+    """The optim / ckpts / datasets sections of a training YAML -> TrainConfig,
+    key for key as the JAX loader reads them. The port trains on one device
+    with frame-budget batches and full-precision AdamW: a `mesh` over more
+    than one device, `bnb_optimizer: true` or `batch_size_type: sample`
+    raise. `logger` and `log_samples_per_updates` are not read: the port's
+    Trainer reports through its `log_fn`."""
+    raw = _read_yaml(path)
+    optim = raw.get("optim", {})
+    ckpts = raw.get("ckpts", {})
+    ds = raw.get("datasets", {})
+    mesh = raw.get("mesh") or {}  # a bare `mesh:` key parses as None
+    if mesh.get("data", -1) not in (-1, 1) or any(mesh.get(k, 1) != 1 for k in
+                                                  ("fsdp", "model", "seq", "pipe")):
+        raise NotImplementedError(f"mesh {mesh}: the port trains on one device "
+                                  "(ROADMAP queue 1 item 10)")
+    if optim.get("bnb_optimizer", False):
+        raise NotImplementedError("bnb_optimizer: 8-bit AdamW is not ported yet "
+                                  "(ROADMAP queue 1 item 5)")
+    if ds.get("batch_size_type", "frame") != "frame":
+        raise NotImplementedError("batch_size_type sample: only frame-budget batches are "
+                                  "ported (ROADMAP queue 1 item 5)")
+    return TrainConfig(
+        epochs=optim.get("epochs", 100),
+        learning_rate=optim.get("learning_rate", 7.5e-5),
+        num_warmup_updates=optim.get("num_warmup_updates", 20_000),
+        grad_accumulation_steps=optim.get("grad_accumulation_steps", 1),
+        max_grad_norm=optim.get("max_grad_norm", 1.0),
+        batch_size_per_device=ds.get("batch_size_per_gpu", 19_200),
+        max_samples=ds.get("max_samples", 64),
+        save_per_updates=ckpts.get("save_per_updates", 50_000),
+        last_per_updates=ckpts.get("last_per_updates", 5_000),
+        keep_last_n_checkpoints=ckpts.get("keep_last_n_checkpoints", -1),
+        save_dir=ckpts.get("save_dir", "ckpts"),
+    )

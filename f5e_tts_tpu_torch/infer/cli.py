@@ -4,9 +4,10 @@
 The reference's surface (src/f5_tts/infer/infer_cli.py:34-364): a TOML config
 (basic.toml layout) merged with the flags, `[voices.<name>]` tables and
 `[voice_name]` tags inside gen_text for dialogue, chunk saving, silence
-removal. Checkpoints are local paths. `--device` picks the device (the
-card by default). Not ported yet: `--model_cfg` (the YAML loader) and
-`--asr_model` (the Whisper transcriber); both raise.
+removal. Checkpoints are local paths; `--model_cfg` is a model YAML
+(`config.load_yaml`) used in place of the preset `--model`. `--device`
+picks the device (the card by default). Not ported yet: `--asr_model` (the
+Whisper transcriber, whose weights are absent); it raises.
 
 Usage:
   python -m f5e_tts_tpu_torch.infer.cli -c config.toml
@@ -26,7 +27,7 @@ def build_parser() -> argparse.ArgumentParser:
                                 description="F5E-TTS inference on PyTorch/CUDA")
     p.add_argument("-c", "--config", default=None, help="TOML config file")
     p.add_argument("-m", "--model", default=None, help="model preset name")
-    p.add_argument("-mc", "--model_cfg", default=None, help="model yaml config path (not ported)")
+    p.add_argument("-mc", "--model_cfg", default=None, help="model yaml config path")
     p.add_argument("-p", "--ckpt_file", default=None, help=".safetensors/.pt checkpoint")
     p.add_argument("-v", "--vocab_file", default=None, help="vocab.txt")
     p.add_argument("-r", "--ref_audio", default=None, help="reference wav")
@@ -105,8 +106,6 @@ def main(argv=None) -> str:
     from f5e_tts_tpu_torch.infer.pipeline import preprocess_ref_audio_text
 
     cfg = load_config(build_parser().parse_args(argv))
-    if cfg.get("model_cfg"):
-        raise NotImplementedError("--model_cfg needs the YAML config loader, not ported yet")
     if cfg.get("asr_model"):
         raise NotImplementedError("--asr_model needs the Whisper transcriber, not ported yet")
 
@@ -121,7 +120,8 @@ def main(argv=None) -> str:
 
     tts = api.F5TTS(model=cfg["model"], ckpt_file=cfg.get("ckpt_file", ""),
                     vocab_file=cfg.get("vocab_file", ""),
-                    vocoder_local_path=cfg.get("vocoder_local_path"), device=cfg["device"])
+                    vocoder_local_path=cfg.get("vocoder_local_path"),
+                    config_file=cfg.get("model_cfg"), device=cfg["device"])
 
     # voices: main + named (reference: infer_cli.py:290-305), each preprocessed
     voices = {"main": {"ref_audio": cfg["ref_audio"], "ref_text": cfg.get("ref_text", "")}}

@@ -6,9 +6,11 @@ bucket, then one vocoder decode. With a vocoder that decodes on the card
 (`load_vocoder`'s `decode.device`), the generated mel never leaves it: the
 sampler output is sliced there (`slice_gen`) and decoded. A captured
 sampler engine (`utils/aot.py`) replays the ODE loop of a matching request
-as one CUDA graph. (reference: src/f5_tts/infer/utils_infer.py:367-556)
+as one CUDA graph. `synthesize_chunk(mode="tts")` runs the dual-alpha TTS
+sampler (`cfm.sample_tts`). (reference: src/f5_tts/infer/utils_infer.py:367-556)
 
-Not ported yet: the dynamic batcher and the `tts`/`vc` sampler modes.
+Not ported yet: the dynamic batcher and the `vc` sampler mode (it needs the
+PPG path).
 """
 
 from __future__ import annotations
@@ -184,7 +186,7 @@ class TTSEngine:
     matches replays it, any other runs eagerly."""
 
     params: dict
-    arch: object  # DiTConfig or MMDiTConfig: any backbone models/backbone.py dispatches
+    arch: object  # DiTConfig, UNetTConfig or MMDiTConfig (models/backbone.py dispatches)
     vocab: Optional[dict]
     mel: MelConfig = field(default_factory=MelConfig)
     cfm: CFMConfig = field(default_factory=CFMConfig)
@@ -232,16 +234,24 @@ class TTSEngine:
     def synthesize_chunk(self, ref_mel: np.ndarray, full_text: str, duration: int, *,
                          seed: int = 0, nfe_steps: Optional[int] = None,
                          cfg_strength: Optional[float] = None, sway: Optional[float] = None,
+                         mode: str = "tts_cfg", alpha_spk: float = 1.0, alpha_txt: float = 1.0,
                          timesteps: Optional[Sequence[float]] = None, device_out: bool = False):
         """One sampler run on a static bucket -> generated mel (frames, mel).
         ref_mel is (1, ref_frames, mel). `timesteps` is an explicit ODE grid
-        (e.g. `pruned_sway_timesteps`) that overrides nfe and sway. A
-        captured engine for this configuration is replayed when one matches
-        (plain CFG at the engine's default sway), else the sampler runs
-        eagerly; the noise comes from `seed` either way.
+        (e.g. `pruned_sway_timesteps`) that overrides nfe and sway. `mode`
+        "tts" runs the dual-alpha sampler with `alpha_spk` / `alpha_txt` in
+        place of `cfg_strength`; "cfg" and "tts_cfg" run plain CFG; "vc" needs
+        the PPG path and raises. A captured engine for this configuration is
+        replayed when one matches (plain CFG at the engine's default sway),
+        else the sampler runs eagerly; the noise comes from `seed` either way.
 
         With `device_out` returns (out (1, bucket, mel) on the device,
         ref_frames, duration) and copies nothing to the host."""
+        if mode == "vc":
+            raise NotImplementedError("the vc sampler mode needs the PPG path, not ported yet "
+                                      "(ROADMAP queue 1 item 6)")
+        if mode not in ("cfg", "tts_cfg", "tts"):
+            raise ValueError(f"unknown sampler mode {mode!r}")
         icfg = self.infer_cfg
         nfe = nfe_steps if nfe_steps is not None else icfg.nfe_steps
         cfg = cfg_strength if cfg_strength is not None else icfg.cfg_strength
@@ -266,12 +276,17 @@ class TTSEngine:
             bucket, text_ids=torch.as_tensor(padded, device=dev))
         gen = torch.Generator(device=dev).manual_seed(seed)
         engine = None
-        if sway == icfg.sway_sampling_coef:
+        if mode != "tts" and sway == icfg.sway_sampling_coef:
             engine = self._aot_sampler(nfe, bucket, timesteps=timesteps,
                                        cfg_strength=None if cfg == icfg.cfg_strength else cfg)
         if engine is not None:
             out = engine.sample(inputs, fcfm.noise_like(gen, 1, bucket, inputs.cond.shape[-1],
                                                         inputs.duration))
+        elif mode == "tts":
+            out, _ = fcfm.sample_tts(self.params, self.arch, self.cfm, inputs, steps=nfe,
+                                     alpha_spk=alpha_spk, alpha_txt=alpha_txt, sway_coef=sway,
+                                     generator=gen, timesteps=timesteps,
+                                     compute_dtype=self.compute_dtype, device=dev)
         else:
             out, _ = fcfm.sample(self.params, self.arch, self.cfm, inputs, steps=nfe,
                                  cfg_strength=cfg, sway_coef=sway, generator=gen,

@@ -1,7 +1,6 @@
 """Backbone dispatch for the CFM layer (counterpart of
 `f5e_tts_tpu/models/backbone.py`): init, the sampler's step and the
-training forward, over the DiT and the MMDiT. The UNetT is not ported
-yet and raises."""
+training forward, over the DiT, the UNetT and the MMDiT."""
 
 from __future__ import annotations
 
@@ -10,24 +9,45 @@ import torch
 from f5e_tts_tpu_torch.config import DiTConfig, MMDiTConfig, UNetTConfig
 from f5e_tts_tpu_torch.models import dit as fdit
 from f5e_tts_tpu_torch.models import mmdit as fmmdit
+from f5e_tts_tpu_torch.models import unett as funett
 
 
 def backbone_kind(arch) -> str:
-    """"dit" or "mmdit"; the UNetT is known but not ported."""
+    """"dit", "unett" or "mmdit"."""
     if isinstance(arch, DiTConfig):
         return "dit"
+    if isinstance(arch, UNetTConfig):
+        return "unett"
     if isinstance(arch, MMDiTConfig):
         return "mmdit"
-    if isinstance(arch, UNetTConfig):
-        raise NotImplementedError("the UNetT backbone is not ported yet")
     raise TypeError(f"unknown arch config {type(arch)}")
 
 
 def init_backbone(arch, vocab_size: int, generator: torch.Generator, device="cpu") -> dict:
     """fp32 parameters of the backbone from `generator` (backbone.py:28-34)."""
-    if backbone_kind(arch) == "dit":
+    kind = backbone_kind(arch)
+    if kind == "dit":
         return fdit.init_dit(arch, vocab_size, generator, device)
+    if kind == "unett":
+        return funett.init_unett(arch, vocab_size, generator, device)
     return fmmdit.init_mmdit(arch, vocab_size, generator, device)
+
+
+def fuse_qkv(params, arch) -> dict:
+    """Params whose self-attention layers hold one fused `to_qkv` projection
+    (the DiT's and the UNetT's; the MMDiT's are returned as they are)."""
+    kind = backbone_kind(arch)
+    if kind == "dit":
+        return fdit.fuse_qkv(params)
+    if kind == "unett":
+        return funett.fuse_qkv(params)
+    return params
+
+
+def attention_rows(arch, n: int) -> int:
+    """The rows attention runs on for n frames, the length of the RoPE
+    tables the backbone reads (`unett.attention_rows` for the UNetT)."""
+    return funett.attention_rows(n) if backbone_kind(arch) == "unett" else n
 
 
 def uses_ppg(arch) -> bool:
@@ -39,19 +59,28 @@ def precompute_text_embed(params, arch, text_ids, batch: int, seq_len: int, drop
     """Time-independent text embedding (the reference's per-ODE text cache):
     (B, N, text_dim) for the DiT, (B, Nt, dim) at the text's own length for
     the MMDiT."""
-    if backbone_kind(arch) == "dit":
+    kind = backbone_kind(arch)
+    if kind == "dit":
         return fdit.text_embed_fn(params, arch, text_ids, batch, seq_len, drop_text,
                                   compute_dtype)
+    if kind == "unett":
+        return funett.text_embed_fn(params, arch, text_ids, batch, seq_len, drop_text,
+                                    compute_dtype)
     return fmmdit.text_embed_fn(params, arch, text_ids, drop_text, compute_dtype)
 
 
 def sample_step(params, arch, *, x, cond, text_embed, time, drop_audio_cond, mask=None,
                 compute_dtype=torch.bfloat16) -> torch.Tensor:
     """One time-dependent forward with precomputed conditioning."""
-    if backbone_kind(arch) == "dit":
+    kind = backbone_kind(arch)
+    if kind == "dit":
         return fdit.dit_sample_step(params, arch, x=x, cond=cond, text_embed=text_embed,
                                     time=time, drop_audio_cond=drop_audio_cond, mask=mask,
                                     compute_dtype=compute_dtype)
+    if kind == "unett":
+        return funett.unett_forward(params, arch, x=x, cond=cond, text_ids=None, time=time,
+                                    drop_audio_cond=drop_audio_cond, drop_text=None, mask=mask,
+                                    text_embed=text_embed, compute_dtype=compute_dtype)
     return fmmdit.mmdit_forward(params, arch, x=x, cond=cond, text_ids=None, time=time,
                                 drop_audio_cond=drop_audio_cond, drop_text=None, mask=mask,
                                 text_embed=text_embed, compute_dtype=compute_dtype)
@@ -61,13 +90,18 @@ def forward_train(params, arch, *, x, cond, text_ids, time, drop_audio_cond, dro
                   mask=None, training: bool = False, generator=None,
                   compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Full training forward (backbone.py:69-90): the predicted flow. The
-    MMDiT forward has no dropout, so `training` and `generator` reach only
-    the DiT."""
-    if backbone_kind(arch) == "dit":
+    UNetT and MMDiT forwards have no dropout, so `training` and `generator`
+    reach only the DiT."""
+    kind = backbone_kind(arch)
+    if kind == "dit":
         return fdit.dit_forward(params, arch, x=x, cond=cond, text_ids=text_ids, time=time,
                                 drop_audio_cond=drop_audio_cond, drop_text=drop_text, mask=mask,
                                 training=training, generator=generator,
                                 compute_dtype=compute_dtype)
+    if kind == "unett":
+        return funett.unett_forward(params, arch, x=x, cond=cond, text_ids=text_ids, time=time,
+                                    drop_audio_cond=drop_audio_cond, drop_text=drop_text,
+                                    mask=mask, compute_dtype=compute_dtype)
     return fmmdit.mmdit_forward(params, arch, x=x, cond=cond, text_ids=text_ids, time=time,
                                 drop_audio_cond=drop_audio_cond, drop_text=drop_text, mask=mask,
                                 compute_dtype=compute_dtype)

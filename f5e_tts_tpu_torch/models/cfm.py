@@ -2,8 +2,9 @@
 the sampler and the training loss `cfm_loss`.
 
 The ODE over the sway-sampled grid (or an explicit one, e.g. an EPSS-pruned
-grid) is a Python loop; the two CFG branches (cond, and audio+text dropped)
-are folded into one (2B)-batch backbone call per step with per-sample drop
+grid) is a Python loop; the CFG branches (cond and audio+text dropped for
+`sample`; null, text and speaker+text for the dual-alpha `sample_tts`) are
+folded into one (K*B)-batch backbone call per step with per-sample drop
 flags; the text embeddings are computed once, before the loop
 (`fold_inputs`), so the loop itself (`folded_step_fn` under `_ode_scan`)
 holds no host work and can be captured as a CUDA graph (utils/aot.py).
@@ -93,15 +94,24 @@ class SamplerInputs(NamedTuple):
 
 
 def prepare_inputs(cond: torch.Tensor, lens: torch.Tensor, duration: torch.Tensor,
-                   max_duration: int, text_ids: Optional[torch.Tensor] = None) -> SamplerInputs:
+                   max_duration: int, text_ids: Optional[torch.Tensor] = None,
+                   edit_mask: Optional[torch.Tensor] = None,
+                   no_ref_audio: bool = False) -> SamplerInputs:
     """Pad cond to the bucket length and build the prompt-keep mask
-    (reference: cfm.py:393-428)."""
+    (reference: cfm.py:393-428). `edit_mask` (B, <= max_duration), True
+    where the prompt is kept, is padded with False and ANDed into the mask
+    (speech editing); `no_ref_audio` zeroes the cond mel."""
     cond_len = cond.shape[1]
     if cond_len < max_duration:
         cond = F.pad(cond, (0, 0, 0, max_duration - cond_len))
     else:
         cond = cond[:, :max_duration]
     cond_mask = lens_to_mask(lens.to(cond.device), max_duration)
+    if edit_mask is not None:
+        edit_mask = edit_mask.to(device=cond.device, dtype=torch.bool)
+        cond_mask = cond_mask & F.pad(edit_mask, (0, max_duration - edit_mask.shape[1]))
+    if no_ref_audio:
+        cond = torch.zeros_like(cond)
     step_cond = cond.masked_fill(~cond_mask[:, :, None], 0.0)
     return SamplerInputs(cond=step_cond, cond_mask=cond_mask, duration=duration,
                          text_ids=text_ids)
@@ -114,6 +124,16 @@ def cfg_branches(cfg_strength: float):
         return [dict(drop_audio=False, drop_text=False)], [1.0]
     return ([dict(drop_audio=False, drop_text=False), dict(drop_audio=True, drop_text=True)],
             [1.0 + cfg_strength, -cfg_strength])
+
+
+def tts_branches(alpha_spk: float, alpha_txt: float):
+    """(branches, weights) of the dual-alpha TTS sampler: the null, text and
+    speaker+text branches, flow = a_spk (spk_txt - txt) + a_txt (txt - null)
+    + null, i.e. weights [1 - a_txt, a_txt - a_spk, a_spk] (reference:
+    f5e_tts_tpu cfm.py:304-312)."""
+    return ([dict(drop_audio=True, drop_text=True), dict(drop_audio=True, drop_text=False),
+             dict(drop_audio=False, drop_text=False)],
+            [1.0 - alpha_txt, alpha_txt - alpha_spk, alpha_spk])
 
 
 class FoldedInputs(NamedTuple):
@@ -132,8 +152,8 @@ def fold_inputs(params, arch, inputs: SamplerInputs, branches: Sequence[dict],
     """Text embeddings of every branch (once a request), the repeated cond
     and mask, the drop flags and the weights. Runs eagerly: it copies the
     weights from the host. The folded text embedding is (K*B, N, D) for the
-    DiT and (K*B, Nt, D) for the MMDiT, whose dropped branch keeps the text
-    length."""
+    DiT and the UNetT and (K*B, Nt, D) for the MMDiT, whose dropped branch
+    keeps the text length."""
     b, n, _ = inputs.cond.shape
     k = len(branches)
     device = inputs.cond.device
@@ -181,15 +201,37 @@ def sample(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
     noise is `y0` when given, else drawn from `generator`. Returns (out,
     trajectory); the prompt frames of `out` are the conditioning mel
     (reference: cfm.py:476)."""
+    return _sample_branches(params, arch, cfm, inputs, *cfg_branches(cfg_strength), steps=steps,
+                            sway_coef=sway_coef, generator=generator, y0=y0,
+                            timesteps=timesteps, compute_dtype=compute_dtype, device=device)
+
+
+def sample_tts(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
+               steps: int = 32, alpha_spk: float = 1.0, alpha_txt: float = 1.0,
+               sway_coef: Optional[float] = None, generator: Optional[torch.Generator] = None,
+               y0: Optional[torch.Tensor] = None, timesteps: Optional[Sequence[float]] = None,
+               compute_dtype: torch.dtype = torch.bfloat16, device="cuda"):
+    """MegaTTS3-style dual-alpha TTS CFG: the null, text and speaker+text
+    branches folded into one (3B) batch a step (`tts_branches`). Noise,
+    grid and output as `sample` (reference: f5e_tts_tpu cfm.py:285-327,
+    whose sway defaults to None, a plain linspace grid)."""
+    return _sample_branches(params, arch, cfm, inputs, *tts_branches(alpha_spk, alpha_txt),
+                            steps=steps, sway_coef=sway_coef, generator=generator, y0=y0,
+                            timesteps=timesteps, compute_dtype=compute_dtype, device=device)
+
+
+def _sample_branches(params, arch, cfm: CFMConfig, inputs: SamplerInputs, branches, weights, *,
+                     steps, sway_coef, generator, y0, timesteps, compute_dtype, device):
+    """The ODE over the flow sum_k weights[k] * flow_k of the folded
+    branches; returns (out, trajectory) as `sample` does."""
     if fbb.uses_ppg(arch):
-        raise NotImplementedError("PPG conditioning is not ported yet")
+        raise NotImplementedError("PPG conditioning is not ported yet (ROADMAP queue 1 item 6)")
     dev = resolve_device(device)
     param_dev = params["proj_out"]["w"].device
     if param_dev.type != dev.type:
         raise ValueError(f"params are on {param_dev}, sampling on {dev}")
     inputs = SamplerInputs(*(None if t is None else t.to(dev) for t in inputs))
     b, n, mel_dim = inputs.cond.shape
-    branches, weights = cfg_branches(cfg_strength)
     step_fn = folded_step_fn(params, arch, fold_inputs(params, arch, inputs, branches, weights,
                                                        compute_dtype), compute_dtype)
 

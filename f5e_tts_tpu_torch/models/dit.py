@@ -52,13 +52,14 @@ def _convnext_v2_init(dim, inter, gen, device):
 def init_dit(cfg: DiTConfig, vocab_size: int, generator: torch.Generator,
              device="cpu") -> dict:
     """fp32 parameters of the given shapes from `generator` (on `device`)."""
-    if cfg.ppg.use_ppg or cfg.codebook.use_codebook or cfg.long_skip_connection:
-        raise NotImplementedError("PPG, codebook and long-skip DiTs are not ported yet")
+    if cfg.ppg.use_ppg or cfg.codebook.use_codebook:
+        raise NotImplementedError("PPG and codebook DiTs are not ported yet "
+                                  "(ROADMAP queue 1 item 6)")
     text_dim = cfg.text_dim if cfg.text_dim is not None else cfg.mel_dim
     g, dev = generator, device
     inner = cfg.heads * cfg.dim_head
     ff = int(cfg.dim * cfg.ff_mult)
-    return {
+    params = {
         "time_embed": {"mlp1": _linear_init(256, cfg.dim, g, dev),
                        "mlp2": _linear_init(cfg.dim, cfg.dim, g, dev)},
         "text_embed": {
@@ -82,9 +83,12 @@ def init_dit(cfg: DiTConfig, vocab_size: int, generator: torch.Generator,
             }
             for _ in range(cfg.depth)
         ],
-        "norm_out": _linear_init(cfg.dim, cfg.dim * 2, g, dev, zero=True),
-        "proj_out": _linear_init(cfg.dim, cfg.mel_dim, g, dev, zero=True),
     }
+    if cfg.long_skip_connection:
+        params["long_skip"] = _linear_init(cfg.dim * 2, cfg.dim, g, dev, bias=False)
+    params["norm_out"] = _linear_init(cfg.dim, cfg.dim * 2, g, dev, zero=True)
+    params["proj_out"] = _linear_init(cfg.dim, cfg.mel_dim, g, dev, zero=True)
+    return params
 
 
 def fuse_qkv(params: dict, compute_dtype: Optional[torch.dtype] = None) -> dict:
@@ -210,17 +214,20 @@ def _dit_block(blk, x, t_emb, mask, rope_cos, rope_sin, cfg: DiTConfig,
 
 def dit_trunk(params, cfg: DiTConfig, x, t_emb, mask, seq_len, compute_dtype=torch.bfloat16,
               training: bool = False, generator: Optional[torch.Generator] = None):
-    """The blocks, then the final AdaLN and projection; fp32 out (dit.py:459-472).
-    Blocks without a fused `to_qkv` get it concatenated per call (training
-    keeps to_q/to_k/to_v as the fp32 master weights)."""
-    if cfg.long_skip_connection:
-        raise NotImplementedError("long_skip_connection is not ported yet")
+    """The blocks, the long skip when configured (the trunk's input
+    concatenated to its output and projected back to dim), then the final
+    AdaLN and projection; fp32 out (dit.py:459-472). Blocks without a fused
+    `to_qkv` get it concatenated per call (training keeps to_q/to_k/to_v as
+    the fp32 master weights)."""
     rope_cos, rope_sin = _rope_tables(cfg.dim_head, seq_len, x.device)
+    residual = x
     for blk in params["blocks"]:
         if "to_qkv" not in blk["attn"]:
             blk = {**blk, "attn": _fused_attn(blk["attn"], compute_dtype)}
         x = _dit_block(blk, x, t_emb, mask, rope_cos, rope_sin, cfg, compute_dtype, training,
                        generator)
+    if cfg.long_skip_connection:
+        x = fnn.linear(params["long_skip"], torch.cat([x, residual], dim=-1), compute_dtype)
 
     # final AdaLN (modules.py:322-336): chunk order is (scale, shift)
     scale, shift = fnn.linear(params["norm_out"], fnn.silu(t_emb), compute_dtype).chunk(2, dim=-1)
@@ -245,7 +252,8 @@ def dit_forward(params, cfg: DiTConfig, *, x, cond, text_ids, time, drop_audio_c
     time, text (recomputed every call) and input embeddings, then the trunk
     with dropout when `training`. (B, N, mel) fp32 out."""
     if cfg.ppg.use_ppg or cfg.codebook.use_codebook:
-        raise NotImplementedError("PPG and codebook training are not ported yet")
+        raise NotImplementedError("PPG and codebook training are not ported yet "
+                                  "(ROADMAP queue 1 item 6)")
     b, n, _ = x.shape
     t_emb = time_embed(params, time, compute_dtype)
     te = text_embed_fn(params, cfg, text_ids, b, n, drop_text, compute_dtype)

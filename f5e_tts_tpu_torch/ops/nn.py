@@ -26,15 +26,18 @@ def _uniform(shape, bound: float, generator, device) -> torch.Tensor:
 
 
 def linear_init(d_in: int, d_out: int, generator: torch.Generator, device="cpu",
-                zero: bool = False) -> dict:
+                zero: bool = False, bias: bool = True) -> dict:
     """fp32 linear params: torch's default rule U(+-1/sqrt(fan_in)) for the
-    weight and the bias, or zeros (AdaLN-zero), as the JAX init."""
+    weight and the bias (none without `bias`), or zeros (AdaLN-zero), as the
+    JAX init."""
     if zero:
         return {"w": torch.zeros(d_in, d_out, device=device),
                 "b": torch.zeros(d_out, device=device)}
     bound = 1.0 / math.sqrt(d_in)
-    return {"w": _uniform((d_in, d_out), bound, generator, device),
-            "b": _uniform((d_out,), bound, generator, device)}
+    p = {"w": _uniform((d_in, d_out), bound, generator, device)}
+    if bias:
+        p["b"] = _uniform((d_out,), bound, generator, device)
+    return p
 
 
 def conv1d_init(d_in: int, d_out: int, kernel: int, groups: int, generator: torch.Generator,

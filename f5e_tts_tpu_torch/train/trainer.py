@@ -69,7 +69,7 @@ class Trainer:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.arch = self.model_cfg.arch
-        fbb.backbone_kind(self.arch)  # raises for a backbone that is not ported
+        fbb.backbone_kind(self.arch)  # raises for an unknown config
         self.cfm = self.model_cfg.cfm
         if self.train_cfg.param_dtype != "float32":
             raise NotImplementedError("the port keeps fp32 master weights (param_dtype float32)")

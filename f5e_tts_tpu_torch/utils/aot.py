@@ -20,8 +20,9 @@ shape, so one graph serves every reference length in its bucket (the JAX
 files are keyed on the prompt length and the text length only because
 their shapes are static). The text is no shape of the DiT's graph either:
 its embedding is computed eagerly, padded to the bucket's length, so any
-request of the bucket matches. The graph reads the params by address:
-update them in place, never rebind them.
+request of the bucket matches. The same holds for the UNetT, whose text
+embedding is the DiT's. The graph reads the params by address: update them
+in place, never rebind them.
 
 Memory: every engine of a TTSEngine is captured into one pool
 (`TTSEngine.graph_pool`), so the engines share their intermediates. That is
@@ -50,6 +51,8 @@ import torch
 from f5e_tts_tpu_torch.models import backbone as fbb
 from f5e_tts_tpu_torch.models import cfm as fcfm
 from f5e_tts_tpu_torch.models import dit as fdit
+
+CAPTURED_KINDS = ("dit", "unett")  # the MMDiT's text length is a shape of its graph
 
 
 def variant_tag(timesteps=None, cfg_strength=None) -> str:
@@ -85,7 +88,8 @@ def find_sampler_engine(engines: Mapping[str, object], nfe: int, bucket: int,
 
 
 class SamplerGraph:
-    """The captured ODE loop of one (bucket, grid, guidance) on a DiT engine.
+    """The captured ODE loop of one (bucket, grid, guidance) on a DiT or
+    UNetT engine.
     `sample(inputs, y0)` is `cfm.sample(..., y0=y0)` for a request of batch 1
     in this bucket, with the same bits."""
 
@@ -115,9 +119,10 @@ class SamplerGraph:
         with torch.cuda.stream(side):
             step_fn(float(self.grid[0]), self._y0)
         torch.cuda.current_stream(dev).wait_stream(side)
-        # the graph reads the cached RoPE tables by address: hold them, so a
-        # cache eviction cannot free them
-        self._rope = fdit._rope_tables(self.arch.dim_head, n, self.params["proj_out"]["w"].device)
+        # the graph reads the cached RoPE tables by address (N+1 rows long for
+        # the UNetT's time token): hold them, so a cache eviction cannot free them
+        self._rope = fdit._rope_tables(self.arch.dim_head, fbb.attention_rows(self.arch, n),
+                                       self.params["proj_out"]["w"].device)
         if engine.graph_pool is None:
             engine.graph_pool = torch.cuda.graph_pool_handle()
         self._stream = torch.cuda.current_stream(dev)
@@ -154,16 +159,16 @@ def capture_sampler_buckets(engine, buckets: Optional[Sequence[int]] = None, nfe
                             timesteps: Optional[Sequence[float]] = None,
                             cfg_strength: Optional[float] = None) -> list:
     """Capture the folded-CFG sampler of `engine` (a TTSEngine on the card
-    with a DiT) for each bucket (default: `engine.buckets`) into
+    with a DiT or a UNetT) for each bucket (default: `engine.buckets`) into
     `engine.engines`; returns the engines' names. `timesteps` bakes an
     explicit grid (nfe becomes len - 1), `cfg_strength` a non-default
     guidance weight; the sway is the engine's default. A capture that fails
     raises (reference: f5e_tts_tpu/utils/aot.py:55-105)."""
     if engine.device.type != "cuda":
         raise RuntimeError(f"CUDA-graph capture needs an engine on a CUDA device, not {engine.device}")
-    if fbb.backbone_kind(engine.arch) != "dit":
-        raise NotImplementedError("only DiT samplers are captured: the MMDiT's text length is "
-                                  "a shape of its graph")
+    if fbb.backbone_kind(engine.arch) not in CAPTURED_KINDS:
+        raise NotImplementedError("only DiT and UNetT samplers are captured: the MMDiT's text "
+                                  "length is a shape of its graph")
     ts_grid = tuple(float(t) for t in timesteps) if timesteps is not None else None
     cfg = engine.infer_cfg.cfg_strength if cfg_strength is None else cfg_strength
     if ts_grid is not None:

@@ -1,17 +1,18 @@
 """Weight converters into the port's parameter dicts.
 
-- `dit_from_jax` / `mmdit_from_jax` / `vocos_from_jax`: the JAX package's
-  parameter trees, given as nested dicts of numpy arrays. The port keeps the
-  JAX layouts (linear (in, out), conv (k, in/groups, out)) and the JAX q/k
-  feature order, so this is a plain copy; only the depth-stacked block arrays
-  are split into a list of per-block dicts.
-- `dit_from_reference_state_dict` / `mmdit_from_reference_state_dict`: a
-  reference-layout F5-TTS state dict (`transformer.*` keys, torch layouts).
-  Linear weights are transposed and conv weights moved (out, in/g, k) ->
+- `dit_from_jax` / `unett_from_jax` / `mmdit_from_jax` / `vocos_from_jax`:
+  the JAX package's parameter trees, given as nested dicts of numpy arrays.
+  The port keeps the JAX layouts (linear (in, out), conv (k, in/groups,
+  out)) and the JAX q/k feature order, so this is a plain copy; only the
+  depth-stacked block arrays are split into a list of per-block dicts.
+- `dit_from_reference_state_dict` / `unett_from_reference_state_dict` /
+  `mmdit_from_reference_state_dict`: a reference-layout F5-TTS state dict
+  (`transformer.*` keys, torch layouts). Linear weights are transposed and conv weights moved (out, in/g, k) ->
   (k, in/g, out).
-- `dit_to_reference_state_dict` / `mmdit_to_reference_state_dict`: their
-  inverses, the export the trainer's checkpoints carry (the port's copies of
-  f5e_tts_tpu/utils/torch_ckpt.py: dit_to_torch and mmdit_to_torch);
+- `dit_to_reference_state_dict` / `unett_to_reference_state_dict` /
+  `mmdit_to_reference_state_dict`: their inverses, the export the trainer's
+  checkpoints carry (the port's copies of f5e_tts_tpu/utils/torch_ckpt.py:
+  dit_to_torch, unett_to_torch and mmdit_to_torch);
   `backbone_to_reference_state_dict` and `backbone_from_reference_state_dict`
   pick by the config's type.
 
@@ -34,7 +35,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from f5e_tts_tpu_torch.config import DiTConfig, MMDiTConfig
+from f5e_tts_tpu_torch.config import DiTConfig, MMDiTConfig, UNetTConfig
 from f5e_tts_tpu_torch.ops.rope import (half_split_perm, permute_qk_bias, permute_qk_weight,
                                         unpermute_qk_bias, unpermute_qk_weight)
 
@@ -54,23 +55,29 @@ def to_tensors(tree, device="cpu", dtype=None):
     return t.to(device)
 
 
-def _unstack_blocks(params_np: Mapping, count: int) -> dict:
-    """A JAX tree whose `blocks` arrays are stacked on a leading axis of
-    `count` -> tensors, with `blocks` a list of `count` per-block dicts."""
+def _unstack_blocks(params_np: Mapping, count: int, keys=("blocks",)) -> dict:
+    """A JAX tree whose arrays under each of `keys` are stacked on a leading
+    axis of `count` -> tensors, with each of `keys` a list of `count`
+    per-layer dicts."""
     tree = to_tensors(params_np)
-    stacked = tree["blocks"]
 
     def block(i, node):
         if isinstance(node, Mapping):
             return {k: block(i, v) for k, v in node.items()}
         return node[i].clone()
 
-    return {**tree, "blocks": [block(i, stacked) for i in range(count)]}
+    return {**tree, **{key: [block(i, tree[key]) for i in range(count)] for key in keys}}
 
 
 def dit_from_jax(params_np: Mapping, cfg: DiTConfig) -> dict:
     """The JAX DiT tree (blocks stacked on a leading depth axis) -> port params."""
     return _unstack_blocks(params_np, cfg.depth)
+
+
+def unett_from_jax(params_np: Mapping, cfg: UNetTConfig) -> dict:
+    """The JAX UNetT tree (`first_half` / `second_half` each stacked on a
+    leading axis of depth / 2) -> port params."""
+    return _unstack_blocks(params_np, cfg.depth // 2, ("first_half", "second_half"))
 
 
 def mmdit_from_jax(params_np: Mapping, cfg: MMDiTConfig) -> dict:
@@ -84,6 +91,138 @@ def vocos_from_jax(params_np: Mapping, cfg) -> dict:
     return to_tensors(params_np)
 
 
+class _Reader:
+    """Reads port params out of a reference state dict (`prefix` stripped,
+    float32 numpy): Linear weights transposed, conv weights moved (out,
+    in/g, k) -> (k, in/g, out), q/k projections and norms permuted into the
+    half-split RoPE order for `heads` of `dim_head`."""
+
+    def __init__(self, sd: Mapping, prefix: str, heads: int, dim_head: int):
+        self.sd = {k[len(prefix):]: np.asarray(v, dtype=np.float32)
+                   for k, v in sd.items() if k.startswith(prefix)}
+        self.heads, self.perm = heads, half_split_perm(dim_head)
+
+    def t(self, key, reshape=None):
+        a = self.sd[key] if reshape is None else self.sd[key].reshape(reshape)
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    def lin(self, key, qk=False):
+        w, b = self.sd[f"{key}.weight"].T, self.sd.get(f"{key}.bias")
+        p = {"w": torch.from_numpy(np.ascontiguousarray(
+            permute_qk_weight(w, self.heads) if qk else w))}
+        if b is not None:
+            p["b"] = torch.from_numpy(np.ascontiguousarray(
+                permute_qk_bias(b, self.heads) if qk else b))
+        return p
+
+    def qk_norm(self, key):
+        return {"g": torch.from_numpy(np.ascontiguousarray(self.sd[key][self.perm]))}
+
+    def conv(self, key):
+        return {"w": torch.from_numpy(np.ascontiguousarray(
+            self.sd[f"{key}.weight"].transpose(2, 1, 0))), "b": self.t(f"{key}.bias")}
+
+    def count(self, pattern):
+        return len({m.group(1) for k in self.sd if (m := re.match(pattern, k))})
+
+    def depth(self, pattern, want: int) -> int:
+        depth = self.count(pattern)
+        if depth != want:
+            raise ValueError(f"checkpoint depth {depth} != config depth {want}")
+        return depth
+
+    def time_embed(self):
+        return {"mlp1": self.lin("time_embed.time_mlp.0"), "mlp2": self.lin("time_embed.time_mlp.2")}
+
+    def text_embed(self):
+        """The ConvNeXtV2 text embedding of the DiT and the UNetT."""
+        def convnext_v2(key):
+            return {"dwconv": self.conv(f"{key}.dwconv"),
+                    "norm": {"g": self.t(f"{key}.norm.weight"), "b": self.t(f"{key}.norm.bias")},
+                    "pwconv1": self.lin(f"{key}.pwconv1"),
+                    "grn": {"gamma": self.t(f"{key}.grn.gamma", -1),
+                            "beta": self.t(f"{key}.grn.beta", -1)},
+                    "pwconv2": self.lin(f"{key}.pwconv2")}
+
+        return {"embed": {"w": self.t("text_embed.text_embed.weight")},
+                "blocks": [convnext_v2(f"text_embed.text_blocks.{i}")
+                           for i in range(self.count(r"text_embed\.text_blocks\.(\d+)\."))]}
+
+    def input_embed(self, name="input_embed", proj="proj"):
+        return {"proj": self.lin(f"{name}.{proj}"),
+                "conv1": self.conv(f"{name}.conv_pos_embed.conv1d.0"),
+                "conv2": self.conv(f"{name}.conv_pos_embed.conv1d.2")}
+
+
+class _Writer:
+    """Writes port params into a reference-layout state dict of contiguous
+    fp32 CPU tensors: the inverse of `_Reader`."""
+
+    def __init__(self, prefix: str, heads: int, dim_head: int):
+        self.out: Dict[str, torch.Tensor] = {}
+        self.prefix, self.heads = prefix, heads
+        self.inv_perm = np.argsort(half_split_perm(dim_head))
+
+    @staticmethod
+    def a(t):
+        return t.detach().float().cpu().numpy()
+
+    def put(self, key, arr):
+        self.out[f"{self.prefix}{key}"] = torch.from_numpy(
+            np.ascontiguousarray(arr, dtype=np.float32))
+
+    def lin(self, key, p, qk=False):
+        w = unpermute_qk_weight(self.a(p["w"]), self.heads) if qk else self.a(p["w"])
+        self.put(f"{key}.weight", w.T)
+        if "b" in p:
+            b = self.a(p["b"])
+            self.put(f"{key}.bias", unpermute_qk_bias(b, self.heads) if qk else b)
+
+    def qk_norm(self, key, p):
+        self.put(key, self.a(p["g"])[self.inv_perm])
+
+    def conv(self, key, p):
+        self.put(f"{key}.weight", self.a(p["w"]).transpose(2, 1, 0))
+        self.put(f"{key}.bias", self.a(p["b"]))
+
+    def time_embed(self, p):
+        self.lin("time_embed.time_mlp.0", p["mlp1"])
+        self.lin("time_embed.time_mlp.2", p["mlp2"])
+
+    def text_embed(self, p):
+        self.put("text_embed.text_embed.weight", self.a(p["embed"]["w"]))
+        for i, blk in enumerate(p.get("blocks", [])):
+            k = f"text_embed.text_blocks.{i}"
+            self.conv(f"{k}.dwconv", blk["dwconv"])
+            self.put(f"{k}.norm.weight", self.a(blk["norm"]["g"]))
+            self.put(f"{k}.norm.bias", self.a(blk["norm"]["b"]))
+            self.lin(f"{k}.pwconv1", blk["pwconv1"])
+            self.put(f"{k}.grn.gamma", self.a(blk["grn"]["gamma"]).reshape(1, 1, -1))
+            self.put(f"{k}.grn.beta", self.a(blk["grn"]["beta"]).reshape(1, 1, -1))
+            self.lin(f"{k}.pwconv2", blk["pwconv2"])
+
+    def input_embed(self, p, name="input_embed", proj="proj"):
+        self.lin(f"{name}.{proj}", p["proj"])
+        self.conv(f"{name}.conv_pos_embed.conv1d.0", p["conv1"])
+        self.conv(f"{name}.conv_pos_embed.conv1d.2", p["conv2"])
+
+
+def _split_qkv(attn: Mapping) -> Mapping:
+    """An attention dict with a fused `to_qkv` split back into to_q/to_k/to_v."""
+    if "to_qkv" not in attn:
+        return attn
+    ws = attn["to_qkv"]["w"].chunk(3, dim=-1)
+    bs = attn["to_qkv"]["b"].chunk(3, dim=-1) if "b" in attn["to_qkv"] else None
+    return {**attn, **{name: {"w": ws[j], **({"b": bs[j]} if bs else {})}
+                       for j, name in enumerate(("to_q", "to_k", "to_v"))}}
+
+
+def _check_dit(cfg: DiTConfig) -> None:
+    if cfg.ppg.use_ppg or cfg.codebook.use_codebook:
+        raise NotImplementedError("PPG and codebook DiTs are not ported yet "
+                                  "(ROADMAP queue 1 item 6)")
+
+
 def dit_from_reference_state_dict(sd: Mapping, cfg: DiTConfig, prefix: str = "transformer.") -> dict:
     """A reference F5-TTS DiT state dict (numpy arrays or tensors) -> port params.
 
@@ -91,71 +230,26 @@ def dit_from_reference_state_dict(sd: Mapping, cfg: DiTConfig, prefix: str = "tr
     modules.py:610-641). to_q/to_k and q_norm/k_norm are permuted into the
     half-split RoPE order.
     """
-    if cfg.ppg.use_ppg or cfg.codebook.use_codebook or cfg.long_skip_connection:
-        raise NotImplementedError("PPG, codebook and long-skip DiTs are not ported yet")
-    sd = {k[len(prefix):]: np.asarray(v, dtype=np.float32)
-          for k, v in sd.items() if k.startswith(prefix)}
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a))
-
-    def lin(key):
-        p = {"w": t(sd[f"{key}.weight"].T)}
-        if f"{key}.bias" in sd:
-            p["b"] = t(sd[f"{key}.bias"])
-        return p
-
-    def qk_lin(key):
-        p = {"w": t(permute_qk_weight(sd[f"{key}.weight"].T, cfg.heads))}
-        if f"{key}.bias" in sd:
-            p["b"] = t(permute_qk_bias(sd[f"{key}.bias"], cfg.heads))
-        return p
-
-    def conv(key):
-        return {"w": t(sd[f"{key}.weight"].transpose(2, 1, 0)), "b": t(sd[f"{key}.bias"])}
-
-    def convnext_v2(key):
-        return {
-            "dwconv": conv(f"{key}.dwconv"),
-            "norm": {"g": t(sd[f"{key}.norm.weight"]), "b": t(sd[f"{key}.norm.bias"])},
-            "pwconv1": lin(f"{key}.pwconv1"),
-            "grn": {"gamma": t(sd[f"{key}.grn.gamma"].reshape(-1)),
-                    "beta": t(sd[f"{key}.grn.beta"].reshape(-1))},
-            "pwconv2": lin(f"{key}.pwconv2"),
-        }
-
-    def count(pattern):
-        return len({m.group(1) for k in sd if (m := re.match(pattern, k))})
-
-    depth = count(r"transformer_blocks\.(\d+)\.")
-    if depth != cfg.depth:
-        raise ValueError(f"checkpoint depth {depth} != config depth {cfg.depth}")
-    perm = half_split_perm(cfg.dim_head)
+    _check_dit(cfg)
+    r = _Reader(sd, prefix, cfg.heads, cfg.dim_head)
     blocks = []
-    for i in range(depth):
+    for i in range(r.depth(r"transformer_blocks\.(\d+)\.", cfg.depth)):
         b = f"transformer_blocks.{i}"
-        attn = {"to_q": qk_lin(f"{b}.attn.to_q"), "to_k": qk_lin(f"{b}.attn.to_k"),
-                "to_v": lin(f"{b}.attn.to_v"), "to_out": lin(f"{b}.attn.to_out.0")}
+        attn = {"to_q": r.lin(f"{b}.attn.to_q", qk=True), "to_k": r.lin(f"{b}.attn.to_k", qk=True),
+                "to_v": r.lin(f"{b}.attn.to_v"), "to_out": r.lin(f"{b}.attn.to_out.0")}
         if cfg.qk_norm == "rms_norm":
-            attn["q_norm"] = {"g": t(sd[f"{b}.attn.q_norm.weight"][perm])}
-            attn["k_norm"] = {"g": t(sd[f"{b}.attn.k_norm.weight"][perm])}
+            attn["q_norm"] = r.qk_norm(f"{b}.attn.q_norm.weight")
+            attn["k_norm"] = r.qk_norm(f"{b}.attn.k_norm.weight")
         # FeedForward: Sequential(Sequential(Linear, GELU), Dropout, Linear)
-        blocks.append({"attn_norm": lin(f"{b}.attn_norm.linear"), "attn": attn,
-                       "ff1": lin(f"{b}.ff.ff.0.0"), "ff2": lin(f"{b}.ff.ff.2")})
-    return {
-        "time_embed": {"mlp1": lin("time_embed.time_mlp.0"), "mlp2": lin("time_embed.time_mlp.2")},
-        "text_embed": {
-            "embed": {"w": t(sd["text_embed.text_embed.weight"])},
-            "blocks": [convnext_v2(f"text_embed.text_blocks.{i}")
-                       for i in range(count(r"text_embed\.text_blocks\.(\d+)\."))],
-        },
-        "input_embed": {"proj": lin("input_embed.proj"),
-                        "conv1": conv("input_embed.conv_pos_embed.conv1d.0"),
-                        "conv2": conv("input_embed.conv_pos_embed.conv1d.2")},
-        "blocks": blocks,
-        "norm_out": lin("norm_out.linear"),
-        "proj_out": lin("proj_out"),
-    }
+        blocks.append({"attn_norm": r.lin(f"{b}.attn_norm.linear"), "attn": attn,
+                       "ff1": r.lin(f"{b}.ff.ff.0.0"), "ff2": r.lin(f"{b}.ff.ff.2")})
+    params = {"time_embed": r.time_embed(), "text_embed": r.text_embed(),
+              "input_embed": r.input_embed(), "blocks": blocks}
+    if cfg.long_skip_connection:
+        params["long_skip"] = r.lin("long_skip_connection")
+    params["norm_out"] = r.lin("norm_out.linear")
+    params["proj_out"] = r.lin("proj_out")
+    return params
 
 
 def dit_to_reference_state_dict(params: Mapping, cfg: DiTConfig,
@@ -164,64 +258,29 @@ def dit_to_reference_state_dict(params: Mapping, cfg: DiTConfig,
     tensors (the inverse of `dit_from_reference_state_dict`). A fused
     `to_qkv` is split back into to_q/to_k/to_v; to_q/to_k and q_norm/k_norm
     go back to the reference's interleaved RoPE order."""
-    if cfg.ppg.use_ppg or cfg.codebook.use_codebook or cfg.long_skip_connection:
-        raise NotImplementedError("PPG, codebook and long-skip DiTs are not ported yet")
-    out: Dict[str, torch.Tensor] = {}
-
-    def a(t):
-        return t.detach().float().cpu().numpy()
-
-    def put(key, arr):
-        out[f"{prefix}{key}"] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
-
-    def lin(key, p, qk=False):
-        w = unpermute_qk_weight(a(p["w"]), cfg.heads) if qk else a(p["w"])
-        put(f"{key}.weight", w.T)
-        if "b" in p:
-            put(f"{key}.bias", unpermute_qk_bias(a(p["b"]), cfg.heads) if qk else a(p["b"]))
-
-    def conv(key, p):
-        put(f"{key}.weight", a(p["w"]).transpose(2, 1, 0))
-        put(f"{key}.bias", a(p["b"]))
-
-    lin("time_embed.time_mlp.0", params["time_embed"]["mlp1"])
-    lin("time_embed.time_mlp.2", params["time_embed"]["mlp2"])
-    put("text_embed.text_embed.weight", a(params["text_embed"]["embed"]["w"]))
-    for i, blk in enumerate(params["text_embed"]["blocks"]):
-        k = f"text_embed.text_blocks.{i}"
-        conv(f"{k}.dwconv", blk["dwconv"])
-        put(f"{k}.norm.weight", a(blk["norm"]["g"]))
-        put(f"{k}.norm.bias", a(blk["norm"]["b"]))
-        lin(f"{k}.pwconv1", blk["pwconv1"])
-        put(f"{k}.grn.gamma", a(blk["grn"]["gamma"]).reshape(1, 1, -1))
-        put(f"{k}.grn.beta", a(blk["grn"]["beta"]).reshape(1, 1, -1))
-        lin(f"{k}.pwconv2", blk["pwconv2"])
-    lin("input_embed.proj", params["input_embed"]["proj"])
-    conv("input_embed.conv_pos_embed.conv1d.0", params["input_embed"]["conv1"])
-    conv("input_embed.conv_pos_embed.conv1d.2", params["input_embed"]["conv2"])
-
-    inv_perm = np.argsort(half_split_perm(cfg.dim_head))
+    _check_dit(cfg)
+    w = _Writer(prefix, cfg.heads, cfg.dim_head)
+    w.time_embed(params["time_embed"])
+    w.text_embed(params["text_embed"])
+    w.input_embed(params["input_embed"])
     for i, blk in enumerate(params["blocks"]):
         b = f"transformer_blocks.{i}"
-        attn = blk["attn"]
-        if "to_qkv" in attn:
-            ws = attn["to_qkv"]["w"].chunk(3, dim=-1)
-            bs = attn["to_qkv"]["b"].chunk(3, dim=-1) if "b" in attn["to_qkv"] else None
-            attn = {**attn, **{name: {"w": ws[j], **({"b": bs[j]} if bs else {})}
-                               for j, name in enumerate(("to_q", "to_k", "to_v"))}}
-        lin(f"{b}.attn_norm.linear", blk["attn_norm"])
-        lin(f"{b}.attn.to_q", attn["to_q"], qk=True)
-        lin(f"{b}.attn.to_k", attn["to_k"], qk=True)
-        lin(f"{b}.attn.to_v", attn["to_v"])
-        lin(f"{b}.attn.to_out.0", attn["to_out"])
-        lin(f"{b}.ff.ff.0.0", blk["ff1"])
-        lin(f"{b}.ff.ff.2", blk["ff2"])
+        attn = _split_qkv(blk["attn"])
+        w.lin(f"{b}.attn_norm.linear", blk["attn_norm"])
+        w.lin(f"{b}.attn.to_q", attn["to_q"], qk=True)
+        w.lin(f"{b}.attn.to_k", attn["to_k"], qk=True)
+        w.lin(f"{b}.attn.to_v", attn["to_v"])
+        w.lin(f"{b}.attn.to_out.0", attn["to_out"])
+        w.lin(f"{b}.ff.ff.0.0", blk["ff1"])
+        w.lin(f"{b}.ff.ff.2", blk["ff2"])
         if "q_norm" in attn:
-            put(f"{b}.attn.q_norm.weight", a(attn["q_norm"]["g"])[inv_perm])
-            put(f"{b}.attn.k_norm.weight", a(attn["k_norm"]["g"])[inv_perm])
-    lin("norm_out.linear", params["norm_out"])
-    lin("proj_out", params["proj_out"])
-    return out
+            w.qk_norm(f"{b}.attn.q_norm.weight", attn["q_norm"])
+            w.qk_norm(f"{b}.attn.k_norm.weight", attn["k_norm"])
+    if cfg.long_skip_connection:
+        w.lin("long_skip_connection", params["long_skip"])
+    w.lin("norm_out.linear", params["norm_out"])
+    w.lin("proj_out", params["proj_out"])
+    return w.out
 
 
 _MMDIT_PROJ = ("to_q", "to_k", "to_v", "to_q_c", "to_k_c", "to_v_c")  # in init_mmdit's order
@@ -237,55 +296,33 @@ def mmdit_from_reference_state_dict(sd: Mapping, cfg: MMDiTConfig,
     .linear, .attn.to_*_c, .ff_x/.ff_c; the last block is context_pre_only
     (2-chunk attn_norm_c, no ff_c, no to_out_c). q/k projections and norms of
     both streams are permuted into the half-split RoPE order."""
-    sd = {k[len(prefix):]: np.asarray(v, dtype=np.float32)
-          for k, v in sd.items() if k.startswith(prefix)}
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a))
-
-    def lin(key, qk=False):
-        w = sd[f"{key}.weight"].T
-        p = {"w": t(permute_qk_weight(w, cfg.heads) if qk else w)}
-        if f"{key}.bias" in sd:
-            b = sd[f"{key}.bias"]
-            p["b"] = t(permute_qk_bias(b, cfg.heads) if qk else b)
-        return p
-
-    def conv(key):
-        return {"w": t(sd[f"{key}.weight"].transpose(2, 1, 0)), "b": t(sd[f"{key}.bias"])}
-
-    depth = len({m.group(1) for k in sd if (m := re.match(r"transformer_blocks\.(\d+)\.", k))})
-    if depth != cfg.depth:
-        raise ValueError(f"checkpoint depth {depth} != config depth {cfg.depth}")
-    perm = half_split_perm(cfg.dim_head)
+    r = _Reader(sd, prefix, cfg.heads, cfg.dim_head)
+    depth = r.depth(r"transformer_blocks\.(\d+)\.", cfg.depth)
 
     def block(i, pre_only):
         b = f"transformer_blocks.{i}"
-        attn = {name: lin(f"{b}.attn.{name}", qk=name in _MMDIT_QK)
-                for name in _MMDIT_PROJ}
-        attn["to_out"] = lin(f"{b}.attn.to_out.0")
-        blk = {"attn_norm_x": lin(f"{b}.attn_norm_x.linear"),
-               "attn_norm_c": lin(f"{b}.attn_norm_c.linear"), "attn": attn,
-               "ff1_x": lin(f"{b}.ff_x.ff.0.0"), "ff2_x": lin(f"{b}.ff_x.ff.2")}
+        attn = {name: r.lin(f"{b}.attn.{name}", qk=name in _MMDIT_QK) for name in _MMDIT_PROJ}
+        attn["to_out"] = r.lin(f"{b}.attn.to_out.0")
+        blk = {"attn_norm_x": r.lin(f"{b}.attn_norm_x.linear"),
+               "attn_norm_c": r.lin(f"{b}.attn_norm_c.linear"), "attn": attn,
+               "ff1_x": r.lin(f"{b}.ff_x.ff.0.0"), "ff2_x": r.lin(f"{b}.ff_x.ff.2")}
         if not pre_only:
-            attn["to_out_c"] = lin(f"{b}.attn.to_out_c")
-            blk["ff1_c"] = lin(f"{b}.ff_c.ff.0.0")
-            blk["ff2_c"] = lin(f"{b}.ff_c.ff.2")
+            attn["to_out_c"] = r.lin(f"{b}.attn.to_out_c")
+            blk["ff1_c"] = r.lin(f"{b}.ff_c.ff.0.0")
+            blk["ff2_c"] = r.lin(f"{b}.ff_c.ff.2")
         if cfg.qk_norm == "rms_norm":
             for name in _MMDIT_QK_NORMS:
-                attn[name] = {"g": t(sd[f"{b}.attn.{name}.weight"][perm])}
+                attn[name] = r.qk_norm(f"{b}.attn.{name}.weight")
         return blk
 
     return {
-        "time_embed": {"mlp1": lin("time_embed.time_mlp.0"), "mlp2": lin("time_embed.time_mlp.2")},
-        "text_embed": {"embed": {"w": t(sd["text_embed.text_embed.weight"])}},
-        "audio_embed": {"proj": lin("audio_embed.linear"),
-                        "conv1": conv("audio_embed.conv_pos_embed.conv1d.0"),
-                        "conv2": conv("audio_embed.conv_pos_embed.conv1d.2")},
+        "time_embed": r.time_embed(),
+        "text_embed": {"embed": {"w": r.t("text_embed.text_embed.weight")}},
+        "audio_embed": r.input_embed("audio_embed", "linear"),
         "blocks": [block(i, False) for i in range(depth - 1)],
         "final_block": block(depth - 1, True),
-        "norm_out": lin("norm_out.linear"),
-        "proj_out": lin("proj_out"),
+        "norm_out": r.lin("norm_out.linear"),
+        "proj_out": r.lin("proj_out"),
     }
 
 
@@ -293,56 +330,95 @@ def mmdit_to_reference_state_dict(params: Mapping, cfg: MMDiTConfig,
                                   prefix: str = "transformer.") -> Dict[str, torch.Tensor]:
     """Port MMDiT params -> a reference-layout state dict of contiguous fp32
     CPU tensors (the inverse of `mmdit_from_reference_state_dict`)."""
-    out: Dict[str, torch.Tensor] = {}
-
-    def a(t):
-        return t.detach().float().cpu().numpy()
-
-    def put(key, arr):
-        out[f"{prefix}{key}"] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
-
-    def lin(key, p, qk=False):
-        w = unpermute_qk_weight(a(p["w"]), cfg.heads) if qk else a(p["w"])
-        put(f"{key}.weight", w.T)
-        if "b" in p:
-            put(f"{key}.bias", unpermute_qk_bias(a(p["b"]), cfg.heads) if qk else a(p["b"]))
-
-    def conv(key, p):
-        put(f"{key}.weight", a(p["w"]).transpose(2, 1, 0))
-        put(f"{key}.bias", a(p["b"]))
-
-    lin("time_embed.time_mlp.0", params["time_embed"]["mlp1"])
-    lin("time_embed.time_mlp.2", params["time_embed"]["mlp2"])
-    put("text_embed.text_embed.weight", a(params["text_embed"]["embed"]["w"]))
-    lin("audio_embed.linear", params["audio_embed"]["proj"])
-    conv("audio_embed.conv_pos_embed.conv1d.0", params["audio_embed"]["conv1"])
-    conv("audio_embed.conv_pos_embed.conv1d.2", params["audio_embed"]["conv2"])
-
-    inv_perm = np.argsort(half_split_perm(cfg.dim_head))
+    w = _Writer(prefix, cfg.heads, cfg.dim_head)
+    w.time_embed(params["time_embed"])
+    w.text_embed(params["text_embed"])
+    w.input_embed(params["audio_embed"], "audio_embed", "linear")
     for i, blk in enumerate([*params["blocks"], params["final_block"]]):
         b = f"transformer_blocks.{i}"
         attn = blk["attn"]
-        lin(f"{b}.attn_norm_x.linear", blk["attn_norm_x"])
-        lin(f"{b}.attn_norm_c.linear", blk["attn_norm_c"])
+        w.lin(f"{b}.attn_norm_x.linear", blk["attn_norm_x"])
+        w.lin(f"{b}.attn_norm_c.linear", blk["attn_norm_c"])
         for name in _MMDIT_PROJ:
-            lin(f"{b}.attn.{name}", attn[name], qk=name in _MMDIT_QK)
-        lin(f"{b}.attn.to_out.0", attn["to_out"])
-        lin(f"{b}.ff_x.ff.0.0", blk["ff1_x"])
-        lin(f"{b}.ff_x.ff.2", blk["ff2_x"])
+            w.lin(f"{b}.attn.{name}", attn[name], qk=name in _MMDIT_QK)
+        w.lin(f"{b}.attn.to_out.0", attn["to_out"])
+        w.lin(f"{b}.ff_x.ff.0.0", blk["ff1_x"])
+        w.lin(f"{b}.ff_x.ff.2", blk["ff2_x"])
         if "to_out_c" in attn:  # every block but the context_pre_only last one
-            lin(f"{b}.attn.to_out_c", attn["to_out_c"])
-            lin(f"{b}.ff_c.ff.0.0", blk["ff1_c"])
-            lin(f"{b}.ff_c.ff.2", blk["ff2_c"])
+            w.lin(f"{b}.attn.to_out_c", attn["to_out_c"])
+            w.lin(f"{b}.ff_c.ff.0.0", blk["ff1_c"])
+            w.lin(f"{b}.ff_c.ff.2", blk["ff2_c"])
         for name in _MMDIT_QK_NORMS:
             if name in attn:
-                put(f"{b}.attn.{name}.weight", a(attn[name]["g"])[inv_perm])
-    lin("norm_out.linear", params["norm_out"])
-    lin("proj_out", params["proj_out"])
-    return out
+                w.qk_norm(f"{b}.attn.{name}.weight", attn[name])
+    w.lin("norm_out.linear", params["norm_out"])
+    w.lin("proj_out", params["proj_out"])
+    return w.out
+
+
+def unett_from_reference_state_dict(sd: Mapping, cfg: UNetTConfig,
+                                    prefix: str = "transformer.") -> dict:
+    """A reference E2-TTS UNetT state dict (numpy arrays or tensors) -> port
+    params (the port's copy of f5e_tts_tpu/utils/torch_ckpt.py:
+    unett_from_torch). Key names follow the reference module tree
+    (unett.py:106-250): layers.{i} is a ModuleList [skip_proj, attn_norm
+    (RMSNorm .g), attn, ff_norm, ff], skip_proj only in the second half and
+    only with concat skips. to_q/to_k are permuted into the half-split RoPE
+    order, as the DiT loader permutes them."""
+    r = _Reader(sd, prefix, cfg.heads, cfg.dim_head)
+    half = r.depth(r"layers\.(\d+)\.", cfg.depth) // 2
+
+    def layer(i):
+        base = f"layers.{i}"
+        p = {"attn_norm": {"g": r.t(f"{base}.1.g")},
+             "attn": {"to_q": r.lin(f"{base}.2.to_q", qk=True),
+                      "to_k": r.lin(f"{base}.2.to_k", qk=True),
+                      "to_v": r.lin(f"{base}.2.to_v"), "to_out": r.lin(f"{base}.2.to_out.0")},
+             "ff_norm": {"g": r.t(f"{base}.3.g")},
+             "ff1": r.lin(f"{base}.4.ff.0.0"), "ff2": r.lin(f"{base}.4.ff.2")}
+        if f"{base}.0.weight" in r.sd:
+            p["skip_proj"] = r.lin(f"{base}.0")
+        return p
+
+    return {"time_embed": r.time_embed(), "text_embed": r.text_embed(),
+            "input_embed": r.input_embed(),
+            "first_half": [layer(i) for i in range(half)],
+            "second_half": [layer(half + i) for i in range(half)],
+            "norm_out": {"g": r.t("norm_out.g")}, "proj_out": r.lin("proj_out")}
+
+
+def unett_to_reference_state_dict(params: Mapping, cfg: UNetTConfig,
+                                  prefix: str = "transformer.") -> Dict[str, torch.Tensor]:
+    """Port UNetT params -> a reference-layout state dict of contiguous fp32
+    CPU tensors (the inverse of `unett_from_reference_state_dict`; the port's
+    copy of torch_ckpt.py: unett_to_torch). A fused `to_qkv` is split back."""
+    w = _Writer(prefix, cfg.heads, cfg.dim_head)
+    w.time_embed(params["time_embed"])
+    w.text_embed(params["text_embed"])
+    w.input_embed(params["input_embed"])
+    for i, layer in enumerate([*params["first_half"], *params["second_half"]]):
+        base = f"layers.{i}"
+        attn = _split_qkv(layer["attn"])
+        w.put(f"{base}.1.g", w.a(layer["attn_norm"]["g"]))
+        w.lin(f"{base}.2.to_q", attn["to_q"], qk=True)
+        w.lin(f"{base}.2.to_k", attn["to_k"], qk=True)
+        w.lin(f"{base}.2.to_v", attn["to_v"])
+        w.lin(f"{base}.2.to_out.0", attn["to_out"])
+        w.put(f"{base}.3.g", w.a(layer["ff_norm"]["g"]))
+        w.lin(f"{base}.4.ff.0.0", layer["ff1"])
+        w.lin(f"{base}.4.ff.2", layer["ff2"])
+        if "skip_proj" in layer:
+            w.lin(f"{base}.0", layer["skip_proj"])
+    w.put("norm_out.g", w.a(params["norm_out"]["g"]))
+    w.lin("proj_out", params["proj_out"])
+    return w.out
 
 
 def backbone_from_reference_state_dict(sd: Mapping, arch, prefix: str = "transformer.") -> dict:
-    """Reference state dict -> port params of the backbone `arch` configures."""
+    """Reference state dict -> port params of the backbone `arch` configures
+    (torch_ckpt.py:447-458)."""
+    if isinstance(arch, UNetTConfig):
+        return unett_from_reference_state_dict(sd, arch, prefix)
     if isinstance(arch, MMDiTConfig):
         return mmdit_from_reference_state_dict(sd, arch, prefix)
     if isinstance(arch, DiTConfig):
@@ -353,6 +429,8 @@ def backbone_from_reference_state_dict(sd: Mapping, arch, prefix: str = "transfo
 def backbone_to_reference_state_dict(params: Mapping, arch,
                                      prefix: str = "transformer.") -> Dict[str, torch.Tensor]:
     """Port params of the backbone `arch` configures -> reference state dict."""
+    if isinstance(arch, UNetTConfig):
+        return unett_to_reference_state_dict(params, arch, prefix)
     if isinstance(arch, MMDiTConfig):
         return mmdit_to_reference_state_dict(params, arch, prefix)
     if isinstance(arch, DiTConfig):

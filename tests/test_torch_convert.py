@@ -78,8 +78,9 @@ def test_port_imports_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'f5e_tts_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 22, mods\n"
-        "new = ('kernels.attention', 'models.mmdit', 'models.backbone', 'ops.attention')\n"
+        "assert len(mods) >= 37, mods\n"
+        "new = ('kernels.attention', 'models.mmdit', 'models.backbone', 'ops.attention',\n"
+        "       'models.unett', 'models.durpred', 'infer.speech_edit', 'utils.aot')\n"
         "assert all('f5e_tts_tpu_torch.' + m in mods for m in new), mods\n"
         "print(len(mods))\n"
     )

@@ -161,6 +161,35 @@ def test_threads_share_an_engine_and_another_stream_raises(engine):
             capture_sampler_buckets(engine, buckets=(512,), nfe=NFE)
 
 
+def test_unett_engine_replay_gives_the_eager_bits():
+    """A UNetT engine (the E2-TTS backbone: time token at row 0, attention
+    on N+1 rows through the partial-RoPE kernel, RoPE tables N+1 long) replays
+    with the eager bits, for any prompt and text of its bucket."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from f5e_tts_tpu_torch.config import UNetTConfig
+    from f5e_tts_tpu_torch.models import backbone as fbb
+
+    arch = UNetTConfig(dim=256, depth=4, heads=4, dim_head=64, ff_mult=2, mel_dim=100,
+                       dropout=0.0)
+    params = fbb.init_backbone(arch, 256, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    engine = TTSEngine(params=fbb.fuse_qkv(_cast(params, torch.bfloat16), arch), arch=arch,
+                       vocab=None, infer_cfg=InferConfig(nfe_steps=NFE, max_duration=1024),
+                       compute_dtype=torch.bfloat16, buckets=(256, 512), device="cuda")
+    want = _eager(engine)
+    ra.partial_launches = ga.launches = 0
+    assert capture_sampler_buckets(engine, buckets=(256,), nfe=NFE) == [f"sampler_nfe{NFE}_b256"]
+    assert ra.partial_launches == arch.depth * (NFE + 1) and ga.launches == 0
+    ra.partial_launches = 0
+    assert torch.equal(_chunk(engine), want)
+    assert ra.partial_launches == 0  # a replay counts nothing
+    got = engine.synthesize_chunk(_ref_mel(30), "short.", 250, seed=3, device_out=True)[0]
+    engines, engine.engines = engine.engines, {}
+    eager = engine.synthesize_chunk(_ref_mel(30), "short.", 250, seed=3, device_out=True)[0]
+    engine.engines = engines
+    assert torch.equal(got, eager) and torch.isfinite(got).all()
+
+
 def test_f5tts_capture_buckets_replays_in_infer(tmp_path):
     """F5TTS(capture_buckets=) captures the default engine of each bucket;
     infer replays it with the eager run's wav. The params are seeded after

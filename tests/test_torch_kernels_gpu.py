@@ -357,6 +357,7 @@ BWD_EDGE_CASES = [
     ("joint", 2, 200, 2, 64, (0, 150), 200, False),     # no text, len = 0: the uniform average
     ("masked", 3, 300, 2, 64, (300, 0, 129), 0, True),  # a row with len = 0
     ("rope", 8, 2304, 16, 64, (2304,) * 8, 16, True),   # T: the v1 training step's shape
+    ("rope", 8, 2305, 16, 64, (2305,) * 8, 1, True),    # the E2 step: N+1 rows, RoPE on head 0
 ]
 
 
@@ -438,6 +439,7 @@ FWD_EDGE_CASES = [
     ("joint", 2, 200, 2, 64, (0, 150), 200, False),     # no text, len = 0: the uniform average
     ("masked", 3, 300, 2, 64, (300, 0, 129), 0, True),  # a row with len = 0
     ("rope", 8, 2304, 16, 64, (2304,) * 8, 16, True),   # T: the v1 training step's shape
+    ("rope", 2, 1537, 16, 64, (1537, 1101), 1, True),   # E2 synthesis: N+1 = 1 mod 64 rows
 ]
 
 

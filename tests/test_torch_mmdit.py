@@ -239,8 +239,7 @@ def test_text_embed_keeps_its_length_and_drops_to_filler(model):
 
 def test_backbone_dispatch_kinds():
     assert tbb.backbone_kind(MMDiTConfig()) == "mmdit"
-    with pytest.raises(NotImplementedError, match="UNetT"):
-        tbb.backbone_kind(UNetTConfig())
+    assert tbb.backbone_kind(UNetTConfig()) == "unett"
     with pytest.raises(TypeError):
         tbb.backbone_kind(object())
     params = tbb.init_backbone(MMDiTConfig(**TINY), VOCAB, torch.Generator().manual_seed(0))
@@ -346,7 +345,7 @@ def test_mmdit_loaders_and_export_match_jax(qk_norm, tmp_path):
     with pytest.raises(ValueError, match="depth"):
         mmdit_from_reference_state_dict(sd, MMDiTConfig(**{**TINY, "depth": 4}))
     with pytest.raises(NotImplementedError):
-        backbone_to_reference_state_dict({}, UNetTConfig())
+        backbone_to_reference_state_dict({}, object())
 
 
 # ---------------------------------------------------------------------------
@@ -417,6 +416,8 @@ def test_trainer_with_mmdit_trains_saves_and_exports(tmp_path):
                        device="cpu").load_checkpoint(ts)
     assert all(torch.equal(a, b) for a, b in zip(tstep.tree_leaves(restored.params),
                                                  tstep.tree_leaves(ts.params)))
-    with pytest.raises(NotImplementedError, match="UNetT"):
-        Trainer(ModelConfig(backbone="UNetT", arch=UNetTConfig()), train_cfg, vocab_size=8,
-                tokenize=tokenize, device="cpu")
+    assert Trainer(ModelConfig(backbone="UNetT", arch=UNetTConfig()), train_cfg, vocab_size=8,
+                   tokenize=tokenize, device="cpu").arch == UNetTConfig()
+    with pytest.raises(TypeError):
+        Trainer(ModelConfig(arch=object()), train_cfg, vocab_size=8, tokenize=tokenize,
+                device="cpu")
