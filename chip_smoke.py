@@ -85,7 +85,39 @@
 16. Speech editing: edit_speech over one span of the seeded reference,
     re-timed so the request lands in bucket 1536: every kept frame of the
     sampler output equals the cond mel bit for bit, the wav is finite.
-17. One phase per kernel at the shapes of its path and at one ragged case:
+17. PPG extraction: PPGExtractor(ConformerConfig()) (12 Conformer blocks,
+    256 wide, 4 heads, conv2d subsampling) with seeded weights and CMVN, on
+    the card in fp32: audio_to_ppg of the 8 training clips resampled to 16
+    kHz against the same call on the CPU in fp32 (F5E_PPG_REL); device ms
+    per second of audio. (17-21 run after 14, before 10.)
+18. F5E training: the model of configs/example.yaml built in code
+    (f5e_model_config: F5TTS_Small's DiT with PPG conditioning, the shared
+    codebook and activation checkpointing under "block"; byte tokenizer)
+    through Trainer(ppg_extractor=...).train on the 8 clips, the loader
+    carrying 16 kHz audio: a warm-up update and three timed ones, each with
+    2 x depth launches of K3 and K2 (the forward and its recompute) and
+    depth of K6 and K5, a finite loss, a codebook loss > 0 unless the step
+    drew the drop-everything cell, params and BatchNorm statistics that
+    move; the fixed-draw eval loss falls, model_last (BatchNorm state
+    included) loads back equal and its EMA export re-ingests with the
+    running statistics, a resumed train() repeats the profiled step's loss.
+    Then two updates without remat (depth of each kernel a step): wall and
+    peak memory for the trade-off.
+19. F5E gradients: a 2-block F5E DiT at full width with the align loss and
+    the cross mask on, B=2, N=1024, fixed draws, dropout 0, remat "block":
+    kernels vs plain versions (the limits of 5), then remat off gives the
+    same loss and gradients bit for bit; MAS on the card equals the CPU's
+    path; MAS timed at (B=8, T_y=2304, T_x=384).
+20. F5E serving: a TTSEngine over the full-width F5E model and the PPG of the
+    reference from 17: synthesize_chunk in the vc (alpha_spk 1.5, alpha_ppg
+    2), tts and cfg modes (depth x NFE launches of K3 and K2 each, a 3B
+    batch in vc and tts), then cfg on an engine captured for bucket 1536
+    (depth x (NFE + 1) at capture; the replay gives the eager bits and
+    counts no launch). Each: prompt frames equal the cond mel, a finite wav
+    with nonzero RMS, the sampler's device busy and three timed walls.
+21. (The F5E model's kernel shapes in 22: K3 at (2, 1536) with 12 heads, K6
+    at (8, 2304) with 12 heads, K2 at (2, 1536, 768), K5 at (8, 2304, 768).)
+22. One phase per kernel at the shapes of its path and at one ragged case:
     kernel vs its plain PyTorch version on the same inputs (tolerances
     below), kernel, plain and library times, the least time the card could
     take, and the host time per call of each forward wrapper and of K5's.
@@ -94,7 +126,7 @@
     dq and dkdv; row pass and combine (torch.profiler, measured after the
     build, before the model phases). The backward kernels, K5 included,
     must give the same bits in two runs.
-18. Prints one JSON line with every kernel, then the device line last.
+23. Prints one JSON line with every kernel, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository. fp32 matmuls and convolutions run with TF32 off
@@ -518,19 +550,25 @@ SENTENCES = (REF_TEXT, GEN_TEXT,
              "She sells sea shells by the sea shore, and the shells she sells are surely seashells.")
 
 
-def training_loader(trainer, tc):
-    """A loader over TRAIN_CLIPS seeded speech-like clips of 21.9-24.5 s with
-    byte-tokenized transcripts, packed by the port's build_loader under the
-    trainer's frame budget into one batch."""
-    from f5e_tts_tpu_torch.data import dataset as fdata
-
+def training_rows() -> list:
+    """TRAIN_CLIPS seeded speech-like clips of 21.9-24.5 s at 24 kHz with
+    their transcripts."""
     seconds = np.linspace(21.9, 24.5, TRAIN_CLIPS)
-    rows = [{"audio": {"array": speech_like(sec, seed=i + 1).astype(np.float32),
+    return [{"audio": {"array": speech_like(sec, seed=i + 1).astype(np.float32),
                        "sampling_rate": 24_000},
              "text": " ".join(SENTENCES[(i + j) % len(SENTENCES)] for j in range(5)),
              "duration": float(sec)} for i, sec in enumerate(seconds)]
+
+
+def training_loader(trainer, tc, with_16k_audio: bool = False):
+    """A loader over the training rows with byte-tokenized transcripts,
+    packed by the port's build_loader under the trainer's frame budget into
+    one batch; `with_16k_audio` adds the clips at 16 kHz (PPG training)."""
+    from f5e_tts_tpu_torch.data import dataset as fdata
+
+    rows = training_rows()
     ds = fdata.ArrowSpeechDataset(rows, durations=[r["duration"] for r in rows],
-                                  mel=trainer.model_cfg.mel)
+                                  mel=trainer.model_cfg.mel, with_16k_audio=with_16k_audio)
     loader = fdata.build_loader(ds, trainer.tokenize, frames_threshold=tc.batch_size_per_device,
                                 max_samples=tc.max_samples, seed=tc.seed)
     batches = list(loader)
@@ -540,26 +578,47 @@ def training_loader(trainer, tc):
     return loader
 
 
-def fixed_draws(gen, b: int, n: int, mel_dim: int, k: int):
-    """k sets of cfm_loss draws with no condition drop, from `gen`."""
+def fixed_draws(gen, b: int, n: int, mel_dim: int, k: int, ppg: bool = False):
+    """k sets of cfm_loss draws with no condition drop, from `gen`: u1 = 1
+    keeps the audio, and u2 = 1 (no drop without PPG) or, for a PPG model,
+    u2 = 0 (the drop table's "keep both" cell)."""
     from f5e_tts_tpu_torch.models.cfm import LossDraws
 
     one = torch.ones((), device="cuda")
     return [LossDraws(frac=0.7 + 0.3 * torch.rand(b, generator=gen, device="cuda"),
                       span=torch.rand(b, generator=gen, device="cuda"),
                       x0=torch.randn((b, n, mel_dim), generator=gen, device="cuda"),
-                      time=torch.rand(b, generator=gen, device="cuda"), u1=one, u2=one)
+                      time=torch.rand(b, generator=gen, device="cuda"), u1=one,
+                      u2=0 * one if ppg else one)
             for _ in range(k)]
 
 
+def drawn_cell(seed: int, b: int, n: int, mel_dim: int, table) -> str:
+    """The drop-table cell a training step with generator seed `seed` draws:
+    cfm_loss draws frac, span, x0, time, u1 and u2 in this order."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for shape in ((b,), (b,)):
+        torch.rand(shape, generator=gen, device="cuda")
+    torch.randn((b, n, mel_dim), generator=gen, device="cuda")
+    torch.rand((b,), generator=gen, device="cuda")
+    torch.rand((), generator=gen, device="cuda")
+    u2 = float(torch.rand((), generator=gen, device="cuda"))
+    edges = np.cumsum(table)[:3]
+    return ("keep both", "drop text", "drop ppg", "drop all")[int(np.searchsorted(edges, u2,
+                                                                                   "right"))]
+
+
 def training_phase(tag: str, model_cfg, expected: dict, updates: int, warmup: int,
-                   checkpoints: bool = True, resume: bool = False) -> dict:
+                   checkpoints: bool = True, resume: bool = False, extractor=None) -> dict:
     """`updates` full-width Trainer.train steps of `model_cfg` (the first is
     the warm-up); returns (the launch counts of the last step, the batch's
     text length). Without `checkpoints` the trainer's save is switched off
     here and nothing is written; `resume` adds a resumed train() that
-    repeats the profiled step."""
+    repeats the profiled step. With a PPG `extractor` (a PPG model) the
+    loader carries 16 kHz audio and the trainer extracts the PPG on the
+    card; each step's codebook loss and BatchNorm state are checked too."""
     from f5e_tts_tpu_torch.config import TrainConfig
+    from f5e_tts_tpu_torch.models.backbone import split_state
     from f5e_tts_tpu_torch.train import step as fstep
     from f5e_tts_tpu_torch.train.trainer import Trainer, loss_with_device_mel
     from f5e_tts_tpu_torch.utils.convert import backbone_from_reference_state_dict, load_state_dict
@@ -575,7 +634,7 @@ def training_phase(tag: str, model_cfg, expected: dict, updates: int, warmup: in
 
     def make_trainer(log_fn=None):
         trainer = Trainer(model_cfg, tc, vocab_size=256, tokenize=list_str_to_bytes, log_fn=log_fn,
-                          device="cuda")
+                          device="cuda", ppg_extractor=extractor)
         if not checkpoints:
             trainer.save_checkpoint = lambda ts, last=False: None
         return trainer
@@ -586,24 +645,29 @@ def training_phase(tag: str, model_cfg, expected: dict, updates: int, warmup: in
     seed_modulation_(ts.params, torch.Generator(device="cuda").manual_seed(1))
     ts.ema_params = fstep.tree_map(lambda t: t.detach().clone(), ts.params)
     n_params = sum(t.numel() for t in fstep.tree_leaves(ts.params))
-    loader = training_loader(trainer, tc)
+    ppg = extractor is not None
+    loader = training_loader(trainer, tc, with_16k_audio=ppg)
     batch = trainer.device_batch(next(iter(loader)))
     frames = int(batch["mel_lens"].sum())
     text_len = int(batch["text_ids"].shape[1])
     torch.cuda.synchronize()
     log(f"[{tag}] {model_cfg.name}: {n_params / 1e6:.1f}M fp32 params, batch audio "
         f"{tuple(batch['audio'].shape)} -> {TRAIN_CLIPS} x {TRAIN_N} frames, {frames} valid, "
-        f"text {tuple(batch['text_ids'].shape)}; set up in {time.perf_counter() - t0:.1f} s; "
+        f"text {tuple(batch['text_ids'].shape)}" +
+        (f", PPG {tuple(batch['ppg'].shape)} from 16 kHz audio "
+         f"{tuple(batch['audio_16k'].shape)}" if ppg else "") +
+        f"; set up in {time.perf_counter() - t0:.1f} s; "
         f"{shutil.disk_usage(ROOT).free / 2**30:.0f} GiB free on disk")
 
     draws = fixed_draws(torch.Generator(device="cuda").manual_seed(5), TRAIN_CLIPS, TRAIN_N,
-                        arch.mel_dim, 4)
+                        arch.mel_dim, 4, ppg=ppg)
 
     def evaluate() -> float:
         with torch.no_grad():
             return float(np.mean([float(loss_with_device_mel(
                 ts.params, arch, model_cfg.cfm, model_cfg.mel, batch, draws=d,
-                compute_dtype=torch.bfloat16, training=False).loss) for d in draws]))
+                compute_dtype=torch.bfloat16, training=False, state=ts.model_state).loss)
+                for d in draws]))
 
     eval_before = evaluate()
     leaves, ema = fstep.tree_leaves(ts.params), fstep.tree_leaves(ts.ema_params)
@@ -629,6 +693,22 @@ def training_phase(tag: str, model_cfg, expected: dict, updates: int, warmup: in
         if any(torch.equal(b, p) for b, p in zip(seen["before"], probe)):
             raise AssertionError("a probed parameter did not change")
         seen["before"] = [p.detach().clone() for p in probe]
+        if ppg:
+            # the step's drop cell, from its generator; the perplexity loss
+            # acts on each kept modality, so it is 0 only when all is dropped
+            cell = drawn_cell(tc.seed * 1_000_003 + update - 1, TRAIN_CLIPS, TRAIN_N,
+                              arch.mel_dim, arch.ppg.combined_cond_drop_prob)
+            bn = ts.model_state["ppg_bn"]
+            log(f"[{tag}] step {update}: drop cell {cell!r}, flow loss "
+                f"{metrics['flow_loss']:.5f}, codebook loss {metrics['extra_loss']:.5f}; "
+                f"BatchNorm count {int(bn[0]['count'])}, running mean[0] "
+                f"{float(bn[0]['mean'][0]):.5f}")
+            if (metrics["extra_loss"] > 0) != (cell != "drop all"):
+                raise AssertionError(f"codebook loss {metrics['extra_loss']} in cell {cell!r}")
+            if int(bn[0]["count"]) != update or torch.equal(bn[0]["mean"], seen.get(
+                    "bn_mean", torch.zeros_like(bn[0]["mean"]))):
+                raise AssertionError("the BatchNorm running statistics did not move")
+            seen["bn_mean"] = bn[0]["mean"].clone()
         # ema_pytorch: update u calls EMA.update() at step u-1; with update_every 10
         # only u = 1 of these is gated, and it is a hard copy (decay 0 up to u = 101)
         if fstep.ema_decay_at(update, ema_settings) != 0.0:
@@ -677,19 +757,26 @@ def training_phase(tag: str, model_cfg, expected: dict, updates: int, warmup: in
                  for k in ("params", "ema_params")]
         pairs.append((restored.opt_state.mu + restored.opt_state.nu,
                       ts.opt_state.mu + ts.opt_state.nu))
+        pairs.append((fstep.tree_leaves(restored.model_state), fstep.tree_leaves(ts.model_state)))
         if not all(torch.equal(a, b) for got, want in pairs for a, b in zip(got, want)):
             raise AssertionError("the checkpoint did not round-trip")
         if (restored.update, restored.micro, restored.opt_state.count) != (
                 ts.update, ts.micro, ts.opt_state.count):
             raise AssertionError("the checkpoint's counters did not round-trip")
         del restored, pairs
-        ema_export = backbone_from_reference_state_dict(load_state_dict(str(path)), arch)
+        ema_export, ema_state = split_state(arch, backbone_from_reference_state_dict(
+            load_state_dict(str(path)), arch))
+        running = [(a, b) for got, want in zip(ema_state.get("ppg_bn", []),
+                                               ts.model_state.get("ppg_bn", []))
+                   for a, b in ((got["mean"], want["mean"]), (got["var"], want["var"]))]
         if not all(torch.equal(a.cpu(), b.detach().cpu()) for a, b in zip(
-                fstep.tree_leaves(ema_export), fstep.tree_leaves(ts.ema_params))):
+                fstep.tree_leaves(ema_export), fstep.tree_leaves(ts.ema_params))) or not all(
+                torch.equal(a.cpu(), b.cpu()) for a, b in running):
             raise AssertionError("the reference-layout EMA export does not load back")
         del ema_export
         log(f"[{tag}] checkpoint {path.name} ({path.stat().st_size / 2**30:.2f} GiB) loaded "
-            f"back equal (params, EMA, moments, counters, EMA export) in "
+            f"back equal (params, EMA, moments, model state, counters, EMA export"
+            f"{' with the BatchNorm statistics' if ppg else ''}) in "
             f"{time.perf_counter() - t1:.1f} s")
 
     # one more step, profiled: the next update from the same state
@@ -722,6 +809,325 @@ def training_phase(tag: str, model_cfg, expected: dict, updates: int, warmup: in
 
 
 # ---------------------------------------------------------------------------
+# the F5E model (configs/example.yaml): PPG extraction, training, gradients, serving
+# ---------------------------------------------------------------------------
+
+
+def f5e_model_config():
+    """The model of configs/example.yaml, built in code: F5TTS_Small's DiT
+    (dim 768, depth 18, 12 x 64, ff x2, text dim 512, 4 ConvNeXt blocks,
+    RoPE on the first head, no text padding mask) with activation
+    checkpointing (policy "block"), PPG conditioning (dim 256, the drop
+    table (0.3, 0.1, 0.5, 0.1)) and the shared codebook (100 codes x 2
+    groups, the perplexity loss on a 0.1 share at weight 0.1). The byte
+    tokenizer stands in for pinyin (pypinyin is absent);
+    tests/test_torch_ppg.py holds it against config.load_yaml."""
+    from f5e_tts_tpu_torch.config import CodebookConfig, DiTConfig, ModelConfig, PPGConfig
+
+    arch = DiTConfig(dim=768, depth=18, heads=12, ff_mult=2, text_dim=512,
+                     text_mask_padding=False, conv_layers=4, pe_attn_head=1,
+                     checkpoint_activations=True,
+                     ppg=PPGConfig(use_ppg=True, ppg_dim=256, frame_length=20, mel_frame_shift=10,
+                                   output_type="ppg",
+                                   combined_cond_drop_prob=(0.3, 0.1, 0.5, 0.1)),
+                     codebook=CodebookConfig(use_codebook=True, num_vars=100, temp_start=2.0,
+                                             temp_stop=0.5, temp_decay=0.999995, groups=2,
+                                             use_perplex_loss=True, perplex_loss_prob=0.1,
+                                             perplex_loss_weight=0.1))
+    return ModelConfig(name="F5TTS_Small", tokenizer="byte", vocab_size=256, arch=arch)
+
+
+F5E_DEPTH = 18
+# the PPG of the card's fp32 extractor against the CPU's on the same inputs:
+# max|card - cpu| <= F5E_PPG_REL * max|cpu| (fp32 GEMMs summed in another
+# order through 12 layers; TF32 is off)
+F5E_PPG_REL = 1e-3
+
+
+def f5e_extractor_phase():
+    """PPGExtractor(ConformerConfig()) with seeded weights and CMVN on the
+    card in fp32: audio_to_ppg of the 8 training clips resampled to 16 kHz
+    against the same call on the CPU; device ms per second of audio.
+    Returns the card's extractor."""
+    from f5e_tts_tpu_torch.infer.audio import resample
+    from f5e_tts_tpu_torch.models.conformer import ConformerConfig, PPGExtractor, init_conformer
+    from f5e_tts_tpu_torch.train import step as fstep
+
+    cfg = ConformerConfig()
+    assert (cfg.num_blocks, cfg.output_size, cfg.attention_heads, cfg.subsampling) == (
+        12, 256, 4, "conv2d"), cfg
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    params = init_conformer(cfg, gen, "cuda")
+    # a CMVN of the int16-scale log-mel's range
+    params["cmvn_mean"] = 8.0 + torch.randn(cfg.input_dim, generator=gen, device="cuda")
+    params["cmvn_istd"] = 0.25 + 0.1 * torch.rand(cfg.input_dim, generator=gen, device="cuda")
+    card = PPGExtractor(params=params, cfg=cfg, device="cuda")
+    host = PPGExtractor(params=fstep.tree_map(lambda t: t.cpu(), params), cfg=cfg, device="cpu")
+    clips = [resample(r["audio"]["array"], 24_000, 16_000) for r in training_rows()]
+    lens = np.asarray([len(c) for c in clips], np.int64)
+    wav = np.zeros((len(clips), int(lens.max())), np.float32)
+    for i, c in enumerate(clips):
+        wav[i, : len(c)] = c
+    wav_t, lens_t = torch.from_numpy(wav).cuda(), torch.from_numpy(lens).cuda()
+    ppg, ppg_lens = card.audio_to_ppg(wav_t, lens_t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, ref_lens = host.audio_to_ppg(wav, lens)
+    host_s = time.perf_counter() - t0
+    err, top = (ppg.cpu() - ref).abs().max().item(), ref.abs().max().item()
+    log(f"[ppg extraction] {len(clips)} clips, {lens.sum() / 16_000:.2f} s of 16 kHz audio -> "
+        f"PPG {tuple(ppg.shape)}, lengths {ppg_lens.tolist()}; card (fp32) vs CPU (fp32): "
+        f"max|diff| {err:.3e}, max|cpu| {top:.3e} (tolerance {F5E_PPG_REL} * max|cpu|); the "
+        f"CPU call took {host_s:.2f} s")
+    if not (torch.isfinite(ppg).all() and torch.equal(ppg_lens.cpu(), ref_lens)
+            and err <= F5E_PPG_REL * top and top > 0):
+        raise AssertionError("the card's PPG disagrees with the CPU's")
+    ms = cuda_ms([lambda: card.audio_to_ppg(wav_t, lens_t)], iters=5, warmup=1)
+    log(f"[ppg extraction] device {ms:.3f} ms a batch, {ms / (lens.sum() / 16_000):.4f} ms per "
+        f"second of audio")
+    return card
+
+
+def f5e_no_remat_phase(cfg, extractor) -> dict:
+    """Two F5E updates without activation checkpointing (nothing saved): the
+    step wall and peak memory against the checkpointed step of the training
+    phase; depth launches of K3, K2, K6 and K5 a step."""
+    arch = dataclasses.replace(cfg.arch, checkpoint_activations=False)
+    counts, _ = training_phase(
+        "f5e training, no remat", dataclasses.replace(cfg, arch=arch),
+        expected_counts(partial_rope_attention=F5E_DEPTH, partial_rope_attention_bwd=F5E_DEPTH,
+                        gated_adaln=F5E_DEPTH, gated_adaln_bwd=F5E_DEPTH),
+        updates=2, warmup=1, checkpoints=False, extractor=extractor)
+    return counts
+
+
+def f5e_gradient_phase(swaps: dict) -> None:
+    """cfm_loss and every gradient of a 2-block F5E DiT at full width (dim
+    768, 12 heads) with the align loss and the cross mask on, B=2, N=1024,
+    fixed draws, dropout 0, under remat "block": through the kernels and the
+    plain versions (the limits of the gradient phase), then with remat off
+    (the same bits). Then MAS: the card's path of an F5E-width grid equals
+    the CPU's, and its time at (B=8, T_y=2304, T_x=384)."""
+    from f5e_tts_tpu_torch.config import CFMConfig
+    from f5e_tts_tpu_torch.models import cfm as fcfm
+    from f5e_tts_tpu_torch.models.dit import init_dit
+    from f5e_tts_tpu_torch.ops import mas as fmas
+    from f5e_tts_tpu_torch.ops.mel import mel_spectrogram
+    from f5e_tts_tpu_torch.ops.vq import gumbel_uniform
+    from f5e_tts_tpu_torch.train import step as fstep
+    from f5e_tts_tpu_torch.utils.text import list_str_to_bytes
+
+    b, n = 2, 1024
+    cfg = f5e_model_config()
+    arch = dataclasses.replace(
+        cfg.arch, depth=2, dropout=0.0,
+        ppg=dataclasses.replace(cfg.arch.ppg, use_cross_mask=True),
+        codebook=dataclasses.replace(cfg.arch.codebook, use_align_loss=True))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    params, state = init_dit(arch, 256, gen, "cuda")
+    seed_modulation_(params, gen)
+    params = fstep.tree_map(lambda t: t.requires_grad_(True), params)
+    wav = torch.from_numpy(np.stack([speech_like(n * 256 / 24_000, seed=s) for s in (13, 14)])
+                           ).float().cuda()
+    mel = mel_spectrogram(wav, cfg.mel)[:, :n]
+    mel_lens = torch.tensor([n, 900], device="cuda")
+    text = torch.from_numpy(list_str_to_bytes(list(SENTENCES[:2]))).cuda()
+    text_lens = (text >= 0).sum(dim=1)
+    pd = arch.ppg.ppg_dim
+    ppg = torch.randn((b, n // 2, pd), generator=gen, device="cuda")
+    ppg_lens = torch.tensor([n // 2, 450], device="cuda")
+    cb = arch.codebook
+    shape = (b * n * cb.groups, cb.num_vars)
+    draws = fixed_draws(gen, b, n, arch.mel_dim, 1, ppg=True)[0]._replace(
+        ppg_keep=[torch.rand((b, n, pd), generator=gen, device="cuda") < 0.5 for _ in range(3)],
+        gumbel_text=gumbel_uniform(shape, gen, "cuda"), gumbel_ppg=gumbel_uniform(shape, gen, "cuda"),
+        perm_text=torch.randperm(n, generator=gen, device="cuda"),
+        perm_ppg=torch.randperm(n, generator=gen, device="cuda"),
+        cross_apply=torch.zeros((), device="cuda"),  # < cross_mask_prob: the cross mask acts
+        cross_ratio=torch.rand(b, generator=gen, device="cuda"),
+        cross_start=torch.rand(b, generator=gen, device="cuda"))
+    extras = {}
+
+    def loss_and_grads(a=arch):
+        leaves = fstep.tree_leaves(params)
+        for p in leaves:
+            p.grad = None
+        out = fcfm.cfm_loss(params, a, CFMConfig(), mel=mel, mel_lens=mel_lens, text_ids=text,
+                            draws=draws, compute_dtype=torch.bfloat16, state=state,
+                            text_lens=text_lens, ppg=ppg, ppg_lens=ppg_lens)
+        out.loss.backward()
+        extras.update(align=float(out.align_loss.detach()),
+                      perplex=float(out.perplex_loss.detach()))
+        return float(out.loss.detach()), [torch.zeros_like(p) if p.grad is None else
+                                          p.grad.detach().clone() for p in leaves]
+
+    tag = f"gradients F5E, 2 blocks, B={b}, N={n}, align loss and cross mask"
+    # the PPG convs' biases: each conv feeds a training-mode BatchNorm
+    biases = {id(c["b"]) for c in params["ppg_embed"]["convs"]}
+    zero = tuple(i for i, p in enumerate(fstep.tree_leaves(params)) if id(p) in biases)
+    compare_gradients(tag, loss_and_grads,
+                      expected_counts(partial_rope_attention=4, partial_rope_attention_bwd=2,
+                                      gated_adaln=4, gated_adaln_bwd=2), swaps, zero=zero)
+    log(f"[{tag}] align loss {extras['align']:.5f}, perplexity loss {extras['perplex']:.5f}")
+    if not (extras["align"] > 0 and extras["perplex"] > 0):
+        raise AssertionError("the codebook losses did not act")
+    loss_on, grads_on = loss_and_grads()
+    check_counts("f5e remat on", read_counts(),
+                 expected_counts(partial_rope_attention=4, partial_rope_attention_bwd=2,
+                                 gated_adaln=4, gated_adaln_bwd=2))
+    loss_off, grads_off = loss_and_grads(dataclasses.replace(arch, checkpoint_activations=False))
+    check_counts("f5e remat off", read_counts(),
+                 expected_counts(partial_rope_attention=2, partial_rope_attention_bwd=2,
+                                 gated_adaln=2, gated_adaln_bwd=2))
+    same = loss_on == loss_off and all(torch.equal(x, y) for x, y in zip(grads_on, grads_off))
+    log(f"[{tag}] remat on vs off: loss {loss_on:.6f} vs {loss_off:.6f}, every gradient "
+        f"bit for bit: {same}")
+    if not same:
+        raise AssertionError("the checkpointed blocks' loss or gradients differ from the plain blocks'")
+    del grads_on, grads_off
+
+    # MAS: the card's path equals the CPU's on a grid of this width
+    with torch.no_grad():
+        grid = fmas.neg_cent_grid(torch.randn((b, 384, 512), generator=gen, device="cuda"),
+                                  torch.randn((b, n, 512), generator=gen, device="cuda"))
+        t_ys, t_xs = torch.tensor([n, 900], device="cuda"), torch.tensor([384, 300],
+                                                                          device="cuda")
+        on_card = fmas.maximum_path(grid, t_ys, t_xs)
+        on_host = fmas.maximum_path(grid.cpu(), t_ys.cpu(), t_xs.cpu())
+        if not torch.equal(on_card.cpu(), on_host):
+            raise AssertionError("maximum_path on the card differs from the CPU's")
+        log(f"[mas] grid {tuple(grid.shape)}: the card's path equals the CPU's exactly "
+            f"({int(on_card.sum())} cells on the path)")
+        bt, ty, tx = 8, TRAIN_N, 384
+        grid = fmas.neg_cent_grid(torch.randn((bt, tx, 512), generator=gen, device="cuda"),
+                                  torch.randn((bt, ty, 512), generator=gen, device="cuda"))
+        t_ys = torch.tensor([ty - 97 * i for i in range(bt)], device="cuda")
+        t_xs = torch.tensor([tx - 31 * i for i in range(bt)], device="cuda")
+        fmas.maximum_path(grid, t_ys, t_xs)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fmas.maximum_path(grid, t_ys, t_xs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        busy, launched, _ = device_busy("mas (8, 2304, 384)", lambda: fmas.maximum_path(
+            grid, t_ys, t_xs))
+        wall = float(np.median(walls))
+        log(f"[mas] (B, T_y, T_x) = ({bt}, {ty}, {tx}): wall {wall * 1e3:.1f} ms (median of 3: "
+            f"{[round(w * 1e3, 1) for w in walls]}), device busy {busy:.1f} ms in {launched} "
+            f"kernels, busy share {busy / (wall * 1e3):.3f}")
+
+
+def f5e_serving_phase(extractor) -> dict:
+    """A TTSEngine over the full-width F5E model (seeded, bf16), the PPG of
+    the reference clip from `extractor`: synthesize_chunk in the vc, tts and
+    cfg modes, then cfg on an engine captured for bucket 1536 (replay bits ==
+    eager bits, no launch). Each: the prompt frames equal the cond mel, the
+    wav is finite and not silent; the sampler's device busy and three timed
+    walls (the chunk and its decode). Returns {path: launch counts}."""
+    from f5e_tts_tpu_torch.api import _cast, load_vocoder
+    from f5e_tts_tpu_torch.infer import audio as faudio
+    from f5e_tts_tpu_torch.infer.pipeline import TTSEngine, preprocess_ref_audio_text
+    from f5e_tts_tpu_torch.models.dit import fuse_qkv, init_dit
+    from f5e_tts_tpu_torch.utils.aot import capture_sampler_buckets
+
+    cfg = f5e_model_config()
+    arch = cfg.arch
+    t0 = time.perf_counter()
+    params, state = init_dit(arch, 256, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    seed_modulation_(params, torch.Generator(device="cuda").manual_seed(1))
+    engine = TTSEngine(params=fuse_qkv(_cast(params, torch.bfloat16)), state=state, arch=arch,
+                       vocab=None, vocoder_decode=load_vocoder(None, torch.bfloat16, "cuda", 0),
+                       compute_dtype=torch.bfloat16, device="cuda")
+    wav, sr = faudio.read_wav(str(reference_wav()))
+    wav, ref_text = preprocess_ref_audio_text(wav, sr, REF_TEXT, show_info=lambda *_: None)
+    audio, _, ref_mel = engine._reference(wav, sr)
+    text = ref_text + GEN_TEXT
+    ppg, ppg_lens = extractor.audio_to_ppg(faudio.resample(audio, 24_000, 16_000)[None])
+    ppg = ppg.cpu().numpy()
+    rf = ref_mel.shape[1]
+    cond = torch.from_numpy(ref_mel[0]).cuda()
+    torch.cuda.synchronize()
+    log(f"[f5e serving] F5E model (dim {arch.dim}, depth {arch.depth}, {arch.heads} x "
+        f"{arch.dim_head}) built in {time.perf_counter() - t0:.1f} s; reference {rf} frames, "
+        f"PPG {ppg.shape} ({int(ppg_lens[0])} valid frames at 20 ms)")
+    expected = expected_counts(partial_rope_attention=F5E_DEPTH * NFE,
+                               gated_adaln=F5E_DEPTH * NFE)
+    modes = {"vc": dict(mode="vc", alpha_spk=1.5, alpha_ppg=2.0, ppg=ppg),
+             "tts": dict(mode="tts", alpha_spk=3.0, alpha_txt=3.0, ppg=ppg),
+             "cfg": dict(mode="cfg", cfg_strength=2.0)}
+    runs, outs = {}, {}
+
+    def chunk(kw):
+        out = engine.synthesize_chunk(ref_mel, text, FIX_FRAMES, seed=7, nfe_steps=NFE, sway=-1.0,
+                                      device_out=True, **kw)[0]
+        torch.cuda.synchronize()
+        return out.clone()
+
+    def check(tag, out):
+        wav_out = engine.decode_mel(out[0, rf:FIX_FRAMES].float().cpu().numpy())
+        rms = float(np.sqrt(np.mean(np.square(wav_out))))
+        if not (tuple(out.shape) == (1, 1536, 100) and torch.equal(out[0, :rf], cond)
+                and torch.isfinite(out).all() and np.isfinite(wav_out).all() and rms > 0):
+            raise AssertionError(f"{tag}: prompt frames, shape or wav wrong")
+        return len(wav_out), rms
+
+    def timed(tag, kw):
+        walls = []
+        for _ in range(4):  # a warm-up, then three timed
+            reset_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = chunk(kw)
+            engine.decode_mel(out[0, rf:FIX_FRAMES].float().cpu().numpy())
+            walls.append(time.perf_counter() - t1)
+        return walls[1:], read_counts()
+
+    for mode, kw in modes.items():
+        tag = f"f5e {mode} synthesis"
+        reset_counts()
+        outs[mode] = chunk(kw)
+        counts = runs[f"f5e_{mode}_synthesis"] = read_counts()
+        check_counts(tag, counts, expected)
+        samples, rms = check(tag, outs[mode])
+        walls, again = timed(tag, kw)
+        check_counts(f"{tag} timed", again, expected)
+        busy = device_busy(f"{tag} sampler", lambda: chunk(kw))[0]
+        log(f"[{tag}] {mode} mode: prompt frames {rf} equal the cond mel; wav {samples} samples "
+            f"finite, rms {rms:.4f}; sampler device busy {busy:.1f} ms; wall (chunk + decode) "
+            f"{[round(w, 4) for w in walls]} s, median {float(np.median(walls)):.4f} s")
+        reset_counts()
+
+    # plain CFG on a captured engine: the eager bits, no launch at replay
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    names = capture_sampler_buckets(engine, buckets=(1536,), nfe=NFE)
+    torch.cuda.synchronize()
+    capture = runs["f5e_captured_synthesis_capture"] = read_counts()
+    log(f"[f5e captured synthesis] captured {names} in {time.perf_counter() - t0:.2f} s, "
+        f"{(torch.cuda.memory_reserved() - reserved) / 2**20:.1f} MiB more reserved; launches "
+        f"at capture { {k: v for k, v in capture.items() if v} }")
+    check_counts("f5e captured synthesis capture", capture,
+                 expected_counts(partial_rope_attention=F5E_DEPTH * (NFE + 1),
+                                 gated_adaln=F5E_DEPTH * (NFE + 1)))
+    replayed = chunk(modes["cfg"])
+    check_counts("f5e captured synthesis replay", read_counts(), expected_counts())
+    if not torch.equal(replayed, outs["cfg"]):
+        raise AssertionError("the captured PPG model's replay differs from its eager run")
+    check("f5e captured synthesis", replayed)
+    walls, again = timed("f5e captured synthesis", modes["cfg"])
+    check_counts("f5e captured synthesis timed", again, expected_counts())
+    busy = device_busy("f5e captured synthesis sampler", lambda: chunk(modes["cfg"]))[0]
+    log(f"[f5e captured synthesis] the replay gives the eager bits; sampler device busy "
+        f"{busy:.1f} ms; wall (chunk + decode) {[round(w, 4) for w in walls]} s, median "
+        f"{float(np.median(walls)):.4f} s")
+    engine.engines.clear()
+    reset_counts()
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # gradients through the kernels vs through their plain versions
 # ---------------------------------------------------------------------------
 
@@ -742,9 +1148,14 @@ def plain_swaps(ra, ga, ka) -> dict:
         (ka, "joint_attention_core_bwd"): lambda *a: ka.joint_attention_core_bwd_plain(*a[:6])}
 
 
-def compare_gradients(tag: str, loss_and_grads, expected: dict, swaps: dict) -> None:
+def compare_gradients(tag: str, loss_and_grads, expected: dict, swaps: dict,
+                      zero: tuple = ()) -> None:
     """`loss_and_grads()` once through the kernels (launch counts checked) and
-    once with the wrappers swapped for their plain versions (no launch)."""
+    once with the wrappers swapped for their plain versions (no launch). The
+    gradients at the indices `zero` are zero analytically (a bias that a
+    training-mode BatchNorm takes out again): rounding noise in both runs,
+    with no direction to compare, they are held under ZERO_GRAD_REL x the
+    largest gradient's norm instead."""
     reset_counts()
     loss_k, grads_k = loss_and_grads()
     check_counts(f"{tag} kernel run", read_counts(), expected)
@@ -758,20 +1169,36 @@ def compare_gradients(tag: str, loss_and_grads, expected: dict, swaps: dict) -> 
         for (mod, name), fn in saved.items():
             setattr(mod, name, fn)
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    cos = []
-    for gk, gp in zip(grads_k, grads_p):
+    cos, noise = [], []
+    top = max(g.double().norm().item() for g in grads_p)
+    for i, (gk, gp) in enumerate(zip(grads_k, grads_p)):
         nk, np_ = gk.double().norm().item(), gp.double().norm().item()
-        if nk == np_ == 0.0:
+        if i in zero:
+            noise.append(max(nk, np_) / top)
+            cos.append(1.0)
+        elif nk == np_ == 0.0:
             cos.append(1.0)
         else:
             cos.append((gk.double() * gp.double()).sum().item() / max(nk * np_, 1e-300))
     worst = int(np.argmin(cos))
+    if zero:
+        log(f"[{tag}] {len(zero)} gradients zero analytically: norm at most "
+            f"{max(noise):.2e} of the largest (tolerance {ZERO_GRAD_REL})")
+        if max(noise) > ZERO_GRAD_REL:
+            raise AssertionError(f"{tag}: a gradient that is zero analytically is not")
     log(f"[{tag}] loss kernels {loss_k:.6f} vs plain {loss_p:.6f} (relative difference "
         f"{rel:.2e}, tolerance 1e-2); gradient cosine over {len(cos)} parameters: min "
         f"{cos[worst]:.6f} (tensor {worst}, shape {tuple(grads_k[worst].shape)}), median "
         f"{float(np.median(cos)):.6f} (tolerance 0.99)")
     if not math.isfinite(loss_k) or not rel <= 1e-2 or min(cos) < 0.99:
         raise AssertionError(f"{tag}: the kernels' loss or gradients disagree with the plain versions")
+
+
+# a gradient that is zero analytically is a sum over B x N rows of bf16
+# cotangents that cancel: rounding noise (1.9e-4 of the largest gradient's
+# norm at a tiny width on the CPU, 3.3e-5 at full width on the card);
+# 1e-2 still tells noise from a gradient
+ZERO_GRAD_REL = 1e-2
 
 
 def gradient_phase(swaps: dict) -> None:
@@ -998,10 +1425,11 @@ def kernel_split(tag: str, fn, parts, calls: int = 4) -> dict:
     return split
 
 
-def adaln_bwd_operands(seed: int = 6):
-    """K5's operands at the training step's shape: x, y, gate, scale, g_newx,
-    g_out, with gate and scale column slices of the (B, 6D) modulation."""
-    b, n, d = TRAIN_CLIPS, TRAIN_N, 1024
+def adaln_bwd_operands(seed: int = 6, d: int = 1024):
+    """K5's operands at the training step's shape (width d): x, y, gate,
+    scale, g_newx, g_out, with gate and scale column slices of the (B, 6D)
+    modulation."""
+    b, n = TRAIN_CLIPS, TRAIN_N
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x, y, g_newx, g_out = (torch.randn((b, n, d), generator=gen, device="cuda").bfloat16()
                            for _ in range(4))
@@ -1064,6 +1492,7 @@ def attention_kernel_phase(name, source, replaces, launches, backward, cases, it
             ops_s, bytes_s = case.bound(backward)
             numbers[tag] = {"shape": case.describe(), "ms": ms, "plain_ms": plain_ms,
                             "library_ms": library_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
+                            "bound_share": max(ops_s, bytes_s) * 1e3 / ms,
                             **extra, "ops_s": ops_s, "bytes_s": bytes_s}
             log(f"[{name} {tag}] {case.describe()}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"library {library_ms:.4f} ms, bound {max(ops_s, bytes_s) * 1e3:.4f} ms" +
@@ -1120,7 +1549,10 @@ def attention_rows(mods, paths: dict, text_len: int, splits) -> list:
              ("e2 synthesis", case("rope", *e2_synth, rope_heads=1), True),
              # the keys of E2 synthesis, but nine full 192-row query tiles: as
              # slow as 1537 rows if the one-row last tile costs a whole tile
-             ("nine full tiles", case("rope", 2, 9 * 192, e2_synth[2], rope_heads=1), True)]))
+             ("nine full tiles", case("rope", 2, 9 * 192, e2_synth[2], rope_heads=1), True),
+             # the F5E model: 12 heads
+             ("f5e synthesis", case("rope", *synth, rope_heads=1, h=12), True),
+             ("f5e ragged", case("rope", 3, 200, (200, 57, 0), rope_heads=1, h=12), False)]))
         rows.append(attention_kernel_phase(
             "joint_attention", "joint_attention", f"{PALLAS}:1201", paths["joint_attention"], False,
             [("synthesis", case("joint", 2, 1536 + 128, (1416, 1100), n_audio=1536), True),
@@ -1143,7 +1575,9 @@ def attention_rows(mods, paths: dict, text_len: int, splits) -> list:
         paths["partial_rope_attention_bwd"], True,
         [("training", case("rope", *train_b, rope_heads=1), True),
          ("ragged", case("rope", *ragged_b, rope_heads=1), False),
-         ("e2 training", case("rope", *e2_train, rope_heads=1), True)]))
+         ("e2 training", case("rope", *e2_train, rope_heads=1), True),
+         ("f5e training", case("rope", *train_b, rope_heads=1, h=12), True),
+         ("f5e ragged", case("rope", *ragged_b, rope_heads=1, h=12), False)]))
     rows.append(attention_kernel_phase(
         "joint_attention_bwd", "joint_attention", f"{PALLAS}:1298", paths["joint_attention_bwd"],
         True,
@@ -1162,8 +1596,10 @@ def attention_rows(mods, paths: dict, text_len: int, splits) -> list:
     return rows
 
 
-def adaln_phase(ga, launches: dict) -> dict:
-    b, n, d = 2, 1536, 1024
+def adaln_case(ga, b: int, n: int, d: int, tag: str) -> dict:
+    """K2 against its plain version at (b, n, d), then both timed: kernel,
+    plain and the bound (x, y read once, new_x, out written once, ~11 fp32
+    flops an element)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     x, y = (torch.randn((b, n, d), generator=gen, device="cuda").to(torch.bfloat16)
             for _ in range(2))
@@ -1172,52 +1608,82 @@ def adaln_phase(ga, launches: dict) -> dict:
     new_x, out = ga.gated_adaln(x, y, gate, scale, shift)
     torch.cuda.synchronize()
     ref_x, ref_out = ga.gated_adaln_plain(x, y, gate, scale, shift)
-    err = max(check_close("gated_adaln new_x", new_x, ref_x),
-              check_close("gated_adaln out", out, ref_out))
-    # timed over 4 input sets (~100 MB with outputs, twice the L2): the
-    # kernel is bound by memory, and the bound counts device-memory bytes
+    err = max(check_close(f"gated_adaln {tag} new_x", new_x, ref_x),
+              check_close(f"gated_adaln {tag} out", out, ref_out))
+    # timed over 4 input sets (~100 MB with outputs at D = 1024, twice the
+    # L2): the kernel is bound by memory, and the bound counts device-memory bytes
     sets = [(x, y)] + [tuple(torch.randn((b, n, d), generator=gen, device="cuda")
                              .to(torch.bfloat16) for _ in range(2)) for _ in range(3)]
     ms = cuda_ms([lambda a=a, c=c: ga.gated_adaln(a, c, gate, scale, shift) for a, c in sets])
     plain_ms = cuda_ms([lambda a=a, c=c: ga.gated_adaln_plain(a, c, gate, scale, shift)
                         for a, c in sets])
-    # x, y read once; new_x, out written once; ~11 fp32 flops per element
-    nbytes = 4 * b * n * d * 2 + 3 * b * d * 2
-    flops = 11.0 * b * n * d
+    ops_s = 11.0 * b * n * d / PEAK_FP32_FLOPS
+    bytes_s = (4 * b * n * d * 2 + 3 * b * d * 2) / PEAK_BYTES
+    bound = max(ops_s, bytes_s) * 1e3
+    log(f"[gated_adaln {tag}] ({b}, {n}, {d}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound:.4f} ms ({bound / ms:.2f} of it)")
+    return {"shape": f"({b}, {n}, {d})", "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_share": bound / ms, "ops_s": ops_s, "bytes_s": bytes_s}
+
+
+def adaln_phase(ga, launches: dict) -> dict:
+    """K2 at the v1 synthesis shape (the row's numbers) and at the F5E
+    model's D = 768 (in `also`)."""
+    main = adaln_case(ga, 2, 1536, 1024, "synthesis")
+    f5e = adaln_case(ga, 2, 1536, 768, "f5e synthesis")
+    also = {"f5e synthesis": {k: v for k, v in f5e.items() if k not in ("ops_s", "bytes_s")},
+            "bound_share": main["bound_share"]}
     return kernel_row("gated_adaln", "gated_adaln", "f5e_tts_tpu/ops/pallas_norm.py:38", launches,
-                      err, ms, plain_ms, flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES, None)
+                      max(main["err"], f5e["err"]), main["ms"], main["plain_ms"], main["ops_s"],
+                      main["bytes_s"], None, also)
 
 
-def adaln_bwd_phase(ga, launches: dict, split) -> dict:
-    """K5 at the training step's shape; its wrapper's host time a call and
-    `split` (device ms of its row pass and combine, from `split_phase`) go
-    into the row's `also`."""
-    args = adaln_bwd_operands()
-    b, n, d = args[0].shape
+def adaln_bwd_case(ga, d: int, tag: str, host: bool = False) -> dict:
+    """K5 against its plain version at the training step's (8, 2304, d),
+    two runs the same bits, then kernel and plain timed (x, y, g_newx, g_out
+    read once, dx, dy written once, the (B, d) operands and sums once; ~20
+    fp32 flops an element); with `host` its wrapper's host time a call."""
+    args = adaln_bwd_operands(d=d)
+    b, n, _ = args[0].shape
     got = ga.gated_adaln_bwd(*args)
     torch.cuda.synchronize()
     ref = ga.gated_adaln_bwd_plain(*args)
-    err = max(check_close(f"gated_adaln_bwd {name}", a, r) for name, a, r in
+    err = max(check_close(f"gated_adaln_bwd {tag} {name}", a, r) for name, a, r in
               zip(("dx", "dy", "dgate", "dscale", "dshift"), got, ref))
     again = ga.gated_adaln_bwd(*args)  # no atomics: the same bits
     if not all(torch.equal(u, v) for u, v in zip(got, again)):
-        raise AssertionError("gated_adaln_bwd: two runs differ")
-    log("[gated_adaln_bwd] two runs give the same bits")
+        raise AssertionError(f"gated_adaln_bwd {tag}: two runs differ")
+    log(f"[gated_adaln_bwd {tag}] two runs give the same bits")
     del got, ref, again
-    # one input set: 4 inputs and 2 outputs of 38 MB each, 4.5x the L2
+    # one input set: 4 inputs and 2 outputs of 28-38 MB each, over 3x the L2
     ms = cuda_ms([lambda: ga.gated_adaln_bwd(*args)])
     plain_ms = cuda_ms([lambda: ga.gated_adaln_bwd_plain(*args)])
-    also = {"host_us_per_call": host_us(lambda: ga.gated_adaln_bwd(*args))}
+    ops_s = 20.0 * b * n * d / PEAK_FP32_FLOPS
+    bytes_s = (6 * b * n * d * 2 + 5 * b * d * 2) / PEAK_BYTES
+    bound = max(ops_s, bytes_s) * 1e3
+    out = {"shape": f"({b}, {n}, {d})", "err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_share": bound / ms, "ops_s": ops_s, "bytes_s": bytes_s}
+    if host:
+        out["host_us_per_call"] = host_us(lambda: ga.gated_adaln_bwd(*args))
+    log(f"[gated_adaln_bwd {tag}] ({b}, {n}, {d}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound:.4f} ms ({bound / ms:.2f} of it)" +
+        (f", host {out['host_us_per_call']:.1f} us a call" if host else ""))
+    return out
+
+
+def adaln_bwd_phase(ga, launches: dict, split) -> dict:
+    """K5 at the training step's shape (the row's numbers, its wrapper's host
+    time a call and `split`, the device ms of its row pass and combine from
+    `split_phase`) and at the F5E model's D = 768 (in `also`)."""
+    main = adaln_bwd_case(ga, 1024, "training", host=True)
+    f5e = adaln_bwd_case(ga, 768, "f5e training")
+    also = {"host_us_per_call": main["host_us_per_call"], "bound_share": main["bound_share"],
+            "f5e training": {k: v for k, v in f5e.items() if k not in ("ops_s", "bytes_s")}}
     if split is not None:
         also["device_ms_by_kernel"] = split
-    log(f"[gated_adaln_bwd] host {also['host_us_per_call']:.1f} us a call")
-    # x, y, g_newx, g_out read once; dx, dy written once; gate/scale read and
-    # dgate/dscale/dshift written once; ~20 fp32 flops per element
-    nbytes = 6 * b * n * d * 2 + 5 * b * d * 2
-    flops = 20.0 * b * n * d
     return kernel_row("gated_adaln_bwd", "gated_adaln", "f5e_tts_tpu/ops/pallas_norm.py:159",
-                      launches, err, ms, plain_ms, flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES,
-                      None, also)
+                      launches, max(main["err"], f5e["err"]), main["ms"], main["plain_ms"],
+                      main["ops_s"], main["bytes_s"], None, also)
 
 
 def build_report(libs: dict, ra) -> None:
@@ -1695,6 +2161,24 @@ def main() -> int:
         "e2 training", e2_cfg, expected_counts(partial_rope_attention=E2_DEPTH,
                                                partial_rope_attention_bwd=E2_DEPTH),
         updates=2, warmup=1, checkpoints=False))
+
+    # the F5E model of configs/example.yaml: a PPG-conditioned, codebook-
+    # regularised F5TTS_Small with remat "block"; K3 at 12 heads, K2/K5 at D = 768
+    f5e = f5e_model_config()
+    assert (f5e.arch.depth, f5e.arch.heads, f5e.arch.pe_attn_head) == (F5E_DEPTH, 12, 1)
+    extractor = phase("ppg extraction", f5e_extractor_phase)
+    # under remat "block" each block's forward kernels run again in the recompute
+    runs["f5e_training_step"], _ = phase("f5e training", lambda: training_phase(
+        "f5e training", f5e,
+        expected_counts(partial_rope_attention=2 * F5E_DEPTH, partial_rope_attention_bwd=F5E_DEPTH,
+                        gated_adaln=2 * F5E_DEPTH, gated_adaln_bwd=F5E_DEPTH),
+        updates=4, warmup=1, resume=True, extractor=extractor))
+    runs["f5e_training_step_no_remat"] = phase("f5e training, no remat",
+                                               lambda: f5e_no_remat_phase(f5e, extractor))
+    phase("f5e gradients", lambda: f5e_gradient_phase(swaps))
+    with torch.inference_mode():
+        runs.update(phase("f5e serving", lambda: f5e_serving_phase(extractor)))
+    del extractor
 
     # serving on one v1 model: EPSS grid, captured engines, device decode,
     # streaming, the TTS sampler mode and speech editing

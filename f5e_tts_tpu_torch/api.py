@@ -109,16 +109,17 @@ class F5TTS:
             vocab, vocab_size, tokenizer = None, self.model_cfg.vocab_size, "byte"
 
         if ckpt_file:
-            params = to_tensors(backbone_from_reference_state_dict(
+            made = to_tensors(backbone_from_reference_state_dict(
                 load_state_dict(ckpt_file, use_ema), arch), self.device)
         else:
-            params = fbb.init_backbone(arch, vocab_size,
-                                       torch.Generator(device=self.device).manual_seed(seed),
-                                       self.device)
+            made = fbb.init_backbone(arch, vocab_size,
+                                     torch.Generator(device=self.device).manual_seed(seed),
+                                     self.device)
+        params, state = fbb.split_state(arch, made)  # a PPG DiT's BatchNorm state stays fp32
         params = fbb.fuse_qkv(_cast(params, compute_dtype), arch)
 
         self.engine = TTSEngine(
-            params=params, arch=arch, vocab=vocab, mel=self.model_cfg.mel,
+            params=params, state=state, arch=arch, vocab=vocab, mel=self.model_cfg.mel,
             cfm=CFMConfig(ode_method=ode_method), infer_cfg=self.model_cfg.infer,
             tokenizer=tokenizer,
             vocoder_decode=load_vocoder(vocoder_local_path, compute_dtype, self.device, seed),

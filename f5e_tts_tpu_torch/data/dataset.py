@@ -9,8 +9,11 @@
   (sort by frame length, pack <= frames_threshold and <= max_samples, seeded
   per-epoch shuffle) — reference dataset.py:232-303.
 
-Not ported yet: the hub-hosted dataset wrapper, the dataset factory and the
-16 kHz audio of PPG training.
+- with `with_16k_audio`, each item also carries its audio at 16 kHz for the
+  PPG extractor of PPG training (reference dataset.py:219-226 yields 16 kHz
+  kaldi fbank), and the batch `audio_16k` (B, T16) with `audio_16k_lens`.
+
+Not ported yet: the hub-hosted dataset wrapper and the dataset factory.
 """
 
 from __future__ import annotations
@@ -34,13 +37,15 @@ class ArrowSpeechDataset:
     """Speech dataset over rows {audio: {array, sampling_rate} | audio_path,
     text[, duration]} yielding {audio, text} (reference: dataset.py:83-228,
     CustomDataset). `rows` is any indexable sequence of such rows: a list in
-    memory, or an Arrow table from `from_dir`."""
+    memory, or an Arrow table from `from_dir`. `with_16k_audio` adds the
+    item's audio at 16 kHz as `audio_16k` (PPG training)."""
 
     def __init__(self, rows, durations: Optional[Sequence[float]] = None,
-                 mel: MelConfig = MelConfig()):
+                 mel: MelConfig = MelConfig(), with_16k_audio: bool = False):
         self.rows = rows
         self.durations = durations
         self.mel = mel
+        self.with_16k_audio = with_16k_audio
 
     @classmethod
     def from_dir(cls, path: str, mel: MelConfig = MelConfig()):
@@ -84,11 +89,13 @@ class ArrowSpeechDataset:
             from f5e_tts_tpu_torch.infer.audio import read_wav
 
             wav, sr = read_wav(audio)
-        if sr != self.mel.target_sample_rate:
-            from f5e_tts_tpu_torch.infer.audio import resample
+        from f5e_tts_tpu_torch.infer.audio import resample
 
-            wav = resample(wav, sr, self.mel.target_sample_rate)
-        return {"audio": wav, "text": text}
+        out = {"text": text}
+        if self.with_16k_audio:
+            out["audio_16k"] = resample(wav, sr, 16_000)
+        out["audio"] = resample(wav, sr, self.mel.target_sample_rate)
+        return out
 
 
 def pack_batches(frame_lens: Sequence[int], frames_threshold: int, max_samples: int = 0,
@@ -150,9 +157,10 @@ def _round_up(x: int, m: int) -> int:
 def collate(items: List[Dict], tokenize, mel: MelConfig, len_multiple: int = 128,
             batch_multiple: int = 1, text_multiple: int = 32) -> Dict[str, np.ndarray]:
     """Pad a packed batch to bucket shapes: {audio (B, T) or mel (B, N, D),
-    mel_lens, text_ids (pad -1), text_lens}. The reference collate
-    (dataset.py:379-418) pads to the exact batch max; lengths here round up
-    to multiples so shapes repeat across batches."""
+    mel_lens, text_ids (pad -1), text_lens}, and with 16 kHz items
+    audio_16k (B, T16, padded to 100 ms multiples) and audio_16k_lens. The
+    reference collate (dataset.py:379-418) pads to the exact batch max;
+    lengths here round up to multiples so shapes repeat across batches."""
     texts = [it["text"] for it in items]
     ids = tokenize(texts)  # (B, NT) pad -1
     text_lens = np.asarray([int((row >= 0).sum()) for row in ids], np.int32)
@@ -179,6 +187,16 @@ def collate(items: List[Dict], tokenize, mel: MelConfig, len_multiple: int = 128
         for i, it in enumerate(items):
             wavs[i, : min(len(it["audio"]), t)] = it["audio"][:t]
         out["audio"] = wavs
+
+    if "audio_16k" in items[0]:
+        lens16 = np.asarray([len(it["audio_16k"]) for it in items], np.int64)
+        a16 = np.zeros((b, _round_up(int(lens16.max()), 16_000 // 10)), np.float32)
+        for i, it in enumerate(items):
+            a16[i, : len(it["audio_16k"])] = it["audio_16k"]
+        out["audio_16k"] = a16
+        lens16_p = np.zeros((b,), np.int32)
+        lens16_p[: len(items)] = lens16
+        out["audio_16k_lens"] = lens16_p
 
     mel_lens_p = np.zeros((b,), np.int32)
     mel_lens_p[: len(items)] = np.minimum(mel_lens, n)

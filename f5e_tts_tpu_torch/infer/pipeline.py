@@ -7,10 +7,10 @@ bucket, then one vocoder decode. With a vocoder that decodes on the card
 sampler output is sliced there (`slice_gen`) and decoded. A captured
 sampler engine (`utils/aot.py`) replays the ODE loop of a matching request
 as one CUDA graph. `synthesize_chunk(mode="tts")` runs the dual-alpha TTS
-sampler (`cfm.sample_tts`). (reference: src/f5_tts/infer/utils_infer.py:367-556)
+sampler (`cfm.sample_tts`), `mode="vc"` the voice-conversion sampler over a
+PPG (`cfm.sample_vc`). (reference: src/f5_tts/infer/utils_infer.py:367-556)
 
-Not ported yet: the dynamic batcher and the `vc` sampler mode (it needs the
-PPG path).
+Not ported yet: the dynamic batcher.
 """
 
 from __future__ import annotations
@@ -188,6 +188,7 @@ class TTSEngine:
     params: dict
     arch: object  # DiTConfig, UNetTConfig or MMDiTConfig (models/backbone.py dispatches)
     vocab: Optional[dict]
+    state: dict = field(default_factory=dict)  # a PPG DiT's BatchNorm running statistics
     mel: MelConfig = field(default_factory=MelConfig)
     cfm: CFMConfig = field(default_factory=CFMConfig)
     infer_cfg: InferConfig = field(default_factory=InferConfig)
@@ -235,22 +236,23 @@ class TTSEngine:
                          seed: int = 0, nfe_steps: Optional[int] = None,
                          cfg_strength: Optional[float] = None, sway: Optional[float] = None,
                          mode: str = "tts_cfg", alpha_spk: float = 1.0, alpha_txt: float = 1.0,
+                         alpha_ppg: float = 1.0, ppg: Optional[np.ndarray] = None,
                          timesteps: Optional[Sequence[float]] = None, device_out: bool = False):
         """One sampler run on a static bucket -> generated mel (frames, mel).
         ref_mel is (1, ref_frames, mel). `timesteps` is an explicit ODE grid
         (e.g. `pruned_sway_timesteps`) that overrides nfe and sway. `mode`
         "tts" runs the dual-alpha sampler with `alpha_spk` / `alpha_txt` in
-        place of `cfg_strength`; "cfg" and "tts_cfg" run plain CFG; "vc" needs
-        the PPG path and raises. A captured engine for this configuration is
-        replayed when one matches (plain CFG at the engine's default sway),
-        else the sampler runs eagerly; the noise comes from `seed` either way.
+        place of `cfg_strength`; "vc" the voice-conversion sampler with
+        `alpha_spk` / `alpha_ppg` over `ppg` (1, NP, ppg_dim), the text
+        dropped; "cfg" and "tts_cfg" run plain CFG. A PPG model reads `ppg`
+        in every mode (zeros when None). A captured engine for this
+        configuration is replayed when one matches (plain CFG at the
+        engine's default sway, with no `ppg`, as the JAX engines), else the
+        sampler runs eagerly; the noise comes from `seed` either way.
 
         With `device_out` returns (out (1, bucket, mel) on the device,
         ref_frames, duration) and copies nothing to the host."""
-        if mode == "vc":
-            raise NotImplementedError("the vc sampler mode needs the PPG path, not ported yet "
-                                      "(ROADMAP queue 1 item 6)")
-        if mode not in ("cfg", "tts_cfg", "tts"):
+        if mode not in ("cfg", "tts_cfg", "tts", "vc"):
             raise ValueError(f"unknown sampler mode {mode!r}")
         icfg = self.infer_cfg
         nfe = nfe_steps if nfe_steps is not None else icfg.nfe_steps
@@ -273,25 +275,26 @@ class TTSEngine:
         inputs = fcfm.prepare_inputs(
             torch.as_tensor(np.asarray(ref_mel, np.float32), device=dev),
             torch.tensor([ref_frames], device=dev), torch.tensor([duration], device=dev),
-            bucket, text_ids=torch.as_tensor(padded, device=dev))
+            bucket, text_ids=torch.as_tensor(padded, device=dev),
+            ppg=None if ppg is None else torch.as_tensor(np.asarray(ppg, np.float32), device=dev))
         gen = torch.Generator(device=dev).manual_seed(seed)
         engine = None
-        if mode != "tts" and sway == icfg.sway_sampling_coef:
+        if mode not in ("tts", "vc") and ppg is None and sway == icfg.sway_sampling_coef:
             engine = self._aot_sampler(nfe, bucket, timesteps=timesteps,
                                        cfg_strength=None if cfg == icfg.cfg_strength else cfg)
+        kw = dict(steps=nfe, sway_coef=sway, generator=gen, timesteps=timesteps,
+                  compute_dtype=self.compute_dtype, device=dev, state=self.state)
         if engine is not None:
             out = engine.sample(inputs, fcfm.noise_like(gen, 1, bucket, inputs.cond.shape[-1],
                                                         inputs.duration))
         elif mode == "tts":
-            out, _ = fcfm.sample_tts(self.params, self.arch, self.cfm, inputs, steps=nfe,
-                                     alpha_spk=alpha_spk, alpha_txt=alpha_txt, sway_coef=sway,
-                                     generator=gen, timesteps=timesteps,
-                                     compute_dtype=self.compute_dtype, device=dev)
+            out, _ = fcfm.sample_tts(self.params, self.arch, self.cfm, inputs,
+                                     alpha_spk=alpha_spk, alpha_txt=alpha_txt, **kw)
+        elif mode == "vc":
+            out, _ = fcfm.sample_vc(self.params, self.arch, self.cfm, inputs,
+                                    alpha_spk=alpha_spk, alpha_ppg=alpha_ppg, **kw)
         else:
-            out, _ = fcfm.sample(self.params, self.arch, self.cfm, inputs, steps=nfe,
-                                 cfg_strength=cfg, sway_coef=sway, generator=gen,
-                                 timesteps=timesteps, compute_dtype=self.compute_dtype,
-                                 device=dev)
+            out, _ = fcfm.sample(self.params, self.arch, self.cfm, inputs, cfg_strength=cfg, **kw)
         if device_out:
             return out, ref_frames, duration
         return out[0, ref_frames:duration].float().cpu().numpy()

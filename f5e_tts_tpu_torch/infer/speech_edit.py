@@ -130,5 +130,5 @@ def edit_speech(engine, wav: np.ndarray, sr: int, orig_text: str, target_text: s
         generator = torch.Generator(device=dev).manual_seed(seed)
     out, _ = fcfm.sample(engine.params, engine.arch, engine.cfm, inputs, steps=nfe,
                          cfg_strength=cfg, sway_coef=sway, generator=generator, y0=y0,
-                         compute_dtype=engine.compute_dtype, device=dev)
+                         compute_dtype=engine.compute_dtype, device=dev, state=engine.state)
     return engine.decode_mel(out[0, :n_frames]), sr

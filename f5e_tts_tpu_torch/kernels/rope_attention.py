@@ -167,15 +167,26 @@ def rope_attention_bwd(q, k, v, kv_lens, cos, sin, g, rope_heads: int, out=None,
 class RopeAttention(torch.autograd.Function):
     """Differentiable RoPE attention: K1 forward, K4 backward (their plain
     versions for CPU tensors). Saves what the TPU custom_vjp saves (q, k, v,
-    kv_lens, cos, sin) plus, on the card, K1's output and row statistics."""
+    kv_lens, cos, sin) plus, on the card, K1's output and row statistics.
+
+    `kept`, a dict of a checkpointed block (models/dit.py, remat policies
+    save_attn and save_attn_ff), holds the first forward's output and
+    statistics under "attn_out"; the recompute takes them from there and
+    launches no kernel. They are fresh tensors of that call, never the
+    kernels' scratch (`prep_scratch` allocates per call)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_lens, cos, sin, rope_heads: int):
+    def forward(ctx, q, k, v, kv_lens, cos, sin, rope_heads: int, kept=None):
         need = any(ctx.needs_input_grad[:3])
-        if need and q.is_cuda:
+        if kept is not None and "attn_out" in kept:
+            out, stats = kept["attn_out"]
+            out = out.detach()
+        elif need and q.is_cuda:
             out, stats = rope_attention(q, k, v, kv_lens, cos, sin, rope_heads, return_stats=True)
         else:
             out, stats = rope_attention(q, k, v, kv_lens, cos, sin, rope_heads), None
+        if kept is not None:
+            kept.setdefault("attn_out", (out.detach(), stats))
         ctx.rope_heads = rope_heads
         if need:
             ctx.save_for_backward(q, k, v, kv_lens, cos, sin, out, *(stats or ()))
@@ -186,4 +197,4 @@ class RopeAttention(torch.autograd.Function):
         q, k, v, kv_lens, cos, sin, out, *stats = ctx.saved_tensors
         dq, dk, dv = rope_attention_bwd(q, k, v, kv_lens, cos, sin, g, ctx.rope_heads, out,
                                         tuple(stats) or None)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None

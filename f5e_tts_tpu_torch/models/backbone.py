@@ -23,8 +23,10 @@ def backbone_kind(arch) -> str:
     raise TypeError(f"unknown arch config {type(arch)}")
 
 
-def init_backbone(arch, vocab_size: int, generator: torch.Generator, device="cpu") -> dict:
-    """fp32 parameters of the backbone from `generator` (backbone.py:28-34)."""
+def init_backbone(arch, vocab_size: int, generator: torch.Generator, device="cpu"):
+    """fp32 parameters of the backbone from `generator` (backbone.py:28-34);
+    (params, state) for a PPG DiT, whose state is its BatchNorms' running
+    statistics (see `split_state`)."""
     kind = backbone_kind(arch)
     if kind == "dit":
         return fdit.init_dit(arch, vocab_size, generator, device)
@@ -54,6 +56,24 @@ def uses_ppg(arch) -> bool:
     return isinstance(arch, DiTConfig) and arch.ppg.use_ppg
 
 
+def split_state(arch, made) -> tuple:
+    """(params, state) of what `init_backbone` or a reference loader made for
+    `arch`: a PPG DiT's pair as it is, the params of any other backbone with
+    an empty state."""
+    return made if uses_ppg(arch) else (made, {})
+
+
+def precompute_ppg_embed(params, state, arch, ppg, batch: int, seq_len: int, drop_ppg,
+                         compute_dtype=torch.bfloat16):
+    """Time-independent PPG embedding of a PPG DiT in eval mode (the
+    BatchNorms' running statistics), (B, N, text_dim); None for any other
+    backbone."""
+    if not uses_ppg(arch):
+        return None
+    return fdit.ppg_embed_fn(params, state, arch, ppg, batch, seq_len, drop_ppg,
+                             compute_dtype=compute_dtype)[0]
+
+
 def precompute_text_embed(params, arch, text_ids, batch: int, seq_len: int, drop_text,
                           compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Time-independent text embedding (the reference's per-ODE text cache):
@@ -70,13 +90,14 @@ def precompute_text_embed(params, arch, text_ids, batch: int, seq_len: int, drop
 
 
 def sample_step(params, arch, *, x, cond, text_embed, time, drop_audio_cond, mask=None,
-                compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """One time-dependent forward with precomputed conditioning."""
+                compute_dtype=torch.bfloat16, ppg_embed=None) -> torch.Tensor:
+    """One time-dependent forward with precomputed conditioning (a PPG
+    DiT's `ppg_embed` too)."""
     kind = backbone_kind(arch)
     if kind == "dit":
         return fdit.dit_sample_step(params, arch, x=x, cond=cond, text_embed=text_embed,
                                     time=time, drop_audio_cond=drop_audio_cond, mask=mask,
-                                    compute_dtype=compute_dtype)
+                                    compute_dtype=compute_dtype, ppg_embed=ppg_embed)
     if kind == "unett":
         return funett.unett_forward(params, arch, x=x, cond=cond, text_ids=None, time=time,
                                     drop_audio_cond=drop_audio_cond, drop_text=None, mask=mask,
@@ -88,20 +109,31 @@ def sample_step(params, arch, *, x, cond, text_embed, time, drop_audio_cond, mas
 
 def forward_train(params, arch, *, x, cond, text_ids, time, drop_audio_cond, drop_text,
                   mask=None, training: bool = False, generator=None,
-                  compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Full training forward (backbone.py:69-90): the predicted flow. The
-    UNetT and MMDiT forwards have no dropout, so `training` and `generator`
-    reach only the DiT."""
+                  compute_dtype=torch.bfloat16, return_extras: bool = False, state=None,
+                  **dit_kw):
+    """Full training forward (backbone.py:69-90): the predicted flow, or
+    with `return_extras` (pred, DiTExtras). The UNetT and MMDiT forwards
+    have no dropout, state or extra losses, so `training`, `generator`,
+    `state` and the DiT's PPG / codebook keywords (`dit_kw`: ppg, drop_ppg,
+    text_len, ppg_len, vq_temperature, draws) reach only the DiT; the
+    others' extras are zero losses and `state` as given."""
     kind = backbone_kind(arch)
     if kind == "dit":
         return fdit.dit_forward(params, arch, x=x, cond=cond, text_ids=text_ids, time=time,
                                 drop_audio_cond=drop_audio_cond, drop_text=drop_text, mask=mask,
                                 training=training, generator=generator,
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype, state=state,
+                                return_extras=return_extras, **dit_kw)
     if kind == "unett":
-        return funett.unett_forward(params, arch, x=x, cond=cond, text_ids=text_ids, time=time,
+        pred = funett.unett_forward(params, arch, x=x, cond=cond, text_ids=text_ids, time=time,
                                     drop_audio_cond=drop_audio_cond, drop_text=drop_text,
                                     mask=mask, compute_dtype=compute_dtype)
-    return fmmdit.mmdit_forward(params, arch, x=x, cond=cond, text_ids=text_ids, time=time,
-                                drop_audio_cond=drop_audio_cond, drop_text=drop_text, mask=mask,
-                                compute_dtype=compute_dtype)
+    else:
+        pred = fmmdit.mmdit_forward(params, arch, x=x, cond=cond, text_ids=text_ids, time=time,
+                                    drop_audio_cond=drop_audio_cond, drop_text=drop_text,
+                                    mask=mask, compute_dtype=compute_dtype)
+    if not return_extras:
+        return pred
+    zero = torch.zeros((), device=pred.device)
+    return pred, fdit.DiTExtras(extra_loss=zero, new_state=state or {}, align_loss=zero,
+                                perplex_loss=zero)

@@ -2,12 +2,13 @@
 the sampler and the training loss `cfm_loss`.
 
 The ODE over the sway-sampled grid (or an explicit one, e.g. an EPSS-pruned
-grid) is a Python loop; the CFG branches (cond and audio+text dropped for
-`sample`; null, text and speaker+text for the dual-alpha `sample_tts`) are
-folded into one (K*B)-batch backbone call per step with per-sample drop
-flags; the text embeddings are computed once, before the loop
-(`fold_inputs`), so the loop itself (`folded_step_fn` under `_ode_scan`)
-holds no host work and can be captured as a CUDA graph (utils/aot.py).
+grid) is a Python loop; the CFG branches (cond and everything dropped for
+`sample`; null, text and speaker+text for the dual-alpha `sample_tts`; null,
+PPG and speaker+PPG for the voice-conversion `sample_vc`) are folded into
+one (K*B)-batch backbone call per step with per-sample drop flags; the text
+and PPG embeddings are computed once, before the loop (`fold_inputs`), so
+the loop itself (`folded_step_fn` under `_ode_scan`) holds no host work and
+can be captured as a CUDA graph (utils/aot.py).
 
 reference: src/f5_tts/model/cfm.py:348-482 (CFM.sample).
 """
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 
 from f5e_tts_tpu_torch.config import CFMConfig
 from f5e_tts_tpu_torch.models import backbone as fbb
+from f5e_tts_tpu_torch.models import dit as fdit
 from f5e_tts_tpu_torch.utils.device import resolve_device
 from f5e_tts_tpu_torch.utils.masks import lens_to_mask, mask_from_frac_lengths
 
@@ -91,16 +93,19 @@ class SamplerInputs(NamedTuple):
     cond_mask: torch.Tensor  # (B, N) True where the prompt is kept
     duration: torch.Tensor  # (B,) total output frames
     text_ids: Optional[torch.Tensor]  # (B, NT), pad -1, or None
+    ppg: Optional[torch.Tensor] = None  # (B, NP, ppg_dim) or None (a PPG DiT reads zeros)
 
 
 def prepare_inputs(cond: torch.Tensor, lens: torch.Tensor, duration: torch.Tensor,
                    max_duration: int, text_ids: Optional[torch.Tensor] = None,
                    edit_mask: Optional[torch.Tensor] = None,
-                   no_ref_audio: bool = False) -> SamplerInputs:
+                   no_ref_audio: bool = False,
+                   ppg: Optional[torch.Tensor] = None) -> SamplerInputs:
     """Pad cond to the bucket length and build the prompt-keep mask
     (reference: cfm.py:393-428). `edit_mask` (B, <= max_duration), True
     where the prompt is kept, is padded with False and ANDed into the mask
-    (speech editing); `no_ref_audio` zeroes the cond mel."""
+    (speech editing); `no_ref_audio` zeroes the cond mel. `ppg` passes as it
+    is: the PPG embedding pads or truncates it to the bucket."""
     cond_len = cond.shape[1]
     if cond_len < max_duration:
         cond = F.pad(cond, (0, 0, 0, max_duration - cond_len))
@@ -114,26 +119,39 @@ def prepare_inputs(cond: torch.Tensor, lens: torch.Tensor, duration: torch.Tenso
         cond = torch.zeros_like(cond)
     step_cond = cond.masked_fill(~cond_mask[:, :, None], 0.0)
     return SamplerInputs(cond=step_cond, cond_mask=cond_mask, duration=duration,
-                         text_ids=text_ids)
+                         text_ids=text_ids, ppg=ppg)
+
+
+def _branch(audio: bool, text: bool, ppg: bool) -> dict:
+    return dict(drop_audio=audio, drop_text=text, drop_ppg=ppg)
 
 
 def cfg_branches(cfg_strength: float):
     """(branches, weights) of the plain CFG sampler: (1 + cfg) * cond_flow -
-    cfg * null_flow, or the cond branch alone when cfg < 1e-5."""
+    cfg * null_flow (the null branch drops audio, text and PPG), or the cond
+    branch alone when cfg < 1e-5."""
     if cfg_strength < 1e-5:
-        return [dict(drop_audio=False, drop_text=False)], [1.0]
-    return ([dict(drop_audio=False, drop_text=False), dict(drop_audio=True, drop_text=True)],
+        return [_branch(False, False, False)], [1.0]
+    return ([_branch(False, False, False), _branch(True, True, True)],
             [1.0 + cfg_strength, -cfg_strength])
 
 
 def tts_branches(alpha_spk: float, alpha_txt: float):
     """(branches, weights) of the dual-alpha TTS sampler: the null, text and
-    speaker+text branches, flow = a_spk (spk_txt - txt) + a_txt (txt - null)
-    + null, i.e. weights [1 - a_txt, a_txt - a_spk, a_spk] (reference:
-    f5e_tts_tpu cfm.py:304-312)."""
-    return ([dict(drop_audio=True, drop_text=True), dict(drop_audio=True, drop_text=False),
-             dict(drop_audio=False, drop_text=False)],
+    speaker+text branches, all with the PPG dropped, flow = a_spk (spk_txt -
+    txt) + a_txt (txt - null) + null, i.e. weights [1 - a_txt, a_txt -
+    a_spk, a_spk] (reference: f5e_tts_tpu cfm.py:304-312)."""
+    return ([_branch(True, True, True), _branch(True, False, True), _branch(False, False, True)],
             [1.0 - alpha_txt, alpha_txt - alpha_spk, alpha_spk])
+
+
+def vc_branches(alpha_spk: float, alpha_ppg: float):
+    """(branches, weights) of the voice-conversion sampler: the null, PPG and
+    speaker+PPG branches, all with the text dropped, flow = a_spk (spk_ppg -
+    ppg) + a_ppg (ppg - null) + null, i.e. weights [1 - a_ppg, a_ppg -
+    a_spk, a_spk] (reference: f5e_tts_tpu cfm.py:330-373)."""
+    return ([_branch(True, True, True), _branch(True, True, False), _branch(False, True, False)],
+            [1.0 - alpha_ppg, alpha_ppg - alpha_spk, alpha_spk])
 
 
 class FoldedInputs(NamedTuple):
@@ -145,29 +163,37 @@ class FoldedInputs(NamedTuple):
     drop_audio: torch.Tensor  # (K*B,) bool
     mask: torch.Tensor  # (K*B, N) bool, True inside each sample's duration
     weights: torch.Tensor  # (K,) fp32 branch weights
+    ppg_embed: Optional[torch.Tensor] = None  # (K*B, N, text_dim) of a PPG DiT, else None
 
 
 def fold_inputs(params, arch, inputs: SamplerInputs, branches: Sequence[dict],
-                weights: Sequence[float], compute_dtype) -> FoldedInputs:
-    """Text embeddings of every branch (once a request), the repeated cond
-    and mask, the drop flags and the weights. Runs eagerly: it copies the
-    weights from the host. The folded text embedding is (K*B, N, D) for the
-    DiT and the UNetT and (K*B, Nt, D) for the MMDiT, whose dropped branch
-    keeps the text length."""
+                weights: Sequence[float], compute_dtype, state=None) -> FoldedInputs:
+    """Text (and a PPG DiT's PPG) embeddings of every branch (once a
+    request), the repeated cond and mask, the drop flags and the weights.
+    Runs eagerly: it copies the weights from the host. The folded text
+    embedding is (K*B, N, D) for the DiT and the UNetT and (K*B, Nt, D) for
+    the MMDiT, whose dropped branch keeps the text length. A PPG DiT's PPG
+    embedding runs its BatchNorms on `state`'s running statistics."""
     b, n, _ = inputs.cond.shape
     k = len(branches)
     device = inputs.cond.device
+
+    def flags(name):
+        return [torch.full((b,), br[name], device=device) for br in branches]
+
     text_embed_k = torch.cat([
-        fbb.precompute_text_embed(params, arch, inputs.text_ids, b, n,
-                                  torch.full((b,), br["drop_text"], device=device),
-                                  compute_dtype)
-        for br in branches])
-    drop_audio_k = torch.cat([torch.full((b,), br["drop_audio"], device=device)
-                              for br in branches])
+        fbb.precompute_text_embed(params, arch, inputs.text_ids, b, n, drop, compute_dtype)
+        for drop in flags("drop_text")])
+    ppg_embed_k = None
+    if fbb.uses_ppg(arch):
+        ppg_embed_k = torch.cat([
+            fbb.precompute_ppg_embed(params, state, arch, inputs.ppg, b, n, drop, compute_dtype)
+            for drop in flags("drop_ppg")])
     return FoldedInputs(text_embed=text_embed_k, cond=inputs.cond.repeat(k, 1, 1),
-                        drop_audio=drop_audio_k,
+                        drop_audio=torch.cat(flags("drop_audio")),
                         mask=lens_to_mask(inputs.duration, n).repeat(k, 1),
-                        weights=torch.tensor(weights, dtype=torch.float32, device=device))
+                        weights=torch.tensor(weights, dtype=torch.float32, device=device),
+                        ppg_embed=ppg_embed_k)
 
 
 def folded_step_fn(params, arch, folded: FoldedInputs, compute_dtype) -> Callable:
@@ -183,7 +209,8 @@ def folded_step_fn(params, arch, folded: FoldedInputs, compute_dtype) -> Callabl
             params, arch, x=x.repeat(k, 1, 1).to(compute_dtype), cond=folded.cond,
             text_embed=folded.text_embed,
             time=torch.full((k * b,), t, dtype=torch.float32, device=device),
-            drop_audio_cond=folded.drop_audio, mask=folded.mask, compute_dtype=compute_dtype)
+            drop_audio_cond=folded.drop_audio, mask=folded.mask, compute_dtype=compute_dtype,
+            ppg_embed=folded.ppg_embed)
         return torch.einsum("k,kbnd->bnd", folded.weights, pred.reshape(k, b, n, -1))
 
     return step_fn
@@ -193,47 +220,66 @@ def sample(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
            steps: int = 32, cfg_strength: float = 2.0, sway_coef: Optional[float] = -1.0,
            generator: Optional[torch.Generator] = None, y0: Optional[torch.Tensor] = None,
            timesteps: Optional[Sequence[float]] = None,
-           compute_dtype: torch.dtype = torch.bfloat16, device="cuda"):
+           compute_dtype: torch.dtype = torch.bfloat16, device="cuda", state=None):
     """2-branch CFG sampler: (1 + cfg) * cond_flow - cfg * null_flow; a single
     branch when cfg < 1e-5. The ODE runs over `timesteps` when given (an
     explicit grid such as `pruned_sway_timesteps`; it overrides `steps` and
     `sway_coef`, NFE = len - 1), else over the `steps`-step sway grid. The
-    noise is `y0` when given, else drawn from `generator`. Returns (out,
-    trajectory); the prompt frames of `out` are the conditioning mel
-    (reference: cfm.py:476)."""
+    noise is `y0` when given, else drawn from `generator`. `state` is a PPG
+    DiT's BatchNorm state. Returns (out, trajectory); the prompt frames of
+    `out` are the conditioning mel (reference: cfm.py:476)."""
     return _sample_branches(params, arch, cfm, inputs, *cfg_branches(cfg_strength), steps=steps,
                             sway_coef=sway_coef, generator=generator, y0=y0,
-                            timesteps=timesteps, compute_dtype=compute_dtype, device=device)
+                            timesteps=timesteps, compute_dtype=compute_dtype, device=device,
+                            state=state)
 
 
 def sample_tts(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
                steps: int = 32, alpha_spk: float = 1.0, alpha_txt: float = 1.0,
                sway_coef: Optional[float] = None, generator: Optional[torch.Generator] = None,
                y0: Optional[torch.Tensor] = None, timesteps: Optional[Sequence[float]] = None,
-               compute_dtype: torch.dtype = torch.bfloat16, device="cuda"):
+               compute_dtype: torch.dtype = torch.bfloat16, device="cuda", state=None):
     """MegaTTS3-style dual-alpha TTS CFG: the null, text and speaker+text
     branches folded into one (3B) batch a step (`tts_branches`). Noise,
     grid and output as `sample` (reference: f5e_tts_tpu cfm.py:285-327,
     whose sway defaults to None, a plain linspace grid)."""
     return _sample_branches(params, arch, cfm, inputs, *tts_branches(alpha_spk, alpha_txt),
                             steps=steps, sway_coef=sway_coef, generator=generator, y0=y0,
-                            timesteps=timesteps, compute_dtype=compute_dtype, device=device)
+                            timesteps=timesteps, compute_dtype=compute_dtype, device=device,
+                            state=state)
+
+
+def sample_vc(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
+              steps: int = 32, alpha_spk: float = 1.0, alpha_ppg: float = 1.0,
+              sway_coef: Optional[float] = None, generator: Optional[torch.Generator] = None,
+              y0: Optional[torch.Tensor] = None, timesteps: Optional[Sequence[float]] = None,
+              compute_dtype: torch.dtype = torch.bfloat16, device="cuda", state=None):
+    """Voice-conversion CFG over the PPG, the text dropped in every branch:
+    the null, PPG and speaker+PPG branches folded into one (3B) batch a step
+    (`vc_branches`). Needs a PPG DiT and its `state`. Noise, grid and output
+    as `sample` (reference: f5e_tts_tpu cfm.py:330-373)."""
+    if not fbb.uses_ppg(arch):
+        raise ValueError("sample_vc needs a PPG DiT (arch.ppg.use_ppg)")
+    return _sample_branches(params, arch, cfm, inputs, *vc_branches(alpha_spk, alpha_ppg),
+                            steps=steps, sway_coef=sway_coef, generator=generator, y0=y0,
+                            timesteps=timesteps, compute_dtype=compute_dtype, device=device,
+                            state=state)
 
 
 def _sample_branches(params, arch, cfm: CFMConfig, inputs: SamplerInputs, branches, weights, *,
-                     steps, sway_coef, generator, y0, timesteps, compute_dtype, device):
+                     steps, sway_coef, generator, y0, timesteps, compute_dtype, device, state):
     """The ODE over the flow sum_k weights[k] * flow_k of the folded
     branches; returns (out, trajectory) as `sample` does."""
-    if fbb.uses_ppg(arch):
-        raise NotImplementedError("PPG conditioning is not ported yet (ROADMAP queue 1 item 6)")
     dev = resolve_device(device)
     param_dev = params["proj_out"]["w"].device
     if param_dev.type != dev.type:
         raise ValueError(f"params are on {param_dev}, sampling on {dev}")
+    if fbb.uses_ppg(arch) and not state:
+        raise ValueError("a PPG DiT samples with its BatchNorm state (state=)")
     inputs = SamplerInputs(*(None if t is None else t.to(dev) for t in inputs))
     b, n, mel_dim = inputs.cond.shape
-    step_fn = folded_step_fn(params, arch, fold_inputs(params, arch, inputs, branches, weights,
-                                                       compute_dtype), compute_dtype)
+    folded = fold_inputs(params, arch, inputs, branches, weights, compute_dtype, state)
+    step_fn = folded_step_fn(params, arch, folded, compute_dtype)
 
     if y0 is None:
         if generator is None:
@@ -253,41 +299,73 @@ def _sample_branches(params, arch, cfm: CFMConfig, inputs: SamplerInputs, branch
 
 
 class CFMLossOut(NamedTuple):
-    loss: torch.Tensor  # fp32 scalar
-    flow_loss: torch.Tensor  # fp32 scalar (equal to loss: no extra losses are ported)
+    loss: torch.Tensor  # fp32 scalar: flow_loss + extra_loss
+    flow_loss: torch.Tensor  # fp32 scalar
     cond: torch.Tensor  # (B, N, mel) the masked conditioning mel
     pred: torch.Tensor  # (B, N, mel) fp32 predicted flow
+    extra_loss: Optional[torch.Tensor] = None  # () the codebook losses (0 without a codebook)
+    new_state: Optional[dict] = None  # a PPG DiT's BatchNorm state after the step, else {}
+    align_loss: Optional[torch.Tensor] = None  # ()
+    perplex_loss: Optional[torch.Tensor] = None  # ()
 
 
 class LossDraws(NamedTuple):
     """The random draws of one `cfm_loss` call. Fields left None are drawn
-    from the call's generator; tests hand over draws made from a JAX key."""
+    from the call's generator; tests hand over draws made from a JAX key.
+    The fields after u2 are the PPG DiT's (see `dit.DiTDraws`)."""
 
     frac: Optional[torch.Tensor] = None  # (B,) span fraction in [frac_lo, frac_hi)
     span: Optional[torch.Tensor] = None  # (B,) U[0, 1) placing each span's start
     x0: Optional[torch.Tensor] = None  # (B, N, mel) standard normal noise
     time: Optional[torch.Tensor] = None  # (B,) U[0, 1) flow time
     u1: Optional[torch.Tensor] = None  # () U[0, 1): audio drop when < audio_drop_prob
-    u2: Optional[torch.Tensor] = None  # () U[0, 1): drop all when < cond_drop_prob
+    u2: Optional[torch.Tensor] = None  # () U[0, 1): the drop table's cell
+    ppg_keep: Optional[Sequence[torch.Tensor]] = None  # 3 x (B, N, ppg_dim) PPG dropout keeps
+    gumbel_text: Optional[torch.Tensor] = None  # (B * N * groups, num_vars) U[1e-10, 1)
+    gumbel_ppg: Optional[torch.Tensor] = None
+    perm_text: Optional[torch.Tensor] = None  # (N,) permutations of the perplexity loss
+    perm_ppg: Optional[torch.Tensor] = None
+    cross_apply: Optional[torch.Tensor] = None  # () U[0, 1) of the cross mask
+    cross_ratio: Optional[torch.Tensor] = None  # (B,)
+    cross_start: Optional[torch.Tensor] = None  # (B,)
+
+
+def drop_flags(arch, cfm: CFMConfig, u1: torch.Tensor, u2: torch.Tensor):
+    """The batch-shared condition drops (drop_audio, drop_text, drop_ppg) as
+    0-d bool tensors (reference: cfm.py:549-569). Audio drops when u1 <
+    audio_drop_prob. Without PPG, u2 < cond_drop_prob drops text and audio
+    (and the PPG, which there is none of). With PPG, u2 picks a cell of
+    combined_cond_drop_prob = (keep both, drop the text, drop the PPG, drop
+    everything)."""
+    drop_audio = u1 < cfm.audio_drop_prob
+    if fbb.uses_ppg(arch):
+        p = arch.ppg.combined_cond_drop_prob
+        c1, c2, c3 = p[0], p[0] + p[1], p[0] + p[1] + p[2]
+        drop_text = ((u2 >= c1) & (u2 < c2)) | (u2 >= c3)
+        return drop_audio | (u2 >= c3), drop_text, u2 >= c2
+    drop_all = u2 < cfm.cond_drop_prob
+    return drop_audio | drop_all, drop_all, torch.ones_like(drop_all)
 
 
 def cfm_loss(params, arch, cfm: CFMConfig, *, mel: torch.Tensor,
              mel_lens: torch.Tensor, text_ids: Optional[torch.Tensor],
              generator: Optional[torch.Generator] = None, draws: Optional[LossDraws] = None,
-             training: bool = True, compute_dtype=torch.bfloat16) -> CFMLossOut:
+             training: bool = True, compute_dtype=torch.bfloat16, state=None,
+             text_lens: Optional[torch.Tensor] = None, ppg: Optional[torch.Tensor] = None,
+             ppg_lens: Optional[torch.Tensor] = None, vq_temperature: float = 2.0) -> CFMLossOut:
     """Flow-matching infilling loss (reference: cfm.py:484-590, CFM.forward).
 
     One random span per sample covering frac (70-100 %) of its valid frames
     is hidden from the conditioning; x_t = (1 - t) x0 + t x1; the
-    condition-drop decision is one draw for the whole batch (audio drop with
-    p = audio_drop_prob, everything dropped with p = cond_drop_prob); the
-    loss is the MSE of the predicted flow x1 - x0 over the span only. As the
-    reference, training passes no attention mask, so every key is valid,
-    padding included. Draws missing from `draws` come from `generator`, as
-    does the trunk's dropout.
+    condition-drop decision is one draw for the whole batch (`drop_flags`);
+    the flow loss is the MSE of the predicted flow x1 - x0 over the span
+    only, and the loss adds the backbone's extra (codebook) losses. A PPG
+    DiT takes its BatchNorm `state`, the PPG and the lengths (`text_lens`,
+    `ppg_lens`: the codebook branch's); `new_state` is the state after the
+    step. As the reference, training passes no attention mask, so every key
+    is valid, padding included. Draws missing from `draws` come from
+    `generator`, as does the trunk's dropout.
     """
-    if fbb.uses_ppg(arch):
-        raise NotImplementedError("PPG conditioning is not ported yet")
     b, n, mel_dim = mel.shape
     dev = mel.device
     d = draws or LossDraws()
@@ -311,14 +389,21 @@ def cfm_loss(params, arch, cfm: CFMConfig, *, mel: torch.Tensor,
     flow = x1 - x0
     cond = x1.masked_fill(span[:, :, None], 0.0)
 
-    drop_all = uniform(d.u2, ()) < cfm.cond_drop_prob
-    drop_audio = (uniform(d.u1, ()) < cfm.audio_drop_prob) | drop_all
-    pred = fbb.forward_train(
+    drop_audio, drop_text, drop_ppg = drop_flags(arch, cfm, uniform(d.u1, ()), uniform(d.u2, ()))
+    dit_kw = {}
+    if fbb.uses_ppg(arch):
+        dit_kw = dict(ppg=ppg, drop_ppg=drop_ppg.expand(b), text_len=text_lens, ppg_len=ppg_lens,
+                      vq_temperature=vq_temperature,
+                      draws=fdit.DiTDraws(**{f: getattr(d, f) for f in fdit.DiTDraws._fields}))
+    pred, extras = fbb.forward_train(
         params, arch, x=phi.to(compute_dtype), cond=cond.to(compute_dtype), text_ids=text_ids,
-        time=time, drop_audio_cond=drop_audio.expand(b), drop_text=drop_all.expand(b),
-        mask=None, training=training, generator=generator, compute_dtype=compute_dtype)
+        time=time, drop_audio_cond=drop_audio.expand(b), drop_text=drop_text.expand(b),
+        mask=None, training=training, generator=generator, compute_dtype=compute_dtype,
+        return_extras=True, state=state, **dit_kw)
 
     se = (pred.float() - flow).square()
     w = span[:, :, None].float()
     flow_loss = (se * w).sum() / torch.clamp(w.sum() * mel_dim, min=1.0)
-    return CFMLossOut(loss=flow_loss, flow_loss=flow_loss, cond=cond, pred=pred)
+    return CFMLossOut(loss=flow_loss + extras.extra_loss, flow_loss=flow_loss, cond=cond,
+                      pred=pred, extra_loss=extras.extra_loss, new_state=extras.new_state,
+                      align_loss=extras.align_loss, perplex_loss=extras.perplex_loss)

@@ -44,12 +44,15 @@ def attention(
     pe_attn_head: Optional[int] = None,
     qk_norm: Optional[str] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
+    kept: Optional[dict] = None,
 ) -> torch.Tensor:
     """Self-attention matching the reference AttnProcessor, (B, N, D) out.
 
     p: {to_qkv | to_q, to_k, to_v; to_out; [q_norm, k_norm]}. q/k/v stay
     column slices of the fused projection; the kernel reads them through
-    their row stride.
+    their row stride. `kept` (a checkpointed DiT block's, RoPE only) keeps
+    the kernel's output from the first forward for the recompute (see
+    `RopeAttention`).
     """
     _check_qk_norm(qk_norm)
     b, n, _ = x.shape
@@ -68,7 +71,7 @@ def attention(
         kv_lens = torch.full((b,), n, dtype=torch.int32, device=x.device)
     if rope_cos is not None:
         rope_heads = pe_attn_head if pe_attn_head is not None else heads
-        o = RopeAttention.apply(q, k, v, kv_lens, rope_cos[:n], rope_sin[:n], rope_heads)
+        o = RopeAttention.apply(q, k, v, kv_lens, rope_cos[:n], rope_sin[:n], rope_heads, kept)
     else:
         o = MaskedAttention.apply(q, k, v, kv_lens)
     o = fnn.linear(p["to_out"], o.reshape(b, n, heads * dh), compute_dtype)

@@ -120,13 +120,49 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * p["g"].float()).to(x.dtype)
 
 
+def batchnorm_init(dim: int, device="cpu"):
+    """BatchNorm1d (params, running state): gain 1, bias 0; mean 0, var 1 and
+    the update count (torch's defaults, as the JAX init)."""
+    return ({"g": torch.ones(dim, device=device), "b": torch.zeros(dim, device=device)},
+            {"mean": torch.zeros(dim, device=device), "var": torch.ones(dim, device=device),
+             "count": torch.zeros((), dtype=torch.int32, device=device)})
+
+
+def batchnorm(p, state, x: torch.Tensor, training: bool, momentum: float = 0.1,
+              eps: float = 1e-5):
+    """BatchNorm over the features of (B, N, D), the statistics pooled over
+    (B, N), padding included: torch.nn.BatchNorm1d on (B, D, N). Returns (y,
+    new_state). Training normalises with the batch's biased variance and moves
+    the running variance with the unbiased one; eval normalises with the
+    running statistics and returns `state` itself. fp32 inside, y in x's
+    dtype; the running statistics stay fp32 and carry no gradient
+    (f5e_tts_tpu ops/nn.py:239-262)."""
+    xf = x.float()
+    if training:
+        mean = xf.mean(dim=(0, 1))
+        var = (xf - mean).square().mean(dim=(0, 1))
+        n = x.shape[0] * x.shape[1]
+        unbiased = var.detach() * n / max(n - 1, 1)
+        new_state = {"mean": (1 - momentum) * state["mean"] + momentum * mean.detach(),
+                     "var": (1 - momentum) * state["var"] + momentum * unbiased,
+                     "count": state["count"] + 1}
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    y = (xf - mean) * torch.rsqrt(var + eps) * p["g"] + p["b"]
+    return y.to(x.dtype), new_state
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """where(keep, x / (1 - rate), 0) with keep ~ Bernoulli(1 - rate) drawn
-    from `generator` (uniform < 1 - rate, as jax.random.bernoulli)."""
+    from `generator` (uniform < 1 - rate, as jax.random.bernoulli), or the
+    given boolean `keep` mask."""
     if not training or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    if keep is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -17,8 +17,9 @@ chain by hand on lists of fp32 master tensors, updated in place:
 Counters: `micro` counts successful micro-steps, `update` counts optimizer
 updates (micro / grad_accumulation), `skipped` counts NaN-skipped
 micro-steps. A micro-step whose loss or gradient norm is not finite leaves
-the params, the optimizer state, the accumulators and the EMA untouched: it
-is checked before anything is updated in place.
+the params, the optimizer state, the accumulators, the model state (a PPG
+DiT's BatchNorm statistics) and the EMA untouched: it is checked before
+anything is updated in place. The EMA covers the params only, as in JAX.
 
 EMA follows ema_pytorch (the reference constructs EMA(model) with defaults,
 trainer.py:104): the n-th optimizer update invokes EMA.update() with the
@@ -31,7 +32,7 @@ clamped to [min_value, beta].
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, List, NamedTuple, Optional
 
 import torch
@@ -186,12 +187,15 @@ class TrainState:
     update: int = 0  # completed optimizer updates
     micro: int = 0  # completed micro-steps
     skipped: int = 0  # NaN-skipped micro-steps
+    model_state: dict = field(default_factory=dict)  # a PPG DiT's BatchNorm running statistics
 
 
-def init_train_state(params: dict, optimizer: AdamW) -> TrainState:
+def init_train_state(params: dict, optimizer: AdamW, model_state: Optional[dict] = None
+                     ) -> TrainState:
     params = tree_map(lambda t: t.detach().float().requires_grad_(True), params)
     ema = tree_map(lambda t: t.detach().clone(), params)
-    return TrainState(params=params, ema_params=ema, opt_state=optimizer.init(tree_leaves(params)))
+    return TrainState(params=params, ema_params=ema, opt_state=optimizer.init(tree_leaves(params)),
+                      model_state=model_state or {})
 
 
 class StepMetrics(NamedTuple):
@@ -199,6 +203,9 @@ class StepMetrics(NamedTuple):
     flow_loss: float
     grad_norm: float
     skipped: int
+    extra_loss: float = 0.0  # the codebook losses, align + perplexity
+    align_loss: float = 0.0
+    perplex_loss: float = 0.0
 
 
 @torch.no_grad()
@@ -217,11 +224,14 @@ def _ema_update_(ts: TrainState, ema: EMASettings) -> None:
 
 def apply_gradients(ts: TrainState, out: fcfm.CFMLossOut, grads: List[torch.Tensor], *,
                     optimizer: AdamW, ema: EMASettings):
-    """The post-backward half of a step: NaN gate, optimizer, counters, EMA.
-    Updates `ts` in place and returns (ts, StepMetrics)."""
+    """The post-backward half of a step: NaN gate, optimizer, counters, model
+    state, EMA. Updates `ts` in place and returns (ts, StepMetrics); the new
+    model state is kept only when the step passes the gate (JAX step.py:140-148)."""
     grad_norm = global_norm(grads)
     ok = bool(torch.isfinite(out.loss) & torch.isfinite(grad_norm))
     if ok:
+        if out.new_state:
+            ts.model_state = out.new_state
         applied = optimizer.update_(ts.opt_state, tree_leaves(ts.params), grads)
         ts.micro += 1
         if applied:
@@ -229,8 +239,11 @@ def apply_gradients(ts: TrainState, out: fcfm.CFMLossOut, grads: List[torch.Tens
             _ema_update_(ts, ema)
     else:
         ts.skipped += 1
+    extra = [0.0 if v is None else float(v.detach())
+             for v in (out.extra_loss, out.align_loss, out.perplex_loss)]
     return ts, StepMetrics(loss=float(out.loss.detach()), flow_loss=float(out.flow_loss.detach()),
-                           grad_norm=float(grad_norm), skipped=int(not ok))
+                           grad_norm=float(grad_norm), skipped=int(not ok), extra_loss=extra[0],
+                           align_loss=extra[1], perplex_loss=extra[2])
 
 
 def backward_and_apply(ts: TrainState, loss_fn: Callable[[dict], fcfm.CFMLossOut], *,
@@ -252,11 +265,14 @@ def train_step(ts: TrainState, batch: dict, *, arch, cfm: CFMConfig,
                optimizer: AdamW, ema: EMASettings = EMASettings(),
                generator: Optional[torch.Generator] = None,
                draws: Optional[fcfm.LossDraws] = None, compute_dtype=torch.bfloat16):
-    """One micro-step on batch {mel (B, N, D), mel_lens, text_ids}; draws not
-    given come from `generator`. Returns (ts, StepMetrics)."""
+    """One micro-step on batch {mel (B, N, D), mel_lens, text_ids[, text_lens,
+    ppg, ppg_lens]}; draws not given come from `generator`. Returns (ts,
+    StepMetrics)."""
     def loss_fn(params):
         return fcfm.cfm_loss(params, arch, cfm, mel=batch["mel"], mel_lens=batch["mel_lens"],
                              text_ids=batch.get("text_ids"), generator=generator, draws=draws,
-                             training=True, compute_dtype=compute_dtype)
+                             training=True, compute_dtype=compute_dtype, state=ts.model_state,
+                             text_lens=batch.get("text_lens"), ppg=batch.get("ppg"),
+                             ppg_lens=batch.get("ppg_lens"))
 
     return backward_and_apply(ts, loss_fn, optimizer=optimizer, ema=ema)

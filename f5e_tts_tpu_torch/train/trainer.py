@@ -4,14 +4,17 @@
 reference: src/f5_tts/model/trainer.py:25-494.
 
 - the log-mel frontend runs on the card inside the step, from the raw audio
-  the loader carries (`loss_with_device_mel`),
+  the loader carries (`loss_with_device_mel`); a PPG model's PPG comes from
+  the batch or, when it has none, from `ppg_extractor` over the batch's 16 kHz
+  audio, on the card (JAX trainer.py:432-443),
 - EMA, grad clip and the NaN skip live in the step (train/step.py),
 - checkpoints: the full train state with torch.save as `model_last.pt` or
   `model_{update}.pt`, a `.meta.json` beside it, and the EMA weights in the
   reference layout under `ema_model.` in the same file (the reference's .pt
   dict {ema_model_state_dict, update}, trainer.py:150-163), so
   `utils/convert.py: load_state_dict` reads the port's checkpoints as it
-  reads the reference's. Rotation keeps the last N numbered checkpoints and
+  reads the reference's (a PPG model's BatchNorm statistics among them,
+  from the model state: the EMA covers the params only). Rotation keeps the last N numbered checkpoints and
   never deletes pretrained_* (trainer.py:166-183); resume prefers model_last
   (trainer.py:185-263),
 - a SIGTERM saves model_last at the next step boundary.
@@ -44,17 +47,24 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def loss_with_device_mel(params, arch, cfm, mel_cfg: MelConfig, batch: dict,
                          generator: Optional[torch.Generator] = None,
                          draws: Optional[fcfm.LossDraws] = None,
-                         compute_dtype=torch.bfloat16, training: bool = True) -> fcfm.CFMLossOut:
+                         compute_dtype=torch.bfloat16, training: bool = True,
+                         state: Optional[dict] = None) -> fcfm.CFMLossOut:
     """cfm_loss, computing the log-mel on the batch's device when the batch
-    carries raw audio (B, T) instead of a mel."""
+    carries raw audio (B, T) instead of a mel; a PPG DiT reads its `state`,
+    the batch's text_lens, ppg and ppg_lens, and the codebook's temp_start
+    (the reference's trainer never decays the temperature)."""
     if "mel" in batch:
         mel = batch["mel"]
     else:
         n = batch["audio"].shape[1] // mel_cfg.hop_length
         mel = mel_spectrogram(batch["audio"], mel_cfg)[:, :n, :]
+    kw = {}
+    if fbb.uses_ppg(arch):
+        kw = dict(state=state, text_lens=batch.get("text_lens"), ppg=batch.get("ppg"),
+                  ppg_lens=batch.get("ppg_lens"), vq_temperature=arch.codebook.temp_start)
     return fcfm.cfm_loss(params, arch, cfm, mel=mel, mel_lens=batch["mel_lens"],
                          text_ids=batch.get("text_ids"), generator=generator, draws=draws,
-                         training=training, compute_dtype=compute_dtype)
+                         training=training, compute_dtype=compute_dtype, **kw)
 
 
 @dataclass
@@ -65,6 +75,7 @@ class Trainer:
     tokenize: Callable
     log_fn: Optional[Callable[[dict, int], None]] = None
     device: object = "cuda"
+    ppg_extractor: object = None  # a frozen PPGExtractor (models/conformer.py) for PPG models
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -85,9 +96,10 @@ class Trainer:
         """Seeded fp32 params, AdamW state and EMA. `train` consumes a state
         armed here instead of re-initing."""
         gen = torch.Generator(device=self.device).manual_seed(rng_seed)
-        params = fbb.init_backbone(self.arch, self.vocab_size, gen, self.device)
+        params, model_state = fbb.split_state(
+            self.arch, fbb.init_backbone(self.arch, self.vocab_size, gen, self.device))
         self.optimizer = fstep.make_optimizer(self.train_cfg, total_updates)
-        ts = fstep.init_train_state(params, self.optimizer)
+        ts = fstep.init_train_state(params, self.optimizer, model_state)
         self._init_ts = ts
         return ts
 
@@ -101,7 +113,7 @@ class Trainer:
         def step(ts, batch, generator, draws=None):
             def loss_fn(params):
                 return loss_with_device_mel(params, arch, cfm, mel_cfg, batch, generator, draws,
-                                            dtype)
+                                            dtype, state=ts.model_state)
 
             return fstep.backward_and_apply(ts, loss_fn, optimizer=optimizer, ema=ema)
 
@@ -124,7 +136,8 @@ class Trainer:
     def save_checkpoint(self, ts: fstep.TrainState, last: bool = False):
         name = "model_last" if last else f"model_{ts.update}"
         cpu = lambda t: t.detach().cpu()  # noqa: E731
-        ema_sd = backbone_to_reference_state_dict(ts.ema_params, self.arch)
+        ema_sd = backbone_to_reference_state_dict(ts.ema_params, self.arch,
+                                                  state=ts.model_state)
         state = {
             "ema_model_state_dict": {f"ema_model.{k}": v for k, v in ema_sd.items()},
             "update": ts.update,
@@ -132,6 +145,7 @@ class Trainer:
                 "params": fstep.tree_map(cpu, ts.params),
                 "ema_params": fstep.tree_map(cpu, ts.ema_params),
                 "opt_state": fstep.tree_map(cpu, ts.opt_state.state_dict()),
+                "model_state": fstep.tree_map(cpu, ts.model_state),
                 "update": ts.update, "micro": ts.micro, "skipped": ts.skipped,
             },
         }
@@ -178,14 +192,25 @@ class Trainer:
                 mu=[dev(t) for t in opt["mu"]], nu=[dev(t) for t in opt["nu"]],
                 count=opt["count"], mini_step=opt["mini_step"],
                 acc=None if opt["acc"] is None else [dev(t) for t in opt["acc"]]),
-            update=st["update"], micro=st["micro"], skipped=st["skipped"])
+            update=st["update"], micro=st["micro"], skipped=st["skipped"],
+            model_state=fstep.tree_map(dev, st.get("model_state", {})))
 
     # ------------------------------------------------------------------
     # loop
     # ------------------------------------------------------------------
 
     def device_batch(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+        """The batch's arrays on the device; a PPG model's batch with no
+        `ppg` gets one from `ppg_extractor` over its `audio_16k` (the dataset's
+        `with_16k_audio`)."""
+        out = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+        if fbb.uses_ppg(self.arch) and "ppg" not in out and self.ppg_extractor is not None:
+            if "audio_16k" not in out:
+                raise ValueError("PPG training needs 16 kHz audio in the batch (build the "
+                                 "dataset with with_16k_audio=True) or a precomputed ppg")
+            out["ppg"], out["ppg_lens"] = self.ppg_extractor.audio_to_ppg(
+                out["audio_16k"], out["audio_16k_lens"])
+        return out
 
     def train(self, loader, epochs: Optional[int] = None, resume: bool = True,
               max_updates: Optional[int] = None):
@@ -235,6 +260,10 @@ class Trainer:
                     ts, metrics = step(ts, self.device_batch(batch), self.step_generator(ts))
                     if self.log_fn is not None:
                         self.log_fn({"loss": metrics.loss, "grad_norm": metrics.grad_norm,
+                                     "flow_loss": metrics.flow_loss,
+                                     "extra_loss": metrics.extra_loss,
+                                     "align_loss": metrics.align_loss,
+                                     "perplex_loss": metrics.perplex_loss,
                                      "step_seconds": time.time() - t_step}, ts.update)
                     # cadenced actions fire once per optimizer update
                     advanced = ts.update != prev_update

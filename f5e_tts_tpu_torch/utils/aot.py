@@ -13,9 +13,10 @@ under a name built like the JAX file names:
 
 What the graph holds is the loop only: NFE folded-CFG backbone calls and the
 Euler (or midpoint) updates, each step's time fixed in it. The text
-embedding, cond, mask, drop flags and CFG weights (`cfm.fold_inputs`) and the
-noise are computed eagerly for each request and copied into the engine's
-static input buffers. The prompt length and the duration are data, not
+embedding (and a PPG DiT's PPG embedding of no PPG: the JAX engines serve
+plain CFG without a PPG), cond, mask, drop flags and CFG weights
+(`cfm.fold_inputs`) and the noise are computed eagerly for each request and
+copied into the engine's static input buffers. The prompt length and the duration are data, not
 shape, so one graph serves every reference length in its bucket (the JAX
 files are keyed on the prompt length and the text length only because
 their shapes are static). The text is no shape of the DiT's graph either:
@@ -97,6 +98,7 @@ class SamplerGraph:
         self.bucket, self.grid, self.cfg_strength = bucket, grid, cfg_strength
         self._lock = engine.graph_lock
         self.params, self.arch, self.compute_dtype = engine.params, engine.arch, engine.compute_dtype
+        self.state = engine.state
         self._capture(engine)
 
     @torch.inference_mode()
@@ -134,7 +136,7 @@ class SamplerGraph:
     def _fold(self, inputs: fcfm.SamplerInputs) -> fcfm.FoldedInputs:
         branches, weights = fcfm.cfg_branches(self.cfg_strength)
         return fcfm.fold_inputs(self.params, self.arch, inputs, branches, weights,
-                                self.compute_dtype)
+                                self.compute_dtype, self.state)
 
     @torch.inference_mode()
     def sample(self, inputs: fcfm.SamplerInputs, y0: torch.Tensor) -> torch.Tensor:
@@ -149,7 +151,8 @@ class SamplerGraph:
         folded = self._fold(inputs)
         with self._lock:
             for static, value in zip(self._inputs, folded):
-                static.copy_(value)
+                if static is not None:  # ppg_embed of a model without PPG
+                    static.copy_(value)
             self._y0.copy_(y0)
             self.graph.replay()
             return torch.where(inputs.cond_mask[:, :, None], inputs.cond, self._out)

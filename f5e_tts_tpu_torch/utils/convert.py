@@ -5,6 +5,9 @@
   The port keeps the JAX layouts (linear (in, out), conv (k, in/groups,
   out)) and the JAX q/k feature order, so this is a plain copy; only the
   depth-stacked block arrays are split into a list of per-block dicts.
+- A PPG DiT (`ppg.use_ppg`) also has state, its PPG embedding's BatchNorm
+  running statistics: its loaders return (params, state) and its exports
+  take `state=`. The codebook's `quantizer` is a parameter like any other.
 - `dit_from_reference_state_dict` / `unett_from_reference_state_dict` /
   `mmdit_from_reference_state_dict`: a reference-layout F5-TTS state dict
   (`transformer.*` keys, torch layouts). Linear weights are transposed and conv weights moved (out, in/g, k) ->
@@ -30,7 +33,7 @@ q and k.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -69,9 +72,16 @@ def _unstack_blocks(params_np: Mapping, count: int, keys=("blocks",)) -> dict:
     return {**tree, **{key: [block(i, tree[key]) for i in range(count)] for key in keys}}
 
 
-def dit_from_jax(params_np: Mapping, cfg: DiTConfig) -> dict:
-    """The JAX DiT tree (blocks stacked on a leading depth axis) -> port params."""
-    return _unstack_blocks(params_np, cfg.depth)
+def dit_from_jax(params_np: Mapping, cfg: DiTConfig, state_np: Optional[Mapping] = None):
+    """The JAX DiT tree (blocks stacked on a leading depth axis) -> port
+    params; for a PPG DiT (params, state), with the JAX state tree
+    `state_np` ({"ppg_bn": [{mean, var, count}] x 3})."""
+    params = _unstack_blocks(params_np, cfg.depth)
+    if cfg.ppg.use_ppg:
+        if state_np is None:
+            raise ValueError("a PPG DiT converts with its JAX state tree (state_np=)")
+        return params, to_tensors(state_np)
+    return params
 
 
 def unett_from_jax(params_np: Mapping, cfg: UNetTConfig) -> dict:
@@ -217,10 +227,9 @@ def _split_qkv(attn: Mapping) -> Mapping:
                        for j, name in enumerate(("to_q", "to_k", "to_v"))}}
 
 
-def _check_dit(cfg: DiTConfig) -> None:
-    if cfg.ppg.use_ppg or cfg.codebook.use_codebook:
-        raise NotImplementedError("PPG and codebook DiTs are not ported yet "
-                                  "(ROADMAP queue 1 item 6)")
+# the PPG embedding's Sequential (reference dit.py:121-138): Linear 0; Conv1d
+# 2 / 6 / 10, each followed by its BatchNorm1d 3 / 7 / 11; Linear 15
+_PPG_CONVS, _PPG_BNS = (2, 6, 10), (3, 7, 11)
 
 
 def dit_from_reference_state_dict(sd: Mapping, cfg: DiTConfig, prefix: str = "transformer.") -> dict:
@@ -229,8 +238,13 @@ def dit_from_reference_state_dict(sd: Mapping, cfg: DiTConfig, prefix: str = "tr
     Key names follow the reference module tree (dit.py:183-271,
     modules.py:610-641). to_q/to_k and q_norm/k_norm are permuted into the
     half-split RoPE order.
+    A PPG DiT returns (params, state): the PPG embedding
+    (`ppg_embed.ppg_proj.*`) and its BatchNorms' running statistics (count
+    0: the reference keeps num_batches_tracked, which the loaders drop). A
+    codebook's `quantizer.vars` and `quantizer.weight_proj` (one Linear, or
+    a Sequential of them with GELUs between) load in order
+    (f5e_tts_tpu/utils/torch_ckpt.py:114-130, 182-192).
     """
-    _check_dit(cfg)
     r = _Reader(sd, prefix, cfg.heads, cfg.dim_head)
     blocks = []
     for i in range(r.depth(r"transformer_blocks\.(\d+)\.", cfg.depth)):
@@ -243,25 +257,59 @@ def dit_from_reference_state_dict(sd: Mapping, cfg: DiTConfig, prefix: str = "tr
         # FeedForward: Sequential(Sequential(Linear, GELU), Dropout, Linear)
         blocks.append({"attn_norm": r.lin(f"{b}.attn_norm.linear"), "attn": attn,
                        "ff1": r.lin(f"{b}.ff.ff.0.0"), "ff2": r.lin(f"{b}.ff.ff.2")})
-    params = {"time_embed": r.time_embed(), "text_embed": r.text_embed(),
-              "input_embed": r.input_embed(), "blocks": blocks}
+    params = {"time_embed": r.time_embed(), "text_embed": r.text_embed()}
+    state = {}
+    if cfg.ppg.use_ppg:
+        k = "ppg_embed.ppg_proj"
+        params["ppg_embed"] = {
+            "pre": r.lin(f"{k}.0"), "convs": [r.conv(f"{k}.{i}") for i in _PPG_CONVS],
+            "bns": [{"g": r.t(f"{k}.{i}.weight"), "b": r.t(f"{k}.{i}.bias")} for i in _PPG_BNS],
+            "post": r.lin(f"{k}.15")}
+        state["ppg_bn"] = [{"mean": r.t(f"{k}.{i}.running_mean"),
+                            "var": r.t(f"{k}.{i}.running_var"),
+                            "count": torch.zeros((), dtype=torch.int32)} for i in _PPG_BNS]
+    params["input_embed"] = r.input_embed()
+    params["blocks"] = blocks
     if cfg.long_skip_connection:
         params["long_skip"] = r.lin("long_skip_connection")
     params["norm_out"] = r.lin("norm_out.linear")
     params["proj_out"] = r.lin("proj_out")
-    return params
+    if cfg.codebook.use_codebook:
+        if "quantizer.weight_proj.weight" in r.sd:
+            layers = [r.lin("quantizer.weight_proj")]
+        else:
+            found = (re.match(r"quantizer\.weight_proj\.(\d+)\.", key) for key in r.sd)
+            layers = [r.lin(f"quantizer.weight_proj.{i}")
+                      for i in sorted({int(m.group(1)) for m in found if m})]
+        params["quantizer"] = {"vars": r.t("quantizer.vars"),
+                               "weight_proj": {f"layer_{j}": p for j, p in enumerate(layers)}}
+    return (params, state) if cfg.ppg.use_ppg else params
 
 
-def dit_to_reference_state_dict(params: Mapping, cfg: DiTConfig,
-                                prefix: str = "transformer.") -> Dict[str, torch.Tensor]:
-    """Port DiT params -> a reference-layout state dict of contiguous fp32 CPU
-    tensors (the inverse of `dit_from_reference_state_dict`). A fused
-    `to_qkv` is split back into to_q/to_k/to_v; to_q/to_k and q_norm/k_norm
-    go back to the reference's interleaved RoPE order."""
-    _check_dit(cfg)
+def dit_to_reference_state_dict(params: Mapping, cfg: DiTConfig, prefix: str = "transformer.",
+                                state: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """Port DiT params (and a PPG DiT's `state`) -> a reference-layout state
+    dict of contiguous fp32 CPU tensors (the inverse of
+    `dit_from_reference_state_dict`; the port's copy of torch_ckpt.py:
+    dit_to_torch, :531-546). A fused `to_qkv` is split back into
+    to_q/to_k/to_v; to_q/to_k and q_norm/k_norm go back to the reference's
+    interleaved RoPE order."""
     w = _Writer(prefix, cfg.heads, cfg.dim_head)
     w.time_embed(params["time_embed"])
     w.text_embed(params["text_embed"])
+    if "ppg_embed" in params:
+        if not state:
+            raise ValueError("a PPG DiT exports with its BatchNorm state (state=)")
+        k, pe = "ppg_embed.ppg_proj", params["ppg_embed"]
+        w.lin(f"{k}.0", pe["pre"])
+        for j, i in enumerate(_PPG_CONVS):
+            w.conv(f"{k}.{i}", pe["convs"][j])
+        for j, i in enumerate(_PPG_BNS):
+            w.put(f"{k}.{i}.weight", w.a(pe["bns"][j]["g"]))
+            w.put(f"{k}.{i}.bias", w.a(pe["bns"][j]["b"]))
+            w.put(f"{k}.{i}.running_mean", w.a(state["ppg_bn"][j]["mean"]))
+            w.put(f"{k}.{i}.running_var", w.a(state["ppg_bn"][j]["var"]))
+        w.lin(f"{k}.15", pe["post"])
     w.input_embed(params["input_embed"])
     for i, blk in enumerate(params["blocks"]):
         b = f"transformer_blocks.{i}"
@@ -280,6 +328,15 @@ def dit_to_reference_state_dict(params: Mapping, cfg: DiTConfig,
         w.lin("long_skip_connection", params["long_skip"])
     w.lin("norm_out.linear", params["norm_out"])
     w.lin("proj_out", params["proj_out"])
+    if "quantizer" in params:
+        q = params["quantizer"]
+        w.put("quantizer.vars", w.a(q["vars"]))
+        layers = sorted(q["weight_proj"], key=lambda s: int(s.split("_")[1]))
+        if len(layers) == 1:
+            w.lin("quantizer.weight_proj", q["weight_proj"][layers[0]])
+        else:  # Sequential(Linear, GELU, ..., Linear): the linears at 0, 2, 4, ...
+            for j, name in enumerate(layers):
+                w.lin(f"quantizer.weight_proj.{2 * j}", q["weight_proj"][name])
     return w.out
 
 
@@ -414,9 +471,9 @@ def unett_to_reference_state_dict(params: Mapping, cfg: UNetTConfig,
     return w.out
 
 
-def backbone_from_reference_state_dict(sd: Mapping, arch, prefix: str = "transformer.") -> dict:
+def backbone_from_reference_state_dict(sd: Mapping, arch, prefix: str = "transformer."):
     """Reference state dict -> port params of the backbone `arch` configures
-    (torch_ckpt.py:447-458)."""
+    (torch_ckpt.py:447-458); (params, state) for a PPG DiT."""
     if isinstance(arch, UNetTConfig):
         return unett_from_reference_state_dict(sd, arch, prefix)
     if isinstance(arch, MMDiTConfig):
@@ -426,15 +483,16 @@ def backbone_from_reference_state_dict(sd: Mapping, arch, prefix: str = "transfo
     raise NotImplementedError(f"no reference loader for {type(arch).__name__}")
 
 
-def backbone_to_reference_state_dict(params: Mapping, arch,
-                                     prefix: str = "transformer.") -> Dict[str, torch.Tensor]:
-    """Port params of the backbone `arch` configures -> reference state dict."""
+def backbone_to_reference_state_dict(params: Mapping, arch, prefix: str = "transformer.",
+                                     state: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """Port params (and a PPG DiT's `state`) of the backbone `arch`
+    configures -> reference state dict."""
     if isinstance(arch, UNetTConfig):
         return unett_to_reference_state_dict(params, arch, prefix)
     if isinstance(arch, MMDiTConfig):
         return mmdit_to_reference_state_dict(params, arch, prefix)
     if isinstance(arch, DiTConfig):
-        return dit_to_reference_state_dict(params, arch, prefix)
+        return dit_to_reference_state_dict(params, arch, prefix, state)
     raise NotImplementedError(f"no reference export for {type(arch).__name__}")
 
 

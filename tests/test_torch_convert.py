@@ -78,9 +78,10 @@ def test_port_imports_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'f5e_tts_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 37, mods\n"
+        "assert len(mods) >= 41, mods\n"
         "new = ('kernels.attention', 'models.mmdit', 'models.backbone', 'ops.attention',\n"
-        "       'models.unett', 'models.durpred', 'infer.speech_edit', 'utils.aot')\n"
+        "       'models.unett', 'models.durpred', 'infer.speech_edit', 'utils.aot',\n"
+        "       'ops.vq', 'ops.mas', 'ops.kaldi', 'models.conformer')\n"
         "assert all('f5e_tts_tpu_torch.' + m in mods for m in new), mods\n"
         "print(len(mods))\n"
     )

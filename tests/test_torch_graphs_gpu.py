@@ -1,6 +1,7 @@
 """Captured sampler engines (f5e_tts_tpu_torch/utils/aot.py) against the
 eager sampler on the card: a replay from a request's seed gives the eager
-run's bits, for any prompt and text length of the bucket; engines sharing
+run's bits, for any prompt and text length of the bucket (a PPG model's
+too, with no PPG); engines sharing
 one memory pool keep their own bits in either order of replay, and from
 several threads at once; a replay on another stream raises.
 
@@ -188,6 +189,43 @@ def test_unett_engine_replay_gives_the_eager_bits():
     eager = engine.synthesize_chunk(_ref_mel(30), "short.", 250, seed=3, device_out=True)[0]
     engine.engines = engines
     assert torch.equal(got, eager) and torch.isfinite(got).all()
+
+
+def test_ppg_model_engine_replay_gives_the_eager_bits():
+    """A PPG + codebook DiT (the F5E model's kind: 12 heads, RoPE on the first
+    head, BatchNorm state) replays plain CFG with no PPG with the eager bits,
+    its zero PPG embedding run through the BatchNorms' running statistics;
+    a request with a PPG runs eagerly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from f5e_tts_tpu_torch.config import CodebookConfig, PPGConfig
+
+    arch = DiTConfig(dim=768, depth=DEPTH, heads=12, dim_head=64, ff_mult=2, mel_dim=100,
+                     text_dim=128, conv_layers=1, dropout=0.0, pe_attn_head=1,
+                     text_mask_padding=False, ppg=PPGConfig(use_ppg=True, ppg_dim=64),
+                     codebook=CodebookConfig(use_codebook=True))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params, state = init_dit(arch, 256, gen, "cuda")
+    for blk in params["blocks"]:
+        blk["attn_norm"]["w"].normal_(0.0, 0.02, generator=gen)
+    params["proj_out"]["w"].normal_(0.0, 0.02, generator=gen)
+    for bn in state["ppg_bn"]:  # running statistics away from the identity
+        bn["mean"].normal_(0.0, 0.1, generator=gen)
+        bn["var"].uniform_(0.5, 1.5, generator=gen)
+    engine = TTSEngine(params=fuse_qkv(_cast(params, torch.bfloat16)), state=state, arch=arch,
+                       vocab=None, infer_cfg=InferConfig(nfe_steps=NFE, max_duration=1024),
+                       compute_dtype=torch.bfloat16, buckets=(256, 512), device="cuda")
+    want = _eager(engine)
+    ra.partial_launches = ga.launches = 0
+    assert capture_sampler_buckets(engine, buckets=(256,), nfe=NFE) == [f"sampler_nfe{NFE}_b256"]
+    assert (ra.partial_launches, ga.launches) == (DEPTH * (NFE + 1),) * 2
+    ra.partial_launches = ga.launches = 0
+    assert torch.equal(_chunk(engine), want)
+    assert (ra.partial_launches, ga.launches) == (0, 0)  # a replay counts nothing
+    ppg = np.random.default_rng(2).standard_normal((1, 90, 64)).astype(np.float32)
+    with_ppg = _chunk(engine, ppg=ppg)  # eager: a PPG is no engine's input
+    assert (ra.partial_launches, ga.launches) == (DEPTH * NFE,) * 2
+    assert torch.equal(with_ppg, _eager(engine, ppg=ppg)) and not torch.equal(with_ppg, want)
 
 
 def test_f5tts_capture_buckets_replays_in_infer(tmp_path):

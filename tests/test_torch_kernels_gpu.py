@@ -60,6 +60,8 @@ def _close(got, ref):
     (2, 130, 3, 64, (130, 1), 3, False),        # ragged last tile, one valid key
     (1, 200, 2, 128, (0,), 2, False),           # dh 128, every key masked
     (2, 256, 4, 64, (256, 77), 1, True),        # RoPE on the first head only
+    (2, 1536, 12, 64, (1416, 1100), 1, True),   # the F5E model's sampler: 12 heads, K3
+    (3, 200, 12, 64, (200, 57, 0), 1, True),    # 12 heads, ragged, one row all masked
 ])
 def test_rope_attention_kernel_matches_plain(cuda, b, n, h, dh, kv, rope_heads, fused):
     if fused:
@@ -78,7 +80,9 @@ def test_rope_attention_kernel_matches_plain(cuda, b, n, h, dh, kv, rope_heads, 
     _close(out, ra.rope_attention_plain(q, k, v, kv_lens, cos, sin, rope_heads))
 
 
-@pytest.mark.parametrize("b,n,d,strided", [(2, 1536, 1024, True), (1, 100, 520, False)])
+@pytest.mark.parametrize("b,n,d,strided", [(2, 1536, 1024, True), (1, 100, 520, False),
+                                           (2, 1536, 768, True),   # the F5E model's width
+                                           (3, 77, 768, False)])
 def test_gated_adaln_kernel_matches_plain(cuda, b, n, d, strided):
     x, y = (torch.randn((b, n, d), generator=cuda, device="cuda").bfloat16() for _ in range(2))
     if strided:  # gate/scale/shift as column slices of the (B, 6D) modulation
@@ -108,6 +112,8 @@ def _close_rel(got, ref, rel=2e-2):
     (2, 130, 3, 64, (130, 1), 3, False),        # ragged last tile, one valid key
     (1, 200, 2, 128, (0,), 2, False),           # dh 128, every key masked
     (2, 256, 4, 64, (256, 77), 1, True),        # RoPE on the first head only
+    (8, 2304, 12, 64, (2304,) * 8, 1, True),    # the F5E training step: 12 heads, K6
+    (2, 2304, 12, 64, (2304, 1337), 1, True),   # 12 heads, a ragged key length
 ])
 def test_rope_attention_bwd_kernel_matches_plain(cuda, b, n, h, dh, kv, rope_heads, fused):
     if fused:
@@ -154,6 +160,7 @@ def _adaln_bwd_inputs(gen, b, n, d, strided):
     (2, 77, 520, True),      # D = 520: lanes with 3 vectors beside lanes with 2
     (2, 130, 4096, True),    # the widest D: column sums in shared memory
     (8, 2305, 768, True),    # F5TTS_Small's width, one row past the step's N
+    (8, 2304, 768, True),    # the F5E training step's shape
 ])
 def test_gated_adaln_bwd_kernel_matches_plain(cuda, b, n, d, strided):
     args = _adaln_bwd_inputs(cuda, b, n, d, strided)
@@ -165,7 +172,8 @@ def test_gated_adaln_bwd_kernel_matches_plain(cuda, b, n, d, strided):
         _close(x_, y_)
 
 
-@pytest.mark.parametrize("b,n,d", [(8, 2304, 1024), (3, 1000, 1024), (2, 130, 4096)])
+@pytest.mark.parametrize("b,n,d", [(8, 2304, 1024), (3, 1000, 1024), (2, 130, 4096),
+                                   (8, 2304, 768)])
 def test_gated_adaln_bwd_kernel_gives_the_same_bits_twice(cuda, b, n, d):
     args = _adaln_bwd_inputs(cuda, b, n, d, True)
     first = ga.gated_adaln_bwd(*args)

@@ -9,7 +9,8 @@ and a tiny UNetT, fp32, with the noise injected (drawn with the JAX
   exact; with alpha_spk = alpha_txt = 1 + cfg it is the plain CFG `sample`
   (the text-only branch has weight 0): atol 1e-5 in fp32.
 - `synthesize_chunk(mode="tts")` runs `sample_tts` (never a captured
-  engine); `mode="vc"` and the span derivation raise.
+  engine); `mode="vc"` raises for a model without PPG (the PPG model's vc
+  mode is held in tests/test_torch_ppg.py); the span derivation raises.
 - `build_edit_mask` exactly; `edit_speech`'s cond mel (rtol 1e-4 + atol
   1e-4, the mel front ends' own parity tolerance), mask, duration and text
   exactly, and its sampler output at
@@ -163,7 +164,7 @@ def test_synthesize_chunk_tts_mode(dit):
     assert torch.equal(again, got)
     with pytest.raises(AssertionError, match="captured"):
         engine.synthesize_chunk(ref_mel, "some text.", 50, seed=5)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="PPG DiT"):
         engine.synthesize_chunk(ref_mel, "some text.", 50, mode="vc")
     with pytest.raises(ValueError, match="mode"):
         engine.synthesize_chunk(ref_mel, "some text.", 50, mode="ttz")
