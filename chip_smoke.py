@@ -115,9 +115,40 @@
     (depth x (NFE + 1) at capture; the replay gives the eager bits and
     counts no launch). Each: prompt frames equal the cond mel, a finite wav
     with nonzero RMS, the sampler's device busy and three timed walls.
-21. (The F5E model's kernel shapes in 22: K3 at (2, 1536) with 12 heads, K6
+21. (The F5E model's kernel shapes in 29: K3 at (2, 1536) with 12 heads, K6
     at (8, 2304) with 12 heads, K2 at (2, 1536, 768), K5 at (8, 2304, 768).)
-22. One phase per kernel at the shapes of its path and at one ragged case:
+22. PPG engines: capture_ppg_buckets of the F5E extractor over the fbank
+    buckets (400, 800, 1600, 3200) as CUDA graphs: the capture's seconds
+    and memory; replays of 4, 9 and 22 s clips padded into their buckets
+    equal eager mel_to_ppg bit for bit; device time per second of audio.
+23. Offline extraction: ppg_extract_cli.main over four written 16 kHz wavs
+    with the extractor's weights as a wenet checkpoint and train.yaml: each
+    .npy has true_len rows and equals audio_to_ppg of its file within 1e-5.
+24. ASR training: the Conformer at full width with CE and CTC heads of 5000
+    tokens over the 8 clips' fbank (185.6 s), seeded frame and CTC labels:
+    three make_asr_train_step updates, each with a dynamic chunk mask; the
+    first step's loss on the card equals the CPU's within ASR_REL; then
+    asr_loss with the softmax speaker branch (the GRL flips the encoder's
+    gradient against coeff -1) and attention_loss of DecoderConfig(
+    r_num_blocks=3), backpropagated. Step wall, device busy, peak memory.
+25. Streaming: conformer_encode_chunk_by_chunk of a 10 s clip, chunk 16,
+    left chunks -1 and 4, card vs CPU; device time per chunk and the RTF.
+26. Recognition: recognize in the ctc_greedy_search and attention modes on
+    the card and the CPU: equal token lists, or a top-two logit margin under
+    TIE_MARGIN at the first difference.
+27. Derived-span edit (on the serving v1 model, after 16): the trained CTC
+    head's log-probs over the reference at 16 kHz give the span of "mother"
+    by forced alignment (card == CPU), and edit_speech over it launches
+    depth x NFE of K1 and K2 with every kept frame equal to the cond mel.
+28. The training CLI: train.main over configs/example.yaml (byte tokenizer,
+    bnb_optimizer, the codebook off: the CLI's batches carry no PPG lengths,
+    which the codebook branch needs, in JAX as in the port) and an Arrow
+    dataset of the 8 clips: two updates of 2 x
+    depth K3 and K2 and depth K6 and K5 each, the 8-bit AdamW state under
+    0.3x the fp32 state's bytes, a second main() resuming at update 3 (its
+    step's device busy under torch.profiler). (22-26 run after 20; 28 after
+    27.)
+29. One phase per kernel at the shapes of its path and at one ragged case:
     kernel vs its plain PyTorch version on the same inputs (tolerances
     below), kernel, plain and library times, the least time the card could
     take, and the host time per call of each forward wrapper and of K5's.
@@ -126,7 +157,7 @@
     dq and dkdv; row pass and combine (torch.profiler, measured after the
     build, before the model phases). The backward kernels, K5 included,
     must give the same bits in two runs.
-23. Prints one JSON line with every kernel, then the device line last.
+30. Prints one JSON line with every kernel, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository. fp32 matmuls and convolutions run with TF32 off
@@ -474,7 +505,7 @@ KERNEL_GROUPS = ((("attention_bwd", "ropeattn"), "K4/K6 rope attention bwd"),
                  (("fprop",), "convolution"), (("dgrad",), "convolution"),
                  (("wgrad",), "convolution"), (("conv",), "convolution"), (("fft",), "fft"),
                  (("gemm",), "matmul"), (("nvjet",), "matmul"), (("cutlass",), "matmul"),
-                 (("xmma",), "matmul"))
+                 (("xmma",), "matmul"), (("ctc_loss",), "CTC loss"))
 
 
 def device_kernels(prof) -> list:
@@ -1996,10 +2027,10 @@ EDIT_TEXT = ("Some call me nature, and in the quiet hours before dawn by the lak
              "others call me mother nature.")
 
 
-def speech_edit_phase(sv: Serving) -> dict:
-    """edit_speech on the serving v1 model: the span 1.0-2.0 s of the seeded
-    reference re-timed to 10 s (1315 frames, bucket 1536). Every kept frame
-    of the sampler output equals the cond mel; the wav is finite."""
+def speech_edit_phase(sv: Serving, parts=((1.0, 2.0),), tag: str = "speech edit") -> dict:
+    """edit_speech on the serving v1 model: the span `parts` of the seeded
+    reference (1.0-2.0 s unless given) re-timed to 10 s (bucket 1536). Every
+    kept frame of the sampler output equals the cond mel; the wav is finite."""
     from f5e_tts_tpu_torch.infer.speech_edit import edit_speech
     from f5e_tts_tpu_torch.models import cfm as fcfm
 
@@ -2015,7 +2046,7 @@ def speech_edit_phase(sv: Serving) -> dict:
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        wav, sr = edit_speech(sv.engine, sv.wav, sv.sr, REF_TEXT, EDIT_TEXT, [(1.0, 2.0)],
+        wav, sr = edit_speech(sv.engine, sv.wav, sv.sr, REF_TEXT, EDIT_TEXT, list(parts),
                               fix_durations=[10.0], seed=7, nfe_steps=NFE, cfg_strength=2.0,
                               sway=-1.0)
         torch.cuda.synchronize()
@@ -2023,18 +2054,19 @@ def speech_edit_phase(sv: Serving) -> dict:
         counts = read_counts()
     finally:
         fcfm.sample = sample
-    check_counts("speech edit", counts,
+    check_counts(tag, counts,
                  expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE))
     (out, inputs), = captured
     n = int(inputs.duration[0])
     keep = inputs.cond_mask[:, :, None].expand_as(out)
     if tuple(out.shape) != (1, 1536, 100) or not torch.equal(out[keep], inputs.cond[keep]):
-        raise AssertionError("speech edit: a kept frame differs from the cond mel")
+        raise AssertionError(f"{tag}: a kept frame differs from the cond mel")
     edited = int((~inputs.cond_mask[0, :n]).sum())
     if not (0 < edited < n and np.isfinite(wav).all() and np.sqrt(np.mean(wav ** 2)) > 0):
-        raise AssertionError(f"speech edit: {edited} of {n} frames edited, or a bad wav")
-    log(f"[speech edit] {n} frames in bucket 1536, {edited} generated, {n - edited} kept equal "
-        f"to the cond mel bit for bit; wav {len(wav) / sr:.3f} s finite; wall {wall:.3f} s")
+        raise AssertionError(f"{tag}: {edited} of {n} frames edited, or a bad wav")
+    log(f"[{tag}] span(s) {[tuple(round(x, 3) for x in p) for p in parts]}: {n} frames in "
+        f"bucket 1536, {edited} generated, {n - edited} kept equal to the cond mel bit for bit; "
+        f"wav {len(wav) / sr:.3f} s finite; wall {wall:.3f} s")
     reset_counts()
     return counts
 
@@ -2068,6 +2100,573 @@ def decode_stream_phase(sv: Serving) -> None:
         raise AssertionError("the streamed pieces do not concatenate to the wav")
     log(f"[streaming] {len(pieces)} pieces of <= 4096 samples concatenate to the "
         f"{len(wav)}-sample wav")
+
+
+# ---------------------------------------------------------------------------
+# the PPG front end's own life cycle: PPG engines, offline extraction, ASR
+# training, streaming, recognition; the derived-span edit; the training CLI
+# ---------------------------------------------------------------------------
+
+ASR_VOCAB = 5000  # DecoderConfig()'s vocab, shared by the CTC head
+# the card's fp32 values against the CPU's on the same inputs: max|card -
+# cpu| <= ASR_REL * |cpu| for a loss, <= ASR_REL * max|cpu| for the streamed
+# encoder output (fp32 sums in another order through 12 layers; TF32 off)
+ASR_REL = 1e-4
+# a greedy search may take another token on the card only where the CPU's
+# top two logits are closer than this
+TIE_MARGIN = 1e-4
+PPG_BUCKETS = (400, 800, 1600, 3200)
+
+
+def clips_16k() -> list:
+    """The 8 training clips resampled to 16 kHz (185.6 s)."""
+    from f5e_tts_tpu_torch.infer.audio import resample
+
+    return [resample(r["audio"]["array"], 24_000, 16_000) for r in training_rows()]
+
+
+def padded_batch(clips) -> tuple:
+    lens = np.asarray([len(c) for c in clips], np.int64)
+    wav = np.zeros((len(clips), int(lens.max())), np.float32)
+    for i, c in enumerate(clips):
+        wav[i, : len(c)] = c
+    return wav, lens
+
+
+def conformer_to_wenet(params, cfg) -> dict:
+    """A wenet ASR checkpoint's state dict (the keys and layouts
+    `conformer_from_torch` reads) from port Conformer params."""
+    sd = {}
+
+    def cpu(t):
+        return t.detach().float().cpu().contiguous()
+
+    def lin(k, p):
+        sd[f"{k}.weight"] = cpu(p["w"].T)
+        if "b" in p:
+            sd[f"{k}.bias"] = cpu(p["b"])
+
+    def ln(k, p):
+        sd[f"{k}.weight"], sd[f"{k}.bias"] = cpu(p["g"]), cpu(p["b"])
+
+    for i, conv in enumerate(params["embed_convs"]):
+        sd[f"encoder.embed.conv.{2 * i}.weight"] = cpu(conv["w"].permute(3, 2, 0, 1))
+        sd[f"encoder.embed.conv.{2 * i}.bias"] = cpu(conv["b"])
+    lin("encoder.embed.out.0", params["embed_out"])
+    sd["encoder.global_cmvn.mean"] = cpu(params["cmvn_mean"])
+    sd["encoder.global_cmvn.istd"] = cpu(params["cmvn_istd"])
+    for i, layer in enumerate(params["layers"]):
+        k = f"encoder.encoders.{i}"
+        for name in ("norm_ff_macaron", "norm_mha", "norm_conv", "norm_ff", "norm_final"):
+            ln(f"{k}.{name}", layer[name])
+        for src, dst in (("ff_macaron", "feed_forward_macaron"), ("ff", "feed_forward")):
+            lin(f"{k}.{dst}.w_1", layer[src]["w1"])
+            lin(f"{k}.{dst}.w_2", layer[src]["w2"])
+        for name in ("linear_q", "linear_k", "linear_v", "linear_out", "linear_pos"):
+            lin(f"{k}.self_attn.{name}", layer["attn"][name])
+        sd[f"{k}.self_attn.pos_bias_u"] = cpu(layer["attn"]["pos_bias_u"])
+        sd[f"{k}.self_attn.pos_bias_v"] = cpu(layer["attn"]["pos_bias_v"])
+        cm, conv = f"{k}.conv_module", layer["conv"]
+        sd[f"{cm}.pointwise_conv1.weight"] = cpu(conv["pw1"]["w"].T[:, :, None])
+        sd[f"{cm}.pointwise_conv1.bias"] = cpu(conv["pw1"]["b"])
+        sd[f"{cm}.depthwise_conv.weight"] = cpu(conv["dw"]["w"].permute(2, 1, 0))
+        sd[f"{cm}.depthwise_conv.bias"] = cpu(conv["dw"]["b"])
+        sd[f"{cm}.pointwise_conv2.weight"] = cpu(conv["pw2"]["w"].T[:, :, None])
+        sd[f"{cm}.pointwise_conv2.bias"] = cpu(conv["pw2"]["b"])
+        for src, dst in (("g", "weight"), ("b", "bias"), ("mean", "running_mean"),
+                         ("var", "running_var")):
+            sd[f"{cm}.norm.{dst}"] = cpu(conv["bn"][src])
+    ln("encoder.after_norm", params["after_norm"])
+    lin("linear", params["content_linear"])
+    return sd
+
+
+def ppg_engines_phase(extractor) -> None:
+    """capture_ppg_buckets over the four fbank buckets of the F5E extractor:
+    the capture's seconds and memory; a replay of each clip padded into its
+    bucket equals eager mel_to_ppg bit for bit; the replay's and the eager
+    call's device time per second of audio."""
+    from f5e_tts_tpu_torch.ops.kaldi import kaldi_fbank
+    from f5e_tts_tpu_torch.utils.aot import capture_ppg_buckets, find_ppg_engine
+
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    engines = capture_ppg_buckets(extractor, PPG_BUCKETS)
+    torch.cuda.synchronize()
+    log(f"[ppg engines] captured {sorted(engines)} in {time.perf_counter() - t0:.2f} s; memory "
+        f"reserved {(torch.cuda.memory_reserved() - reserved) / 2**20:.1f} MiB more")
+    clips = clips_16k()
+    for seconds in (3.5, 7.5, 15.0, 21.9):  # 348 to 2188 frames: each bucket once
+        clip = torch.from_numpy(clips[0][: int(seconds * 16_000)]).cuda()
+        feats = kaldi_fbank(clip)
+        frames = feats.shape[1]
+        name, bucket = find_ppg_engine(engines, 1, frames)
+        padded = torch.zeros((1, bucket, 80), device="cuda")
+        padded[:, :frames] = feats
+        lens = torch.tensor([frames], dtype=torch.int32, device="cuda")
+        ppg, true_len = engines[name].run(padded, lens)
+        want, want_len = extractor.mel_to_ppg(padded, lens)
+        if not (torch.equal(ppg, want) and torch.equal(true_len, want_len)):
+            raise AssertionError(f"ppg engine {name}: the replay differs from eager mel_to_ppg")
+        # one launch a replay, so CUDA events time its device work; the eager
+        # call is host-bound, so its device time is the profiler's busy time
+        replay = cuda_ms([lambda: engines[name].graph.replay()], iters=10, warmup=2)
+        eager, launched, _ = device_busy(f"ppg engines eager {name}",
+                                         lambda: extractor.mel_to_ppg(padded, lens))
+        log(f"[ppg engines] {seconds} s clip ({frames} frames) in {name}: replay == eager bit "
+            f"for bit ({int(true_len[0])} PPG frames); device {replay:.3f} ms a replay, "
+            f"{replay / seconds:.4f} ms per second of audio; eager device busy {eager:.3f} ms "
+            f"in {launched} kernels ({eager / seconds:.4f} ms/s); the bucket pads "
+            f"{bucket - frames} frames")
+    del engines
+
+
+def offline_extraction_phase(extractor, tmp: Path) -> None:
+    """ppg_extract_cli.main over a filelist of four written 16 kHz wavs with
+    the F5E extractor's weights as a wenet checkpoint: every .npy has
+    true_len rows and equals audio_to_ppg of its padded file within 1e-5."""
+    import yaml
+
+    from f5e_tts_tpu_torch.infer.audio import read_wav, write_wav
+    from f5e_tts_tpu_torch.models import ppg_extract_cli
+
+    cfg = extractor.cfg
+    tmp.mkdir(parents=True, exist_ok=True)
+    torch.save(conformer_to_wenet(extractor.params, cfg), tmp / "33.pt")
+    (tmp / "train.yaml").write_text(yaml.safe_dump({
+        "input_dim": cfg.input_dim, "encoder_conf": {
+            "output_size": cfg.output_size, "attention_heads": cfg.attention_heads,
+            "linear_units": cfg.linear_units, "num_blocks": cfg.num_blocks,
+            "cnn_module_kernel": cfg.cnn_module_kernel, "input_layer": cfg.subsampling}}))
+    paths = []
+    for i, seconds in enumerate((1.7, 3.2, 4.9, 6.05)):
+        paths.append(str(tmp / f"clip{i}.wav"))
+        write_wav(paths[-1], speech_like(seconds, 16_000, seed=20 + i).astype(np.float32), 16_000)
+    (tmp / "wavs.txt").write_text("\n".join(paths) + "\n")
+    t0 = time.perf_counter()
+    ppg_extract_cli.main(["--ckpt", str(tmp / "33.pt"), "--config", str(tmp / "train.yaml"),
+                          "--filelist", str(tmp / "wavs.txt"), "--output_dir", str(tmp / "out"),
+                          "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    worst = 0.0
+    for path in paths:
+        got = np.load(tmp / "out" / (Path(path).stem + ".npy"))
+        wav, _ = read_wav(path)
+        padded = np.zeros(-(-len(wav) // 32_000) * 32_000, np.float32)
+        padded[: len(wav)] = wav
+        want, true_len = extractor.audio_to_ppg(torch.from_numpy(padded[None]).cuda(),
+                                                torch.tensor([len(wav)], device="cuda"))
+        want = want[0, : int(true_len[0])].cpu().numpy()
+        if got.shape != want.shape or not np.abs(got - want).max() <= 1e-5:
+            raise AssertionError(f"offline extraction of {path}: {got.shape} vs {want.shape}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    log(f"[offline extraction] {len(paths)} wavs -> .npy of {[int(np.load(tmp / 'out' / (Path(p).stem + '.npy')).shape[0]) for p in paths]} "
+        f"rows in {wall:.2f} s (checkpoint load included); max|cli - audio_to_ppg| {worst:.2e}")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def asr_batch(cfg, gen_np) -> dict:
+    """The 8 clips at 16 kHz as kaldi fbank on the card, with seeded frame
+    labels (-1 past each length) and CTC labels (60-100 tokens of 1-4999)."""
+    from f5e_tts_tpu_torch.models.conformer import subsampled_time
+    from f5e_tts_tpu_torch.ops.kaldi import kaldi_fbank
+
+    wav, lens = padded_batch(clips_16k())
+    feats = kaldi_fbank(torch.from_numpy(wav).cuda())
+    feat_lens = np.maximum((lens - 400) // 160 + 1, 0).astype(np.int32)
+    tt = subsampled_time(cfg.subsampling, feats.shape[1])
+    out_lens = np.asarray([subsampled_time(cfg.subsampling, int(n)) for n in feat_lens])
+    frame_labels = gen_np.integers(0, ASR_VOCAB + 1, (len(lens), tt))
+    frame_labels[np.arange(tt)[None, :] >= out_lens[:, None]] = -1
+    ctc_lens = gen_np.integers(60, 101, len(lens))
+    ctc_labels = gen_np.integers(1, ASR_VOCAB, (len(lens), 100))
+    ctc_labels[np.arange(100)[None, :] >= ctc_lens[:, None]] = 0
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    return {"feats": feats, "feat_lens": cuda(feat_lens), "frame_labels": cuda(frame_labels),
+            "ctc_labels": cuda(ctc_labels), "ctc_label_lens": cuda(ctc_lens),
+            "seconds": float(lens.sum() / 16_000)}
+
+
+def asr_training_phase() -> dict:
+    """The PPG ASR model at full width (ConformerConfig(), CE + CTC heads of
+    5000 tokens, fp32): three make_asr_train_step updates with AdamW, each
+    with a sample_train_chunk_mask; the first step's loss on the card equals
+    the CPU's at the same weights within ASR_REL. Then asr_loss with the
+    softmax speaker branch, backpropagated, and the GRL check, and
+    attention_loss of DecoderConfig(r_num_blocks=3) over the encoder output,
+    backpropagated. Returns the trained encoder, heads and decoder."""
+    from f5e_tts_tpu_torch.models import wenet_decoder as wd
+    from f5e_tts_tpu_torch.models.conformer import (ConformerConfig, conformer_encode,
+                                                    init_conformer, sample_train_chunk_mask)
+    from f5e_tts_tpu_torch.models.conformer_train import (asr_loss, init_asr_heads,
+                                                          init_sv_branch, make_asr_train_step)
+    from f5e_tts_tpu_torch.train import step as fstep
+
+    cfg = ConformerConfig()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    params = init_conformer(cfg, gen, "cuda")
+    params["cmvn_mean"] = 8.0 + torch.randn(cfg.input_dim, generator=gen, device="cuda")
+    params["cmvn_istd"] = 0.25 + 0.1 * torch.rand(cfg.input_dim, generator=gen, device="cuda")
+    heads = init_asr_heads(cfg, ASR_VOCAB, gen, "cuda")
+    rng = np.random.default_rng(32)
+    batch = asr_batch(cfg, rng)
+    mask_rng = np.random.default_rng(30)  # draws chunks of 9 and 7 frames, then the full context
+    t_frames = batch["feats"].shape[1]
+    optimizer = fstep.AdamW(lambda count: 1e-4, max_grad_norm=1.0)
+    leaves = fstep.tree_leaves([params, heads])
+    opt_state = optimizer.init(leaves)
+    step = make_asr_train_step(cfg, optimizer)
+    n_params = sum(t.numel() for t in leaves)
+    log(f"[asr training] Conformer {cfg.num_blocks} x {cfg.output_size}, {cfg.attention_heads} "
+        f"heads, heads of {ASR_VOCAB} tokens: {n_params / 1e6:.2f}M fp32 params; fbank "
+        f"{tuple(batch['feats'].shape)} of {batch['seconds']:.1f} s")
+    walls, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for i in range(3):
+        mask = sample_train_chunk_mask(cfg, t_frames, mask_rng)
+        batch["chunk_mask"] = torch.from_numpy(mask).cuda()
+        if i == 0:
+            host = fstep.tree_map(lambda t: t.detach().cpu(), [params, heads])
+            with torch.no_grad():
+                ref = asr_loss(host[0], host[1], cfg, **{
+                    k: v.cpu() for k, v in batch.items() if torch.is_tensor(v)})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, heads, opt_state, out = step(params, heads, opt_state, batch)
+        loss = float(out.loss)
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        log(f"[asr training] step {i + 1}: chunk mask {'full' if mask.all() else 'chunked'}, "
+            f"loss {loss:.5f} (CE {float(out.ce_loss):.5f}, CTC {float(out.ctc_loss):.5f}, "
+            f"acc {float(out.acc):.4f}), wall {walls[-1]:.3f} s")
+        if i == 0:
+            rel = abs(loss - float(ref.loss)) / abs(float(ref.loss))
+            log(f"[asr training] step 1 loss on the card {loss:.6f}, on the CPU "
+                f"{float(ref.loss):.6f}: relative difference {rel:.2e} (tolerance {ASR_REL})")
+            if not rel <= ASR_REL:
+                raise AssertionError("the card's ASR loss disagrees with the CPU's")
+            del host, ref
+        if not math.isfinite(loss):
+            raise AssertionError("a non-finite ASR loss")
+    peak = torch.cuda.max_memory_allocated()
+    check_counts("asr training", read_counts(), expected_counts())
+    wall = float(np.median(walls[1:]))
+    log(f"[asr training] warm step wall {wall:.3f} s (median of "
+        f"{[round(w, 4) for w in walls[1:]]}), {batch['seconds'] / wall:.0f} s of audio per "
+        f"second; peak memory {peak / 2**30:.2f} GiB")
+    profile_run("asr training profile", lambda: step(params, heads, opt_state, batch), wall)
+
+    # the speaker branch through the GRL: the encoder's gradient of the SV loss
+    # with the reversal is the negative of the one without it (coeff -1)
+    sv = init_sv_branch(cfg, 8, gen, sv_loss="softmax", device="cuda")
+    spk = torch.arange(batch["feats"].shape[0], device="cuda")
+    enc_leaves = fstep.tree_leaves(params)
+    kw = dict(sv_params=sv, spk_label=spk, sv_weight=0.5, **{
+        k: v for k, v in batch.items() if torch.is_tensor(v) and k != "chunk_mask"})
+    out = asr_loss(params, heads, cfg, **kw)
+    grads = torch.autograd.grad(out.loss, enc_leaves, allow_unused=True)
+    if not (math.isfinite(float(out.loss.detach())) and all(
+            torch.isfinite(g).all() for g in grads if g is not None)):
+        raise AssertionError("asr_loss with the speaker branch is not finite")
+    flipped = [torch.autograd.grad(asr_loss(params, heads, cfg, grl_coeff=c, **kw).sv_loss,
+                                   enc_leaves, allow_unused=True) for c in (1.0, -1.0)]
+    pairs = [(a, b) for a, b in zip(*flipped) if a is not None]
+    worst = max(float((a + b).abs().max()) for a, b in pairs)
+    top = max(float(b.abs().max()) for _, b in pairs)
+    log(f"[asr training] speaker branch: loss {float(out.loss.detach()):.5f}, SV "
+        f"{float(out.sv_loss.detach()):.5f} "
+        f"(acc {float(out.sv_acc):.3f}); the encoder's SV gradient with the GRL vs without: "
+        f"max|g_grl + g_plain| {worst:.3e} of max|g| {top:.3e} over {len(pairs)} tensors")
+    if not (top > 0 and worst <= ASR_REL * top):
+        raise AssertionError("the GRL does not flip the encoder's gradient")
+    del grads, flipped, pairs
+
+    dcfg = wd.DecoderConfig(r_num_blocks=3)
+    dec = wd.init_decoder(dcfg, gen, "cuda")
+    dec_leaves = fstep.tree_leaves(dec)
+    for p in dec_leaves:
+        p.requires_grad_(True)
+    b = batch["feats"].shape[0]
+    ys = rng.integers(3, ASR_VOCAB - 1, (b, 40))
+    ys[np.arange(40)[None, :] >= rng.integers(10, 41, b)[:, None]] = wd.IGNORE_ID
+    enc, enc_lens = conformer_encode(params, cfg, batch["feats"], batch["feat_lens"])
+    att, acc = wd.attention_loss(dec, dcfg, enc, enc_lens, ys, ASR_VOCAB - 1, ASR_VOCAB - 1,
+                                 reverse_weight=0.3)
+    g_dec = torch.autograd.grad(att, dec_leaves + enc_leaves, allow_unused=True)
+    n_grads = sum(g is not None for g in g_dec)
+    if not (math.isfinite(float(att.detach())) and all(torch.isfinite(g).all() for g in g_dec
+                                              if g is not None)):
+        raise AssertionError("attention_loss or its gradients are not finite")
+    log(f"[asr training] attention_loss of DecoderConfig(r_num_blocks=3) over the encoder: "
+        f"{float(att.detach()):.5f} (accuracy {float(acc):.4f}), {n_grads} finite gradients "
+        f"(decoder and encoder)")
+    for p in enc_leaves + fstep.tree_leaves(heads) + dec_leaves:
+        p.requires_grad_(False)
+    reset_counts()
+    return {"cfg": cfg, "params": params, "heads": heads, "dcfg": dcfg, "dec": dec}
+
+
+def streaming_phase(asr) -> None:
+    """conformer_encode_chunk_by_chunk on a 10 s clip, decoding chunk 16,
+    left chunks -1 and 4, on the card against the CPU (ASR_REL * max|y|);
+    device time per chunk and the streamed decode's RTF."""
+    from f5e_tts_tpu_torch.models.conformer import conformer_encode_chunk_by_chunk
+    from f5e_tts_tpu_torch.ops.kaldi import kaldi_fbank
+    from f5e_tts_tpu_torch.train import step as fstep
+
+    cfg, params = asr["cfg"], asr["params"]
+    host = fstep.tree_map(lambda t: t.cpu(), params)
+    feats = kaldi_fbank(torch.from_numpy(clips_16k()[1][:160_000]).cuda())
+    with torch.no_grad():
+        for left in (-1, 4):
+            def run():
+                return conformer_encode_chunk_by_chunk(params, cfg, feats, 16, left)
+
+            y = run()
+            ref = conformer_encode_chunk_by_chunk(host, cfg, feats.cpu(), 16, left)
+            err, top = float((y.cpu() - ref).abs().max()), float(ref.abs().max())
+            chunks = -(-y.shape[1] // 16)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            busy, launched, _ = device_busy(f"streaming, left chunks {left}", run)
+            log(f"[streaming] 10 s clip, chunk 16, left chunks {left}: output "
+                f"{tuple(y.shape)} in {chunks} chunks; card vs CPU max|diff| {err:.3e} of "
+                f"max|y| {top:.3e}; device busy {busy / chunks:.3f} ms a chunk "
+                f"({launched / chunks:.0f} kernels), wall {wall:.3f} s: RTF {wall / 10.0:.4f}, "
+                f"busy share {busy / (wall * 1e3):.3f}")
+            if not (torch.isfinite(y).all() and err <= ASR_REL * top):
+                raise AssertionError("the card's streamed encoding disagrees with the CPU's")
+    check_counts("streaming", read_counts(), expected_counts())
+
+
+def recognition_phase(asr) -> None:
+    """recognize in the ctc_greedy_search mode (a fresh CTC head) and the
+    attention mode (the decoder of the training phase) on the card and on
+    the CPU, on two 10 s clips: equal token lists, or the CPU's top-two
+    logit margin under TIE_MARGIN where they first differ."""
+    from f5e_tts_tpu_torch.models import wenet_decoder as wd
+    from f5e_tts_tpu_torch.models.conformer import PPGExtractor, conformer_encode
+    from f5e_tts_tpu_torch.models.wenet_tools import recognize
+    from f5e_tts_tpu_torch.ops import nn as fnn
+    from f5e_tts_tpu_torch.ops.kaldi import kaldi_fbank
+    from f5e_tts_tpu_torch.train import step as fstep
+
+    from f5e_tts_tpu_torch.models.conformer_train import init_asr_heads
+
+    cfg = asr["cfg"]
+    card = PPGExtractor(params=asr["params"], cfg=cfg, device="cuda")
+    host = PPGExtractor(params=fstep.tree_map(lambda t: t.cpu(), asr["params"]), cfg=cfg,
+                        device="cpu")
+    wav, lens = padded_batch([c[:160_000] for c in clips_16k()[-2:]])
+    feats = kaldi_fbank(torch.from_numpy(wav)).numpy()
+    feat_lens = np.maximum((lens - 400) // 160 + 1, 0)
+    # a fresh CTC head: three steps have taught the trained one to emit only
+    # blanks, which would leave the greedy search nothing to compare
+    card_ctc = init_asr_heads(cfg, ASR_VOCAB, torch.Generator(device="cuda").manual_seed(33),
+                              "cuda")["ctc"]
+    ctc = fstep.tree_map(lambda t: t.cpu(), card_ctc)
+    dec = fstep.tree_map(lambda t: t.cpu(), asr["dec"])
+    eos = ASR_VOCAB - 1
+    enc, enc_lens = conformer_encode(host.params, cfg, torch.from_numpy(feats),
+                                     torch.from_numpy(feat_lens))
+    for mode, kw in (("ctc_greedy_search", dict(ctc_params=ctc)),
+                     ("attention", dict(decoder_params=dec, decoder_cfg=asr["dcfg"], sos=eos,
+                                        eos=eos, max_len=100))):
+        t0 = time.perf_counter()
+        got = recognize(card, feats, feat_lens, mode=mode, **kw)
+        wall = time.perf_counter() - t0
+        want = recognize(host, feats, feat_lens, mode=mode, **kw)
+        log(f"[recognition] {mode}: {[len(h) for h in got]} tokens on the card in {wall:.2f} s, "
+            f"{[len(h) for h in want]} on the CPU; equal: {got == want}")
+        for row, (g, w) in enumerate(zip(got, want)):
+            if g == w:
+                continue
+            i = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
+            with torch.no_grad():
+                if mode == "attention":
+                    ys = torch.tensor([[eos] + w[:i]])
+                    logits = wd.decoder_forward(dec, asr["dcfg"], enc[row:row + 1],
+                                                enc_lens[row:row + 1], ys,
+                                                torch.tensor([ys.shape[1]]))[0][0, -1]
+                else:  # the first frame whose argmax differs
+                    host_lg = fnn.linear(ctc, enc[row, : int(enc_lens[row])])
+                    card_enc, _ = conformer_encode(card.params, cfg,
+                                                   torch.from_numpy(feats[row:row + 1]).cuda(),
+                                                   torch.from_numpy(feat_lens[row:row + 1]).cuda())
+                    card_lg = fnn.linear(card_ctc, card_enc[0, : int(enc_lens[row])]).cpu()
+                    frames = (card_lg.argmax(-1) != host_lg.argmax(-1)).nonzero()
+                    logits = host_lg[int(frames[0])] if len(frames) else None
+            if logits is None:  # no frame's argmax differs: no tie explains it
+                margin = math.inf
+            else:
+                top2 = torch.topk(logits.float(), 2).values
+                margin = float(top2[0] - top2[1])
+            log(f"[recognition] {mode} row {row}: first difference at step {i}, the CPU's "
+                f"top-two logit margin there {margin:.3e} (limit {TIE_MARGIN})")
+            if not margin < TIE_MARGIN:
+                raise AssertionError(f"recognize ({mode}) on the card differs from the CPU")
+    check_counts("recognition", read_counts(), expected_counts())
+
+
+def derived_span_edit_phase(sv, asr) -> dict:
+    """Speech editing with spans derived on the card: the trained CTC head's
+    log-probs over the v1 reference at 16 kHz, forced-aligned to the bytes
+    of its transcript, give the span of "mother" (derive_edit_spans); the
+    spans equal the CPU's, and edit_speech over them runs as the speech edit
+    phase checks it (depth x NFE of K1 and K2, kept frames == cond mel)."""
+    from f5e_tts_tpu_torch.infer.audio import resample
+    from f5e_tts_tpu_torch.infer.speech_edit import derive_edit_spans
+    from f5e_tts_tpu_torch.models.conformer import conformer_encode
+    from f5e_tts_tpu_torch.ops import nn as fnn
+    from f5e_tts_tpu_torch.ops.kaldi import kaldi_fbank
+    from f5e_tts_tpu_torch.train import step as fstep
+
+    cfg = asr["cfg"]
+    feats = kaldi_fbank(torch.from_numpy(resample(sv.wav, sv.sr, 16_000)).cuda())
+    tokens = list(REF_TEXT.encode("utf-8"))
+    i0 = REF_TEXT.index("mother")
+    ranges = [(i0, i0 + len("mother") - 1)]
+
+    def spans(params, ctc, dev):
+        with torch.no_grad():
+            enc, lens = conformer_encode(params, cfg, feats.to(dev),
+                                         torch.tensor([feats.shape[1]], device=dev))
+            lp = torch.log_softmax(fnn.linear(ctc, enc[0, : int(lens[0])]).float(), dim=-1)
+        return derive_edit_spans(lp, tokens, ranges, 0.02), lp.shape[0]
+
+    t0 = time.perf_counter()
+    got, frames = spans(asr["params"], asr["heads"]["ctc"], "cuda")
+    align_s = time.perf_counter() - t0
+    want, _ = spans(fstep.tree_map(lambda t: t.cpu(), asr["params"]),
+                    fstep.tree_map(lambda t: t.cpu(), asr["heads"]["ctc"]), "cpu")
+    log(f"[derived-span edit] {len(tokens)} byte tokens over {frames} CTC frames (20 ms): the "
+        f"span of 'mother' {got} on the card ({align_s:.2f} s with the alignment), {want} on "
+        f"the CPU")
+    if got != want:
+        raise AssertionError("the spans derived on the card differ from the CPU's")
+    return speech_edit_phase(sv, parts=got, tag="derived-span edit")
+
+
+def training_cli_phase(tmp: Path) -> dict:
+    """train.main over configs/example.yaml with the byte tokenizer, the
+    codebook off, a save directory under `tmp` and bnb_optimizer on, and an
+    Arrow dataset of the
+    8 clips in the {name}_byte layout: two updates, each launching 2 x depth
+    K3 and K2 and depth K6 and K5 (remat "block"); the 8-bit state under 0.3x
+    the fp32 AdamW state's bytes; a second main() resumes at update 3.
+    Returns the launch counts of one step."""
+    import yaml
+    from datasets import Dataset as ArrowDataset
+
+    from f5e_tts_tpu_torch.train import train as cli
+    from f5e_tts_tpu_torch.train import trainer as ftrainer
+    from f5e_tts_tpu_torch.train.adamw8bit import state_bytes
+    from f5e_tts_tpu_torch.train.step import tree_leaves
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    raw = yaml.safe_load((ROOT / "configs" / "example.yaml").read_text())
+    raw["model"]["tokenizer"] = "byte"
+    raw["datasets"]["name"] = "smoke"
+    raw["optim"]["bnb_optimizer"] = True
+    raw["ckpts"]["save_dir"] = str(tmp / "ckpts")
+    # the CLI builds its Trainer without a PPG extractor, so its batches carry
+    # no PPG lengths, and the codebook branch needs them: the JAX CLI fails
+    # its assert on example.yaml as it is (f5e_tts_tpu/models/dit.py:500), the
+    # port's raises the same way (tests/test_torch_train_cli.py); so the
+    # codebook is off here and the PPG DiT trains on zero PPG, as the JAX CLI
+    # trains any use_ppg YAML without a codebook
+    raw["model"]["use_codebook"] = False
+    config = tmp / "example_byte.yaml"
+    ds_dir = tmp / "data" / "smoke_byte"
+    ds_dir.mkdir(parents=True)
+    config.write_text(yaml.safe_dump(raw))
+    t0 = time.perf_counter()
+    rows = training_rows()
+    ArrowDataset.from_list(rows).save_to_disk(str(ds_dir / "raw"))
+    (ds_dir / "duration.json").write_text(json.dumps({"duration": [r["duration"] for r in rows]}))
+    log(f"[training cli] YAML {config.name} (example.yaml, byte tokenizer, bnb_optimizer, no "
+        f"codebook) and "
+        f"an Arrow dataset of {len(rows)} clips written in {time.perf_counter() - t0:.1f} s")
+    expected = expected_counts(partial_rope_attention=2 * F5E_DEPTH,
+                               partial_rope_attention_bwd=F5E_DEPTH,
+                               gated_adaln=2 * F5E_DEPTH, gated_adaln_bwd=F5E_DEPTH)
+    seen = []
+
+    class Recording(ftrainer.Trainer):
+        def __post_init__(self):
+            inner = self.log_fn
+
+            def log_fn(metrics, update):
+                counts = read_counts()
+                seen.append(update)
+                log(f"[training cli] update {update}: loss {metrics['loss']:.5f}, wall "
+                    f"{metrics['step_seconds']:.3f} s, launches "
+                    f"{ {k: v for k, v in counts.items() if v} }")
+                check_counts(f"training cli update {update}", counts, expected)
+                if not math.isfinite(metrics["loss"]):
+                    raise AssertionError("the CLI's step is not finite")
+                walls.append(metrics["step_seconds"])
+                inner(metrics, update)
+
+            self.log_fn = log_fn
+            super().__post_init__()
+
+        def make_step(self):
+            step = super().make_step()
+            if not profiled["on"]:
+                return step
+
+            def traced(*a, **kw):  # the resumed run's step, under torch.profiler
+                out = {}
+                profiled["busy"], profiled["kernels"], _ = device_busy(
+                    "training cli step", lambda: out.setdefault("r", step(*a, **kw)))
+                return out["r"]
+
+            return traced
+
+    walls: list = []
+    profiled = {"on": False}
+    args = ["--config", str(config), "--data_dir", str(tmp / "data"), "--device", "cuda"]
+    original = ftrainer.Trainer
+    ftrainer.Trainer = Recording
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        ts = cli.main(args + ["--max_updates", "2", "--no_resume"])
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(t.numel() for t in tree_leaves(ts.params))
+        bytes8, bytes32 = state_bytes(ts.opt_state), 4 + 8 * n_params
+        del ts
+        profiled["on"] = True
+        t0 = time.perf_counter()
+        ts = cli.main(args + ["--max_updates", "3"])
+        resume_s = time.perf_counter() - t0
+    finally:
+        ftrainer.Trainer = original
+    log(f"[training cli] main(--max_updates 2): updates {seen[:2]} in {first_s:.1f} s (model "
+        f"build, loader, two steps, model_last); step walls {[round(w, 3) for w in walls]}; "
+        f"peak memory {peak / 2**30:.2f} GiB; 8-bit AdamW state {bytes8 / 2**20:.1f} MiB vs "
+        f"{bytes32 / 2**20:.1f} MiB in fp32 ({bytes8 / bytes32:.3f}x) for {n_params / 1e6:.1f}M "
+        f"params; resumed main(--max_updates 3): updates {seen[2:]} in {resume_s:.1f} s, its "
+        f"step under torch.profiler: device busy {profiled['busy']:.1f} ms in "
+        f"{profiled['kernels']} kernels (busy share {profiled['busy'] / (walls[1] * 1e3):.3f} "
+        f"of update 2's wall)")
+    if seen != [1, 2, 3] or ts.update != 3:
+        raise AssertionError(f"the CLI ran updates {seen}, ending at {ts.update}")
+    if not bytes8 < 0.3 * bytes32:
+        raise AssertionError("the 8-bit AdamW state is not under 0.3x the fp32 state")
+    del ts
+    shutil.rmtree(tmp, ignore_errors=True)
+    reset_counts()
+    return expected
+
 
 
 def main() -> int:
@@ -2178,7 +2777,15 @@ def main() -> int:
     phase("f5e gradients", lambda: f5e_gradient_phase(swaps))
     with torch.inference_mode():
         runs.update(phase("f5e serving", lambda: f5e_serving_phase(extractor)))
+    # the PPG front end's own life cycle: captured PPG engines, offline
+    # extraction, ASR training, streaming, recognition (no kernel of the port)
+    phase("ppg engines", lambda: ppg_engines_phase(extractor))
+    phase("offline extraction", lambda: offline_extraction_phase(
+        extractor, ROOT / "build" / "smoke" / "ppg_cli"))
     del extractor
+    asr = phase("asr training", asr_training_phase)
+    phase("streaming", lambda: streaming_phase(asr))
+    phase("recognition", lambda: recognition_phase(asr))
 
     # serving on one v1 model: EPSS grid, captured engines, device decode,
     # streaming, the TTS sampler mode and speech editing
@@ -2190,7 +2797,13 @@ def main() -> int:
         phase("device decode and streaming", lambda: decode_stream_phase(sv))
         runs["tts_mode_synthesis"] = phase("tts mode", lambda: tts_mode_phase(sv))
         runs["speech_edit"] = phase("speech edit", lambda: speech_edit_phase(sv))
+        runs["derived_span_edit"] = phase("derived-span edit",
+                                          lambda: derived_span_edit_phase(sv, asr))
         del sv
+    del asr
+    # the YAML training CLI on the F5E model with 8-bit AdamW
+    runs["cli_f5e_step"] = phase("training cli", lambda: training_cli_phase(
+        ROOT / "build" / "smoke" / "cli"))
 
     # which paths launched each kernel, and how often in one run of the path
     paths = {name: {p: c[name] for p, c in runs.items() if c[name]} for name in COUNTERS}

@@ -174,7 +174,11 @@ class TrainConfig:
     # the LR schedule run in update units.
     grad_accumulation_steps: int = 1
     max_grad_norm: float = 1.0
+    # 8-bit Adam moments (reference trainer.py:134-137 bnb.optim.AdamW8bit;
+    # here train/adamw8bit.py, the JAX package's int8 block quantisation)
+    bnb_optimizer: bool = False
     batch_size_per_device: int = 19_200
+    batch_size_type: str = "frame"  # "frame" | "sample"
     max_samples: int = 64
     # EMA: ema_pytorch defaults, which the reference trainer uses unmodified
     # (trainer.py:104); see train/step.py
@@ -187,7 +191,9 @@ class TrainConfig:
     save_per_updates: int = 50_000
     last_per_updates: int = 5_000
     keep_last_n_checkpoints: int = -1
+    log_samples_per_updates: int = 10_000
     save_dir: str = "ckpts"
+    logger: Optional[str] = None  # "tensorboard" | "wandb" | None
     seed: int = 666
     # numerics: fp32 master weights, matmuls in the compute dtype
     param_dtype: str = "float32"
@@ -304,11 +310,8 @@ def load_yaml(path: str) -> ModelConfig:
 
 def load_train_yaml(path: str) -> TrainConfig:
     """The optim / ckpts / datasets sections of a training YAML -> TrainConfig,
-    key for key as the JAX loader reads them. The port trains on one device
-    with frame-budget batches and full-precision AdamW: a `mesh` over more
-    than one device, `bnb_optimizer: true` or `batch_size_type: sample`
-    raise. `logger` and `log_samples_per_updates` are not read: the port's
-    Trainer reports through its `log_fn`."""
+    key for key as the JAX loader reads them (config.py:359-391). The port
+    trains on one device: a `mesh` over more than one device raises."""
     raw = _read_yaml(path)
     optim = raw.get("optim", {})
     ckpts = raw.get("ckpts", {})
@@ -318,22 +321,20 @@ def load_train_yaml(path: str) -> TrainConfig:
                                                   ("fsdp", "model", "seq", "pipe")):
         raise NotImplementedError(f"mesh {mesh}: the port trains on one device "
                                   "(ROADMAP queue 1 item 10)")
-    if optim.get("bnb_optimizer", False):
-        raise NotImplementedError("bnb_optimizer: 8-bit AdamW is not ported yet "
-                                  "(ROADMAP queue 1 item 5)")
-    if ds.get("batch_size_type", "frame") != "frame":
-        raise NotImplementedError("batch_size_type sample: only frame-budget batches are "
-                                  "ported (ROADMAP queue 1 item 5)")
     return TrainConfig(
         epochs=optim.get("epochs", 100),
         learning_rate=optim.get("learning_rate", 7.5e-5),
         num_warmup_updates=optim.get("num_warmup_updates", 20_000),
         grad_accumulation_steps=optim.get("grad_accumulation_steps", 1),
         max_grad_norm=optim.get("max_grad_norm", 1.0),
+        bnb_optimizer=optim.get("bnb_optimizer", False),
         batch_size_per_device=ds.get("batch_size_per_gpu", 19_200),
+        batch_size_type=ds.get("batch_size_type", "frame"),
         max_samples=ds.get("max_samples", 64),
         save_per_updates=ckpts.get("save_per_updates", 50_000),
         last_per_updates=ckpts.get("last_per_updates", 5_000),
         keep_last_n_checkpoints=ckpts.get("keep_last_n_checkpoints", -1),
+        log_samples_per_updates=ckpts.get("log_samples_per_updates", 10_000),
         save_dir=ckpts.get("save_dir", "ckpts"),
+        logger=ckpts.get("logger"),
     )

@@ -11,7 +11,9 @@
 
 - with `with_16k_audio`, each item also carries its audio at 16 kHz for the
   PPG extractor of PPG training (reference dataset.py:219-226 yields 16 kHz
-  kaldi fbank), and the batch `audio_16k` (B, T16) with `audio_16k_lens`.
+  kaldi fbank), and the batch `audio_16k` (B, T16) with `audio_16k_lens`;
+- with `preprocessed_mel`, rows carry their log-mel (`mel_spec`) and the
+  batch a padded `mel` instead of audio.
 
 Not ported yet: the hub-hosted dataset wrapper and the dataset factory.
 """
@@ -38,13 +40,17 @@ class ArrowSpeechDataset:
     text[, duration]} yielding {audio, text} (reference: dataset.py:83-228,
     CustomDataset). `rows` is any indexable sequence of such rows: a list in
     memory, or an Arrow table from `from_dir`. `with_16k_audio` adds the
-    item's audio at 16 kHz as `audio_16k` (PPG training)."""
+    item's audio at 16 kHz as `audio_16k` (PPG training);
+    `preprocessed_mel` reads each row's `mel_spec` (frames-first, or the
+    legacy channels-first) and yields {mel, text}."""
 
     def __init__(self, rows, durations: Optional[Sequence[float]] = None,
-                 mel: MelConfig = MelConfig(), with_16k_audio: bool = False):
+                 mel: MelConfig = MelConfig(), preprocessed_mel: bool = False,
+                 with_16k_audio: bool = False):
         self.rows = rows
         self.durations = durations
         self.mel = mel
+        self.preprocessed_mel = preprocessed_mel
         self.with_16k_audio = with_16k_audio
 
     @classmethod
@@ -81,6 +87,11 @@ class ArrowSpeechDataset:
     def __getitem__(self, idx: int) -> Dict:
         row = self.rows[idx]
         text = row["text"]
+        if self.preprocessed_mel:
+            mel = np.asarray(row["mel_spec"], np.float32)
+            if mel.ndim == 2 and mel.shape[0] == self.mel.n_mel_channels:
+                mel = mel.T  # channels-first legacy -> frames-first
+            return {"mel": mel, "text": text}
         audio = row["audio"] if "audio" in row else row["audio_path"]
         if isinstance(audio, dict):
             wav = np.asarray(audio["array"], np.float32)
@@ -231,12 +242,20 @@ class DataLoader:
 
 def build_loader(dataset: ArrowSpeechDataset, tokenize, frames_threshold: int,
                  max_samples: int = 64, seed: Optional[int] = 666,
-                 len_multiple: int = 128) -> DataLoader:
-    """DynamicBatchSampler equivalent (dataset.py:309-373) in its default
-    frame mode: packs under a frame budget. Items outside 0.3-30 s are
-    dropped."""
+                 len_multiple: int = 128, batch_size_type: str = "frame") -> DataLoader:
+    """DynamicBatchSampler equivalent (dataset.py:309-373). batch_size_type
+    "frame" packs under a frame budget (the reference default); "sample"
+    cuts the length-sorted order into batches of `max_samples` (reference
+    batch_size_type="sample", trainer.py:283-298). Items outside 0.3-30 s
+    are dropped."""
     mel = dataset.mel
     lens = [dataset.get_frame_len(i) for i in range(len(dataset))]
-    batches = pack_batches(lens, frames_threshold, max_samples, frame_len_of(0.3, mel),
-                           frame_len_of(30.0, mel))
+    min_frames, max_frames = frame_len_of(0.3, mel), frame_len_of(30.0, mel)
+    if batch_size_type == "sample":
+        order = [i for i in sorted(range(len(lens)), key=lambda i: lens[i])
+                 if min_frames <= lens[i] <= max_frames]
+        bs = max(max_samples, 1)
+        batches = [order[i: i + bs] for i in range(0, len(order), bs)]
+    else:
+        batches = pack_batches(lens, frames_threshold, max_samples, min_frames, max_frames)
     return DataLoader(dataset, FramePackedSampler(batches, seed=seed), tokenize, len_multiple)

@@ -7,9 +7,10 @@ and the sampler runs with `prepare_inputs(edit_mask=)`, so the prompt-keep
 mask is cond_mask & edit_mask and only the edited spans are generated; every
 kept frame of the output is the cond mel (the sampler's prompt overwrite).
 
-Spans are given in seconds (from any aligner). Deriving them from CTC
-posteriors (`token_spans_from_alignment`, `derive_edit_spans`) needs the
-conformer's `ctc_forced_align`, which is not ported yet: both raise.
+Spans are given in seconds (from any aligner), or derived from CTC
+posteriors by `token_spans_from_alignment` / `derive_edit_spans`, on the
+port's `ctc_forced_align` (models/conformer_train.py), where the reference
+runs an external ctc-forced-aligner by hand (speech_edit.py:66-72).
 """
 
 from __future__ import annotations
@@ -26,18 +27,41 @@ from f5e_tts_tpu_torch.models import cfm as fcfm
 from f5e_tts_tpu_torch.ops.mel import mel_spectrogram
 
 
-def token_spans_from_alignment(logprobs, tokens, frame_shift_s: float, blank: int = 0):
-    """Per-token (start_s, end_s) spans from CTC forced alignment: waits for
-    `models/conformer_train.py: ctc_forced_align` (ROADMAP queue 1 item 6)."""
-    raise NotImplementedError("CTC span derivation needs ctc_forced_align, not ported yet "
-                              "(ROADMAP queue 1 item 6)")
+def token_spans_from_alignment(logprobs, tokens: Sequence[int], frame_shift_s: float,
+                               blank: int = 0) -> List[Tuple[float, float]]:
+    """Per-token (start_s, end_s) spans by CTC forced alignment. logprobs:
+    (T, V) log-softmax frame posteriors; tokens: the transcript's ids;
+    frame_shift_s: the posteriors' frame shift (0.02 for the PPG encoder)."""
+    from f5e_tts_tpu_torch.models.conformer_train import ctc_forced_align
+
+    if torch.is_tensor(logprobs):
+        logprobs = logprobs.detach().cpu().numpy()
+    _, spath = ctc_forced_align(logprobs, tokens, blank, return_states=True)
+    spans: List[Optional[List[int]]] = [None] * len(tokens)
+    for t, s in enumerate(spath):
+        if s % 2 == 1:  # an odd CTC state is label token (s - 1) // 2
+            u = (s - 1) // 2
+            if spans[u] is None:
+                spans[u] = [t, t + 1]
+            else:
+                spans[u][1] = t + 1
+    if any(sp is None for sp in spans):
+        raise AssertionError("the alignment skipped a token")
+    return [(sp[0] * frame_shift_s, sp[1] * frame_shift_s) for sp in spans]
 
 
-def derive_edit_spans(logprobs, tokens, edit_token_ranges, frame_shift_s: float, blank: int = 0):
-    """Edit spans for token index ranges: waits for
-    `token_spans_from_alignment` (ROADMAP queue 1 item 6)."""
-    raise NotImplementedError("CTC span derivation needs ctc_forced_align, not ported yet "
-                              "(ROADMAP queue 1 item 6)")
+def derive_edit_spans(logprobs, tokens: Sequence[int], edit_token_ranges: Sequence[Tuple[int, int]],
+                      frame_shift_s: float, blank: int = 0) -> List[Tuple[float, float]]:
+    """(start_s, end_s) edit spans for token index ranges [i0, i1], both
+    ends included: each runs from its first token's start to its last
+    token's end (the `parts_to_edit` of `build_edit_mask`)."""
+    per_tok = token_spans_from_alignment(logprobs, tokens, frame_shift_s, blank)
+    out = []
+    for i0, i1 in edit_token_ranges:
+        if not 0 <= i0 <= i1 < len(per_tok):
+            raise ValueError(f"token range ({i0}, {i1}) outside {len(per_tok)} tokens")
+        out.append((per_tok[i0][0], per_tok[i1][1]))
+    return out
 
 
 def build_edit_mask(parts_to_edit: Sequence[Tuple[float, float]], audio_len_samples: int,

@@ -1,6 +1,6 @@
-"""WeNet-style Conformer encoder and the PPG extractor over it, non-streaming
-and frozen (counterpart of `f5e_tts_tpu/models/conformer.py`, its
-full-utterance path).
+"""WeNet-style Conformer encoder and the PPG extractor over it (counterpart
+of `f5e_tts_tpu/models/conformer.py`): the full-utterance encoder with
+optional chunk masks, the streaming chunk-by-chunk decode, and the loaders.
 
 reference: src/f5_tts/ppg/ — asr_model.py:222-244 (extract),
 wenet/transformer/encoder.py:141-208 (ConformerEncoder), encoder_layer.py:130-268,
@@ -21,7 +21,9 @@ layouts (linear (in, out), depthwise conv (k, 1, out), subsampling conv HWIO
 
 from __future__ import annotations
 
+import functools
 import math
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -99,6 +101,15 @@ def _sinus_table(d_model: int, max_len: int) -> np.ndarray:
     return pe.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=8)
+def _pos_table(d_model: int, max_len: int, device: torch.device) -> torch.Tensor:
+    """`_sinus_table` on `device`, built once per (d, max_len, device): a
+    CUDA-graph capture of the encoder (utils/aot.py: capture_ppg_buckets)
+    cannot contain a copy from the host, so the encoder slices this cached
+    device tensor instead of copying the table in on every call."""
+    return torch.from_numpy(_sinus_table(d_model, max_len)).to(device)
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -106,24 +117,28 @@ def _sinus_table(d_model: int, max_len: int) -> np.ndarray:
 
 def _masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """wenet forward_attention: the masked keys filled with the fp32 minimum,
-    softmax, then zeroed. mask: (B, S) key padding."""
+    softmax, then zeroed. mask: (B, S) key padding, or a (B, T, S) chunk
+    mask (mask.py:116-186, add_optional_chunk_mask)."""
     if mask is None:
         return torch.softmax(scores.float(), dim=-1)
-    m = mask[:, None, None, :]
+    m = mask[:, None, None, :] if mask.dim() == 2 else mask[:, None]
     scores = scores.masked_fill(~m, torch.finfo(torch.float32).min)
     return torch.softmax(scores.float(), dim=-1).masked_fill(~m, 0.0)
 
 
-def _rel_attention(p, x, pos_emb, mask, heads: int, compute_dtype):
+def _rel_attention(p, x, pos_emb, mask, heads: int, compute_dtype, x_q=None):
     """Transformer-XL attention without rel_shift (attention.py:180-222):
-    scores ((q + u) k^T + (q + v) pos^T) / sqrt(dk), in fp32."""
+    scores ((q + u) k^T + (q + v) pos^T) / sqrt(dk), in fp32. `x_q` gives
+    the queries alone (the streaming chunk queries only its new frames while
+    keys and values cover the cache too, encoder_layer.py:220-231)."""
     b, t, d = x.shape
     dk = d // heads
 
     def proj(pp, y):
         return fnn.linear(pp, y, compute_dtype).reshape(y.shape[0], -1, heads, dk)
 
-    q, k, v = (proj(p[name], x) for name in ("linear_q", "linear_k", "linear_v"))
+    q = proj(p["linear_q"], x if x_q is None else x_q)
+    k, v = proj(p["linear_k"], x), proj(p["linear_v"], x)
     pos = proj(p["linear_pos"], pos_emb[None])
     qf = q.float()
     ac = torch.einsum("bthd,bshd->bhts", qf + p["pos_bias_u"].float(), k.float())
@@ -157,15 +172,20 @@ def _ffn(p, x, compute_dtype):
     return fnn.linear(p["w2"], (h * torch.sigmoid(h)).to(compute_dtype), compute_dtype)
 
 
-def _conformer_layer(p, x, pos_emb, mask, heads, compute_dtype):
+def _conformer_layer(p, x, pos_emb, mask, heads, compute_dtype, mask_pad=None):
     """Macaron FF (x 0.5) -> attention -> conv module -> FF (x 0.5) -> final
-    LayerNorm, each behind a pre-LayerNorm and a residual (encoder_layer.py:179-268)."""
+    LayerNorm, each behind a pre-LayerNorm and a residual (encoder_layer.py:179-268).
+    `mask` is the (B, S) padding or a (B, T, S) chunk mask; the conv module
+    reads the plain padding mask `mask_pad` (by default `mask` when 2-D)."""
+    if mask_pad is None and (mask is None or mask.dim() == 2):
+        mask_pad = mask
+
     def ln(name, y):
         return fnn.layernorm(p[name], y, eps=1e-5)
 
     x = x + 0.5 * _ffn(p["ff_macaron"], ln("norm_ff_macaron", x), compute_dtype)
     x = x + _rel_attention(p["attn"], ln("norm_mha", x), pos_emb, mask, heads, compute_dtype)
-    x = x + _conv_module(p["conv"], ln("norm_conv", x), mask, compute_dtype)
+    x = x + _conv_module(p["conv"], ln("norm_conv", x), mask_pad, compute_dtype)
     x = x + 0.5 * _ffn(p["ff"], ln("norm_ff", x), compute_dtype)
     return ln("norm_final", x)
 
@@ -196,23 +216,171 @@ def _subsample(params: dict, cfg: ConformerConfig, x: torch.Tensor,
     return x.float() * math.sqrt(cfg.output_size), mask
 
 
+def subsequent_chunk_mask_np(size: int, chunk_size: int, num_left_chunks: int = -1) -> np.ndarray:
+    """(size, size) bool chunk visibility (mask.py:78-113): row i sees the
+    columns [chunk start - num_left_chunks chunks, (i // chunk + 1) * chunk)."""
+    i = np.arange(size)[:, None]
+    j = np.arange(size)[None, :]
+    ending = np.minimum((i // chunk_size + 1) * chunk_size, size)
+    if num_left_chunks < 0:
+        start = np.zeros_like(i)
+    else:
+        start = np.maximum((i // chunk_size - num_left_chunks) * chunk_size, 0)
+    return (j >= start) & (j < ending)
+
+
+def make_chunk_mask(pad_mask: torch.Tensor, chunk_size: int,
+                    num_left_chunks: int = -1) -> torch.Tensor:
+    """(B, T, T) = the padding mask AND the chunk mask (add_optional_chunk_mask,
+    mask.py:116-186); chunk_size <= 0 means the full context."""
+    t = pad_mask.shape[1]
+    cm = torch.from_numpy(subsequent_chunk_mask_np(t, chunk_size if chunk_size > 0 else t,
+                                                   num_left_chunks)).to(pad_mask.device)
+    return pad_mask[:, None, :] & cm[None]
+
+
+def dynamic_chunk_size(max_len: int, rng: np.random.Generator) -> int:
+    """A training chunk size drawn as this fork does: the full context half
+    the time, else 5-11 frames (mask.py:157-170, `chunk_size % 7 + 1 + 4`)."""
+    c = int(rng.integers(1, max_len))
+    if c > max_len // 2:
+        return max_len
+    return c % 7 + 1 + 4
+
+
+def sample_train_chunk_mask(cfg: ConformerConfig, t_frames: int,
+                            rng: np.random.Generator) -> np.ndarray:
+    """The (T', T') bool dynamic-chunk mask of one training batch
+    (use_dynamic_chunk), drawn on the host; all True for the full context,
+    so every step has the same inputs."""
+    tt = subsampled_time(cfg.subsampling, t_frames)
+    c = dynamic_chunk_size(tt, rng)
+    if c >= tt:
+        return np.ones((tt, tt), bool)
+    return subsequent_chunk_mask_np(tt, c)
+
+
 def conformer_encode(params: dict, cfg: ConformerConfig, feats: torch.Tensor,
-                     feat_lens: torch.Tensor,
-                     compute_dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+                     feat_lens: torch.Tensor, compute_dtype=torch.float32,
+                     chunk_size: int = 0, num_left_chunks: int = -1,
+                     chunk_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The full-utterance encoder forward (encoder.py:141-208): (B, T, 80)
     fbank and (B,) lengths -> ((B, T', output_size), (B,) lengths at the
-    subsampled rate), padding masked out of attention and the conv module."""
+    subsampled rate), padding masked out of attention and the conv module.
+
+    chunk_size > 0 masks attention to chunks over the whole utterance (the
+    static / decoding chunk of add_optional_chunk_mask, with
+    num_left_chunks); `chunk_mask` (T', T') gives a precomputed visibility
+    instead (`sample_train_chunk_mask`). The conv module always reads the
+    plain padding mask."""
     t = feats.shape[1]
     mask = lens_to_mask(feat_lens.to(feats.device), t)
     x = (feats.float() - params["cmvn_mean"]) * params["cmvn_istd"]
     x, mask = _subsample(params, cfg, x, mask, compute_dtype)
-    pos_emb = torch.from_numpy(_sinus_table(cfg.output_size, cfg.max_pos)[: x.shape[1]]).to(
-        x.device)
+    pos_emb = _pos_table(cfg.output_size, cfg.max_pos, x.device)[: x.shape[1]]
+    if chunk_mask is not None:
+        attn_mask = mask[:, None, :] & torch.as_tensor(chunk_mask, device=x.device)[None]
+    elif chunk_size > 0:
+        attn_mask = make_chunk_mask(mask, chunk_size, num_left_chunks)
+    else:
+        attn_mask = mask
     x = x.to(compute_dtype)
     for layer_p in params["layers"]:
-        x = _conformer_layer(layer_p, x, pos_emb, mask, cfg.attention_heads, compute_dtype)
+        x = _conformer_layer(layer_p, x, pos_emb, attn_mask, cfg.attention_heads, compute_dtype,
+                             mask_pad=mask)
     x = fnn.layernorm(params["after_norm"], x, eps=1e-5)
     return x, mask.sum(dim=1, dtype=torch.int32)
+
+
+def conformer_forward_chunk(params: dict, cfg: ConformerConfig, feats: torch.Tensor,
+                            offset: int, required_cache_size: int, caches: Optional[dict] = None,
+                            compute_dtype=torch.float32) -> Tuple[torch.Tensor, dict]:
+    """One streaming chunk (encoder.py:210-291): (1, w, 80) raw fbank of the
+    decoding window -> (the encoder output of the new frames, the caches).
+
+    caches: {"sub": (1, c, d) embedding cache, "layers": [(1, c, d)] per
+    layer}. The subsampling's left context comes from overlapping input
+    frames, not a cache (encoder.py:308-320), and the conv module runs on
+    the chunk alone, zero-padded at its edges, as the reference does for
+    this fork's non-causal convs: so the streamed output equals the
+    chunk-masked full encode only for kernel-1 convs.
+    `required_cache_size` < 0 keeps the whole history, 0 none, n > 0 the
+    last n frames."""
+    if feats.shape[0] != 1:
+        raise ValueError("the streaming decode is single-utterance")
+    x = (feats.float() - params["cmvn_mean"]) * params["cmvn_istd"]
+    x, _ = _subsample(params, cfg, x, None, compute_dtype)
+    sub_cache = caches["sub"] if caches else None
+    cache_size = 0 if sub_cache is None else sub_cache.shape[1]
+    if sub_cache is not None:
+        x = torch.cat([sub_cache, x], dim=1)
+    t_full = x.shape[1]
+    # the table read from the cached span's absolute start
+    # (encoder.py:257: position_encoding(offset - cache_size, xs.size(1)))
+    start = offset - cache_size
+    pos_emb = _pos_table(cfg.output_size, cfg.max_pos, x.device)[start: start + t_full]
+    if required_cache_size < 0:
+        next_cache_start = 0
+    elif required_cache_size == 0:
+        next_cache_start = t_full
+    else:
+        next_cache_start = max(t_full - required_cache_size, 0)
+
+    new_caches = {"sub": x[:, next_cache_start:], "layers": []}
+    x = x.to(compute_dtype)
+    layer_caches = caches["layers"] if caches else [None] * len(params["layers"])
+    for layer_p, att_cache in zip(params["layers"], layer_caches):
+        x = _conformer_layer_chunk(layer_p, x, pos_emb, cfg.attention_heads, compute_dtype,
+                                   att_cache)
+        new_caches["layers"].append(x[:, next_cache_start:])
+    y = fnn.layernorm(params["after_norm"], x, eps=1e-5)
+    return y[:, cache_size:], new_caches
+
+
+def _conformer_layer_chunk(p, x, pos_emb, heads, compute_dtype, output_cache):
+    """The streaming `_conformer_layer` (encoder_layer.py:179-268): only the
+    new frames are queried; the cached span of the output is the previous
+    call's cache, reused as it is."""
+    def ln(name, y):
+        return fnn.layernorm(p[name], y, eps=1e-5)
+
+    x1 = x + 0.5 * _ffn(p["ff_macaron"], ln("norm_ff_macaron", x), compute_dtype)
+    h = ln("norm_mha", x1)
+    if output_cache is None:
+        x_q, res = None, x1
+    else:
+        chunk = x.shape[1] - output_cache.shape[1]
+        x_q, res = h[:, -chunk:], x1[:, -chunk:]
+    x2 = res + _rel_attention(p["attn"], h, pos_emb, None, heads, compute_dtype, x_q=x_q)
+    x2 = x2 + _conv_module(p["conv"], ln("norm_conv", x2), None, compute_dtype)
+    x2 = x2 + 0.5 * _ffn(p["ff"], ln("norm_ff", x2), compute_dtype)
+    x2 = ln("norm_final", x2)
+    if output_cache is not None:
+        x2 = torch.cat([output_cache, x2], dim=1)
+    return x2
+
+
+def conformer_encode_chunk_by_chunk(params: dict, cfg: ConformerConfig, feats: torch.Tensor,
+                                    decoding_chunk_size: int, num_decoding_left_chunks: int = -1,
+                                    compute_dtype=torch.float32) -> torch.Tensor:
+    """The streaming decode of a whole utterance (encoder.py:293-355): (1, T,
+    80) fbank fed in overlapping windows, chunk by chunk, carrying the
+    caches -> (1, T', output_size)."""
+    if decoding_chunk_size <= 0:
+        raise ValueError("decoding_chunk_size must be positive")
+    spec = subsampling_spec(cfg.subsampling)
+    context = spec["right_context"] + 1
+    stride = spec["rate"] * decoding_chunk_size
+    window = (decoding_chunk_size - 1) * spec["rate"] + context
+    required = decoding_chunk_size * num_decoding_left_chunks
+    caches, offset, outs = None, 0, []
+    for cur in range(0, feats.shape[1] - context + 1, stride):
+        end = min(cur + window, feats.shape[1])
+        y, caches = conformer_forward_chunk(params, cfg, feats[:, cur:end], offset, required,
+                                            caches, compute_dtype)
+        outs.append(y)
+        offset += y.shape[1]
+    return torch.cat(outs, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -417,6 +585,51 @@ def conformer_from_torch(sd: Dict, cfg: ConformerConfig,
     params["after_norm"] = ln("encoder.after_norm")
     params["content_linear"] = lin("linear")  # asr_model.py:77-78
     return params
+
+
+def load_ppg_extractor(ckpt_path: str, config_path: str, *, output_type: str = "ppg",
+                       map_mix_ratio: float = 1.0, phn_center_path: Optional[str] = None,
+                       ce_layer_path: Optional[str] = None, device="cuda") -> PPGExtractor:
+    """A frozen extractor from the reference artifacts (ppg_model.py:11-28):
+    the wenet checkpoint (33.pt), its train.yaml and global_cmvn (the
+    YAML's `cmvn_file`, else `global_cmvn` beside the checkpoint), and for
+    output_type "map" phn_center.npy and ce_layer.pkl. Runs on `device`,
+    the card unless the caller asks for the CPU."""
+    import pickle
+
+    import yaml
+
+    with open(config_path, "r", encoding="utf-8") as f:
+        conf = yaml.safe_load(f)
+    enc = conf.get("encoder_conf", {})
+    cfg = ConformerConfig(
+        input_dim=conf.get("input_dim", 80),
+        output_size=enc.get("output_size", 256),
+        attention_heads=enc.get("attention_heads", 4),
+        linear_units=enc.get("linear_units", 2048),
+        num_blocks=enc.get("num_blocks", 12),
+        cnn_module_kernel=enc.get("cnn_module_kernel", 15),
+        subsampling=enc.get("input_layer", "conv2d2"),
+    )
+    device = resolve_device(device)
+    sd = {k: v for k, v in torch.load(ckpt_path, map_location="cpu", weights_only=True).items()
+          if torch.is_tensor(v)}
+    cmvn = None
+    cmvn_file = conf.get("cmvn_file")
+    if cmvn_file and not os.path.exists(cmvn_file):
+        cmvn_file = os.path.join(os.path.dirname(ckpt_path), "global_cmvn")
+    if cmvn_file and os.path.exists(cmvn_file):
+        cmvn = load_cmvn_file(cmvn_file)
+    params = conformer_from_torch(sd, cfg, cmvn)
+    phn_center = ce_w = ce_b = None
+    if output_type == "map":
+        phn_center = np.load(phn_center_path).astype(np.float32)
+        with open(ce_layer_path, "rb") as f:
+            ce = pickle.load(f)
+        ce_w, ce_b = np.asarray(ce["w"], np.float32), np.asarray(ce["b"], np.float32)
+    return PPGExtractor(params=params, cfg=cfg, output_type=output_type,
+                        map_mix_ratio=map_mix_ratio, phn_center=phn_center, ce_w=ce_w, ce_b=ce_b,
+                        device=device)
 
 
 def init_conformer(cfg: ConformerConfig, generator: torch.Generator, device="cpu") -> dict:

@@ -156,6 +156,16 @@ class AdamW:
         if not g_norm < self.max_grad_norm:
             torch._foreach_div_(grads, g_norm)
             torch._foreach_mul_(grads, self.max_grad_norm)
+        self._adam_(state, params, grads)
+        if state.acc is not None:
+            torch._foreach_zero_(state.acc)
+        return True
+
+    @torch.no_grad()
+    def _adam_(self, state: AdamWState, params: List[torch.Tensor],
+               grads: List[torch.Tensor]) -> None:
+        """optax.adamw on the clipped gradients, the schedule read at the
+        count before this update."""
         lr = self.schedule(state.count)
         state.count += 1
         b1, b2 = self.b1, self.b2
@@ -169,14 +179,17 @@ class AdamW:
         step = torch._foreach_div(state.mu, 1.0 - b1 ** state.count)
         torch._foreach_div_(step, denom)
         torch._foreach_add_(params, step, alpha=-lr)
-        if state.acc is not None:
-            torch._foreach_zero_(state.acc)
-        return True
 
 
 def make_optimizer(train: TrainConfig, total_updates: int) -> AdamW:
-    return AdamW(make_schedule(train, total_updates), train.max_grad_norm,
-                 train.grad_accumulation_steps)
+    """The JAX optimizer chain on one device; `bnb_optimizer` swaps AdamW for
+    the block-wise 8-bit one (train/adamw8bit.py; reference trainer.py:134-137)."""
+    schedule = make_schedule(train, total_updates)
+    if train.bnb_optimizer:
+        from f5e_tts_tpu_torch.train.adamw8bit import AdamW8bit
+
+        return AdamW8bit(schedule, train.max_grad_norm, train.grad_accumulation_steps)
+    return AdamW(schedule, train.max_grad_norm, train.grad_accumulation_steps)
 
 
 @dataclass

@@ -16,8 +16,11 @@ reference: src/f5_tts/model/trainer.py:25-494.
   reads the reference's (a PPG model's BatchNorm statistics among them,
   from the model state: the EMA covers the params only). Rotation keeps the last N numbered checkpoints and
   never deletes pretrained_* (trainer.py:166-183); resume prefers model_last
-  (trainer.py:185-263),
-- a SIGTERM saves model_last at the next step boundary.
+  (trainer.py:185-263); `init_state(pretrained_path=)` starts from the EMA
+  weights of a reference-layout checkpoint,
+- a SIGTERM saves model_last at the next step boundary,
+- `sample_fn` (`make_sample_logger`) writes a sample every
+  log_samples_per_updates updates (trainer.py:434-490).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from f5e_tts_tpu_torch.config import MelConfig, ModelConfig, TrainConfig
@@ -42,6 +46,36 @@ from f5e_tts_tpu_torch.utils.convert import backbone_to_reference_state_dict
 from f5e_tts_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def make_sample_logger(model_cfg: ModelConfig, vocab, tokenizer: str, save_dir: str,
+                       sample_text: str, ref_mel: np.ndarray, ref_text: str,
+                       vocoder_decode=None, nfe: int = 32, device="cuda"):
+    """The periodic sample hook (reference trainer.py:434-490):
+    sample_fn(ema_params, update, state) synthesises `sample_text` after the
+    (ref_frames, mel) prompt `ref_mel` at twice its length with the EMA
+    weights (fp32, on `device`), saves the generated mel as
+    update_{N}_gen_mel.npy beside the checkpoints and, with a vocoder,
+    update_{N}_gen.wav."""
+    from f5e_tts_tpu_torch.infer.audio import write_wav
+    from f5e_tts_tpu_torch.infer.pipeline import TTSEngine
+
+    def sample_fn(ema_params, update: int, state: Optional[dict] = None):
+        engine = TTSEngine(params=ema_params, state=state or {}, arch=model_cfg.arch,
+                           vocab=vocab, mel=model_cfg.mel, cfm=model_cfg.cfm,
+                           infer_cfg=model_cfg.infer, tokenizer=tokenizer,
+                           vocoder_decode=vocoder_decode, compute_dtype=torch.float32,
+                           device=device)
+        with torch.no_grad():
+            mel_gen = engine.synthesize_chunk(ref_mel[None], ref_text + " " + sample_text,
+                                              ref_mel.shape[0] * 2, seed=update, nfe_steps=nfe)
+        if vocoder_decode is not None:
+            wav = np.asarray(vocoder_decode(torch.as_tensor(mel_gen[None])))[0]
+            write_wav(os.path.join(save_dir, f"update_{update}_gen.wav"), wav,
+                      model_cfg.mel.target_sample_rate)
+        np.save(os.path.join(save_dir, f"update_{update}_gen_mel.npy"), mel_gen)
+
+    return sample_fn
 
 
 def loss_with_device_mel(params, arch, cfm, mel_cfg: MelConfig, batch: dict,
@@ -76,6 +110,9 @@ class Trainer:
     log_fn: Optional[Callable[[dict, int], None]] = None
     device: object = "cuda"
     ppg_extractor: object = None  # a frozen PPGExtractor (models/conformer.py) for PPG models
+    # sample_fn(ema_params, update, model_state) every log_samples_per_updates
+    # updates (`make_sample_logger`)
+    sample_fn: Optional[Callable] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -92,12 +129,24 @@ class Trainer:
     # state setup
     # ------------------------------------------------------------------
 
-    def init_state(self, total_updates: int, rng_seed: int = 0) -> fstep.TrainState:
-        """Seeded fp32 params, AdamW state and EMA. `train` consumes a state
-        armed here instead of re-initing."""
-        gen = torch.Generator(device=self.device).manual_seed(rng_seed)
-        params, model_state = fbb.split_state(
-            self.arch, fbb.init_backbone(self.arch, self.vocab_size, gen, self.device))
+    def init_state(self, total_updates: int, rng_seed: int = 0,
+                   pretrained_path: Optional[str] = None) -> fstep.TrainState:
+        """Seeded fp32 params, or with `pretrained_path` the EMA weights (and a
+        PPG DiT's BatchNorm statistics) of a reference-layout checkpoint
+        (.pt or .safetensors, as `load_state_dict(use_ema=True)` reads it);
+        the optimizer state and the EMA. `train` consumes a state armed here
+        instead of re-initing."""
+        if pretrained_path:
+            from f5e_tts_tpu_torch.utils.convert import (backbone_from_reference_state_dict,
+                                                         load_state_dict)
+
+            made = backbone_from_reference_state_dict(
+                load_state_dict(pretrained_path, use_ema=True), self.arch)
+            made = fstep.tree_map(lambda t: t.to(self.device), made)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(rng_seed)
+            made = fbb.init_backbone(self.arch, self.vocab_size, gen, self.device)
+        params, model_state = fbb.split_state(self.arch, made)
         self.optimizer = fstep.make_optimizer(self.train_cfg, total_updates)
         ts = fstep.init_train_state(params, self.optimizer, model_state)
         self._init_ts = ts
@@ -188,8 +237,9 @@ class Trainer:
         return fstep.TrainState(
             params=fstep.tree_map(lambda t: dev(t).requires_grad_(True), st["params"]),
             ema_params=fstep.tree_map(dev, st["ema_params"]),
+            # the 8-bit moments are {"codes", "scale"} dicts, AdamW's tensors
             opt_state=fstep.AdamWState(
-                mu=[dev(t) for t in opt["mu"]], nu=[dev(t) for t in opt["nu"]],
+                mu=fstep.tree_map(dev, opt["mu"]), nu=fstep.tree_map(dev, opt["nu"]),
                 count=opt["count"], mini_step=opt["mini_step"],
                 acc=None if opt["acc"] is None else [dev(t) for t in opt["acc"]]),
             update=st["update"], micro=st["micro"], skipped=st["skipped"],
@@ -271,6 +321,9 @@ class Trainer:
                         self.save_checkpoint(ts, last=True)
                     if advanced and ts.update % tc.save_per_updates == 0:
                         self.save_checkpoint(ts)
+                    if (self.sample_fn is not None and advanced
+                            and ts.update % tc.log_samples_per_updates == 0):
+                        self.sample_fn(ts.ema_params, ts.update, ts.model_state)
                     if preempted["flag"]:
                         print("SIGTERM received — checkpointing and exiting")
                         done = True

@@ -188,3 +188,94 @@ def capture_sampler_buckets(engine, buckets: Optional[Sequence[int]] = None, nfe
             engine.engines[name] = SamplerGraph(engine, bucket, grid, cfg)
             names.append(name)
     return names
+
+
+# ---------------------------------------------------------------------------
+# PPG engines: the frozen extractor's mel -> PPG per fbank-length bucket
+# ---------------------------------------------------------------------------
+
+
+def ppg_engine_name(batch: int, t: int) -> str:
+    """The name of the PPG engine of (batch, fbank frames), as the JAX
+    engine files are named without their extension."""
+    return f"ppg_b{batch}_t{t}"
+
+
+def find_ppg_engine(engines: Mapping[str, object], batch: int, t: int):
+    """(name, bucket frames) of the smallest PPG engine in `engines` at this
+    batch whose bucket covers `t` fbank frames, or None; the caller pads its
+    features to the bucket (reference: f5e_tts_tpu/utils/aot.py:167-183)."""
+    import re
+
+    pat = re.compile(rf"^ppg_b{batch}_t(\d+)$")
+    best = None
+    for name in engines:
+        m = pat.match(name)
+        if m and int(m.group(1)) >= t and (best is None or int(m.group(1)) < best[1]):
+            best = (name, int(m.group(1)))
+    return best
+
+
+class PPGGraph:
+    """`extractor.mel_to_ppg` of one (batch, fbank frames) bucket captured as
+    a CUDA graph: `run(feats, feat_lens)` gives mel_to_ppg's (PPG, true
+    lengths) of features padded to the bucket, with the same bits.
+
+    The extractor's params and the map mode's tensors are read by address
+    (update them in place, never rebind them), and the encoder's position
+    table is the device copy cached by `models/conformer.py: _pos_table`,
+    so nothing in the graph copies from the host or reads a length on it."""
+
+    def __init__(self, extractor, t: int, batch: int = 1, pool=None, lock=None):
+        import threading
+
+        self.extractor, self.t, self.batch = extractor, t, batch
+        self._lock = lock or threading.Lock()
+        dev = extractor.device
+        # the static inputs, allocated outside the graph's pool
+        self._feats = torch.zeros((batch, t, extractor.cfg.input_dim), device=dev)
+        self._lens = torch.full((batch,), t, dtype=torch.int32, device=dev)
+        # one eager call first, on a side stream: library handles, workspaces
+        # and the cached position table are built then, never in a capture
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            extractor.mel_to_ppg(self._feats, self._lens)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self._stream = torch.cuda.current_stream(dev)
+        self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=self.pool):
+            self._ppg, self._true_len = extractor.mel_to_ppg(self._feats, self._lens)
+
+    @torch.no_grad()
+    def run(self, feats: torch.Tensor, feat_lens: torch.Tensor):
+        """((batch, t', 256) PPG, (batch,) true lengths) of (batch, t, 80)
+        features and their lengths, as fresh tensors."""
+        if tuple(feats.shape) != tuple(self._feats.shape):
+            raise ValueError(f"PPG engine of shape {tuple(self._feats.shape)} got "
+                             f"{tuple(feats.shape)}")
+        if torch.cuda.current_stream(self._feats.device) != self._stream:
+            raise RuntimeError("a PPG engine replays on the stream it was captured on")
+        with self._lock:
+            self._feats.copy_(feats)
+            self._lens.copy_(feat_lens)
+            self.graph.replay()
+            return self._ppg.clone(), self._true_len.clone()
+
+
+def capture_ppg_buckets(extractor, frame_buckets: Sequence[int] = (400, 800, 1600, 3200),
+                        batch: int = 1) -> dict:
+    """One `PPGGraph` per fbank-length bucket of a `PPGExtractor` on the
+    card, all in one pool -> {ppg_engine_name(batch, t): engine}. The
+    counterpart of the JAX package's `export_ppg_buckets` (the exported
+    mel -> PPG computation per bucket, f5e_tts_tpu/utils/aot.py:137-164).
+    A capture that fails raises."""
+    import threading
+
+    if extractor.device.type != "cuda":
+        raise RuntimeError(f"CUDA-graph capture needs an extractor on a CUDA device, not "
+                           f"{extractor.device}")
+    pool, lock = torch.cuda.graph_pool_handle(), threading.Lock()
+    return {ppg_engine_name(batch, t): PPGGraph(extractor, t, batch, pool, lock)
+            for t in frame_buckets}

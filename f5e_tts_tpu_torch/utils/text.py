@@ -1,6 +1,6 @@
 """Tokenizers and text helpers (counterpart of `f5e_tts_tpu/utils/text.py`).
 
-Ported: the "custom" (vocab file) and "byte" tokenizers, the id mapping,
+Ported: the "char" and "custom" (vocab file) and "byte" tokenizers, the id mapping,
 and the pure-Python helpers (`g2p_mix_vocab`, `split_rime`,
 `g2p_mix_process_token`, `intersperse`, `split_pinyin`,
 `repetition_found`). Not ported: the pinyin converters and the g2p-mix
@@ -11,6 +11,7 @@ model/dataset.py:141-164, durpred/utils.py:10-16)
 
 from __future__ import annotations
 
+import os
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -49,13 +50,22 @@ def g2p_mix_vocab() -> Dict[str, int]:
     return {p: i for i, p in enumerate(phones)}
 
 
-def get_tokenizer(dataset_name: str, tokenizer: str = "custom") -> Tuple[Optional[Dict[str, int]], int]:
-    """(vocab_char_map, vocab_size): "custom" reads the vocab file at
-    `dataset_name`; "byte" is UTF-8 with no map and size 256."""
+def get_tokenizer(dataset_name: str, tokenizer: str = "custom",
+                  data_dir: Optional[str] = None) -> Tuple[Optional[Dict[str, int]], int]:
+    """(vocab_char_map, vocab_size): "char" reads
+    {data_dir}/{dataset_name}_char/vocab.txt (data_dir defaults to ./data;
+    space must be id 0); "custom" reads the vocab file at `dataset_name`;
+    "byte" is UTF-8 with no map and size 256 (reference: utils.py:136-170)."""
     if tokenizer == "byte":
         return None, 256
     if tokenizer == "custom":
         vocab = load_vocab_file(dataset_name)
+        return vocab, len(vocab)
+    if tokenizer == "char":
+        base = data_dir or os.path.join(os.getcwd(), "data")
+        vocab = load_vocab_file(os.path.join(base, f"{dataset_name}_{tokenizer}", "vocab.txt"))
+        if vocab.get(" ") != 0:
+            raise ValueError("space must be id 0 in vocab.txt (0 = unknown)")
         return vocab, len(vocab)
     raise NotImplementedError(f"tokenizer {tokenizer!r} is not ported yet (custom and byte are)")
 

@@ -259,3 +259,28 @@ def test_f5tts_capture_buckets_replays_in_infer(tmp_path):
     assert _counts() == (DEPTH * 32, DEPTH * 32)
     assert sr == 24000 and np.isfinite(replayed).all()
     np.testing.assert_array_equal(replayed, eager)
+
+
+def test_ppg_engine_replay_gives_the_eager_bits():
+    """capture_ppg_buckets over a small fp32 Conformer: a replay of a clip
+    padded into its bucket equals eager mel_to_ppg bit for bit, in either
+    order of the engines (one pool), and find_ppg_engine picks the bucket."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from f5e_tts_tpu_torch.models.conformer import ConformerConfig, PPGExtractor, init_conformer
+    from f5e_tts_tpu_torch.utils.aot import capture_ppg_buckets, find_ppg_engine
+
+    cfg = ConformerConfig(output_size=64, attention_heads=2, linear_units=128, num_blocks=2)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ext = PPGExtractor(params=init_conformer(cfg, gen, "cuda"), cfg=cfg, device="cuda")
+    engines = capture_ppg_buckets(ext, frame_buckets=(100, 200))
+    assert sorted(engines) == ["ppg_b1_t100", "ppg_b1_t200"]
+    for frames in (160, 70):
+        name, bucket = find_ppg_engine(engines, 1, frames)
+        feats = torch.zeros((1, bucket, 80), device="cuda")
+        feats[0, :frames] = torch.randn((frames, 80), generator=gen, device="cuda") + 8.0
+        lens = torch.tensor([frames], dtype=torch.int32, device="cuda")
+        ppg, true_len = engines[name].run(feats, lens)
+        want, want_len = ext.mel_to_ppg(feats, lens)
+        assert torch.equal(ppg, want) and torch.equal(true_len, want_len)
+    assert find_ppg_engine(engines, 1, 201) is None

@@ -10,7 +10,8 @@ and a tiny UNetT, fp32, with the noise injected (drawn with the JAX
   (the text-only branch has weight 0): atol 1e-5 in fp32.
 - `synthesize_chunk(mode="tts")` runs `sample_tts` (never a captured
   engine); `mode="vc"` raises for a model without PPG (the PPG model's vc
-  mode is held in tests/test_torch_ppg.py); the span derivation raises.
+  mode is held in tests/test_torch_ppg.py); the CTC span derivation
+  (`token_spans_from_alignment`, `derive_edit_spans`) equals JAX's exactly.
 - `build_edit_mask` exactly; `edit_speech`'s cond mel (rtol 1e-4 + atol
   1e-4, the mel front ends' own parity tolerance), mask, duration and text
   exactly, and its sampler output at
@@ -187,10 +188,21 @@ def test_build_edit_mask_matches_jax(parts, fix):
 
 
 def test_span_derivation_waits_for_ctc_alignment():
-    for fn in (lambda: tedit.token_spans_from_alignment(np.zeros((4, 3)), [1], 0.02),
-               lambda: tedit.derive_edit_spans(np.zeros((4, 3)), [1], [(0, 0)], 0.02)):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            fn()
+    """Span derivation from CTC posteriors, now on the port's
+    ctc_forced_align: per-token spans and edit spans equal JAX's exactly,
+    and they feed build_edit_mask as JAX's do."""
+    rng = np.random.default_rng(11)
+    logits = rng.standard_normal((50, 6)) * 3
+    lp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    tokens = [2, 5, 5, 1, 3, 4]
+    assert (tedit.token_spans_from_alignment(lp, tokens, 0.02)
+            == jedit.token_spans_from_alignment(lp, tokens, 0.02))
+    spans = tedit.derive_edit_spans(lp, tokens, [(1, 2), (4, 5)], 0.02)
+    assert spans == jedit.derive_edit_spans(lp, tokens, [(1, 2), (4, 5)], 0.02)
+    mel = MelConfig(n_mel_channels=20)
+    for got, want in zip(tedit.build_edit_mask(spans, 16_000, mel),
+                         jedit.build_edit_mask(spans, 16_000, JMelConfig(n_mel_channels=20))):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_edit_speech_matches_jax(dit, monkeypatch):

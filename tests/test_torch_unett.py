@@ -392,10 +392,17 @@ def test_load_train_yaml_matches_jax_field_by_field(tmp_path):
     assert {f.name for f in dataclasses.fields(got)} <= names
     _same_fields(got, want)
     assert got.save_dir == "ckpts/libritts_ppg_codebook" and got.epochs == 890
+    # 8-bit AdamW, sample-count batches and the logger are read as JAX reads them
     for extra in ({"optim": {"bnb_optimizer": True}}, {"datasets": {"batch_size_type": "sample"}},
-                  {"mesh": {"fsdp": 2}}):
-        with pytest.raises(NotImplementedError, match="queue 1 item"):
-            tconfig.load_train_yaml(_write_yaml(tmp_path / "t.yaml", extra))
+                  {"ckpts": {"logger": "wandb", "log_samples_per_updates": 7}}):
+        path = _write_yaml(tmp_path / "t.yaml", extra)
+        _same_fields(tconfig.load_train_yaml(path), jconfig.load_train_yaml(path))
+    assert tconfig.load_train_yaml(_write_yaml(tmp_path / "t.yaml", {
+        "optim": {"bnb_optimizer": True}, "datasets": {"batch_size_type": "sample"}})
+    ).bnb_optimizer is True
+    # a mesh over more than one device still raises
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        tconfig.load_train_yaml(_write_yaml(tmp_path / "t.yaml", {"mesh": {"fsdp": 2}}))
     bare = _write_yaml(tmp_path / "bare.yaml", {"mesh": None})
     _same_fields(tconfig.load_train_yaml(bare), jconfig.load_train_yaml(bare))
 
