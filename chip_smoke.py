@@ -6,7 +6,9 @@
 2. Builds every hand-written kernel from f5e_tts_tpu_torch/csrc with nvcc,
    one process per source, all at once, and prints each kernel's registers,
    spills and shared memory (ptxas's report; the attention kernels' dynamic
-   shared memory from the library).
+   shared memory from the library). Every gated_adaln_kernel (K2)
+   instantiation's SASS (cuobjdump -sass) must move its rows in 128-bit
+   global loads and stores, and in no 16-bit ones.
 3. Full-width zero-shot synthesis through the user entry point:
    F5TTS(model="F5TTS_v1_Base", device="cuda") in bf16 with seeded random
    weights, NFE 32, cfg 2, sway -1, a ~5 s seeded reference wav and
@@ -115,7 +117,7 @@
     (depth x (NFE + 1) at capture; the replay gives the eager bits and
     counts no launch). Each: prompt frames equal the cond mel, a finite wav
     with nonzero RMS, the sampler's device busy and three timed walls.
-21. (The F5E model's kernel shapes in 29: K3 at (2, 1536) with 12 heads, K6
+21. (The F5E model's kernel shapes in 34: K3 at (2, 1536) with 12 heads, K6
     at (8, 2304) with 12 heads, K2 at (2, 1536, 768), K5 at (8, 2304, 768).)
 22. PPG engines: capture_ppg_buckets of the F5E extractor over the fbank
     buckets (400, 800, 1600, 3200) as CUDA graphs: the capture's seconds
@@ -147,8 +149,32 @@
     depth K3 and K2 and depth K6 and K5 each, the 8-bit AdamW state under
     0.3x the fp32 state's bytes, a second main() resuming at update 3 (its
     step's device busy under torch.profiler). (22-26 run after 20; 28 after
-    27.)
-29. One phase per kernel at the shapes of its path and at one ragged case:
+    33.)
+29. Sampler options (on the serving v1 model cut to 2 blocks at full
+    width): cfm.sample(use_mask=False) and the duplicate_test probe
+    (t_start 0.5 with a seeded test_cond: 4 of 8 steps from t = 0.5) on the
+    card in bf16 against the CPU in fp32 from the same y0 (OPTIONS_REL),
+    2 x steps of K1 and K2; use_mask=False changes the output's bits.
+30. Per-request seeds: one seed's noise alone, in slot 2 of a batch of
+    three and as synthesize_chunk's draw, the same bits on the card; the
+    full-width sampler of the lone request gives synthesize_chunk(seed=)'s
+    eager bits, the batch's slot 2 agrees with it within SEED_REL; the
+    sampler's device busy for three requests and for one.
+31. Int8 W8A8: F5TTS("F5TTS_v1_Base", quantize="int8") with the serving
+    model's weights, the synthesis of 3 (depth x NFE of K1 and K2), the
+    generated mel's relative L2 against the bf16 model's from the same
+    noise, the eager sampler's device busy beside bf16's and the share the
+    per-token quantization passes take (each quantized linear timed against
+    its torch._int_mm and the bf16 linear); its bucket-1536 engine captured,
+    the replay gives the eager bits, replay busy beside bf16's, three timed
+    captured syntheses.
+32. Engine directories: F5TTS(engine_dir=, asr_model=) over empty files
+    named as the JAX exporter names engines: the captured engines are
+    exactly those named, replays give the eager bits.
+33. Whisper transcription (the same model, a stand-in pipeline): an empty
+    ref_text is transcribed once on the card and cached, and the synthesis
+    equals the one with the transcript given. (29-33 run after 27.)
+34. One phase per kernel at the shapes of its path and at one ragged case:
     kernel vs its plain PyTorch version on the same inputs (tolerances
     below), kernel, plain and library times, the least time the card could
     take, and the host time per call of each forward wrapper and of K5's.
@@ -157,7 +183,7 @@
     dq and dkdv; row pass and combine (torch.profiler, measured after the
     build, before the model phases). The backward kernels, K5 included,
     must give the same bits in two runs.
-30. Prints one JSON line with every kernel, then the device line last.
+35. Prints one JSON line with every kernel, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository. fp32 matmuls and convolutions run with TF32 off
@@ -438,12 +464,14 @@ def reference_wav() -> Path:
     return ref
 
 
-def preset_tts(tag: str, model: str, depth: int = DEPTH):
-    """Full-width F5TTS(model) on the card with seeded weights."""
+def preset_tts(tag: str, model: str, depth: int = DEPTH, **kw):
+    """Full-width F5TTS(model, **kw) on the card with seeded weights (the
+    same weights for one model whatever `kw` asks: `quantize` codes them
+    before the modulation is seeded, which it leaves as it is)."""
     from f5e_tts_tpu_torch.api import F5TTS
 
     t0 = time.perf_counter()
-    tts = F5TTS(model=model, device="cuda", compute_dtype=torch.bfloat16, seed=0)
+    tts = F5TTS(model=model, device="cuda", compute_dtype=torch.bfloat16, seed=0, **kw)
     arch = tts.engine.arch
     assert (arch.dim, arch.depth, arch.heads, arch.dim_head) == (1024, depth, 16, 64), arch
     seed_modulation_(tts.engine.params, torch.Generator(device="cuda").manual_seed(1))
@@ -1771,26 +1799,48 @@ class Serving:
         wav, ref_text = preprocess_ref_audio_text(wav, sr, REF_TEXT, show_info=lambda *_: None)
         self.ref_mel = self.engine._reference(wav, sr)[2]
         self.text = ref_text + GEN_TEXT
+        self.sampler_busy: dict = {}  # nfe -> (eager, replayed) device busy ms (captured phase)
 
     def infer(self, timesteps=None):
         return self.tts.infer(self.ref, REF_TEXT, GEN_TEXT, nfe_step=NFE, cfg_strength=2.0,
                               sway_sampling_coef=-1.0, fix_duration=FIX_DURATION, seed=7,
                               timesteps=timesteps)
 
-    def sampler_out(self, timesteps=None, eager=False) -> torch.Tensor:
-        """The sampler output (1, 1536, 100) of the request's chunk, replayed
-        where an engine matches unless `eager`."""
-        engines = self.engine.engines
+    def sampler_out(self, timesteps=None, eager=False, engine=None) -> torch.Tensor:
+        """The sampler output (1, 1536, 100) of the request's chunk on
+        `engine` (this model's unless given), replayed where a captured
+        engine matches unless `eager`."""
+        engine = engine or self.engine
+        engines = engine.engines
         if eager:
-            self.engine.engines = {}
+            engine.engines = {}
         try:
-            out = self.engine.synthesize_chunk(self.ref_mel, self.text, FIX_FRAMES, seed=7,
-                                               nfe_steps=NFE, cfg_strength=2.0, sway=-1.0,
-                                               timesteps=timesteps, device_out=True)[0]
+            out = engine.synthesize_chunk(self.ref_mel, self.text, FIX_FRAMES, seed=7,
+                                          nfe_steps=NFE, cfg_strength=2.0, sway=-1.0,
+                                          timesteps=timesteps, device_out=True)[0]
             torch.cuda.synchronize()
             return out.clone()
         finally:
-            self.engine.engines = engines
+            engine.engines = engines
+
+    def sampler_inputs(self):
+        """(SamplerInputs, sampler keywords) of the request's chunk, as
+        synthesize_chunk hands them to cfm.sample (one eager run, recorded)."""
+        from f5e_tts_tpu_torch.models import cfm as fcfm
+
+        seen, sample = [], fcfm.sample
+
+        def recording(params, arch, cfm, inputs, **kw):
+            seen.append((inputs, kw))
+            return sample(params, arch, cfm, inputs, **kw)
+
+        fcfm.sample = recording
+        try:
+            self.sampler_out(eager=True)
+        finally:
+            fcfm.sample = sample
+        reset_counts()
+        return seen[0]
 
 
 def device_busy(tag: str, fn) -> tuple:
@@ -1871,8 +1921,9 @@ def captured_phase(sv: Serving) -> dict:
             diff = (replayed.float() - eager.float()).abs().max().item()
             raise AssertionError(f"{tag}: replay differs from the eager sampler (max {diff})")
         log(f"[{tag}] the replay from the eager run's noise gives its bits")
-        device_busy(f"{tag} eager sampler", lambda: sv.sampler_out(timesteps, eager=True))
-        device_busy(f"{tag} replayed sampler", lambda: sv.sampler_out(timesteps))
+        sv.sampler_busy[nfe] = (
+            device_busy(f"{tag} eager sampler", lambda: sv.sampler_out(timesteps, eager=True))[0],
+            device_busy(f"{tag} replayed sampler", lambda: sv.sampler_out(timesteps))[0])
         reset_counts()
 
     graph = engine.engines[names[0]].graph
@@ -2669,6 +2720,350 @@ def training_cli_phase(tmp: Path) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# the main entry point's options: sampler masks and the t_start probe,
+# per-request seeds, int8 W8A8, engine directories, Whisper transcription
+# ---------------------------------------------------------------------------
+
+# bf16 with the kernels on the card against fp32 plain PyTorch on the CPU,
+# relative L2 over the generated frames: the two round the same flow
+# differently, ~1e-3 a step here
+OPTIONS_REL = 2e-2
+# a seeded request alone against the same seed in a batch of three: the
+# noise is the same bits, but a GEMM of another M may take another cuBLAS
+# algorithm, and 32 bf16 steps carry that rounding along
+SEED_REL = 2e-2
+
+
+def generated_rel(got: torch.Tensor, ref: torch.Tensor, rf: int) -> float:
+    """Relative L2 of `got` against `ref` over the generated frames
+    [rf, FIX_FRAMES) of the chunk."""
+    g, r = got[..., rf:FIX_FRAMES, :].float(), ref[..., rf:FIX_FRAMES, :].float()
+    return ((g - r).norm() / r.norm()).item()
+
+
+def sampler_options_phase(sv: Serving) -> dict:
+    """cfm.sample(use_mask=False) and the duplicate_test probe (t_start 0.5
+    with a seeded test_cond: half the steps, the grid from t_start, the ODE
+    from (1 - t) y0 + t test_cond) on the serving v1 model cut to 2 blocks
+    at full width, on the card (bf16, kernels) against the CPU (fp32,
+    plain), with the same y0: OPTIONS_REL over the generated frames; each
+    run launches 2 x its steps of K1 and K2. The mask changes the output's
+    bits."""
+    from f5e_tts_tpu_torch.models import cfm as fcfm
+    from f5e_tts_tpu_torch.train import step as fstep
+
+    inputs, _ = sv.sampler_inputs()
+    engine, rf = sv.engine, sv.ref_mel.shape[1]
+    arch = dataclasses.replace(engine.arch, depth=2)
+    params = {**engine.params, "blocks": engine.params["blocks"][:2]}
+    params_cpu = fstep.tree_map(lambda t: t.float().cpu(), params)
+    inputs_cpu = fcfm.SamplerInputs(*(None if t is None else t.cpu() for t in inputs))
+    y0 = fcfm.noise_like(None, 1, 1536, 100, inputs.duration, seeds=[7])
+    test_cond = torch.randn((1, 1536, 100), generator=torch.Generator(device="cuda").manual_seed(5),
+                            device="cuda")
+    cases = (("no mask", dict(use_mask=False, steps=4), 4),
+             ("masked", dict(steps=4), 4),
+             ("t_start probe", dict(t_start=0.5, test_cond=test_cond, steps=8), 4))
+    outs, counts = {}, None
+    for tag, kw, steps in cases:
+        reset_counts()
+        card, traj = fcfm.sample(params, arch, engine.cfm, inputs, cfg_strength=2.0,
+                                 sway_coef=-1.0, y0=y0, compute_dtype=torch.bfloat16,
+                                 device="cuda", **kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check_counts(f"sampler options {tag}", counts,
+                     expected_counts(rope_attention=2 * steps, gated_adaln=2 * steps))
+        kw_cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()}
+        cpu, _ = fcfm.sample(params_cpu, arch, engine.cfm, inputs_cpu, cfg_strength=2.0,
+                             sway_coef=-1.0, y0=y0.cpu(), compute_dtype=torch.float32,
+                             device="cpu", **kw_cpu)
+        rel = generated_rel(card.cpu(), cpu, rf)
+        log(f"[sampler options] {tag}: {traj.shape[0] - 1} steps, card (bf16) vs CPU (fp32) "
+            f"relative L2 {rel:.3e} over the generated frames (tolerance {OPTIONS_REL})")
+        if not (torch.isfinite(card).all() and rel <= OPTIONS_REL and traj.shape[0] == steps + 1):
+            raise AssertionError(f"sampler options {tag}: card and CPU disagree")
+        keep = inputs.cond_mask[:, :, None].expand_as(card)
+        if not torch.equal(card[keep], inputs.cond[keep]):
+            raise AssertionError(f"sampler options {tag}: the prompt frames are not the cond mel")
+        outs[tag] = card
+    moved = generated_rel(outs["no mask"], outs["masked"], rf)
+    log(f"[sampler options] use_mask=False against the masked run: relative L2 {moved:.3e}")
+    if torch.equal(outs["no mask"], outs["masked"]):
+        raise AssertionError("use_mask=False left the output as the masked run's")
+    return counts
+
+
+def seeded_phase(sv: Serving) -> dict:
+    """Per-request seeds on the card: noise_like(seeds=) of one seed alone,
+    in slot 2 of a batch of three and as synthesize_chunk's batch-of-one
+    draw, the same bits; the full-width v1 sampler (NFE 32, cfg 2) of the
+    lone request gives synthesize_chunk(seed=)'s eager bits, and the batch's
+    slot 2 agrees with it within SEED_REL; each run depth x NFE of K1, K2."""
+    from f5e_tts_tpu_torch.models import cfm as fcfm
+
+    inputs, kw = sv.sampler_inputs()
+    engine, rf = sv.engine, sv.ref_mel.shape[1]
+    three = fcfm.SamplerInputs(*(None if t is None else t.repeat(3, *[1] * (t.dim() - 1))
+                                 for t in inputs))
+    alone = fcfm.noise_like(None, 1, 1536, 100, inputs.duration, seeds=[7])
+    drawn = fcfm.noise_like(torch.Generator(device="cuda").manual_seed(7), 1, 1536, 100,
+                            inputs.duration)
+    batch = fcfm.noise_like(None, 3, 1536, 100, three.duration,
+                            seeds=torch.tensor([11, 23, 7], device="cuda"))
+    if not (torch.equal(batch[2:], alone) and torch.equal(alone, drawn)):
+        raise AssertionError("seeded noise differs alone, in a batch and as the pipeline draws it")
+    log("[seeded requests] seed 7's noise alone, in slot 2 of a batch of three and as "
+        "synthesize_chunk's draw: the same bits")
+    run = dict(steps=NFE, cfg_strength=2.0, sway_coef=-1.0, compute_dtype=torch.bfloat16,
+               device="cuda", timesteps=kw.get("timesteps"))
+    want = expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE)
+    lone = fcfm.sample(engine.params, engine.arch, engine.cfm, inputs, seeds=[7], **run)[0]
+    check_counts("seeded request alone", read_counts(), want)
+    eager = sv.sampler_out(eager=True)
+    check_counts("seeded request, the pipeline", read_counts(), want)
+    if not torch.equal(lone, eager):
+        raise AssertionError("sample(seeds=[7]) differs from synthesize_chunk(seed=7)")
+    out3 = fcfm.sample(engine.params, engine.arch, engine.cfm, three, seeds=[11, 23, 7], **run)[0]
+    counts = read_counts()
+    check_counts("seeded batch of three", counts, want)
+    rel = generated_rel(out3[2:], lone, rf)
+    log(f"[seeded requests] sample(seeds=[7]) gives synthesize_chunk(seed=7)'s bits; slot 2 of "
+        f"the batch of three against it: relative L2 {rel:.3e} (tolerance {SEED_REL}), bitwise "
+        f"{torch.equal(out3[2:], lone)}; slots 0 and 1 differ from it: "
+        f"{generated_rel(out3[:1], lone, rf):.3e}, {generated_rel(out3[1:2], lone, rf):.3e}")
+    if not (torch.isfinite(out3).all() and rel <= SEED_REL):
+        raise AssertionError("the seeded request's mel in a batch differs from its mel alone")
+    busy3 = device_busy("seeded batch of three, eager sampler", lambda: fcfm.sample(
+        engine.params, engine.arch, engine.cfm, three, seeds=[11, 23, 7], **run))[0]
+    busy1 = sv.sampler_busy[NFE][0]  # the same request's eager sampler (captured phase)
+    log(f"[seeded requests] sampler device busy: batch of three {busy3:.1f} ms, one request "
+        f"{busy1:.1f} ms ({busy3 / busy1:.3f}x for 3x the requests)")
+    reset_counts()
+    return counts
+
+
+def int8_pass_share(q_blk: dict, b_blk: dict, busy_ms: float) -> dict:
+    """Per-token quantization passes of the int8 sampler: for each of a
+    block's four quantized linears at the sampler's M = 2 x 1536 rows, one
+    int8_linear call against its torch._int_mm alone and the bf16 linear
+    (CUDA events, one input set: each operand stays in L2, as in the
+    sampler); the passes' time is their difference, times depth x NFE calls,
+    and their share of the int8 sampler's device busy."""
+    from f5e_tts_tpu_torch.ops import nn as fnn
+    from f5e_tts_tpu_torch.ops import quant as fq
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out, passes = {}, 0.0
+    for name, q, b in (("to_qkv", q_blk["attn"]["to_qkv"], b_blk["attn"]["to_qkv"]),
+                       ("to_out", q_blk["attn"]["to_out"], b_blk["attn"]["to_out"]),
+                       ("ff1", q_blk["ff1"], b_blk["ff1"]), ("ff2", q_blk["ff2"], b_blk["ff2"])):
+        x = torch.randn((2 * 1536, q["w_q"].shape[0]), generator=gen, device="cuda").bfloat16()
+        x_q, _ = fq._symmetric_int8(x.float(), -1)
+        total = cuda_ms([lambda: fq.int8_linear(q, x, torch.bfloat16)])
+        mm = cuda_ms([lambda: torch._int_mm(x_q, q["w_q"])])
+        bf = cuda_ms([lambda: fnn.linear(b, x, torch.bfloat16)])
+        passes += (total - mm) * DEPTH * NFE
+        out[name] = {"int8_linear_ms": total, "int_mm_ms": mm, "bf16_linear_ms": bf}
+        log(f"[int8 synthesis] {name} ({x.shape[0]} x {x.shape[1]} -> {q['w_q'].shape[1]}): "
+            f"int8_linear {total:.4f} ms = _int_mm {mm:.4f} ms + passes {total - mm:.4f} ms; "
+            f"bf16 linear {bf:.4f} ms")
+    out["passes_ms_per_sampler"] = passes
+    out["passes_share_of_busy"] = passes / busy_ms
+    log(f"[int8 synthesis] the quantization passes: {passes:.1f} ms a sampler run "
+        f"({DEPTH} x {NFE} calls of each linear), {passes / busy_ms:.3f} of its device busy")
+    return out
+
+
+def int8_phase(sv: Serving) -> dict:
+    """F5TTS("F5TTS_v1_Base", quantize="int8"), the serving model's weights
+    with the trunk's four matmuls a block in W8A8 (torch._int_mm): eager
+    synthesis as the synthesis phase checks it (depth x NFE of K1 and K2),
+    the generated mel's relative L2 against the bf16 model's from the same
+    noise, the sampler's device busy beside bf16's (the captured phase's,
+    this run) and the quantization passes' share; then its bucket-1536
+    engine captured (depth x (NFE + 1) at capture), the replay gives the
+    eager bits, replay busy beside bf16's, three timed captured syntheses."""
+    from f5e_tts_tpu_torch.utils.aot import capture_sampler_buckets
+
+    tts = preset_tts("int8 synthesis", "F5TTS_v1_Base", quantize="int8")
+    engine = tts.engine
+    blk, bblk = engine.params["blocks"][0], sv.engine.params["blocks"][0]
+    for p in (blk["attn"]["to_qkv"], blk["attn"]["to_out"], blk["ff1"], blk["ff2"]):
+        if p["w_q"].dtype != torch.int8 or p["w_q"].stride(0) != 1:
+            raise AssertionError("the int8 model's trunk is not in column-major int8")
+    if not (torch.equal(engine.params["proj_out"]["w"], sv.engine.params["proj_out"]["w"])
+            and torch.equal(blk["attn_norm"]["w"], bblk["attn_norm"]["w"])):
+        raise AssertionError("the int8 model's float weights differ from the bf16 model's")
+    want = expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE)
+    ref = str(reference_wav())
+
+    def infer():
+        return tts.infer(ref, REF_TEXT, GEN_TEXT, nfe_step=NFE, cfg_strength=2.0,
+                         sway_sampling_coef=-1.0, fix_duration=FIX_DURATION, seed=7)
+
+    counts = synthesis_phase("int8 synthesis", infer, want, runs=3)
+    rf = sv.ref_mel.shape[1]
+    q_out = sv.sampler_out(eager=True, engine=engine)
+    b_out = sv.sampler_out(eager=True)
+    reset_counts()
+    rel = generated_rel(q_out, b_out, rf)
+    log(f"[int8 synthesis] sampler output against the bf16 model's from the same noise: relative "
+        f"L2 {rel:.3e} over the generated frames, max|diff| "
+        f"{(q_out - b_out)[0, rf:FIX_FRAMES].abs().max().item():.3e} of max|bf16| "
+        f"{b_out[0, rf:FIX_FRAMES].abs().max().item():.3e}")
+    if not (torch.isfinite(q_out).all() and torch.equal(q_out[0, :rf], b_out[0, :rf])):
+        raise AssertionError("int8 synthesis: a non-finite output or changed prompt frames")
+    busy_q = device_busy("int8 eager sampler", lambda: sv.sampler_out(eager=True, engine=engine))[0]
+    busy_b, busy_br = sv.sampler_busy[NFE]  # the bf16 model's, eager and replayed (captured phase)
+    log(f"[int8 synthesis] eager sampler device busy: int8 {busy_q:.1f} ms, bf16 {busy_b:.1f} ms "
+        f"({busy_q / busy_b:.3f}x)")
+    int8_pass_share(blk, bblk, busy_q)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    names = capture_sampler_buckets(engine, buckets=(1536,), nfe=NFE)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    check_counts("int8 capture", read_counts(),
+                 expected_counts(rope_attention=DEPTH * (NFE + 1), gated_adaln=DEPTH * (NFE + 1)))
+    replayed = sv.sampler_out(engine=engine)
+    check_counts("int8 replay", read_counts(), expected_counts())
+    if not torch.equal(replayed, q_out):
+        diff = (replayed.float() - q_out.float()).abs().max().item()
+        raise AssertionError(f"int8: the replay differs from the eager sampler (max {diff})")
+    log(f"[int8 synthesis] captured {names} in {capture_s:.2f} s; the replay gives the eager bits")
+    busy_qr = device_busy("int8 replayed sampler", lambda: sv.sampler_out(engine=engine))[0]
+    log(f"[int8 synthesis] replayed sampler device busy: int8 {busy_qr:.1f} ms, bf16 "
+        f"{busy_br:.1f} ms ({busy_qr / busy_br:.3f}x)")
+    walls = []
+    for run in ["warm-up"] + [f"timed {i + 1}" for i in range(3)]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav, sr, _ = infer()
+        torch.cuda.synchronize()
+        check_counts(f"int8 captured synthesis {run}", read_counts(), expected_counts())
+        if run != "warm-up":
+            walls.append(time.perf_counter() - t0)
+    if not (np.isfinite(wav).all() and np.sqrt(np.mean(np.square(wav))) > 0):
+        raise AssertionError("int8 captured synthesis: non-finite or silent wav")
+    wall = float(np.median(walls))
+    log(f"[int8 synthesis] captured synthesis: wall {wall:.3f} s (median of 3), RTF "
+        f"{wall / (len(wav) / sr):.5f}")
+    reset_counts()
+    return counts
+
+
+class StandInASR:
+    """A stand-in for the transformers Whisper pipeline: records its calls
+    and answers with the reference's transcript."""
+
+    def __init__(self):
+        self.calls, self.devices = [], []
+
+    def __call__(self, audio, **kwargs):
+        self.calls.append(kwargs)
+        return {"text": f"  {REF_TEXT} "}
+
+
+def engine_dir_asr_phase(sv: Serving) -> dict:
+    """F5TTS("F5TTS_v1_Base", engine_dir=, asr_model=) over a directory of
+    empty files named as the JAX exporter names engines (bucket 1536 at NFE
+    32 for two prompt and text lengths, bucket 1024, the EPSS grid at 1536)
+    and a stand-in Whisper pipeline: the captured engines are exactly those
+    named (depth x the steps + 1 of each at capture) and a replay gives the
+    eager bits; an empty ref_text is transcribed once, cached for the next
+    request, and the synthesis equals the one with the transcript given."""
+    from f5e_tts_tpu_torch.infer import transcribe as ftranscribe
+    from f5e_tts_tpu_torch.utils import aot
+
+    tmp = ROOT / "build" / "smoke" / "engines"
+    shutil.rmtree(tmp, ignore_errors=True)
+    (tmp / "whisper").mkdir(parents=True)
+    tag = aot.variant_tag(sv.grid)
+    for name in (f"sampler_nfe{NFE}_ref472_b1536_t256", f"sampler_nfe{NFE}_ref100_b1536_t512",
+                 f"sampler_nfe{NFE}_ref472_b1024_t256", f"sampler_nfe{EPSS_NFE}{tag}_ref472_b1536_t256",
+                 "ppg_b1_t400"):
+        (tmp / f"{name}.jaxexport").touch()
+    want = {aot.engine_name(NFE, 1536), aot.engine_name(NFE, 1024),
+            aot.engine_name(EPSS_NFE, 1536, sv.grid)}
+    asr = StandInASR()
+    init = ftranscribe.initialize_asr_pipeline
+
+    def stand_in(model_dir=None, device="cuda"):
+        asr.devices.append(str(device))
+        return asr
+
+    ftranscribe.initialize_asr_pipeline = stand_in
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        tts = preset_tts("engine dir", "F5TTS_v1_Base", engine_dir=str(tmp),
+                         asr_model=str(tmp / "whisper"))
+        log(f"[engine dir] F5TTS(engine_dir=, asr_model=) built and captured in "
+            f"{time.perf_counter() - t0:.1f} s: {sorted(tts.engine.engines)}")
+        steps = 2 * (NFE + 1) + EPSS_NFE + 1
+        check_counts("engine dir capture", read_counts(),
+                     expected_counts(rope_attention=DEPTH * steps, gated_adaln=DEPTH * steps))
+        if set(tts.engine.engines) != want:
+            raise AssertionError(f"captured {sorted(tts.engine.engines)}, named {sorted(want)}")
+        for timesteps in (None, sv.grid):
+            replayed = sv.sampler_out(timesteps, engine=tts.engine)
+            check_counts("engine dir replay", read_counts(), expected_counts())
+            eager = sv.sampler_out(timesteps, eager=True, engine=tts.engine)
+            reset_counts()
+            if not torch.equal(replayed, eager):
+                raise AssertionError("engine dir: a replay differs from the eager sampler")
+        log("[engine dir] the captured buckets are those named; replays (NFE 32, EPSS) give the "
+            "eager bits")
+        ref = str(reference_wav())
+        outs = []
+        for ref_text in ("", "", REF_TEXT):
+            outs.append(tts.infer(ref, ref_text, GEN_TEXT, nfe_step=NFE, cfg_strength=2.0,
+                                  sway_sampling_coef=-1.0, fix_duration=FIX_DURATION, seed=7))
+            check_counts("asr synthesis (replayed)", read_counts(), expected_counts())
+        log(f"[asr model] an empty ref_text twice, then the transcript: the stand-in pipeline ran "
+            f"{len(asr.calls)} time(s) on {asr.devices}, {asr.calls[:1]}")
+        if len(asr.calls) != 1 or asr.devices != ["cuda"]:
+            raise AssertionError("the empty ref_text was not transcribed once on the card")
+        if not all(np.array_equal(o[0], outs[2][0]) for o in outs[:2]):
+            raise AssertionError("the transcribed request's wav differs from the given text's")
+        wav = outs[0][0]
+        if not (np.isfinite(wav).all() and np.sqrt(np.mean(np.square(wav))) > 0):
+            raise AssertionError("asr synthesis: non-finite or silent wav")
+        log("[asr model] the transcribed request gives the wav of the request with its text")
+    finally:
+        ftranscribe.initialize_asr_pipeline = init
+    return expected_counts()
+
+
+def k2_sass_check(lib: Path) -> None:
+    """Every gated_adaln_kernel instantiation of the built K2/K5 library
+    moves its rows in 128-bit global loads and stores and none in 16-bit
+    ones (cuobjdump -sass, beside nvcc)."""
+    from f5e_tts_tpu_torch.kernels import _build
+
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    seen = []
+    for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
+        found = re.search(r"gated_adaln_kernelILi(\d+)E", fn)
+        if not found:
+            continue
+        ops = {op: len(re.findall(pat, body)) for op, pat in (
+            ("LDG.E.128", r"\bLDG\.E\.128\b"), ("STG.E.128", r"\bSTG\.E\.128\b"),
+            ("LDG.E.U16", r"\bLDG\.E\.U16\b"), ("16-bit global", r"\b[LS]TG\.E\.[US]?16\b"),
+            ("BAR.SYNC", r"\bBAR\.SYNC\b"), ("SHFL", r"\bSHFL\."))}
+        log(f"[build] gated_adaln_kernel V={found.group(1)} SASS: {ops}")
+        if ops["LDG.E.128"] == 0 or ops["STG.E.128"] == 0 or ops["16-bit global"]:
+            raise AssertionError(f"gated_adaln_kernel V={found.group(1)}: not 128-bit only {ops}")
+        seen.append(int(found.group(1)))
+    if sorted(seen) != [1, 2, 3, 4, 8, 16]:
+        raise AssertionError(f"gated_adaln_kernel instantiations {sorted(seen)} in the SASS")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2690,6 +3085,7 @@ def main() -> int:
     libs = _build.build()
     log(f"[build] {len(libs)} kernel libraries built in {time.perf_counter() - t_start:.1f} s")
     build_report(libs, ra)
+    k2_sass_check(libs["gated_adaln"])
     register_counters(ra, ga, ka)
     swaps = plain_swaps(ra, ga, ka)
     byte_model = lambda cfg: dataclasses.replace(cfg, tokenizer="byte", vocab_size=256)  # noqa: E731
@@ -2799,6 +3195,12 @@ def main() -> int:
         runs["speech_edit"] = phase("speech edit", lambda: speech_edit_phase(sv))
         runs["derived_span_edit"] = phase("derived-span edit",
                                           lambda: derived_span_edit_phase(sv, asr))
+        # the main entry point's options
+        runs["sampler_options"] = phase("sampler options", lambda: sampler_options_phase(sv))
+        runs["seeded_requests"] = phase("seeded requests", lambda: seeded_phase(sv))
+        runs["int8_synthesis"] = phase("int8 synthesis", lambda: int8_phase(sv))
+        runs["engine_dir_asr"] = phase("engine dir and asr model",
+                                       lambda: engine_dir_asr_phase(sv))
         del sv
     del asr
     # the YAML training CLI on the F5E model with 8-bit AdamW

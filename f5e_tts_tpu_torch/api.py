@@ -4,14 +4,14 @@ Loads a model preset, a checkpoint (or seeded random weights when none is
 given) and the Vocos vocoder, and exposes `infer(ref_file, ref_text,
 gen_text, ...)`. Runs on the card unless `device="cpu"` is passed.
 `capture_buckets` captures the default sampler of those buckets as CUDA
-graphs (utils/aot.py), the counterpart of the JAX `engine_dir`.
+graphs (utils/aot.py); `engine_dir` captures those a JAX engine directory
+names. `quantize="int8"` serves the trunk's large matmuls in W8A8
+(ops/quant.py); `asr_model` is a local Whisper directory that transcribes an
+empty ref_text (infer/transcribe.py).
 (reference: src/f5_tts/api.py:23-149)
 
 `model` names a preset of any backbone (`F5TTS_v1_Base`, `F5TTS_Base`,
 `F5TTS_Small`, `E2TTS_Base`); `config_file` loads a model YAML instead.
-
-Not ported yet: the Whisper transcriber (an empty ref_text needs a
-`transcribe` callable), int8 quantization.
 """
 
 from __future__ import annotations
@@ -25,12 +25,14 @@ import torch
 
 from f5e_tts_tpu_torch.config import CFMConfig, ModelConfig, load_yaml, preset
 from f5e_tts_tpu_torch.infer import audio as faudio
+from f5e_tts_tpu_torch.infer import transcribe as ftranscribe
 from f5e_tts_tpu_torch.infer.pipeline import (CachedTranscriber, TTSEngine,
                                               preprocess_ref_audio_text)
 from f5e_tts_tpu_torch.models import backbone as fbb
 from f5e_tts_tpu_torch.models.vocos import VocosConfig, init_vocos, vocos_decode, vocos_from_torch
 from f5e_tts_tpu_torch.utils import text as ftext
-from f5e_tts_tpu_torch.utils.aot import capture_sampler_buckets
+from f5e_tts_tpu_torch.ops.quant import quantize_backbone_params
+from f5e_tts_tpu_torch.utils.aot import capture_engine_dir, capture_sampler_buckets
 from f5e_tts_tpu_torch.utils.convert import (backbone_from_reference_state_dict,
                                              load_state_dict, to_tensors)
 from f5e_tts_tpu_torch.utils.device import resolve_device
@@ -83,17 +85,28 @@ class F5TTS:
     def __init__(self, model: str = "F5TTS_v1_Base", ckpt_file: str = "", vocab_file: str = "",
                  ode_method: str = "euler", use_ema: bool = True,
                  vocoder_local_path: Optional[str] = None, config_file: Optional[str] = None,
-                 compute_dtype=torch.bfloat16, model_cfg: Optional[dict] = None, device="cuda",
-                 seed: int = 0, transcribe: Optional[Callable[[np.ndarray, int], str]] = None,
+                 compute_dtype=torch.bfloat16, engine_dir: Optional[str] = None,
+                 asr_model: Optional[str] = None, model_cfg: Optional[dict] = None,
+                 quantize: Optional[str] = None, device="cuda", seed: int = 0,
+                 transcribe: Optional[Callable[[np.ndarray, int], str]] = None,
                  capture_buckets: Optional[Sequence[int]] = None):
         """`config_file` is a model YAML (`config.load_yaml`) used in place of
         the preset `model`; `model_cfg` overrides fields of its arch.
-        `transcribe(wav, sr) -> str` transcribes an empty ref_text (behind a
-        `CachedTranscriber`); without it an empty ref_text raises.
-        `capture_buckets` captures the default sampler (NFE 32) of each of
-        those buckets; `utils.aot.capture_sampler_buckets(self.engine, ...)`
-        captures others."""
+        `quantize="int8"` quantizes the backbone after the cast to
+        `compute_dtype` (`ops.quant.quantize_backbone_params`); any other
+        string raises ValueError. An empty ref_text is transcribed by
+        `transcribe(wav, sr) -> str` when given, else by the Whisper pipeline
+        of `asr_model` (or F5E_ASR_MODEL), behind a `CachedTranscriber`;
+        with neither it raises. `capture_buckets` captures the default
+        sampler (NFE 32) of each of those buckets, `engine_dir` one sampler
+        for each (NFE, bucket, grid, guidance) that a JAX engine directory's
+        file names list (`utils.aot.capture_engine_dir`: a CUDA graph cannot
+        be read from a file); `utils.aot.capture_sampler_buckets(self.engine,
+        ...)` captures others."""
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r} (use 'int8')")
         self.device = resolve_device(device)
+        self.asr_model = asr_model
         self.model_cfg: ModelConfig = load_yaml(config_file) if config_file else preset(model)
         arch = self.model_cfg.arch
         if model_cfg:
@@ -117,6 +130,8 @@ class F5TTS:
                                      self.device)
         params, state = fbb.split_state(arch, made)  # a PPG DiT's BatchNorm state stays fp32
         params = fbb.fuse_qkv(_cast(params, compute_dtype), arch)
+        if quantize == "int8":
+            params = quantize_backbone_params(params, self.model_cfg.backbone)
 
         self.engine = TTSEngine(
             params=params, state=state, arch=arch, vocab=vocab, mel=self.model_cfg.mel,
@@ -130,6 +145,18 @@ class F5TTS:
         self.seed: Optional[int] = None
         if capture_buckets:
             capture_sampler_buckets(self.engine, capture_buckets)
+        if engine_dir:
+            capture_engine_dir(self.engine, engine_dir)
+
+    def transcribe(self, ref_audio, language: Optional[str] = None,
+                   asr_model_path: Optional[str] = None) -> str:
+        """Text of a reference audio file or {"array", "sampling_rate"} input
+        through the Whisper pipeline of `asr_model_path`, the constructor's
+        `asr_model` or F5E_ASR_MODEL, on this model's device (reference:
+        api.py:87-88)."""
+        return ftranscribe.transcribe(ref_audio, language=language,
+                                      model_dir=asr_model_path or self.asr_model,
+                                      device=self.device)
 
     def export_wav(self, wav: np.ndarray, file_wave: str, remove_silence: bool = False):
         if remove_silence:
@@ -157,6 +184,9 @@ class F5TTS:
             seed = random.randint(0, 2**31 - 1)
         self.seed = seed
         wav, sr = faudio.read_wav(ref_file)
+        if self._transcriber is None:  # the Whisper pipeline, when one is configured by now
+            self._transcriber = ftranscribe.make_cached_transcriber(self.asr_model,
+                                                                    device=self.device)
         wav, ref_text = preprocess_ref_audio_text(wav, sr, ref_text, transcribe=self._transcriber)
         out, sr, spec = self.engine.infer(
             wav, sr, ref_text, gen_text, seed=seed, speed=speed, fix_duration=fix_duration,

@@ -10,13 +10,27 @@
 // new_x that is stored.
 //
 // Bound on this card: bytes. Per row it reads 2*D and writes 2*D bf16 values
-// and does ~10 flops per element, far under the H100's ~295 flops per byte,
-// so the least time is (x + y + new_x + out) / 3.35 TB/s.
-// Design: one block of 128 threads per row; each thread moves 16-byte
-// vectors (8 bf16) and keeps its up-to-32 values in registers, so x and y
-// are read from device memory once and both outputs are written once. Mean
-// and variance are two block reductions over the register-resident row
-// (var = mean((x - mean)^2), as the TPU kernel computes it).
+// and does ~11 flops per element, far under the H100's ~295 flops per byte,
+// so the least time is (x + y + new_x + out) / 3.35 TB/s: 7.5 us at
+// (2, 1536, 1024), 25 MB, where launch and tail costs weigh.
+// Design (as K5's first pass):
+// - One warp a row, no block barrier in the row loop. Lane l holds the
+//   16-byte vectors c*32 + l (c < V) of its row, V = ceil(D / 256) a template
+//   parameter (V = 3 at D = 768, 4 at D = 1024: no lane idles at either), in
+//   registers, so x and y are read from device memory once and both outputs
+//   are written once. Mean and variance are warp shuffles, the variance as
+//   mean((x - mean)^2) over the register-resident row, as the TPU kernel.
+// - Every load and store is one 128-bit access, unpacked and packed by bit
+//   operations on the vector's four words (unpack8_words, pack8_words): a
+//   bf16 pointer into a vector makes nvcc issue eight 16-bit accesses.
+// - gate, scale and shift belong to the sample, not the row: a block's
+//   warps all work on rows of one sample (grid (row groups, B)), and the
+//   block stages the sample's three vectors in shared memory once.
+// - Up to D = 1024 the loads of a warp's next row are issued before the
+//   current row's reductions, so each warp has two rows' loads in flight;
+//   the host sizes the grid to the card's resident blocks (one wave), at
+//   least kFwdMinRows rows a warp where N allows. At (2, 1536, 1024): 2 x
+//   96 blocks of 8 warps, 2 rows a warp, 127 registers, no spill.
 //
 // K5 replaces f5e_tts_tpu/ops/pallas_norm.py: _gated_adaln_bwd_impl (body
 // _gated_adaln_bwd_kernel). From x, y, gate, scale and the two output
@@ -74,96 +88,199 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kVec = 8;        // bf16 values per 16-byte vector
-constexpr int kMaxChunks = 4;  // D <= kThreads * kVec * kMaxChunks = 4096
+constexpr int kVec = 8;          // bf16 values per 16-byte vector
+constexpr int kMaxDevices = 64;  // devices whose launch plans are cached
 
-__device__ __forceinline__ float block_sum(float v, float* red) {
+// bf16 -> fp32 of a 16-byte vector by bit operations on its four words: a
+// vector stays one 128-bit load (through a pointer to its bf16 elements
+// nvcc issues eight 16-bit loads)
+__device__ __forceinline__ void unpack8_words(const uint4 v, float (&f)[kVec]) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[2 * j] = __uint_as_float(w[j] << 16);
+    f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+
+// fp32 -> bf16 (round to nearest even) of 8 values into one 16-byte vector,
+// element 2j in the low half of word j, as unpack8_words reads it
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+
+__device__ __forceinline__ uint4 pack8_words(const float (&f)[kVec]) {
+  return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]), pack2(f[6], f[7]));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = lane < kThreads / 32 ? red[lane] : 0.f;
-#pragma unroll
-  for (int o = kThreads / 64; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-  t = __shfl_sync(0xffffffffu, t, 0);
-  __syncthreads();  // `red` is reused by the next reduction
-  return t;
-}
-
-__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[kVec]) {
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) f[i] = __bfloat162float(e[i]);
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&f)[kVec]) {
-  uint4 v;
-  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) e[i] = __float2bfloat16(f[i]);
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads) gated_adaln_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
-    const __nv_bfloat16* __restrict__ gate, const __nv_bfloat16* __restrict__ scale,
-    const __nv_bfloat16* __restrict__ shift, long long gate_stride,
-    long long scale_stride, long long shift_stride, __nv_bfloat16* __restrict__ new_x,
-    __nv_bfloat16* __restrict__ out, int n, int d, float eps) {
-  __shared__ float red[kThreads / 32];
-  const long long row = blockIdx.x;
-  const long long b = row / n;
-  const long long base = row * d;
-  const __nv_bfloat16* g_row = gate + b * gate_stride;
+// ---------------------------------------------------------------------------
+// K2.
+constexpr int kFwdWarps = 8;     // warps of a block
+constexpr int kFwdMinRows = 2;   // rows a warp at least, where N allows
+constexpr int kFwdAheadMaxV = 4;  // up to this V a warp loads its next row ahead
 
-  float v[kMaxChunks][kVec];
-  float sum = 0.f;
+struct FwdArgs {
+  const __nv_bfloat16* x;  // (B, N, D)
+  const __nv_bfloat16* y;
+  const __nv_bfloat16* mod[3];  // gate, scale, shift: row b at mod[k] + b * mod_stride[k]
+  long long mod_stride[3];
+  __nv_bfloat16* new_x;  // (B, N, D)
+  __nv_bfloat16* out;
+  int n, d;
+  float eps;
+};
+
+// Grid (G, B) of blocks of W warps: warp w of block (g, b) takes rows
+// g*W + w, then every G*W-th, of sample b. Lane l holds the vectors c*32 + l
+// (c < V) of a row; those past D are zeros, which add nothing to the mean,
+// are masked out of the variance and are not stored. Up to V = 4 the next
+// row's x and y are loaded during this row's reductions; above, the row's
+// 8V values a lane of new_x fill the registers (V = 16: 128), and each row
+// is loaded when its turn comes.
+template <int V, bool kAhead = (V <= kFwdAheadMaxV)>
+__global__ void __launch_bounds__(kFwdWarps * 32) gated_adaln_kernel(
+    const __grid_constant__ FwdArgs a) {
+  __shared__ uint4 mod[3][V * 32];  // the sample's gate, scale, shift vectors
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int nv = a.d / kVec;
+  const long long b = blockIdx.y;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    const int col = (c * kThreads + threadIdx.x) * kVec;
-    if (col < d) {
+  for (int k = 0; k < 3; ++k) {
+    const __nv_bfloat16* row = a.mod[k] + b * a.mod_stride[k];
+    for (int v = threadIdx.x; v < V * 32; v += blockDim.x) {
+      mod[k][v] = v < nv ? *reinterpret_cast<const uint4*>(row + v * kVec) : zero;
+    }
+  }
+  __syncthreads();
+
+  const int stride = gridDim.x * warps;
+  auto load = [&](int row, uint4(&xv)[V], uint4(&yv)[V]) {
+    const long long base = (b * a.n + row) * a.d;
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      const int v = c * 32 + lane;
+      const bool ok = row < a.n && v < nv;
+      xv[c] = ok ? *reinterpret_cast<const uint4*>(a.x + base + v * kVec) : zero;
+      yv[c] = ok ? *reinterpret_cast<const uint4*>(a.y + base + v * kVec) : zero;
+    }
+  };
+  uint4 xr[V], yr[V];
+  int row = blockIdx.x * warps + warp;
+  if constexpr (kAhead) load(row, xr, yr);
+  for (; row < a.n; row += stride) {
+    uint4 xn[kAhead ? V : 1], yn[kAhead ? V : 1];
+    if constexpr (kAhead) {
+      load(row + stride, xn, yn);  // in flight while this row is reduced
+    } else {
+      load(row, xr, yr);
+    }
+
+    float h[V][kVec];  // new_x in fp32
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
       float xf[kVec], yf[kVec], gf[kVec];
-      unpack8(*reinterpret_cast<const uint4*>(x + base + col), xf);
-      unpack8(*reinterpret_cast<const uint4*>(y + base + col), yf);
-      unpack8(*reinterpret_cast<const uint4*>(g_row + col), gf);
+      unpack8_words(xr[c], xf);
+      unpack8_words(yr[c], yf);
+      unpack8_words(mod[0][c * 32 + lane], gf);
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
-        v[c][i] = xf[i] + gf[i] * yf[i];
-        sum += v[c][i];
+        h[c][i] = xf[i] + gf[i] * yf[i];
+        sum += h[c][i];
       }
     }
-  }
-  const float mean = block_sum(sum, red) / d;
-  float sq = 0.f;
+    const float mean = warp_sum(sum) / a.d;
+    float sq = 0.f;
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    const int col = (c * kThreads + threadIdx.x) * kVec;
-    if (col < d) {
+    for (int c = 0; c < V; ++c) {
+      float part = 0.f;
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
-        const float t = v[c][i] - mean;
-        sq += t * t;
+        const float t = h[c][i] - mean;
+        part += t * t;
       }
+      sq += c * 32 + lane < nv ? part : 0.f;
     }
-  }
-  const float rstd = rsqrtf(block_sum(sq, red) / d + eps);
+    const float rstd = rsqrtf(warp_sum(sq) / a.d + a.eps);
 
-  const __nv_bfloat16* s_row = scale + b * scale_stride;
-  const __nv_bfloat16* h_row = shift + b * shift_stride;
+    const long long base = (b * a.n + row) * a.d;
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    const int col = (c * kThreads + threadIdx.x) * kVec;
-    if (col < d) {
-      float sf[kVec], hf[kVec], of[kVec];
-      unpack8(*reinterpret_cast<const uint4*>(s_row + col), sf);
-      unpack8(*reinterpret_cast<const uint4*>(h_row + col), hf);
+    for (int c = 0; c < V; ++c) {
+      const int v = c * 32 + lane;
+      if (v < nv) {
+        float sf[kVec], hf[kVec], of[kVec];
+        unpack8_words(mod[1][v], sf);
+        unpack8_words(mod[2][v], hf);
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) of[i] = (v[c][i] - mean) * rstd * (1.f + sf[i]) + hf[i];
-      *reinterpret_cast<uint4*>(new_x + base + col) = pack8(v[c]);
-      *reinterpret_cast<uint4*>(out + base + col) = pack8(of);
+        for (int i = 0; i < kVec; ++i) of[i] = (h[c][i] - mean) * rstd * (1.f + sf[i]) + hf[i];
+        *reinterpret_cast<uint4*>(a.new_x + base + v * kVec) = pack8_words(h[c]);
+        *reinterpret_cast<uint4*>(a.out + base + v * kVec) = pack8_words(of);
+      }
+      if constexpr (kAhead) {
+        xr[c] = xn[c];
+        yr[c] = yn[c];
+      }
     }
+  }
+}
+
+// Blocks of K2 with V vectors a lane that the current device holds at once
+// (SM count times the kernel's occupancy), asked once a device and V.
+template <int V>
+cudaError_t fwd_slots(int& slots) {
+  static int cache[kMaxDevices];
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gated_adaln_kernel<V>,
+                                                          kFwdWarps * 32, 0);
+    }
+    if (err != cudaSuccess) return err;
+    cache[dev] = std::max(1, sms * per_sm);
+  }
+  slots = cache[dev];
+  return cudaSuccess;
+}
+
+// K2 on (batch, a.n, a.d): G blocks a sample, as many as fill the card's
+// resident blocks once, with kFwdMinRows rows a warp at least where N allows
+// (one above V = 4, where a warp loads no row ahead and few warps fit an SM).
+template <int V>
+cudaError_t fwd_launch(const FwdArgs& a, int batch, cudaStream_t s) {
+  int slots = 0;
+  const cudaError_t err = fwd_slots<V>(slots);
+  if (err != cudaSuccess) return err;
+  const int per_block = kFwdWarps * (V <= kFwdAheadMaxV ? kFwdMinRows : 1);
+  const int groups = std::max(1, std::min((a.n + per_block - 1) / per_block, slots / batch));
+  gated_adaln_kernel<V><<<dim3(groups, batch), kFwdWarps * 32, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+// V = ceil(D / 256) vectors a lane, rounded up to 8 or 16 above 4 (D <= 4096).
+cudaError_t fwd_launch_any(const FwdArgs& a, int batch, cudaStream_t s) {
+  const int need = (a.d / kVec + 31) / 32;
+  switch (need <= 4 ? need : (need <= 8 ? 8 : 16)) {
+    case 1: return fwd_launch<1>(a, batch, s);
+    case 2: return fwd_launch<2>(a, batch, s);
+    case 3: return fwd_launch<3>(a, batch, s);
+    case 4: return fwd_launch<4>(a, batch, s);
+    case 8: return fwd_launch<8>(a, batch, s);
+    default: return fwd_launch<16>(a, batch, s);
   }
 }
 
@@ -173,7 +290,6 @@ constexpr int kBwdStages = 2;    // staged rows a warp: the one it works on + on
 constexpr int kBwdMaxWarps = 8;  // warps of a block, where shared memory allows
 constexpr int kBwdTensors = 4;   // x, y, g_out, g_newx, staged in this order
 constexpr int kBwdRegsMaxV = 4;  // up to this V the column sums stay in registers
-constexpr int kMaxDevices = 64;  // devices whose launch plans are cached
 
 struct BwdArgs {
   const __nv_bfloat16* src[kBwdTensors];  // x, y, g_out, g_newx: (B, N, D)
@@ -203,24 +319,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// bf16 -> fp32 of a 16-byte vector by bit operations on its four words: a
-// vector read from shared memory stays one LDS.128 (through a pointer to its
-// bf16 elements, as unpack8 reads, nvcc issues eight LDS.U16)
-__device__ __forceinline__ void unpack8_words(const uint4 v, float (&f)[kVec]) {
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    f[2 * j] = __uint_as_float(w[j] << 16);
-    f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 __device__ __forceinline__ float2 warp_sum2(float a, float b) {
@@ -412,8 +510,8 @@ __global__ void __launch_bounds__(kBwdMaxWarps * 32, 1) gated_adaln_bwd_kernel(
       add_sums<V>(acc, my_sums, 0, c, dg);
       const int v = c * 32 + lane;
       if (v < nv) {
-        *reinterpret_cast<uint4*>(a.dx + base + v * kVec) = pack8(dxo);
-        *reinterpret_cast<uint4*>(a.dy + base + v * kVec) = pack8(dyo);
+        *reinterpret_cast<uint4*>(a.dx + base + v * kVec) = pack8_words(dxo);
+        *reinterpret_cast<uint4*>(a.dy + base + v * kVec) = pack8_words(dyo);
       }
     }
   }
@@ -566,25 +664,36 @@ bool bwd_shape_ok(int batch, int n, int d) {
 
 }  // namespace
 
-// rows = B * N. Pointers are device pointers; x, y, new_x, out are (B, N, D)
-// contiguous; gate/scale/shift rows start `*_stride` elements apart. D must
-// be a multiple of 8 and at most 4096, and every pointer and stride 16-byte
-// aligned (the Python wrapper checks). Returns cudaGetLastError().
+// rows = B * N, B <= 65535. Pointers are device pointers; x, y, new_x, out
+// are (B, N, D) contiguous; gate/scale/shift rows start `*_stride` elements
+// apart. D must be a multiple of 8 and at most 4096, and every pointer and
+// stride 16-byte aligned (the Python wrapper checks). Returns
+// cudaGetLastError().
 extern "C" int gated_adaln_fwd(const void* x, const void* y, const void* gate,
                                const void* scale, const void* shift, long long gate_stride,
                                long long scale_stride, long long shift_stride, void* new_x,
                                void* out, int rows, int n, int d, float eps, void* stream) {
-  if (d % kVec != 0 || d > kThreads * kVec * kMaxChunks || rows <= 0 || n <= 0) {
+  if (d <= 0 || d % kVec != 0 || d > 4096 || n <= 0 || rows <= 0 || rows % n != 0 ||
+      rows / n > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  gated_adaln_kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
-      static_cast<const __nv_bfloat16*>(gate), static_cast<const __nv_bfloat16*>(scale),
-      static_cast<const __nv_bfloat16*>(shift), gate_stride, scale_stride, shift_stride,
-      static_cast<__nv_bfloat16*>(new_x), static_cast<__nv_bfloat16*>(out), n, d, eps);
-  return static_cast<int>(cudaGetLastError());
+  typedef const __nv_bfloat16* cb;
+  FwdArgs a;
+  a.x = static_cast<cb>(x);
+  a.y = static_cast<cb>(y);
+  a.mod[0] = static_cast<cb>(gate);
+  a.mod[1] = static_cast<cb>(scale);
+  a.mod[2] = static_cast<cb>(shift);
+  a.mod_stride[0] = gate_stride;
+  a.mod_stride[1] = scale_stride;
+  a.mod_stride[2] = shift_stride;
+  a.new_x = static_cast<__nv_bfloat16*>(new_x);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.n = n;
+  a.d = d;
+  a.eps = eps;
+  return static_cast<int>(fwd_launch_any(a, rows / n, static_cast<cudaStream_t>(stream)));
 }
-
 
 // Blocks a sample of K5's first pass on the current device for this shape:
 // the caller allocates the fp32 partials (B, groups, 3, D) and passes the

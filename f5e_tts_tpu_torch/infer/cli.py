@@ -6,8 +6,8 @@ The reference's surface (src/f5_tts/infer/infer_cli.py:34-364): a TOML config
 `[voice_name]` tags inside gen_text for dialogue, chunk saving, silence
 removal. Checkpoints are local paths; `--model_cfg` is a model YAML
 (`config.load_yaml`) used in place of the preset `--model`. `--device`
-picks the device (the card by default). Not ported yet: `--asr_model` (the
-Whisper transcriber, whose weights are absent); it raises.
+picks the device (the card by default). `--asr_model` is a local Whisper
+directory that transcribes a voice's empty ref_text (infer/transcribe.py).
 
 Usage:
   python -m f5e_tts_tpu_torch.infer.cli -c config.toml
@@ -47,7 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--speed", type=float, default=None)
     p.add_argument("--fix_duration", type=float, default=None)
     p.add_argument("--seed", type=int, default=None)
-    p.add_argument("--asr_model", default=None, help="local whisper weights dir (not ported)")
+    p.add_argument("--asr_model", default=None,
+                   help="local whisper weights dir for auto-transcribing empty ref_text")
     p.add_argument("--device", default=None, help="torch device (default cuda)")
     return p
 
@@ -104,10 +105,9 @@ def main(argv=None) -> str:
     from f5e_tts_tpu_torch import api
     from f5e_tts_tpu_torch.infer import audio as faudio
     from f5e_tts_tpu_torch.infer.pipeline import preprocess_ref_audio_text
+    from f5e_tts_tpu_torch.infer.transcribe import make_cached_transcriber
 
     cfg = load_config(build_parser().parse_args(argv))
-    if cfg.get("asr_model"):
-        raise NotImplementedError("--asr_model needs the Whisper transcriber, not ported yet")
 
     gen_text = cfg.get("gen_text")
     if cfg.get("gen_file"):
@@ -124,13 +124,15 @@ def main(argv=None) -> str:
                     config_file=cfg.get("model_cfg"), device=cfg["device"])
 
     # voices: main + named (reference: infer_cli.py:290-305), each preprocessed
+    # (silence clip, auto-transcription of an empty ref_text)
+    transcriber = make_cached_transcriber(cfg.get("asr_model"), device=cfg["device"])
     voices = {"main": {"ref_audio": cfg["ref_audio"], "ref_text": cfg.get("ref_text", "")}}
     for name, v in cfg.get("voices", {}).items():
         voices[name] = {"ref_audio": v["ref_audio"], "ref_text": v.get("ref_text", "")}
     for name, v in voices.items():
         wav, sr = faudio.read_wav(v["ref_audio"])
         try:
-            wav, text = preprocess_ref_audio_text(wav, sr, v["ref_text"])
+            wav, text = preprocess_ref_audio_text(wav, sr, v["ref_text"], transcribe=transcriber)
         except (RuntimeError, FileNotFoundError) as e:
             raise SystemExit(f"voice [{name}]: {e}")
         v["wav"], v["sr"], v["ref_text"] = wav, sr, text

@@ -100,6 +100,8 @@ def _check(name: str, big, rows) -> None:
         raise ValueError(f"{name} kernel takes bf16 operands")
     if d % 8 or d > 4096:
         raise ValueError(f"{name} kernel takes D % 8 == 0 and D <= 4096, got {d}")
+    if b > 65535:
+        raise ValueError(f"{name} kernel takes B <= 65535 (its grid's second axis), got {b}")
     if any(t.device != x.device for t in (*big, *rows)):
         raise ValueError(f"{name}: operands on different devices")
 
@@ -107,7 +109,7 @@ def _check(name: str, big, rows) -> None:
 def gated_adaln(x, y, gate, scale, shift) -> Tuple[torch.Tensor, torch.Tensor]:
     """(new_x, out) of the gated residual + AdaLN (K2). CPU tensors take the
     plain version; CUDA tensors launch the kernel (bf16, D % 8 == 0,
-    D <= 4096) or raise. Not differentiable: see `GatedAdaLN`."""
+    D <= 4096, B <= 65535) or raise. Not differentiable: see `GatedAdaLN`."""
     global launches
     if x.device.type == "cpu":
         return gated_adaln_plain(x, y, gate, scale, shift)

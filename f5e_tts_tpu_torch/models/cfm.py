@@ -50,13 +50,31 @@ def pruned_sway_timesteps(keep, base_steps: int = 32, sway_coef: Optional[float]
     return tuple(float(grid[i]) for i in keep)
 
 
-def noise_like(generator: torch.Generator, batch: int, length: int, channels: int,
-               durations: torch.Tensor) -> torch.Tensor:
-    """Standard normal (B, length, channels) noise from `generator` (on the
-    generator's device), zero past each sample's duration."""
-    y0 = torch.randn((batch, length, channels), generator=generator,
-                     device=generator.device, dtype=torch.float32)
-    keep = lens_to_mask(durations.to(generator.device), length)
+def noise_like(generator: Optional[torch.Generator], batch: int, length: int, channels: int,
+               durations: torch.Tensor, seeds=None) -> torch.Tensor:
+    """Standard normal (B, length, channels) noise, zero past each sample's
+    duration: drawn from `generator` on its device, or with `seeds` (B,)
+    sample i's from its own `torch.Generator(device).manual_seed(seeds[i])`
+    as one (length, channels) draw, on the durations' device.
+
+    A seeded sample's noise then depends on its seed alone, not on its
+    batch-mates or its slot: it has the bits of the batch-of-one draw
+    `noise_like(torch.Generator(device).manual_seed(seed), 1, ...)` that
+    `TTSEngine.synthesize_chunk(seed=)` makes (the contract of
+    f5e_tts_tpu/models/cfm.py: noise_like; torch's streams are not JAX's)."""
+    if seeds is not None:
+        device = durations.device
+        seeds = [int(s) for s in (seeds.tolist() if torch.is_tensor(seeds) else seeds)]
+        if len(seeds) != batch:
+            raise ValueError(f"{len(seeds)} seeds for a batch of {batch}")
+        y0 = torch.stack([torch.randn((length, channels), dtype=torch.float32, device=device,
+                                      generator=torch.Generator(device=device).manual_seed(s))
+                          for s in seeds])
+    else:
+        device = generator.device
+        y0 = torch.randn((batch, length, channels), generator=generator, device=device,
+                         dtype=torch.float32)
+    keep = lens_to_mask(durations.to(device), length)
     return y0.masked_fill(~keep[:, :, None], 0.0)
 
 
@@ -161,15 +179,17 @@ class FoldedInputs(NamedTuple):
     text_embed: torch.Tensor  # (K*B, N, text_dim) DiT, (K*B, Nt, dim) MMDiT
     cond: torch.Tensor  # (K*B, N, mel)
     drop_audio: torch.Tensor  # (K*B,) bool
-    mask: torch.Tensor  # (K*B, N) bool, True inside each sample's duration
+    mask: Optional[torch.Tensor]  # (K*B, N) bool, True inside each sample's duration
     weights: torch.Tensor  # (K,) fp32 branch weights
     ppg_embed: Optional[torch.Tensor] = None  # (K*B, N, text_dim) of a PPG DiT, else None
 
 
 def fold_inputs(params, arch, inputs: SamplerInputs, branches: Sequence[dict],
-                weights: Sequence[float], compute_dtype, state=None) -> FoldedInputs:
+                weights: Sequence[float], compute_dtype, state=None,
+                use_mask: bool = True) -> FoldedInputs:
     """Text (and a PPG DiT's PPG) embeddings of every branch (once a
-    request), the repeated cond and mask, the drop flags and the weights.
+    request), the repeated cond and mask (None without `use_mask`: every
+    frame of the bucket is a key), the drop flags and the weights.
     Runs eagerly: it copies the weights from the host. The folded text
     embedding is (K*B, N, D) for the DiT and the UNetT and (K*B, Nt, D) for
     the MMDiT, whose dropped branch keeps the text length. A PPG DiT's PPG
@@ -191,7 +211,7 @@ def fold_inputs(params, arch, inputs: SamplerInputs, branches: Sequence[dict],
             for drop in flags("drop_ppg")])
     return FoldedInputs(text_embed=text_embed_k, cond=inputs.cond.repeat(k, 1, 1),
                         drop_audio=torch.cat(flags("drop_audio")),
-                        mask=lens_to_mask(inputs.duration, n).repeat(k, 1),
+                        mask=lens_to_mask(inputs.duration, n).repeat(k, 1) if use_mask else None,
                         weights=torch.tensor(weights, dtype=torch.float32, device=device),
                         ppg_embed=ppg_embed_k)
 
@@ -218,56 +238,71 @@ def folded_step_fn(params, arch, folded: FoldedInputs, compute_dtype) -> Callabl
 
 def sample(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
            steps: int = 32, cfg_strength: float = 2.0, sway_coef: Optional[float] = -1.0,
-           generator: Optional[torch.Generator] = None, y0: Optional[torch.Tensor] = None,
-           timesteps: Optional[Sequence[float]] = None,
+           use_mask: bool = True, t_start: float = 0.0, test_cond: Optional[torch.Tensor] = None,
+           seeds=None, generator: Optional[torch.Generator] = None,
+           y0: Optional[torch.Tensor] = None, timesteps: Optional[Sequence[float]] = None,
            compute_dtype: torch.dtype = torch.bfloat16, device="cuda", state=None):
     """2-branch CFG sampler: (1 + cfg) * cond_flow - cfg * null_flow; a single
-    branch when cfg < 1e-5. The ODE runs over `timesteps` when given (an
-    explicit grid such as `pruned_sway_timesteps`; it overrides `steps` and
-    `sway_coef`, NFE = len - 1), else over the `steps`-step sway grid. The
-    noise is `y0` when given, else drawn from `generator`. `state` is a PPG
-    DiT's BatchNorm state. Returns (out, trajectory); the prompt frames of
-    `out` are the conditioning mel (reference: cfm.py:476)."""
+    branch when cfg < 1e-5 (reference: f5e_tts_tpu cfm.py:227-282). The ODE
+    runs over `timesteps` when given (an explicit grid such as
+    `pruned_sway_timesteps`; it overrides `steps` and `sway_coef`, NFE =
+    len - 1), else over the `steps`-step sway grid from `t_start`.
+
+    The noise is `y0` when given, else drawn per sample from `seeds` (B,)
+    (`noise_like`), else from `generator`. `use_mask=False` passes no key
+    mask to the trunk. The duplicate_test probe: `t_start` > 0 cuts the
+    steps to max(int(steps (1 - t_start)), 1) so the step density matches
+    the full [0, 1] grid, and with `test_cond` (B, N, mel) the ODE starts
+    from (1 - t_start) y0 + t_start test_cond. `state` is a PPG DiT's
+    BatchNorm state. Returns (out, trajectory); the prompt frames of `out`
+    are the conditioning mel (reference: cfm.py:476)."""
+    if t_start > 0.0:
+        steps = max(int(steps * (1.0 - t_start)), 1)
     return _sample_branches(params, arch, cfm, inputs, *cfg_branches(cfg_strength), steps=steps,
-                            sway_coef=sway_coef, generator=generator, y0=y0,
+                            sway_coef=sway_coef, use_mask=use_mask, t_start=t_start,
+                            test_cond=test_cond, seeds=seeds, generator=generator, y0=y0,
                             timesteps=timesteps, compute_dtype=compute_dtype, device=device,
                             state=state)
 
 
 def sample_tts(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
                steps: int = 32, alpha_spk: float = 1.0, alpha_txt: float = 1.0,
-               sway_coef: Optional[float] = None, generator: Optional[torch.Generator] = None,
-               y0: Optional[torch.Tensor] = None, timesteps: Optional[Sequence[float]] = None,
+               sway_coef: Optional[float] = None, use_mask: bool = True, seeds=None,
+               generator: Optional[torch.Generator] = None, y0: Optional[torch.Tensor] = None,
+               timesteps: Optional[Sequence[float]] = None,
                compute_dtype: torch.dtype = torch.bfloat16, device="cuda", state=None):
     """MegaTTS3-style dual-alpha TTS CFG: the null, text and speaker+text
-    branches folded into one (3B) batch a step (`tts_branches`). Noise,
-    grid and output as `sample` (reference: f5e_tts_tpu cfm.py:285-327,
-    whose sway defaults to None, a plain linspace grid)."""
+    branches folded into one (3B) batch a step (`tts_branches`). Noise
+    (`y0`, `seeds`, `generator`), mask, grid and output as `sample`
+    (reference: f5e_tts_tpu cfm.py:285-327, whose sway defaults to None, a
+    plain linspace grid)."""
     return _sample_branches(params, arch, cfm, inputs, *tts_branches(alpha_spk, alpha_txt),
-                            steps=steps, sway_coef=sway_coef, generator=generator, y0=y0,
-                            timesteps=timesteps, compute_dtype=compute_dtype, device=device,
-                            state=state)
+                            steps=steps, sway_coef=sway_coef, use_mask=use_mask, seeds=seeds,
+                            generator=generator, y0=y0, timesteps=timesteps,
+                            compute_dtype=compute_dtype, device=device, state=state)
 
 
 def sample_vc(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
               steps: int = 32, alpha_spk: float = 1.0, alpha_ppg: float = 1.0,
-              sway_coef: Optional[float] = None, generator: Optional[torch.Generator] = None,
-              y0: Optional[torch.Tensor] = None, timesteps: Optional[Sequence[float]] = None,
+              sway_coef: Optional[float] = None, use_mask: bool = True, seeds=None,
+              generator: Optional[torch.Generator] = None, y0: Optional[torch.Tensor] = None,
+              timesteps: Optional[Sequence[float]] = None,
               compute_dtype: torch.dtype = torch.bfloat16, device="cuda", state=None):
     """Voice-conversion CFG over the PPG, the text dropped in every branch:
     the null, PPG and speaker+PPG branches folded into one (3B) batch a step
-    (`vc_branches`). Needs a PPG DiT and its `state`. Noise, grid and output
-    as `sample` (reference: f5e_tts_tpu cfm.py:330-373)."""
+    (`vc_branches`). Needs a PPG DiT and its `state`. Noise, mask, grid and
+    output as `sample` (reference: f5e_tts_tpu cfm.py:330-373)."""
     if not fbb.uses_ppg(arch):
         raise ValueError("sample_vc needs a PPG DiT (arch.ppg.use_ppg)")
     return _sample_branches(params, arch, cfm, inputs, *vc_branches(alpha_spk, alpha_ppg),
-                            steps=steps, sway_coef=sway_coef, generator=generator, y0=y0,
-                            timesteps=timesteps, compute_dtype=compute_dtype, device=device,
-                            state=state)
+                            steps=steps, sway_coef=sway_coef, use_mask=use_mask, seeds=seeds,
+                            generator=generator, y0=y0, timesteps=timesteps,
+                            compute_dtype=compute_dtype, device=device, state=state)
 
 
 def _sample_branches(params, arch, cfm: CFMConfig, inputs: SamplerInputs, branches, weights, *,
-                     steps, sway_coef, generator, y0, timesteps, compute_dtype, device, state):
+                     steps, sway_coef, use_mask, seeds, generator, y0, timesteps, compute_dtype,
+                     device, state, t_start: float = 0.0, test_cond=None):
     """The ODE over the flow sum_k weights[k] * flow_k of the folded
     branches; returns (out, trajectory) as `sample` does."""
     dev = resolve_device(device)
@@ -278,16 +313,18 @@ def _sample_branches(params, arch, cfm: CFMConfig, inputs: SamplerInputs, branch
         raise ValueError("a PPG DiT samples with its BatchNorm state (state=)")
     inputs = SamplerInputs(*(None if t is None else t.to(dev) for t in inputs))
     b, n, mel_dim = inputs.cond.shape
-    folded = fold_inputs(params, arch, inputs, branches, weights, compute_dtype, state)
+    folded = fold_inputs(params, arch, inputs, branches, weights, compute_dtype, state, use_mask)
     step_fn = folded_step_fn(params, arch, folded, compute_dtype)
 
     if y0 is None:
-        if generator is None:
-            raise ValueError("sample needs a generator or an explicit y0")
-        y0 = noise_like(generator, b, n, mel_dim, inputs.duration)
+        if seeds is None and generator is None:
+            raise ValueError("sample needs seeds, a generator or an explicit y0")
+        y0 = noise_like(generator, b, n, mel_dim, inputs.duration, seeds=seeds)
     y0 = y0.to(device=dev, dtype=torch.float32)
+    if test_cond is not None:
+        y0 = (1.0 - t_start) * y0 + t_start * test_cond.to(device=dev, dtype=torch.float32)
     ts = (np.asarray(timesteps, np.float32) if timesteps is not None
-          else sway_timesteps(steps, sway_coef))
+          else sway_timesteps(steps, sway_coef, t_start))
     y_final, traj = _ode_scan(step_fn, y0, ts, cfm.ode_method)
     out = torch.where(inputs.cond_mask[:, :, None], inputs.cond, y_final)
     return out, traj

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from f5e_tts_tpu_torch.ops.quant import int8_linear
+
 
 def _uniform(shape, bound: float, generator, device) -> torch.Tensor:
     return (torch.rand(shape, generator=generator, device=device) * 2.0 - 1.0) * bound
@@ -53,7 +55,11 @@ def linear(p, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None) -> t
     A plain bf16 `x @ w + b` would round the product before the bias add.
     On the card `addmm` hands the bias to cuBLASLt's epilogue, which adds it
     in the fp32 accumulator; on the CPU the product is formed in fp32.
+    Params quantized by `ops/quant.py` ({"w_q", "w_scale"}) take its W8A8
+    product (f5e_tts_tpu/ops/nn.py: linear dispatches the same way).
     """
+    if "w_q" in p:
+        return int8_linear(p, x, compute_dtype)
     dtype = compute_dtype or x.dtype
     w = p["w"].to(dtype)
     b = p.get("b")

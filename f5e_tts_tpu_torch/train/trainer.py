@@ -84,9 +84,10 @@ def loss_with_device_mel(params, arch, cfm, mel_cfg: MelConfig, batch: dict,
                          compute_dtype=torch.bfloat16, training: bool = True,
                          state: Optional[dict] = None) -> fcfm.CFMLossOut:
     """cfm_loss, computing the log-mel on the batch's device when the batch
-    carries raw audio (B, T) instead of a mel; a PPG DiT reads its `state`,
-    the batch's text_lens, ppg and ppg_lens, and the codebook's temp_start
-    (the reference's trainer never decays the temperature)."""
+    carries raw audio (B, T) instead of a mel; a PPG DiT reads its `state`
+    and the batch's text_lens, ppg and ppg_lens. The Gumbel temperature is
+    cfm_loss's default 2.0 whatever the codebook's temp_start, as the JAX
+    trainer passes none (f5e_tts_tpu/train/trainer.py: loss_with_device_mel)."""
     if "mel" in batch:
         mel = batch["mel"]
     else:
@@ -95,7 +96,7 @@ def loss_with_device_mel(params, arch, cfm, mel_cfg: MelConfig, batch: dict,
     kw = {}
     if fbb.uses_ppg(arch):
         kw = dict(state=state, text_lens=batch.get("text_lens"), ppg=batch.get("ppg"),
-                  ppg_lens=batch.get("ppg_lens"), vq_temperature=arch.codebook.temp_start)
+                  ppg_lens=batch.get("ppg_lens"))
     return fcfm.cfm_loss(params, arch, cfm, mel=mel, mel_lens=batch["mel_lens"],
                          text_ids=batch.get("text_ids"), generator=generator, draws=draws,
                          training=training, compute_dtype=compute_dtype, **kw)

@@ -44,6 +44,8 @@ one step's launches.
 from __future__ import annotations
 
 import hashlib
+import os
+import re
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -187,6 +189,69 @@ def capture_sampler_buckets(engine, buckets: Optional[Sequence[int]] = None, nfe
             name = engine_name(len(grid) - 1, bucket, ts_grid, cfg_strength)
             engine.engines[name] = SamplerGraph(engine, bucket, grid, cfg)
             names.append(name)
+    return names
+
+
+# ---------------------------------------------------------------------------
+# engine directories: the buckets and variants a JAX engine directory names
+# ---------------------------------------------------------------------------
+
+# f5e_tts_tpu/utils/aot.py: export_sampler_buckets names each engine file
+# sampler_nfe{nfe}{tag}_ref{ref}_b{bucket}_t{text}.jaxexport, the tag as
+# `variant_tag` makes it
+JAX_ENGINE_FILE = re.compile(r"^sampler_nfe(?P<nfe>\d+)(?P<ts>_ts[0-9a-f]{8})?"
+                             r"(?:_cfg(?P<cfg>[^_]+))?_ref\d+_b(?P<bucket>\d+)_t\d+\.jaxexport$")
+# the EPSS grids (keep indices into the 32-step sway grid) that the JAX
+# package's scripts name: scripts/quality_proxy.py's epss16 and epss8
+EPSS_KEEPS = (tuple(range(0, 33, 2)), (0, 1, 2, 3, 4, 6, 10, 18, 32))
+
+
+def engine_dir_variants(engine_dir: str) -> list:
+    """The distinct (nfe, bucket, timesteps, cfg_strength) of the sampler
+    engines a JAX engine directory names, sorted; timesteps and
+    cfg_strength are None for the default variant.
+
+    A `_ts<hash>` tag is matched against the grids the port builds: the
+    EPSS_KEEPS grids of `pruned_sway_timesteps`. A CUDA graph cannot be
+    written to a file, so the files are read for their names only. Raises
+    when the directory names no engine, or a grid that matches none of
+    those (capture_sampler_buckets(timesteps=) captures any grid)."""
+    names = sorted(os.listdir(engine_dir))
+    found = [m for m in map(JAX_ENGINE_FILE.match, names) if m]
+    if not found:
+        raise ValueError(f"{engine_dir} names no sampler engine "
+                         "(sampler_nfe<n>[_ts<hash>][_cfg<w>]_ref<r>_b<bucket>_t<n>.jaxexport); "
+                         "capture the buckets with F5TTS(capture_buckets=) or "
+                         "utils.aot.capture_sampler_buckets")
+    known = {variant_tag(grid): grid
+             for grid in (fcfm.pruned_sway_timesteps(keep) for keep in EPSS_KEEPS)}
+    variants = set()
+    for m in found:
+        nfe, bucket, ts = int(m["nfe"]), int(m["bucket"]), None
+        if m["ts"]:
+            ts = known.get(m["ts"])
+            if ts is None or len(ts) - 1 != nfe:
+                raise ValueError(f"{m.string}: its grid {m['ts'][1:]} is none the port builds "
+                                 "(utils.aot.EPSS_KEEPS); capture it with "
+                                 "utils.aot.capture_sampler_buckets(engine, timesteps=...); "
+                                 "F5TTS(capture_buckets=) captures the default grid")
+        variants.add((nfe, bucket, ts, float(m["cfg"]) if m["cfg"] is not None else None))
+    return sorted(variants, key=lambda v: (v[0], v[1], v[2] or (), -1.0 if v[3] is None else v[3]))
+
+
+def capture_engine_dir(engine, engine_dir: str) -> list:
+    """Capture, on the card, a `SamplerGraph` for each (nfe, bucket, grid,
+    guidance) that the JAX engine directory `engine_dir` names
+    (`engine_dir_variants`), the counterpart of `TTSEngine(engine_dir=)`;
+    returns the engines' names. Raises as `engine_dir_variants` and
+    `capture_sampler_buckets` do, so a directory the port cannot serve is
+    never taken for one that leaves every request to the eager sampler."""
+    groups: dict = {}
+    for nfe, bucket, ts, cfg in engine_dir_variants(engine_dir):
+        groups.setdefault((nfe, ts, cfg), []).append(bucket)
+    names = []
+    for (nfe, ts, cfg), buckets in groups.items():
+        names += capture_sampler_buckets(engine, buckets, nfe=nfe, timesteps=ts, cfg_strength=cfg)
     return names
 
 

@@ -84,8 +84,9 @@ def test_port_imports_no_jax():
         "       'ops.vq', 'ops.mas', 'ops.kaldi', 'models.conformer',\n"
         "       'models.conformer_train', 'models.wenet_decoder', 'models.wenet_tools',\n"
         "       'models.ppg_extract_cli', 'data.asr_dataset', 'data.wav_augment',\n"
-        "       'train.adamw8bit', 'train.train')\n"
+        "       'train.adamw8bit', 'train.train', 'ops.quant', 'infer.transcribe')\n"
         "assert all('f5e_tts_tpu_torch.' + m in mods for m in new), mods\n"
+        "assert 'transformers' not in sys.modules  # imported only to build the ASR pipeline\n"
         "print(len(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -82,7 +82,15 @@ def test_rope_attention_kernel_matches_plain(cuda, b, n, h, dh, kv, rope_heads, 
 
 @pytest.mark.parametrize("b,n,d,strided", [(2, 1536, 1024, True), (1, 100, 520, False),
                                            (2, 1536, 768, True),   # the F5E model's width
-                                           (3, 77, 768, False)])
+                                           (3, 77, 768, False),
+                                           # one warp a row, V = ceil(D / 256) vectors a lane:
+                                           (2, 333, 768, True),    # V 3, odd row count
+                                           (3, 257, 1024, True),   # V 4, odd row count
+                                           (2, 50, 64, True),      # V 1, 24 lanes idle
+                                           (2, 301, 1000, True),   # V 4, D not a multiple of 256
+                                           (2, 130, 4096, True),   # V 16, the widest
+                                           (1, 1, 1024, False),    # one row
+                                           (40, 3, 768, True)])    # many samples, few rows
 def test_gated_adaln_kernel_matches_plain(cuda, b, n, d, strided):
     x, y = (torch.randn((b, n, d), generator=cuda, device="cuda").bfloat16() for _ in range(2))
     if strided:  # gate/scale/shift as column slices of the (B, 6D) modulation
@@ -227,6 +235,17 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         ga.gated_adaln_bwd(x[..., 0, :], x[..., 0, :], x[:, 0, 0], x[:, 0, 0], x[..., 0, :],
                            x[..., 0, :])
+
+
+@pytest.mark.parametrize("d", [4104, 1020, 12])
+def test_gated_adaln_refuses_widths_it_does_not_take(cuda, d):
+    """K2 takes D <= 4096 and a multiple of 8 (whole 16-byte vectors)."""
+    x = torch.zeros((2, 8, d), device="cuda", dtype=torch.bfloat16)
+    m = torch.zeros((2, d), device="cuda", dtype=torch.bfloat16)
+    before = ga.launches
+    with pytest.raises(ValueError, match="D % 8 == 0 and D <= 4096"):
+        ga.gated_adaln(x, x, m, m, m)
+    assert ga.launches == before
 
 
 def _qkv(gen, b, n, h, dh, fused):

@@ -518,7 +518,7 @@ def test_cli_runs_a_model_yaml_on_the_cpu(tmp_path, monkeypatch):
     assert out == os.path.join(out_dir, "o.wav")
     wav, sr = taudio.read_wav(out)
     assert sr == 24000 and len(wav) > 0 and np.isfinite(wav).all()
-    with pytest.raises(NotImplementedError, match="asr_model"):
+    with pytest.raises(SystemExit, match="ASR weights not found at whisper"):
         tcli.main(["-r", path, "-t", "x", "--device", "cpu", "--asr_model", "whisper"])
 
 
