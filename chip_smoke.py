@@ -45,7 +45,8 @@
    checks and measurements of 4 without the resumed run, the EMA export in
    the reference MMDiT layout.
 8. The partial-RoPE preset: one synthesis through F5TTS(model="F5TTS_Base")
-   (depth x NFE launches of K3) and two Trainer updates (depth of K3 and of
+   (depth x NFE launches of K3; the measurements of 3 from one timed run)
+   and two Trainer updates (depth of K3 and of
    K6 a step), counted on counters of their own; this phase saves nothing.
 9. Gradient phase of the MMDiT: 2 blocks at full width, B=2, N=1024, Nt=96,
    with a padding mask, through backbone.forward_train and a masked MSE
@@ -83,7 +84,7 @@
     alpha_txt = 1 + cfg (one 3B batch a step, depth x NFE of K1 and K2)
     against plain-CFG sample(cfg) from the same noise: the prompt frames
     equal, the generated frames within TTS_REL in relative L2; the device
-    time of both samplers.
+    time of the TTS sampler against the plain one's (from 11).
 16. Speech editing: edit_speech over one span of the seeded reference,
     re-timed so the request lands in bucket 1536: every kept frame of the
     sampler output equals the cond mel bit for bit, the wav is finite.
@@ -117,7 +118,7 @@
     (depth x (NFE + 1) at capture; the replay gives the eager bits and
     counts no launch). Each: prompt frames equal the cond mel, a finite wav
     with nonzero RMS, the sampler's device busy and three timed walls.
-21. (The F5E model's kernel shapes in 34: K3 at (2, 1536) with 12 heads, K6
+21. (The F5E model's kernel shapes in 35: K3 at (2, 1536) with 12 heads, K6
     at (8, 2304) with 12 heads, K2 at (2, 1536, 768), K5 at (8, 2304, 768).)
 22. PPG engines: capture_ppg_buckets of the F5E extractor over the fbank
     buckets (400, 800, 1600, 3200) as CUDA graphs: the capture's seconds
@@ -134,7 +135,8 @@
     gradient against coeff -1) and attention_loss of DecoderConfig(
     r_num_blocks=3), backpropagated. Step wall, device busy, peak memory.
 25. Streaming: conformer_encode_chunk_by_chunk of a 10 s clip, chunk 16,
-    left chunks -1 and 4, card vs CPU; device time per chunk and the RTF.
+    left chunks -1 and 4, card vs CPU; the RTF, and the device time per
+    chunk at left chunks -1.
 26. Recognition: recognize in the ctc_greedy_search and attention modes on
     the card and the CPU: equal token lists, or a top-two logit margin under
     TIE_MARGIN at the first difference.
@@ -149,7 +151,7 @@
     depth K3 and K2 and depth K6 and K5 each, the 8-bit AdamW state under
     0.3x the fp32 state's bytes, a second main() resuming at update 3 (its
     step's device busy under torch.profiler). (22-26 run after 20; 28 after
-    33.)
+    34.)
 29. Sampler options (on the serving v1 model cut to 2 blocks at full
     width): cfm.sample(use_mask=False) and the duplicate_test probe
     (t_start 0.5 with a seeded test_cond: 4 of 8 steps from t = 0.5) on the
@@ -158,10 +160,11 @@
 30. Per-request seeds: one seed's noise alone, in slot 2 of a batch of
     three and as synthesize_chunk's draw, the same bits on the card; the
     full-width sampler of the lone request gives synthesize_chunk(seed=)'s
-    eager bits, the batch's slot 2 agrees with it within SEED_REL; the
-    sampler's device busy for three requests and for one.
+    eager bits, the batch's slot 2 agrees with it within SEED_REL (a batch's
+    device busy against one request's: 34).
 31. Int8 W8A8: F5TTS("F5TTS_v1_Base", quantize="int8") with the serving
-    model's weights, the synthesis of 3 (depth x NFE of K1 and K2), the
+    model's weights, the synthesis of 3 with one timed run and no profile
+    (depth x NFE of K1 and K2), the
     generated mel's relative L2 against the bf16 model's from the same
     noise, the eager sampler's device busy beside bf16's and the share the
     per-token quantization passes take (each quantized linear timed against
@@ -173,8 +176,27 @@
     exactly those named, replays give the eager bits.
 33. Whisper transcription (the same model, a stand-in pipeline): an empty
     ref_text is transcribed once on the card and cached, and the synthesis
-    equals the one with the transcript given. (29-33 run after 27.)
-34. One phase per kernel at the shapes of its path and at one ragged case:
+    equals the one with the transcript given.
+34. Batched serving (a TTSEngine over the same weights, bucket 1536, NFE 32,
+    cfg 2): TTSEngine.enable_batching(max_batch=4); four requests (distinct
+    seeds, reference lengths 4.0-5.5 s and texts, SERVE_REQUESTS) alone on
+    the direct path, then from four threads at once through infer: one batch
+    of 4 (depth x NFE of K1 and K2), each request's mel within SERVE_REL of
+    its mel alone (bitwise printed). warm_up_buckets(buckets=(1536,))
+    captures the (1, 1536), (2, 1536) and (4, 1536) engines (3 x depth x
+    (NFE + 1) counted at capture; seconds, memory) and runs each batch size
+    through the batcher; the four again, alone (the eager bits) and as one
+    replayed batch (no launch; the eager batch's bits). The int16 wire
+    within 1/32767 + 1 ulp of the float32 wav, xfer_chunks=2 and
+    return_mel=False its wavs. The HTTP (one request, then four at once: one
+    batch of 4), socket (f32, pcm16) and gRPC (streaming, offline) servers on
+    free ports of 127.0.0.1, each answering with a finite non-silent wav.
+    Load numbers, printed with no gate: bench_concurrent at concurrency 4
+    against four sequential requests, eager and captured, one profiled batch
+    of 4 each (busy share), one bench_openloop run; the sampler's device busy
+    for a batch of 4 against one request, eager and replayed. (29-34 run
+    after 27.)
+35. One phase per kernel at the shapes of its path and at one ragged case:
     kernel vs its plain PyTorch version on the same inputs (tolerances
     below), kernel, plain and library times, the least time the card could
     take, and the host time per call of each forward wrapper and of K5's.
@@ -182,8 +204,10 @@
     training shape into its kernels: pre-pass and main kernel; pre-pass,
     dq and dkdv; row pass and combine (torch.profiler, measured after the
     build, before the model phases). The backward kernels, K5 included,
-    must give the same bits in two runs.
-35. Prints one JSON line with every kernel, then the device line last.
+    must give the same bits in two runs. K1 and K2 are also held at the
+    batcher's batch of 4: K1 at (8, 1536, 16, 64) with four key lengths, K2
+    at (8, 1536, 1024).
+36. Prints one JSON line with every kernel, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository. fp32 matmuls and convolutions run with TF32 off
@@ -392,11 +416,11 @@ def seed_modulation_(params, gen) -> None:
 
 
 def synthesis_phase(tag: str, infer, expected: dict, runs: int, text_len=None,
-                    timesteps=None) -> dict:
+                    timesteps=None, profile: bool = True) -> dict:
     """`runs` timed runs of `infer()` -> (wav, sr, mel) after a warm-up, each
-    with the launch counts checked, then a profiled one; returns the counts
-    of the last timed run. The sampler must have run NFE steps, or over
-    `timesteps` when given."""
+    with the launch counts checked, then a profiled one unless not
+    `profile`; returns the counts of the last timed run. The sampler must
+    have run NFE steps, or over `timesteps` when given."""
     from f5e_tts_tpu_torch.models import cfm as fcfm
 
     captured = []
@@ -453,7 +477,8 @@ def synthesis_phase(tag: str, infer, expected: dict, runs: int, text_len=None,
     log(f"[{tag}] one warm synthesis (median of {len(walls)}): wall {wall:.3f} s, "
         f"RTF {wall / audio_s:.5f} (wall / seconds of generated audio); "
         f"RTF of each: {[round(w / audio_s, 5) for w in walls]}")
-    profile_run(f"{tag} profile", infer, wall)
+    if profile:
+        profile_run(f"{tag} profile", infer, wall)
     reset_counts()
     return counts
 
@@ -1599,7 +1624,10 @@ def attention_rows(mods, paths: dict, text_len: int, splits) -> list:
         rows.append(attention_kernel_phase(
             "rope_attention", "rope_attention", f"{PALLAS}:523", paths["rope_attention"], False,
             [("synthesis", case("rope", *synth, rope_heads=h), True),
-             ("training", case("rope", *train_b, rope_heads=h), True)], split=k1_split))
+             ("training", case("rope", *train_b, rope_heads=h), True),
+             # the serving batcher's batch of 4: 8 folded rows, four key lengths
+             ("batched synthesis", case("rope", 8, 1536, SERVE_FRAMES * 2, rope_heads=h), True)],
+            split=k1_split))
         rows.append(attention_kernel_phase(
             "partial_rope_attention", "rope_attention", f"{PALLAS}:183",
             paths["partial_rope_attention"], False,
@@ -1686,15 +1714,18 @@ def adaln_case(ga, b: int, n: int, d: int, tag: str) -> dict:
 
 
 def adaln_phase(ga, launches: dict) -> dict:
-    """K2 at the v1 synthesis shape (the row's numbers) and at the F5E
-    model's D = 768 (in `also`)."""
+    """K2 at the v1 synthesis shape (the row's numbers), at the F5E
+    model's D = 768 and at the serving batcher's batch of 4 (8 folded rows;
+    both in `also`)."""
     main = adaln_case(ga, 2, 1536, 1024, "synthesis")
-    f5e = adaln_case(ga, 2, 1536, 768, "f5e synthesis")
-    also = {"f5e synthesis": {k: v for k, v in f5e.items() if k not in ("ops_s", "bytes_s")},
-            "bound_share": main["bound_share"]}
+    more = {"f5e synthesis": adaln_case(ga, 2, 1536, 768, "f5e synthesis"),
+            "batched synthesis": adaln_case(ga, 8, 1536, 1024, "batched synthesis")}
+    also = {tag: {k: v for k, v in case.items() if k not in ("ops_s", "bytes_s")}
+            for tag, case in more.items()}
+    also["bound_share"] = main["bound_share"]
     return kernel_row("gated_adaln", "gated_adaln", "f5e_tts_tpu/ops/pallas_norm.py:38", launches,
-                      max(main["err"], f5e["err"]), main["ms"], main["plain_ms"], main["ops_s"],
-                      main["bytes_s"], None, also)
+                      max(c["err"] for c in (main, *more.values())), main["ms"],
+                      main["plain_ms"], main["ops_s"], main["bytes_s"], None, also)
 
 
 def adaln_bwd_case(ga, d: int, tag: str, host: bool = False) -> dict:
@@ -2067,7 +2098,7 @@ def tts_mode_phase(sv: Serving) -> dict:
             and rel <= TTS_REL):
         raise AssertionError("tts mode with equal alphas disagrees with plain CFG")
     busy_tts = device_busy("tts mode sampler (3 branches)", tts)[0]
-    busy_cfg = device_busy("plain cfg sampler (2 branches)", lambda: sv.sampler_out(eager=True))[0]
+    busy_cfg = sv.sampler_busy[NFE][0]  # the same request's eager sampler (captured phase)
     log(f"[tts mode] sampler device busy {busy_tts:.1f} ms vs {busy_cfg:.1f} ms: "
         f"{busy_tts / busy_cfg:.3f}x")
     reset_counts()
@@ -2484,12 +2515,13 @@ def streaming_phase(asr) -> None:
             run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            busy, launched, _ = device_busy(f"streaming, left chunks {left}", run)
             log(f"[streaming] 10 s clip, chunk 16, left chunks {left}: output "
                 f"{tuple(y.shape)} in {chunks} chunks; card vs CPU max|diff| {err:.3e} of "
-                f"max|y| {top:.3e}; device busy {busy / chunks:.3f} ms a chunk "
-                f"({launched / chunks:.0f} kernels), wall {wall:.3f} s: RTF {wall / 10.0:.4f}, "
-                f"busy share {busy / (wall * 1e3):.3f}")
+                f"max|y| {top:.3e}; wall {wall:.3f} s: RTF {wall / 10.0:.4f}")
+            if left == -1:  # one profile (~10 s of the run's time): left 4 runs as many kernels
+                busy, launched, _ = device_busy(f"streaming, left chunks {left}", run)
+                log(f"[streaming] left chunks {left}: device busy {busy / chunks:.3f} ms a chunk "
+                    f"({launched / chunks:.0f} kernels), busy share {busy / (wall * 1e3):.3f}")
             if not (torch.isfinite(y).all() and err <= ASR_REL * top):
                 raise AssertionError("the card's streamed encoding disagrees with the CPU's")
     check_counts("streaming", read_counts(), expected_counts())
@@ -2835,11 +2867,7 @@ def seeded_phase(sv: Serving) -> dict:
         f"{generated_rel(out3[:1], lone, rf):.3e}, {generated_rel(out3[1:2], lone, rf):.3e}")
     if not (torch.isfinite(out3).all() and rel <= SEED_REL):
         raise AssertionError("the seeded request's mel in a batch differs from its mel alone")
-    busy3 = device_busy("seeded batch of three, eager sampler", lambda: fcfm.sample(
-        engine.params, engine.arch, engine.cfm, three, seeds=[11, 23, 7], **run))[0]
-    busy1 = sv.sampler_busy[NFE][0]  # the same request's eager sampler (captured phase)
-    log(f"[seeded requests] sampler device busy: batch of three {busy3:.1f} ms, one request "
-        f"{busy1:.1f} ms ({busy3 / busy1:.3f}x for 3x the requests)")
+    # the device busy of a batch against one request: batched_serving_phase (a batch of 4)
     reset_counts()
     return counts
 
@@ -2903,7 +2931,9 @@ def int8_phase(sv: Serving) -> dict:
         return tts.infer(ref, REF_TEXT, GEN_TEXT, nfe_step=NFE, cfg_strength=2.0,
                          sway_sampling_coef=-1.0, fix_duration=FIX_DURATION, seed=7)
 
-    counts = synthesis_phase("int8 synthesis", infer, want, runs=3)
+    # one timed run and no profile of the synthesis (~25 s of the run's time):
+    # the eager sampler's busy below gives the device time
+    counts = synthesis_phase("int8 synthesis", infer, want, runs=1, profile=False)
     rf = sv.ref_mel.shape[1]
     q_out = sv.sampler_out(eager=True, engine=engine)
     b_out = sv.sampler_out(eager=True)
@@ -3038,6 +3068,382 @@ def engine_dir_asr_phase(sv: Serving) -> dict:
     return expected_counts()
 
 
+# the serving phase's four requests: (reference seconds, text, fix_duration,
+# seed). Every total lands in bucket 1536 (1312, 1359, 1416, 1453 frames), so
+# the four fold into one (4, 1536) batch, the folded rows' key lengths these
+# durations twice over
+SERVE_REQUESTS = (
+    (4.02, "The river bends twice before it reaches the old mill by the bridge.", 14.0, 11),
+    (4.51, "A light rain kept falling on the roofs of the quiet town all evening.", 14.5, 23),
+    (5.03, GEN_TEXT, FIX_DURATION, 7),
+    (5.52, "She read the letter slowly, then folded it and put it in her coat.", 15.5, 31))
+SERVE_FRAMES = tuple(int(fix * 24_000 / 256) for _, _, fix, _ in SERVE_REQUESTS)
+# a request alone against the same request in a batch of four: the same noise
+# bits, but GEMMs of another M may take other cuBLAS algorithms
+SERVE_REL = 1e-2
+# texts of the server requests: with the 5.03 s reference and no fix_duration
+# the duration estimate puts each in bucket 1536 (checked)
+SERVER_TEXTS = (
+    "Early in the morning the fishermen pushed their boats out past the rocks into the calm grey sea.",
+    "The old clock in the hall struck nine, and somewhere upstairs a door closed softly behind someone.",
+    "We walked along the shore until the lights of the harbour disappeared behind the hill at dusk.",
+    "Nobody knew where the path through the forest ended, so we followed it until the trees thinned.")
+
+
+def batched_serving_phase(sv: Serving) -> dict:
+    """The serving batcher on the v1 model at bucket 1536, NFE 32, cfg 2:
+    four concurrent requests (SERVE_REQUESTS) through TTSEngine.infer fold
+    into one batch of 4, eager (depth x NFE of K1 and K2) and replayed from
+    the (4, 1536) engine that warm_up_buckets captures with (1, 1536) and
+    (2, 1536) (3 x depth x (NFE + 1) at capture, 0 a replay); each request's
+    mel against the same request alone within SERVE_REL (bitwise printed),
+    the replayed batch against the eager one bit for bit; the int16 wire,
+    xfer_chunks and return_mel=False against the float32 wire; the HTTP,
+    socket (f32, pcm16) and gRPC (streaming, offline) servers on free ports;
+    load numbers (concurrency 4 against four sequential requests, eager and
+    captured, an open-loop run) and the sampler busy of a batch of 4 against
+    one request. Returns {path: launch counts} of the eager batch and of the
+    capture."""
+    import io
+    import socket
+    import threading
+    import urllib.request
+
+    from f5e_tts_tpu_torch.infer.pipeline import pick_bucket
+    from f5e_tts_tpu_torch.models import cfm as fcfm
+    from f5e_tts_tpu_torch.serving import benchmark as fbench
+    from f5e_tts_tpu_torch.serving import grpc_client, grpc_server, socket_client, socket_server
+    from f5e_tts_tpu_torch.serving import tts_pb2
+    from f5e_tts_tpu_torch.serving.batcher import DynamicBatcher
+    from f5e_tts_tpu_torch.serving import http_server as fhttp
+
+    eng = dataclasses.replace(sv.engine, engines={}, graph_pool=None,
+                              graph_lock=threading.Lock(), batcher=None, _ref_mel_cache={})
+    wavs = [speech_like(sec, seed=i + 1).astype(np.float32)
+            for i, (sec, _, _, _) in enumerate(SERVE_REQUESTS)]
+    want = expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE)
+    out: dict = {}
+
+    def one(i):
+        _, text, fix, seed = SERVE_REQUESTS[i]
+        return eng.infer(wavs[i], 24_000, REF_TEXT, text, seed=seed, fix_duration=fix,
+                         nfe_steps=NFE, cfg_strength=2.0, sway=-1.0)
+
+    def alone(i):
+        """The request on the direct path (no batcher)."""
+        bt, eng.batcher = eng.batcher, None
+        try:
+            return one(i)
+        finally:
+            eng.batcher = bt
+
+    def concurrent(fn, n=4):
+        """fn(i) for i < n from n threads released together, each in
+        inference mode; the results in order, and the wall."""
+        results, errors, barrier = [None] * n, [], threading.Barrier(n)
+
+        def run(i):
+            try:
+                with torch.inference_mode():
+                    barrier.wait()
+                    results[i] = fn(i)
+            except Exception as e:  # noqa: BLE001 -- re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"concurrent requests failed: {errors}")
+        return results, wall
+
+    def check_batch(tag, got, ref, counts_want):
+        counts = read_counts()
+        check_counts(tag, counts, counts_want)
+        if eng.batcher.batch_sizes != [4]:
+            raise AssertionError(f"{tag}: batches {eng.batcher.batch_sizes}, expected [4]")
+        rels, bitwise = [], []
+        for (wav, _, mel), (_, _, mel_a) in zip(got, ref):
+            if not (np.isfinite(wav).all() and np.sqrt(np.mean(np.square(wav))) > 0):
+                raise AssertionError(f"{tag}: non-finite or silent wav")
+            rels.append(float(np.linalg.norm(mel - mel_a) / np.linalg.norm(mel_a)))
+            bitwise.append(bool(np.array_equal(mel, mel_a)))
+        log(f"[batched serving] {tag}: one batch of 4, launches "
+            f"{ {k: v for k, v in counts.items() if v} }; each request's mel against the same "
+            f"request alone: relative L2 {[f'{r:.3e}' for r in rels]} (tolerance {SERVE_REL}), "
+            f"bitwise {bitwise}")
+        if max(rels) > SERVE_REL:
+            raise AssertionError(f"{tag}: a request's mel in the batch differs from its mel alone")
+        eng.batcher.batch_sizes.clear()
+        eng.batcher.stage_times.clear()
+        return counts
+
+    # the four requests alone, eager (depth x NFE each), then co-batched eager
+    reset_counts()
+    eager_alone = []
+    for i in range(4):
+        eager_alone.append(alone(i))
+        check_counts(f"request {i} alone, eager", read_counts(), want)
+    eng.enable_batching(max_batch=4, window_ms=100.0, nfe_steps=NFE)
+    try:
+        got, wall_eager = concurrent(one)
+        out["batched_synthesis"] = check_batch("eager batch", got, eager_alone, want)
+        eager_batch = got
+
+        # capture: warm_up_buckets through the batcher captures (b, 1536) for
+        # b = 1, 2, 4; each capture timed, its launches and the memory it
+        # reserved read on its own (the capture empties the allocator's cache
+        # as it starts, so the readings follow an empty_cache too)
+        per_capture, capture = [], expected_counts()
+        capture_fn = fhttp.capture_sampler_buckets
+
+        def each_capture(engine, buckets, batches=(1,), **kw):
+            names = []
+            for b in batches:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                reserved, t0 = torch.cuda.memory_reserved(), time.perf_counter()
+                names += capture_fn(engine, buckets, batches=(b,), **kw)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                torch.cuda.empty_cache()
+                counts = read_counts()
+                check_counts(f"capture of (b={b}, 1536)", counts, expected_counts(
+                    rope_attention=DEPTH * (NFE + 1), gated_adaln=DEPTH * (NFE + 1)))
+                for k, v in counts.items():
+                    capture[k] += v
+                per_capture.append((b, seconds, (torch.cuda.memory_reserved() - reserved) / 2**20))
+            return names
+
+        ref_mel = eng._reference(wavs[2], 24_000)[2]
+        fhttp.capture_sampler_buckets = each_capture
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            names = fhttp.warm_up_buckets(eng, ref_mel, REF_TEXT, NFE, buckets=(1536,))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            fhttp.capture_sampler_buckets = capture_fn
+        check_counts("batched serving warm-up batches", read_counts(), expected_counts())
+        for b, sec, mib in per_capture:
+            log(f"[batched serving] capture of (b={b}, 1536): {sec:.2f} s, {mib:.1f} MiB more "
+                f"reserved, {DEPTH * (NFE + 1)} launches of K1 and of K2 counted")
+        log(f"[batched serving] warm_up_buckets captured {names} and ran batches "
+            f"{eng.batcher.batch_sizes} through the batcher in {seconds:.2f} s; launches at "
+            f"capture { {k: v for k, v in capture.items() if v} }, 0 in the replays")
+        if names != [f"sampler_nfe{NFE}_b1536", f"sampler_nfe{NFE}_b1536_x2",
+                     f"sampler_nfe{NFE}_b1536_x4"] or eng.batcher.batch_sizes != [1, 2, 4]:
+            raise AssertionError(f"warm-up captured {names}, ran {eng.batcher.batch_sizes}")
+        out["batched_serving_capture"] = capture
+        eng.batcher.batch_sizes.clear()
+        eng.batcher.stage_times.clear()
+
+        # replayed: alone (the (1, 1536) engine, the eager bits), then the batch of 4
+        replayed_alone = []
+        for i in range(4):
+            replayed_alone.append(alone(i))
+            check_counts(f"request {i} alone, replayed", read_counts(), expected_counts())
+            if not np.array_equal(replayed_alone[i][2], eager_alone[i][2]):
+                raise AssertionError(f"request {i}: the (1, 1536) replay differs from eager")
+        got, wall_replayed = concurrent(one)
+        check_batch("replayed batch", got, replayed_alone, expected_counts())
+        same = [bool(np.array_equal(g[2], e[2])) for g, e in zip(got, eager_batch)]
+        log(f"[batched serving] the (4, 1536) replay against the eager batch of 4: bitwise {same}")
+        if not all(same):
+            raise AssertionError("the (4, 1536) replay differs from the eager batch of 4")
+        log(f"[batched serving] four concurrent requests: wall {wall_eager:.3f} s eager, "
+            f"{wall_replayed:.3f} s replayed")
+
+        # the wire variants against the float32 wire, the same four requests
+        reqs = []
+        for i, (_, text, fix, seed) in enumerate(SERVE_REQUESTS):
+            ids = eng.tokenize([REF_TEXT + " " + text])[0]
+            reqs.append((eng._reference(wavs[i], 24_000)[2][0], ids[ids >= 0],
+                         int(fix * 24_000 / 256), seed))
+
+        def submit_all(batcher):
+            futs = [batcher.submit(*r[:3], seed=r[3]) for r in reqs]
+            return [f.result(timeout=600) for f in futs]
+
+        base = submit_all(eng.batcher)
+        for (_, mel), (_, _, mel_a) in zip(base, got):
+            if not np.array_equal(mel, mel_a):
+                raise AssertionError("a submitted request differs from the same request via infer")
+        variants = {}
+        for tag, kw in (("int16 wire", dict(wire_dtype="int16")),
+                        ("xfer_chunks=2", dict(return_mel=False, xfer_chunks=2)),
+                        ("return_mel=False", dict(return_mel=False))):
+            bt = DynamicBatcher(eng, max_batch=4, window_ms=100.0, nfe_steps=NFE,
+                                text_pad_to=eng.text_pad_to, **kw)
+            try:
+                variants[tag] = submit_all(bt)
+                if bt.batch_sizes != [4]:
+                    raise AssertionError(f"{tag}: batches {bt.batch_sizes}")
+            finally:
+                bt.stop()
+        i16_err = max(float(np.abs(q - np.clip(w, -1, 1)).max())
+                      for (w, _), (q, _) in zip(base, variants["int16 wire"]))
+        if i16_err > 1 / 32767 + np.spacing(np.float32(1.0)):
+            raise AssertionError(f"int16 wire: max |int16 - float32| {i16_err}")
+        for tag in ("xfer_chunks=2", "return_mel=False"):
+            for (w, _), (v, m) in zip(base, variants[tag]):
+                if m is not None or not np.array_equal(v, w):
+                    raise AssertionError(f"{tag}: not the float32 wire's (wav, None)")
+        log(f"[batched serving] int16 wire within {i16_err:.3e} of the float32 wav (1/32767 + 1 "
+            f"ulp allowed); xfer_chunks=2 and return_mel=False give its wavs, mel None")
+        eng.batcher.batch_sizes.clear()
+        eng.batcher.stage_times.clear()
+
+        # the servers, each on a free port of 127.0.0.1
+        sr, hop = 24_000, 256
+        ref_len = len(wavs[2]) // hop
+        for text in SERVER_TEXTS:
+            total = ref_len + int(ref_len / len((REF_TEXT + " ").encode()) * len(text.encode()))
+            if pick_bucket(total) != 1536:
+                raise AssertionError(f"server text of {total} frames, not in bucket 1536")
+
+        def audible(wav, tag):
+            rms = float(np.sqrt(np.mean(np.square(wav)))) if len(wav) else 0.0
+            if not (len(wav) and np.isfinite(wav).all() and rms > 0):
+                raise AssertionError(f"{tag}: empty, non-finite or silent wav")
+            log(f"[batched serving] {tag}: {len(wav) / sr:.3f} s of audio, rms {rms:.4f}")
+
+        http = fhttp.make_server(eng, wavs[2], sr, REF_TEXT, host="127.0.0.1", port=0,
+                                 nfe=NFE, warm=False)
+        threading.Thread(target=http.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{http.server_address[1]}"
+
+        def post(i):
+            body = json.dumps({"text": SERVER_TEXTS[i], "seed": i}).encode()
+            req = urllib.request.Request(url + "/tts", data=body,
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                data = r.read()
+            with wave.open(io.BytesIO(data)) as f:
+                return np.frombuffer(f.readframes(f.getnframes()), np.int16) / 32767.0
+
+        try:
+            audible(post(0), "HTTP one request")
+            posted, wall = concurrent(post)
+            for i, wav in enumerate(posted):
+                audible(wav, f"HTTP concurrent request {i}")
+            log(f"[batched serving] four concurrent HTTP requests: batches "
+                f"{eng.batcher.batch_sizes} in {wall:.3f} s")
+            if eng.batcher.batch_sizes != [1, 4]:
+                raise AssertionError(f"HTTP: batches {eng.batcher.batch_sizes}, expected [1, 4]")
+        finally:
+            http.shutdown()
+            http.server_close()
+        for wire in ("f32", "pcm16"):
+            proc = socket_server.TTSStreamingProcessor(eng, wavs[2], sr, REF_TEXT, nfe_steps=NFE,
+                                                       warm_up=False, wire=wire)
+            lsock = socket_server.listen("127.0.0.1", 0)
+            threading.Thread(target=socket_server.serve, args=(proc,), kwargs=dict(srv=lsock),
+                             daemon=True).start()
+            try:
+                wav, first = socket_client.request("127.0.0.1", lsock.getsockname()[1],
+                                                   SERVER_TEXTS[1], timeout=600, wire=wire)
+            finally:
+                lsock.shutdown(socket.SHUT_RDWR)
+            audible(wav, f"socket ({wire}), first chunk after {first:.3f} s")
+        proc = socket_server.TTSStreamingProcessor(eng, wavs[2], sr, REF_TEXT, nfe_steps=NFE,
+                                                   warm_up=False)
+        server, port = grpc_server.make_server(proc, host="127.0.0.1", port=0)
+        server.start()
+        try:
+            import grpc
+
+            with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+                stream_stub, offline_stub = grpc_client._stubs(channel)
+                req = tts_pb2.TTSRequest(gen_text=SERVER_TEXTS[2], nfe_steps=NFE)
+                streamed = grpc_client.run_once(stream_stub, offline_stub, req)
+                offline = grpc_client.run_once(stream_stub, offline_stub, req, offline=True)
+        finally:
+            server.stop(grace=None)
+        audible(streamed["wav"], f"gRPC streaming, first chunk after {streamed['first_chunk_s']:.3f} s")
+        audible(offline["wav"], "gRPC offline")
+        if not np.array_equal(streamed["wav"], offline["wav"]):
+            raise AssertionError("gRPC: the streamed wav differs from the offline one")
+        reset_counts()
+        eng.batcher.batch_sizes.clear()
+        eng.batcher.stage_times.clear()
+
+        # load numbers (no gate), at the batcher's default 20 ms window:
+        # concurrency 4 against four sequential requests (through the batcher,
+        # which waits out the window for each, and on the direct path), eager
+        # and captured; the busy share of one batch of 4; one open-loop run
+        eng.batcher.window_s = 0.020
+        texts = list(SERVER_TEXTS)
+        engines = eng.engines
+
+        def load(tag, conc):
+            st = fbench.bench_concurrent(eng, wavs[2], sr, REF_TEXT, texts, nfe=NFE,
+                                         concurrency=conc, warmup=False)
+            log(f"[batched serving] load, {tag}: {st['n'] / st['wall_s']:.3f} requests/s, "
+                f"wall {st['wall_s']:.3f} s, RTF {st['rtf']:.5f}, p50 {st['p50_ms']:.1f} ms, p95 "
+                f"{st['p95_ms']:.1f} ms, batches {st['batch_sizes']}, stages "
+                f"{st.get('stage_totals')}")
+            return st["n"] / st["wall_s"]
+
+        for mode in ("eager", "captured"):
+            eng.engines = {} if mode == "eager" else engines
+            rate4 = load(f"{mode}, concurrency 4", 4)
+            rate1 = load(f"{mode}, four sequential requests through the batcher", 1)
+            bt, eng.batcher = eng.batcher, None
+            try:
+                direct = load(f"{mode}, four sequential requests on the direct path", 1)
+            finally:
+                eng.batcher = bt
+            log(f"[batched serving] load, {mode}: concurrency 4 gives {rate4 / rate1:.3f}x the "
+                f"requests/s of four sequential requests through the batcher, "
+                f"{rate4 / direct:.3f}x those on the direct path")
+            eng.batcher.batch_sizes.clear()
+            _, wall = concurrent(lambda i: eng.infer(wavs[2], sr, REF_TEXT, texts[i], seed=i,
+                                                     nfe_steps=NFE))
+            log(f"[batched serving] one {mode} batch of 4: wall {wall:.3f} s, batches "
+                f"{eng.batcher.batch_sizes}")
+            eng.batcher.batch_sizes.clear()
+            if mode == "captured":  # one profiled batch: its busy share of that wall
+                profile_run(f"batched serving, one {mode} batch of 4",
+                            lambda: concurrent(lambda i: eng.infer(wavs[2], sr, REF_TEXT,
+                                                                   texts[i], seed=i,
+                                                                   nfe_steps=NFE)), wall)
+                eng.batcher.batch_sizes.clear()
+        eng.engines = engines
+        st = fbench.bench_openloop(eng, wavs[2], sr, REF_TEXT, texts * 2, nfe=NFE, qps=3.0, seed=0,
+                                   warmup=False)
+        log(f"[batched serving] load, captured, open loop at 3.0 requests/s offered: "
+            f"{st['qps_achieved']:.3f} achieved, p50 {st['p50_ms']:.1f} ms, p95 {st['p95_ms']:.1f} "
+            f"ms, batches {st['batch_sizes']}, mean batch {st['mean_batch']:.2f}, stages "
+            f"{st.get('stage_totals')}")
+        reset_counts()
+
+        # the sampler's device busy: a batch of 4 against one request
+        inputs, _ = sv.sampler_inputs()
+        four = fcfm.SamplerInputs(*(None if t is None else t.repeat(4, *[1] * (t.dim() - 1))
+                                    for t in inputs))
+        run = dict(steps=NFE, cfg_strength=2.0, sway_coef=-1.0, compute_dtype=torch.bfloat16,
+                   device="cuda")
+        busy4 = device_busy("batched serving, eager sampler of 4", lambda: fcfm.sample(
+            eng.params, eng.arch, eng.cfm, four, seeds=[11, 23, 7, 31], **run))[0]
+        busy1 = sv.sampler_busy[NFE][0]  # the same request's eager sampler (captured phase)
+        r4 = device_busy("batched serving, (4, 1536) replay", eng.engines[names[2]].graph.replay)[0]
+        r1 = device_busy("batched serving, (1, 1536) replay", eng.engines[names[0]].graph.replay)[0]
+        log(f"[batched serving] sampler device busy, batch of 4 against one request: eager "
+            f"{busy4:.1f} / {busy1:.1f} ms ({busy4 / busy1:.3f}x), replayed {r4:.1f} / {r1:.1f} ms "
+            f"({r4 / r1:.3f}x)")
+        reset_counts()
+        return out
+    finally:
+        eng.batcher.stop()
+
+
 def k2_sass_check(lib: Path) -> None:
     """Every gated_adaln_kernel instantiation of the built K2/K5 library
     moves its rows in 128-bit global loads and stores and none in 16-bit
@@ -3132,7 +3538,7 @@ def main() -> int:
     with torch.inference_mode():
         runs["base_synthesis"] = phase("base synthesis", lambda: preset_synthesis_phase(
             "base synthesis", preset_tts("base synthesis", "F5TTS_Base"),
-            expected_counts(partial_rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE), runs=3))
+            expected_counts(partial_rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE), runs=1))
     base = byte_model(preset("F5TTS_Base"))
     assert (base.arch.pe_attn_head, base.arch.text_mask_padding) == (1, False), base.arch
     runs["base_training_step"], _ = phase("base training", lambda: training_phase(
@@ -3201,6 +3607,8 @@ def main() -> int:
         runs["int8_synthesis"] = phase("int8 synthesis", lambda: int8_phase(sv))
         runs["engine_dir_asr"] = phase("engine dir and asr model",
                                        lambda: engine_dir_asr_phase(sv))
+        # the serving batcher on (b, 1536) engines, and the servers
+        runs.update(phase("batched serving", lambda: batched_serving_phase(sv)))
         del sv
     del asr
     # the YAML training CLI on the F5E model with 8-bit AdamW

@@ -27,7 +27,7 @@ from f5e_tts_tpu_torch.config import CFMConfig, ModelConfig, load_yaml, preset
 from f5e_tts_tpu_torch.infer import audio as faudio
 from f5e_tts_tpu_torch.infer import transcribe as ftranscribe
 from f5e_tts_tpu_torch.infer.pipeline import (CachedTranscriber, TTSEngine,
-                                              preprocess_ref_audio_text)
+                                              preprocess_ref_audio_text, slice_gen)
 from f5e_tts_tpu_torch.models import backbone as fbb
 from f5e_tts_tpu_torch.models.vocos import VocosConfig, init_vocos, vocos_decode, vocos_from_torch
 from f5e_tts_tpu_torch.utils import text as ftext
@@ -49,11 +49,9 @@ def _cast(tree, dtype):
 
 def load_vocoder(vocoder_path: Optional[str] = None, compute_dtype=torch.bfloat16,
                  device="cuda", seed: int = 0):
-    """A Vocos decode callable, mel (B, N, 100) tensor -> float32 numpy wav;
-    its `.device` decodes the same way and leaves the wav tensor on the card
-    (no host copy either way). Weights from a vocos .pt/.bin/.safetensors
-    state dict, else seeded random (the reference downloads
-    charactr/vocos-mel-24khz)."""
+    """The Vocos decode of `make_vocoder`, weights from a vocos
+    .pt/.bin/.safetensors state dict, else seeded random (the reference
+    downloads charactr/vocos-mel-24khz)."""
     dev = resolve_device(device)
     cfg = VocosConfig()
     if vocoder_path:
@@ -66,6 +64,20 @@ def load_vocoder(vocoder_path: Optional[str] = None, compute_dtype=torch.bfloat1
         params = to_tensors(vocos_from_torch(sd, cfg), dev)
     else:
         params = init_vocos(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    return make_vocoder(params, cfg, compute_dtype, dev)
+
+
+def make_vocoder(params: dict, cfg: VocosConfig, compute_dtype=torch.bfloat16, device="cuda"):
+    """A Vocos decode callable over `params` (cast to `compute_dtype`), mel
+    (B, N, mel) tensor -> float32 numpy wav; its `.device` decodes the same
+    way and leaves the wav tensor on the card (no host copy either way).
+    `.device_sliced(out, starts, gen_lens, L)` slices each row's generated
+    window out of the sampler output and decodes it in one call, -> (wav,
+    sliced mel) on the card (`slice_gen`); `.device_sliced_i16` also rounds
+    the wav to PCM16 there (half to even, as `jnp.round`, then clamped to
+    [-32768, 32767]), so the copy to the host moves half the bytes
+    (reference: f5e_tts_tpu api.py:62-90)."""
+    dev = resolve_device(device)
     params = _cast(params, compute_dtype)
 
     @torch.inference_mode()
@@ -75,7 +87,20 @@ def load_vocoder(vocoder_path: Optional[str] = None, compute_dtype=torch.bfloat1
     def decode(mel: torch.Tensor) -> np.ndarray:
         return decode_device(mel).float().cpu().numpy()
 
+    @torch.inference_mode()
+    def decode_sliced(out: torch.Tensor, starts: torch.Tensor, gen_lens: torch.Tensor, L: int):
+        mel = slice_gen(out, starts, gen_lens, L)
+        return decode_device(mel), mel
+
+    @torch.inference_mode()
+    def decode_sliced_i16(out: torch.Tensor, starts: torch.Tensor, gen_lens: torch.Tensor,
+                          L: int):
+        wav, mel = decode_sliced(out, starts, gen_lens, L)
+        return torch.round(wav.float() * 32767.0).clamp(-32768, 32767).to(torch.int16), mel
+
     decode.device = decode_device
+    decode.device_sliced = decode_sliced
+    decode.device_sliced_i16 = decode_sliced_i16
     return decode
 
 

@@ -8,9 +8,9 @@ sampler output is sliced there (`slice_gen`) and decoded. A captured
 sampler engine (`utils/aot.py`) replays the ODE loop of a matching request
 as one CUDA graph. `synthesize_chunk(mode="tts")` runs the dual-alpha TTS
 sampler (`cfm.sample_tts`), `mode="vc"` the voice-conversion sampler over a
-PPG (`cfm.sample_vc`). (reference: src/f5_tts/infer/utils_infer.py:367-556)
-
-Not ported yet: the dynamic batcher.
+PPG (`cfm.sample_vc`). `TTSEngine.enable_batching` attaches the serving
+batcher (`serving/batcher.py`), which co-batches concurrent requests of its
+sampler configuration. (reference: src/f5_tts/infer/utils_infer.py:367-556)
 """
 
 from __future__ import annotations
@@ -183,7 +183,8 @@ class TTSEngine:
     `engines` holds the captured samplers by name (utils/aot.py:
     `capture_sampler_buckets`), all in the one memory pool `graph_pool`,
     replayed one at a time under `graph_lock`; a request that one of them
-    matches replays it, any other runs eagerly."""
+    matches replays it, any other runs eagerly. `batcher` is the dynamic
+    batcher `enable_batching` attaches (serving/batcher.py)."""
 
     params: dict
     arch: object  # DiTConfig, UNetTConfig or MMDiTConfig (models/backbone.py dispatches)
@@ -205,6 +206,7 @@ class TTSEngine:
     engines: dict = field(default_factory=dict, repr=False)
     graph_pool: Optional[tuple] = field(default=None, repr=False)
     graph_lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    batcher: Optional[object] = field(default=None, repr=False)
     _ref_mel_cache: dict = field(default_factory=dict, repr=False)
 
     def __post_init__(self):
@@ -224,12 +226,36 @@ class TTSEngine:
             toks = ftext.intersperse(toks)
         return ftext.list_str_to_idx(toks, self.vocab)
 
-    def _aot_sampler(self, nfe: int, bucket: int, timesteps=None, cfg_strength=None):
-        """The captured engine for (nfe or grid, bucket, variant), or None
-        (the JAX engine-file match without the prompt and text lengths,
+    def enable_batching(self, max_batch: int = 4, window_ms: float = 20.0,
+                        nfe_steps: Optional[int] = None, return_mel: bool = True,
+                        wire_dtype: str = "float32", xfer_chunks: int = 1,
+                        timesteps: Optional[Sequence[float]] = None,
+                        cfg_strength: Optional[float] = None):
+        """Attach a `DynamicBatcher` (serving/batcher.py) and return it.
+        `infer` sends a chunk through it when its nfe or grid, its cfg and
+        its sway are the batcher's (plain CFG); any other request takes the
+        direct path. `return_mel=False` resolves (wav, None) and copies no
+        mel to the host; `wire_dtype="int16"` rounds the wav to PCM16 on the
+        card (the futures still hold float32); `xfer_chunks` > 1 (wav only)
+        copies the batch's wavs in row chunks; `cfg_strength` bakes a
+        non-default guidance weight (reference: f5e_tts_tpu
+        infer/pipeline.py:276-301)."""
+        from f5e_tts_tpu_torch.serving.batcher import DynamicBatcher
+
+        self.batcher = DynamicBatcher(self, max_batch=max_batch, window_ms=window_ms,
+                                      nfe_steps=nfe_steps, cfg_strength=cfg_strength,
+                                      text_pad_to=self.text_pad_to, return_mel=return_mel,
+                                      wire_dtype=wire_dtype, xfer_chunks=xfer_chunks,
+                                      timesteps=timesteps)
+        return self.batcher
+
+    def _aot_sampler(self, nfe: int, bucket: int, timesteps=None, cfg_strength=None,
+                     batch: int = 1):
+        """The captured engine for (nfe or grid, bucket, variant, batch), or
+        None (the JAX engine-file match without the prompt and text lengths,
         which are data here, not shape)."""
         found = find_sampler_engine(self.engines, nfe, bucket, timesteps=timesteps,
-                                    cfg_strength=cfg_strength)
+                                    cfg_strength=cfg_strength, batch=batch)
         return self.engines[found] if found else None
 
     def synthesize_chunk(self, ref_mel: np.ndarray, full_text: str, duration: int, *,
@@ -355,7 +381,10 @@ class TTSEngine:
         with `streaming` a generator of (wav piece of <= chunk_size samples,
         sample_rate). `timesteps` is an explicit ODE grid for every chunk.
         With a vocoder that decodes on the card, each chunk's mel is sliced
-        and decoded there; the host gets the wav and, after the decode, the mel."""
+        and decoded there; the host gets the wav and, after the decode, the mel.
+        With a batcher attached, a chunk whose sampler configuration is the
+        batcher's is submitted to it and co-batched with concurrent requests
+        (its mel is empty when the batcher returns none)."""
         icfg = self.infer_cfg
         speed = speed if speed is not None else icfg.speed
         xf = cross_fade_duration if cross_fade_duration is not None else icfg.cross_fade_duration
@@ -371,6 +400,16 @@ class TTSEngine:
                      if ref_text else 135)
         chunks = chunk_text(gen_text, max_chars=max(max_chars, 10))
         dev_decode = getattr(self.vocoder_decode, "device", None)
+        # the batcher serves one sampler configuration: a request matches when
+        # its grid is the batcher's (a grid subsumes nfe and sway) and, with
+        # no grid, its nfe and sway are; its cfg must be the batcher's too
+        req_grid = tuple(timesteps) if timesteps is not None else None
+        eff_nfe = nfe_steps if nfe_steps is not None else icfg.nfe_steps
+        bt = self.batcher
+        use_batcher = (bt is not None and req_grid == bt.timesteps
+                       and (req_grid is not None or eff_nfe == bt.nfe)
+                       and (cfg_strength is None or cfg_strength == bt.cfg_strength)
+                       and (req_grid is not None or sway is None or sway == bt.sway))
 
         def gen():
             for i, chunk in enumerate(chunks):
@@ -378,7 +417,12 @@ class TTSEngine:
                                              sr, hop)
                 kw = dict(seed=seed + i, nfe_steps=nfe_steps, cfg_strength=cfg_strength,
                           sway=sway, timesteps=timesteps)
-                if dev_decode is not None:
+                if use_batcher:
+                    ids = self.tokenize([ref_text + chunk])[0]
+                    fut = bt.submit(ref_mel[0], ids[ids >= 0], min(duration, icfg.max_duration),
+                                    seed=seed + i)
+                    wav, mel_gen = fut.result()
+                elif dev_decode is not None:
                     out, rf, dur = self.synthesize_chunk(ref_mel, ref_text + chunk, duration,
                                                          device_out=True, **kw)
                     gl = dur - rf
@@ -404,7 +448,8 @@ class TTSEngine:
         waves, mels = [], []
         for wav, mel_gen in gen():
             waves.append(wav)
-            mels.append(mel_gen)
+            if mel_gen is not None:  # a batcher with return_mel=False copies no mel
+                mels.append(mel_gen)
         final = cross_fade_stitch(waves, sr, xf)
         mel = np.concatenate(mels, axis=0) if mels else np.zeros((0, self.mel.n_mel_channels))
         return final, sr, mel

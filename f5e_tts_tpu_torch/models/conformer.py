@@ -106,8 +106,11 @@ def _pos_table(d_model: int, max_len: int, device: torch.device) -> torch.Tensor
     """`_sinus_table` on `device`, built once per (d, max_len, device): a
     CUDA-graph capture of the encoder (utils/aot.py: capture_ppg_buckets)
     cannot contain a copy from the host, so the encoder slices this cached
-    device tensor instead of copying the table in on every call."""
-    return torch.from_numpy(_sinus_table(d_model, max_len)).to(device)
+    device tensor instead of copying the table in on every call. Built
+    outside inference mode: the cache outlives the call, and a later
+    training step cannot save an inference tensor for its backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_sinus_table(d_model, max_len)).to(device)
 
 
 # ---------------------------------------------------------------------------

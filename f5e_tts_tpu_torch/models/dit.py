@@ -144,14 +144,19 @@ def _fused_attn(attn: dict, compute_dtype: Optional[torch.dtype]) -> dict:
 
 @functools.lru_cache(maxsize=8)
 def _abs_pos_table(dim: int, max_pos: int) -> torch.Tensor:
-    """(max_pos, dim) fp32 table on the CPU; callers slice and copy it."""
-    return torch.from_numpy(fnn.precompute_freqs_cis(dim, max_pos))
+    """(max_pos, dim) fp32 table on the CPU; callers slice and copy it.
+    Built outside inference mode, as the other cached tables: the cache
+    outlives the call, and a later training step cannot save an inference
+    tensor for its backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(fnn.precompute_freqs_cis(dim, max_pos))
 
 
 @functools.lru_cache(maxsize=16)
 def _rope_tables(dim_head: int, seq_len: int, device: torch.device):
-    cos, sin = rotary_cos_sin_half(dim_head, seq_len)
-    return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+    with torch.inference_mode(False):  # cached: see _abs_pos_table
+        cos, sin = rotary_cos_sin_half(dim_head, seq_len)
+        return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
 
 
 def time_embed(params, time: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:

@@ -49,8 +49,11 @@ def kaldi_mel_banks(num_bins: int, padded_window_size: int, sample_freq: float,
 
 @functools.lru_cache(maxsize=4)
 def _tables(win_size: int, n_fft: int, num_mel_bins: int, sample_rate: int):
-    return (torch.from_numpy(povey_window(win_size)),
-            torch.from_numpy(kaldi_mel_banks(num_mel_bins, n_fft, float(sample_rate))))
+    # built outside inference mode: the cache outlives the call, and a later
+    # call under autograd cannot save an inference tensor for its backward
+    with torch.inference_mode(False):
+        return (torch.from_numpy(povey_window(win_size)),
+                torch.from_numpy(kaldi_mel_banks(num_mel_bins, n_fft, float(sample_rate))))
 
 
 def _fbank_impl(wav: torch.Tensor, sample_rate: int, frame_length: int, frame_shift: int,

@@ -9,7 +9,10 @@ ODE loop of `cfm.sample` once per bucket as a `torch.cuda.CUDAGraph`, which
 then replays every launch of the loop in one call. A graph cannot be
 written to a file, so an engine lives in memory, in `TTSEngine.engines`,
 under a name built like the JAX file names:
-`sampler_nfe{nfe}{tag}_b{bucket}` (`variant_tag`).
+`sampler_nfe{nfe}{tag}_b{bucket}` (`variant_tag`). An engine of a batch of
+b > 1 requests (the serving batcher's, `serving/batcher.py`) adds
+`_x{b}`: the JAX batcher jit-compiles each (batch, bucket), the port
+captures one graph for each.
 
 What the graph holds is the loop only: NFE folded-CFG backbone calls and the
 Euler (or midpoint) updates, each step's time fixed in it. The text
@@ -72,32 +75,37 @@ def variant_tag(timesteps=None, cfg_strength=None) -> str:
 
 
 def engine_name(nfe: int, bucket: int, timesteps: Optional[Sequence[float]] = None,
-                cfg_strength: Optional[float] = None) -> str:
-    """The name of the engine for (nfe, bucket, variant). With `timesteps`,
-    nfe is len(timesteps) - 1."""
+                cfg_strength: Optional[float] = None, batch: int = 1) -> str:
+    """The name of the engine for (nfe, bucket, variant, batch). With
+    `timesteps`, nfe is len(timesteps) - 1; a batch of one has no suffix."""
     if timesteps is not None:
         nfe = len(tuple(timesteps)) - 1
-    return f"sampler_nfe{nfe}{variant_tag(timesteps, cfg_strength)}_b{bucket}"
+    suffix = f"_x{batch}" if batch != 1 else ""
+    return f"sampler_nfe{nfe}{variant_tag(timesteps, cfg_strength)}_b{bucket}{suffix}"
 
 
 def find_sampler_engine(engines: Mapping[str, object], nfe: int, bucket: int,
                         timesteps: Optional[Sequence[float]] = None,
-                        cfg_strength: Optional[float] = None) -> Optional[str]:
-    """The name of the engine for (nfe, bucket, variant) in `engines`, or
-    None (reference: f5e_tts_tpu/utils/aot.py:108-134, without the prompt
+                        cfg_strength: Optional[float] = None, batch: int = 1) -> Optional[str]:
+    """The name of the engine for (nfe, bucket, variant, batch) in `engines`,
+    or None (reference: f5e_tts_tpu/utils/aot.py:108-134, without the prompt
     and text lengths, which are data here, not shape)."""
-    name = engine_name(nfe, bucket, timesteps, cfg_strength)
+    name = engine_name(nfe, bucket, timesteps, cfg_strength, batch)
     return name if name in engines else None
 
 
 class SamplerGraph:
-    """The captured ODE loop of one (bucket, grid, guidance) on a DiT or
-    UNetT engine.
-    `sample(inputs, y0)` is `cfm.sample(..., y0=y0)` for a request of batch 1
-    in this bucket, with the same bits."""
+    """The captured ODE loop of one (bucket, grid, guidance, batch) on a DiT
+    or UNetT engine: the folded CFG loop of `batch` requests, 2 x batch rows
+    with guidance. `sample(inputs, y0)` is `cfm.sample(..., y0=y0)` for
+    `batch` requests in this bucket, with the same bits."""
 
-    def __init__(self, engine, bucket: int, grid: np.ndarray, cfg_strength: float):
-        self.bucket, self.grid, self.cfg_strength = bucket, grid, cfg_strength
+    def __init__(self, engine, bucket: int, grid: np.ndarray, cfg_strength: float,
+                 batch: int = 1):
+        if engine.device.type != "cuda":
+            raise RuntimeError(f"CUDA-graph capture needs an engine on a CUDA device, not "
+                               f"{engine.device}")
+        self.bucket, self.grid, self.cfg_strength, self.batch = bucket, grid, cfg_strength, batch
         self._lock = engine.graph_lock
         self.params, self.arch, self.compute_dtype = engine.params, engine.arch, engine.compute_dtype
         self.state = engine.state
@@ -106,14 +114,14 @@ class SamplerGraph:
     @torch.inference_mode()
     def _capture(self, engine) -> None:
         dev = engine.device
-        n, mel_dim = self.bucket, self.arch.mel_dim
+        b, n, mel_dim = self.batch, self.bucket, self.arch.mel_dim
         placeholder = fcfm.prepare_inputs(
-            torch.zeros((1, 1, mel_dim), device=dev), torch.ones(1, dtype=torch.long, device=dev),
-            torch.full((1,), n, device=dev), n,
-            text_ids=torch.full((1, 1), -1, dtype=torch.int32, device=dev))
+            torch.zeros((b, 1, mel_dim), device=dev), torch.ones(b, dtype=torch.long, device=dev),
+            torch.full((b,), n, device=dev), n,
+            text_ids=torch.full((b, 1), -1, dtype=torch.int32, device=dev))
         # the static inputs, allocated outside the graph's pool
         self._inputs = self._fold(placeholder)
-        self._y0 = torch.zeros((1, n, mel_dim), device=dev)
+        self._y0 = torch.zeros((b, n, mel_dim), device=dev)
         step_fn = fcfm.folded_step_fn(self.params, self.arch, self._inputs, self.compute_dtype)
         # one eager step first, on a side stream: it builds what is built on
         # first use (kernel libraries, library handles and workspaces, the
@@ -142,10 +150,11 @@ class SamplerGraph:
 
     @torch.inference_mode()
     def sample(self, inputs: fcfm.SamplerInputs, y0: torch.Tensor) -> torch.Tensor:
-        """(1, bucket, mel) out: the replayed loop from the noise `y0`, the
-        prompt frames replaced by the cond mel, as `cfm.sample` returns it."""
-        if tuple(inputs.cond.shape[:2]) != (1, self.bucket):
-            raise ValueError(f"engine of bucket {self.bucket} got cond {tuple(inputs.cond.shape)}")
+        """(batch, bucket, mel) out: the replayed loop from the noise `y0`,
+        the prompt frames replaced by the cond mel, as `cfm.sample` returns it."""
+        if tuple(inputs.cond.shape[:2]) != (self.batch, self.bucket):
+            raise ValueError(f"engine of batch {self.batch}, bucket {self.bucket} got cond "
+                             f"{tuple(inputs.cond.shape)}")
         stream = torch.cuda.current_stream(self._y0.device)
         if stream != self._stream:
             raise RuntimeError(f"engine captured on {self._stream} replayed on {stream}: the "
@@ -162,13 +171,18 @@ class SamplerGraph:
 
 def capture_sampler_buckets(engine, buckets: Optional[Sequence[int]] = None, nfe: int = 32,
                             timesteps: Optional[Sequence[float]] = None,
-                            cfg_strength: Optional[float] = None) -> list:
+                            cfg_strength: Optional[float] = None,
+                            batches: Sequence[int] = (1,)) -> list:
     """Capture the folded-CFG sampler of `engine` (a TTSEngine on the card
-    with a DiT or a UNetT) for each bucket (default: `engine.buckets`) into
-    `engine.engines`; returns the engines' names. `timesteps` bakes an
-    explicit grid (nfe becomes len - 1), `cfg_strength` a non-default
-    guidance weight; the sway is the engine's default. A capture that fails
-    raises (reference: f5e_tts_tpu/utils/aot.py:55-105)."""
+    with a DiT or a UNetT) for each bucket (default: `engine.buckets`) and
+    each batch size in `batches` into `engine.engines`; returns the
+    engines' names. `timesteps` bakes an explicit grid (nfe becomes len -
+    1), `cfg_strength` a non-default guidance weight; the sway is the
+    engine's default. A capture that fails raises (reference:
+    f5e_tts_tpu/utils/aot.py:55-105).
+
+    A capture records in CUDA's global mode: a CUDA call from any other
+    thread while it runs fails it. Capture before a server takes requests."""
     if engine.device.type != "cuda":
         raise RuntimeError(f"CUDA-graph capture needs an engine on a CUDA device, not {engine.device}")
     if fbb.backbone_kind(engine.arch) not in CAPTURED_KINDS:
@@ -186,9 +200,10 @@ def capture_sampler_buckets(engine, buckets: Optional[Sequence[int]] = None, nfe
     names = []
     with engine.graph_lock:
         for bucket in buckets or engine.buckets:
-            name = engine_name(len(grid) - 1, bucket, ts_grid, cfg_strength)
-            engine.engines[name] = SamplerGraph(engine, bucket, grid, cfg)
-            names.append(name)
+            for batch in batches:
+                name = engine_name(len(grid) - 1, bucket, ts_grid, cfg_strength, batch)
+                engine.engines[name] = SamplerGraph(engine, bucket, grid, cfg, batch)
+                names.append(name)
     return names
 
 

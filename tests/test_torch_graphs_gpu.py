@@ -1,7 +1,7 @@
 """Captured sampler engines (f5e_tts_tpu_torch/utils/aot.py) against the
 eager sampler on the card: a replay from a request's seed gives the eager
 run's bits, for any prompt and text length of the bucket (a PPG model's
-too, with no PPG); engines sharing
+too, with no PPG; a batch of two, the serving batcher's); engines sharing
 one memory pool keep their own bits in either order of replay, and from
 several threads at once; a replay on another stream raises.
 
@@ -130,6 +130,37 @@ def test_a_long_text_replays_with_the_eager_bits(engine):
         assert torch.equal(_chunk(engine, text=text, duration=250), w)
     assert _counts() == (0, 0)  # both replayed
 
+
+
+def test_a_batch_of_two_replays_with_the_eager_bits(engine):
+    """A (2, bucket) engine (the serving batcher's) replays the folded loop
+    of two requests, 4 folded rows, with the eager sampler's bits from the
+    seeds' noise; the batch-1 engine of the bucket refuses the pair."""
+    from f5e_tts_tpu_torch.models import cfm as fcfm
+    from f5e_tts_tpu_torch.utils.aot import find_sampler_engine
+
+    n = 256
+    cond = torch.zeros((2, n, 100), device="cuda")
+    cond[0, :80], cond[1, :50] = (torch.from_numpy(_ref_mel(f, s)[0]).cuda()
+                                  for f, s in ((80, 1), (50, 2)))
+    text = torch.full((2, 32), -1, dtype=torch.int32, device="cuda")
+    text[0, :20], text[1, :9] = 5, 7
+    inputs = fcfm.prepare_inputs(cond, torch.tensor([80, 50], device="cuda"),
+                                 torch.tensor([200, 230], device="cuda"), n, text_ids=text)
+    y0 = fcfm.noise_like(None, 2, n, 100, inputs.duration, seeds=[7, 8])
+    want, _ = fcfm.sample(engine.params, engine.arch, engine.cfm, inputs, steps=NFE,
+                          cfg_strength=2.0, sway_coef=-1.0, y0=y0,
+                          compute_dtype=torch.bfloat16, device="cuda")
+    _counts()
+    names = capture_sampler_buckets(engine, buckets=(n,), nfe=NFE, batches=(1, 2))
+    assert names == [f"sampler_nfe{NFE}_b{n}", f"sampler_nfe{NFE}_b{n}_x2"]
+    assert _counts() == (2 * DEPTH * (NFE + 1),) * 2
+    pair = engine.engines[find_sampler_engine(engine.engines, NFE, n, batch=2)]
+    for _ in range(2):
+        assert torch.equal(pair.sample(inputs, y0), want)
+    assert _counts() == (0, 0)
+    with pytest.raises(ValueError, match="batch 1"):
+        engine.engines[names[0]].sample(inputs, y0)
 
 def test_threads_share_an_engine_and_another_stream_raises(engine):
     """Requests from several threads on the default stream replay one at a
