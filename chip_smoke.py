@@ -118,7 +118,7 @@
     (depth x (NFE + 1) at capture; the replay gives the eager bits and
     counts no launch). Each: prompt frames equal the cond mel, a finite wav
     with nonzero RMS, the sampler's device busy and three timed walls.
-21. (The F5E model's kernel shapes in 35: K3 at (2, 1536) with 12 heads, K6
+21. (The F5E model's kernel shapes in 40: K3 at (2, 1536) with 12 heads, K6
     at (8, 2304) with 12 heads, K2 at (2, 1536, 768), K5 at (8, 2304, 768).)
 22. PPG engines: capture_ppg_buckets of the F5E extractor over the fbank
     buckets (400, 800, 1600, 3200) as CUDA graphs: the capture's seconds
@@ -196,7 +196,44 @@
     of 4 each (busy share), one bench_openloop run; the sampler's device busy
     for a batch of 4 against one request, eager and replayed. (29-34 run
     after 27.)
-35. One phase per kernel at the shapes of its path and at one ragged case:
+35. CFG distillation (after 28): distill_cli.main over a YAML of
+    F5TTS_v1_Base (byte tokenizer) and the training rows as an Arrow
+    dataset, the teacher phase 4's model_last.pt, the student starting from
+    it, cfg 2, three updates at a peak LR of 2e-6: each launches 2 x depth
+    K1 and K2 (the teacher's no-grad forward of the folded 2B batch and the
+    student's, K1 seen at (2B, N) and (B, N)) and depth K4 and K5, with a
+    finite loss and gradient norm. Before training, at cfg 0 with the
+    student the teacher, the distill loss is under DISTILL_ZERO_REL x the
+    teacher flow's mean square, and the student's full-width gradient of a
+    fixed-draw, dropout-free distill loss at cfg 2 passes a central
+    difference along itself (GRAD_RATIO), the loss then read along Adam's
+    first step at ADAM_FIRST_STEPS; after, the teacher's tensors are bit
+    for bit as set and that fixed-draw loss is lower. Step walls, the third
+    step's device busy, peak memory.
+36. Cfg-free serving: F5TTS(ckpt_file=the student's model_last, its EMA
+    export) at cfg 0, the synthesis of 3 without its profile: depth x NFE
+    of K1 and K2, every K1 call at (1, 1536). Its sampler captured as
+    sampler_nfe32_cfg0_b1536 (depth x (NFE + 1) at capture): the replay
+    gives the eager bits and counts no launch; the sampler's device busy,
+    eager and replayed, against the cfg-2 sampler's of 11; three timed
+    captured syntheses.
+37. BigVGAN (bigvgan_v2_24khz_100band_256x: 100 mels, rates 4, 4, 2, 2, 2,
+    2, 1536 channels, kernels 3, 7, 11) with seeded weights through a
+    weight-normed torch-layout state dict and bigvgan_from_torch: a 1 s mel
+    on the card in fp32 against the CPU (BIGVGAN_REL), bf16 against fp32
+    (BIGVGAN_BF16_REL); a 10 s mel (938 frames) in bf16 and fp32: wall, RTF,
+    device busy, peak memory.
+38. The eval nets with seeded weights: UTMOS (wav2vec2-base 768 x 12, BLSTM
+    512, projection 2048) scoring the wav of 36 through
+    make_native_utmos_scorer on the card and the CPU (UTMOS_ABS), its
+    encoder's and BLSTM's outputs card against CPU (UTMOS_REL), timed; the
+    ECAPA head (1024 features, 512 channels, 25 layers) on a seeded (25, 1,
+    500, 1024) hidden-state stack, card against CPU (ECAPA_REL), timed.
+39. The evaluation harness: eval_infer_batch.main --device cuda, cfg mode,
+    over a seed-tts meta list of 8 seeded prompts (3-6 s) on the student:
+    depth x NFE of K1 and K2 an utterance, 8 finite wavs, wall and RTF;
+    score_utmos over them with the seeded scorer of 38.
+40. One phase per kernel at the shapes of its path and at one ragged case:
     kernel vs its plain PyTorch version on the same inputs (tolerances
     below), kernel, plain and library times, the least time the card could
     take, and the host time per call of each forward wrapper and of K5's.
@@ -206,8 +243,9 @@
     build, before the model phases). The backward kernels, K5 included,
     must give the same bits in two runs. K1 and K2 are also held at the
     batcher's batch of 4: K1 at (8, 1536, 16, 64) with four key lengths, K2
-    at (8, 1536, 1024).
-36. Prints one JSON line with every kernel, then the device line last.
+    at (8, 1536, 1024); K1 at the distillation teacher's (16, 2304) and the
+    cfg-free synthesis' (1, 1536).
+41. Prints one JSON line with every kernel, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository. fp32 matmuls and convolutions run with TF32 off
@@ -416,11 +454,11 @@ def seed_modulation_(params, gen) -> None:
 
 
 def synthesis_phase(tag: str, infer, expected: dict, runs: int, text_len=None,
-                    timesteps=None, profile: bool = True) -> dict:
+                    timesteps=None, profile: bool = True, cfg: float = 2.0) -> dict:
     """`runs` timed runs of `infer()` -> (wav, sr, mel) after a warm-up, each
     with the launch counts checked, then a profiled one unless not
     `profile`; returns the counts of the last timed run. The sampler must
-    have run NFE steps, or over `timesteps` when given."""
+    have run NFE steps, or over `timesteps` when given, at guidance `cfg`."""
     from f5e_tts_tpu_torch.models import cfm as fcfm
 
     captured = []
@@ -454,7 +492,7 @@ def synthesis_phase(tag: str, infer, expected: dict, runs: int, text_len=None,
     if len(captured) != 1:
         raise AssertionError(f"expected one chunk, the sampler ran {len(captured)} times")
     out, inputs, kw = captured[0]
-    if (tuple(out.shape) != (1, 1536, 100) or kw["steps"] != NFE or kw["cfg_strength"] != 2.0
+    if (tuple(out.shape) != (1, 1536, 100) or kw["steps"] != NFE or kw["cfg_strength"] != cfg
             or kw.get("timesteps") != timesteps):
         raise AssertionError(f"unexpected sampler call: shape {tuple(out.shape)}, {kw}")
     if text_len is not None and inputs.text_ids.shape[1] != text_len:
@@ -644,6 +682,17 @@ def training_rows() -> list:
              "duration": float(sec)} for i, sec in enumerate(seconds)]
 
 
+def arrow_dataset(root: Path, name: str) -> None:
+    """{root}/{name}_byte/raw (the training rows as Arrow) + duration.json."""
+    from datasets import Dataset as ArrowDataset
+
+    ds_dir = root / f"{name}_byte"
+    ds_dir.mkdir(parents=True)
+    rows = training_rows()
+    ArrowDataset.from_list(rows).save_to_disk(str(ds_dir / "raw"))
+    (ds_dir / "duration.json").write_text(json.dumps({"duration": [r["duration"] for r in rows]}))
+
+
 def training_loader(trainer, tc, with_16k_audio: bool = False):
     """A loader over the training rows with byte-tokenized transcripts,
     packed by the port's build_loader under the trainer's frame budget into
@@ -693,14 +742,17 @@ def drawn_cell(seed: int, b: int, n: int, mel_dim: int, table) -> str:
 
 
 def training_phase(tag: str, model_cfg, expected: dict, updates: int, warmup: int,
-                   checkpoints: bool = True, resume: bool = False, extractor=None) -> dict:
+                   checkpoints: bool = True, resume: bool = False, extractor=None,
+                   keep: Path = None) -> dict:
     """`updates` full-width Trainer.train steps of `model_cfg` (the first is
     the warm-up); returns (the launch counts of the last step, the batch's
     text length). Without `checkpoints` the trainer's save is switched off
     here and nothing is written; `resume` adds a resumed train() that
     repeats the profiled step. With a PPG `extractor` (a PPG model) the
     loader carries 16 kHz audio and the trainer extracts the PPG on the
-    card; each step's codebook loss and BatchNorm state are checked too."""
+    card; each step's codebook loss and BatchNorm state are checked too.
+    `keep` is a path the last model_last.pt is moved to before the save
+    directory is removed (the distillation phase's teacher)."""
     from f5e_tts_tpu_torch.config import TrainConfig
     from f5e_tts_tpu_torch.models.backbone import split_state
     from f5e_tts_tpu_torch.train import step as fstep
@@ -887,6 +939,9 @@ def training_phase(tag: str, model_cfg, expected: dict, updates: int, warmup: in
         if not abs(resumed["loss"] - profiled["loss"]) <= 1e-5 * abs(profiled["loss"]):
             raise AssertionError("the resumed step's loss differs from the same step run directly")
         del ts2
+    if keep is not None:
+        keep.parent.mkdir(parents=True, exist_ok=True)
+        shutil.move(str(save_dir / "model_last.pt"), str(keep))
     shutil.rmtree(save_dir, ignore_errors=True)
     reset_counts()
     return counts, text_len
@@ -1626,7 +1681,12 @@ def attention_rows(mods, paths: dict, text_len: int, splits) -> list:
             [("synthesis", case("rope", *synth, rope_heads=h), True),
              ("training", case("rope", *train_b, rope_heads=h), True),
              # the serving batcher's batch of 4: 8 folded rows, four key lengths
-             ("batched synthesis", case("rope", 8, 1536, SERVE_FRAMES * 2, rope_heads=h), True)],
+             ("batched synthesis", case("rope", 8, 1536, SERVE_FRAMES * 2, rope_heads=h), True),
+             # the distillation teacher's folded cond/uncond batch, and the
+             # distilled student's cfg-free synthesis: one row
+             ("distill teacher", case("rope", 2 * TRAIN_CLIPS, TRAIN_N,
+                                      (TRAIN_N,) * 2 * TRAIN_CLIPS, rope_heads=h), True),
+             ("cfg-free synthesis", case("rope", 1, 1536, (1416,), rope_heads=h), True)],
             split=k1_split))
         rows.append(attention_kernel_phase(
             "partial_rope_attention", "rope_attention", f"{PALLAS}:183",
@@ -1841,18 +1901,7 @@ class Serving:
         """The sampler output (1, 1536, 100) of the request's chunk on
         `engine` (this model's unless given), replayed where a captured
         engine matches unless `eager`."""
-        engine = engine or self.engine
-        engines = engine.engines
-        if eager:
-            engine.engines = {}
-        try:
-            out = engine.synthesize_chunk(self.ref_mel, self.text, FIX_FRAMES, seed=7,
-                                          nfe_steps=NFE, cfg_strength=2.0, sway=-1.0,
-                                          timesteps=timesteps, device_out=True)[0]
-            torch.cuda.synchronize()
-            return out.clone()
-        finally:
-            engine.engines = engines
+        return chunk_out(engine or self.engine, self.ref_mel, self.text, 2.0, eager, timesteps)
 
     def sampler_inputs(self):
         """(SamplerInputs, sampler keywords) of the request's chunk, as
@@ -2644,7 +2693,6 @@ def training_cli_phase(tmp: Path) -> dict:
     the fp32 AdamW state's bytes; a second main() resumes at update 3.
     Returns the launch counts of one step."""
     import yaml
-    from datasets import Dataset as ArrowDataset
 
     from f5e_tts_tpu_torch.train import train as cli
     from f5e_tts_tpu_torch.train import trainer as ftrainer
@@ -2664,17 +2712,13 @@ def training_cli_phase(tmp: Path) -> dict:
     # codebook is off here and the PPG DiT trains on zero PPG, as the JAX CLI
     # trains any use_ppg YAML without a codebook
     raw["model"]["use_codebook"] = False
-    config = tmp / "example_byte.yaml"
-    ds_dir = tmp / "data" / "smoke_byte"
-    ds_dir.mkdir(parents=True)
-    config.write_text(yaml.safe_dump(raw))
     t0 = time.perf_counter()
-    rows = training_rows()
-    ArrowDataset.from_list(rows).save_to_disk(str(ds_dir / "raw"))
-    (ds_dir / "duration.json").write_text(json.dumps({"duration": [r["duration"] for r in rows]}))
+    arrow_dataset(tmp / "data", "smoke")
+    config = tmp / "example_byte.yaml"
+    config.write_text(yaml.safe_dump(raw))
     log(f"[training cli] YAML {config.name} (example.yaml, byte tokenizer, bnb_optimizer, no "
-        f"codebook) and "
-        f"an Arrow dataset of {len(rows)} clips written in {time.perf_counter() - t0:.1f} s")
+        f"codebook) and an Arrow dataset of {TRAIN_CLIPS} clips written in "
+        f"{time.perf_counter() - t0:.1f} s")
     expected = expected_counts(partial_rope_attention=2 * F5E_DEPTH,
                                partial_rope_attention_bwd=F5E_DEPTH,
                                gated_adaln=2 * F5E_DEPTH, gated_adaln_bwd=F5E_DEPTH)
@@ -3444,6 +3488,707 @@ def batched_serving_phase(sv: Serving) -> dict:
         eng.batcher.stop()
 
 
+# ---------------------------------------------------------------------------
+# CFG distillation, the student served cfg-free, BigVGAN, the eval nets and
+# the evaluation harness
+# ---------------------------------------------------------------------------
+
+# the distill loss at cfg 0 with the student the teacher: the target is the
+# teacher's own cond pass, so only the 2B against the B batch's bf16 rounding
+# stays: loss <= DISTILL_ZERO_REL * mean(teacher flow^2) (tests/test_distill.py:40)
+DISTILL_ZERO_REL = 1e-3
+DISTILL_CFG = 2.0
+# The student's gradient on the card, held against the loss it descends: a
+# step of eta along -g and +g with eta |g|^2 = GRAD_STEP_FRAC x the loss,
+# (L(+) - L(-)) / (2 eta |g|^2) within GRAD_RATIO (1 for the true gradient;
+# the central difference cancels the curvature term, and the bf16 weights
+# take the step through their rounding, so a few per cent of noise). A
+# group's part of g: eta |g|^2 = GROUP_STEP_FRAC x the loss, the step at
+# most GROUP_MAX_REL of the group's weight norm (a larger one leaves the
+# linear region: the attention logits saturate); a group whose capped step
+# moves the loss by less than GROUP_MIN_FRAC is below the bf16 noise and is
+# reported as unresolved.
+GRAD_STEP_FRAC = 0.05
+GROUP_STEP_FRAC = 5e-3
+GROUP_MAX_REL = 0.03
+GROUP_MIN_FRAC = 2e-3
+GRAD_RATIO = (0.8, 1.25)
+# the scales of Adam's first update, lr x sign(g), along which the loss is
+# read before training (the peak LR of v1_yaml and the 1e-4 it replaced)
+ADAM_FIRST_STEPS = (2e-6, 1e-5, 1e-4)
+
+
+def leaf_paths(tree, path=""):
+    """'/'-joined key paths of a nested dict/list tree, in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in leaf_paths(v, f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, f"{path}/{i}")]
+    return [path]
+
+
+def grad_group(path: str) -> str:
+    """A DiT leaf's group for the gradient witness: the embeddings, the
+    output head, and across the blocks the AdaLN modulation, each attention
+    projection and the feed-forward."""
+    parts = path.strip("/").split("/")
+    if parts[0] != "blocks":
+        return parts[0] if parts[0] in ("time_embed", "text_embed", "input_embed") else "out"
+    if parts[2] == "attn":
+        return parts[3]
+    return {"ff1": "ff", "ff2": "ff"}.get(parts[2], parts[2])
+
+
+def v1_yaml(save_dir: Path, dataset: str) -> dict:
+    """A training YAML of F5TTS_v1_Base (the preset's arch, the default mel)
+    with the byte tokenizer, the 19,200-frame budget, a one-update LR
+    warm-up and a save only at the end. The peak LR is 2e-6: the student
+    starts at the teacher, near its target, and Adam's first update moves
+    every weight by the LR, lr x sign(g); the distillation phase reads the
+    loss along that step at 2e-6, 1e-5 and 1e-4 (ADAM_FIRST_STEPS)."""
+    return {
+        "datasets": {"name": dataset, "batch_size_per_gpu": 19_200, "batch_size_type": "frame",
+                     "max_samples": 64},
+        "optim": {"epochs": 4, "learning_rate": 2e-6, "num_warmup_updates": 1,
+                  "grad_accumulation_steps": 1, "max_grad_norm": 1.0},
+        "model": {"name": "F5TTS_v1_Base", "tokenizer": "byte", "backbone": "DiT",
+                  "arch": {"dim": 1024, "depth": DEPTH, "heads": 16, "ff_mult": 2,
+                           "text_dim": 512, "conv_layers": 4}},
+        "ckpts": {"save_per_updates": 1000, "last_per_updates": 1000,
+                  "save_dir": str(save_dir)},
+    }
+
+
+def record_rope_shapes(ra) -> list:
+    """Wrap ra.rope_attention (the name RopeAttention calls) to append the
+    (B, N) of each call to the returned list; `ra.rope_attention =
+    ra.rope_attention.inner` undoes it."""
+    seen, inner = [], ra.rope_attention
+
+    def recording(q, *a, **kw):
+        seen.append(tuple(q.shape[:2]))
+        return inner(q, *a, **kw)
+
+    recording.inner = inner
+    ra.rope_attention = recording
+    return seen
+
+
+def distill_phase(tmp: Path, teacher: Path, ra) -> tuple:
+    """distill_cli.main over phase 4's v1 checkpoint as the teacher (the
+    student starts from it), the training rows as an Arrow dataset, cfg 2,
+    three updates. Before training: at cfg 0 the student's loss is the
+    teacher's own within DISTILL_ZERO_REL, a fixed-draw, dropout-free
+    distill loss at cfg 2 is taken, and its full-width gradient on the card
+    is held against it (`gradient_witness`). Each step: 2 x depth of K1 and K2 (the
+    teacher's folded 2B forward and the student's), depth of K4 and K5, the
+    teacher's K1 at (2B, N) and the student's at (B, N), a finite loss and
+    gradient norm. After: the teacher's tensors bit for bit as set, the
+    fixed-draw loss lower. Step walls, the third step's device busy under
+    torch.profiler, peak memory. Returns (the launch counts of one step, the
+    student's model_last.pt)."""
+    import yaml
+
+    from f5e_tts_tpu_torch.ops.mel import mel_spectrogram
+    from f5e_tts_tpu_torch.train import distill_cli
+    from f5e_tts_tpu_torch.train import trainer as ftrainer
+    from f5e_tts_tpu_torch.train.distill import cfg_distill_loss
+    from f5e_tts_tpu_torch.train.step import tree_leaves
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    arrow_dataset(tmp / "data", "smoke")
+    config = tmp / "v1_distill.yaml"
+    config.write_text(yaml.safe_dump(v1_yaml(tmp / "student", "smoke")))
+    log(f"[distillation] YAML (F5TTS_v1_Base, byte tokenizer) and an Arrow dataset of "
+        f"{TRAIN_CLIPS} clips written in {time.perf_counter() - t0:.1f} s; teacher "
+        f"{teacher.name} ({teacher.stat().st_size / 2**30:.2f} GiB)")
+    expected = expected_counts(rope_attention=2 * DEPTH, gated_adaln=2 * DEPTH,
+                               rope_attention_bwd=DEPTH, gated_adaln_bwd=DEPTH)
+    seen = {"walls": [], "updates": []}
+    shapes = []
+
+    def gradient_witness(trainer, params, draws):
+        """The student's full-width gradient g of the fixed-draw loss L (cfg
+        DISTILL_CFG, no dropout, `draws`) on the card, held against L
+        itself: along all of g, and along each group's part of it
+        (`grad_group`: K4's dq, dk, dv reach to_q, to_k, to_v; K5's
+        dgate/dscale/dshift the AdaLN modulation), the central difference
+        (L(+eta g) - L(-eta g)) / (2 eta |g|^2) within GRAD_RATIO of 1 (the
+        steps as set out at GRAD_STEP_FRAC). Then L along Adam's first
+        step, -lr sign(g), at each of ADAM_FIRST_STEPS."""
+        from f5e_tts_tpu_torch.train.step import tree_map
+
+        batch, arch, mel_cfg = seen["batch"], trainer.arch, trainer.model_cfg.mel
+        n = batch["audio"].shape[1] // mel_cfg.hop_length
+        mel = mel_spectrogram(batch["audio"], mel_cfg)[:, :n, :]
+        leaves = tree_leaves(params)
+        for d in draws:
+            out = cfg_distill_loss(params, trainer.teacher_params, arch, trainer.cfm, mel=mel,
+                                   mel_lens=batch["mel_lens"], text_ids=batch["text_ids"],
+                                   draws=d, cfg_strength=DISTILL_CFG, training=False,
+                                   compute_dtype=torch.bfloat16)
+            (out.loss / len(draws)).backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
+        base = fixed_loss(trainer, params, draws, DISTILL_CFG)[0]
+
+        def loss_along(index, direction, scale):
+            moved = tree_map(lambda x: x.detach().clone(), params)
+            m = tree_leaves(moved)
+            torch._foreach_add_([m[i] for i in index], [direction[i] for i in index],
+                                alpha=scale)
+            return fixed_loss(trainer, moved, draws, DISTILL_CFG)[0]
+
+        groups = {"all": list(range(len(leaves)))}
+        for i, path in enumerate(leaf_paths(params)):
+            groups.setdefault(grad_group(path), []).append(i)
+        lines, bad = [], []
+        for name, index in groups.items():
+            sq = float(sum(grads[i].double().square().sum() for i in index))
+            norm = math.sqrt(sum(float(leaves[i].detach().double().square().sum())
+                                 for i in index))
+            if name == "all":
+                eta = GRAD_STEP_FRAC * base / sq
+            else:
+                eta = min(GROUP_STEP_FRAC * base / sq, GROUP_MAX_REL * norm / math.sqrt(sq))
+            head = (f"{name} |g| {math.sqrt(sq):.3e}, step {eta * math.sqrt(sq) / norm:.1e} "
+                    f"of |w|, eta |g|^2 / L {eta * sq / base:.1e}")
+            if name != "all" and eta * sq < GROUP_MIN_FRAC * base:
+                lines.append(f"{head}: unresolved")
+                continue
+            down, up = loss_along(index, grads, -eta), loss_along(index, grads, eta)
+            ratio = (up - down) / (2 * eta * sq)
+            lines.append(f"{head}: {down:.6f} / {up:.6f}, ratio {ratio:.4f}")
+            if not (down < base < up and GRAD_RATIO[0] <= ratio <= GRAD_RATIO[1]):
+                bad.append(name)
+        log(f"[distillation] the student's gradient on the card against its fixed-draw loss "
+            f"{base:.6f} (L(-eta g) / L(+eta g), central difference / eta |g|^2, limits "
+            f"{GRAD_RATIO}; unresolved: under {GROUP_MIN_FRAC} of L at a step of "
+            f"{GROUP_MAX_REL} of |w|): " + "; ".join(lines))
+        if bad:
+            raise AssertionError(f"the student's gradient on the card does not descend its loss "
+                                 f"along {bad}")
+        signs = [g.sign() for g in grads]
+        scan = {lr: loss_along(groups["all"], signs, -lr) for lr in ADAM_FIRST_STEPS}
+        del grads, signs
+        log(f"[distillation] the loss along Adam's first step -lr sign(g) (|sign(g)| "
+            f"{math.sqrt(sum(x.numel() for x in leaves)):.0f}) from {base:.6f}: "
+            + ", ".join(f"lr {lr:g}: {v:.6f} ({v - base:+.6f})" for lr, v in scan.items()))
+
+    def fixed_loss(trainer, params, draws, cfg):
+        """The mean distill loss over `draws` at `cfg`, dropout-free, and
+        the mean square of the teacher's flow."""
+        batch, arch, mel_cfg = seen["batch"], trainer.arch, trainer.model_cfg.mel
+        n = batch["audio"].shape[1] // mel_cfg.hop_length
+        mel = mel_spectrogram(batch["audio"], mel_cfg)[:, :n, :]
+        losses, flows = [], []
+        with torch.no_grad():
+            for d in draws:
+                out = cfg_distill_loss(params, trainer.teacher_params, arch, trainer.cfm, mel=mel,
+                                       mel_lens=batch["mel_lens"], text_ids=batch["text_ids"],
+                                       draws=d, cfg_strength=cfg, training=False,
+                                       compute_dtype=torch.bfloat16)
+                losses.append(float(out.loss))
+                flows.append(float(out.teacher_flow.square().mean()))
+        return float(np.mean(losses)), float(np.mean(flows))
+
+    class Recording(ftrainer.Trainer):
+        def __post_init__(self):
+            inner = self.log_fn
+
+            def log_fn(metrics, update):
+                counts = read_counts()
+                log(f"[distillation] update {update}: distill loss {metrics['loss']:.6f}, grad "
+                    f"norm {metrics['grad_norm']:.4f}, wall {metrics['step_seconds']:.3f} s, "
+                    f"launches { {k: v for k, v in counts.items() if v} }, K1 (B, N) "
+                    f"{sorted(set(shapes))}")
+                check_counts(f"distillation update {update}", counts, expected)
+                if sorted(set(shapes)) != [(TRAIN_CLIPS, TRAIN_N), (2 * TRAIN_CLIPS, TRAIN_N)] \
+                        or shapes.count((2 * TRAIN_CLIPS, TRAIN_N)) != DEPTH:
+                    raise AssertionError(f"K1 ran at {shapes}: expected depth calls at the "
+                                         f"teacher's (2B, N) and the student's (B, N)")
+                shapes.clear()
+                if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])):
+                    raise AssertionError(f"non-finite distillation step: {metrics}")
+                seen["walls"].append(metrics["step_seconds"])
+                seen["updates"].append(update)
+                inner(metrics, update)
+
+            self.log_fn = log_fn
+            super().__post_init__()
+
+        def set_teacher(self, teacher, cfg_strength=None):
+            t1 = time.perf_counter()
+            super().set_teacher(teacher, cfg_strength)
+            seen["trainer"] = self
+            seen["kept"] = [x.clone() for x in tree_leaves(self.teacher_params)]
+            log(f"[distillation] set_teacher({Path(teacher).name}) in "
+                f"{time.perf_counter() - t1:.1f} s: "
+                f"{sum(x.numel() for x in seen['kept']) / 1e6:.1f}M fp32 params on the card")
+
+        def init_state(self, total_updates, rng_seed=0, pretrained_path=None):
+            t1 = time.perf_counter()
+            ts = super().init_state(total_updates, rng_seed, pretrained_path)
+            log(f"[distillation] student from {Path(pretrained_path).name} in "
+                f"{time.perf_counter() - t1:.1f} s")
+            seen["batch"] = self.device_batch(next(iter(training_loader(self, self.train_cfg))))
+            gen = torch.Generator(device="cuda").manual_seed(9)
+            draws = fixed_draws(gen, TRAIN_CLIPS, TRAIN_N, self.arch.mel_dim, 2)
+            seen["draws"] = draws
+            zero, flow_sq = fixed_loss(self, ts.params, draws[:1], 0.0)
+            log(f"[distillation] cfg 0, the student the teacher: loss {zero:.3e}, mean teacher "
+                f"flow^2 {flow_sq:.4f} (ratio {zero / flow_sq:.2e}, limit {DISTILL_ZERO_REL})")
+            if not zero <= DISTILL_ZERO_REL * flow_sq:
+                raise AssertionError("at cfg 0 the student that is the teacher has a distill loss")
+            seen["before"], _ = fixed_loss(self, ts.params, draws, DISTILL_CFG)
+            gradient_witness(self, ts.params, draws[:1])
+            reset_counts()
+            shapes.clear()
+            return ts
+
+        def make_step(self):
+            step = super().make_step()
+
+            def maybe_traced(ts, batch, generator, draws=None):
+                if ts.update != 2:
+                    return step(ts, batch, generator, draws)
+                out = {}
+                seen["busy"], seen["kernels"], _ = device_busy(
+                    "distillation step 3", lambda: out.setdefault("r", step(ts, batch, generator,
+                                                                            draws)))
+                return out["r"]
+
+            return maybe_traced
+
+    original = ftrainer.Trainer
+    ftrainer.Trainer = Recording
+    shapes = record_rope_shapes(ra)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        ts = distill_cli.main(["--config", str(config), "--data_dir", str(tmp / "data"),
+                               "--teacher", str(teacher), "--cfg_strength", str(DISTILL_CFG),
+                               "--max_updates", "3", "--no_resume", "--device", "cuda"])
+        main_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        ftrainer.Trainer = original
+        ra.rope_attention = ra.rope_attention.inner
+    trainer = seen["trainer"]
+    if seen["updates"] != [1, 2, 3] or ts.update != 3:
+        raise AssertionError(f"distill_cli ran updates {seen['updates']}, ending at {ts.update}")
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(trainer.teacher_params),
+                                                  seen["kept"])):
+        raise AssertionError("a distillation step changed the teacher")
+    after, _ = fixed_loss(trainer, ts.params, seen["draws"], DISTILL_CFG)
+    reset_counts()
+    log(f"[distillation] the teacher's tensors are bit for bit as set; fixed-draw distill loss "
+        f"(cfg {DISTILL_CFG}, 2 draw sets, no dropout): before {seen['before']:.6f}, after "
+        f"{after:.6f}")
+    if not after < seen["before"]:
+        raise AssertionError("the fixed-draw distill loss did not fall over the updates")
+    frames = int(seen["batch"]["mel_lens"].sum())
+    wall = seen["walls"][1]
+    student = tmp / "student" / "model_last.pt"
+    log(f"[distillation] distill_cli.main: 3 updates in {main_s:.1f} s (teacher and student "
+        f"loads, loader, steps, model_last {student.stat().st_size / 2**30:.2f} GiB); step walls "
+        f"{[round(w, 3) for w in seen['walls']]} (the first warms up, the third profiled); one "
+        f"warm step: wall {wall:.3f} s, {frames / wall:.0f} valid frames/s; step 3 device busy "
+        f"{seen['busy']:.1f} ms in {seen['kernels']} kernels (busy share "
+        f"{seen['busy'] / (wall * 1e3):.3f} of step 2's wall); peak memory {peak / 2**30:.2f} GiB")
+    del ts, trainer, seen["kept"], seen["trainer"], seen["batch"]
+    shutil.rmtree(tmp / "data", ignore_errors=True)
+    return expected, student
+
+
+def chunk_out(engine, ref_mel, text, cfg: float, eager: bool, timesteps=None) -> torch.Tensor:
+    """The sampler output (1, 1536, 100) of the serving request's chunk at
+    guidance `cfg` (over `timesteps` when given), replayed where a captured
+    engine matches unless `eager`."""
+    engines = engine.engines
+    if eager:
+        engine.engines = {}
+    try:
+        out = engine.synthesize_chunk(ref_mel, text, FIX_FRAMES, seed=7, nfe_steps=NFE,
+                                      cfg_strength=cfg, sway=-1.0, timesteps=timesteps,
+                                      device_out=True)[0]
+        torch.cuda.synchronize()
+        return out.clone()
+    finally:
+        engine.engines = engines
+
+
+def cfg_free_phase(student: Path, cfg2_busy: tuple, wav_path: Path, ra) -> dict:
+    """F5TTS("F5TTS_v1_Base", ckpt_file=the student's model_last) serving the
+    request of 3 at cfg 0: depth x NFE of K1 and K2 a synthesis, K1 at (1,
+    1536) only; the timed runs and profile of 3. Its bucket-1536 sampler
+    captured as sampler_nfe32_cfg0_b1536 (depth x (NFE + 1) at capture): a
+    replay gives the eager bits and counts no launch; the sampler's device
+    busy eager and replayed against the cfg-2 sampler's (`cfg2_busy`, the
+    captured phase's); three timed captured syntheses. The wav is written
+    to `wav_path`. Returns the launch counts of one eager synthesis."""
+    from f5e_tts_tpu_torch.api import F5TTS
+    from f5e_tts_tpu_torch.infer import audio as faudio
+    from f5e_tts_tpu_torch.infer.pipeline import preprocess_ref_audio_text
+    from f5e_tts_tpu_torch.utils.aot import capture_sampler_buckets
+
+    t0 = time.perf_counter()
+    tts = F5TTS(model="F5TTS_v1_Base", ckpt_file=str(student), device="cuda",
+                compute_dtype=torch.bfloat16, seed=0)
+    engine = tts.engine
+    arch = engine.arch
+    assert (arch.dim, arch.depth, arch.heads, arch.dim_head) == (1024, DEPTH, 16, 64), arch
+    log(f"[cfg-free serving] F5TTS(ckpt_file={student.name}) built in "
+        f"{time.perf_counter() - t0:.1f} s (the student's EMA export re-ingested)")
+    ref = str(reference_wav())
+
+    def infer():
+        return tts.infer(ref, REF_TEXT, GEN_TEXT, nfe_step=NFE, cfg_strength=0.0,
+                         sway_sampling_coef=-1.0, fix_duration=FIX_DURATION, seed=7)
+
+    shapes = record_rope_shapes(ra)
+    try:
+        counts = synthesis_phase("cfg-free synthesis", infer,
+                                 expected_counts(rope_attention=DEPTH * NFE,
+                                                 gated_adaln=DEPTH * NFE), runs=3, cfg=0.0,
+                                 profile=False)
+    finally:
+        ra.rope_attention = ra.rope_attention.inner
+    if set(shapes) != {(1, 1536)}:
+        raise AssertionError(f"cfg-free K1 ran at {sorted(set(shapes))}, expected (1, 1536) only")
+    log(f"[cfg-free synthesis] every K1 call at (B, N) = (1, 1536): {len(shapes)} calls in "
+        f"the phase's {len(shapes) // (DEPTH * NFE)} syntheses")
+    wav, sr, _ = infer()
+    faudio.write_wav(str(wav_path), wav, sr)
+    reset_counts()
+
+    wav_in, sr_in = faudio.read_wav(ref)
+    wav_in, ref_text = preprocess_ref_audio_text(wav_in, sr_in, REF_TEXT, show_info=lambda *_: None)
+    ref_mel, text = engine._reference(wav_in, sr_in)[2], ref_text + GEN_TEXT
+    # torch.cuda.graph empties the allocator's cache: read both sides after it
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    names = capture_sampler_buckets(engine, buckets=(1536,), nfe=NFE, cfg_strength=0.0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    counts_capture = read_counts()
+    log(f"[cfg-free serving] captured {names} in {seconds:.2f} s, "
+        f"{(torch.cuda.memory_reserved() - reserved) / 2**20:.1f} MiB more reserved; launches "
+        f"at capture { {k: v for k, v in counts_capture.items() if v} }")
+    if names != [f"sampler_nfe{NFE}_cfg0_b1536"]:
+        raise AssertionError(f"captured {names}")
+    check_counts("cfg-free capture", counts_capture,
+                 expected_counts(rope_attention=DEPTH * (NFE + 1), gated_adaln=DEPTH * (NFE + 1)))
+    replayed = chunk_out(engine, ref_mel, text, 0.0, eager=False)
+    check_counts("cfg-free replay", read_counts(), expected_counts())
+    eager = chunk_out(engine, ref_mel, text, 0.0, eager=True)
+    check_counts("cfg-free eager sampler", read_counts(),
+                 expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE))
+    if not torch.equal(replayed, eager):
+        raise AssertionError("the cfg-0 replay differs from the eager sampler")
+    busy_eager = device_busy("cfg-free eager sampler",
+                             lambda: chunk_out(engine, ref_mel, text, 0.0, eager=True))[0]
+    busy_replay = device_busy("cfg-free replayed sampler",
+                              lambda: chunk_out(engine, ref_mel, text, 0.0, eager=False))[0]
+    reset_counts()
+    log(f"[cfg-free serving] the replay gives the eager bits; sampler device busy at cfg 0: "
+        f"eager {busy_eager:.1f} ms, replayed {busy_replay:.1f} ms; at cfg 2 (the captured "
+        f"phase): eager {cfg2_busy[0]:.1f} ms, replayed {cfg2_busy[1]:.1f} ms; cfg 0 / cfg 2: "
+        f"{busy_eager / cfg2_busy[0]:.3f} eager, {busy_replay / cfg2_busy[1]:.3f} replayed")
+    walls = []
+    for run in ["warm-up"] + [f"timed {i + 1}" for i in range(3)]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = infer()[0]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check_counts(f"cfg-free captured {run}", read_counts(), expected_counts())
+    if not np.array_equal(got, wav):
+        raise AssertionError("the captured cfg-free synthesis' wav differs from the eager one's")
+    wall = float(np.median(walls[1:]))
+    log(f"[cfg-free serving] captured synthesis, the eager wav's bits: wall {wall:.3f} s "
+        f"(median of 3), RTF {wall / (len(wav) / sr):.5f}; each {[round(w, 4) for w in walls[1:]]}")
+    del tts, engine
+    reset_counts()
+    return counts
+
+
+BIGVGAN_REL = 1e-4  # fp32 on the card (TF32 off) against the CPU, relative L2
+# bf16 convolutions against fp32, relative L2 over the wav: six upsampling
+# stages of 36 bf16 convolutions each round their activations to 8 bits
+BIGVGAN_BF16_REL = 5e-2
+
+
+def bigvgan_state_dict(params: dict, cfg, gen: torch.Generator) -> dict:
+    """The published layout of `params`: every conv weight-normed (weight_g =
+    ||w|| over all but the first axis, weight_v = w scaled per first-axis
+    row by a seeded factor), transposed kernels unflipped in torch's (in,
+    out, k) order, snake parameters as act.alpha / act.beta."""
+    sd = {}
+
+    def normed(key, w):
+        sd[f"{key}.weight_v"] = w * (0.5 + torch.rand((w.shape[0], 1, 1), generator=gen))
+        sd[f"{key}.weight_g"] = w.square().sum(dim=(1, 2), keepdim=True).sqrt()
+
+    def conv(key, p):
+        normed(key, p["w"].permute(2, 1, 0).contiguous())
+        if "b" in p:
+            sd[f"{key}.bias"] = p["b"]
+
+    def act(key, a):
+        sd[f"{key}.act.alpha"], sd[f"{key}.act.beta"] = a["log_alpha"], a["log_beta"]
+
+    conv("conv_pre", params["conv_pre"])
+    for i, up in enumerate(params["ups"]):
+        normed(f"ups.{i}.0", up["w"].flip(0).permute(1, 2, 0).contiguous())
+        sd[f"ups.{i}.0.bias"] = up["b"]
+    n_blocks = len(cfg.resblock_kernel_sizes)
+    for i, stage in enumerate(params["resblocks"]):
+        for b, block in enumerate(stage):
+            rb = f"resblocks.{i * n_blocks + b}"
+            for j in range(len(block["convs1"])):
+                conv(f"{rb}.convs1.{j}", block["convs1"][j])
+                conv(f"{rb}.convs2.{j}", block["convs2"][j])
+                act(f"{rb}.activations.{2 * j}", block["acts1"][j])
+                act(f"{rb}.activations.{2 * j + 1}", block["acts2"][j])
+    act("activation_post", params["act_post"])
+    conv("conv_post", params["conv_post"])
+    return sd
+
+
+def log_mel_of(seconds: float, seed: int) -> torch.Tensor:
+    """(1, frames, 100) log-mel of a seeded speech-like clip at 24 kHz."""
+    from f5e_tts_tpu_torch.config import MelConfig
+    from f5e_tts_tpu_torch.ops.mel import mel_spectrogram
+
+    wav = torch.from_numpy(speech_like(seconds, seed=seed).astype(np.float32))
+    return mel_spectrogram(wav[None], MelConfig())
+
+
+def bigvgan_phase() -> None:
+    """bigvgan_v2_24khz_100band_256x at its published width with seeded
+    weights (snake parameters off their log-0 init) through a weight-normed
+    torch-layout state dict and `bigvgan_from_torch`: a 1 s mel decoded on
+    the card in fp32 against the CPU (BIGVGAN_REL), in bf16 against the
+    card's fp32 (BIGVGAN_BF16_REL); a 10 s mel (938 frames) in bf16 and fp32:
+    wall, RTF, device busy, peak memory."""
+    from f5e_tts_tpu_torch.models.bigvgan import (BigVGANConfig, bigvgan_decode,
+                                                  bigvgan_from_torch, init_bigvgan)
+    from f5e_tts_tpu_torch.train.step import tree_leaves
+    from f5e_tts_tpu_torch.utils.convert import to_tensors
+
+    cfg = BigVGANConfig()
+    assert (cfg.num_mels, cfg.upsample_rates, cfg.upsample_initial_channel,
+            cfg.resblock_kernel_sizes) == (100, (4, 4, 2, 2, 2, 2), 1536, (3, 7, 11)), cfg
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(11)
+    params = init_bigvgan(cfg, gen)
+
+    def seed_snake(node):
+        if isinstance(node, list):
+            for sub in node:
+                seed_snake(sub)
+        elif isinstance(node, dict):
+            if "log_alpha" in node:
+                for k in ("log_alpha", "log_beta"):
+                    node[k] = 0.2 * torch.randn(node[k].shape, generator=gen)
+            else:
+                for sub in node.values():
+                    seed_snake(sub)
+
+    seed_snake(params)
+    params = bigvgan_from_torch(bigvgan_state_dict(params, cfg, gen), cfg)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    mel = log_mel_of(1.0, seed=31)
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        cpu = bigvgan_decode(params, cfg, mel)
+    cpu_s = time.perf_counter() - t1
+    gpu_params = to_tensors(params, "cuda")
+    card = bigvgan_decode(gpu_params, cfg, mel.cuda())
+    bf16 = bigvgan_decode(gpu_params, cfg, mel.cuda(), compute_dtype=torch.bfloat16)
+    rel = float((card.cpu() - cpu).norm() / cpu.norm())
+    rel16 = float((bf16 - card).norm() / card.norm())
+    log(f"[bigvgan] {n_params / 1e6:.1f}M params, built from a weight-normed state dict in "
+        f"{t1 - t0:.1f} s; 1 s mel {tuple(mel.shape)} -> wav {tuple(cpu.shape)} (CPU fp32 "
+        f"{cpu_s:.1f} s), rms {float(cpu.square().mean().sqrt()):.4f}; card fp32 vs CPU relative "
+        f"L2 {rel:.2e} (limit {BIGVGAN_REL}), card bf16 vs fp32 {rel16:.2e} (limit "
+        f"{BIGVGAN_BF16_REL})")
+    if not (torch.isfinite(card).all() and torch.isfinite(bf16).all()):
+        raise AssertionError("BigVGAN gave a non-finite wav")
+    if not (rel <= BIGVGAN_REL and rel16 <= BIGVGAN_BF16_REL):
+        raise AssertionError("BigVGAN on the card disagrees with the CPU or fp32")
+    mel10 = log_mel_of(10.0, seed=32).cuda()
+    audio_s = mel10.shape[1] * 256 / 24_000
+    for dtype in (torch.bfloat16, torch.float32):
+        def decode():
+            return bigvgan_decode(gpu_params, cfg, mel10, compute_dtype=dtype)
+
+        decode()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            decode()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_allocated()
+        busy = device_busy(f"bigvgan 10 s {dtype}", decode)[0]
+        wall = float(np.median(walls))
+        log(f"[bigvgan] {mel10.shape[1]} frames ({audio_s:.3f} s) in {dtype}: wall {wall:.4f} s "
+            f"(median of 3), RTF {wall / audio_s:.5f}, device busy {busy:.1f} ms (share "
+            f"{busy / (wall * 1e3):.3f}), peak memory {peak / 2**30:.2f} GiB")
+    reset_counts()
+
+
+UTMOS_ABS = 1e-3  # the MOS on the card (fp32, TF32 off) against the CPU's
+# the wav2vec2 encoder's last hidden state and the BLSTM's output on the card
+# against the CPU's, relative L2 (the seeded head's MOS barely moves with its
+# input, so the stages it reads are held themselves)
+UTMOS_REL = 1e-4
+ECAPA_REL = 1e-4  # the embedding on the card against the CPU's, relative L2
+
+
+def eval_nets_phase(wav_path: Path):
+    """UTMOS (wav2vec2-base 768 x 12, BLSTM 512, projection 2048) with seeded
+    weights: `make_native_utmos_scorer` on the card and on the CPU over the
+    cfg-free wav (UTMOS_ABS), and the encoder's and the BLSTM's outputs on
+    that wav (UTMOS_REL); the card's time per 10 s of audio and its
+    device busy. ECAPA (the head of WavLM-large: 1024 features, 512
+    channels, 25 layers) with seeded weights on a seeded (25, 1, 500, 1024)
+    hidden-state stack, card against CPU (ECAPA_REL), timed on the card.
+    Returns the card's UTMOS scorer."""
+    from f5e_tts_tpu_torch.eval.ecapa import (ECAPAConfig, combine_hidden_states, ecapa_embed,
+                                              init_ecapa)
+    from f5e_tts_tpu_torch.eval.utmos import (UTMOSConfig, init_utmos, make_native_utmos_scorer,
+                                              utmos_features)
+    from f5e_tts_tpu_torch.infer import audio as faudio
+    from f5e_tts_tpu_torch.train.step import tree_leaves
+    from f5e_tts_tpu_torch.utils.convert import to_tensors
+
+    cfg = UTMOSConfig()
+    assert (cfg.ssl.hidden, cfg.ssl.layers, cfg.blstm_hidden, cfg.proj_hidden) == (768, 12, 512,
+                                                                                   2048)
+    t0 = time.perf_counter()
+    params = init_utmos(cfg, torch.Generator().manual_seed(12))
+    card, cpu = (make_native_utmos_scorer(params, cfg, device=d) for d in ("cuda", "cpu"))
+    path = str(wav_path)
+    audio_s = len(faudio.read_wav(path)[0]) / 24_000
+    s_card = card(path)
+    t1 = time.perf_counter()
+    s_cpu = cpu(path)
+    cpu_s = time.perf_counter() - t1
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        card(path)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    wall = float(np.median(walls))
+    busy = device_busy("utmos score", lambda: card(path))[0]
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"[utmos] {n_params / 1e6:.1f}M params; the {audio_s:.3f} s cfg-free wav: MOS "
+        f"{s_card!r} on the card, {s_cpu!r} on the CPU ({cpu_s:.1f} s; |diff| "
+        f"{abs(s_card - s_cpu):.2e}, limit {UTMOS_ABS}); card wall {wall:.4f} s (median of 3; "
+        f"read, resample, forward), {wall / audio_s * 10:.4f} s per 10 s of audio, device busy "
+        f"{busy:.1f} ms")
+    if not (math.isfinite(s_card) and abs(s_card - s_cpu) <= UTMOS_ABS):
+        raise AssertionError("UTMOS on the card disagrees with the CPU")
+    wav, sr = faudio.read_wav(path)
+    wav16 = torch.from_numpy(np.asarray(faudio.resample(np.asarray(wav, np.float32), sr, 16_000),
+                                        np.float32)[None])
+    with torch.no_grad():
+        stages_cpu = utmos_features(params, cfg, wav16)
+        stages_card = utmos_features(to_tensors(params, "cuda"), cfg, wav16.cuda())
+    rels = [float((a.cpu() - b).norm() / b.norm()) for a, b in zip(stages_card, stages_cpu)]
+    log(f"[utmos] card vs CPU, relative L2: encoder output {tuple(stages_cpu[0].shape)} "
+        f"{rels[0]:.2e}, BLSTM output {tuple(stages_cpu[1].shape)} {rels[1]:.2e} (limit "
+        f"{UTMOS_REL}); the encoder output's RMS {float(stages_cpu[0].square().mean().sqrt()):.4f}")
+    if not (all(torch.isfinite(x).all() for x in stages_card) and max(rels) <= UTMOS_REL):
+        raise AssertionError("UTMOS's encoder or BLSTM on the card disagrees with the CPU")
+
+    ecfg = ECAPAConfig()
+    assert (ecfg.feat_dim, ecfg.channels, ecfg.num_feat_layers) == (1024, 512, 25)
+    gen = torch.Generator().manual_seed(13)
+    head = init_ecapa(ecfg, gen)
+    head["feature_weight"] = torch.randn(ecfg.num_feat_layers, generator=gen)
+    hidden = torch.randn((ecfg.num_feat_layers, 1, 500, ecfg.feat_dim), generator=gen)
+    emb_cpu = ecapa_embed(head, ecfg, combine_hidden_states(head["feature_weight"], hidden))
+    head_gpu, hidden_gpu = to_tensors(head, "cuda"), hidden.cuda()
+
+    def embed():
+        return ecapa_embed(head_gpu, ecfg, combine_hidden_states(head_gpu["feature_weight"],
+                                                                 hidden_gpu))
+
+    emb = embed()
+    rel = float((emb.cpu() - emb_cpu).norm() / emb_cpu.norm())
+    ms = cuda_ms([embed], iters=10)
+    log(f"[ecapa] head {sum(x.numel() for x in tree_leaves(head)) / 1e6:.1f}M params on "
+        f"hidden states {tuple(hidden.shape)}: embedding {tuple(emb.shape)}, card vs CPU "
+        f"relative L2 {rel:.2e} (limit {ECAPA_REL}); {ms:.3f} ms a call on the card "
+        f"(combine + head, 10 s of WavLM frames)")
+    if not (torch.isfinite(emb).all() and rel <= ECAPA_REL):
+        raise AssertionError("ECAPA on the card disagrees with the CPU")
+    log(f"[eval nets] set up and checked in {time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    return card
+
+
+HARNESS_PROMPTS = 8
+
+
+def harness_phase(tmp: Path, ckpt: Path, utmos) -> dict:
+    """eval_infer_batch.main --device cuda, cfg mode, over a seed-tts meta list
+    of HARNESS_PROMPTS seeded prompts (3.0-6.0 s, written to `tmp`) on
+    F5TTS_v1_Base from `ckpt`: depth x NFE of K1 and K2 an utterance, one
+    finite wav each; wall and RTF; then scorers.score_utmos over the wavs
+    with the seeded UTMOS scorer. Returns the launch counts of the run."""
+    from f5e_tts_tpu_torch.eval import eval_infer_batch
+    from f5e_tts_tpu_torch.eval.scorers import score_utmos
+    from f5e_tts_tpu_torch.infer import audio as faudio
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    lines = []
+    for i, sec in enumerate(np.linspace(3.0, 6.0, HARNESS_PROMPTS)):
+        write_reference_wav(tmp / f"p{i}.wav", seconds=float(sec), seed=20 + i)
+        lines.append(f"utt{i}|{REF_TEXT}|p{i}.wav|{SENTENCES[i % len(SENTENCES)]}")
+    (tmp / "meta.lst").write_text("\n".join(lines) + "\n")
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = eval_infer_batch.main(["--metalst", str(tmp / "meta.lst"), "--ckpt", str(ckpt),
+                                   "--output_dir", str(tmp / "out"), "-nfe", str(NFE),
+                                   "--seed", "5", "--mode", "cfg", "--device", "cuda"])
+    main_s = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"[eval harness] eval_infer_batch.main in {main_s:.1f} s (model load included): "
+        f"{stats}; launches { {k: v for k, v in counts.items() if v} }")
+    per = DEPTH * NFE * HARNESS_PROMPTS
+    check_counts("eval harness", counts, expected_counts(rope_attention=per, gated_adaln=per))
+    out = next((tmp / "out").iterdir())
+    wavs = sorted(str(p) for p in out.glob("*.wav"))
+    if len(wavs) != HARNESS_PROMPTS or stats["n_batches"] != HARNESS_PROMPTS:
+        raise AssertionError(f"the harness wrote {len(wavs)} wavs in {stats['n_batches']} batches")
+    for w in wavs:
+        x = faudio.read_wav(w)[0]
+        if not (len(x) and np.isfinite(x).all()):
+            raise AssertionError(f"{w}: empty or non-finite wav")
+    t0 = time.perf_counter()
+    scored = score_utmos(wavs, utmos, results_path=str(out / "_utmos_results.jsonl"))
+    log(f"[eval harness] {len(wavs)} finite wavs, {stats['audio_s']:.2f} s of audio in "
+        f"{stats['wall_s']:.2f} s: RTF {stats['rtf']:.5f}; score_utmos {scored} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(tmp, ignore_errors=True)
+    reset_counts()
+    return counts
+
+
 def k2_sass_check(lib: Path) -> None:
     """Every gated_adaln_kernel instantiation of the built K2/K5 library
     moves its rows in 128-bit global loads and stores and none in 16-bit
@@ -3516,10 +4261,12 @@ def main() -> int:
             expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE), runs=3))
     v1 = byte_model(preset("F5TTS_v1_Base"))
     assert (v1.arch.depth, v1.arch.dropout) == (DEPTH, 0.1), v1.arch
+    smoke = ROOT / "build" / "smoke"
+    teacher = smoke / "teacher" / "model_last.pt"  # the distillation phase's teacher
     runs["training_step"], _ = phase("training", lambda: training_phase(
         "training", v1, expected_counts(rope_attention=DEPTH, rope_attention_bwd=DEPTH,
                                         gated_adaln=DEPTH, gated_adaln_bwd=DEPTH),
-        updates=4, warmup=1, resume=True))
+        updates=4, warmup=1, resume=True, keep=teacher))
     phase("gradients", lambda: gradient_phase(swaps))
 
     # MMDiT: K7 in synthesis, K9/K10 in training, K7/K8 through a masked loss
@@ -3609,11 +4356,29 @@ def main() -> int:
                                        lambda: engine_dir_asr_phase(sv))
         # the serving batcher on (b, 1536) engines, and the servers
         runs.update(phase("batched serving", lambda: batched_serving_phase(sv)))
+        cfg2_busy = sv.sampler_busy[NFE]
         del sv
     del asr
     # the YAML training CLI on the F5E model with 8-bit AdamW
     runs["cli_f5e_step"] = phase("training cli", lambda: training_cli_phase(
         ROOT / "build" / "smoke" / "cli"))
+
+    # CFG distillation of the v1 model of phase 4 into a cfg-free student,
+    # the student served at cfg 0, BigVGAN and the eval nets at their
+    # published widths, and the evaluation harness over the student
+    runs["distill_step"], student = phase("distillation", lambda: distill_phase(
+        smoke / "distill", teacher, ra))
+    teacher.unlink()
+    cfg_free_wav = smoke / "cfg_free.wav"
+    with torch.inference_mode():
+        runs["cfg_free_synthesis"] = phase("cfg-free serving", lambda: cfg_free_phase(
+            student, cfg2_busy, cfg_free_wav, ra))
+        phase("bigvgan", bigvgan_phase)
+        utmos = phase("eval nets", lambda: eval_nets_phase(cfg_free_wav))
+    runs["eval_harness"] = phase("eval harness", lambda: harness_phase(
+        smoke / "harness", student, utmos))
+    del utmos
+    shutil.rmtree(smoke / "distill", ignore_errors=True)
 
     # which paths launched each kernel, and how often in one run of the path
     paths = {name: {p: c[name] for p, c in runs.items() if c[name]} for name in COUNTERS}

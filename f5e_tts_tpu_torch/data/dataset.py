@@ -14,8 +14,9 @@
   kaldi fbank), and the batch `audio_16k` (B, T16) with `audio_16k_lens`;
 - with `preprocessed_mel`, rows carry their log-mel (`mel_spec`) and the
   batch a padded `mel` instead of audio.
-
-Not ported yet: the hub-hosted dataset wrapper and the dataset factory.
+- `HFSpeechDataset` wraps a hub dataset's rows, and `load_speech_dataset`
+  picks the dataset of a `dataset_type` (CustomDataset, CustomDatasetPath,
+  HFDataset) as the reference's `load_dataset` does.
 """
 
 from __future__ import annotations
@@ -107,6 +108,71 @@ class ArrowSpeechDataset:
             out["audio_16k"] = resample(wav, sr, 16_000)
         out["audio"] = resample(wav, sr, self.mel.target_sample_rate)
         return out
+
+
+class HFSpeechDataset:
+    """A hub dataset's rows {audio: {array, sampling_rate}, text} (reference:
+    dataset.py:18-80, HFDataset). The frame length comes from the array's
+    length rescaled to the mel rate (no duration.json); an item shorter than
+    0.3 s or longer than 30 s skips forward to the next index, as the
+    reference does (dataset.py:59-61). Items yield {audio, text} at the mel
+    rate."""
+
+    def __init__(self, hf_dataset, mel: MelConfig = MelConfig()):
+        self.rows = hf_dataset
+        self.mel = mel
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def get_frame_len(self, idx: int) -> int:
+        audio = self.rows[idx]["audio"]
+        return int(len(audio["array"]) / audio["sampling_rate"] * self.mel.target_sample_rate
+                   / self.mel.hop_length)
+
+    def __getitem__(self, idx: int) -> Dict:
+        from f5e_tts_tpu_torch.infer.audio import resample
+
+        for _ in range(len(self.rows)):
+            row = self.rows[idx]
+            audio = np.asarray(row["audio"]["array"], np.float32)
+            sr = int(row["audio"]["sampling_rate"])
+            if 0.3 <= len(audio) / sr <= 30:
+                break
+            idx = (idx + 1) % len(self.rows)
+        else:
+            raise ValueError("no item with a duration in [0.3, 30] s")
+        return {"audio": resample(audio, sr, self.mel.target_sample_rate), "text": row["text"]}
+
+
+def load_speech_dataset(dataset_name: str, tokenizer: str = "pinyin",
+                        dataset_type: str = "CustomDataset", data_root: str = "data",
+                        mel: MelConfig = MelConfig(), audio_type: str = "raw", hf_dataset=None):
+    """The dataset of a `dataset_type` (reference: dataset.py:309-373):
+
+    - "CustomDataset": {data_root}/{name}_{tokenizer}/raw[.arrow] +
+      duration.json (`audio_type="mel"` reads the rows' preprocessed mel);
+    - "CustomDatasetPath": `dataset_name` is that directory;
+    - "HFDataset": the hub dataset "{pre}/{pre}", split "train.{post}" of
+      the name "{pre}_{post}", cached under `data_root`. Pass a loaded one
+      as `hf_dataset` to stay offline; otherwise `datasets.load_dataset`
+      is called, which needs the hub or its cache.
+    """
+    if dataset_type == "CustomDataset":
+        ds = ArrowSpeechDataset.from_dir(os.path.join(data_root, f"{dataset_name}_{tokenizer}"),
+                                         mel)
+        ds.preprocessed_mel = audio_type == "mel"
+        return ds
+    if dataset_type == "CustomDatasetPath":
+        return ArrowSpeechDataset.from_dir(dataset_name, mel)
+    if dataset_type == "HFDataset":
+        if hf_dataset is None:
+            from datasets import load_dataset
+
+            pre, post = dataset_name.split("_")
+            hf_dataset = load_dataset(f"{pre}/{pre}", split=f"train.{post}", cache_dir=data_root)
+        return HFSpeechDataset(hf_dataset, mel)
+    raise ValueError(f"unknown dataset_type {dataset_type!r}")
 
 
 def pack_batches(frame_lens: Sequence[int], frames_threshold: int, max_samples: int = 0,

@@ -43,9 +43,24 @@ def linear_init(d_in: int, d_out: int, generator: torch.Generator, device="cpu",
 
 
 def conv1d_init(d_in: int, d_out: int, kernel: int, groups: int, generator: torch.Generator,
-                device="cpu") -> dict:
+                device="cpu", bias: bool = True) -> dict:
+    """torch.nn.Conv1d's default rule U(+-1/sqrt(in/groups * k)) for the
+    weight (k, in/groups, out) and the bias (none without `bias`)."""
     bound = 1.0 / math.sqrt(d_in // groups * kernel)
-    return {"w": _uniform((kernel, d_in // groups, d_out), bound, generator, device),
+    p = {"w": _uniform((kernel, d_in // groups, d_out), bound, generator, device)}
+    if bias:
+        p["b"] = _uniform((d_out,), bound, generator, device)
+    return p
+
+
+def conv_transpose1d_init(d_in: int, d_out: int, kernel: int, generator: torch.Generator,
+                          device="cpu") -> dict:
+    """A transposed conv's params in the pre-flipped (k, in, out) layout of
+    `conv_transpose1d`, drawn by torch.nn.ConvTranspose1d's default rule:
+    its fan-in is out_channels * k, so U(+-1/sqrt(out * k)) for the weight
+    and the bias (f5e_tts_tpu ops/nn.py:222-230)."""
+    bound = 1.0 / math.sqrt(d_out * kernel)
+    return {"w": _uniform((kernel, d_in, d_out), bound, generator, device),
             "b": _uniform((d_out,), bound, generator, device)}
 
 
@@ -105,6 +120,29 @@ def conv1d(p, x: torch.Tensor, groups: int = 1, padding="SAME", dilation: int = 
     else:
         y = F.conv1d(xt.float(), wt.float(), None if b is None else b.float(),
                      stride, 0, dilation, groups).to(dtype)
+    return y.transpose(1, 2)
+
+
+def conv_transpose1d(p, x: torch.Tensor, stride: int, padding: int = 0,
+                     compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Channels-last transposed conv: (B, N, C_in) -> (B, (N - 1) * stride -
+    2 * padding + k, C_out).
+
+    p["w"] is stored pre-flipped as (k, C_in, C_out), as the JAX package
+    keeps it (its loader flips torch's (in, out, k) ConvTranspose1d kernel),
+    where the JAX op zero-stuffs and runs a tap conv with k - 1 - padding on
+    each side. This is torch's transposed conv of the unflipped kernel
+    `w.flip(0).permute(1, 2, 0)`, which gives the same output length
+    (f5e_tts_tpu ops/nn.py:197-219)."""
+    dtype = compute_dtype or x.dtype
+    w = p["w"].to(dtype).flip(0).permute(1, 2, 0)
+    b = p.get("b")
+    xt = x.to(dtype).transpose(1, 2)
+    if dtype == torch.float32 or xt.is_cuda:
+        y = F.conv_transpose1d(xt, w, None if b is None else b.to(dtype), stride, padding)
+    else:
+        y = F.conv_transpose1d(xt.float(), w.float(), None if b is None else b.float(), stride,
+                               padding).to(dtype)
     return y.transpose(1, 2)
 
 

@@ -46,7 +46,7 @@ def main(argv=None):
     import yaml
 
     from f5e_tts_tpu_torch.config import load_train_yaml, load_yaml
-    from f5e_tts_tpu_torch.data.dataset import ArrowSpeechDataset, build_loader
+    from f5e_tts_tpu_torch.data.dataset import build_loader, load_speech_dataset
     from f5e_tts_tpu_torch.train.trainer import Trainer
     from f5e_tts_tpu_torch.utils import text as ftext
 
@@ -70,12 +70,9 @@ def main(argv=None):
                                             model_cfg.tokenizer, data_dir=args.data_dir)
     tokenize = make_tokenize(model_cfg, vocab)
 
-    dataset_type = datasets.get("dataset_type", "CustomDataset")
-    if dataset_type != "CustomDataset":
-        raise NotImplementedError(f"dataset_type {dataset_type!r}: the port reads "
-                                  "CustomDataset directories only")
-    dataset = ArrowSpeechDataset.from_dir(
-        os.path.join(args.data_dir, f"{dataset_name}_{model_cfg.tokenizer}"), mel=model_cfg.mel)
+    dataset = load_speech_dataset(dataset_name, model_cfg.tokenizer,
+                                  dataset_type=datasets.get("dataset_type", "CustomDataset"),
+                                  data_root=args.data_dir, mel=model_cfg.mel)
     loader = build_loader(dataset, tokenize, frames_threshold=train_cfg.batch_size_per_device,
                           max_samples=train_cfg.max_samples, seed=train_cfg.seed)
 

@@ -20,7 +20,11 @@ reference: src/f5_tts/model/trainer.py:25-494.
   weights of a reference-layout checkpoint,
 - a SIGTERM saves model_last at the next step boundary,
 - `sample_fn` (`make_sample_logger`) writes a sample every
-  log_samples_per_updates updates (trainer.py:434-490).
+  log_samples_per_updates updates (trainer.py:434-490),
+- CFG distillation (train/distill.py): with a teacher set (`set_teacher`)
+  the step trains the student against the teacher's guidance-combined flow
+  instead of the CFM target; EMA, accumulation, checkpoints, rotation and
+  resume are unchanged (JAX trainer.py:97-102, 185-236).
 """
 
 from __future__ import annotations
@@ -114,6 +118,10 @@ class Trainer:
     # sample_fn(ema_params, update, model_state) every log_samples_per_updates
     # updates (`make_sample_logger`)
     sample_fn: Optional[Callable] = None
+    # CFG distillation: the teacher's params (`set_teacher`), None for the
+    # plain CFM loss, and the guidance strength the student distills
+    teacher_params: Optional[dict] = None
+    distill_cfg_strength: float = 2.0
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -153,15 +161,41 @@ class Trainer:
         self._init_ts = ts
         return ts
 
+    def set_teacher(self, teacher, cfg_strength: Optional[float] = None) -> None:
+        """Arm CFG distillation: `teacher` is a reference-layout checkpoint
+        path (its EMA weights, as `load_state_dict(use_ema=True)` reads them)
+        or a params dict of this arch. The teacher is copied onto the
+        trainer's device and takes no gradient; `cfg_strength` replaces
+        `distill_cfg_strength` when given (JAX trainer.py:185-207)."""
+        if isinstance(teacher, str):
+            from f5e_tts_tpu_torch.utils.convert import (backbone_from_reference_state_dict,
+                                                         load_state_dict)
+
+            teacher, _ = fbb.split_state(self.arch, backbone_from_reference_state_dict(
+                load_state_dict(teacher, use_ema=True), self.arch))
+        # a copy: the student's in-place updates must never reach the teacher
+        self.teacher_params = fstep.tree_map(
+            lambda t: t.detach().to(self.device, torch.float32, copy=True), teacher)
+        if cfg_strength is not None:
+            self.distill_cfg_strength = cfg_strength
+
     def make_step(self):
         """step(ts, batch, generator) -> (ts, StepMetrics) for a batch of
-        device tensors carrying audio or mel."""
+        device tensors carrying audio or mel; with a teacher set, the step's
+        loss is the distillation loss (`distill_loss_with_device_mel`)."""
         mel_cfg, arch, cfm, dtype = self.model_cfg.mel, self.arch, self.cfm, self.compute_dtype
         optimizer = self.optimizer
         ema = fstep.EMASettings.from_train_cfg(self.train_cfg)
+        teacher, cfg_w = self.teacher_params, self.distill_cfg_strength
 
         def step(ts, batch, generator, draws=None):
             def loss_fn(params):
+                if teacher is not None:
+                    from f5e_tts_tpu_torch.train.distill import distill_loss_with_device_mel
+
+                    return distill_loss_with_device_mel(
+                        params, teacher, arch, cfm, mel_cfg, batch, generator, draws, dtype,
+                        cfg_strength=cfg_w, state=ts.model_state)
                 return loss_with_device_mel(params, arch, cfm, mel_cfg, batch, generator, draws,
                                             dtype, state=ts.model_state)
 

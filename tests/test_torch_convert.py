@@ -78,7 +78,7 @@ def test_port_imports_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'f5e_tts_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 60, mods\n"
+        "assert len(mods) >= 72, mods\n"
         "new = ('kernels.attention', 'models.mmdit', 'models.backbone', 'ops.attention',\n"
         "       'models.unett', 'models.durpred', 'infer.speech_edit', 'utils.aot',\n"
         "       'ops.vq', 'ops.mas', 'ops.kaldi', 'models.conformer',\n"
@@ -87,7 +87,10 @@ def test_port_imports_no_jax():
         "       'train.adamw8bit', 'train.train', 'ops.quant', 'infer.transcribe',\n"
         "       'serving.batcher', 'serving.http_server', 'serving.socket_server',\n"
         "       'serving.socket_client', 'serving.grpc_server', 'serving.grpc_client',\n"
-        "       'serving.tts_pb2', 'serving.benchmark', 'serving.pcm')\n"
+        "       'serving.tts_pb2', 'serving.benchmark', 'serving.pcm',\n"
+        "       'train.distill', 'train.distill_cli', 'train.finetune_cli', 'models.bigvgan',\n"
+        "       'eval.ecapa', 'eval.utmos', 'eval.harness', 'eval.vc', 'eval.eval_infer_batch',\n"
+        "       'eval.scorers', 'eval.score_cli')\n"
         "assert all('f5e_tts_tpu_torch.' + m in mods for m in new), mods\n"
         "assert 'transformers' not in sys.modules  # imported only to build the ASR pipeline\n"
         "print(len(mods))\n"
