@@ -245,7 +245,29 @@
     batcher's batch of 4: K1 at (8, 1536, 16, 64) with four key lengths, K2
     at (8, 1536, 1024); K1 at the distillation teacher's (16, 2304) and the
     cfg-free synthesis' (1, 1536).
-41. Prints one JSON line with every kernel, then the device line last.
+41. fp32 compute (after 5): the fp32 kernels (csrc/attention_fp32.cuh and
+    K2/K5's fp32 instantiations) through a loss and all its gradients of
+    2-block full-width models in fp32, against the plain versions
+    (FP32_LOSS_REL, FP32_MIN_COS): an F5TTS_Base DiT (K3, K6, K2, K5), the
+    MMDiT without (K9, K10) and with a padding mask (K7, K8); one v1
+    Trainer.train update at compute_dtype float32 on the 8 x 2304 batch
+    (DEPTH fp32 launches each of K1, K2, K4, K5, none in bf16; wall, peak
+    memory); the trainer's sample hook (make_sample_logger, fp32 on the
+    card) at NFE 32, and at HOOK_CHECK_NFE on the card against the CPU from
+    one y0 (HOOK_REL).
+42. The quality proxy (after 39): quality_proxy_cli all on PROXY_STEPS
+    training and PROXY_DISTILL_STEPS distillation steps at the JAX runner's
+    widths (dim 128, depth 4, heads of 32: attention outside the kernels)
+    and its 64 evaluation utterances: the loss falls, K2/K5 launch in fp32
+    exactly (one a block a forward and a backward), no attention kernel in
+    either dtype, eight finite lever rows, the ground-truth decoder's TER
+    the JAX package's.
+43. The fp32 kernels' rows (after 40): each fp32 attention kernel against
+    its plain version at T and S (FP32_ATOL, FP32_RTOL, FP32_BWD_REL), its
+    time, bound at the fp32 FMA peak and SDPA's fp32 time; K2 in fp32 at T,
+    S and the proxy's (16, 168, 128) and (128, 192, 128); K5 at T, S and
+    the proxy's training shape.
+44. Prints one JSON line with every kernel, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository. fp32 matmuls and convolutions run with TF32 off
@@ -285,6 +307,11 @@ ATOL, RTOL = 2e-2, 1e-2
 # they form delta from the bf16 output where the plain versions sum P * dP
 # in fp32: max |kernel - plain| <= BWD_REL * max |plain| for each of dq, dk, dv
 BWD_REL = 2e-2
+# fp32 operands run the fp32 kernels: the same sums in fp32 with no bf16
+# rounding, so kernel and plain version differ by summation order alone;
+# 100x tighter than bf16 (forwards, K2, K5: |diff| <= FP32_ATOL +
+# FP32_RTOL |plain|; attention backwards: FP32_BWD_REL x max |plain|)
+FP32_ATOL, FP32_RTOL, FP32_BWD_REL = 2e-4, 1e-4, 2e-4
 TRAIN_CLIPS, TRAIN_N = 8, 2304
 REF_TEXT = "Some call me nature, others call me mother nature."
 GEN_TEXT = "I love the way the light falls across the water early in the morning."
@@ -303,7 +330,19 @@ def log(msg: str) -> None:
 COUNTERS: dict = {}  # name -> (module, attribute); filled by main()
 
 
-def register_counters(ra, ga, ka) -> None:
+def register_counters(ra, ga, ka, fa) -> None:
+    COUNTERS.update({
+        "fp32_rope_attention": (ra, "fp32_launches"),
+        "fp32_rope_attention_bwd": (ra, "fp32_bwd_launches"),
+        "fp32_partial_rope_attention": (ra, "fp32_partial_launches"),
+        "fp32_partial_rope_attention_bwd": (ra, "fp32_partial_bwd_launches"),
+        "fp32_gated_adaln": (ga, "fp32_launches"), "fp32_gated_adaln_bwd": (ga, "fp32_bwd_launches"),
+        "fp32_masked_attention": (ka, "fp32_masked_launches"),
+        "fp32_masked_attention_bwd": (ka, "fp32_masked_bwd_launches"),
+        "fp32_joint_attention": (ka, "fp32_joint_launches"),
+        "fp32_joint_attention_bwd": (ka, "fp32_joint_bwd_launches"),
+        # head widths outside {64, 128}: the route outside the kernels
+        "unfused_attention": (fa, "unfused_calls")})
     COUNTERS.update({
         "rope_attention": (ra, "launches"), "rope_attention_bwd": (ra, "bwd_launches"),
         "partial_rope_attention": (ra, "partial_launches"),
@@ -379,14 +418,15 @@ def host_us(fn, calls: int = 25, batches: int = 20) -> float:
     return best / calls * 1e6
 
 
-def check_close(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float = ATOL,
+                rtol: float = RTOL) -> float:
     got, ref = got.float(), ref.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (got - ref).abs()
-    worst = (err - (ATOL + RTOL * ref.abs())).max().item()
+    worst = (err - (atol + rtol * ref.abs())).max().item()
     max_abs = err.max().item()
-    log(f"[{name}] max|kernel - plain| = {max_abs:.3e} (tolerance {ATOL} + {RTOL}*|plain|)")
+    log(f"[{name}] max|kernel - plain| = {max_abs:.3e} (tolerance {atol} + {rtol}*|plain|)")
     if worst > 0:
         raise AssertionError(f"{name}: kernel disagrees with its plain version (max|diff| {max_abs})")
     return max_abs
@@ -1288,9 +1328,10 @@ def plain_swaps(ra, ga, ka) -> dict:
 
 
 def compare_gradients(tag: str, loss_and_grads, expected: dict, swaps: dict,
-                      zero: tuple = ()) -> None:
+                      zero: tuple = (), loss_rel: float = 1e-2, min_cos: float = 0.99) -> None:
     """`loss_and_grads()` once through the kernels (launch counts checked) and
-    once with the wrappers swapped for their plain versions (no launch). The
+    once with the wrappers swapped for their plain versions (no launch): the
+    loss within `loss_rel` relative, each gradient at cosine >= `min_cos`. The
     gradients at the indices `zero` are zero analytically (a bias that a
     training-mode BatchNorm takes out again): rounding noise in both runs,
     with no direction to compare, they are held under ZERO_GRAD_REL x the
@@ -1326,10 +1367,10 @@ def compare_gradients(tag: str, loss_and_grads, expected: dict, swaps: dict,
         if max(noise) > ZERO_GRAD_REL:
             raise AssertionError(f"{tag}: a gradient that is zero analytically is not")
     log(f"[{tag}] loss kernels {loss_k:.6f} vs plain {loss_p:.6f} (relative difference "
-        f"{rel:.2e}, tolerance 1e-2); gradient cosine over {len(cos)} parameters: min "
-        f"{cos[worst]:.6f} (tensor {worst}, shape {tuple(grads_k[worst].shape)}), median "
-        f"{float(np.median(cos)):.6f} (tolerance 0.99)")
-    if not math.isfinite(loss_k) or not rel <= 1e-2 or min(cos) < 0.99:
+        f"{rel:.2e}, tolerance {loss_rel}); gradient cosine over {len(cos)} parameters: min "
+        f"{cos[worst]:.8f} (tensor {worst}, shape {tuple(grads_k[worst].shape)}), median "
+        f"{float(np.median(cos)):.8f} (tolerance {min_cos})")
+    if not math.isfinite(loss_k) or not rel <= loss_rel or min(cos) < min_cos:
         raise AssertionError(f"{tag}: the kernels' loss or gradients disagree with the plain versions")
 
 
@@ -1420,6 +1461,86 @@ def mmdit_gradient_phase(swaps: dict) -> dict:
     return expected
 
 
+# the fp32 kernels against the plain versions through a loss and all its
+# gradients: 100x tighter than bf16's 1e-2 and 1 - 0.99
+FP32_LOSS_REL, FP32_MIN_COS = 1e-4, 0.9999
+
+
+def fp32_gradient_phase(swaps: dict) -> dict:
+    """The fp32 kernels that no full-width fp32 path of this run reaches,
+    each through a loss and every gradient at full width, 2 blocks, fp32
+    compute: cfm_loss of an F5TTS_Base DiT (RoPE on the first head: K3, K6,
+    with K2, K5), cfm_loss of the MMDiT (no mask: K9, K10) and its masked
+    MSE through backbone.forward_train (K7, K8). Returns {path: expected
+    launches}."""
+    from f5e_tts_tpu_torch.config import CFMConfig, MMDiTConfig, preset
+    from f5e_tts_tpu_torch.models import backbone as fbb
+    from f5e_tts_tpu_torch.models import cfm as fcfm
+    from f5e_tts_tpu_torch.models.dit import init_dit
+    from f5e_tts_tpu_torch.models.mmdit import init_mmdit
+    from f5e_tts_tpu_torch.train import step as fstep
+    from f5e_tts_tpu_torch.utils.masks import lens_to_mask
+
+    b, n, nt = MMDIT_GRAD_SHAPE
+    assert preset("F5TTS_Base").arch.mel_dim == MMDiTConfig().mel_dim == 100
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    mel, target = (torch.randn((b, n, 100), generator=gen, device="cuda") for _ in range(2))
+    mel_lens = torch.tensor([n, 900], device="cuda")
+    text = torch.randint(0, 256, (b, nt), generator=gen, device="cuda")
+    text[1, 70:] = -1
+    draws = fixed_draws(gen, b, n, 100, 1)[0]
+    runs = {}
+
+    def run(tag, params, loss_fn, expected):
+        params = fstep.tree_map(lambda t: t.requires_grad_(True), params)
+
+        def loss_and_grads():
+            leaves = fstep.tree_leaves(params)
+            for p in leaves:
+                p.grad = None
+            loss = loss_fn(params)
+            loss.backward()
+            return float(loss.detach()), [p.grad.detach().clone() for p in leaves]
+
+        compare_gradients(tag, loss_and_grads, expected, swaps, loss_rel=FP32_LOSS_REL,
+                          min_cos=FP32_MIN_COS)
+        return expected
+
+    base = dataclasses.replace(preset("F5TTS_Base").arch, depth=2, dropout=0.0)
+    params = init_dit(base, 256, gen, "cuda")
+    seed_modulation_(params, gen)
+    runs["fp32_base_gradient"] = run(
+        f"fp32 gradients Base DiT, 2 blocks, B={b}, N={n}", params,
+        lambda p: fcfm.cfm_loss(p, base, CFMConfig(), mel=mel, mel_lens=mel_lens, text_ids=text,
+                                draws=draws, compute_dtype=torch.float32).loss,
+        expected_counts(fp32_partial_rope_attention=2, fp32_partial_rope_attention_bwd=2,
+                        fp32_gated_adaln=2, fp32_gated_adaln_bwd=2))
+    del params
+    mm = MMDiTConfig(depth=2)
+    params = init_mmdit(mm, 256, gen, "cuda")
+    seed_modulation_(params, gen)
+    runs["fp32_mmdit_gradient"] = run(
+        f"fp32 gradients MMDiT, 2 blocks, B={b}, N={n}", params,
+        lambda p: fcfm.cfm_loss(p, mm, CFMConfig(), mel=mel, mel_lens=mel_lens, text_ids=text,
+                                draws=draws, compute_dtype=torch.float32).loss,
+        expected_counts(fp32_masked_attention=2, fp32_masked_attention_bwd=2))
+    mask = lens_to_mask(mel_lens, n)
+    drop = torch.zeros(b, dtype=torch.bool, device="cuda")
+    time_ = torch.rand(b, generator=gen, device="cuda")
+
+    def masked_mse(p):
+        pred = fbb.forward_train(p, mm, x=mel, cond=target, text_ids=text, time=time_,
+                                 drop_audio_cond=drop, drop_text=drop, mask=mask,
+                                 compute_dtype=torch.float32)
+        w = mask[:, :, None].float()
+        return ((pred - target).square() * w).sum() / (w.sum() * mm.mel_dim)
+
+    runs["fp32_mmdit_masked_gradient"] = run(
+        f"fp32 gradients MMDiT, 2 blocks, B={b}, N={n}, Nt={nt}, masked", params, masked_mse,
+        expected_counts(fp32_joint_attention=2, fp32_joint_attention_bwd=2))
+    return runs
+
+
 # ---------------------------------------------------------------------------
 # one phase per kernel
 # ---------------------------------------------------------------------------
@@ -1430,7 +1551,8 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, ops_s, bytes
     """One row of the kernels line. `launches` is {path: launches in one run
     of it}; the row's `launches` is the first path's."""
     bound_s = max(ops_s, bytes_s)
-    row = {"name": name, "route": "cuda", "source": f"f5e_tts_tpu_torch/csrc/{source}.cu",
+    source = f"f5e_tts_tpu_torch/csrc/{source}" + ("" if "." in source else ".cu")
+    row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": next(iter(launches.values())),
            "launches_by_path": launches, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
@@ -1447,23 +1569,25 @@ class AttentionCase:
     plain version and the library call (SDPA with the equivalent boolean key
     mask, q/k pre-rotated where the kernel rotates) as closures.
     kind: "rope" (rope_heads of the heads rotated, prefix mask), "masked"
-    (prefix mask) or "joint" (lens are audio lengths, n_audio given)."""
+    (prefix mask) or "joint" (lens are audio lengths, n_audio given); bf16
+    operands, or fp32 ones (the fp32 kernels) with `dtype`."""
 
-    def __init__(self, mods, kind, b, n, lens, gen, rope_heads=0, n_audio=None, h=16, dh=64):
+    def __init__(self, mods, kind, b, n, lens, gen, rope_heads=0, n_audio=None, h=16, dh=64,
+                 dtype=torch.bfloat16):
         from f5e_tts_tpu_torch.ops.rope import rot_half, rotary_cos_sin_half
 
         ra, ka = mods
-        self.kind, self.b, self.n, self.h, self.dh = kind, b, n, h, dh
+        self.kind, self.b, self.n, self.h, self.dh, self.dtype = kind, b, n, h, dh, dtype
         self.lens_list, self.n_audio, self.rope = list(lens), n_audio, kind == "rope"
         # q, k, v as column slices of a fused projection's output where the
         # model has one (the DiT's to_qkv); the MMDiT concatenates its streams
         if kind == "rope":
-            qkv = torch.randn((b, n, 3 * h * dh), generator=gen, device="cuda").bfloat16()
+            qkv = torch.randn((b, n, 3 * h * dh), generator=gen, device="cuda").to(dtype)
             q, k, v = (t.unflatten(-1, (h, dh)) for t in qkv.chunk(3, dim=-1))
         else:
-            q, k, v = (torch.randn((b, n, h, dh), generator=gen, device="cuda").bfloat16()
+            q, k, v = (torch.randn((b, n, h, dh), generator=gen, device="cuda").to(dtype)
                        for _ in range(3))
-        self.g = torch.randn((b, n, h, dh), generator=gen, device="cuda").bfloat16()
+        self.g = torch.randn((b, n, h, dh), generator=gen, device="cuda").to(dtype)
         lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
         col = torch.arange(n, device="cuda")
         if kind == "rope":
@@ -1477,7 +1601,7 @@ class AttentionCase:
             c, s = cos[None, :, None, :], sin[None, :, None, :]
             rotated = (torch.arange(h, device="cuda") < rope_heads)[None, None, :, None]
             lib_q, lib_k = (torch.where(rotated, t.float() * c + rot_half(t.float()) * s,
-                                        t.float()).bfloat16() for t in (q, k))
+                                        t.float()).to(dtype) for t in (q, k))
         elif kind == "masked":
             self.fwd = lambda **kw: ka.masked_attention(q, k, v, lens_t, **kw)
             self.plain = lambda: ka.masked_attention_plain(q, k, v, lens_t)
@@ -1514,16 +1638,20 @@ class AttentionCase:
 
     def bound(self, backward: bool):
         """(operation seconds, byte seconds): the 2 (forward) or 5 (backward)
-        N x keys x dh products over the valid keys; q, k, v, out (forward) or
-        q, k, v, g, dq, dk, dv (backward), the tables and the lengths."""
+        N x keys x dh products over the valid keys, at the bf16 tensor-core
+        peak or, for fp32 operands, the fp32 FMA peak; q, k, v, out (forward)
+        or q, k, v, g, dq, dk, dv (backward), the tables and the lengths."""
         flops = (10.0 if backward else 4.0) * self.h * self.dh * self.n * self.keys
-        nbytes = (7 if backward else 4) * self.b * self.n * self.h * self.dh * 2 + self.b * 4
+        size = torch.finfo(self.dtype).bits // 8
+        nbytes = (7 if backward else 4) * self.b * self.n * self.h * self.dh * size + self.b * 4
         if self.rope:
             nbytes += 2 * self.n * self.dh * 4
-        return flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        peak = PEAK_FP32_FLOPS if self.dtype == torch.float32 else PEAK_BF16_FLOPS
+        return flops / peak, nbytes / PEAK_BYTES
 
     def describe(self) -> str:
         extra = f", n_audio {self.n_audio}" if self.n_audio is not None else ""
+        extra += ", fp32" if self.dtype == torch.float32 else ""
         return f"({self.b}, {self.n}, {self.h}, {self.dh}), lens {self.lens_list}{extra}"
 
 
@@ -1564,15 +1692,15 @@ def kernel_split(tag: str, fn, parts, calls: int = 4) -> dict:
     return split
 
 
-def adaln_bwd_operands(seed: int = 6, d: int = 1024):
-    """K5's operands at the training step's shape (width d): x, y, gate,
-    scale, g_newx, g_out, with gate and scale column slices of the (B, 6D)
-    modulation."""
-    b, n = TRAIN_CLIPS, TRAIN_N
+def adaln_bwd_operands(seed: int = 6, d: int = 1024, b: int = TRAIN_CLIPS, n: int = TRAIN_N,
+                       dtype=torch.bfloat16):
+    """K5's operands at the training step's shape (width d; or (b, n, d)):
+    x, y, gate, scale, g_newx, g_out, with gate and scale column slices of
+    the (B, 6D) modulation."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x, y, g_newx, g_out = (torch.randn((b, n, d), generator=gen, device="cuda").bfloat16()
+    x, y, g_newx, g_out = (torch.randn((b, n, d), generator=gen, device="cuda").to(dtype)
                            for _ in range(4))
-    mod = torch.randn((b, 6 * d), generator=gen, device="cuda").bfloat16()
+    mod = torch.randn((b, 6 * d), generator=gen, device="cuda").to(dtype)
     return x, y, mod[:, 2 * d:3 * d], mod[:, 4 * d:5 * d], g_newx, g_out
 
 
@@ -1590,12 +1718,14 @@ def split_phase(mods, ga):
 
 
 def attention_kernel_phase(name, source, replaces, launches, backward, cases, iters=24,
-                           split=None) -> dict:
+                           split=None, fp32: bool = False) -> dict:
     """Kernel vs plain at every case (the first is the path's shape and gives
     the row's numbers; the others are checked, and timed when `timed`), then
     the times; `split` (device ms by kernel of one call) goes into the row's
     `also`, and so does a forward's host time per call at the first case.
-    cases: [(tag, make_case, timed)]."""
+    cases: [(tag, make_case, timed)]; `fp32` cases take the fp32 tolerances."""
+    bwd_rel = FP32_BWD_REL if fp32 else BWD_REL
+    tol = dict(atol=FP32_ATOL, rtol=FP32_RTOL) if fp32 else {}
     err, numbers = 0.0, {}
     for tag, make_case, timed in cases:
         case = make_case()
@@ -1605,14 +1735,14 @@ def attention_kernel_phase(name, source, replaces, launches, backward, cases, it
             torch.cuda.synchronize()
             ref = case.bwd_plain()
             for part, x, y in zip(("dq", "dk", "dv"), got, ref):
-                err = max(err, check_close_rel(f"{name} {tag} {part}", x, y, BWD_REL))
+                err = max(err, check_close_rel(f"{name} {tag} {part}", x, y, bwd_rel))
             again = case.bwd(out, stats)  # no atomics: the same bits
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 raise AssertionError(f"{name} {tag}: two backward runs differ")
             del got, ref, again
         else:
             torch.cuda.synchronize()
-            err = max(err, check_close(f"{name} {tag}", out, case.plain()))
+            err = max(err, check_close(f"{name} {tag}", out, case.plain(), **tol))
         if timed:
             torch.cuda.empty_cache()
             extra = {}
@@ -1743,31 +1873,33 @@ def attention_rows(mods, paths: dict, text_len: int, splits) -> list:
     return rows
 
 
-def adaln_case(ga, b: int, n: int, d: int, tag: str) -> dict:
+def adaln_case(ga, b: int, n: int, d: int, tag: str, dtype=torch.bfloat16) -> dict:
     """K2 against its plain version at (b, n, d), then both timed: kernel,
     plain and the bound (x, y read once, new_x, out written once, ~11 fp32
-    flops an element)."""
+    flops an element); fp32 operands (`dtype`) take the fp32 kernel and
+    tolerances."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    x, y = (torch.randn((b, n, d), generator=gen, device="cuda").to(torch.bfloat16)
-            for _ in range(2))
-    gate, scale, shift = (torch.randn((b, d), generator=gen, device="cuda").to(torch.bfloat16)
+    x, y = (torch.randn((b, n, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    gate, scale, shift = (torch.randn((b, d), generator=gen, device="cuda").to(dtype)
                           for _ in range(3))
     new_x, out = ga.gated_adaln(x, y, gate, scale, shift)
     torch.cuda.synchronize()
     ref_x, ref_out = ga.gated_adaln_plain(x, y, gate, scale, shift)
-    err = max(check_close(f"gated_adaln {tag} new_x", new_x, ref_x),
-              check_close(f"gated_adaln {tag} out", out, ref_out))
+    tol = dict(atol=FP32_ATOL, rtol=FP32_RTOL) if dtype == torch.float32 else {}
+    err = max(check_close(f"gated_adaln {tag} new_x", new_x, ref_x, **tol),
+              check_close(f"gated_adaln {tag} out", out, ref_out, **tol))
     # timed over 4 input sets (~100 MB with outputs at D = 1024, twice the
     # L2): the kernel is bound by memory, and the bound counts device-memory bytes
     sets = [(x, y)] + [tuple(torch.randn((b, n, d), generator=gen, device="cuda")
-                             .to(torch.bfloat16) for _ in range(2)) for _ in range(3)]
+                             .to(dtype) for _ in range(2)) for _ in range(3)]
     ms = cuda_ms([lambda a=a, c=c: ga.gated_adaln(a, c, gate, scale, shift) for a, c in sets])
     plain_ms = cuda_ms([lambda a=a, c=c: ga.gated_adaln_plain(a, c, gate, scale, shift)
                         for a, c in sets])
+    size = x.element_size()
     ops_s = 11.0 * b * n * d / PEAK_FP32_FLOPS
-    bytes_s = (4 * b * n * d * 2 + 3 * b * d * 2) / PEAK_BYTES
+    bytes_s = (4 * b * n * d * size + 3 * b * d * size) / PEAK_BYTES
     bound = max(ops_s, bytes_s) * 1e3
-    log(f"[gated_adaln {tag}] ({b}, {n}, {d}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"[gated_adaln {tag}] ({b}, {n}, {d}) {x.dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bound:.4f} ms ({bound / ms:.2f} of it)")
     return {"shape": f"({b}, {n}, {d})", "err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_share": bound / ms, "ops_s": ops_s, "bytes_s": bytes_s}
@@ -1788,17 +1920,19 @@ def adaln_phase(ga, launches: dict) -> dict:
                       main["plain_ms"], main["ops_s"], main["bytes_s"], None, also)
 
 
-def adaln_bwd_case(ga, d: int, tag: str, host: bool = False) -> dict:
-    """K5 against its plain version at the training step's (8, 2304, d),
-    two runs the same bits, then kernel and plain timed (x, y, g_newx, g_out
-    read once, dx, dy written once, the (B, d) operands and sums once; ~20
-    fp32 flops an element); with `host` its wrapper's host time a call."""
-    args = adaln_bwd_operands(d=d)
-    b, n, _ = args[0].shape
+def adaln_bwd_case(ga, d: int, tag: str, host: bool = False, b: int = TRAIN_CLIPS,
+                   n: int = TRAIN_N, dtype=torch.bfloat16) -> dict:
+    """K5 against its plain version at the training step's (8, 2304, d) (or
+    (b, n, d)), two runs the same bits, then kernel and plain timed (x, y,
+    g_newx, g_out read once, dx, dy written once, the (B, d) operands and
+    sums once; ~20 fp32 flops an element); with `host` its wrapper's host
+    time a call; fp32 operands (`dtype`) take the fp32 kernel and tolerances."""
+    args = adaln_bwd_operands(d=d, b=b, n=n, dtype=dtype)
     got = ga.gated_adaln_bwd(*args)
     torch.cuda.synchronize()
     ref = ga.gated_adaln_bwd_plain(*args)
-    err = max(check_close(f"gated_adaln_bwd {tag} {name}", a, r) for name, a, r in
+    tol = dict(atol=FP32_ATOL, rtol=FP32_RTOL) if dtype == torch.float32 else {}
+    err = max(check_close(f"gated_adaln_bwd {tag} {name}", a, r, **tol) for name, a, r in
               zip(("dx", "dy", "dgate", "dscale", "dshift"), got, ref))
     again = ga.gated_adaln_bwd(*args)  # no atomics: the same bits
     if not all(torch.equal(u, v) for u, v in zip(got, again)):
@@ -1808,8 +1942,9 @@ def adaln_bwd_case(ga, d: int, tag: str, host: bool = False) -> dict:
     # one input set: 4 inputs and 2 outputs of 28-38 MB each, over 3x the L2
     ms = cuda_ms([lambda: ga.gated_adaln_bwd(*args)])
     plain_ms = cuda_ms([lambda: ga.gated_adaln_bwd_plain(*args)])
+    size = args[0].element_size()
     ops_s = 20.0 * b * n * d / PEAK_FP32_FLOPS
-    bytes_s = (6 * b * n * d * 2 + 5 * b * d * 2) / PEAK_BYTES
+    bytes_s = (6 * b * n * d * size + 5 * b * d * size) / PEAK_BYTES
     bound = max(ops_s, bytes_s) * 1e3
     out = {"shape": f"({b}, {n}, {d})", "err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound, "bound_share": bound / ms, "ops_s": ops_s, "bytes_s": bytes_s}
@@ -1836,6 +1971,92 @@ def adaln_bwd_phase(ga, launches: dict, split) -> dict:
                       main["ops_s"], main["bytes_s"], None, also)
 
 
+# the quality proxy's K2/K5 shapes (eval/quality_proxy_cli.py: dim 128): a
+# training batch of 16 utterances at 168 frames, the folded evaluation batch
+# (64 utterances x the two CFG rows) at the 192-frame bucket
+PROXY_TRAIN_SHAPE, PROXY_EVAL_SHAPE = (16, 168, 128), (128, 192, 128)
+
+
+def fp32_rows(mods, ga, paths: dict) -> list:
+    """The rows of the fp32 kernels (fp32 operands: csrc/attention_fp32.cuh
+    and K2/K5's fp32 instantiations), each held against its plain version
+    with the fp32 tolerances and timed beside its bound at the fp32 FMA peak
+    (bytes at 4 an element) and, for attention, SDPA in fp32: every attention
+    kernel at T and S (the joint ones at T and S with 128 text keys), K2 at T,
+    S and the quality proxy's training and folded-evaluation shapes, K5 at
+    T, S and the proxy's training shape."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    src, h = "attention_fp32.cuh", 16
+
+    def case(kind, b, n, lens, **kw):
+        return lambda: AttentionCase(mods, kind, b, n, lens, gen, dtype=torch.float32, **kw)
+
+    s_ = (2, 1536, (1416, 1100))
+    t_ = (TRAIN_CLIPS, TRAIN_N, (TRAIN_N,) * TRAIN_CLIPS)
+    js = (2, 1536 + 128, (1416, 1100))
+    jt = (TRAIN_CLIPS, TRAIN_N + 128, (TRAIN_N, 2000, 1337, TRAIN_N, 900, 0, 2303, 64))
+    fwd_all = {**paths["fp32_rope_attention"], **paths["fp32_partial_rope_attention"]}
+    bwd_all = {**paths["fp32_rope_attention_bwd"], **paths["fp32_partial_rope_attention_bwd"]}
+    both = lambda kind, a, b, **kw: [("training", case(kind, *a, **kw), True),  # noqa: E731
+                                     ("synthesis", case(kind, *b, **kw), True)]
+    rows = []
+    with torch.inference_mode():
+        for name, counter, line, kind, kw in (
+                ("rope_attention_fp32", "fp32_rope_attention", 523, "rope", {"rope_heads": h}),
+                ("partial_rope_attention_fp32", "fp32_partial_rope_attention", 183, "rope",
+                 {"rope_heads": 1}),
+                ("masked_attention_fp32", "fp32_masked_attention", 86, "masked", {})):
+            rows.append(attention_kernel_phase(name, src, f"{PALLAS}:{line}", paths[counter],
+                                               False, both(kind, t_, s_, **kw), fp32=True))
+        rows.append(attention_kernel_phase(
+            "joint_attention_fp32", src, f"{PALLAS}:1201", paths["fp32_joint_attention"], False,
+            [("synthesis", case("joint", *js, n_audio=1536), True),
+             ("training shape", case("joint", *jt, n_audio=TRAIN_N), True)], fp32=True))
+        rows.append(attention_kernel_phase(
+            "packed_rope_attention_fp32", src, f"{PALLAS}:312", fwd_all, False,
+            [("training", case("rope", *t_, rope_heads=h), True)], fp32=True))
+    torch.cuda.empty_cache()
+    for name, counter, line, kind, kw in (
+            ("rope_attention_bwd_fp32", "fp32_rope_attention_bwd", 567, "rope",
+             {"rope_heads": h}),
+            ("partial_rope_attention_bwd_fp32", "fp32_partial_rope_attention_bwd", 906, "rope",
+             {"rope_heads": 1}),
+            ("masked_attention_bwd_fp32", "fp32_masked_attention_bwd", 770, "masked", {})):
+        rows.append(attention_kernel_phase(name, src, f"{PALLAS}:{line}", paths[counter], True,
+                                           both(kind, t_, s_, **kw), fp32=True))
+    rows.append(attention_kernel_phase(
+        "joint_attention_bwd_fp32", src, f"{PALLAS}:1298", paths["fp32_joint_attention_bwd"],
+        True, [("training shape", case("joint", *jt, n_audio=TRAIN_N), True),
+               ("synthesis", case("joint", *js, n_audio=1536), True)], fp32=True))
+    rows.append(attention_kernel_phase(
+        "packed_rope_attention_bwd_fp32", src, f"{PALLAS}:458", bwd_all, True,
+        [("training", case("rope", *t_, rope_heads=h), True)], fp32=True))
+
+    f32 = torch.float32
+    with torch.inference_mode():
+        k2 = {"training": adaln_case(ga, TRAIN_CLIPS, TRAIN_N, 1024, "fp32 training", f32),
+              "synthesis": adaln_case(ga, 2, 1536, 1024, "fp32 synthesis", f32),
+              "proxy training": adaln_case(ga, *PROXY_TRAIN_SHAPE, "fp32 proxy training", f32),
+              "proxy evaluation": adaln_case(ga, *PROXY_EVAL_SHAPE, "fp32 proxy evaluation",
+                                             f32)}
+    k5 = {"training": adaln_bwd_case(ga, 1024, "fp32 training", dtype=f32),
+          "synthesis shape": adaln_bwd_case(ga, 1024, "fp32 synthesis shape", b=2, n=1536,
+                                            dtype=f32),
+          "proxy training": adaln_bwd_case(ga, PROXY_TRAIN_SHAPE[2], "fp32 proxy training",
+                                           b=PROXY_TRAIN_SHAPE[0], n=PROXY_TRAIN_SHAPE[1],
+                                           dtype=f32)}
+    for name, cases, counter, line in (("gated_adaln_fp32", k2, "fp32_gated_adaln", 38),
+                                       ("gated_adaln_bwd_fp32", k5, "fp32_gated_adaln_bwd", 159)):
+        main, *rest = cases.values()
+        also = {tag: {k: v for k, v in c.items() if k not in ("ops_s", "bytes_s")}
+                for tag, c in list(cases.items())[1:]}
+        also["bound_share"] = main["bound_share"]
+        rows.append(kernel_row(name, "gated_adaln", f"f5e_tts_tpu/ops/pallas_norm.py:{line}",
+                               paths[counter], max(c["err"] for c in cases.values()), main["ms"],
+                               main["plain_ms"], main["ops_s"], main["bytes_s"], None, also))
+    return rows
+
+
 def build_report(libs: dict, ra) -> None:
     """Each kernel's registers, spills and static shared memory from ptxas's
     report in the build logs, and the dynamic shared memory of the forward's
@@ -1847,10 +2068,13 @@ def build_report(libs: dict, ra) -> None:
             found = re.search(r"Function properties for (\S+)", line)
             if found:
                 mangled = found.group(1).split("_cu_", 1)[-1]  # past the source's name
-                parts = re.findall(r"(attention_[a-z_]*kernel|gated_adaln[a-z_]*|ILi\d+E|"
-                                   r"RopeAttn|MaskedAttn|JointAttn)", mangled)
-                kernel = " ".join(p.strip("ILiE") if p.startswith("ILi") else p
-                                  for p in parts) or mangled[:60]
+                parts = re.findall(r"(attention_[a-z0-9_]*kernel|gated_adaln[a-z_]*|"
+                                   r"ILi\d+E(?:f|13__nv_bfloat16)?|RopeAttn|MaskedAttn|"
+                                   r"JointAttn)", mangled)
+                kernel = " ".join(
+                    re.sub(r"ILi(\d+)E(f|13__nv_bfloat16)?",
+                           lambda m: m.group(1) + {"f": " fp32", None: ""}.get(
+                               m.group(2), " bf16"), p) for p in parts) or mangled[:60]
             elif kernel and "spill" in line:
                 log(f"[build] {name}: {kernel}: {line.strip()}")
             elif kernel and "registers" in line:
@@ -4189,30 +4413,193 @@ def harness_phase(tmp: Path, ckpt: Path, utmos) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# fp32 compute at full width, and the quality proxy
+# ---------------------------------------------------------------------------
+
+HOOK_SECONDS = 1.0  # the hook's reference: 93 frames, so it synthesises into bucket 256
+HOOK_CHECK_NFE = 4  # NFE of the hook's card-vs-CPU comparison (the CPU runs the full model)
+# the hook's generated mel on the card (fp32 kernels, TF32 off) against the
+# CPU's (plain versions) from the same y0: fp32 on both sides, sums in
+# another order, through 22 blocks and HOOK_CHECK_NFE steps; relative L2
+HOOK_REL = 1e-4
+
+
+def fp32_training_phase(v1) -> dict:
+    """One Trainer.train update of the v1 model at compute_dtype float32 (8 x
+    2304 frames): DEPTH fp32 launches of each of K1, K2, K4 and K5 and none of
+    a bf16 kernel; then the trainer's sample hook (make_sample_logger, fp32
+    on the card, as the JAX trainer builds it) over the step's EMA weights,
+    at NFE 32 (DEPTH x NFE of fp32 K1 and K2), and at HOOK_CHECK_NFE on the
+    card and on the CPU from the same y0 (HOOK_REL). Returns {path: launches}."""
+    from f5e_tts_tpu_torch.config import TrainConfig
+    from f5e_tts_tpu_torch.models import cfm as fcfm
+    from f5e_tts_tpu_torch.ops.mel import mel_spectrogram
+    from f5e_tts_tpu_torch.train import step as fstep
+    from f5e_tts_tpu_torch.train.trainer import Trainer, make_sample_logger
+    from f5e_tts_tpu_torch.utils.text import list_str_to_bytes
+
+    save_dir = ROOT / "build" / "smoke" / "fp32"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    tc = TrainConfig(num_warmup_updates=1, save_dir=str(save_dir), seed=0,
+                     compute_dtype="float32")
+    step_expected = expected_counts(fp32_rope_attention=DEPTH, fp32_rope_attention_bwd=DEPTH,
+                                    fp32_gated_adaln=DEPTH, fp32_gated_adaln_bwd=DEPTH)
+    seen = {}
+
+    def check_step(metrics: dict, update: int) -> None:
+        counts = read_counts()
+        log(f"[fp32 training] update {update}: wall {metrics['step_seconds']:.3f} s, loss "
+            f"{metrics['loss']:.5f}, grad norm {metrics['grad_norm']:.4f}, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        check_counts("fp32 training step", counts, step_expected)
+        if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])):
+            raise AssertionError(f"non-finite fp32 step: {metrics}")
+        seen["wall"] = metrics["step_seconds"]
+
+    trainer = Trainer(v1, tc, vocab_size=256, tokenize=list_str_to_bytes, log_fn=check_step,
+                      device="cuda")
+    trainer.save_checkpoint = lambda ts, last=False: None
+    ts = trainer.init_state(total_updates=1, rng_seed=0)
+    seed_modulation_(ts.params, torch.Generator(device="cuda").manual_seed(1))
+    ts.ema_params = fstep.tree_map(lambda t: t.detach().clone(), ts.params)
+    loader = training_loader(trainer, tc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ts, info = trainer.train(loader, epochs=1, resume=False, max_updates=1)
+    if info["updates"] != 1 or "wall" not in seen:
+        raise AssertionError(f"fp32 training ran {info['updates']} updates")
+    log(f"[fp32 training] one update of {TRAIN_CLIPS} x {TRAIN_N} frames in fp32: wall "
+        f"{seen['wall']:.3f} s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    runs = {"fp32_training_step": step_expected}
+
+    ref = torch.from_numpy(speech_like(HOOK_SECONDS, seed=3)).float()
+    ref_mel = mel_spectrogram(ref, v1.mel)[0].numpy()
+    ema = ts.ema_params
+    del ts, trainer
+    torch.cuda.empty_cache()
+    real_noise = fcfm.noise_like
+
+    def fixed_noise(generator, batch, length, channels, durations, seeds=None):
+        """One y0 on every device: drawn on the CPU from seed 1234."""
+        y0 = real_noise(torch.Generator().manual_seed(1234), batch, length, channels,
+                        durations.cpu())
+        return y0.to(durations.device)
+
+    def hook_mel(params, nfe: int, device: str, tag: str) -> np.ndarray:
+        out = save_dir / tag
+        out.mkdir(parents=True)
+        hook = make_sample_logger(v1, None, "byte", str(out), GEN_TEXT[:40], ref_mel, REF_TEXT,
+                                  nfe=nfe, device=device)
+        reset_counts()
+        t0 = time.perf_counter()
+        hook(params, 1)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if device == "cuda":
+            want = expected_counts(fp32_rope_attention=DEPTH * nfe, fp32_gated_adaln=DEPTH * nfe)
+            check_counts(f"sample hook {tag}", counts, want)
+            runs[f"fp32_sample_hook_nfe{nfe}"] = want
+        mel = np.load(out / "update_1_gen_mel.npy")
+        if not np.isfinite(mel).all():
+            raise AssertionError(f"sample hook {tag}: non-finite mel")
+        log(f"[sample hook] {tag}: NFE {nfe}, mel {mel.shape}, wall {wall:.2f} s")
+        return mel
+
+    fcfm.noise_like = fixed_noise
+    try:
+        hook_mel(ema, NFE, "cuda", "card")
+        card = hook_mel(ema, HOOK_CHECK_NFE, "cuda", "card_check")
+        cpu = hook_mel(fstep.tree_map(lambda t: t.detach().cpu(), ema), HOOK_CHECK_NFE, "cpu",
+                       "cpu_check")
+    finally:
+        fcfm.noise_like = real_noise
+    rel = float(np.linalg.norm(card - cpu) / np.linalg.norm(cpu))
+    log(f"[sample hook] card vs CPU at NFE {HOOK_CHECK_NFE}, fp32, one y0: relative L2 "
+        f"{rel:.3e} (tolerance {HOOK_REL})")
+    if card.shape != cpu.shape or not rel <= HOOK_REL:
+        raise AssertionError("the sample hook on the card disagrees with the CPU's")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    return runs
+
+
+# the quality proxy's `all` on a shortened schedule, at its widths (dim 128,
+# depth 4, 4 heads of 32, fp32) and its 64 evaluation utterances
+PROXY_STEPS, PROXY_DISTILL_STEPS, PROXY_DEPTH = 400, 100, 4
+PROXY_EVAL_NFES = 32 + 16 + 16 + 8 + 32 + 32 + 32 + 16  # the eight levers' sampler steps
+PROXY_LEVERS = ("teacher_nfe32_cfg2", "nfe16", "epss16of32", "epss8of32", "cfg0_base",
+                "int8_w8a8", "cfg0_distill", "cfg0_distill_nfe16")
+# the JAX package's ground-truth decoder TER on those 64 utterances
+# (3 prompt tokens; tests/test_torch_proxy_quality.py holds the port's equal
+# to the JAX package's on them)
+PROXY_GT_TER_PCT = 0.0
+
+
+def proxy_phase(tmp: Path) -> dict:
+    """`python -m f5e_tts_tpu_torch.eval.quality_proxy_cli all` on the card
+    through its main(), at PROXY_STEPS training and PROXY_DISTILL_STEPS
+    distillation steps: the training loss falls; attention runs outside the
+    kernels (head width 32) on every forward, no attention kernel launches
+    in either dtype, and K2/K5 launch in fp32 exactly once a block a forward
+    (a training step: one; a distillation step: the teacher's and the
+    student's) and a backward; eight finite lever rows; the ground-truth
+    decoder's TER is the JAX package's."""
+    from f5e_tts_tpu_torch.eval import quality_proxy_cli as cli
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    report = cli.main(["all", "--dir", str(tmp), "--steps", str(PROXY_STEPS),
+                       "--distill-steps", str(PROXY_DISTILL_STEPS)])
+    wall = time.perf_counter() - t0
+    forwards = PROXY_DEPTH * (PROXY_STEPS + 2 * PROXY_DISTILL_STEPS + PROXY_EVAL_NFES)
+    expected = expected_counts(
+        fp32_gated_adaln=forwards, unfused_attention=forwards,
+        fp32_gated_adaln_bwd=PROXY_DEPTH * (PROXY_STEPS + PROXY_DISTILL_STEPS))
+    check_counts("quality proxy", read_counts(), expected)
+    train, levers = report["train"], report["eval"]["levers"]
+    log(f"[quality proxy] all in {wall:.1f} s: train {train}, distill {report['distill']}")
+    if not train["final_loss_avg100"] < train["first_loss"]:
+        raise AssertionError(f"quality proxy: the training loss did not fall: {train}")
+    if tuple(k for k in levers if not k.startswith("_")) != PROXY_LEVERS or not all(
+            math.isfinite(v) for name in PROXY_LEVERS for v in levers[name].values()):
+        raise AssertionError(f"quality proxy: lever rows {levers}")
+    if levers["_gt_decoder_ter_pct"] != PROXY_GT_TER_PCT:
+        raise AssertionError(f"quality proxy: ground-truth decoder TER "
+                             f"{levers['_gt_decoder_ter_pct']} != the JAX package's "
+                             f"{PROXY_GT_TER_PCT}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return expected
+
+
 def k2_sass_check(lib: Path) -> None:
-    """Every gated_adaln_kernel instantiation of the built K2/K5 library
-    moves its rows in 128-bit global loads and stores and none in 16-bit
-    ones (cuobjdump -sass, beside nvcc)."""
+    """Every gated_adaln_kernel instantiation (bf16 and fp32) of the built
+    K2/K5 library moves its rows in 128-bit global loads and stores and none
+    in 16-bit ones (cuobjdump -sass, beside nvcc)."""
     from f5e_tts_tpu_torch.kernels import _build
 
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    seen = []
+    seen = {"bf16": [], "fp32": []}
     for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
-        found = re.search(r"gated_adaln_kernelILi(\d+)E", fn)
+        found = re.search(r"gated_adaln_kernelILi(\d+)E(f|13__nv_bfloat16)", fn)
         if not found:
             continue
+        v, dtype = int(found.group(1)), "fp32" if found.group(2) == "f" else "bf16"
         ops = {op: len(re.findall(pat, body)) for op, pat in (
             ("LDG.E.128", r"\bLDG\.E\.128\b"), ("STG.E.128", r"\bSTG\.E\.128\b"),
             ("LDG.E.U16", r"\bLDG\.E\.U16\b"), ("16-bit global", r"\b[LS]TG\.E\.[US]?16\b"),
             ("BAR.SYNC", r"\bBAR\.SYNC\b"), ("SHFL", r"\bSHFL\."))}
-        log(f"[build] gated_adaln_kernel V={found.group(1)} SASS: {ops}")
+        log(f"[build] gated_adaln_kernel V={v} {dtype} SASS: {ops}")
         if ops["LDG.E.128"] == 0 or ops["STG.E.128"] == 0 or ops["16-bit global"]:
-            raise AssertionError(f"gated_adaln_kernel V={found.group(1)}: not 128-bit only {ops}")
-        seen.append(int(found.group(1)))
-    if sorted(seen) != [1, 2, 3, 4, 8, 16]:
-        raise AssertionError(f"gated_adaln_kernel instantiations {sorted(seen)} in the SASS")
+            raise AssertionError(f"gated_adaln_kernel V={v} {dtype}: not 128-bit only {ops}")
+        seen[dtype].append(v)
+    if any(sorted(vs) != [1, 2, 3, 4, 8, 16] for vs in seen.values()):
+        raise AssertionError(f"gated_adaln_kernel instantiations {seen} in the SASS")
 
 
 def main() -> int:
@@ -4224,6 +4611,7 @@ def main() -> int:
     from f5e_tts_tpu_torch.kernels import attention as ka
     from f5e_tts_tpu_torch.kernels import gated_adaln as ga
     from f5e_tts_tpu_torch.kernels import rope_attention as ra
+    from f5e_tts_tpu_torch.ops import attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4237,7 +4625,7 @@ def main() -> int:
     log(f"[build] {len(libs)} kernel libraries built in {time.perf_counter() - t_start:.1f} s")
     build_report(libs, ra)
     k2_sass_check(libs["gated_adaln"])
-    register_counters(ra, ga, ka)
+    register_counters(ra, ga, ka, fa)
     swaps = plain_swaps(ra, ga, ka)
     byte_model = lambda cfg: dataclasses.replace(cfg, tokenizer="byte", vocab_size=256)  # noqa: E731
     runs: dict = {}  # path -> {counter: launches in one run of it}
@@ -4268,6 +4656,10 @@ def main() -> int:
                                         gated_adaln=DEPTH, gated_adaln_bwd=DEPTH),
         updates=4, warmup=1, resume=True, keep=teacher))
     phase("gradients", lambda: gradient_phase(swaps))
+    # fp32 compute: the fp32 kernels through losses and gradients, a v1
+    # training step and the trainer's sample hook
+    runs.update(phase("fp32 training", lambda: fp32_training_phase(v1)))
+    runs.update(phase("fp32 gradients", lambda: fp32_gradient_phase(swaps)))
 
     # MMDiT: K7 in synthesis, K9/K10 in training, K7/K8 through a masked loss
     with torch.inference_mode():
@@ -4379,6 +4771,9 @@ def main() -> int:
         smoke / "harness", student, utmos))
     del utmos
     shutil.rmtree(smoke / "distill", ignore_errors=True)
+    # the quality proxy: train, distil and score the serving levers (fp32,
+    # head width 32: K2/K5 in fp32, attention outside the kernels)
+    runs["quality_proxy"] = phase("quality proxy", lambda: proxy_phase(smoke / "proxy"))
 
     # which paths launched each kernel, and how often in one run of the path
     paths = {name: {p: c[name] for p, c in runs.items() if c[name]} for name in COUNTERS}
@@ -4389,6 +4784,7 @@ def main() -> int:
     with torch.inference_mode():
         rows.append(adaln_phase(ga, paths["gated_adaln"]))
     rows.append(adaln_bwd_phase(ga, paths["gated_adaln_bwd"], splits[2]))
+    rows += phase("fp32 kernels", lambda: fp32_rows((ra, ka), ga, paths))
     log(f"[total] {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -21,7 +21,7 @@
 //   are written once. Mean and variance are warp shuffles, the variance as
 //   mean((x - mean)^2) over the register-resident row, as the TPU kernel.
 // - Every load and store is one 128-bit access, unpacked and packed by bit
-//   operations on the vector's four words (unpack8_words, pack8_words): a
+//   operations on the vector's four words (Vec<T>::unpack, pack): a
 //   bf16 pointer into a vector makes nvcc issue eight 16-bit accesses.
 // - gate, scale and shift belong to the sample, not the row: a block's
 //   warps all work on rows of one sample (grid (row groups, B)), and the
@@ -60,7 +60,7 @@
 //   warp has a row (8 KB at D = 1024) in flight, ~64 KB an SM; y is read
 //   from device memory once. A lane reads back only what it copied itself,
 //   so the wait for its own copies is its only synchronisation, and it reads
-//   each vector back as one 128-bit load (unpack8_words). gate and scale
+//   each vector back as one 128-bit load (Vec<T>::unpack). gate and scale
 //   belong to the sample, not the row: they are loaded once per block.
 // - Up to V = 4 a lane keeps its columns' three sums in registers across its
 //   rows, and a row's new_x while it works on it; above, the sums live in
@@ -88,31 +88,49 @@
 
 namespace {
 
-constexpr int kVec = 8;          // bf16 values per 16-byte vector
 constexpr int kMaxDevices = 64;  // devices whose launch plans are cached
 
-// bf16 -> fp32 of a 16-byte vector by bit operations on its four words: a
-// vector stays one 128-bit load (through a pointer to its bf16 elements
-// nvcc issues eight 16-bit loads)
-__device__ __forceinline__ void unpack8_words(const uint4 v, float (&f)[kVec]) {
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    f[2 * j] = __uint_as_float(w[j] << 16);
-    f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-  }
-}
-
-// fp32 -> bf16 (round to nearest even) of 8 values into one 16-byte vector,
-// element 2j in the low half of word j, as unpack8_words reads it
+// fp32 -> bf16 (round to nearest even) of two values as one word, lo in the
+// low half
 __device__ __forceinline__ unsigned pack2(float lo, float hi) {
   return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
          (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
 }
 
-__device__ __forceinline__ uint4 pack8_words(const float (&f)[kVec]) {
-  return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]), pack2(f[6], f[7]));
-}
+// A 16-byte vector of T as kVec fp32 values, and back, by bit operations on
+// its four words: a vector stays one 128-bit access (through a pointer to
+// its bf16 elements nvcc issues eight 16-bit loads)
+template <class T>
+struct Vec;
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int kVec = 8;  // element 2j in the low half of word j
+  static __device__ __forceinline__ void unpack(const uint4 v, float (&f)[kVec]) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      f[2 * j] = __uint_as_float(w[j] << 16);
+      f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[kVec]) {
+    return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]), pack2(f[6], f[7]));
+  }
+};
+
+template <>
+struct Vec<float> {
+  static constexpr int kVec = 4;
+  static __device__ __forceinline__ void unpack(const uint4 v, float (&f)[kVec]) {
+    f[0] = __uint_as_float(v.x), f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z), f[3] = __uint_as_float(v.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[kVec]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  }
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -126,13 +144,14 @@ constexpr int kFwdWarps = 8;     // warps of a block
 constexpr int kFwdMinRows = 2;   // rows a warp at least, where N allows
 constexpr int kFwdAheadMaxV = 4;  // up to this V a warp loads its next row ahead
 
+template <class T>
 struct FwdArgs {
-  const __nv_bfloat16* x;  // (B, N, D)
-  const __nv_bfloat16* y;
-  const __nv_bfloat16* mod[3];  // gate, scale, shift: row b at mod[k] + b * mod_stride[k]
+  const T* x;  // (B, N, D)
+  const T* y;
+  const T* mod[3];  // gate, scale, shift: row b at mod[k] + b * mod_stride[k]
   long long mod_stride[3];
-  __nv_bfloat16* new_x;  // (B, N, D)
-  __nv_bfloat16* out;
+  T* new_x;  // (B, N, D)
+  T* out;
   int n, d;
   float eps;
 };
@@ -144,9 +163,10 @@ struct FwdArgs {
 // row's x and y are loaded during this row's reductions; above, the row's
 // 8V values a lane of new_x fill the registers (V = 16: 128), and each row
 // is loaded when its turn comes.
-template <int V, bool kAhead = (V <= kFwdAheadMaxV)>
+template <int V, class T, bool kAhead = (V <= kFwdAheadMaxV)>
 __global__ void __launch_bounds__(kFwdWarps * 32) gated_adaln_kernel(
-    const __grid_constant__ FwdArgs a) {
+    const __grid_constant__ FwdArgs<T> a) {
+  constexpr int kVec = Vec<T>::kVec;
   __shared__ uint4 mod[3][V * 32];  // the sample's gate, scale, shift vectors
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   const int nv = a.d / kVec;
@@ -154,7 +174,7 @@ __global__ void __launch_bounds__(kFwdWarps * 32) gated_adaln_kernel(
   const uint4 zero = make_uint4(0, 0, 0, 0);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const __nv_bfloat16* row = a.mod[k] + b * a.mod_stride[k];
+    const T* row = a.mod[k] + b * a.mod_stride[k];
     for (int v = threadIdx.x; v < V * 32; v += blockDim.x) {
       mod[k][v] = v < nv ? *reinterpret_cast<const uint4*>(row + v * kVec) : zero;
     }
@@ -188,9 +208,9 @@ __global__ void __launch_bounds__(kFwdWarps * 32) gated_adaln_kernel(
 #pragma unroll
     for (int c = 0; c < V; ++c) {
       float xf[kVec], yf[kVec], gf[kVec];
-      unpack8_words(xr[c], xf);
-      unpack8_words(yr[c], yf);
-      unpack8_words(mod[0][c * 32 + lane], gf);
+      Vec<T>::unpack(xr[c], xf);
+      Vec<T>::unpack(yr[c], yf);
+      Vec<T>::unpack(mod[0][c * 32 + lane], gf);
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
         h[c][i] = xf[i] + gf[i] * yf[i];
@@ -217,12 +237,12 @@ __global__ void __launch_bounds__(kFwdWarps * 32) gated_adaln_kernel(
       const int v = c * 32 + lane;
       if (v < nv) {
         float sf[kVec], hf[kVec], of[kVec];
-        unpack8_words(mod[1][v], sf);
-        unpack8_words(mod[2][v], hf);
+        Vec<T>::unpack(mod[1][v], sf);
+        Vec<T>::unpack(mod[2][v], hf);
 #pragma unroll
         for (int i = 0; i < kVec; ++i) of[i] = (h[c][i] - mean) * rstd * (1.f + sf[i]) + hf[i];
-        *reinterpret_cast<uint4*>(a.new_x + base + v * kVec) = pack8_words(h[c]);
-        *reinterpret_cast<uint4*>(a.out + base + v * kVec) = pack8_words(of);
+        *reinterpret_cast<uint4*>(a.new_x + base + v * kVec) = Vec<T>::pack(h[c]);
+        *reinterpret_cast<uint4*>(a.out + base + v * kVec) = Vec<T>::pack(of);
       }
       if constexpr (kAhead) {
         xr[c] = xn[c];
@@ -234,7 +254,7 @@ __global__ void __launch_bounds__(kFwdWarps * 32) gated_adaln_kernel(
 
 // Blocks of K2 with V vectors a lane that the current device holds at once
 // (SM count times the kernel's occupancy), asked once a device and V.
-template <int V>
+template <int V, class T>
 cudaError_t fwd_slots(int& slots) {
   static int cache[kMaxDevices];
   static std::mutex mu;
@@ -247,7 +267,7 @@ cudaError_t fwd_slots(int& slots) {
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gated_adaln_kernel<V>,
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gated_adaln_kernel<V, T>,
                                                           kFwdWarps * 32, 0);
     }
     if (err != cudaSuccess) return err;
@@ -260,27 +280,29 @@ cudaError_t fwd_slots(int& slots) {
 // K2 on (batch, a.n, a.d): G blocks a sample, as many as fill the card's
 // resident blocks once, with kFwdMinRows rows a warp at least where N allows
 // (one above V = 4, where a warp loads no row ahead and few warps fit an SM).
-template <int V>
-cudaError_t fwd_launch(const FwdArgs& a, int batch, cudaStream_t s) {
+template <int V, class T>
+cudaError_t fwd_launch(const FwdArgs<T>& a, int batch, cudaStream_t s) {
   int slots = 0;
-  const cudaError_t err = fwd_slots<V>(slots);
+  const cudaError_t err = fwd_slots<V, T>(slots);
   if (err != cudaSuccess) return err;
   const int per_block = kFwdWarps * (V <= kFwdAheadMaxV ? kFwdMinRows : 1);
   const int groups = std::max(1, std::min((a.n + per_block - 1) / per_block, slots / batch));
-  gated_adaln_kernel<V><<<dim3(groups, batch), kFwdWarps * 32, 0, s>>>(a);
+  gated_adaln_kernel<V, T><<<dim3(groups, batch), kFwdWarps * 32, 0, s>>>(a);
   return cudaGetLastError();
 }
 
-// V = ceil(D / 256) vectors a lane, rounded up to 8 or 16 above 4 (D <= 4096).
-cudaError_t fwd_launch_any(const FwdArgs& a, int batch, cudaStream_t s) {
-  const int need = (a.d / kVec + 31) / 32;
+// V = ceil(D / (32 kVec)) vectors a lane, rounded up to 8 or 16 above 4
+// (at most 16: the width rule).
+template <class T>
+cudaError_t fwd_launch_any(const FwdArgs<T>& a, int batch, cudaStream_t s) {
+  const int need = (a.d / Vec<T>::kVec + 31) / 32;
   switch (need <= 4 ? need : (need <= 8 ? 8 : 16)) {
-    case 1: return fwd_launch<1>(a, batch, s);
-    case 2: return fwd_launch<2>(a, batch, s);
-    case 3: return fwd_launch<3>(a, batch, s);
-    case 4: return fwd_launch<4>(a, batch, s);
-    case 8: return fwd_launch<8>(a, batch, s);
-    default: return fwd_launch<16>(a, batch, s);
+    case 1: return fwd_launch<1, T>(a, batch, s);
+    case 2: return fwd_launch<2, T>(a, batch, s);
+    case 3: return fwd_launch<3, T>(a, batch, s);
+    case 4: return fwd_launch<4, T>(a, batch, s);
+    case 8: return fwd_launch<8, T>(a, batch, s);
+    default: return fwd_launch<16, T>(a, batch, s);
   }
 }
 
@@ -289,15 +311,23 @@ cudaError_t fwd_launch_any(const FwdArgs& a, int batch, cudaStream_t s) {
 constexpr int kBwdStages = 2;    // staged rows a warp: the one it works on + one in flight
 constexpr int kBwdMaxWarps = 8;  // warps of a block, where shared memory allows
 constexpr int kBwdTensors = 4;   // x, y, g_out, g_newx, staged in this order
-constexpr int kBwdRegsMaxV = 4;  // up to this V the column sums stay in registers
+constexpr int kBwdRegsMaxValues = 32;  // up to this many a lane the column sums stay in registers
 
+// Whether a lane of K5 keeps its columns' sums (and a row's new_x) in
+// registers: V vectors of T are V * kVec values.
+template <int V, class T>
+__host__ __device__ constexpr bool bwd_regs() {
+  return V * Vec<T>::kVec <= kBwdRegsMaxValues;
+}
+
+template <class T>
 struct BwdArgs {
-  const __nv_bfloat16* src[kBwdTensors];  // x, y, g_out, g_newx: (B, N, D)
-  const __nv_bfloat16* gate;
-  const __nv_bfloat16* scale;
+  const T* src[kBwdTensors];  // x, y, g_out, g_newx: (B, N, D)
+  const T* gate;
+  const T* scale;
   long long gate_stride, scale_stride;
-  __nv_bfloat16* dx;
-  __nv_bfloat16* dy;
+  T* dx;
+  T* dy;
   float* partial;  // (B, gridDim.x, 3, D)
   int n, d;
   float eps;
@@ -331,21 +361,22 @@ __device__ __forceinline__ float2 warp_sum2(float a, float b) {
 }
 
 // Sum k (0 dgate, 1 dscale, 2 dshift) of vector c of this lane += v: in
-// registers, or in the lane's float4 slots [k][c][half] (32 apart, one per
-// lane, so a warp's accesses do not conflict).
-template <int V, bool kRegs = (V <= kBwdRegsMaxV)>
+// registers, or in the lane's float4 slots [k][c][quarter] (kVec / 4 of them
+// a vector, 32 apart, one per lane, so a warp's accesses do not conflict).
+template <int V, int kVec, bool kRegs>
 __device__ __forceinline__ void add_sums(float (&acc)[kRegs ? 3 : 1][kRegs ? V : 1][kVec],
                                          float4* my_sums, int k, int c, const float (&v)[kVec]) {
   if constexpr (kRegs) {
 #pragma unroll
     for (int i = 0; i < kVec; ++i) acc[k][c][i] += v[i];
   } else {
-    float4* p = my_sums + (k * V + c) * 64;
-    float4 lo = p[0], hi = p[32];
-    lo.x += v[0], lo.y += v[1], lo.z += v[2], lo.w += v[3];
-    hi.x += v[4], hi.y += v[5], hi.z += v[6], hi.w += v[7];
-    p[0] = lo;
-    p[32] = hi;
+    float4* p = my_sums + (k * V + c) * (kVec / 4) * 32;
+#pragma unroll
+    for (int q = 0; q < kVec / 4; ++q) {
+      float4 t = p[q * 32];
+      t.x += v[4 * q], t.y += v[4 * q + 1], t.z += v[4 * q + 2], t.w += v[4 * q + 3];
+      p[q * 32] = t;
+    }
   }
 }
 
@@ -353,15 +384,17 @@ __device__ __forceinline__ void add_sums(float (&acc)[kRegs ? 3 : 1][kRegs ? V :
 // g*W + w, then every G*W-th, of sample b. Lane l holds the 16-byte vectors
 // c*32 + l (c < V) of a row. Dynamic shared memory: gate and scale [2][V*32]
 // uint4, each warp's ring [kBwdStages][kBwdTensors][V][32] uint4, and with
-// kRegs false each warp's sums [3][V][2][32] float4 (with kRegs true the sums
-// take the ring's place after the row loop).
-template <int V>
+// kRegs false each warp's sums [3][V][kVec/4][32] float4 (with kRegs true the
+// sums take the ring's place after the row loop).
+template <int V, class T>
 __global__ void __launch_bounds__(kBwdMaxWarps * 32, 1) gated_adaln_bwd_kernel(
-    const __grid_constant__ BwdArgs a) {
-  constexpr bool kRegs = V <= kBwdRegsMaxV;
+    const __grid_constant__ BwdArgs<T> a) {
+  constexpr int kVec = Vec<T>::kVec;
+  constexpr int kQuads = kVec / 4;  // float4s of sums a vector
+  constexpr bool kRegs = bwd_regs<V, T>();
   extern __shared__ uint4 smem[];
   constexpr int kRow = kBwdTensors * V * 32;  // uint4 slots of one warp's staged row
-  constexpr int kSums = 3 * V * 2 * 32;       // float4 slots of one warp's sums
+  constexpr int kSums = 3 * V * kQuads * 32;  // float4 slots of one warp's sums
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   const int nv = a.d / kVec;
   const int group = blockIdx.x;
@@ -374,8 +407,7 @@ __global__ void __launch_bounds__(kBwdMaxWarps * 32, 1) gated_adaln_bwd_kernel(
 
   for (int i = threadIdx.x; i < 2 * V * 32; i += blockDim.x) {
     const int v = i % (V * 32);
-    const __nv_bfloat16* row = i < V * 32 ? a.gate + b * a.gate_stride
-                                          : a.scale + b * a.scale_stride;
+    const T* row = i < V * 32 ? a.gate + b * a.gate_stride : a.scale + b * a.scale_stride;
     mod[i] = v < nv ? *reinterpret_cast<const uint4*>(row + v * kVec) : make_uint4(0, 0, 0, 0);
   }
   float acc[kRegs ? 3 : 1][kRegs ? V : 1][kVec];
@@ -430,9 +462,9 @@ __global__ void __launch_bounds__(kBwdMaxWarps * 32, 1) gated_adaln_bwd_kernel(
         for (int i = 0; i < kVec; ++i) nx[i] = held[c][i];
       } else {
         float xf[kVec], yf[kVec], gf[kVec];
-        unpack8_words(cur[c * 32], xf);
-        unpack8_words(cur[(V + c) * 32], yf);
-        unpack8_words(mod[c * 32 + lane], gf);
+        Vec<T>::unpack(cur[c * 32], xf);
+        Vec<T>::unpack(cur[(V + c) * 32], yf);
+        Vec<T>::unpack(mod[c * 32 + lane], gf);
 #pragma unroll
         for (int i = 0; i < kVec; ++i) nx[i] = xf[i] + gf[i] * yf[i];
       }
@@ -445,9 +477,9 @@ __global__ void __launch_bounds__(kBwdMaxWarps * 32, 1) gated_adaln_bwd_kernel(
 #pragma unroll
     for (int c = 0; c < V; ++c) {
       float xf[kVec], yf[kVec], gf[kVec];
-      unpack8_words(cur[c * 32], xf);
-      unpack8_words(cur[(V + c) * 32], yf);
-      unpack8_words(mod[c * 32 + lane], gf);
+      Vec<T>::unpack(cur[c * 32], xf);
+      Vec<T>::unpack(cur[(V + c) * 32], yf);
+      Vec<T>::unpack(mod[c * 32 + lane], gf);
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
         const float nx = xf[i] + gf[i] * yf[i];
@@ -474,8 +506,8 @@ __global__ void __launch_bounds__(kBwdMaxWarps * 32, 1) gated_adaln_bwd_kernel(
     for (int c = 0; c < V; ++c) {
       float xh[kVec], go[kVec], sf[kVec], gx[kVec];
       new_x(c, xh);
-      unpack8_words(cur[(2 * V + c) * 32], go);
-      unpack8_words(mod[(V + c) * 32 + lane], sf);
+      Vec<T>::unpack(cur[(2 * V + c) * 32], go);
+      Vec<T>::unpack(mod[(V + c) * 32 + lane], sf);
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
         xh[i] = (xh[i] - mean) * r;
@@ -484,8 +516,8 @@ __global__ void __launch_bounds__(kBwdMaxWarps * 32, 1) gated_adaln_bwd_kernel(
         s2 += dxh * xh[i];
         gx[i] = go[i] * xh[i];
       }
-      add_sums<V>(acc, my_sums, 1, c, gx);
-      add_sums<V>(acc, my_sums, 2, c, go);
+      add_sums<V, kVec, kRegs>(acc, my_sums, 1, c, gx);
+      add_sums<V, kVec, kRegs>(acc, my_sums, 2, c, go);
     }
     const float2 m = warp_sum2(s1, s2);
     const float m1 = m.x / a.d, m2 = m.y / a.d;
@@ -494,11 +526,11 @@ __global__ void __launch_bounds__(kBwdMaxWarps * 32, 1) gated_adaln_bwd_kernel(
       float nx[kVec], go[kVec], sf[kVec], gn[kVec], yf[kVec], gf[kVec];
       float dxo[kVec], dyo[kVec], dg[kVec];
       new_x(c, nx);
-      unpack8_words(cur[(2 * V + c) * 32], go);
-      unpack8_words(cur[(3 * V + c) * 32], gn);
-      unpack8_words(cur[(V + c) * 32], yf);
-      unpack8_words(mod[(V + c) * 32 + lane], sf);
-      unpack8_words(mod[c * 32 + lane], gf);
+      Vec<T>::unpack(cur[(2 * V + c) * 32], go);
+      Vec<T>::unpack(cur[(3 * V + c) * 32], gn);
+      Vec<T>::unpack(cur[(V + c) * 32], yf);
+      Vec<T>::unpack(mod[(V + c) * 32 + lane], sf);
+      Vec<T>::unpack(mod[c * 32 + lane], gf);
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
         const float xhat = (nx[i] - mean) * r;
@@ -507,11 +539,11 @@ __global__ void __launch_bounds__(kBwdMaxWarps * 32, 1) gated_adaln_bwd_kernel(
         dyo[i] = dnx * gf[i];
         dg[i] = dnx * yf[i];
       }
-      add_sums<V>(acc, my_sums, 0, c, dg);
+      add_sums<V, kVec, kRegs>(acc, my_sums, 0, c, dg);
       const int v = c * 32 + lane;
       if (v < nv) {
-        *reinterpret_cast<uint4*>(a.dx + base + v * kVec) = pack8_words(dxo);
-        *reinterpret_cast<uint4*>(a.dy + base + v * kVec) = pack8_words(dyo);
+        *reinterpret_cast<uint4*>(a.dx + base + v * kVec) = Vec<T>::pack(dxo);
+        *reinterpret_cast<uint4*>(a.dy + base + v * kVec) = Vec<T>::pack(dyo);
       }
     }
   }
@@ -524,18 +556,21 @@ __global__ void __launch_bounds__(kBwdMaxWarps * 32, 1) gated_adaln_bwd_kernel(
 #pragma unroll
       for (int c = 0; c < V; ++c) {
         const float* s = acc[k][c];
-        my_sums[(k * V + c) * 64] = make_float4(s[0], s[1], s[2], s[3]);
-        my_sums[(k * V + c) * 64 + 32] = make_float4(s[4], s[5], s[6], s[7]);
+#pragma unroll
+        for (int q = 0; q < kQuads; ++q)
+          my_sums[((k * V + c) * kQuads + q) * 32] =
+              make_float4(s[4 * q], s[4 * q + 1], s[4 * q + 2], s[4 * q + 3]);
       }
     }
   }
   __syncthreads();
-  // float4 i of the block's (3, D) partial: sum k = i / (2 nv), vector
-  // v = (i / 2) % nv, half i % 2; the warps' sums added in warp order
+  // float4 i of the block's (3, D) partial: sum k = i / (kQuads nv), vector
+  // v = (i / kQuads) % nv, quarter i % kQuads; the warps' sums added in warp
+  // order
   float4* out = reinterpret_cast<float4*>(a.partial + (b * gridDim.x + group) * 3LL * a.d);
-  for (int i = threadIdx.x; i < 6 * nv; i += blockDim.x) {
-    const int k = i / (2 * nv), v = (i >> 1) % nv;
-    const int slot = ((k * V + v / 32) * 2 + (i & 1)) * 32 + v % 32;
+  for (int i = threadIdx.x; i < 3 * kQuads * nv; i += blockDim.x) {
+    const int k = i / (kQuads * nv), v = (i / kQuads) % nv;
+    const int slot = ((k * V + v / 32) * kQuads + i % kQuads) * 32 + v % 32;
     float4 s = sums[slot];
     for (int w = 1; w < warps; ++w) {
       const float4 t = sums[w * kSums + slot];
@@ -545,14 +580,22 @@ __global__ void __launch_bounds__(kBwdMaxWarps * 32, 1) gated_adaln_bwd_kernel(
   }
 }
 
-// Pass 2 of K5: out_k[b, col] = bf16(sum over groups of partial[b, g, k, col])
+// The four sums of one thread of pass 2 as T at `out`.
+__device__ __forceinline__ void store4(__nv_bfloat16* out, float4 s) {
+  __nv_bfloat162 pair[2] = {__floats2bfloat162_rn(s.x, s.y), __floats2bfloat162_rn(s.z, s.w)};
+  *reinterpret_cast<uint2*>(out) = *reinterpret_cast<const uint2*>(pair);
+}
+__device__ __forceinline__ void store4(float* out, float4 s) {
+  *reinterpret_cast<float4*>(out) = s;
+}
+
+// Pass 2 of K5: out_k[b, col] = T(sum over groups of partial[b, g, k, col])
 // for k = 0 (dgate), 1 (dscale), 2 (dshift), the groups added in order. One
 // thread per 4 columns of one sum; its loads do not wait on the adds.
+template <class T>
 __global__ void gated_adaln_bwd_reduce_kernel(const float* __restrict__ partial, int batch,
-                                              int groups, int d,
-                                              __nv_bfloat16* __restrict__ dgate,
-                                              __nv_bfloat16* __restrict__ dscale,
-                                              __nv_bfloat16* __restrict__ dshift) {
+                                              int groups, int d, T* __restrict__ dgate,
+                                              T* __restrict__ dscale, T* __restrict__ dshift) {
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int quads = d / 4;
   if (idx >= 3LL * batch * quads) return;
@@ -573,12 +616,10 @@ __global__ void gated_adaln_bwd_reduce_kernel(const float* __restrict__ partial,
       if (g0 + j < groups) s.x += t[j].x, s.y += t[j].y, s.z += t[j].z, s.w += t[j].w;
     }
   }
-  __nv_bfloat16* out = (k == 0 ? dgate : (k == 1 ? dscale : dshift)) + b * d + col;
-  __nv_bfloat162 pair[2] = {__floats2bfloat162_rn(s.x, s.y), __floats2bfloat162_rn(s.z, s.w)};
-  *reinterpret_cast<uint2*>(out) = *reinterpret_cast<const uint2*>(pair);
+  store4((k == 0 ? dgate : (k == 1 ? dscale : dshift)) + b * d + col, s);
 }
 
-// Launch plan of pass 1 with V vectors a lane on one device.
+// Launch plan of pass 1 with V vectors of T a lane on one device.
 struct BwdPlan {
   int warps;  // warps of a block; 0 until planned
   int slots;  // blocks the card runs at once
@@ -587,7 +628,7 @@ struct BwdPlan {
 
 // The plan for the current device, worked out (and the kernel's shared-memory
 // limit raised) on its first call there, then read from a cache.
-template <int V>
+template <int V, class T>
 cudaError_t bwd_plan(BwdPlan& plan) {
   static BwdPlan cache[kMaxDevices];
   static std::mutex mu;
@@ -598,9 +639,9 @@ cudaError_t bwd_plan(BwdPlan& plan) {
   std::lock_guard<std::mutex> lock(mu);
   BwdPlan& p = cache[dev];
   if (p.warps == 0) {
-    constexpr bool kRegs = V <= kBwdRegsMaxV;
+    constexpr bool kRegs = bwd_regs<V, T>();
     const size_t per_warp = sizeof(uint4) * kBwdStages * kBwdTensors * V * 32 +
-                            (kRegs ? 0 : sizeof(float4) * 3 * V * 2 * 32);
+                            (kRegs ? 0 : sizeof(float4) * 3 * V * (Vec<T>::kVec / 4) * 32);
     const size_t mod_bytes = sizeof(uint4) * 2 * V * 32;
     int sms = 0, max_smem = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -612,10 +653,10 @@ cudaError_t bwd_plan(BwdPlan& plan) {
         std::min<size_t>(kBwdMaxWarps, (static_cast<size_t>(max_smem) - mod_bytes) / per_warp));
     if (warps < 1) return cudaErrorInvalidValue;
     const int smem = static_cast<int>(mod_bytes + warps * per_warp);
-    err = cudaFuncSetAttribute(gated_adaln_bwd_kernel<V>,
+    err = cudaFuncSetAttribute(gated_adaln_bwd_kernel<V, T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gated_adaln_bwd_kernel<V>,
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gated_adaln_bwd_kernel<V, T>,
                                                           warps * 32, smem);
     }
     if (err != cudaSuccess) return err;
@@ -629,119 +670,168 @@ cudaError_t bwd_plan(BwdPlan& plan) {
 // Without `a`, stores the plan's blocks a sample in `groups`: as many as fill
 // the card's block slots once, with a row for every warp at least. With `a`,
 // launches pass 1 on `s` with the `groups` the caller sized the partials for.
-template <int V>
-cudaError_t bwd_pass1(int batch, int n, int& groups, const BwdArgs* a, cudaStream_t s) {
+template <int V, class T>
+cudaError_t bwd_pass1(int batch, int n, int& groups, const BwdArgs<T>* a, cudaStream_t s) {
   BwdPlan plan;
-  const cudaError_t err = bwd_plan<V>(plan);
+  const cudaError_t err = bwd_plan<V, T>(plan);
   if (err != cudaSuccess) return err;
   if (a == nullptr) {
     groups = std::max(1, std::min(plan.slots / batch, (n + plan.warps - 1) / plan.warps));
     return cudaSuccess;
   }
   if (groups < 1) return cudaErrorInvalidValue;
-  gated_adaln_bwd_kernel<V><<<dim3(groups, batch), plan.warps * 32, plan.smem, s>>>(*a);
+  gated_adaln_bwd_kernel<V, T><<<dim3(groups, batch), plan.warps * 32, plan.smem, s>>>(*a);
   return cudaGetLastError();
 }
 
-// Pass 1 at V = ceil(D / 256) vectors a lane, rounded up to 8 or 16 above 4
-// (D <= 4096).
-cudaError_t bwd_pass1_any(int batch, int n, int d, int& groups, const BwdArgs* a = nullptr,
+// Pass 1 at V = ceil(D / (32 kVec)) vectors a lane, rounded up to 8 or 16
+// above 4 (at most 16: the width rule).
+template <class T>
+cudaError_t bwd_pass1_any(int batch, int n, int d, int& groups, const BwdArgs<T>* a = nullptr,
                           cudaStream_t s = nullptr) {
-  const int need = (d / kVec + 31) / 32;
+  const int need = (d / Vec<T>::kVec + 31) / 32;
   switch (need <= 4 ? need : (need <= 8 ? 8 : 16)) {
-    case 1: return bwd_pass1<1>(batch, n, groups, a, s);
-    case 2: return bwd_pass1<2>(batch, n, groups, a, s);
-    case 3: return bwd_pass1<3>(batch, n, groups, a, s);
-    case 4: return bwd_pass1<4>(batch, n, groups, a, s);
-    case 8: return bwd_pass1<8>(batch, n, groups, a, s);
-    default: return bwd_pass1<16>(batch, n, groups, a, s);
+    case 1: return bwd_pass1<1, T>(batch, n, groups, a, s);
+    case 2: return bwd_pass1<2, T>(batch, n, groups, a, s);
+    case 3: return bwd_pass1<3, T>(batch, n, groups, a, s);
+    case 4: return bwd_pass1<4, T>(batch, n, groups, a, s);
+    case 8: return bwd_pass1<8, T>(batch, n, groups, a, s);
+    default: return bwd_pass1<16, T>(batch, n, groups, a, s);
   }
 }
 
-bool bwd_shape_ok(int batch, int n, int d) {
-  return d > 0 && d % kVec == 0 && d <= 4096 && batch > 0 && n > 0;
+// The width rule: D a whole number of 16-byte vectors, at most 16 of them a
+// lane (D <= 4096 in bf16, 2048 in fp32).
+template <class T>
+bool width_ok(int d) {
+  return d > 0 && d % Vec<T>::kVec == 0 && d <= 16 * 32 * Vec<T>::kVec;
+}
+
+template <class T>
+int fwd_entry(const void* x, const void* y, const void* gate, const void* scale,
+              const void* shift, long long gate_stride, long long scale_stride,
+              long long shift_stride, void* new_x, void* out, int rows, int n, int d, float eps,
+              void* stream) {
+  if (!width_ok<T>(d) || n <= 0 || rows <= 0 || rows % n != 0 || rows / n > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  FwdArgs<T> a;
+  a.x = static_cast<const T*>(x);
+  a.y = static_cast<const T*>(y);
+  a.mod[0] = static_cast<const T*>(gate);
+  a.mod[1] = static_cast<const T*>(scale);
+  a.mod[2] = static_cast<const T*>(shift);
+  a.mod_stride[0] = gate_stride;
+  a.mod_stride[1] = scale_stride;
+  a.mod_stride[2] = shift_stride;
+  a.new_x = static_cast<T*>(new_x);
+  a.out = static_cast<T*>(out);
+  a.n = n;
+  a.d = d;
+  a.eps = eps;
+  return static_cast<int>(fwd_launch_any<T>(a, rows / n, static_cast<cudaStream_t>(stream)));
+}
+
+template <class T>
+int bwd_groups_entry(int batch, int n, int d) {
+  int groups = 0;
+  if (!width_ok<T>(d) || batch <= 0 || n <= 0) return -static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = bwd_pass1_any<T>(batch, n, d, groups);
+  return err == cudaSuccess ? groups : -static_cast<int>(err);
+}
+
+template <class T>
+int bwd_entry(const void* x, const void* y, const void* gate, const void* scale,
+              long long gate_stride, long long scale_stride, const void* g_newx,
+              const void* g_out, void* dx, void* dy, void* partial, int groups, void* dgate,
+              void* dscale, void* dshift, int batch, int n, int d, float eps, void* stream) {
+  if (!width_ok<T>(d) || batch <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs<T> a;
+  a.src[0] = static_cast<const T*>(x);
+  a.src[1] = static_cast<const T*>(y);
+  a.src[2] = static_cast<const T*>(g_out);
+  a.src[3] = static_cast<const T*>(g_newx);
+  a.gate = static_cast<const T*>(gate);
+  a.scale = static_cast<const T*>(scale);
+  a.gate_stride = gate_stride;
+  a.scale_stride = scale_stride;
+  a.dx = static_cast<T*>(dx);
+  a.dy = static_cast<T*>(dy);
+  a.partial = static_cast<float*>(partial);
+  a.n = n;
+  a.d = d;
+  a.eps = eps;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = bwd_pass1_any<T>(batch, n, d, groups, &a, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long threads = 3LL * batch * (d / 4);
+  gated_adaln_bwd_reduce_kernel<T><<<static_cast<int>((threads + 63) / 64), 64, 0, s>>>(
+      static_cast<const float*>(partial), batch, groups, d, static_cast<T*>(dgate),
+      static_cast<T*>(dscale), static_cast<T*>(dshift));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // rows = B * N, B <= 65535. Pointers are device pointers; x, y, new_x, out
-// are (B, N, D) contiguous; gate/scale/shift rows start `*_stride` elements
-// apart. D must be a multiple of 8 and at most 4096, and every pointer and
-// stride 16-byte aligned (the Python wrapper checks). Returns
+// are (B, N, D) contiguous bf16; gate/scale/shift rows start `*_stride`
+// elements apart. D must be a multiple of 8 and at most 4096, and every
+// pointer and stride 16-byte aligned (the Python wrapper checks). Returns
 // cudaGetLastError().
 extern "C" int gated_adaln_fwd(const void* x, const void* y, const void* gate,
                                const void* scale, const void* shift, long long gate_stride,
                                long long scale_stride, long long shift_stride, void* new_x,
                                void* out, int rows, int n, int d, float eps, void* stream) {
-  if (d <= 0 || d % kVec != 0 || d > 4096 || n <= 0 || rows <= 0 || rows % n != 0 ||
-      rows / n > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  typedef const __nv_bfloat16* cb;
-  FwdArgs a;
-  a.x = static_cast<cb>(x);
-  a.y = static_cast<cb>(y);
-  a.mod[0] = static_cast<cb>(gate);
-  a.mod[1] = static_cast<cb>(scale);
-  a.mod[2] = static_cast<cb>(shift);
-  a.mod_stride[0] = gate_stride;
-  a.mod_stride[1] = scale_stride;
-  a.mod_stride[2] = shift_stride;
-  a.new_x = static_cast<__nv_bfloat16*>(new_x);
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.n = n;
-  a.d = d;
-  a.eps = eps;
-  return static_cast<int>(fwd_launch_any(a, rows / n, static_cast<cudaStream_t>(stream)));
+  return fwd_entry<__nv_bfloat16>(x, y, gate, scale, shift, gate_stride, scale_stride,
+                                  shift_stride, new_x, out, rows, n, d, eps, stream);
+}
+
+// gated_adaln_fwd for fp32 operands: D a multiple of 4, at most 2048.
+extern "C" int gated_adaln_fwd_f32(const void* x, const void* y, const void* gate,
+                                   const void* scale, const void* shift, long long gate_stride,
+                                   long long scale_stride, long long shift_stride, void* new_x,
+                                   void* out, int rows, int n, int d, float eps, void* stream) {
+  return fwd_entry<float>(x, y, gate, scale, shift, gate_stride, scale_stride, shift_stride,
+                          new_x, out, rows, n, d, eps, stream);
 }
 
 // Blocks a sample of K5's first pass on the current device for this shape:
 // the caller allocates the fp32 partials (B, groups, 3, D) and passes the
 // count back. Returns -(CUDA error) on failure.
 extern "C" int gated_adaln_bwd_groups(int batch, int n, int d) {
-  int groups = 0;
-  if (!bwd_shape_ok(batch, n, d)) return -static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = bwd_pass1_any(batch, n, d, groups);
-  return err == cudaSuccess ? groups : -static_cast<int>(err);
+  return bwd_groups_entry<__nv_bfloat16>(batch, n, d);
 }
 
-// K5. x, y, g_newx, g_out, dx, dy are (B, N, D) contiguous; gate/scale rows
-// start `*_stride` elements apart; partial is fp32 (B, groups, 3, D) for
+extern "C" int gated_adaln_bwd_groups_f32(int batch, int n, int d) {
+  return bwd_groups_entry<float>(batch, n, d);
+}
+
+// K5. x, y, g_newx, g_out, dx, dy are (B, N, D) contiguous bf16; gate/scale
+// rows start `*_stride` elements apart; partial is fp32 (B, groups, 3, D) for
 // groups >= 1 blocks a sample (gated_adaln_bwd_groups(B, N, D) gives the count
-// that fills the card once); dgate/dscale/dshift are (B, D)
-// contiguous. D must be a multiple of 8 and at most 4096, every pointer and
-// stride 16-byte aligned. Launches both passes; returns cudaGetLastError()
-// after them.
+// that fills the card once); dgate/dscale/dshift are (B, D) contiguous bf16.
+// D must be a multiple of 8 and at most 4096, every pointer and stride
+// 16-byte aligned. Launches both passes; returns cudaGetLastError() after
+// them.
 extern "C" int gated_adaln_bwd(const void* x, const void* y, const void* gate,
                                const void* scale, long long gate_stride,
                                long long scale_stride, const void* g_newx, const void* g_out,
                                void* dx, void* dy, void* partial, int groups, void* dgate,
                                void* dscale, void* dshift, int batch, int n, int d, float eps,
                                void* stream) {
-  if (!bwd_shape_ok(batch, n, d)) return static_cast<int>(cudaErrorInvalidValue);
-  typedef const __nv_bfloat16* cb;
-  typedef __nv_bfloat16* mb;
-  BwdArgs a;
-  a.src[0] = static_cast<cb>(x);
-  a.src[1] = static_cast<cb>(y);
-  a.src[2] = static_cast<cb>(g_out);
-  a.src[3] = static_cast<cb>(g_newx);
-  a.gate = static_cast<cb>(gate);
-  a.scale = static_cast<cb>(scale);
-  a.gate_stride = gate_stride;
-  a.scale_stride = scale_stride;
-  a.dx = static_cast<mb>(dx);
-  a.dy = static_cast<mb>(dy);
-  a.partial = static_cast<float*>(partial);
-  a.n = n;
-  a.d = d;
-  a.eps = eps;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bwd_pass1_any(batch, n, d, groups, &a, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long threads = 3LL * batch * (d / 4);
-  gated_adaln_bwd_reduce_kernel<<<static_cast<int>((threads + 63) / 64), 64, 0, s>>>(
-      static_cast<const float*>(partial), batch, groups, d, static_cast<mb>(dgate),
-      static_cast<mb>(dscale), static_cast<mb>(dshift));
-  return static_cast<int>(cudaGetLastError());
+  return bwd_entry<__nv_bfloat16>(x, y, gate, scale, gate_stride, scale_stride, g_newx, g_out,
+                                  dx, dy, partial, groups, dgate, dscale, dshift, batch, n, d,
+                                  eps, stream);
+}
+
+// gated_adaln_bwd for fp32 operands and outputs (gated_adaln_bwd_groups_f32
+// gives the groups): D a multiple of 4, at most 2048.
+extern "C" int gated_adaln_bwd_f32(const void* x, const void* y, const void* gate,
+                                   const void* scale, long long gate_stride,
+                                   long long scale_stride, const void* g_newx,
+                                   const void* g_out, void* dx, void* dy, void* partial,
+                                   int groups, void* dgate, void* dscale, void* dshift,
+                                   int batch, int n, int d, float eps, void* stream) {
+  return bwd_entry<float>(x, y, gate, scale, gate_stride, scale_stride, g_newx, g_out, dx, dy,
+                          partial, groups, dgate, dscale, dshift, batch, n, d, eps, stream);
 }

@@ -14,15 +14,17 @@
 // it are live again.
 
 #include "attention_core.cuh"
+#include "attention_fp32.cuh"
 
-// Forward: the pre-pass (q' into the head-major scratch qs), then the
-// main kernel, on `stream`. Operands as `Operands` in the header, without
-// cos/sin; returns cudaGetLastError() after the launches.
+// Forward (bf16 operands, or fp32 ones with `fp32` set: attention_fp32.cuh):
+// the pre-pass (q' into the head-major scratch qs), then the main kernel, on
+// `stream`. Operands as `Operands` in the header, without cos/sin; returns
+// cudaGetLastError() after the launches.
 extern "C" int joint_attention_fwd(const void* q, const void* k, const void* v, long long q_bs,
                           long long q_rs, long long k_bs, long long k_rs, long long v_bs,
                           long long v_rs, const void* audio_lens, int n_audio, void* out,
                           void* row_max, void* row_linv, void* qs, int batch, int n,
-                          int heads, int dh, float sm_scale, void* stream) {
+                          int heads, int dh, float sm_scale, int fp32, void* stream) {
   Operands a = {};
   a.q = q, a.k = k, a.v = v;
   a.q_bs = q_bs, a.q_rs = q_rs, a.k_bs = k_bs, a.k_rs = k_rs, a.v_bs = v_bs, a.v_rs = v_rs;
@@ -31,19 +33,19 @@ extern "C" int joint_attention_fwd(const void* q, const void* k, const void* v, 
   a.out = out, a.row_max = row_max, a.row_linv = row_linv, a.qs = qs;
   a.batch = batch, a.n = n, a.heads = heads, a.dh = dh;
   a.sm_scale = sm_scale, a.stream = static_cast<cudaStream_t>(stream);
-  return attention_forward<JointAttn>(a);
+  return fp32 ? attention_forward_f32<JointAttn>(a) : attention_forward<JointAttn>(a);
 }
 
-// Backward: the pre-pass (q' into the head-major scratch qs, and delta),
-// the dq kernel, then the dkdv kernel, on `stream`; returns
-// cudaGetLastError() after them.
+// Backward (bf16, or fp32 with `fp32` set): the pre-pass (q' into the head-
+// major scratch qs, and delta), the dq kernel, then the dkdv kernel, on
+// `stream`; returns cudaGetLastError() after them.
 extern "C" int joint_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                           const void* o, long long q_bs, long long q_rs, long long k_bs,
                           long long k_rs, long long v_bs, long long v_rs, long long g_bs,
                           long long g_rs, long long o_bs, long long o_rs, const void* audio_lens,
                           int n_audio, const void* row_max, const void* row_linv, void* qs,
                           void* delta, void* dq, void* dk, void* dv, int batch, int n, int heads,
-                          int dh, float sm_scale, void* stream) {
+                          int dh, float sm_scale, int fp32, void* stream) {
   Operands a = {};
   a.q = q, a.k = k, a.v = v, a.g = g, a.o = o;
   a.q_bs = q_bs, a.q_rs = q_rs, a.k_bs = k_bs, a.k_rs = k_rs, a.v_bs = v_bs, a.v_rs = v_rs;
@@ -54,5 +56,5 @@ extern "C" int joint_attention_bwd(const void* q, const void* k, const void* v, 
   a.qs = qs, a.delta = delta, a.dq = dq, a.dk = dk, a.dv = dv;
   a.batch = batch, a.n = n, a.heads = heads, a.dh = dh;
   a.sm_scale = sm_scale, a.stream = static_cast<cudaStream_t>(stream);
-  return attention_backward<JointAttn>(a);
+  return fp32 ? attention_backward_f32<JointAttn>(a) : attention_backward<JointAttn>(a);
 }

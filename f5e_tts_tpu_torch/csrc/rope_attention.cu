@@ -14,16 +14,18 @@
 // _attn_bwd_rope_kernel) and mha_packed_rope_bwd (K11b) likewise.
 
 #include "attention_core.cuh"
+#include "attention_fp32.cuh"
 
-// Forward: the pre-pass (q' and k' into the head-major scratch qs, ks), then
-// the main kernel, on `stream`. Operands as `Operands` in the header;
-// returns cudaGetLastError() after the launches.
+// Forward (bf16 operands, or fp32 ones with `fp32` set: attention_fp32.cuh):
+// the pre-pass (q' and k' into the head-major scratch qs, ks), then the main
+// kernel, on `stream`. Operands as `Operands` in the header; returns
+// cudaGetLastError() after the launches.
 extern "C" int rope_attention_fwd(const void* q, const void* k, const void* v, long long q_bs,
                                   long long q_rs, long long k_bs, long long k_rs, long long v_bs,
                                   long long v_rs, const void* kv_lens, const void* cos,
                                   const void* sin, void* out, void* row_max, void* row_linv,
                                   void* qs, void* ks, int batch, int n, int heads, int dh,
-                                  int rope_heads, float sm_scale, void* stream) {
+                                  int rope_heads, float sm_scale, int fp32, void* stream) {
   Operands a = {};
   a.q = q, a.k = k, a.v = v;
   a.q_bs = q_bs, a.q_rs = q_rs, a.k_bs = k_bs, a.k_rs = k_rs, a.v_bs = v_bs, a.v_rs = v_rs;
@@ -31,12 +33,12 @@ extern "C" int rope_attention_fwd(const void* q, const void* k, const void* v, l
   a.out = out, a.row_max = row_max, a.row_linv = row_linv, a.qs = qs, a.ks = ks;
   a.batch = batch, a.n = n, a.heads = heads, a.dh = dh, a.rope_heads = rope_heads;
   a.sm_scale = sm_scale, a.stream = static_cast<cudaStream_t>(stream);
-  return attention_forward<RopeAttn>(a);
+  return fp32 ? attention_forward_f32<RopeAttn>(a) : attention_forward<RopeAttn>(a);
 }
 
-// Backward: the pre-pass (q' and k' into the head-major scratch qs, ks, and
-// delta), the dq kernel, then the dkdv kernel, on `stream`; returns
-// cudaGetLastError() after them.
+// Backward (bf16, or fp32 with `fp32` set): the pre-pass (q' and k' into the
+// head-major scratch qs, ks, and delta), the dq kernel, then the dkdv kernel,
+// on `stream`; returns cudaGetLastError() after them.
 extern "C" int rope_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                   const void* o, long long q_bs, long long q_rs, long long k_bs,
                                   long long k_rs, long long v_bs, long long v_rs, long long g_bs,
@@ -45,7 +47,7 @@ extern "C" int rope_attention_bwd(const void* q, const void* k, const void* v, c
                                   const void* row_max, const void* row_linv, void* qs,
                                   void* ks, void* delta, void* dq, void* dk, void* dv, int batch,
                                   int n, int heads, int dh, int rope_heads, float sm_scale,
-                                  void* stream) {
+                                  int fp32, void* stream) {
   Operands a = {};
   a.q = q, a.k = k, a.v = v, a.g = g, a.o = o;
   a.q_bs = q_bs, a.q_rs = q_rs, a.k_bs = k_bs, a.k_rs = k_rs, a.v_bs = v_bs, a.v_rs = v_rs;
@@ -55,7 +57,7 @@ extern "C" int rope_attention_bwd(const void* q, const void* k, const void* v, c
   a.qs = qs, a.ks = ks, a.delta = delta, a.dq = dq, a.dk = dk, a.dv = dv;
   a.batch = batch, a.n = n, a.heads = heads, a.dh = dh, a.rope_heads = rope_heads;
   a.sm_scale = sm_scale, a.stream = static_cast<cudaStream_t>(stream);
-  return attention_backward<RopeAttn>(a);
+  return fp32 ? attention_backward_f32<RopeAttn>(a) : attention_backward<RopeAttn>(a);
 }
 
 // Dynamic shared memory of the forward's main kernel (kernel 0), the

@@ -14,9 +14,11 @@ them and how they are built) in `csrc/masked_attention.cu` and
 `csrc/joint_attention.cu`; this module checks and lays out the operands,
 launches them on PyTorch's current stream, and counts the launches in
 `masked_launches` (K9), `masked_bwd_launches` (K10), `joint_launches` (K7)
-and `joint_bwd_launches` (K8).
+and `joint_bwd_launches` (K8); launches on fp32 operands (the fp32 kernels
+of `csrc/attention_fp32.cuh`) count apart, in the `fp32_` counters.
 
-Contract: q, k, v (B, N, H, dh); sm_scale = 1/sqrt(dh) folded into q in fp32
+Contract: q, k, v (B, N, H, dh), bf16 or fp32 (the TPU kernels take any
+element type; in fp32 every rounding point below is the identity); sm_scale = 1/sqrt(dh) folded into q in fp32
 and rounded to q's dtype; masked scores -1e30; P rounded to q's dtype before
 P.V; normalisation by max(l, 1e-30) after it in fp32. Output (B, N, H, dh) in
 q's dtype.
@@ -44,6 +46,11 @@ masked_launches = 0  # K9 kernel launches since the caller last set it to 0
 masked_bwd_launches = 0  # K10
 joint_launches = 0  # K7
 joint_bwd_launches = 0  # K8
+fp32_masked_launches = 0  # K9 on fp32 operands
+fp32_masked_bwd_launches = 0  # K10 on fp32 operands
+fp32_joint_launches = 0  # K7 on fp32 operands
+fp32_joint_bwd_launches = 0  # K8 on fp32 operands
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -184,8 +191,9 @@ def kernel_operand(x: torch.Tensor) -> torch.Tensor:
     """x itself when the kernel can read it through (batch, row) strides:
     contiguous heads and last axis, 16-byte aligned rows; else a copy."""
     b, n, h, dh = x.shape
-    ok = (x.stride(3) == 1 and x.stride(2) == dh and x.stride(1) % 8 == 0
-          and x.stride(0) % 8 == 0 and x.data_ptr() % 16 == 0)
+    vec = 16 // x.element_size()
+    ok = (x.stride(3) == 1 and x.stride(2) == dh and x.stride(1) % vec == 0
+          and x.stride(0) % vec == 0 and x.data_ptr() % 16 == 0)
     return x if ok else x.contiguous()
 
 
@@ -195,8 +203,9 @@ def check_operands(name: str, q, others, lens) -> None:
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dim() != 4 or any(t.shape != q.shape for t in others):
         raise ValueError(f"{name}: operand shapes differ: {[tuple(t.shape) for t in (q, *others)]}")
-    if any(t.dtype != torch.bfloat16 for t in (q, *others)):
-        raise ValueError(f"{name} kernel takes bf16 operands, got {q.dtype}")
+    if q.dtype not in KERNEL_DTYPES or any(t.dtype != q.dtype for t in others):
+        raise ValueError(f"{name} kernel takes bf16 or fp32 operands of one dtype, got "
+                         f"{[t.dtype for t in (q, *others)]}")
     if q.shape[-1] not in (64, 128):
         raise ValueError(f"{name} kernel takes dh in (64, 128), got {q.shape[-1]}")
     if lens.shape != (q.shape[0],):
@@ -220,11 +229,11 @@ def strides(*tensors) -> list:
 
 def prep_scratch(q: torch.Tensor, rotated: int, delta: bool = False):
     """What a kernel's pre-pass writes, for either direction: q' and, where
-    RoPE is compiled in (rotated = 2), k', head-major (B, H, N, dh) bf16
-    views of one buffer; then delta, fp32 (B, H, N), for the backward
+    RoPE is compiled in (rotated = 2), k', head-major (B, H, N, dh) views of
+    one buffer in q's dtype; then delta, fp32 (B, H, N), for the backward
     (`delta`), else None."""
     b, n, h, dh = q.shape
-    rot = torch.empty((rotated, b, h, n, dh), dtype=torch.bfloat16, device=q.device)
+    rot = torch.empty((rotated, b, h, n, dh), dtype=q.dtype, device=q.device)
     return (*rot.unbind(0),
             torch.empty((b, h, n), dtype=torch.float32, device=q.device) if delta else None)
 
@@ -233,16 +242,22 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def is_fp32(t: torch.Tensor) -> int:
+    """The entry points' `fp32` flag: 1 to launch the fp32 kernels."""
+    return int(t.dtype == torch.float32)
+
+
 @functools.cache
 def _lib(name: str) -> ctypes.CDLL:
     """The library of `masked_attention` or `joint_attention`, its two entry
-    points typed. The joint one takes n_audio after the lengths."""
+    points typed. The joint one takes n_audio after the lengths; both take
+    the `fp32` flag before the stream."""
     lib = _build.library(name)
     p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     extra = [i] if name == "joint_attention" else []
     fwd, bwd = getattr(lib, f"{name}_fwd"), getattr(lib, f"{name}_bwd")
-    fwd.argtypes = [p, p, p] + [ll] * 6 + [p] + extra + [p, p, p, p, i, i, i, i, f, p]
-    bwd.argtypes = [p] * 5 + [ll] * 10 + [p] + extra + [p] * 7 + [i, i, i, i, f, p]
+    fwd.argtypes = [p, p, p] + [ll] * 6 + [p] + extra + [p, p, p, p, i, i, i, i, f, i, p]
+    bwd.argtypes = [p] * 5 + [ll] * 10 + [p] + extra + [p] * 7 + [i, i, i, i, f, i, p]
     fwd.restype = bwd.restype = i
     return lib
 
@@ -252,7 +267,7 @@ def _forward(name: str, q, k, v, lens, n_audio: Optional[int], return_stats: boo
     b, n, h, dh = q.shape
     q, k, v = (kernel_operand(t) for t in (q, k, v))
     lens = lens.to(torch.int32).contiguous()
-    out = torch.empty((b, n, h, dh), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty((b, n, h, dh), dtype=q.dtype, device=q.device)
     stats = None
     if return_stats:
         stats = tuple(torch.empty((b, h, n), dtype=torch.float32, device=q.device)
@@ -263,7 +278,7 @@ def _forward(name: str, q, k, v, lens, n_audio: Optional[int], return_stats: boo
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides(q, k, v), lens.data_ptr(), *extra,
         out.data_ptr(), stats[0].data_ptr() if stats else None,
         stats[1].data_ptr() if stats else None, qs.data_ptr(), b, n, h, dh,
-        1.0 / math.sqrt(dh), stream(q))
+        1.0 / math.sqrt(dh), is_fp32(q), stream(q))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out, stats
@@ -277,7 +292,7 @@ def _backward(name: str, q, k, v, lens, n_audio: Optional[int], g, out, stats):
     b, n, h, dh = q.shape
     q, k, v, g, out = (kernel_operand(t) for t in (q, k, v, g, out))
     lens = lens.to(torch.int32).contiguous()
-    dq, dk, dv = (torch.empty((b, n, h, dh), dtype=torch.bfloat16, device=q.device)
+    dq, dk, dv = (torch.empty((b, n, h, dh), dtype=q.dtype, device=q.device)
                   for _ in range(3))
     qs, delta = prep_scratch(q, 1, delta=True)
     extra = [] if n_audio is None else [int(n_audio)]
@@ -285,7 +300,7 @@ def _backward(name: str, q, k, v, lens, n_audio: Optional[int], g, out, stats):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(),
         *strides(q, k, v, g, out), lens.data_ptr(), *extra, stats[0].data_ptr(),
         stats[1].data_ptr(), qs.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, n, h, dh, 1.0 / math.sqrt(dh), stream(q))
+        dv.data_ptr(), b, n, h, dh, 1.0 / math.sqrt(dh), is_fp32(q), stream(q))
     if err != 0:
         raise RuntimeError(f"{name}_bwd kernel launch failed: CUDA error {err}")
     return dq, dk, dv
@@ -299,16 +314,19 @@ def _backward(name: str, q, k, v, lens, n_audio: Optional[int], g, out, stats):
 def masked_attention(q, k, v, kv_lens, return_stats: bool = False):
     """K9: softmax(q k^T / sqrt(dh), column < kv_len) v, (B, N, H, dh).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (bf16,
-    dh in {64, 128}) or raise. With `return_stats`, returns (out, stats): the
-    kernel's (row max, row 1/sum) pair, fp32 (B, H, N) each, that K10 takes,
-    or None on the CPU. Not differentiable: see `MaskedAttention`."""
-    global masked_launches
+    CPU tensors take the plain version; CUDA tensors launch the kernel (bf16
+    or fp32, dh in {64, 128}) or raise. With `return_stats`, returns (out,
+    stats): the kernel's (row max, row 1/sum) pair, fp32 (B, H, N) each, that
+    K10 takes, or None on the CPU. Not differentiable: see `MaskedAttention`."""
+    global masked_launches, fp32_masked_launches
     if q.device.type == "cpu":
         out, stats = masked_attention_plain(q, k, v, kv_lens), None
     else:
         out, stats = _forward("masked_attention", q, k, v, kv_lens, None, return_stats)
-        masked_launches += 1
+        if is_fp32(q):
+            fp32_masked_launches += 1
+        else:
+            masked_launches += 1
     return (out, stats) if return_stats else out
 
 
@@ -316,11 +334,14 @@ def masked_attention_bwd(q, k, v, kv_lens, g, out=None, stats=None):
     """K10: (dq, dk, dv) of `masked_attention` for the output cotangent g. CPU
     tensors take the plain version, which recomputes everything; CUDA tensors
     launch the kernel, which also takes K9's output and `stats`, or raise."""
-    global masked_bwd_launches
+    global masked_bwd_launches, fp32_masked_bwd_launches
     if q.device.type == "cpu":
         return masked_attention_bwd_plain(q, k, v, kv_lens, g)
     grads = _backward("masked_attention", q, k, v, kv_lens, None, g, out, stats)
-    masked_bwd_launches += 1
+    if is_fp32(q):
+        fp32_masked_bwd_launches += 1
+    else:
+        masked_bwd_launches += 1
     return grads
 
 
@@ -333,24 +354,30 @@ def joint_attention_core(q, k, v, audio_lens, n_audio: int, return_stats: bool =
     """K7: attention over keys [audio | text], column valid iff c < audio_len
     or c >= n_audio, (B, N, H, dh) with N = n_audio + text length. Devices,
     `return_stats` and differentiability as `masked_attention`."""
-    global joint_launches
+    global joint_launches, fp32_joint_launches
     _check_n_audio(n_audio, q.shape[1])
     if q.device.type == "cpu":
         out, stats = joint_attention_core_plain(q, k, v, audio_lens, n_audio), None
     else:
         out, stats = _forward("joint_attention", q, k, v, audio_lens, n_audio, return_stats)
-        joint_launches += 1
+        if is_fp32(q):
+            fp32_joint_launches += 1
+        else:
+            joint_launches += 1
     return (out, stats) if return_stats else out
 
 
 def joint_attention_core_bwd(q, k, v, audio_lens, n_audio: int, g, out=None, stats=None):
     """K8: (dq, dk, dv) of `joint_attention_core`; as `masked_attention_bwd`."""
-    global joint_bwd_launches
+    global joint_bwd_launches, fp32_joint_bwd_launches
     _check_n_audio(n_audio, q.shape[1])
     if q.device.type == "cpu":
         return joint_attention_core_bwd_plain(q, k, v, audio_lens, n_audio, g)
     grads = _backward("joint_attention", q, k, v, audio_lens, n_audio, g, out, stats)
-    joint_bwd_launches += 1
+    if is_fp32(q):
+        fp32_joint_bwd_launches += 1
+    else:
+        joint_bwd_launches += 1
     return grads
 
 

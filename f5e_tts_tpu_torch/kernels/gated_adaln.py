@@ -5,13 +5,17 @@ Ports of f5e_tts_tpu/ops/pallas_norm.py: _gated_adaln_fwd_impl (K2) and
 _gated_adaln_bwd_impl (K5). The kernels are in `csrc/gated_adaln.cu` (its
 header says what bounds them and how they are built); this module checks
 the operands, launches them on PyTorch's current stream and counts the
-launches in `launches` (K2) and `bwd_launches` (K5).
+launches in `launches` (K2) and `bwd_launches` (K5) for bf16 operands, and in
+`fp32_launches` and `fp32_bwd_launches` for fp32 ones (a model run with
+compute_dtype float32; the TPU kernels take any element type).
 
     new_x = x + gate * y
     out   = LayerNorm(new_x; eps 1e-6, no affine) * (1 + scale) + shift
 
 x, y (B, N, D); gate/scale/shift (B, D); fp32 math; both outputs in x's
-dtype, with `out` computed from the fp32 new_x. `GatedAdaLN.apply` is the
+dtype, with `out` computed from the fp32 new_x. Widths: D % 8 == 0 and
+D <= 4096 in bf16, D % 4 == 0 and D <= 2048 in fp32 (a lane holds at most
+16 vectors of 16 bytes). `GatedAdaLN.apply` is the
 differentiable form the DiT block calls.
 """
 
@@ -26,8 +30,12 @@ import torch
 from f5e_tts_tpu_torch.kernels import _build
 
 EPS = 1e-6
-launches = 0  # K2 kernel launches since the caller last set it to 0
-bwd_launches = 0  # K5 kernel launches since the caller last set it to 0
+launches = 0  # K2 kernel launches on bf16 operands since the caller last set it to 0
+bwd_launches = 0  # K5 kernel launches on bf16 operands since the caller last set it to 0
+fp32_launches = 0  # K2 launches on fp32 operands
+fp32_bwd_launches = 0  # K5 launches on fp32 operands
+# the dtypes the kernels take: (entry-point suffix, largest D)
+KERNEL_DTYPES = {torch.bfloat16: ("", 4096), torch.float32: ("_f32", 2048)}
 
 
 def _math_dtype(t: torch.Tensor) -> torch.dtype:
@@ -72,18 +80,20 @@ def gated_adaln_bwd_plain(x, y, gate, scale, g_newx, g_out):
 def _lib() -> ctypes.CDLL:
     lib = _build.library("gated_adaln")
     p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    lib.gated_adaln_fwd.argtypes = [p, p, p, p, p, ll, ll, ll, p, p, i, i, i, f, p]
-    lib.gated_adaln_fwd.restype = i
-    lib.gated_adaln_bwd.argtypes = [p, p, p, p, ll, ll, p, p, p, p, p, i, p, p, p, i, i, i, f, p]
-    lib.gated_adaln_bwd.restype = i
-    lib.gated_adaln_bwd_groups.argtypes = [i, i, i]
-    lib.gated_adaln_bwd_groups.restype = i
+    for suffix, _ in KERNEL_DTYPES.values():
+        fwd, bwd = getattr(lib, f"gated_adaln_fwd{suffix}"), getattr(lib, f"gated_adaln_bwd{suffix}")
+        groups = getattr(lib, f"gated_adaln_bwd_groups{suffix}")
+        fwd.argtypes = [p, p, p, p, p, ll, ll, ll, p, p, i, i, i, f, p]
+        bwd.argtypes = [p, p, p, p, ll, ll, p, p, p, p, p, i, p, p, p, i, i, i, f, p]
+        groups.argtypes = [i, i, i]
+        fwd.restype = bwd.restype = groups.restype = i
     return lib
 
 
 def _row_operand(t: torch.Tensor) -> torch.Tensor:
     """A (B, D) modulation row read through its row stride when aligned."""
-    ok = t.stride(1) == 1 and t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0
+    ok = (t.stride(1) == 1 and t.stride(0) * t.element_size() % 16 == 0
+          and t.data_ptr() % 16 == 0)
     return t if ok else t.contiguous()
 
 
@@ -96,10 +106,13 @@ def _check(name: str, big, rows) -> None:
     if any(t.shape != x.shape for t in big) or any(t.shape != (b, d) for t in rows):
         raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in (*big, *rows)]} do not match "
                          f"(B, N, D) = {tuple(x.shape)} and (B, D)")
-    if any(t.dtype != torch.bfloat16 for t in (*big, *rows)):
-        raise ValueError(f"{name} kernel takes bf16 operands")
-    if d % 8 or d > 4096:
-        raise ValueError(f"{name} kernel takes D % 8 == 0 and D <= 4096, got {d}")
+    if x.dtype not in KERNEL_DTYPES or any(t.dtype != x.dtype for t in (*big, *rows)):
+        raise ValueError(f"{name} kernel takes bf16 or fp32 operands of one dtype, got "
+                         f"{[t.dtype for t in (*big, *rows)]}")
+    vec, widest = 16 // x.element_size(), KERNEL_DTYPES[x.dtype][1]
+    if d % vec or d > widest:
+        raise ValueError(f"{name} kernel takes D % {vec} == 0 and D <= {widest} in {x.dtype}, "
+                         f"got {d}")
     if b > 65535:
         raise ValueError(f"{name} kernel takes B <= 65535 (its grid's second axis), got {b}")
     if any(t.device != x.device for t in (*big, *rows)):
@@ -108,9 +121,10 @@ def _check(name: str, big, rows) -> None:
 
 def gated_adaln(x, y, gate, scale, shift) -> Tuple[torch.Tensor, torch.Tensor]:
     """(new_x, out) of the gated residual + AdaLN (K2). CPU tensors take the
-    plain version; CUDA tensors launch the kernel (bf16, D % 8 == 0,
-    D <= 4096, B <= 65535) or raise. Not differentiable: see `GatedAdaLN`."""
-    global launches
+    plain version; CUDA tensors launch the kernel (bf16 or fp32, the widths
+    of the module's docstring, B <= 65535) or raise. Not differentiable: see
+    `GatedAdaLN`."""
+    global launches, fp32_launches
     if x.device.type == "cpu":
         return gated_adaln_plain(x, y, gate, scale, shift)
     _check("gated_adaln", (x, y), (gate, scale, shift))
@@ -119,44 +133,52 @@ def gated_adaln(x, y, gate, scale, shift) -> Tuple[torch.Tensor, torch.Tensor]:
     gate, scale, shift = (_row_operand(t) for t in (gate, scale, shift))
     new_x = torch.empty_like(x)
     out = torch.empty_like(x)
-    err = _lib().gated_adaln_fwd(
+    suffix = KERNEL_DTYPES[x.dtype][0]
+    err = getattr(_lib(), f"gated_adaln_fwd{suffix}")(
         x.data_ptr(), y.data_ptr(), gate.data_ptr(), scale.data_ptr(), shift.data_ptr(),
         gate.stride(0), scale.stride(0), shift.stride(0), new_x.data_ptr(), out.data_ptr(),
         b * n, n, d, EPS, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gated_adaln kernel launch failed: CUDA error {err}")
-    launches += 1
+    if suffix:
+        fp32_launches += 1
+    else:
+        launches += 1
     return new_x, out
 
 
 def gated_adaln_bwd(x, y, gate, scale, g_newx, g_out):
     """(dx, dy, dgate, dscale, dshift) of the gated residual + AdaLN (K5).
-    CPU tensors take the plain version; CUDA tensors launch the kernel (bf16,
-    D % 8 == 0, D <= 4096) or raise."""
-    global bwd_launches
+    CPU tensors take the plain version; CUDA tensors launch the kernel (bf16
+    or fp32, the widths of the module's docstring) or raise."""
+    global bwd_launches, fp32_bwd_launches
     if x.device.type == "cpu":
         return gated_adaln_bwd_plain(x, y, gate, scale, g_newx, g_out)
     _check("gated_adaln_bwd", (x, y, g_newx, g_out), (gate, scale))
     b, n, d = x.shape
     x, y, g_newx, g_out = (t.contiguous() for t in (x, y, g_newx, g_out))
     gate, scale = _row_operand(gate), _row_operand(scale)
-    lib = _lib()
-    groups = lib.gated_adaln_bwd_groups(b, n, d)  # blocks a sample: from the card's SM count
+    lib, suffix = _lib(), KERNEL_DTYPES[x.dtype][0]
+    # blocks a sample: from the card's SM count
+    groups = getattr(lib, f"gated_adaln_bwd_groups{suffix}")(b, n, d)
     if groups <= 0:
         raise RuntimeError(f"gated_adaln_bwd: planning the launch failed: CUDA error {-groups}")
     dx, dy = torch.empty_like(x), torch.empty_like(y)
     # fp32 partial column sums of each block of rows, added in order by pass 2
     partial = torch.empty((b, groups, 3, d), dtype=torch.float32, device=x.device)
-    dgate, dscale, dshift = (torch.empty((b, d), dtype=torch.bfloat16, device=x.device)
+    dgate, dscale, dshift = (torch.empty((b, d), dtype=x.dtype, device=x.device)
                              for _ in range(3))
-    err = lib.gated_adaln_bwd(
+    err = getattr(lib, f"gated_adaln_bwd{suffix}")(
         x.data_ptr(), y.data_ptr(), gate.data_ptr(), scale.data_ptr(), gate.stride(0),
         scale.stride(0), g_newx.data_ptr(), g_out.data_ptr(), dx.data_ptr(), dy.data_ptr(),
         partial.data_ptr(), groups, dgate.data_ptr(), dscale.data_ptr(), dshift.data_ptr(), b, n,
         d, EPS, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gated_adaln_bwd kernel launch failed: CUDA error {err}")
-    bwd_launches += 1
+    if suffix:
+        fp32_bwd_launches += 1
+    else:
+        bwd_launches += 1
     return dx, dy, dgate, dscale, dshift
 
 

@@ -16,7 +16,9 @@ K/V sat in VMEM; here one kernel serves them all:
 The kernels are the RoPE instantiation of `csrc/attention_core.cuh` in
 `csrc/rope_attention.cu` (the header says what bounds them and how they are
 built); this module checks and lays out the operands and launches them on
-PyTorch's current stream.
+PyTorch's current stream. On fp32 operands it launches the fp32 kernels of
+`csrc/attention_fp32.cuh` and counts them apart: `fp32_launches`,
+`fp32_bwd_launches`, `fp32_partial_launches`, `fp32_partial_bwd_launches`.
 
 Contract: q, k, v (B, N, H, dh), kv_lens (B,) int; key column c is valid
 iff c < kv_len; cos/sin (>= N, dh) fp32 half-split tables; RoPE on heads
@@ -36,13 +38,17 @@ import torch
 from f5e_tts_tpu_torch.kernels import _build
 from f5e_tts_tpu_torch.kernels.attention import (attention_prep_plain, check_operands,
                                                  check_stats, core_bwd_plain, core_plain,
-                                                 kernel_operand, prefix_valid, prep_scratch,
-                                                 stream, strides)
+                                                 is_fp32, kernel_operand, prefix_valid,
+                                                 prep_scratch, stream, strides)
 
 launches = 0  # K1: launches with RoPE on all or none of the heads since last set to 0
 bwd_launches = 0  # K4: backward launches, likewise
 partial_launches = 0  # K3: launches with 0 < rope_heads < H
 partial_bwd_launches = 0  # K6: backward launches, likewise
+fp32_launches = 0  # the four above, on fp32 operands
+fp32_bwd_launches = 0
+fp32_partial_launches = 0
+fp32_partial_bwd_launches = 0
 
 
 def rope_attention_plain(q, k, v, kv_lens, cos, sin, rope_heads: int) -> torch.Tensor:
@@ -66,9 +72,10 @@ def rope_attention_bwd_plain(q, k, v, kv_lens, cos, sin, g, rope_heads: int):
 def _lib() -> ctypes.CDLL:
     lib = _build.library("rope_attention")
     p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    lib.rope_attention_fwd.argtypes = [p, p, p, ll, ll, ll, ll, ll, ll] + [p] * 8 + [i] * 5 + [f, p]
+    lib.rope_attention_fwd.argtypes = [p, p, p, ll, ll, ll, ll, ll, ll] + [p] * 8 + [i] * 5 + [
+        f, i, p]
     lib.rope_attention_fwd.restype = i
-    lib.rope_attention_bwd.argtypes = [p, p, p, p, p] + [ll] * 10 + [p] * 11 + [i] * 5 + [f, p]
+    lib.rope_attention_bwd.argtypes = [p, p, p, p, p] + [ll] * 10 + [p] * 11 + [i] * 5 + [f, i, p]
     lib.rope_attention_bwd.restype = i
     lib.attention_smem.argtypes = [i, i]
     lib.attention_smem.restype = i
@@ -97,13 +104,13 @@ def _partial(rope_heads: int, heads: int) -> bool:
 def rope_attention(q, k, v, kv_lens, cos, sin, rope_heads: int, return_stats: bool = False):
     """softmax(rot(q) rot(k)^T / sqrt(dh), key-length mask) v, (B, N, H, dh).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (bf16,
-    dh in {64, 128}) or raise. With `return_stats`, returns (out, stats):
+    CPU tensors take the plain version; CUDA tensors launch the kernel (bf16
+    or fp32, dh in {64, 128}) or raise. With `return_stats`, returns (out, stats):
     stats is the kernel's (row max, row 1/sum) pair, fp32 (B, H, N) each, that
     the backward takes, or None on the CPU. Not differentiable: see
     `RopeAttention`.
     """
-    global launches, partial_launches
+    global launches, partial_launches, fp32_launches, fp32_partial_launches
     if q.device.type == "cpu":
         out = rope_attention_plain(q, k, v, kv_lens, cos, sin, rope_heads)
         return (out, None) if return_stats else out
@@ -111,7 +118,7 @@ def rope_attention(q, k, v, kv_lens, cos, sin, rope_heads: int, return_stats: bo
     b, n, h, dh = q.shape
     q, k, v = (kernel_operand(t) for t in (q, k, v))
     kv_lens, cos, sin = _tables(kv_lens, cos, sin, n)
-    out = torch.empty((b, n, h, dh), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty((b, n, h, dh), dtype=q.dtype, device=q.device)
     stats = None
     if return_stats:
         stats = tuple(torch.empty((b, h, n), dtype=torch.float32, device=q.device)
@@ -121,11 +128,16 @@ def rope_attention(q, k, v, kv_lens, cos, sin, rope_heads: int, return_stats: bo
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides(q, k, v), kv_lens.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), out.data_ptr(), stats[0].data_ptr() if stats else None,
         stats[1].data_ptr() if stats else None, qs.data_ptr(), ks.data_ptr(), b, n, h, dh,
-        int(rope_heads), 1.0 / math.sqrt(dh), stream(q))
+        int(rope_heads), 1.0 / math.sqrt(dh), is_fp32(q), stream(q))
     if err != 0:
         raise RuntimeError(f"rope_attention kernel launch failed: CUDA error {err}")
     if _partial(rope_heads, h):
-        partial_launches += 1
+        if is_fp32(q):
+            fp32_partial_launches += 1
+        else:
+            partial_launches += 1
+    elif is_fp32(q):
+        fp32_launches += 1
     else:
         launches += 1
     return (out, stats) if return_stats else out
@@ -136,7 +148,7 @@ def rope_attention_bwd(q, k, v, kv_lens, cos, sin, g, rope_heads: int, out=None,
     dh) each. CPU tensors take the plain version, which recomputes
     everything; CUDA tensors launch the kernel, which also takes the
     forward's output `out` and its `stats`, or raise."""
-    global bwd_launches, partial_bwd_launches
+    global bwd_launches, partial_bwd_launches, fp32_bwd_launches, fp32_partial_bwd_launches
     if q.device.type == "cpu":
         return rope_attention_bwd_plain(q, k, v, kv_lens, cos, sin, g, rope_heads)
     if out is None or stats is None:
@@ -146,7 +158,7 @@ def rope_attention_bwd(q, k, v, kv_lens, cos, sin, g, rope_heads: int, out=None,
     b, n, h, dh = q.shape
     q, k, v, g, out = (kernel_operand(t) for t in (q, k, v, g, out))
     kv_lens, cos, sin = _tables(kv_lens, cos, sin, n)
-    dq, dk, dv = (torch.empty((b, n, h, dh), dtype=torch.bfloat16, device=q.device)
+    dq, dk, dv = (torch.empty((b, n, h, dh), dtype=q.dtype, device=q.device)
                   for _ in range(3))
     qs, ks, delta = prep_scratch(q, 2, delta=True)
     err = _lib().rope_attention_bwd(
@@ -154,11 +166,16 @@ def rope_attention_bwd(q, k, v, kv_lens, cos, sin, g, rope_heads: int, out=None,
         *strides(q, k, v, g, out), kv_lens.data_ptr(), cos.data_ptr(), sin.data_ptr(),
         stats[0].data_ptr(), stats[1].data_ptr(), qs.data_ptr(), ks.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, h, dh,
-        int(rope_heads), 1.0 / math.sqrt(dh), stream(q))
+        int(rope_heads), 1.0 / math.sqrt(dh), is_fp32(q), stream(q))
     if err != 0:
         raise RuntimeError(f"rope_attention_bwd kernel launch failed: CUDA error {err}")
     if _partial(rope_heads, h):
-        partial_bwd_launches += 1
+        if is_fp32(q):
+            fp32_partial_bwd_launches += 1
+        else:
+            partial_bwd_launches += 1
+    elif is_fp32(q):
+        fp32_bwd_launches += 1
     else:
         bwd_launches += 1
     return dq, dk, dv

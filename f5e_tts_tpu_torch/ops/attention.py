@@ -12,6 +12,11 @@ kernel runs follows the JAX dispatch without its TPU shape gate:
 - joint attention with a padding mask: the [audio | text] joint mask
   (`JointAttention`), RoPE applied to each stream before the concatenation;
 - joint attention without a mask: every key valid (`MaskedAttention`).
+The kernels take head widths 64 and 128, in bf16 or fp32, as the TPU
+kernels do (`supported()`, pallas_attention.py); any other width takes the
+JAX package's route outside Pallas, `unfused_attention` (`UnfusedAttention`
+in the layers), which the shape picks before anything launches (a TPU
+dispatch declines such widths too).
 
 reference semantics: src/f5_tts/model/modules.py:435-503 (AttnProcessor) and
 :510-604 (JointAttnProcessor).
@@ -19,6 +24,7 @@ reference semantics: src/f5_tts/model/modules.py:435-503 (AttnProcessor) and
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -27,6 +33,80 @@ from f5e_tts_tpu_torch.kernels.attention import JointAttention, MaskedAttention
 from f5e_tts_tpu_torch.kernels.rope_attention import RopeAttention
 from f5e_tts_tpu_torch.ops import nn as fnn
 from f5e_tts_tpu_torch.ops.rope import apply_rotary_half
+
+KERNEL_HEAD_WIDTHS = (64, 128)  # what the attention kernels take
+unfused_calls = 0  # forward calls of `unfused_attention` since the caller last set it to 0
+
+
+def _unfused_core(q, k, v, valid, cos, sin, rope_heads: int) -> torch.Tensor:
+    n, dh = q.shape[1], q.shape[-1]
+    if cos is not None:
+        c, s = cos[None, :n, None, :], sin[None, :n, None, :]
+        q, k = (torch.cat([apply_rotary_half(t[:, :, :rope_heads], c, s), t[:, :, rope_heads:]],
+                          dim=2) for t in (q, k))
+    # softmax(q k^T / sqrt(dh)) v in fp32 (at least): the scale on q before
+    # the product, masked keys at -0.7 x the largest value (as
+    # dot_product_attention pads them: a row with no valid key averages every
+    # key), the exponentials' sum dividing P.V after the product. Among the
+    # orders of these fp32 sums this one sits closest to the JAX package's
+    # compiled reference in the tests that hold Adam steps and int8 codes to it.
+    ct = torch.promote_types(q.dtype, torch.float32)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(ct) * (1.0 / math.sqrt(dh)), k.to(ct))
+    if valid is not None:
+        scores = scores.masked_fill(~valid[:, None, None, :], -0.7 * torch.finfo(ct).max)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.to(ct)) / p.sum(dim=-1).transpose(1, 2)[..., None]
+    return o.to(q.dtype)
+
+
+def unfused_attention(q, k, v, valid: Optional[torch.Tensor] = None,
+                      cos: Optional[torch.Tensor] = None, sin: Optional[torch.Tensor] = None,
+                      rope_heads: int = 0) -> torch.Tensor:
+    """Attention for a head width the kernels do not take, as the JAX package
+    computes it outside Pallas (f5e_tts_tpu/ops/attention.py:276-289, then
+    sdpa's jax.nn.dot_product_attention branch, :186-191): RoPE by
+    `apply_rotary_half` on the heads h < rope_heads when `cos`/`sin` (>= N,
+    dh) are given, then softmax(q k^T / sqrt(dh)) v with keys where `valid`
+    (B, N) is False set to -0.7 x the largest value, as
+    jax.nn.dot_product_attention masks them (a row with no valid key
+    averages all of them), in fp32 at least. q, k, v (B, N, H, dh) in,
+    (B, N, H, dh) out in q's dtype; differentiable. Counted in
+    `unfused_calls`."""
+    global unfused_calls
+    unfused_calls += 1
+    return _unfused_core(q, k, v, valid, cos, sin, rope_heads)
+
+
+class UnfusedAttention(torch.autograd.Function):
+    """`unfused_attention` with the `kept` contract of `RopeAttention`: a
+    checkpointed block's recompute (remat policies save_attn, save_attn_ff)
+    takes the first forward's output from `kept["attn_out"]` and computes no
+    attention, as the JAX policies save the "attn_out" name on this route
+    too. The backward recomputes the attention under autograd (uncounted)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid, cos, sin, rope_heads: int, kept=None):
+        if kept is not None and "attn_out" in kept:
+            out = kept["attn_out"][0]
+        else:
+            out = unfused_attention(q, k, v, valid, cos, sin, rope_heads)
+        if kept is not None:
+            kept.setdefault("attn_out", (out.detach(), None))
+        ctx.rope_heads = rope_heads
+        ctx.save_for_backward(q, k, v, valid, cos, sin)
+        return out.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, valid, cos, sin = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need) for t, need in
+                      zip((q, k, v), ctx.needs_input_grad[:3])]
+            out = _unfused_core(*inputs, valid, cos, sin, ctx.rope_heads)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+        return (*(next(grads) if t.requires_grad else None for t in inputs),
+                None, None, None, None, None)
 
 
 def _check_qk_norm(qk_norm: Optional[str]) -> None:
@@ -52,7 +132,8 @@ def attention(
     column slices of the fused projection; the kernel reads them through
     their row stride. `kept` (a checkpointed DiT block's, RoPE only) keeps
     the kernel's output from the first forward for the recompute (see
-    `RopeAttention`).
+    `RopeAttention`). A head width outside `KERNEL_HEAD_WIDTHS` takes
+    `unfused_attention` (through `UnfusedAttention`, which keeps `kept` too).
     """
     _check_qk_norm(qk_norm)
     b, n, _ = x.shape
@@ -69,8 +150,10 @@ def attention(
         kv_lens = mask.sum(dim=-1, dtype=torch.int32)
     else:
         kv_lens = torch.full((b,), n, dtype=torch.int32, device=x.device)
-    if rope_cos is not None:
-        rope_heads = pe_attn_head if pe_attn_head is not None else heads
+    rope_heads = pe_attn_head if pe_attn_head is not None else heads
+    if dh not in KERNEL_HEAD_WIDTHS:
+        o = UnfusedAttention.apply(q, k, v, mask, rope_cos, rope_sin, rope_heads, kept)
+    elif rope_cos is not None:
         o = RopeAttention.apply(q, k, v, kv_lens, rope_cos[:n], rope_sin[:n], rope_heads, kept)
     else:
         o = MaskedAttention.apply(q, k, v, kv_lens)
@@ -122,7 +205,11 @@ def joint_attention(
         cq, ck = apply_rotary_half(cq, cos, sin), apply_rotary_half(ck, cos, sin)
     q, k, v = torch.cat([q, cq], dim=1), torch.cat([k, ck], dim=1), torch.cat([v, cv], dim=1)
 
-    if mask is not None:
+    if dh not in KERNEL_HEAD_WIDTHS:
+        full = None if mask is None else torch.cat(
+            [mask, torch.ones((b, nt), dtype=torch.bool, device=mask.device)], dim=1)
+        o = UnfusedAttention.apply(q, k, v, full, None, None, 0)
+    elif mask is not None:
         # [audio prefix | all-True text] is not a length prefix: the joint kernel
         o = JointAttention.apply(q, k, v, mask.sum(dim=-1, dtype=torch.int32), n)
     else:

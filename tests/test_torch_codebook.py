@@ -44,6 +44,7 @@ from f5e_tts_tpu_torch.kernels import gated_adaln as tga
 from f5e_tts_tpu_torch.kernels import rope_attention as tra
 from f5e_tts_tpu_torch.models import cfm as tcfm
 from f5e_tts_tpu_torch.models import dit as tdit
+from f5e_tts_tpu_torch.ops import attention as tattn
 from f5e_tts_tpu_torch.ops import mas as tmas
 from f5e_tts_tpu_torch.ops import vq as tvq
 from f5e_tts_tpu_torch.train import step as tstep
@@ -321,17 +322,20 @@ def test_remat_equals_no_remat_with_dropout(model, policy, monkeypatch):
     arch_t = dataclasses.replace(arch_t, dropout=0.1)
     inp = _inputs(4)
     calls = {"attn": 0, "adaln": 0}
-    real_attn, real_adaln = tra.rope_attention, tga.gated_adaln
+    real_adaln = tga.gated_adaln
 
-    def counting_attn(*a, **kw):
-        calls["attn"] += 1
-        return real_attn(*a, **kw)
+    def counting(real):  # an attention forward: the kernel's or, at dh 32, the unfused route's
+        def attn(*a, **kw):
+            calls["attn"] += 1
+            return real(*a, **kw)
+        return attn
 
     def counting_adaln(*a, **kw):
         calls["adaln"] += 1
         return real_adaln(*a, **kw)
 
-    monkeypatch.setattr(tra, "rope_attention", counting_attn)
+    monkeypatch.setattr(tra, "rope_attention", counting(tra.rope_attention))
+    monkeypatch.setattr(tattn, "unfused_attention", counting(tattn.unfused_attention))
     monkeypatch.setattr(tga, "gated_adaln", counting_adaln)
 
     def run(arch):

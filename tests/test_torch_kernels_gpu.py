@@ -28,6 +28,12 @@ row statistics against `attention_stats_plain` on the same q', k': m within
 1e-2 absolute, linv within 1e-2 relative (fp32 sums in another order, over
 scores of bf16 operands; a row with every key masked has m = -1e30 on both
 sides).
+
+fp32 operands launch the fp32 kernels (csrc/attention_fp32.cuh, and K2/K5's
+fp32 instantiations), held 100x tighter than bf16: the same sums in fp32
+with no bf16 rounding, so they differ from the plain versions by summation
+order alone: |diff| <= 2e-4 + 1e-4 * |plain| (forwards, K2, K5),
+max |diff| <= 2e-4 * max |plain| (attention backwards).
 """
 
 import pytest
@@ -222,7 +228,7 @@ def test_functions_launch_one_forward_and_one_backward_kernel(cuda):
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
-    x = torch.zeros((1, 64, 2, 64), device="cuda")  # fp32
+    x = torch.zeros((1, 64, 2, 64), device="cuda", dtype=torch.float16)  # neither bf16 nor fp32
     lens = torch.tensor([64], dtype=torch.int32, device="cuda")
     cos, sin = (torch.from_numpy(t).cuda() for t in rotary_cos_sin_half(64, 64))
     with pytest.raises(ValueError):
@@ -360,7 +366,7 @@ def test_attention_functions_launch_one_forward_and_one_backward_kernel(cuda):
 
 
 def test_attention_kernels_refuse_what_they_do_not_take(cuda):
-    x = torch.zeros((1, 64, 2, 64), device="cuda")  # fp32
+    x = torch.zeros((1, 64, 2, 64), device="cuda", dtype=torch.float16)  # neither bf16 nor fp32
     lens = torch.tensor([64], dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError):
         ka.masked_attention(x, x, x, lens)
@@ -523,3 +529,154 @@ def test_fwd_kernel_edges_match_plain(cuda, monkeypatch, record_property, kind, 
     # no atomics: a second run gives the same bits
     again, (m2, linv2) = run()
     assert torch.equal(out, again) and torch.equal(m, m2) and torch.equal(linv, linv2)
+
+
+# ---------------------------------------------------------------------------
+# fp32 operands: the fp32 kernels, counted apart
+# ---------------------------------------------------------------------------
+
+FP32_ATOL, FP32_RTOL, FP32_BWD_REL = 2e-4, 1e-4, 2e-4
+
+
+def _close32(got, ref):
+    assert got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs()
+    assert (err <= FP32_ATOL + FP32_RTOL * ref.abs()).all(), err.max().item()
+
+
+def _counts32():
+    return (ra.fp32_launches, ra.fp32_partial_launches, ra.fp32_bwd_launches,
+            ra.fp32_partial_bwd_launches, ka.fp32_masked_launches, ka.fp32_masked_bwd_launches,
+            ka.fp32_joint_launches, ka.fp32_joint_bwd_launches, ga.fp32_launches,
+            ga.fp32_bwd_launches)
+
+
+def _counts16():
+    return (ra.launches, ra.partial_launches, ra.bwd_launches, ra.partial_bwd_launches,
+            ka.masked_launches, ka.masked_bwd_launches, ka.joint_launches,
+            ka.joint_bwd_launches, ga.launches, ga.bwd_launches)
+
+
+# (kind, b, n, h, dh, lens, rope_heads or n_audio, fused)
+FP32_CASES = [
+    ("rope", 2, 1536, 16, 64, (1416, 1100), 16, True),  # S, the v1 sampler hook's shape
+    ("rope", 2, 130, 3, 128, (130, 1), 3, False),       # dh 128, ragged tile, one valid key
+    ("rope", 2, 256, 4, 64, (256, 77), 1, True),        # RoPE on the first head (K3/K6)
+    ("rope", 1, 200, 2, 64, (0,), 2, False),            # every key masked
+    ("masked", 3, 300, 2, 64, (300, 0, 129), 0, True),  # K9/K10, a row with len 0
+    ("masked", 2, 96, 2, 128, (96, 40), 0, False),      # dh 128
+    ("joint", 2, 240, 2, 64, (10, 200), 200, False),    # K7/K8, text from mid-tile
+    ("joint", 3, 232, 2, 128, (0, 200, 57), 200, False),  # dh 128, audio_len 0
+]
+
+
+def _fp32_case(gen, kind, b, n, h, dh, lens, extra, fused):
+    """(forward(return_stats), plain, backward(out, stats), plain backward)."""
+    if fused:
+        qkv = torch.randn((b, n, 3 * h * dh), generator=gen, device="cuda")
+        q, k, v = (t.unflatten(-1, (h, dh)) for t in qkv.chunk(3, dim=-1))
+    else:
+        q, k, v = (torch.randn((b, n, h, dh), generator=gen, device="cuda") for _ in range(3))
+    g = torch.randn((b, n, h, dh), generator=gen, device="cuda")
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if kind == "rope":
+        cos, sin = (torch.from_numpy(t).cuda() for t in rotary_cos_sin_half(dh, n))
+        return (lambda **kw: ra.rope_attention(q, k, v, lens, cos, sin, extra, **kw),
+                lambda: ra.rope_attention_plain(q, k, v, lens, cos, sin, extra),
+                lambda out, st: ra.rope_attention_bwd(q, k, v, lens, cos, sin, g, extra, out, st),
+                lambda: ra.rope_attention_bwd_plain(q, k, v, lens, cos, sin, g, extra))
+    if kind == "masked":
+        return (lambda **kw: ka.masked_attention(q, k, v, lens, **kw),
+                lambda: ka.masked_attention_plain(q, k, v, lens),
+                lambda out, st: ka.masked_attention_bwd(q, k, v, lens, g, out, st),
+                lambda: ka.masked_attention_bwd_plain(q, k, v, lens, g))
+    return (lambda **kw: ka.joint_attention_core(q, k, v, lens, extra, **kw),
+            lambda: ka.joint_attention_core_plain(q, k, v, lens, extra),
+            lambda out, st: ka.joint_attention_core_bwd(q, k, v, lens, extra, g, out, st),
+            lambda: ka.joint_attention_core_bwd_plain(q, k, v, lens, extra, g))
+
+
+@pytest.mark.parametrize("kind,b,n,h,dh,lens,extra,fused", FP32_CASES)
+def test_fp32_attention_kernels_match_plain(cuda, kind, b, n, h, dh, lens, extra, fused):
+    fwd, plain, bwd, bwd_plain = _fp32_case(cuda, kind, b, n, h, dh, lens, extra, fused)
+    before32, before16 = _counts32(), _counts16()
+    out, stats = fwd(return_stats=True)
+    torch.cuda.synchronize()
+    _close32(out, plain())
+    got = bwd(out, stats)
+    torch.cuda.synchronize()
+    for x, y in zip(got, bwd_plain()):
+        assert x.dtype == torch.float32 and torch.isfinite(x).all()
+        assert (x - y).abs().max().item() <= FP32_BWD_REL * y.abs().max().item()
+    assert all(torch.equal(x, y) for x, y in zip(got, bwd(out, stats)))  # no atomics
+    assert _counts16() == before16  # no bf16 kernel ran
+    moved = [a - b_ for a, b_ in zip(_counts32(), before32)]
+    partial = kind == "rope" and 0 < extra < h
+    want = {"rope": (0 if partial else 1, 1 if partial else 0, 0 if partial else 2,
+                     2 if partial else 0, 0, 0, 0, 0),
+            "masked": (0, 0, 0, 0, 1, 2, 0, 0), "joint": (0, 0, 0, 0, 0, 0, 1, 2)}[kind]
+    assert moved == [*want, 0, 0]
+
+
+@pytest.mark.parametrize("b,n,d,strided", [
+    (16, 168, 128, True),    # the quality proxy's training step: D = 128, V 1
+    (128, 192, 128, False),  # its folded evaluation batch
+    (2, 1536, 1024, True),   # the v1 width: V 8, no row loaded ahead
+    (8, 2304, 1024, True),   # the v1 training step's shape
+    (2, 77, 100, True),      # D a multiple of 4, not of 8
+    (2, 33, 2048, False),    # the widest fp32 D: V 16, sums in shared memory
+])
+def test_fp32_gated_adaln_kernels_match_plain(cuda, b, n, d, strided):
+    x, y, gate, scale, g_newx, g_out = (t.float() for t in _adaln_bwd_inputs(cuda, b, n, d,
+                                                                             strided))
+    if strided:  # keep the modulation rows strided, as column slices in fp32
+        mod = torch.randn((b, 6 * d), generator=cuda, device="cuda")
+        gate, scale, shift = mod[:, 2 * d:3 * d], mod[:, 4 * d:5 * d], mod[:, 3 * d:4 * d]
+    else:
+        shift = torch.randn((b, d), generator=cuda, device="cuda")
+    before32, before16 = _counts32(), _counts16()
+    got = ga.gated_adaln(x, y, gate, scale, shift)
+    grads = ga.gated_adaln_bwd(x, y, gate, scale, g_newx, g_out)
+    torch.cuda.synchronize()
+    for u, w in zip(got, ga.gated_adaln_plain(x, y, gate, scale, shift)):
+        _close32(u, w)
+    for u, w in zip(grads, ga.gated_adaln_bwd_plain(x, y, gate, scale, g_newx, g_out)):
+        _close32(u, w)
+    assert all(torch.equal(u, w) for u, w in
+               zip(grads, ga.gated_adaln_bwd(x, y, gate, scale, g_newx, g_out)))
+    assert _counts16() == before16
+    assert [a - b_ for a, b_ in zip(_counts32(), before32)][-2:] == [1, 2]
+
+
+@pytest.mark.parametrize("d", [2052, 102])
+def test_fp32_gated_adaln_refuses_widths_it_does_not_take(cuda, d):
+    x = torch.zeros((2, 8, d), device="cuda")
+    m = torch.zeros((2, d), device="cuda")
+    with pytest.raises(ValueError, match="D % 4 == 0 and D <= 2048"):
+        ga.gated_adaln(x, x, m, m, m)
+
+
+def test_head_width_32_takes_the_unfused_route(cuda):
+    """dh 32 (the quality proxy's model) runs outside the kernels in either
+    dtype, forward and backward, and matches the CPU."""
+    from f5e_tts_tpu_torch.ops import attention as fattn
+    from f5e_tts_tpu_torch.ops import nn as fnn
+
+    gen = torch.Generator().manual_seed(3)
+    p = {"to_qkv": fnn.linear_init(128, 3 * 128, gen), "to_out": fnn.linear_init(128, 128, gen)}
+    x = torch.randn((2, 50, 128), generator=gen)
+    mask = torch.arange(50)[None, :] < torch.tensor([50, 31])[:, None]
+    cos, sin = (torch.from_numpy(t) for t in rotary_cos_sin_half(32, 50))
+    want = fattn.attention(p, x, 4, mask, cos, sin, compute_dtype=torch.float32)
+    pc = {k: {n: t.cuda() for n, t in v.items()} for k, v in p.items()}
+    xc = x.cuda().requires_grad_()
+    before16, before32, calls = _counts16(), _counts32(), fattn.unfused_calls
+    got = fattn.attention(pc, xc, 4, mask.cuda(), cos.cuda(), sin.cuda(),
+                          compute_dtype=torch.float32)
+    got.sum().backward()
+    torch.cuda.synchronize()
+    assert fattn.unfused_calls == calls + 1
+    assert _counts16() == before16 and _counts32() == before32
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+    assert torch.isfinite(xc.grad).all()
