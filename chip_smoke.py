@@ -36,12 +36,19 @@
    B=2, N=1024, fixed draws, dropout 0, once through the kernels and once
    with this script swapping the wrappers for their plain versions: loss
    within 1e-2 relative, each parameter's gradient at cosine >= 0.99.
-6. MMDiT synthesis at full width (MMDiTConfig(): dim 1024, depth 8, 16 x 64)
-   through TTSEngine.infer: the same reference and bucket, a text padded to
-   128 tokens (N + Nt = 1664). 8 x NFE launches of K7, 0 of every other
-   attention kernel; the checks and measurements of 3.
+   Depth: v1's synthesis (3), training (4), distillation (35) and mesh
+   (44) phases run all 22 blocks; the other models are cut to fewer blocks
+   at full width so the whole run stays inside its time: the MMDiT to
+   MMDIT_DEPTH, F5TTS_Base to BASE_DEPTH, E2TTS_Base to E2_DEPTH, the F5E
+   model to F5E_DEPTH (its CLI phase's YAML to F5E_CLI_DEPTH), the
+   v1 serving model of 10-12, 15, 16, 27 and 30-34 to SERVE_DEPTH; "depth"
+   below is the phase's model's.
+6. MMDiT synthesis at full width (MMDiTConfig(depth=MMDIT_DEPTH): dim 1024,
+   16 x 64) through TTSEngine.infer: the same reference and bucket, a text
+   padded to 128 tokens (N + Nt = 1664). depth x NFE launches of K7, 0 of
+   every other attention kernel; the checks and measurements of 3.
 7. MMDiT training at full width through Trainer.train: four updates on the
-   same 8 clips; 8 launches of K9 and of K10 a step and 0 of K7/K8; the
+   same 8 clips; depth launches of K9 and of K10 a step and 0 of K7/K8; the
    checks and measurements of 4 without the resumed run, the EMA export in
    the reference MMDiT layout.
 8. The partial-RoPE preset: one synthesis through F5TTS(model="F5TTS_Base")
@@ -144,7 +151,8 @@
     head's log-probs over the reference at 16 kHz give the span of "mother"
     by forced alignment (card == CPU), and edit_speech over it launches
     depth x NFE of K1 and K2 with every kept frame equal to the cond mel.
-28. The training CLI: train.main over configs/example.yaml (byte tokenizer,
+28. The training CLI: train.main over configs/example.yaml (cut to
+    F5E_CLI_DEPTH blocks; byte tokenizer,
     bnb_optimizer, the codebook off: the CLI's batches carry no PPG lengths,
     which the codebook branch needs, in JAX as in the port) and an Arrow
     dataset of the 8 clips: two updates of 2 x
@@ -267,7 +275,26 @@
     time, bound at the fp32 FMA peak and SDPA's fp32 time; K2 in fp32 at T,
     S and the proxy's (16, 168, 128) and (128, 192, 128); K5 at T, S and
     the proxy's training shape.
-44. Prints one JSON line with every kernel, then the device line last.
+44. Parallel training (after 42): F5TTS_v1_Base at full width and depth,
+    dropout 0, two Trainer.train updates on the 8 x 2304 batch, first in
+    this process (the reference), then under each mesh axis in a world of
+    2 ranks (data, model, seq, fsdp, pipe with 2 microbatches, in turn). The
+    ranks are processes of this script (--mesh-rank) that all compute on
+    cuda:0 and run their collectives on gloo through pinned host copies
+    (MESH_TRANSPORT "gloo-host": NCCL refuses two ranks on one card), so
+    their walls are not scaling figures. Each rank: every update's loss and
+    global gradient norm within MESH_LOSS_REL / MESH_NORM_REL of the
+    reference's, the two updates' parameter change against the reference's
+    (MESH_UPDATE_COS, MESH_UPDATE_REL over every rank's shards), the
+    launches of each step (22 of K1, K2, K4, K5; under seq 22 of K2/K5 and
+    none of K1/K4: the ring's plain products; under pipe 11 blocks x 2
+    microbatches on each stage), K1's input shapes (8 heads under model),
+    its step wall, device busy, peak memory and the seconds of its set-up,
+    updates and checks. The fsdp mesh's model_last (gathered by rank 0)
+    gives its fixed-draw loss, under the mesh and in the single-process
+    Trainer; a
+    world of one NCCL rank runs each collective through one-rank groups.
+45. Prints one JSON line with every kernel, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository. fp32 matmuls and convolutions run with TF32 off
@@ -299,7 +326,11 @@ sys.path.insert(0, str(ROOT))
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-DEPTH, MMDIT_DEPTH, E2_DEPTH, NFE = 22, 8, 24, 32
+DEPTH, NFE = 22, 32
+# the depths of the paths beside v1's synthesis, training, distillation and mesh
+# phases, cut (at full width) so the whole run stays inside its time: the v1
+# serving model, the MMDiT, F5TTS_Base, E2TTS_Base and the F5E model
+SERVE_DEPTH, MMDIT_DEPTH, BASE_DEPTH, E2_DEPTH = 8, 4, 11, 12
 # kernel vs plain on unit-scale bf16 inputs: both round the same fp32 values
 # to bf16, so they differ by accumulation order and at most ~1 bf16 ulp
 ATOL, RTOL = 2e-2, 1e-2
@@ -567,14 +598,26 @@ def reference_wav() -> Path:
     return ref
 
 
+def cut_depth(model_cfg, depth: int):
+    """`model_cfg` with its backbone cut to `depth` blocks, its width kept."""
+    return dataclasses.replace(model_cfg, arch=dataclasses.replace(model_cfg.arch, depth=depth))
+
+
 def preset_tts(tag: str, model: str, depth: int = DEPTH, **kw):
-    """Full-width F5TTS(model, **kw) on the card with seeded weights (the
-    same weights for one model whatever `kw` asks: `quantize` codes them
-    before the modulation is seeded, which it leaves as it is)."""
+    """Full-width F5TTS(model, **kw) on the card with seeded weights, the
+    preset cut to `depth` blocks (the same weights for one model and depth
+    whatever `kw` asks: `quantize` codes them before the modulation is
+    seeded, which it leaves as it is)."""
+    from f5e_tts_tpu_torch import api
     from f5e_tts_tpu_torch.api import F5TTS
 
     t0 = time.perf_counter()
-    tts = F5TTS(model=model, device="cuda", compute_dtype=torch.bfloat16, seed=0, **kw)
+    full = api.preset
+    api.preset = lambda name: cut_depth(full(name), depth)
+    try:
+        tts = F5TTS(model=model, device="cuda", compute_dtype=torch.bfloat16, seed=0, **kw)
+    finally:
+        api.preset = full
     arch = tts.engine.arch
     assert (arch.dim, arch.depth, arch.heads, arch.dim_head) == (1024, depth, 16, 64), arch
     seed_modulation_(tts.engine.params, torch.Generator(device="cuda").manual_seed(1))
@@ -604,8 +647,8 @@ def mmdit_synthesis_phase(expected: dict) -> dict:
     from f5e_tts_tpu_torch.models.mmdit import init_mmdit
 
     t0 = time.perf_counter()
-    arch = MMDiTConfig()
-    assert (arch.dim, arch.depth, arch.heads, arch.dim_head) == (1024, MMDIT_DEPTH, 16, 64), arch
+    arch = MMDiTConfig(depth=MMDIT_DEPTH)
+    assert (arch.dim, arch.heads, arch.dim_head) == (1024, 16, 64), arch
     params = init_mmdit(arch, 256, torch.Generator(device="cuda").manual_seed(0), "cuda")
     seed_modulation_(params, torch.Generator(device="cuda").manual_seed(1))
     engine = TTSEngine(params=_cast(params, torch.bfloat16), arch=arch, vocab=None,
@@ -1016,7 +1059,7 @@ def f5e_model_config():
     return ModelConfig(name="F5TTS_Small", tokenizer="byte", vocab_size=256, arch=arch)
 
 
-F5E_DEPTH = 18
+F5E_DEPTH, F5E_CLI_DEPTH = 6, 9  # the F5E phases' and the CLI's (configs/example.yaml: 18)
 # the PPG of the card's fp32 extractor against the CPU's on the same inputs:
 # max|card - cpu| <= F5E_PPG_REL * max|cpu| (fp32 GEMMs summed in another
 # order through 12 layers; TF32 is off)
@@ -1211,7 +1254,7 @@ def f5e_serving_phase(extractor) -> dict:
     from f5e_tts_tpu_torch.models.dit import fuse_qkv, init_dit
     from f5e_tts_tpu_torch.utils.aot import capture_sampler_buckets
 
-    cfg = f5e_model_config()
+    cfg = cut_depth(f5e_model_config(), F5E_DEPTH)
     arch = cfg.arch
     t0 = time.perf_counter()
     params, state = init_dit(arch, 256, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -2100,7 +2143,8 @@ class Serving:
     serving phases, its reference, and the sampler inputs of its one-chunk
     request."""
 
-    def __init__(self, model: str = "F5TTS_v1_Base", depth: int = DEPTH, tag: str = "serving"):
+    def __init__(self, model: str = "F5TTS_v1_Base", depth: int = SERVE_DEPTH,
+                 tag: str = "serving"):
         from f5e_tts_tpu_torch.infer import audio as faudio
         from f5e_tts_tpu_torch.infer.pipeline import preprocess_ref_audio_text
         from f5e_tts_tpu_torch.models.cfm import pruned_sway_timesteps
@@ -2177,8 +2221,8 @@ def epss_phase(sv: Serving) -> dict:
     from f5e_tts_tpu_torch.models.cfm import pruned_sway_timesteps
 
     counts = synthesis_phase("epss synthesis", lambda: sv.infer(sv.grid),
-                             expected_counts(rope_attention=DEPTH * EPSS_NFE,
-                                             gated_adaln=DEPTH * EPSS_NFE),
+                             expected_counts(rope_attention=SERVE_DEPTH * EPSS_NFE,
+                                             gated_adaln=SERVE_DEPTH * EPSS_NFE),
                              runs=3, timesteps=sv.grid)
     full = sv.infer(pruned_sway_timesteps(range(NFE + 1), base_steps=NFE))
     default = sv.infer()
@@ -2212,7 +2256,7 @@ def captured_phase(sv: Serving) -> dict:
         f"and the static buffers); launches counted at capture "
         f"{ {k: v for k, v in counts.items() if v} }")
     check_counts("captured synthesis capture", counts,
-                 expected_counts(rope_attention=DEPTH * steps, gated_adaln=DEPTH * steps))
+                 expected_counts(rope_attention=SERVE_DEPTH * steps, gated_adaln=SERVE_DEPTH * steps))
 
     for timesteps, nfe in ((None, NFE), (sv.grid, EPSS_NFE)):
         tag = f"captured synthesis nfe {nfe}"
@@ -2220,7 +2264,7 @@ def captured_phase(sv: Serving) -> dict:
         check_counts(f"{tag} replay", read_counts(), expected_counts())
         eager = sv.sampler_out(timesteps, eager=True)
         check_counts(f"{tag} eager", read_counts(),
-                     expected_counts(rope_attention=DEPTH * nfe, gated_adaln=DEPTH * nfe))
+                     expected_counts(rope_attention=SERVE_DEPTH * nfe, gated_adaln=SERVE_DEPTH * nfe))
         if not torch.equal(replayed, eager):
             diff = (replayed.float() - eager.float()).abs().max().item()
             raise AssertionError(f"{tag}: replay differs from the eager sampler (max {diff})")
@@ -2237,8 +2281,8 @@ def captured_phase(sv: Serving) -> dict:
                                ("K1 main", "attention_fwd_kernel"),
                                ("K2", "gated_adaln_kernel"))}
     log(f"[captured synthesis] one profiled replay: {seen}")
-    if any(c != DEPTH * NFE for c in seen.values()):
-        raise AssertionError(f"one replay ran {seen}, expected {DEPTH * NFE} of each")
+    if any(c != SERVE_DEPTH * NFE for c in seen.values()):
+        raise AssertionError(f"one replay ran {seen}, expected {SERVE_DEPTH * NFE} of each")
 
     for timesteps, nfe in ((None, NFE), (sv.grid, EPSS_NFE)):
         tag = f"captured synthesis nfe {nfe}"
@@ -2354,11 +2398,11 @@ def tts_mode_phase(sv: Serving) -> dict:
     reset_counts()
     plain = sv.sampler_out(eager=True)
     check_counts("tts mode plain cfg", read_counts(),
-                 expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE))
+                 expected_counts(rope_attention=SERVE_DEPTH * NFE, gated_adaln=SERVE_DEPTH * NFE))
     got = tts()
     counts = read_counts()
     check_counts("tts mode", counts,
-                 expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE))
+                 expected_counts(rope_attention=SERVE_DEPTH * NFE, gated_adaln=SERVE_DEPTH * NFE))
     rf = sv.ref_mel.shape[1]
     gen_t, gen_p = got[0, rf:FIX_FRAMES].float(), plain[0, rf:FIX_FRAMES].float()
     rel = ((gen_t - gen_p).norm() / gen_p.norm()).item()
@@ -2410,7 +2454,7 @@ def speech_edit_phase(sv: Serving, parts=((1.0, 2.0),), tag: str = "speech edit"
     finally:
         fcfm.sample = sample
     check_counts(tag, counts,
-                 expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE))
+                 expected_counts(rope_attention=SERVE_DEPTH * NFE, gated_adaln=SERVE_DEPTH * NFE))
     (out, inputs), = captured
     n = int(inputs.duration[0])
     keep = inputs.cond_mask[:, :, None].expand_as(out)
@@ -2926,6 +2970,7 @@ def training_cli_phase(tmp: Path) -> dict:
     shutil.rmtree(tmp, ignore_errors=True)
     raw = yaml.safe_load((ROOT / "configs" / "example.yaml").read_text())
     raw["model"]["tokenizer"] = "byte"
+    raw["model"]["arch"]["depth"] = F5E_CLI_DEPTH
     raw["datasets"]["name"] = "smoke"
     raw["optim"]["bnb_optimizer"] = True
     raw["ckpts"]["save_dir"] = str(tmp / "ckpts")
@@ -2943,9 +2988,9 @@ def training_cli_phase(tmp: Path) -> dict:
     log(f"[training cli] YAML {config.name} (example.yaml, byte tokenizer, bnb_optimizer, no "
         f"codebook) and an Arrow dataset of {TRAIN_CLIPS} clips written in "
         f"{time.perf_counter() - t0:.1f} s")
-    expected = expected_counts(partial_rope_attention=2 * F5E_DEPTH,
-                               partial_rope_attention_bwd=F5E_DEPTH,
-                               gated_adaln=2 * F5E_DEPTH, gated_adaln_bwd=F5E_DEPTH)
+    expected = expected_counts(partial_rope_attention=2 * F5E_CLI_DEPTH,
+                               partial_rope_attention_bwd=F5E_CLI_DEPTH,
+                               gated_adaln=2 * F5E_CLI_DEPTH, gated_adaln_bwd=F5E_CLI_DEPTH)
     seen = []
 
     class Recording(ftrainer.Trainer):
@@ -3118,7 +3163,7 @@ def seeded_phase(sv: Serving) -> dict:
         "synthesize_chunk's draw: the same bits")
     run = dict(steps=NFE, cfg_strength=2.0, sway_coef=-1.0, compute_dtype=torch.bfloat16,
                device="cuda", timesteps=kw.get("timesteps"))
-    want = expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE)
+    want = expected_counts(rope_attention=SERVE_DEPTH * NFE, gated_adaln=SERVE_DEPTH * NFE)
     lone = fcfm.sample(engine.params, engine.arch, engine.cfm, inputs, seeds=[7], **run)[0]
     check_counts("seeded request alone", read_counts(), want)
     eager = sv.sampler_out(eager=True)
@@ -3160,7 +3205,7 @@ def int8_pass_share(q_blk: dict, b_blk: dict, busy_ms: float) -> dict:
         total = cuda_ms([lambda: fq.int8_linear(q, x, torch.bfloat16)])
         mm = cuda_ms([lambda: torch._int_mm(x_q, q["w_q"])])
         bf = cuda_ms([lambda: fnn.linear(b, x, torch.bfloat16)])
-        passes += (total - mm) * DEPTH * NFE
+        passes += (total - mm) * SERVE_DEPTH * NFE
         out[name] = {"int8_linear_ms": total, "int_mm_ms": mm, "bf16_linear_ms": bf}
         log(f"[int8 synthesis] {name} ({x.shape[0]} x {x.shape[1]} -> {q['w_q'].shape[1]}): "
             f"int8_linear {total:.4f} ms = _int_mm {mm:.4f} ms + passes {total - mm:.4f} ms; "
@@ -3168,7 +3213,7 @@ def int8_pass_share(q_blk: dict, b_blk: dict, busy_ms: float) -> dict:
     out["passes_ms_per_sampler"] = passes
     out["passes_share_of_busy"] = passes / busy_ms
     log(f"[int8 synthesis] the quantization passes: {passes:.1f} ms a sampler run "
-        f"({DEPTH} x {NFE} calls of each linear), {passes / busy_ms:.3f} of its device busy")
+        f"({SERVE_DEPTH} x {NFE} calls of each linear), {passes / busy_ms:.3f} of its device busy")
     return out
 
 
@@ -3183,7 +3228,7 @@ def int8_phase(sv: Serving) -> dict:
     eager bits, replay busy beside bf16's, three timed captured syntheses."""
     from f5e_tts_tpu_torch.utils.aot import capture_sampler_buckets
 
-    tts = preset_tts("int8 synthesis", "F5TTS_v1_Base", quantize="int8")
+    tts = preset_tts("int8 synthesis", "F5TTS_v1_Base", SERVE_DEPTH, quantize="int8")
     engine = tts.engine
     blk, bblk = engine.params["blocks"][0], sv.engine.params["blocks"][0]
     for p in (blk["attn"]["to_qkv"], blk["attn"]["to_out"], blk["ff1"], blk["ff2"]):
@@ -3192,7 +3237,7 @@ def int8_phase(sv: Serving) -> dict:
     if not (torch.equal(engine.params["proj_out"]["w"], sv.engine.params["proj_out"]["w"])
             and torch.equal(blk["attn_norm"]["w"], bblk["attn_norm"]["w"])):
         raise AssertionError("the int8 model's float weights differ from the bf16 model's")
-    want = expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE)
+    want = expected_counts(rope_attention=SERVE_DEPTH * NFE, gated_adaln=SERVE_DEPTH * NFE)
     ref = str(reference_wav())
 
     def infer():
@@ -3225,7 +3270,7 @@ def int8_phase(sv: Serving) -> dict:
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
     check_counts("int8 capture", read_counts(),
-                 expected_counts(rope_attention=DEPTH * (NFE + 1), gated_adaln=DEPTH * (NFE + 1)))
+                 expected_counts(rope_attention=SERVE_DEPTH * (NFE + 1), gated_adaln=SERVE_DEPTH * (NFE + 1)))
     replayed = sv.sampler_out(engine=engine)
     check_counts("int8 replay", read_counts(), expected_counts())
     if not torch.equal(replayed, q_out):
@@ -3297,13 +3342,13 @@ def engine_dir_asr_phase(sv: Serving) -> dict:
     try:
         reset_counts()
         t0 = time.perf_counter()
-        tts = preset_tts("engine dir", "F5TTS_v1_Base", engine_dir=str(tmp),
+        tts = preset_tts("engine dir", "F5TTS_v1_Base", SERVE_DEPTH, engine_dir=str(tmp),
                          asr_model=str(tmp / "whisper"))
         log(f"[engine dir] F5TTS(engine_dir=, asr_model=) built and captured in "
             f"{time.perf_counter() - t0:.1f} s: {sorted(tts.engine.engines)}")
         steps = 2 * (NFE + 1) + EPSS_NFE + 1
         check_counts("engine dir capture", read_counts(),
-                     expected_counts(rope_attention=DEPTH * steps, gated_adaln=DEPTH * steps))
+                     expected_counts(rope_attention=SERVE_DEPTH * steps, gated_adaln=SERVE_DEPTH * steps))
         if set(tts.engine.engines) != want:
             raise AssertionError(f"captured {sorted(tts.engine.engines)}, named {sorted(want)}")
         for timesteps in (None, sv.grid):
@@ -3389,7 +3434,7 @@ def batched_serving_phase(sv: Serving) -> dict:
                               graph_lock=threading.Lock(), batcher=None, _ref_mel_cache={})
     wavs = [speech_like(sec, seed=i + 1).astype(np.float32)
             for i, (sec, _, _, _) in enumerate(SERVE_REQUESTS)]
-    want = expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE)
+    want = expected_counts(rope_attention=SERVE_DEPTH * NFE, gated_adaln=SERVE_DEPTH * NFE)
     out: dict = {}
 
     def one(i):
@@ -3482,7 +3527,7 @@ def batched_serving_phase(sv: Serving) -> dict:
                 torch.cuda.empty_cache()
                 counts = read_counts()
                 check_counts(f"capture of (b={b}, 1536)", counts, expected_counts(
-                    rope_attention=DEPTH * (NFE + 1), gated_adaln=DEPTH * (NFE + 1)))
+                    rope_attention=SERVE_DEPTH * (NFE + 1), gated_adaln=SERVE_DEPTH * (NFE + 1)))
                 for k, v in counts.items():
                     capture[k] += v
                 per_capture.append((b, seconds, (torch.cuda.memory_reserved() - reserved) / 2**20))
@@ -3501,7 +3546,7 @@ def batched_serving_phase(sv: Serving) -> dict:
         check_counts("batched serving warm-up batches", read_counts(), expected_counts())
         for b, sec, mib in per_capture:
             log(f"[batched serving] capture of (b={b}, 1536): {sec:.2f} s, {mib:.1f} MiB more "
-                f"reserved, {DEPTH * (NFE + 1)} launches of K1 and of K2 counted")
+                f"reserved, {SERVE_DEPTH * (NFE + 1)} launches of K1 and of K2 counted")
         log(f"[batched serving] warm_up_buckets captured {names} and ran batches "
             f"{eng.batcher.batch_sizes} through the batcher in {seconds:.2f} s; launches at "
             f"capture { {k: v for k, v in capture.items() if v} }, 0 in the replays")
@@ -4045,14 +4090,13 @@ def chunk_out(engine, ref_mel, text, cfg: float, eager: bool, timesteps=None) ->
         engine.engines = engines
 
 
-def cfg_free_phase(student: Path, cfg2_busy: tuple, wav_path: Path, ra) -> dict:
+def cfg_free_phase(student: Path, wav_path: Path, ra) -> dict:
     """F5TTS("F5TTS_v1_Base", ckpt_file=the student's model_last) serving the
     request of 3 at cfg 0: depth x NFE of K1 and K2 a synthesis, K1 at (1,
     1536) only; the timed runs and profile of 3. Its bucket-1536 sampler
     captured as sampler_nfe32_cfg0_b1536 (depth x (NFE + 1) at capture): a
     replay gives the eager bits and counts no launch; the sampler's device
-    busy eager and replayed against the cfg-2 sampler's (`cfg2_busy`, the
-    captured phase's); three timed captured syntheses. The wav is written
+    busy eager and replayed; three timed captured syntheses. The wav is written
     to `wav_path`. Returns the launch counts of one eager synthesis."""
     from f5e_tts_tpu_torch.api import F5TTS
     from f5e_tts_tpu_torch.infer import audio as faudio
@@ -4122,9 +4166,7 @@ def cfg_free_phase(student: Path, cfg2_busy: tuple, wav_path: Path, ra) -> dict:
                               lambda: chunk_out(engine, ref_mel, text, 0.0, eager=False))[0]
     reset_counts()
     log(f"[cfg-free serving] the replay gives the eager bits; sampler device busy at cfg 0: "
-        f"eager {busy_eager:.1f} ms, replayed {busy_replay:.1f} ms; at cfg 2 (the captured "
-        f"phase): eager {cfg2_busy[0]:.1f} ms, replayed {cfg2_busy[1]:.1f} ms; cfg 0 / cfg 2: "
-        f"{busy_eager / cfg2_busy[0]:.3f} eager, {busy_replay / cfg2_busy[1]:.3f} replayed")
+        f"eager {busy_eager:.1f} ms, replayed {busy_replay:.1f} ms")
     walls = []
     for run in ["warm-up"] + [f"timed {i + 1}" for i in range(3)]:
         torch.cuda.synchronize()
@@ -4528,7 +4570,9 @@ def fp32_training_phase(v1) -> dict:
 
 # the quality proxy's `all` on a shortened schedule, at its widths (dim 128,
 # depth 4, 4 heads of 32, fp32) and its 64 evaluation utterances
-PROXY_STEPS, PROXY_DISTILL_STEPS, PROXY_DEPTH = 400, 100, 4
+# the proxy's training and distillation steps, cut to keep the run inside its
+# time; the JAX defaults are 4000 and 1500 (the tool run of PERF.md)
+PROXY_STEPS, PROXY_DISTILL_STEPS, PROXY_DEPTH = 200, 50, 4
 PROXY_EVAL_NFES = 32 + 16 + 16 + 8 + 32 + 32 + 32 + 16  # the eight levers' sampler steps
 PROXY_LEVERS = ("teacher_nfe32_cfg2", "nfe16", "epss16of32", "epss8of32", "cfg0_base",
                 "int8_w8a8", "cfg0_distill", "cfg0_distill_nfe16")
@@ -4602,6 +4646,402 @@ def k2_sass_check(lib: Path) -> None:
         raise AssertionError(f"gated_adaln_kernel instantiations {seen} in the SASS")
 
 
+# ---------------------------------------------------------------------------
+# parallel training: the mesh's axes over ranks that share the one card
+# ---------------------------------------------------------------------------
+
+# (tag, mesh axes) of the two-rank world, run in turn by the same two processes
+MESH_AXES = (("data", {"data": 2}), ("model", {"model": 2}), ("seq", {"seq": 2}),
+             ("fsdp", {"fsdp": 2}), ("pipe", {"pipe": 2}))
+# the ranks share one card: NCCL refuses two ranks on a device, so the mesh's
+# collectives run on gloo through host copies of the CUDA tensors
+MESH_TRANSPORT = "gloo-host"
+MESH_UPDATES, MESH_MICRO = 2, 2
+# mesh vs single-process step in bf16 compute: the same sums split over ranks
+# (TP sums its row-parallel partial products in fp32, the ring's softmax runs
+# in fp32 where K1 rounds P to bf16). Each limit sits between the sound
+# meshes' largest reading and that of a planted fault (PERF.md, Findings):
+# sound at most 1.5e-5 (loss) and 3.0e-5 (global gradient norm) relative,
+# the ring's RoPE at local positions 1.9e-4 and 4.3e-4 at update 2
+MESH_LOSS_REL, MESH_NORM_REL = 1e-4, 2e-4
+# the two updates' parameter change (p - p0 over every parameter) against the
+# single-process run's: Adam's first steps are ~lr x sign(g), so an element
+# whose gradient is within bf16 rounding of 0 may step the other way. The
+# sound meshes read a cosine of at least 0.99996 and a relative L2 difference
+# of at most 0.0088; GRN's mean over one rank's channels (model) 0.99979 and
+# 0.0206, the ring fault 0.979 and 0.203
+MESH_UPDATE_COS, MESH_UPDATE_REL = 0.9999, 0.015
+
+
+def mesh_model(v1):
+    """F5TTS_v1_Base at full width and depth, dropout 0: the mesh's steps and
+    the single-process one draw alike only without dropout (each rank has
+    its own generator)."""
+    return dataclasses.replace(v1, arch=dataclasses.replace(v1.arch, dropout=0.0))
+
+
+def mesh_train_cfg(save_dir: Path, axes: dict):
+    from f5e_tts_tpu_torch.config import MeshConfig, TrainConfig
+
+    # no warm-up: the warm-up scales by data x fsdp, the single-process run's does not
+    return TrainConfig(num_warmup_updates=0, save_dir=str(save_dir), seed=0,
+                       save_per_updates=10 ** 9, last_per_updates=10 ** 9,
+                       pp_microbatches=MESH_MICRO, mesh=MeshConfig(**{"data": 1, **axes}))
+
+
+def mesh_expected(axes: dict) -> dict:
+    """One rank's launches a step: each block's K1/K2 forward and K4/K5
+    backward; a pipeline stage runs its depth / S blocks for each of M
+    microbatches; the ring replaces K1/K4 (plain products, as JAX's einsums)."""
+    blocks = DEPTH // axes.get("pipe", 1) * (MESH_MICRO if axes.get("pipe", 1) > 1 else 1)
+    attn = 0 if axes.get("seq", 1) > 1 else blocks
+    return expected_counts(rope_attention=attn, rope_attention_bwd=attn, gated_adaln=blocks,
+                           gated_adaln_bwd=blocks)
+
+
+def seed_grn_(params, gen) -> None:
+    """ConvNeXt-V2 starts GRN's gamma and beta at 0, so the text ConvNeXt's
+    GRN is an identity at init and a fault in its channel mean (one rank's
+    channels under model) would change no forward. Seeded ones (std 0.5)
+    make the mean count."""
+    def walk(node):
+        if isinstance(node, list):
+            for sub in node:
+                walk(sub)
+        elif isinstance(node, dict):
+            for key, sub in node.items():
+                if key == "grn":
+                    for t in sub.values():
+                        t.copy_(0.5 * torch.randn(t.shape, generator=gen, device=t.device))
+                else:
+                    walk(sub)
+
+    with torch.no_grad():
+        walk(params)
+
+
+class modulated_init:
+    """While entered, every backbone init (`Trainer.init_state`'s) also seeds
+    the modulation and output weights (`seed_modulation_`) and GRN's
+    (`seed_grn_`): the reference and every rank start from the same full
+    params, each rank then keeping its slices."""
+
+    def __enter__(self):
+        from f5e_tts_tpu_torch.models import backbone as fbb
+
+        self.module, self.init = fbb, fbb.init_backbone
+
+        def init(arch, vocab_size, generator, device="cpu"):
+            made = self.init(arch, vocab_size, generator, device)
+            gen = torch.Generator(device=device).manual_seed(1)
+            seed_modulation_(made, gen)
+            seed_grn_(made, gen)
+            return made
+
+        fbb.init_backbone = init
+
+    def __exit__(self, *exc):
+        self.module.init_backbone = self.init
+
+
+def mesh_eval_draws(b: int):
+    return fixed_draws(torch.Generator(device="cuda").manual_seed(7), b, TRAIN_N, 100, 1)[0]
+
+
+def mesh_eval(trainer, ts, batch_np) -> float:
+    """cfm_loss of the global batch at fixed draws, no update (under a mesh:
+    this rank's rows, the loss the global batch's)."""
+    from f5e_tts_tpu_torch.train.trainer import loss_with_device_mel
+
+    with torch.no_grad(), trainer.mesh_context():
+        return float(loss_with_device_mel(
+            ts.params, trainer.arch, trainer.cfm, trainer.model_cfg.mel,
+            trainer.device_batch(batch_np), draws=mesh_eval_draws(TRAIN_CLIPS),
+            compute_dtype=torch.bfloat16, training=False).loss)
+
+
+def mesh_rank_main(rank: int, world: int, port: int, root: Path, tags: list) -> int:
+    """One rank of a mesh world (`python3 chip_smoke.py --mesh-rank ...`):
+    each mesh of `tags` in turn, two Trainer.train updates from the seeded
+    params (`modulated_init`) on this rank's rows of root/batch.pt,
+    launches counted by step, then the update held against the
+    single-process run's (root/ref.pt) over every rank's shards (and, where
+    model_last is written, the fixed-draw loss); results and the seconds of
+    each part to root/<tag>/rank<r>.json."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from f5e_tts_tpu_torch.config import preset
+    from f5e_tts_tpu_torch.kernels import attention as ka
+    from f5e_tts_tpu_torch.kernels import gated_adaln as ga
+    from f5e_tts_tpu_torch.kernels import rope_attention as ra
+    from f5e_tts_tpu_torch.ops import attention as fa
+    from f5e_tts_tpu_torch.parallel import mesh as pmesh
+    from f5e_tts_tpu_torch.parallel import multihost
+    from f5e_tts_tpu_torch.train import step as fstep
+    from f5e_tts_tpu_torch.train.trainer import Trainer
+    from f5e_tts_tpu_torch.utils.text import list_str_to_bytes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    multihost.initialize(f"127.0.0.1:{port}", world, rank)
+    register_counters(ra, ga, ka, fa)
+    model = mesh_model(dataclasses.replace(preset("F5TTS_v1_Base"), tokenizer="byte",
+                                           vocab_size=256))
+    batch_np = torch.load(root / "batch.pt", weights_only=False)
+    ref = torch.load(root / "ref.pt", map_location="cpu", weights_only=True)
+    all_axes = dict(MESH_AXES)
+    for tag in tags:
+        axes = all_axes[tag]
+        out_dir = root / tag.replace(" ", "_")
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        tc = mesh_train_cfg(out_dir, axes)
+        seen = {"walls": [], "counts": [], "metrics": []}
+        prof = profile(activities=[ProfilerActivity.CUDA])  # device kernels only: few events
+
+        def log_fn(metrics, update):
+            seen["counts"].append(read_counts())
+            seen["walls"].append(metrics["step_seconds"])
+            seen["metrics"].append((metrics["loss"], metrics["grad_norm"]))
+            if update == 1:
+                torch.cuda.synchronize()
+                prof.start()  # the second step under the profiler: its busy share
+            elif update == 2:
+                torch.cuda.synchronize()
+                prof.stop()
+
+        trainer = Trainer(model, tc, vocab_size=256, tokenize=list_str_to_bytes, log_fn=log_fn,
+                          device="cuda", transport=MESH_TRANSPORT)
+        mesh = trainer.mesh
+        checkpoint = tag == "fsdp"
+        if not checkpoint:  # train()'s final model_last is written in the fsdp phase only
+            trainer.save_checkpoint = lambda ts, last=False: None
+        with modulated_init():
+            ts = trainer.init_state(MESH_UPDATES, rng_seed=0)
+        p0 = [t.detach().clone() for t in fstep.tree_leaves(ts.params)]
+        shapes = []
+        inner = ra.rope_attention
+
+        def recording(q, *a, **kw):
+            shapes.append(tuple(q.shape))
+            return inner(q, *a, **kw)
+
+        ra.rope_attention = recording
+        loader = pmesh.ShardedLoader(_OneBatch(batch_np), mesh)
+        reset_counts()
+        t1 = time.perf_counter()
+        try:
+            ts, info = trainer.train(loader, epochs=MESH_UPDATES, resume=False,
+                                     max_updates=MESH_UPDATES)
+        finally:
+            ra.rope_attention = inner
+        t2 = time.perf_counter()
+        # the update against the single-process run's, over every rank's shards
+        want = fstep.tree_leaves(trainer.shard(ref))
+        specs = pmesh.leaf_specs(ts.params, trainer.sharded_cfg, mesh)
+        sync = pmesh.GradSync(mesh, specs)
+        # dot(mesh, ref), |mesh|^2, |mesh - ref|^2, |ref|^2 of the change p - p0,
+        # each leaf's terms once however many ranks hold it
+        acc = torch.zeros(4, dtype=torch.float64, device="cuda")
+        for p, start, r, s in zip(fstep.tree_leaves(ts.params), p0, want, specs):
+            dm, dr = (p.detach() - start).double(), (r.to("cuda") - start).double()
+            acc += torch.stack([(dm * dr).sum(), dm.square().sum(), (dm - dr).square().sum(),
+                                dr.square().sum()]) / sync._copies(s)
+        dot, m_sq, diff_sq, ref_sq = mesh.all_reduce(acc, pmesh.AXES).tolist()
+        kernels = device_kernels(prof)
+        result = {
+            "tag": tag, "axes": axes, "rank": rank, "transport": mesh.transport,
+            "coords": mesh.coords, "metrics": seen["metrics"], "walls": seen["walls"],
+            "counts": seen["counts"], "expected": mesh_expected(axes),
+            "k1_shapes": sorted(set(shapes)),
+            "eval": (mesh_eval(trainer, ts, pmesh.shard_batch(batch_np, mesh)) if checkpoint
+                     else None),
+            "cos": dot / math.sqrt(m_sq * ref_sq), "rel": math.sqrt(diff_sq / ref_sq),
+            "busy_ms": busy_ms(kernels), "kernels": len(kernels),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "local_blocks": len(ts.params["blocks"]), "updates": info["updates"],
+            "checkpoint": checkpoint,
+        }
+        result["seconds"] = {"setup": t1 - t0, "train": t2 - t1,
+                             "check": time.perf_counter() - t2}
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(result))
+        del trainer, ts, p0, want  # the allocator keeps its blocks for the next mesh
+        mesh.barrier()
+    multihost.shutdown()
+    return 0
+
+
+class _OneBatch:
+    """A loader of one global batch (train()'s len, set_epoch and iteration)."""
+
+    class _Sampler:
+        def set_epoch(self, epoch):
+            pass
+
+    def __init__(self, batch):
+        self.batch, self.sampler = batch, self._Sampler()
+
+    def __len__(self):
+        return 1
+
+    def __iter__(self):
+        yield self.batch
+
+
+def mesh_world(world: int, root: Path, tags: list, timeout: float = 900.0) -> dict:
+    """Start `world` ranks of this script on the card, wait for them; {tag:
+    [each rank's result]}."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--mesh-rank"]
+    procs = [subprocess.Popen(cmd + [str(r), str(world), str(port), str(root), json.dumps(tags)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh rank {r} of {world} exited {p.returncode}:\n{out[-6000:]}")
+    return {tag: [json.loads((root / tag.replace(" ", "_") / f"rank{r}.json").read_text())
+                  for r in range(world)] for tag in tags}
+
+
+def mesh_report(tag: str, results: list, ref: dict, runs: dict) -> None:
+    """Print and check one mesh phase's ranks against the single-process run."""
+    for res in results:
+        name = f"mesh {tag}, rank {res['rank']} {res['coords']}"
+        for i, ((loss, norm), (rl, rn)) in enumerate(zip(res["metrics"], ref["metrics"])):
+            log(f"[{name}] update {i + 1}: wall {res['walls'][i]:.3f} s, loss {loss:.6f} "
+                f"(single {rl:.6f}, rel {abs(loss - rl) / abs(rl):.2e}), grad norm {norm:.5f} "
+                f"(single {rn:.5f}, rel {abs(norm - rn) / abs(rn):.2e})")
+            if abs(loss - rl) > MESH_LOSS_REL * abs(rl) or abs(norm - rn) > MESH_NORM_REL * abs(rn):
+                raise AssertionError(f"{name}: update {i + 1} loss / grad norm off the single run")
+        for i, counts in enumerate(res["counts"]):
+            check_counts(f"{name} step {i + 1}", counts, res["expected"])
+        busy = res["busy_ms"]
+        evals = ("" if res["eval"] is None else
+                 f"fixed-draw loss {res['eval']:.6f} (single {ref['eval']:.6f}); ")
+        secs = ", ".join(f"{k} {v:.1f} s" for k, v in res["seconds"].items())
+        log(f"[{name}] launches a step { {k: v for k, v in res['counts'][-1].items() if v} }; "
+            f"K1 inputs {res['k1_shapes']}; {res['local_blocks']} local blocks; the update vs "
+            f"the single run's: cosine {res['cos']:.5f}, relative L2 {res['rel']:.4f}; {evals}"
+            f"seconds: {secs}; peak {res['peak_gib']:.2f} GiB; "
+            f"step 2 device busy {busy:.1f} ms in {res['kernels']} kernels of its "
+            f"{res['walls'][1] * 1e3:.1f} ms wall: busy share {busy / (res['walls'][1] * 1e3):.3f} "
+            f"(the ranks share one card and copy every collective through the host "
+            f"({res['transport']}): not a scaling figure)")
+        if res["cos"] < MESH_UPDATE_COS or res["rel"] > MESH_UPDATE_REL:
+            raise AssertionError(f"{name}: the update is off the single run's")
+        if res["eval"] is not None and abs(res["eval"] - ref["eval"]) > MESH_LOSS_REL * abs(
+                ref["eval"]):
+            raise AssertionError(f"{name}: fixed-draw loss off the single run's")
+        if res["updates"] != MESH_UPDATES or res["transport"] != MESH_TRANSPORT:
+            raise AssertionError(f"{name}: {res['updates']} updates over {res['transport']}")
+    runs[f"mesh_{tag.replace(' ', '_')}_step"] = results[0]["counts"][-1]
+
+
+def nccl_world_one() -> None:
+    """A world of one rank on NCCL through the mesh's collectives (every axis
+    its own one-rank group): the backend's init and each collective, on
+    CUDA tensors."""
+    import socket
+
+    import torch.distributed as dist
+
+    from f5e_tts_tpu_torch.parallel import mesh as pmesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        mesh = pmesh.Mesh({}, 0, torch.device("cuda"), "nccl", every_axis=True)
+        x = torch.randn(4, 6, device="cuda")
+        checks = {"all_reduce": mesh.all_reduce(x, pmesh.BATCH_AXES),
+                  "all_gather": mesh.all_gather(x, 1, "model"),
+                  "reduce_scatter": mesh.reduce_scatter(x, 0, "fsdp"),
+                  "broadcast": mesh.broadcast(x, 0, "pipe"),
+                  "shift": mesh.shift([x], "seq")[0]}
+        mesh.barrier()
+        for name, got in checks.items():
+            if not torch.equal(got, x):
+                raise AssertionError(f"NCCL world of one: {name} changed its input")
+        log(f"[nccl world of one] {dist.get_backend()} {torch.cuda.nccl.version()}: "
+            f"{', '.join(checks)} over one-rank groups give their input bit for bit")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(v1, root: Path, runs: dict) -> None:
+    """The single-process reference, then the five two-rank meshes, each
+    against it; the fsdp phase's model_last into the single-process Trainer;
+    NCCL through a world of one."""
+    from f5e_tts_tpu_torch.train import step as fstep
+    from f5e_tts_tpu_torch.train.trainer import Trainer
+    from f5e_tts_tpu_torch.utils.text import list_str_to_bytes
+
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    model = mesh_model(v1)
+    assert (model.arch.dim, model.arch.depth, model.arch.heads, model.arch.dim_head) == (
+        1024, DEPTH, 16, 64), model.arch
+    t0 = time.perf_counter()
+    trainer = Trainer(model, mesh_train_cfg(root / "single", {}), vocab_size=256,
+                      tokenize=list_str_to_bytes, device="cuda")
+    batch_np = next(iter(training_loader(trainer, trainer.train_cfg)))
+    torch.save(batch_np, root / "batch.pt")
+    metrics = []
+    trainer.log_fn = lambda m, u: metrics.append((m["loss"], m["grad_norm"]))
+    trainer.save_checkpoint = lambda ts, last=False: None
+    with modulated_init():
+        trainer.init_state(MESH_UPDATES, rng_seed=0)
+    ts, _ = trainer.train(_OneBatch(batch_np), epochs=MESH_UPDATES, resume=False,
+                          max_updates=MESH_UPDATES)
+    ref = {"metrics": metrics, "eval": mesh_eval(trainer, ts, batch_np)}
+    torch.save(fstep.tree_map(lambda t: t.detach().cpu(), ts.params), root / "ref.pt")
+    log(f"[mesh] single-process reference: two updates of F5TTS_v1_Base at full width "
+        f"(dropout 0) on {TRAIN_CLIPS} x {TRAIN_N}: losses {[round(m[0], 6) for m in metrics]}, "
+        f"grad norms {[round(m[1], 5) for m in metrics]}, fixed-draw loss {ref['eval']:.6f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del trainer, ts
+    torch.cuda.empty_cache()
+    log(f"[mesh] transport {MESH_TRANSPORT}: {len(MESH_AXES)} meshes of 2 ranks in one world; "
+        f"every rank computes on cuda:0")
+    t0 = time.perf_counter()
+    two = mesh_world(2, root, [tag for tag, _ in MESH_AXES])
+    log(f"[mesh] the two-rank world: {time.perf_counter() - t0:.1f} s")
+    for tag, _ in MESH_AXES:
+        mesh_report(tag, two[tag], ref, runs)
+    # the checkpoint written under fsdp (rank 0, gathered) into the single-process Trainer
+    single = Trainer(model, mesh_train_cfg(root / "fsdp", {}), vocab_size=256,
+                     tokenize=list_str_to_bytes, device="cuda")
+    ts = single.load_checkpoint(single.init_state(MESH_UPDATES, rng_seed=0))
+    loss = mesh_eval(single, ts, batch_np)
+    mesh_loss = two["fsdp"][0]["eval"]
+    log(f"[mesh fsdp] model_last.pt ({(root / 'fsdp' / 'model_last.pt').stat().st_size / 2**30:.2f}"
+        f" GiB, update {ts.update}) in the single-process Trainer: fixed-draw loss {loss:.6f}, "
+        f"under the mesh {mesh_loss:.6f}")
+    if ts.update != MESH_UPDATES or abs(loss - mesh_loss) > MESH_LOSS_REL * abs(mesh_loss):
+        raise AssertionError("the mesh's checkpoint gives another loss in the single process")
+    del single, ts
+    (root / "fsdp" / "model_last.pt").unlink()
+    torch.cuda.empty_cache()
+    nccl_world_one()
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4666,7 +5106,7 @@ def main() -> int:
         runs["mmdit_synthesis"] = phase("mmdit synthesis", lambda: mmdit_synthesis_phase(
             expected_counts(joint_attention=MMDIT_DEPTH * NFE)))
     mmdit = ModelConfig(name="MMDiT", backbone="MMDiT", tokenizer="byte", vocab_size=256,
-                        arch=MMDiTConfig())
+                        arch=MMDiTConfig(depth=MMDIT_DEPTH))
     runs["mmdit_training_step"], text_len = phase("mmdit training", lambda: training_phase(
         "mmdit training", mmdit, expected_counts(masked_attention=MMDIT_DEPTH,
                                                  masked_attention_bwd=MMDIT_DEPTH),
@@ -4676,14 +5116,15 @@ def main() -> int:
     # F5TTS_Base: RoPE on the first head only, K3 and K6 (and K2/K5)
     with torch.inference_mode():
         runs["base_synthesis"] = phase("base synthesis", lambda: preset_synthesis_phase(
-            "base synthesis", preset_tts("base synthesis", "F5TTS_Base"),
-            expected_counts(partial_rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE), runs=1))
-    base = byte_model(preset("F5TTS_Base"))
+            "base synthesis", preset_tts("base synthesis", "F5TTS_Base", BASE_DEPTH),
+            expected_counts(partial_rope_attention=BASE_DEPTH * NFE,
+                            gated_adaln=BASE_DEPTH * NFE), runs=1))
+    base = cut_depth(byte_model(preset("F5TTS_Base")), BASE_DEPTH)
     assert (base.arch.pe_attn_head, base.arch.text_mask_padding) == (1, False), base.arch
     runs["base_training_step"], _ = phase("base training", lambda: training_phase(
         "base training", base,
-        expected_counts(partial_rope_attention=DEPTH, partial_rope_attention_bwd=DEPTH,
-                        gated_adaln=DEPTH, gated_adaln_bwd=DEPTH),
+        expected_counts(partial_rope_attention=BASE_DEPTH, partial_rope_attention_bwd=BASE_DEPTH,
+                        gated_adaln=BASE_DEPTH, gated_adaln_bwd=BASE_DEPTH),
         updates=2, warmup=1, checkpoints=False))
 
     # E2TTS_Base: a UNetT, attention on N+1 rows through K3 and K6, no AdaLN
@@ -4695,7 +5136,7 @@ def main() -> int:
         runs["e2_captured_synthesis_capture"] = phase("e2 captured synthesis",
                                                       lambda: e2_captured_phase(e2))
         del e2
-    e2_cfg = byte_model(preset("E2TTS_Base"))
+    e2_cfg = cut_depth(byte_model(preset("E2TTS_Base")), E2_DEPTH)
     assert (e2_cfg.arch.depth, e2_cfg.arch.ff_mult, e2_cfg.arch.pe_attn_head) == (E2_DEPTH, 4, 1)
     runs["e2_training_step"], _ = phase("e2 training", lambda: training_phase(
         "e2 training", e2_cfg, expected_counts(partial_rope_attention=E2_DEPTH,
@@ -4704,7 +5145,7 @@ def main() -> int:
 
     # the F5E model of configs/example.yaml: a PPG-conditioned, codebook-
     # regularised F5TTS_Small with remat "block"; K3 at 12 heads, K2/K5 at D = 768
-    f5e = f5e_model_config()
+    f5e = cut_depth(f5e_model_config(), F5E_DEPTH)
     assert (f5e.arch.depth, f5e.arch.heads, f5e.arch.pe_attn_head) == (F5E_DEPTH, 12, 1)
     extractor = phase("ppg extraction", f5e_extractor_phase)
     # under remat "block" each block's forward kernels run again in the recompute
@@ -4748,7 +5189,6 @@ def main() -> int:
                                        lambda: engine_dir_asr_phase(sv))
         # the serving batcher on (b, 1536) engines, and the servers
         runs.update(phase("batched serving", lambda: batched_serving_phase(sv)))
-        cfg2_busy = sv.sampler_busy[NFE]
         del sv
     del asr
     # the YAML training CLI on the F5E model with 8-bit AdamW
@@ -4764,7 +5204,7 @@ def main() -> int:
     cfg_free_wav = smoke / "cfg_free.wav"
     with torch.inference_mode():
         runs["cfg_free_synthesis"] = phase("cfg-free serving", lambda: cfg_free_phase(
-            student, cfg2_busy, cfg_free_wav, ra))
+            student, cfg_free_wav, ra))
         phase("bigvgan", bigvgan_phase)
         utmos = phase("eval nets", lambda: eval_nets_phase(cfg_free_wav))
     runs["eval_harness"] = phase("eval harness", lambda: harness_phase(
@@ -4774,6 +5214,9 @@ def main() -> int:
     # the quality proxy: train, distil and score the serving levers (fp32,
     # head width 32: K2/K5 in fp32, attention outside the kernels)
     runs["quality_proxy"] = phase("quality proxy", lambda: proxy_phase(smoke / "proxy"))
+    # parallel training: F5TTS_v1_Base over the data, model, seq, fsdp and pipe
+    # axes in a world of 2 ranks on this card
+    phase("mesh training", lambda: mesh_phase(v1, smoke / "mesh", runs))
 
     # which paths launched each kernel, and how often in one run of the path
     paths = {name: {p: c[name] for p, c in runs.items() if c[name]} for name in COUNTERS}
@@ -4794,4 +5237,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of a mesh world that main() starts
+        sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                                Path(sys.argv[5]), json.loads(sys.argv[6])))
     sys.exit(main())

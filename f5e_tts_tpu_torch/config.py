@@ -1,10 +1,10 @@
 """Configuration dataclasses, model presets and the YAML loaders (the port's
 copy of `f5e_tts_tpu/config.py`).
 
-The inference configs and the single-device training config are kept; the
-mesh, pipeline microbatching, the PRNG choice, 8-bit Adam and sample-count
-batches stay in the JAX package until the port reaches them, and
-`load_train_yaml` raises for a YAML that asks for them.
+The inference configs and the training config with its device mesh
+(`MeshConfig`: data, fsdp, model, seq and pipe axes over torch.distributed's
+ranks, parallel/mesh.py) and pipeline microbatching are kept; the JAX PRNG
+choice has no counterpart (torch generators).
 """
 
 from __future__ import annotations
@@ -162,9 +162,26 @@ class InferConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The mesh's axes over the world's ranks (f5e_tts_tpu/config.py:
+    MeshConfig): data = DP, fsdp = ZeRO-3-style fully sharded DP (the DiT's
+    block matrices, their gradients, AdamW moments and EMA split over it,
+    all-gathered per block), model = TP, seq = sequence parallelism (ring
+    attention), pipe = GPipe stages over the DiT's depth. Batches shard
+    over (data, fsdp) jointly."""
+
+    data: int = -1  # -1: all remaining ranks
+    fsdp: int = 1
+    model: int = 1
+    seq: int = 1
+    pipe: int = 1
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training loop config (reference: src/f5_tts/model/trainer.py:25-141 and
-    src/f5_tts/configs/example.yaml optim/ckpts sections), one device."""
+    src/f5_tts/configs/example.yaml optim/ckpts sections); `mesh` lays the
+    training out over torch.distributed's ranks (one rank by default)."""
 
     epochs: int = 100
     learning_rate: float = 7.5e-5
@@ -188,6 +205,8 @@ class TrainConfig:
     ema_inv_gamma: float = 1.0
     ema_power: float = 2.0 / 3.0
     ema_min_value: float = 0.0
+    # GPipe microbatch count when mesh.pipe > 1 (None -> one per stage)
+    pp_microbatches: Optional[int] = None
     save_per_updates: int = 50_000
     last_per_updates: int = 5_000
     keep_last_n_checkpoints: int = -1
@@ -195,6 +214,7 @@ class TrainConfig:
     save_dir: str = "ckpts"
     logger: Optional[str] = None  # "tensorboard" | "wandb" | None
     seed: int = 666
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     # numerics: fp32 master weights, matmuls in the compute dtype
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -310,18 +330,20 @@ def load_yaml(path: str) -> ModelConfig:
 
 def load_train_yaml(path: str) -> TrainConfig:
     """The optim / ckpts / datasets sections of a training YAML -> TrainConfig,
-    key for key as the JAX loader reads them (config.py:359-391). The port
-    trains on one device: a `mesh` over more than one device raises."""
+    key for key as the JAX loader reads them (config.py:359-391), with the
+    optional `mesh:` section ({data, fsdp, model, seq, pipe}; a bare `mesh:`
+    is the default mesh)."""
     raw = _read_yaml(path)
     optim = raw.get("optim", {})
     ckpts = raw.get("ckpts", {})
     ds = raw.get("datasets", {})
-    mesh = raw.get("mesh") or {}  # a bare `mesh:` key parses as None
-    if mesh.get("data", -1) not in (-1, 1) or any(mesh.get(k, 1) != 1 for k in
-                                                  ("fsdp", "model", "seq", "pipe")):
-        raise NotImplementedError(f"mesh {mesh}: the port trains on one device "
-                                  "(ROADMAP queue 1 item 10)")
+    mesh_raw = raw.get("mesh") or {}  # a bare `mesh:` key parses as None
+    mesh = MeshConfig(
+        data=mesh_raw.get("data", -1), fsdp=mesh_raw.get("fsdp", 1),
+        model=mesh_raw.get("model", 1), seq=mesh_raw.get("seq", 1),
+        pipe=mesh_raw.get("pipe", 1))
     return TrainConfig(
+        mesh=mesh,
         epochs=optim.get("epochs", 100),
         learning_rate=optim.get("learning_rate", 7.5e-5),
         num_warmup_updates=optim.get("num_warmup_updates", 20_000),

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from f5e_tts_tpu_torch.config import CFMConfig
 from f5e_tts_tpu_torch.models import backbone as fbb
 from f5e_tts_tpu_torch.models import dit as fdit
+from f5e_tts_tpu_torch.parallel import mesh as pmesh
 from f5e_tts_tpu_torch.utils.device import resolve_device
 from f5e_tts_tpu_torch.utils.masks import lens_to_mask, mask_from_frac_lengths
 
@@ -384,6 +385,51 @@ def drop_flags(arch, cfm: CFMConfig, u1: torch.Tensor, u2: torch.Tensor):
     return drop_audio | drop_all, drop_all, torch.ones_like(drop_all)
 
 
+def row_draws(d: LossDraws, b: int, n: int, mel_dim: int, mel_lens: torch.Tensor,
+              cfm: CFMConfig, generator: Optional[torch.Generator], dev):
+    """(span mask, x0, time) of a loss call, drawn in the reference's order
+    (frac, span, x0, time) from `generator` where `d` gives none. Under a batch mesh
+    (parallel/mesh.py: active) each is drawn at the global
+    batch's shape (this rank's b rows times the shards), as the
+    single-process run of the global batch draws it, and sliced to this
+    shard's rows; given draws are global too."""
+    bm = pmesh.batch_mesh()
+    bg = b * (1 if bm is None else bm.size(pmesh.BATCH_AXES))
+
+    def draw(value, shape, normal=False):
+        if value is not None:
+            t = torch.as_tensor(value, dtype=torch.float32).to(dev)
+        elif normal:
+            t = torch.randn(shape, generator=generator, device=dev)
+        else:
+            t = torch.rand(shape, generator=generator, device=dev)
+        return pmesh.local_rows(t, bm)
+
+    lo, hi = cfm.frac_lengths_mask
+    frac = (pmesh.local_rows(d.frac.to(dev).float(), bm) if d.frac is not None
+            else pmesh.local_rows(lo + (hi - lo) * torch.rand((bg,), generator=generator,
+                                                                device=dev), bm))
+    span = mask_from_frac_lengths(mel_lens.to(dev), frac, n, rand=draw(d.span, (bg,))) \
+        & lens_to_mask(mel_lens.to(dev), n)
+    x0 = draw(d.x0, (bg, n, mel_dim), normal=True)
+    return span, x0, draw(d.time, (bg,))
+
+
+def _local_dit_draws(d: LossDraws, bm) -> dict:
+    """The DiT's draws of `d` with the per-row ones cut to this shard's rows
+    under a batch mesh (the permutations and the cross mask's coin are the
+    batch's)."""
+    out = {f: getattr(d, f) for f in fdit.DiTDraws._fields}
+    if bm is None:
+        return out
+    for f in ("gumbel_text", "gumbel_ppg", "cross_ratio", "cross_start"):
+        if out[f] is not None:
+            out[f] = pmesh.local_rows(out[f], bm)
+    if out["ppg_keep"] is not None:
+        out["ppg_keep"] = [pmesh.local_rows(k, bm) for k in out["ppg_keep"]]
+    return out
+
+
 def cfm_loss(params, arch, cfm: CFMConfig, *, mel: torch.Tensor,
              mel_lens: torch.Tensor, text_ids: Optional[torch.Tensor],
              generator: Optional[torch.Generator] = None, draws: Optional[LossDraws] = None,
@@ -402,25 +448,30 @@ def cfm_loss(params, arch, cfm: CFMConfig, *, mel: torch.Tensor,
     step. As the reference, training passes no attention mask, so every key
     is valid, padding included. Draws missing from `draws` come from
     `generator`, as does the trunk's dropout.
+
+    Under a batch mesh (parallel/mesh.py: active) the batch is
+    this rank's rows of the global batch: the per-row draws are the global
+    run's (`row_draws`), the two batch-shared ones alike on every rank, the
+    flow loss the global span-frame mean (`global_mean`: its gradients
+    summed over the shards are the global loss's), and the forward's
+    dropout draws from a generator folded with the shard's index. The
+    codebook's extra losses are the mean of the shards' (JAX takes them
+    over the global batch) and each shard updates the BatchNorm statistics
+    from its own rows.
     """
     b, n, mel_dim = mel.shape
     dev = mel.device
     d = draws or LossDraws()
+    bm = pmesh.batch_mesh()
 
     def uniform(value, shape):
         if value is not None:
             return torch.as_tensor(value, dtype=torch.float32).to(dev)
         return torch.rand(shape, generator=generator, device=dev)
 
-    mask = lens_to_mask(mel_lens.to(dev), n)
-    lo, hi = cfm.frac_lengths_mask
-    frac = d.frac.to(dev).float() if d.frac is not None else lo + (hi - lo) * uniform(None, (b,))
-    span = mask_from_frac_lengths(mel_lens.to(dev), frac, n, rand=uniform(d.span, (b,))) & mask
-
+    span, x0, time = row_draws(d, b, n, mel_dim, mel_lens, cfm, generator, dev)
     x1 = mel.float()
-    x0 = (d.x0.to(dev).float() if d.x0 is not None
-          else torch.randn(x1.shape, generator=generator, device=dev))
-    time = uniform(d.time, (b,))
+    x0 = x0.float()
     t = time[:, None, None]
     phi = (1 - t) * x0 + t * x1
     flow = x1 - x0
@@ -431,7 +482,9 @@ def cfm_loss(params, arch, cfm: CFMConfig, *, mel: torch.Tensor,
     if fbb.uses_ppg(arch):
         dit_kw = dict(ppg=ppg, drop_ppg=drop_ppg.expand(b), text_len=text_lens, ppg_len=ppg_lens,
                       vq_temperature=vq_temperature,
-                      draws=fdit.DiTDraws(**{f: getattr(d, f) for f in fdit.DiTDraws._fields}))
+                      draws=fdit.DiTDraws(**_local_dit_draws(d, bm)))
+    if bm is not None:
+        generator = pmesh.fold_generator(generator, bm.index(pmesh.BATCH_AXES))
     pred, extras = fbb.forward_train(
         params, arch, x=phi.to(compute_dtype), cond=cond.to(compute_dtype), text_ids=text_ids,
         time=time, drop_audio_cond=drop_audio.expand(b), drop_text=drop_text.expand(b),
@@ -440,7 +493,9 @@ def cfm_loss(params, arch, cfm: CFMConfig, *, mel: torch.Tensor,
 
     se = (pred.float() - flow).square()
     w = span[:, :, None].float()
-    flow_loss = (se * w).sum() / torch.clamp(w.sum() * mel_dim, min=1.0)
-    return CFMLossOut(loss=flow_loss + extras.extra_loss, flow_loss=flow_loss, cond=cond,
-                      pred=pred, extra_loss=extras.extra_loss, new_state=extras.new_state,
-                      align_loss=extras.align_loss, perplex_loss=extras.perplex_loss)
+    flow_loss = pmesh.global_mean((se * w).sum(), w.sum() * mel_dim, bm, min_den=1.0)
+    extra, align, perplex = (pmesh.shard_mean(x, bm) for x in (
+        extras.extra_loss, extras.align_loss, extras.perplex_loss))
+    return CFMLossOut(loss=flow_loss + extra, flow_loss=flow_loss, cond=cond,
+                      pred=pred, extra_loss=extra, new_state=extras.new_state,
+                      align_loss=align, perplex_loss=perplex)

@@ -11,6 +11,14 @@ layouts, except that the per-block tensors are a list of `depth` dicts
 instead of arrays stacked for `lax.scan`; the loop over blocks is a Python
 loop. q/k features are in the half-split RoPE order (see ops/rope.py).
 
+Under the active mesh (parallel/mesh.py: active, entered by the training
+step) the params are this rank's slices of `dit_param_spec`: with a
+"model" axis > 1 the blocks and the text embedding's ConvNeXt run
+Megatron's column / row split over it; with fsdp > 1 each block's split
+matrices are all-gathered at use (`FSDPGather`); with pipe > 1 the trunk
+runs its stage's blocks through `gpipe_scan` (models/dit.py:356-394 of the
+JAX package).
+
 reference semantics: src/f5_tts/model/backbones/dit.py:183-472 and
 src/f5_tts/model/modules.py:610-641 (DiTBlock).
 """
@@ -26,12 +34,15 @@ from torch.utils.checkpoint import checkpoint
 
 from f5e_tts_tpu_torch.config import DiTConfig
 from f5e_tts_tpu_torch.kernels.gated_adaln import GatedAdaLN
+from f5e_tts_tpu_torch.ops import attention as fattn
 from f5e_tts_tpu_torch.ops import convnext as fcnx
 from f5e_tts_tpu_torch.ops import mas as fmas
 from f5e_tts_tpu_torch.ops import nn as fnn
 from f5e_tts_tpu_torch.ops import vq as fvq
 from f5e_tts_tpu_torch.ops.attention import attention
 from f5e_tts_tpu_torch.ops.rope import rotary_cos_sin_half
+from f5e_tts_tpu_torch.parallel import mesh as pmesh
+from f5e_tts_tpu_torch.parallel import pipeline as ppipe
 from f5e_tts_tpu_torch.utils.masks import lens_to_mask
 
 
@@ -194,7 +205,7 @@ def text_embed_fn(params, cfg: DiTConfig, text_ids: Optional[torch.Tensor], batc
         if text_mask is not None:
             emb = emb.masked_fill(text_mask[:, :, None], 0.0)
         for blk in params["text_embed"]["blocks"]:
-            emb = fcnx.convnext_v2(blk, emb, compute_dtype=compute_dtype)
+            emb = fcnx.convnext_v2(blk, emb, compute_dtype=compute_dtype, sharded=True)
             if text_mask is not None:
                 emb = emb.masked_fill(text_mask[:, :, None], 0.0)
     return emb
@@ -307,18 +318,32 @@ def _dit_block(blk, x, t_emb, mask, rope_cos, rope_sin, cfg: DiTConfig,
     norm = norm * (1 + scale_msa[:, None, :]) + shift_msa[:, None, :]
     attn_out = attention(blk["attn"], norm, cfg.heads, mask=mask, rope_cos=rope_cos,
                          rope_sin=rope_sin, pe_attn_head=cfg.pe_attn_head, qk_norm=cfg.qk_norm,
-                         compute_dtype=compute_dtype, kept=kept)
+                         compute_dtype=compute_dtype, kept=kept, sharded_heads=True)
     attn_out = fnn.dropout(attn_out, cfg.dropout, training, generator)
     # x += gate * attn_out; LN; * (1 + scale) + shift, in one pass (K2, K5)
     x, norm = GatedAdaLN.apply(x, attn_out, gate_msa, scale_mlp, shift_mlp)
-    norm = norm.to(compute_dtype)
+    norm = fattn.tp_copy(norm.to(compute_dtype))  # ff1 is column-parallel under TP
     if policy_ff:
         h = _KeptLinear.apply(norm, blk["ff1"]["w"], blk["ff1"]["b"], kept, compute_dtype)
     else:
         h = fnn.linear(blk["ff1"], norm, compute_dtype)
-    h = fnn.dropout(fnn.gelu(h, approximate="tanh"), cfg.dropout, training, generator)
-    h = fnn.linear(blk["ff2"], h, compute_dtype)
+    h = _ff_dropout(fnn.gelu(h, approximate="tanh"), cfg.dropout, training, generator)
+    h = fattn.row_parallel_linear(blk["ff2"], h, compute_dtype)
     return (x + gate_mlp[:, None, :] * h).to(compute_dtype)
+
+
+def _ff_dropout(h, rate: float, training: bool, generator):
+    """Dropout on the FF hidden. Under TP, h is this rank's columns: the keep
+    mask is drawn at the full width, as every rank of the model axis draws
+    it from the same generator state, and sliced, so the masks are those of
+    the unsharded block."""
+    tp = fattn._tp_shards()
+    if tp == 1 or not training or rate == 0.0:
+        return fnn.dropout(h, rate, training, generator)
+    full = h.shape[:-1] + (h.shape[-1] * tp,)
+    keep = torch.rand(full, generator=generator, device=h.device) < 1.0 - rate
+    r = pmesh.current().mesh.index("model")
+    return fnn.dropout(h, rate, training, keep=keep[..., r * h.shape[-1]:(r + 1) * h.shape[-1]])
 
 
 REMAT_POLICIES = ("block", "save_attn", "save_attn_ff")
@@ -373,15 +398,23 @@ def dit_trunk(params, cfg: DiTConfig, x, t_emb, mask, seq_len, compute_dtype=tor
     rope_cos, rope_sin = _rope_tables(cfg.dim_head, seq_len, x.device)
     remat = cfg.checkpoint_activations and torch.is_grad_enabled()
     residual = x
-    for blk in params["blocks"]:
+    fsdp = _fsdp_gather(cfg)
+
+    def block(h, blk, t_e, mk, cos, sin, gen):
+        blk = fsdp(blk)
         if "to_qkv" not in blk["attn"]:
             blk = {**blk, "attn": _fused_attn(blk["attn"], compute_dtype)}
         if remat:
-            x = _checkpointed_block(blk, x, t_emb, mask, rope_cos, rope_sin, cfg, compute_dtype,
-                                    training, generator)
-        else:
-            x = _dit_block(blk, x, t_emb, mask, rope_cos, rope_sin, cfg, compute_dtype, training,
-                           generator)
+            return _checkpointed_block(blk, h, t_e, mk, cos, sin, cfg, compute_dtype, training,
+                                       gen)
+        return _dit_block(blk, h, t_e, mk, cos, sin, cfg, compute_dtype, training, gen)
+
+    if ppipe.pp_shards() > 1:
+        x = _pipelined_trunk(block, params["blocks"], x, t_emb, mask, rope_cos, rope_sin, cfg,
+                             training, generator)
+    else:
+        for blk in params["blocks"]:
+            x = block(x, blk, t_emb, mask, rope_cos, rope_sin, generator)
     if cfg.long_skip_connection:
         x = fnn.linear(params["long_skip"], torch.cat([x, residual], dim=-1), compute_dtype)
 
@@ -390,6 +423,49 @@ def dit_trunk(params, cfg: DiTConfig, x, t_emb, mask, seq_len, compute_dtype=tor
     x = fnn.layernorm(None, x, eps=1e-6).to(compute_dtype)
     x = x * (1 + scale[:, None, :]) + shift[:, None, :]
     return fnn.linear(params["proj_out"], x, compute_dtype).float()
+
+
+def _fsdp_gather(cfg: DiTConfig):
+    """blk -> blk with its fsdp-split matrices all-gathered for use (their
+    gradients reduce-scattered back), or the identity without fsdp."""
+    mesh = pmesh.current().over("fsdp")
+    if mesh is None:
+        return lambda blk: blk
+    spec = pmesh.block_spec(cfg, fsdp=True)
+
+    def gather(t, s):
+        if "fsdp" not in tuple(s):
+            return t
+        return pmesh.FSDPGather.apply(t, mesh, "fsdp", tuple(s).index("fsdp"))
+
+    return lambda blk: pmesh.tree_map_with_spec(gather, blk, spec)
+
+
+def _pipelined_trunk(block, blocks, x, t_emb, mask, rope_cos, rope_sin, cfg: DiTConfig,
+                     training: bool, generator):
+    """The blocks of this rank's pipeline stage through `gpipe_scan`. With
+    dropout in training each layer gets a seed, drawn alike on every stage
+    from `generator`, and each microbatch folds its index into the seeds
+    (`fold_scanned`): microbatches and stages draw independent masks."""
+    mesh, axis, n_micro = ppipe.pp_context()
+    seeds = [None] * len(blocks)
+    if training and cfg.dropout > 0.0 and generator is not None:
+        drawn = torch.randint(0, 2 ** 62, (len(blocks) * mesh.size(axis),), generator=generator,
+                              device=generator.device).tolist()
+        s = mesh.index(axis)
+        seeds = drawn[s * len(blocks):(s + 1) * len(blocks)]
+
+    def fold(items, m):
+        return [(blk, None if seed is None else (seed * 1_000_003 + m + 1) % (2 ** 63))
+                for blk, seed in items]
+
+    def body(h, item, t_e, mk, cos, sin):
+        blk, seed = item
+        gen = None if seed is None else torch.Generator(device=h.device).manual_seed(seed)
+        return block(h, blk, t_e, mk, cos, sin, gen)
+
+    return ppipe.gpipe_scan(body, x, list(zip(blocks, seeds)), mesh, axis=axis, n_micro=n_micro,
+                            batched=(t_emb, mask), const=(rope_cos, rope_sin), fold_scanned=fold)
 
 
 def dit_sample_step(params, cfg: DiTConfig, *, x, cond, text_embed, time, drop_audio_cond,

@@ -18,6 +18,17 @@ JAX package's route outside Pallas, `unfused_attention` (`UnfusedAttention`
 in the layers), which the shape picks before anything launches (a TPU
 dispatch declines such widths too).
 
+Under the active mesh (parallel/mesh.py: active, which the training step
+enters), as the JAX dispatch (ops/attention.py: 52-140, 227-268):
+- a "model" axis > 1: a DiT block's attention
+  (`sharded_heads=True`: its q/k/v are column slices, to_out a row slice)
+  runs the kernel on the rank's H/tp heads, its RoPE heads mapped onto the
+  ranks that hold them (a partial-RoPE preset's first head is on rank 0),
+  and to_out's partial products are all-reduced before its bias;
+- a "seq" axis > 1: a sequence of n >= min_seq
+  frames that the axis divides, with RoPE on every head or none, takes ring
+  attention (ops/ring_attention.py): K/V stay sharded over the axis.
+
 reference semantics: src/f5_tts/model/modules.py:435-503 (AttnProcessor) and
 :510-604 (JointAttnProcessor).
 """
@@ -32,9 +43,52 @@ import torch
 from f5e_tts_tpu_torch.kernels.attention import JointAttention, MaskedAttention
 from f5e_tts_tpu_torch.kernels.rope_attention import RopeAttention
 from f5e_tts_tpu_torch.ops import nn as fnn
+from f5e_tts_tpu_torch.ops.ring_attention import ring_attention
 from f5e_tts_tpu_torch.ops.rope import apply_rotary_half
+from f5e_tts_tpu_torch.parallel import mesh as pmesh
+from f5e_tts_tpu_torch.parallel.mesh import CopyToGroup, ReduceFromGroup
 
 KERNEL_HEAD_WIDTHS = (64, 128)  # what the attention kernels take
+
+
+def _tp_shards() -> int:
+    """The model axis's size under the active mesh (parallel/mesh.py: active)."""
+    mesh = pmesh.current().over("model")
+    return 1 if mesh is None else mesh.size("model")
+
+
+def tp_copy(x: torch.Tensor) -> torch.Tensor:
+    """A replicated tensor entering the model axis's column-parallel region
+    (identity forward, gradient all-reduced over the axis)."""
+    mesh = pmesh.current().over("model")
+    return x if mesh is None else CopyToGroup.apply(x, mesh, "model")
+
+
+def row_parallel_linear(p: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """A row-parallel linear: this rank's rows of w times its columns of x,
+    the partial products summed over the model axis in fp32, then the bias
+    and one rounding to the compute dtype (`fnn.linear` without a mesh)."""
+    mesh = pmesh.current().over("model")
+    if mesh is None:
+        return fnn.linear(p, x, compute_dtype)
+    part = fnn.linear({"w": p["w"]}, x, compute_dtype).float()
+    out = ReduceFromGroup.apply(part, mesh, "model")
+    if "b" in p:
+        out = out + p["b"].float()
+    return out.to(compute_dtype or x.dtype)
+
+
+def _sp_shards(n: int) -> int:
+    """The seq axis's size when a sequence of n frames takes ring attention
+    under the active mesh: n >= its min_seq and divisible (JAX's rule)."""
+    ctx = pmesh.current()
+    mesh = ctx.over("seq")
+    if mesh is None:
+        return 1
+    s = mesh.size("seq")
+    return 1 if n < ctx.min_seq or n % s else s
+
+
 unfused_calls = 0  # forward calls of `unfused_attention` since the caller last set it to 0
 
 
@@ -125,6 +179,7 @@ def attention(
     qk_norm: Optional[str] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
     kept: Optional[dict] = None,
+    sharded_heads: bool = False,
 ) -> torch.Tensor:
     """Self-attention matching the reference AttnProcessor, (B, N, D) out.
 
@@ -134,9 +189,21 @@ def attention(
     the kernel's output from the first forward for the recompute (see
     `RopeAttention`). A head width outside `KERNEL_HEAD_WIDTHS` takes
     `unfused_attention` (through `UnfusedAttention`, which keeps `kept` too).
+    `sharded_heads`: p holds this rank's slices under the active mesh's
+    model axis (a DiT block's, parallel/mesh.py: dit_param_spec): x is
+    replicated, `heads` counts the global heads.
     """
     _check_qk_norm(qk_norm)
     b, n, _ = x.shape
+    rope_heads = pe_attn_head if pe_attn_head is not None else heads
+    if sharded_heads and _tp_shards() > 1:
+        heads //= _tp_shards()
+        # the global RoPE heads h < rope_heads that this rank's heads hold
+        start = pmesh.current().mesh.index("model") * heads
+        rope_heads = max(0, min(rope_heads - start, heads))
+        x = tp_copy(x)
+        norms = {name: {"g": tp_copy(p[name]["g"])} for name in ("q_norm", "k_norm") if name in p}
+        p = {**p, **norms}
     if "to_qkv" in p:
         q, k, v = fnn.linear(p["to_qkv"], x, compute_dtype).chunk(3, dim=-1)
     else:
@@ -150,14 +217,18 @@ def attention(
         kv_lens = mask.sum(dim=-1, dtype=torch.int32)
     else:
         kv_lens = torch.full((b,), n, dtype=torch.int32, device=x.device)
-    rope_heads = pe_attn_head if pe_attn_head is not None else heads
-    if dh not in KERNEL_HEAD_WIDTHS:
+    if _sp_shards(n) > 1 and (pe_attn_head is None or rope_cos is None):
+        o = ring_attention(q, k, v, None if mask is None else kv_lens, pmesh.current().mesh, "seq",
+                           rope_cos=None if rope_cos is None else rope_cos[:n],
+                           rope_sin=None if rope_sin is None else rope_sin[:n])
+    elif dh not in KERNEL_HEAD_WIDTHS:
         o = UnfusedAttention.apply(q, k, v, mask, rope_cos, rope_sin, rope_heads, kept)
     elif rope_cos is not None:
         o = RopeAttention.apply(q, k, v, kv_lens, rope_cos[:n], rope_sin[:n], rope_heads, kept)
     else:
         o = MaskedAttention.apply(q, k, v, kv_lens)
-    o = fnn.linear(p["to_out"], o.reshape(b, n, heads * dh), compute_dtype)
+    o = (row_parallel_linear if sharded_heads else fnn.linear)(
+        p["to_out"], o.reshape(b, n, heads * dh), compute_dtype)
     if mask is not None:
         o = o.masked_fill(~mask[:, :, None], 0.0)
     return o

@@ -28,8 +28,8 @@ import torch
 from f5e_tts_tpu_torch.config import CFMConfig, MelConfig
 from f5e_tts_tpu_torch.models import backbone as fbb
 from f5e_tts_tpu_torch.models import cfm as fcfm
+from f5e_tts_tpu_torch.parallel import mesh as pmesh
 from f5e_tts_tpu_torch.train import step as fstep
-from f5e_tts_tpu_torch.utils.masks import lens_to_mask, mask_from_frac_lengths
 
 
 class DistillLossOut(NamedTuple):
@@ -58,22 +58,10 @@ def cfg_distill_loss(student_params, teacher_params, arch, cfm: CFMConfig, *,
     b, n, _ = mel.shape
     dev = mel.device
     d = draws or fcfm.LossDraws()
-
-    def uniform(value, shape):
-        if value is not None:
-            return torch.as_tensor(value, dtype=torch.float32).to(dev)
-        return torch.rand(shape, generator=generator, device=dev)
-
-    mel_lens = mel_lens.to(dev)
-    lo, hi = cfm.frac_lengths_mask
-    frac = d.frac.to(dev).float() if d.frac is not None else lo + (hi - lo) * uniform(None, (b,))
-    span = mask_from_frac_lengths(mel_lens, frac, n, rand=uniform(d.span, (b,))) \
-        & lens_to_mask(mel_lens, n)
-
+    bm = pmesh.batch_mesh()  # a batch mesh: the global run's draws and loss, as cfm_loss
+    span, x0, time = fcfm.row_draws(d, b, n, mel.shape[-1], mel_lens, cfm, generator, dev)
     x1 = mel.float()
-    x0 = (d.x0.to(dev).float() if d.x0 is not None
-          else torch.randn(x1.shape, generator=generator, device=dev))
-    time = uniform(d.time, (b,))
+    x0 = x0.float()
     t = time[:, None, None]
     phi = (1 - t) * x0 + t * x1
     cond = x1.masked_fill(span[:, :, None], 0.0)
@@ -94,6 +82,8 @@ def cfg_distill_loss(student_params, teacher_params, arch, cfm: CFMConfig, *,
         v_cond, v_uncond = pred2[:b].float(), pred2[b:].float()
         teacher_flow = (1.0 + cfg_strength) * v_cond - cfg_strength * v_uncond
 
+    if bm is not None:
+        generator = pmesh.fold_generator(generator, bm.index(pmesh.BATCH_AXES))
     student_pred = fbb.forward_train(
         student_params, arch, x=phi.to(compute_dtype), cond=cond.to(compute_dtype),
         text_ids=text_ids, time=time, drop_audio_cond=zeros, drop_text=zeros, mask=None,
@@ -102,7 +92,7 @@ def cfg_distill_loss(student_params, teacher_params, arch, cfm: CFMConfig, *,
 
     se = (student_pred.float() - teacher_flow).square()
     w = span[:, :, None].float()
-    loss = (se * w).sum() / torch.clamp(w.sum() * se.shape[-1], min=1.0)
+    loss = pmesh.global_mean((se * w).sum(), w.sum() * se.shape[-1], bm, min_den=1.0)
     return DistillLossOut(loss=loss, teacher_flow=teacher_flow, student_pred=student_pred)
 
 

@@ -6,9 +6,11 @@ The presets are F5TTS_v1_Base, F5TTS_Base, F5TTS_Small and E2TTS_Base. With
 --finetune the pretrained checkpoint (a local path: nothing is downloaded) is
 copied into ckpts/<dataset_name>/ as pretrained_<name>, which rotation never
 deletes, and training starts from its EMA weights. The run directory is
-relative to the working directory. One device: the card unless --device
-cpu. The pinyin tokenizers raise (pypinyin is not installed); pass
---tokenizer char, custom or byte.
+relative to the working directory. The card unless --device cpu; launched
+once per rank under torchrun, the ranks train data-parallel (each on
+cuda:<LOCAL_RANK>, its rows of every batch; --transport as train/train.py).
+The pinyin tokenizers raise (pypinyin is not installed); pass --tokenizer
+char, custom or byte.
 
     python -m f5e_tts_tpu_torch.train.finetune_cli --dataset_name my_set \\
         --tokenizer char --finetune --pretrain model_1250000.pt [--device cpu]
@@ -47,6 +49,8 @@ def parse_args(argv=None):
                    help="8-bit AdamW moments (reference finetune_cli.py:70; here "
                         "train/adamw8bit.py)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--transport", default=None, choices=["nccl", "gloo", "gloo-host"],
+                   help="the ranks' collectives (default: nccl on the card, gloo on the CPU)")
     return p.parse_args(argv)
 
 
@@ -55,11 +59,16 @@ def main(argv=None):
 
     from f5e_tts_tpu_torch.config import TrainConfig, preset
     from f5e_tts_tpu_torch.data.dataset import ArrowSpeechDataset, build_loader
+    from f5e_tts_tpu_torch.parallel import multihost
+    from f5e_tts_tpu_torch.parallel.mesh import ShardedLoader
     from f5e_tts_tpu_torch.train.train import make_tokenize
     from f5e_tts_tpu_torch.train.trainer import Trainer
     from f5e_tts_tpu_torch.utils import text as ftext
 
     args = parse_args(argv)
+    multihost.initialize()  # a rank of torchrun's world; nothing for one process
+    device = multihost.local_device(args.device)
+    main_rank = multihost.process_index() == 0
     model_cfg = dataclasses.replace(preset(args.exp_name), tokenizer=args.tokenizer,
                                     tokenizer_path=args.tokenizer_path)
 
@@ -72,8 +81,9 @@ def main(argv=None):
                              "downloaded)")
         # copied as pretrained_* into the run directory (finetune_cli.py:141-151)
         pretrain_path = os.path.join(ckpt_dir, f"pretrained_{os.path.basename(args.pretrain)}")
-        if not os.path.exists(pretrain_path):
+        if main_rank and not os.path.exists(pretrain_path):
             shutil.copy2(args.pretrain, pretrain_path)
+        multihost.barrier()
 
     train_cfg = TrainConfig(
         epochs=args.epochs, learning_rate=args.learning_rate,
@@ -94,8 +104,11 @@ def main(argv=None):
                           seed=train_cfg.seed)
 
     trainer = Trainer(model_cfg, train_cfg, vocab_size=vocab_size,
-                      tokenize=make_tokenize(model_cfg, vocab), device=args.device,
-                      log_fn=lambda m, u: u % 50 == 0 and print(f"update {u}: {m['loss']:.4f}"))
+                      tokenize=make_tokenize(model_cfg, vocab), device=device,
+                      transport=args.transport,
+                      log_fn=lambda m, u: main_rank and u % 50 == 0 and print(
+                          f"update {u}: {m['loss']:.4f}"))
+    loader = ShardedLoader(loader, trainer.mesh)  # this rank's rows of each batch
     if pretrain_path:
         trainer.init_state(len(loader) * args.epochs, pretrained_path=pretrain_path)
     ts, _ = trainer.train(loader, max_updates=args.max_updates)

@@ -92,12 +92,14 @@ def ema_decay_at(update: int, ema: EMASettings) -> float:
     return min(max(value, ema.min_value), ema.beta)
 
 
-def make_schedule(train: TrainConfig, total_updates: int) -> Callable[[int], float]:
-    """Linear warmup from 1e-8 to the peak over num_warmup_updates updates,
-    then linear decay to 1e-8 over the rest (optax.join_schedules of two
-    linear_schedules, trainer.py:316-340; one device, so no replica scaling)."""
+def make_schedule(train: TrainConfig, total_updates: int,
+                  num_replicas: int = 1) -> Callable[[int], float]:
+    """Linear warmup from 1e-8 to the peak over num_warmup_updates x
+    num_replicas updates (the warmup scales with the data-parallel replica
+    count, trainer.py:316-318), then linear decay to 1e-8 over the rest
+    (optax.join_schedules of two linear_schedules, trainer.py:334-340)."""
     lr = train.learning_rate
-    warmup = train.num_warmup_updates
+    warmup = train.num_warmup_updates * num_replicas
     decay = max(total_updates - warmup, 1)
 
     def linear(init: float, end: float, steps: int, count: int) -> float:
@@ -141,8 +143,11 @@ class AdamW:
 
     @torch.no_grad()
     def update_(self, state: AdamWState, params: List[torch.Tensor],
-                grads: List[torch.Tensor]) -> bool:
-        """One finite micro-step; True when it applied an optimizer update."""
+                grads: List[torch.Tensor],
+                norm_fn: Callable[[List[torch.Tensor]], torch.Tensor] = global_norm) -> bool:
+        """One finite micro-step; True when it applied an optimizer update.
+        `norm_fn` gives the clip's global norm (over the whole sharded
+        gradient under a mesh: parallel/mesh.py: GradSync.norm)."""
         if state.acc is not None:
             n = state.mini_step
             diff = torch._foreach_sub(grads, state.acc)
@@ -152,7 +157,7 @@ class AdamW:
             if n != self.grad_accum - 1:
                 return False
             grads = state.acc  # clipped in place below, then zeroed
-        g_norm = float(global_norm(grads))
+        g_norm = float(norm_fn(grads))
         if not g_norm < self.max_grad_norm:
             torch._foreach_div_(grads, g_norm)
             torch._foreach_mul_(grads, self.max_grad_norm)
@@ -181,10 +186,11 @@ class AdamW:
         torch._foreach_add_(params, step, alpha=-lr)
 
 
-def make_optimizer(train: TrainConfig, total_updates: int) -> AdamW:
-    """The JAX optimizer chain on one device; `bnb_optimizer` swaps AdamW for
-    the block-wise 8-bit one (train/adamw8bit.py; reference trainer.py:134-137)."""
-    schedule = make_schedule(train, total_updates)
+def make_optimizer(train: TrainConfig, total_updates: int, num_replicas: int = 1) -> AdamW:
+    """The JAX optimizer chain; `bnb_optimizer` swaps AdamW for the
+    block-wise 8-bit one (train/adamw8bit.py; reference trainer.py:134-137).
+    `num_replicas` (data x fsdp) scales the warmup."""
+    schedule = make_schedule(train, total_updates, num_replicas)
     if train.bnb_optimizer:
         from f5e_tts_tpu_torch.train.adamw8bit import AdamW8bit
 
@@ -236,16 +242,28 @@ def _ema_update_(ts: TrainState, ema: EMASettings) -> None:
 
 
 def apply_gradients(ts: TrainState, out: fcfm.CFMLossOut, grads: List[torch.Tensor], *,
-                    optimizer: AdamW, ema: EMASettings):
+                    optimizer: AdamW, ema: EMASettings, sync=None):
     """The post-backward half of a step: NaN gate, optimizer, counters, model
     state, EMA. Updates `ts` in place and returns (ts, StepMetrics); the new
-    model state is kept only when the step passes the gate (JAX step.py:140-148)."""
-    grad_norm = global_norm(grads)
+    model state is kept only when the step passes the gate (JAX step.py:140-148).
+    `sync` (parallel/mesh.py: GradSync) under a mesh: the gradients are
+    summed over the batch axes first, the norm of the clip and the gate is
+    the whole gradient's, and the new model state the shards' mean."""
+    norm_fn = global_norm
+    if sync is not None:
+        sync.reduce_(grads)
+        norm_fn = sync.norm
+    grad_norm = norm_fn(grads)
     ok = bool(torch.isfinite(out.loss) & torch.isfinite(grad_norm))
     if ok:
         if out.new_state:
+            if sync is not None:
+                sync.mean_(tree_leaves(out.new_state))
             ts.model_state = out.new_state
-        applied = optimizer.update_(ts.opt_state, tree_leaves(ts.params), grads)
+        leaves = tree_leaves(ts.params)
+        # one device: any optimizer with update_(state, params, grads) (make_distill_step's)
+        applied = (optimizer.update_(ts.opt_state, leaves, grads) if sync is None else
+                   optimizer.update_(ts.opt_state, leaves, grads, norm_fn=norm_fn))
         ts.micro += 1
         if applied:
             ts.update += 1
@@ -260,7 +278,7 @@ def apply_gradients(ts: TrainState, out: fcfm.CFMLossOut, grads: List[torch.Tens
 
 
 def backward_and_apply(ts: TrainState, loss_fn: Callable[[dict], fcfm.CFMLossOut], *,
-                       optimizer: AdamW, ema: EMASettings):
+                       optimizer: AdamW, ema: EMASettings, sync=None):
     """loss_fn(params) forward and backward into fresh gradients, then
     `apply_gradients`."""
     leaves = tree_leaves(ts.params)
@@ -271,7 +289,7 @@ def backward_and_apply(ts: TrainState, loss_fn: Callable[[dict], fcfm.CFMLossOut
     grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
     for p in leaves:
         p.grad = None
-    return apply_gradients(ts, out, grads, optimizer=optimizer, ema=ema)
+    return apply_gradients(ts, out, grads, optimizer=optimizer, ema=ema, sync=sync)
 
 
 def train_step(ts: TrainState, batch: dict, *, arch, cfm: CFMConfig,

@@ -2,8 +2,12 @@
 train (counterpart of `f5e_tts_tpu/train/train.py`).
 
 reference: src/f5_tts/train/train.py:18-105 (Hydra main); here plain YAML
-and argparse, the schema of configs/example.yaml. One device: the card
-unless --device cpu.
+and argparse, the schema of configs/example.yaml. The card unless --device
+cpu. Launched once per rank (torchrun sets WORLD_SIZE, RANK, LOCAL_RANK and
+MASTER_ADDR/PORT), the ranks train under the YAML's `mesh:` section, each on
+cuda:<LOCAL_RANK> over NCCL (ranks that share one card: --device cuda:0
+--transport gloo-host; gloo on the CPU), each taking its rows of every
+batch; rank 0 prints and writes the checkpoints.
 
 As in the JAX CLI, the Trainer gets no PPG extractor and the dataset no PPG,
 so a `use_ppg` model trains on zero PPG (`ppg_embed_fn` of no PPG); the
@@ -11,6 +15,7 @@ pinyin and g2p-mix tokenizers raise (pypinyin and g2p_mix are absent).
 
     python -m f5e_tts_tpu_torch.train.train --config configs/example.yaml \\
         [--data_dir data] [--device cpu]
+    torchrun --nproc_per_node 4 -m f5e_tts_tpu_torch.train.train --config x.yaml
 """
 
 from __future__ import annotations
@@ -58,7 +63,15 @@ def main(argv=None):
     p.add_argument("--max_updates", type=int, default=None)
     p.add_argument("--no_resume", action="store_true")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--transport", default=None, choices=["nccl", "gloo", "gloo-host"],
+                   help="the mesh's collectives (default: nccl on the card, gloo on the CPU)")
     args = p.parse_args(argv)
+    from f5e_tts_tpu_torch.parallel import multihost
+    from f5e_tts_tpu_torch.parallel.mesh import ShardedLoader
+
+    multihost.initialize()  # a rank of torchrun's world; nothing for one process
+    device = multihost.local_device(args.device)
+    main_rank = multihost.process_index() == 0
 
     model_cfg = load_yaml(args.config)
     train_cfg = load_train_yaml(args.config)
@@ -80,6 +93,8 @@ def main(argv=None):
 
     def log_fn(metrics, update):
         logs.append((update, metrics))
+        if not main_rank:
+            return
         if update % 10 == 0:
             print(f"update {update}: loss={metrics['loss']:.4f} "
                   f"grad_norm={metrics['grad_norm']:.3f}")
@@ -89,12 +104,14 @@ def main(argv=None):
             _wandb_log(metrics, update)
 
     trainer = Trainer(model_cfg, train_cfg, vocab_size=vocab_size, tokenize=tokenize,
-                      log_fn=log_fn, device=args.device)
+                      log_fn=log_fn, device=device, transport=args.transport)
+    loader = ShardedLoader(loader, trainer.mesh)  # this rank's rows of each batch
     if args.pretrained:
         trainer.init_state(len(loader) * train_cfg.epochs, pretrained_path=args.pretrained)
     ts, info = trainer.train(loader, resume=not args.no_resume, max_updates=args.max_updates)
-    print(f"done: {info['updates']} updates in {info['seconds']:.0f}s "
-          f"({info['updates'] / max(info['seconds'], 1e-9):.2f} updates/s)")
+    if main_rank:
+        print(f"done: {info['updates']} updates in {info['seconds']:.0f}s "
+              f"({info['updates'] / max(info['seconds'], 1e-9):.2f} updates/s)")
     return ts
 
 

@@ -1,7 +1,24 @@
-"""Training loop on one device: data -> step -> EMA -> checkpoints -> logs
-(counterpart of `f5e_tts_tpu/train/trainer.py`, without the mesh).
+"""Training loop: data -> step -> EMA -> checkpoints -> logs, on one device
+or over a mesh of torch.distributed ranks (counterpart of
+`f5e_tts_tpu/train/trainer.py`).
 
 reference: src/f5_tts/model/trainer.py:25-494.
+
+- `train_cfg.mesh` lays the ranks out over (data, fsdp, model, seq, pipe)
+  (parallel/mesh.py; the process group comes first:
+  parallel/multihost.py: initialize). The DiT's params, EMA and AdamW
+  moments live as this rank's slices of `dit_param_spec`; every other
+  backbone is replicated, its model / seq axes computing alike. Each rank's
+  loader yields its rows of the global batch (`parallel.mesh.ShardedLoader`
+  cuts a global loader), the loss is the global batch's, and the gradients
+  are summed over (data, fsdp) before the global-norm clip, the NaN gate
+  and AdamW (`GradSync`); the warmup scales by data x fsdp. Rank 0 writes
+  the checkpoints, gathered to the single-device layout, then every rank
+  waits; every rank resumes from them, sharding them again. The model's
+  ops shard only inside the step (`mesh_context`): the sample hook runs on
+  rank 0, unsharded, on the gathered EMA. The 8-bit
+  AdamW's blocks cover a whole tensor, so it refuses a mesh that splits
+  tensors (fsdp or model > 1).
 
 - the log-mel frontend runs on the card inside the step, from the raw audio
   the loader carries (`loss_with_device_mel`); a PPG model's PPG comes from
@@ -29,6 +46,7 @@ reference: src/f5_tts/model/trainer.py:25-494.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -45,6 +63,7 @@ from f5e_tts_tpu_torch.config import MelConfig, ModelConfig, TrainConfig
 from f5e_tts_tpu_torch.models import backbone as fbb
 from f5e_tts_tpu_torch.models import cfm as fcfm
 from f5e_tts_tpu_torch.ops.mel import mel_spectrogram
+from f5e_tts_tpu_torch.parallel import mesh as pmesh
 from f5e_tts_tpu_torch.train import step as fstep
 from f5e_tts_tpu_torch.utils.convert import backbone_to_reference_state_dict
 from f5e_tts_tpu_torch.utils.device import resolve_device
@@ -122,17 +141,69 @@ class Trainer:
     # plain CFM loss, and the guidance strength the student distills
     teacher_params: Optional[dict] = None
     distill_cfg_strength: float = 2.0
+    # the mesh's collectives: "nccl" (CUDA's default), "gloo" (the CPU's) or
+    # "gloo-host" (CUDA tensors through pinned host memory: ranks sharing one card)
+    transport: Optional[str] = None
+    # under seq > 1, sequences shorter than this keep replicated attention
+    # (JAX's min_seq, ops/attention.py)
+    ring_min_seq: int = 2048
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.arch = self.model_cfg.arch
-        fbb.backbone_kind(self.arch)  # raises for an unknown config
+        kind = fbb.backbone_kind(self.arch)  # raises for an unknown config
         self.cfm = self.model_cfg.cfm
         if self.train_cfg.param_dtype != "float32":
             raise NotImplementedError("the port keeps fp32 master weights (param_dtype float32)")
         self.compute_dtype = _DTYPES[self.train_cfg.compute_dtype]
         self._init_ts = None
+        mc = self.train_cfg.mesh
+        if mc.pipe > 1 and kind != "dit":
+            raise ValueError("mesh.pipe > 1 is only supported for the DiT backbone (the UNetT's "
+                             "cross-depth skips are pipeline-hostile; the MMDiT keeps its loop)")
+        if self.train_cfg.bnb_optimizer and kind == "dit" and max(mc.fsdp, mc.model) > 1:
+            raise NotImplementedError("the 8-bit AdamW quantizes whole tensors in blocks; a mesh "
+                                      "with fsdp or model > 1 splits them")
+        self.mesh = pmesh.make_mesh(mc, self.device, self.transport)
+        self.kind = kind
+        # the DiT's params are sharded along dit_param_spec; other backbones are replicated
+        self.sharded_cfg = self.arch if kind == "dit" and self.mesh.world > 1 else None
+        self.is_main = self.mesh.rank == 0
+        self.sync, self._full_template = None, None
         os.makedirs(self.train_cfg.save_dir, exist_ok=True)
+
+    # ------------------------------------------------------------------
+    # the mesh: this rank's slices and the full layout
+    # ------------------------------------------------------------------
+
+    def mesh_context(self):
+        """The active mesh the training step runs under (parallel/mesh.py:
+        active): the DiT's params sharded, the batch split. Outside it, as in
+        the sample hook, the model runs unsharded on full params."""
+        return pmesh.active(self.mesh, model=self.kind == "dit", min_seq=self.ring_min_seq,
+                            n_micro=self.train_cfg.pp_microbatches)
+
+    def shard(self, full: dict) -> dict:
+        """This rank's local tree of a full param-shaped tree."""
+        if self.sharded_cfg is None:
+            return full
+        return pmesh.shard_dit_params(full, self.mesh, self.sharded_cfg)
+
+    def gather(self, local: dict) -> dict:
+        """The full tree from every rank's local one (a collective)."""
+        if self.sharded_cfg is None:
+            return local
+        return pmesh.gather_dit_params(local, self.mesh, self.sharded_cfg)
+
+    def _gather_list(self, template: dict, full_template: dict, items: list) -> list:
+        """Per-leaf items (moments, accumulators) of the local tree `template`
+        -> the full tree's, in its leaf order."""
+        tree = self.gather(pmesh._unflatten(template, items))
+        return _subtrees(full_template, tree)
+
+    def _shard_list(self, full_template: dict, local_template: dict, items: list) -> list:
+        tree = self.shard(pmesh._unflatten(full_template, items))
+        return _subtrees(local_template, tree)
 
     # ------------------------------------------------------------------
     # state setup
@@ -156,7 +227,12 @@ class Trainer:
             gen = torch.Generator(device=self.device).manual_seed(rng_seed)
             made = fbb.init_backbone(self.arch, self.vocab_size, gen, self.device)
         params, model_state = fbb.split_state(self.arch, made)
-        self.optimizer = fstep.make_optimizer(self.train_cfg, total_updates)
+        self._full_template = fstep.tree_map(lambda t: t.to("meta"), params)  # the layout only
+        params = self.shard(params)
+        self.sync = (pmesh.GradSync(self.mesh, pmesh.leaf_specs(params, self.sharded_cfg, self.mesh))
+                     if self.mesh.world > 1 else None)
+        self.optimizer = fstep.make_optimizer(self.train_cfg, total_updates,
+                                              num_replicas=self.mesh.size(pmesh.BATCH_AXES))
         ts = fstep.init_train_state(params, self.optimizer, model_state)
         self._init_ts = ts
         return ts
@@ -173,16 +249,18 @@ class Trainer:
 
             teacher, _ = fbb.split_state(self.arch, backbone_from_reference_state_dict(
                 load_state_dict(teacher, use_ema=True), self.arch))
-        # a copy: the student's in-place updates must never reach the teacher
-        self.teacher_params = fstep.tree_map(
-            lambda t: t.detach().to(self.device, torch.float32, copy=True), teacher)
+        # a copy: the student's in-place updates must never reach the teacher;
+        # under a mesh, this rank's slices, as the student's
+        self.teacher_params = self.shard(fstep.tree_map(
+            lambda t: t.detach().to(self.device, torch.float32, copy=True), teacher))
         if cfg_strength is not None:
             self.distill_cfg_strength = cfg_strength
 
     def make_step(self):
         """step(ts, batch, generator) -> (ts, StepMetrics) for a batch of
-        device tensors carrying audio or mel; with a teacher set, the step's
-        loss is the distillation loss (`distill_loss_with_device_mel`)."""
+        device tensors carrying audio or mel (this rank's rows under a mesh),
+        run under `mesh_context`; with a teacher set, the step's loss is the
+        distillation loss (`distill_loss_with_device_mel`)."""
         mel_cfg, arch, cfm, dtype = self.model_cfg.mel, self.arch, self.cfm, self.compute_dtype
         optimizer = self.optimizer
         ema = fstep.EMASettings.from_train_cfg(self.train_cfg)
@@ -199,7 +277,9 @@ class Trainer:
                 return loss_with_device_mel(params, arch, cfm, mel_cfg, batch, generator, draws,
                                             dtype, state=ts.model_state)
 
-            return fstep.backward_and_apply(ts, loss_fn, optimizer=optimizer, ema=ema)
+            with self.mesh_context():
+                return fstep.backward_and_apply(ts, loss_fn, optimizer=optimizer, ema=ema,
+                                                sync=self.sync)
 
         return step
 
@@ -217,29 +297,47 @@ class Trainer:
     def _ckpt_path(self, name: str) -> str:
         return os.path.join(self.train_cfg.save_dir, name)
 
+    def full_state(self, ts: fstep.TrainState) -> fstep.TrainState:
+        """The train state in the single-device layout (a collective under a
+        mesh: every rank gets it)."""
+        if self.sharded_cfg is None:
+            return ts
+        full = self._full_template
+        opt = ts.opt_state
+        moments = {k: self._gather_list(ts.params, full, getattr(opt, k)) for k in ("mu", "nu")}
+        acc = None if opt.acc is None else self._gather_list(ts.params, full, opt.acc)
+        return dataclasses.replace(
+            ts, params=self.gather(ts.params), ema_params=self.gather(ts.ema_params),
+            opt_state=dataclasses.replace(opt, acc=acc, **moments))
+
     def save_checkpoint(self, ts: fstep.TrainState, last: bool = False):
+        """Rank 0 writes the full state (gathered from every rank's slices
+        under a mesh), then every rank waits for it."""
         name = "model_last" if last else f"model_{ts.update}"
-        cpu = lambda t: t.detach().cpu()  # noqa: E731
-        ema_sd = backbone_to_reference_state_dict(ts.ema_params, self.arch,
-                                                  state=ts.model_state)
-        state = {
-            "ema_model_state_dict": {f"ema_model.{k}": v for k, v in ema_sd.items()},
-            "update": ts.update,
-            "train_state": {
-                "params": fstep.tree_map(cpu, ts.params),
-                "ema_params": fstep.tree_map(cpu, ts.ema_params),
-                "opt_state": fstep.tree_map(cpu, ts.opt_state.state_dict()),
-                "model_state": fstep.tree_map(cpu, ts.model_state),
-                "update": ts.update, "micro": ts.micro, "skipped": ts.skipped,
-            },
-        }
-        tmp = self._ckpt_path(f"{name}.pt.tmp")
-        torch.save(state, tmp)
-        os.replace(tmp, self._ckpt_path(f"{name}.pt"))
-        with open(self._ckpt_path(f"{name}.meta.json"), "w") as f:
-            json.dump({"update": ts.update}, f)
-        if not last:
-            self._rotate()
+        ts = self.full_state(ts)
+        if self.is_main:
+            cpu = lambda t: t.detach().cpu()  # noqa: E731
+            ema_sd = backbone_to_reference_state_dict(ts.ema_params, self.arch,
+                                                      state=ts.model_state)
+            state = {
+                "ema_model_state_dict": {f"ema_model.{k}": v for k, v in ema_sd.items()},
+                "update": ts.update,
+                "train_state": {
+                    "params": fstep.tree_map(cpu, ts.params),
+                    "ema_params": fstep.tree_map(cpu, ts.ema_params),
+                    "opt_state": fstep.tree_map(cpu, ts.opt_state.state_dict()),
+                    "model_state": fstep.tree_map(cpu, ts.model_state),
+                    "update": ts.update, "micro": ts.micro, "skipped": ts.skipped,
+                },
+            }
+            tmp = self._ckpt_path(f"{name}.pt.tmp")
+            torch.save(state, tmp)
+            os.replace(tmp, self._ckpt_path(f"{name}.pt"))
+            with open(self._ckpt_path(f"{name}.meta.json"), "w") as f:
+                json.dump({"update": ts.update}, f)
+            if not last:
+                self._rotate()
+        self.mesh.barrier()
 
     def _rotate(self):
         keep = self.train_cfg.keep_last_n_checkpoints
@@ -269,14 +367,20 @@ class Trainer:
         st = torch.load(os.path.join(d, name), map_location="cpu", weights_only=True)["train_state"]
         dev = lambda t: t.to(self.device)  # noqa: E731
         opt = st["opt_state"]
+        full = st["params"]
+
+        def moments(items):  # the full tree's leaf order -> this rank's
+            return self._shard_list(full, ts.params, items)
+
         return fstep.TrainState(
-            params=fstep.tree_map(lambda t: dev(t).requires_grad_(True), st["params"]),
-            ema_params=fstep.tree_map(dev, st["ema_params"]),
+            params=fstep.tree_map(lambda t: dev(t).requires_grad_(True), self.shard(full)),
+            ema_params=fstep.tree_map(dev, self.shard(st["ema_params"])),
             # the 8-bit moments are {"codes", "scale"} dicts, AdamW's tensors
             opt_state=fstep.AdamWState(
-                mu=fstep.tree_map(dev, opt["mu"]), nu=fstep.tree_map(dev, opt["nu"]),
+                mu=fstep.tree_map(dev, moments(opt["mu"])),
+                nu=fstep.tree_map(dev, moments(opt["nu"])),
                 count=opt["count"], mini_step=opt["mini_step"],
-                acc=None if opt["acc"] is None else [dev(t) for t in opt["acc"]]),
+                acc=None if opt["acc"] is None else [dev(t) for t in moments(opt["acc"])]),
             update=st["update"], micro=st["micro"], skipped=st["skipped"],
             model_state=fstep.tree_map(dev, st.get("model_state", {})))
 
@@ -358,7 +462,14 @@ class Trainer:
                         self.save_checkpoint(ts)
                     if (self.sample_fn is not None and advanced
                             and ts.update % tc.log_samples_per_updates == 0):
-                        self.sample_fn(ts.ema_params, ts.update, ts.model_state)
+                        ema_full = self.gather(ts.ema_params)
+                        if self.is_main:
+                            self.sample_fn(ema_full, ts.update, ts.model_state)
+                        self.mesh.barrier()
+                    if self.mesh.world > 1:  # a SIGTERM on any rank stops them all here
+                        flag = torch.tensor([float(preempted["flag"])], device=self.device)
+                        preempted["flag"] = bool(self.mesh.all_reduce(
+                            flag, pmesh.AXES, torch.distributed.ReduceOp.MAX).item())
                     if preempted["flag"]:
                         print("SIGTERM received — checkpointing and exiting")
                         done = True
@@ -372,3 +483,14 @@ class Trainer:
         self.save_checkpoint(ts, last=True)
         return ts, {"updates": ts.update - start_update, "seconds": time.time() - t0,
                     "preempted": preempted["flag"]}
+
+
+def _subtrees(template, tree) -> list:
+    """The subtrees of `tree` at the tensor leaves of `template`, in its leaf
+    order (a tree of 8-bit moments holds {codes, scale} where the params
+    hold a tensor)."""
+    if isinstance(template, dict):
+        return [x for k in template for x in _subtrees(template[k], tree[k])]
+    if isinstance(template, (list, tuple)):
+        return [x for t, u in zip(template, tree) for x in _subtrees(t, u)]
+    return [tree] if isinstance(template, torch.Tensor) else []

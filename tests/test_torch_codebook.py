@@ -242,7 +242,7 @@ def test_dit_forward_codebook_branch_value_and_grads_match_jax(model):
             training=True, rng=key, vq_temperature=2.0, compute_dtype=jnp.float32)
         return jnp.mean(pred * jnp.asarray(cond)) + ex.extra_loss, (pred, ex)
 
-    (want, (pred_j, ex_j)), grads_j = jax.value_and_grad(fwd_j, has_aux=True)(params_np)
+    (want, (pred_j, ex_j)), grads_j = jax.jit(jax.value_and_grad(fwd_j, has_aux=True))(params_np)
     params, state = _torch_params(params_np, state_np, arch_t)
     pred, ex = tdit.dit_forward(
         params, arch_t, x=t(x), cond=t(cond), text_ids=t(inp["text_ids"]), time=t(time),
@@ -260,6 +260,9 @@ def test_dit_forward_codebook_branch_value_and_grads_match_jax(model):
     np.testing.assert_allclose(loss.item(), float(want), rtol=1e-5)
     _close_tree(ex.new_state, jax.tree.map(np.asarray, ex_j.new_state), rtol=1e-5, atol_frac=1e-6)
     _close_grads(params, grads_j, arch_t, state_np)
+
+
+_JITTED: dict = {}  # the drop-table test's compiled JAX loss (its inputs are the module's)
 
 
 def _key_in_cell(lo: float, hi: float):
@@ -282,16 +285,19 @@ def test_cfm_loss_drop_table_cells_match_jax(model, cell, lo, hi):
     inp = _inputs(3)
     key = _key_in_cell(lo, hi)
 
-    def loss_j(p):
-        out = jcfm.cfm_loss(p, jax.tree.map(jnp.asarray, state_np), arch_j, JCFMConfig(),
-                            mel=jnp.asarray(inp["mel"]), mel_lens=jnp.asarray(inp["mel_lens"]),
-                            text_ids=jnp.asarray(inp["text_ids"]),
-                            text_lens=jnp.asarray(inp["text_lens"]), ppg=jnp.asarray(inp["ppg"]),
-                            ppg_lens=jnp.asarray(inp["ppg_lens"]), rng=key, training=True,
-                            vq_temperature=2.0, compute_dtype=jnp.float32)
-        return out.loss, out
+    if "cells" not in _JITTED:  # one compile serves the four cells: the key is an argument
+        def loss_j(p, key):
+            out = jcfm.cfm_loss(p, jax.tree.map(jnp.asarray, state_np), arch_j, JCFMConfig(),
+                                mel=jnp.asarray(inp["mel"]), mel_lens=jnp.asarray(inp["mel_lens"]),
+                                text_ids=jnp.asarray(inp["text_ids"]),
+                                text_lens=jnp.asarray(inp["text_lens"]),
+                                ppg=jnp.asarray(inp["ppg"]), ppg_lens=jnp.asarray(inp["ppg_lens"]),
+                                rng=key, training=True, vq_temperature=2.0,
+                                compute_dtype=jnp.float32)
+            return out.loss, out
 
-    (want, out_j), grads_j = jax.value_and_grad(loss_j, has_aux=True)(params_np)
+        _JITTED["cells"] = jax.jit(jax.value_and_grad(loss_j, has_aux=True))
+    (want, out_j), grads_j = _JITTED["cells"](params_np, key)
     params, state = _torch_params(params_np, state_np, arch_t)
     out = tcfm.cfm_loss(params, arch_t, CFMConfig(), mel=t(inp["mel"]),
                         mel_lens=t(inp["mel_lens"]), text_ids=t(inp["text_ids"]),

@@ -92,7 +92,8 @@ def test_port_imports_no_jax():
         "       'eval.ecapa', 'eval.utmos', 'eval.harness', 'eval.vc', 'eval.eval_infer_batch',\n"
         "       'eval.scorers', 'eval.score_cli', 'eval.proxy_quality',\n"
         "       'eval.quality_proxy_cli', 'utils.seed', 'utils.profiling', 'scripts',\n"
-        "       'data.prepare', 'infer.voice_chat', 'native')\n"
+        "       'data.prepare', 'infer.voice_chat', 'native', 'parallel.mesh',\n"
+        "       'parallel.multihost', 'parallel.pipeline', 'ops.ring_attention')\n"
         "assert all('f5e_tts_tpu_torch.' + m in mods for m in new), mods\n"
         "assert 'transformers' not in sys.modules  # imported only to build the ASR pipeline\n"
         "print(len(mods))\n"

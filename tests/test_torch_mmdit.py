@@ -19,6 +19,8 @@ MMDiT (dim 64, depth 3, heads 2 x 32), fp32, on the same numpy-seeded inputs.
 - `TTSEngine` and `Trainer` with an MMDiT arch on the CPU.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -66,6 +68,12 @@ def _randomized(tree, rng):
 
 
 def _model(qk_norm=None, seed=0):
+    return _made(qk_norm, seed)
+
+
+@functools.lru_cache(maxsize=None)
+def _made(qk_norm, seed):
+    """One eager JAX init a (qk_norm, seed), shared by the tests (read only)."""
     kw = {**TINY, "qk_norm": qk_norm}
     arch_j, arch_t = JMMDiTConfig(**kw), MMDiTConfig(**kw)
     params, _ = jmmdit.init_mmdit(jax.random.PRNGKey(seed), arch_j, VOCAB)
@@ -193,8 +201,11 @@ def test_mmdit_forward_and_grads_match_jax(masked, qk_norm):
             drop_text=jnp.asarray(drop_t), mask=None if mask is None else jnp.asarray(mask),
             compute_dtype=jnp.float32)
 
-    want = jax.jit(fwd_j)(params_np)
-    grads_j = jax.jit(jax.grad(lambda p: jnp.mean((fwd_j(p) - target) ** 2)))(params_np)
+    def loss_j(p):  # the forward and its gradients in one compiled function
+        out = fwd_j(p)
+        return jnp.mean((out - target) ** 2), out
+
+    (_, want), grads_j = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(params_np)
     params = tstep.tree_map(lambda t: t.requires_grad_(True), mmdit_from_jax(params_np, arch_t))
     t = torch.from_numpy
     got = tmmdit.mmdit_forward(params, arch_t, x=t(x), cond=t(cond), text_ids=t(ids), time=t(time),
