@@ -294,6 +294,14 @@
     gives its fixed-draw loss, under the mesh and in the single-process
     Trainer; a
     world of one NCCL rank runs each collective through one-rank groups.
+    Two more meshes in the same world, each against its own single-process
+    run under the same limits: the 8-bit AdamW under fsdp (v1 at full
+    width and depth: each rank's codes of its shard, the block scales of
+    the whole leaf), and the F5E model of configs/example.yaml under data
+    (full width, depth F5E_DEPTH, remat, the PPG extracted once on the card
+    after phase 17 and carried in the batch, fixed draws; 12 of K3
+    and K2, 6 of K6 and K5 a step), whose BatchNorm running statistics
+    after two updates are also held to the single run's (MESH_BN_REL).
 45. Prints one JSON line with every kernel, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -4671,6 +4679,22 @@ MESH_LOSS_REL, MESH_NORM_REL = 1e-4, 2e-4
 # of at most 0.0088; GRN's mean over one rank's channels (model) 0.99979 and
 # 0.0206, the ring fault 0.979 and 0.203
 MESH_UPDATE_COS, MESH_UPDATE_REL = 0.9999, 0.015
+# the same two-rank world, each against its own single-process run on the
+# same global batch: the 8-bit AdamW under fsdp (F5TTS_v1_Base at full width
+# and depth; each rank codes its shard's moments with the whole leaf's block
+# scales) and the F5E model of configs/example.yaml under data (full width,
+# depth F5E_DEPTH, remat; the PPG extracted once on the single-process side
+# and carried in the batch; fixed draws, as its PPG dropout and codebook
+# noise would otherwise come from each rank's generator), whose BatchNorm
+# statistics and perplexity are the global batch's
+MESH_REPAIRED = (("fsdp 8bit", {"fsdp": 2}), ("f5e data", {"data": 2}))
+# the F5E mesh's BatchNorm running mean and variance after two updates
+# against the single run's: max|mesh - single| / max|single| over the three
+# layers. Sound: mean 1.3e-3 (each PPG conv's bias has a gradient that is
+# zero but for rounding, which Adam steps by up to lr either way, and the
+# second update's batch mean carries it), variance 1.9e-4; the parent's
+# shard statistics planted back: 6.3e-2 and 1.0e-2 (PERF.md, Findings)
+MESH_BN_REL = 5e-3
 
 
 def mesh_model(v1):
@@ -4680,19 +4704,79 @@ def mesh_model(v1):
     return dataclasses.replace(v1, arch=dataclasses.replace(v1.arch, dropout=0.0))
 
 
-def mesh_train_cfg(save_dir: Path, axes: dict):
+def mesh_f5e_model():
+    """The F5E model of configs/example.yaml cut to F5E_DEPTH, dropout 0."""
+    f5e = cut_depth(f5e_model_config(), F5E_DEPTH)
+    return dataclasses.replace(f5e, arch=dataclasses.replace(f5e.arch, dropout=0.0))
+
+
+def mesh_train_cfg(save_dir: Path, axes: dict, bnb: bool = False):
     from f5e_tts_tpu_torch.config import MeshConfig, TrainConfig
 
     # no warm-up: the warm-up scales by data x fsdp, the single-process run's does not
     return TrainConfig(num_warmup_updates=0, save_dir=str(save_dir), seed=0,
                        save_per_updates=10 ** 9, last_per_updates=10 ** 9,
-                       pp_microbatches=MESH_MICRO, mesh=MeshConfig(**{"data": 1, **axes}))
+                       pp_microbatches=MESH_MICRO, mesh=MeshConfig(**{"data": 1, **axes}),
+                       bnb_optimizer=bnb)
 
 
-def mesh_expected(axes: dict) -> dict:
+def mesh_f5e_draws() -> list:
+    """The F5E steps' draws over the global batch, the same on every
+    process: no condition drop, the PPG embedding's dropout keeps, the
+    codebook's gumbel noise and permutations."""
+    from f5e_tts_tpu_torch.ops.vq import gumbel_uniform
+
+    arch = mesh_f5e_model().arch
+    b, n, pd, cb = TRAIN_CLIPS, TRAIN_N, arch.ppg.ppg_dim, arch.codebook
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    shape = (b * n * cb.groups, cb.num_vars)
+    return [d._replace(
+        ppg_keep=[torch.rand((b, n, pd), generator=gen, device="cuda") < 0.5 for _ in range(3)],
+        gumbel_text=gumbel_uniform(shape, gen, "cuda"), gumbel_ppg=gumbel_uniform(shape, gen, "cuda"),
+        perm_text=torch.randperm(n, generator=gen, device="cuda"),
+        perm_ppg=torch.randperm(n, generator=gen, device="cuda"))
+        for d in fixed_draws(gen, b, n, arch.mel_dim, MESH_UPDATES, ppg=True)]
+
+
+def inject_draws(trainer, draws: list) -> None:
+    """Trainer.train's steps take `draws` in turn instead of drawing."""
+    make_step = trainer.make_step
+
+    def make():
+        step, it = make_step(), iter(draws)
+        return lambda ts, batch, generator, draws=None: step(ts, batch, generator, next(it))
+
+    trainer.make_step = make
+
+
+def f5e_mesh_batch(cfg, extractor) -> dict:
+    """The training batch of the F5E mesh tag (numpy), with the PPG that
+    `extractor` makes of its 16 kHz audio on the card in place of the audio."""
+    from f5e_tts_tpu_torch.train.trainer import Trainer
+    from f5e_tts_tpu_torch.utils.text import list_str_to_bytes
+
+    trainer = Trainer(cfg, mesh_train_cfg(ROOT / "build" / "smoke" / "f5e_mesh", {}),
+                      vocab_size=256, tokenize=list_str_to_bytes, device="cuda",
+                      ppg_extractor=extractor)
+    batch = next(iter(training_loader(trainer, trainer.train_cfg, with_16k_audio=True)))
+    with torch.no_grad():
+        on_card = trainer.device_batch(batch)
+    out = {k: v for k, v in batch.items() if not k.startswith("audio_16k")}
+    out.update(ppg=on_card["ppg"].cpu().numpy(), ppg_lens=on_card["ppg_lens"].cpu().numpy())
+    log(f"[mesh] the F5E batch: PPG {out['ppg'].shape} extracted on the card once")
+    return out
+
+
+def mesh_expected(axes: dict, kind: str = "v1") -> dict:
     """One rank's launches a step: each block's K1/K2 forward and K4/K5
     backward; a pipeline stage runs its depth / S blocks for each of M
-    microbatches; the ring replaces K1/K4 (plain products, as JAX's einsums)."""
+    microbatches; the ring replaces K1/K4 (plain products, as JAX's einsums).
+    The F5E model runs K3/K6 (RoPE on the first head) and, under remat
+    "block", its forward kernels twice."""
+    if kind == "f5e":
+        return expected_counts(partial_rope_attention=2 * F5E_DEPTH,
+                               partial_rope_attention_bwd=F5E_DEPTH,
+                               gated_adaln=2 * F5E_DEPTH, gated_adaln_bwd=F5E_DEPTH)
     blocks = DEPTH // axes.get("pipe", 1) * (MESH_MICRO if axes.get("pipe", 1) > 1 else 1)
     attn = 0 if axes.get("seq", 1) > 1 else blocks
     return expected_counts(rope_attention=attn, rope_attention_bwd=attn, gated_adaln=blocks,
@@ -4733,9 +4817,10 @@ class modulated_init:
 
         def init(arch, vocab_size, generator, device="cpu"):
             made = self.init(arch, vocab_size, generator, device)
+            params = made[0] if isinstance(made, tuple) else made  # a PPG DiT's (params, state)
             gen = torch.Generator(device=device).manual_seed(1)
-            seed_modulation_(made, gen)
-            seed_grn_(made, gen)
+            seed_modulation_(params, gen)
+            seed_grn_(params, gen)
             return made
 
         fbb.init_backbone = init
@@ -4767,7 +4852,10 @@ def mesh_rank_main(rank: int, world: int, port: int, root: Path, tags: list) -> 
     launches counted by step, then the update held against the
     single-process run's (root/ref.pt) over every rank's shards (and, where
     model_last is written, the fixed-draw loss); results and the seconds of
-    each part to root/<tag>/rank<r>.json."""
+    each part to root/<tag>/rank<r>.json. The tags of MESH_REPAIRED take the
+    8-bit AdamW (against root/ref_8bit.pt), or the F5E model on
+    root/batch_f5e.pt with fixed draws (against root/ref_f5e.pt, and its
+    BatchNorm statistics against root/ref_f5e_state.pt)."""
     from torch.profiler import ProfilerActivity, profile
 
     from f5e_tts_tpu_torch.config import preset
@@ -4786,17 +4874,21 @@ def mesh_rank_main(rank: int, world: int, port: int, root: Path, tags: list) -> 
     torch.cuda.set_device(0)
     multihost.initialize(f"127.0.0.1:{port}", world, rank)
     register_counters(ra, ga, ka, fa)
-    model = mesh_model(dataclasses.replace(preset("F5TTS_v1_Base"), tokenizer="byte",
-                                           vocab_size=256))
-    batch_np = torch.load(root / "batch.pt", weights_only=False)
-    ref = torch.load(root / "ref.pt", map_location="cpu", weights_only=True)
-    all_axes = dict(MESH_AXES)
+    v1 = mesh_model(dataclasses.replace(preset("F5TTS_v1_Base"), tokenizer="byte",
+                                        vocab_size=256))
+    kinds = {"fsdp 8bit": "8bit", "f5e data": "f5e"}
+    files = {"v1": ("batch.pt", "ref.pt"), "8bit": ("batch.pt", "ref_8bit.pt"),
+             "f5e": ("batch_f5e.pt", "ref_f5e.pt")}
+    all_axes = dict(MESH_AXES + MESH_REPAIRED)
     for tag in tags:
-        axes = all_axes[tag]
+        axes, kind = all_axes[tag], kinds.get(tag, "v1")
+        model = mesh_f5e_model() if kind == "f5e" else v1
+        batch_np = torch.load(root / files[kind][0], weights_only=False)
+        ref = torch.load(root / files[kind][1], map_location="cpu", weights_only=True)
         out_dir = root / tag.replace(" ", "_")
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
-        tc = mesh_train_cfg(out_dir, axes)
+        tc = mesh_train_cfg(out_dir, axes, bnb=kind == "8bit")
         seen = {"walls": [], "counts": [], "metrics": []}
         prof = profile(activities=[ProfilerActivity.CUDA])  # device kernels only: few events
 
@@ -4813,6 +4905,8 @@ def mesh_rank_main(rank: int, world: int, port: int, root: Path, tags: list) -> 
 
         trainer = Trainer(model, tc, vocab_size=256, tokenize=list_str_to_bytes, log_fn=log_fn,
                           device="cuda", transport=MESH_TRANSPORT)
+        if kind == "f5e":
+            inject_draws(trainer, mesh_f5e_draws())
         mesh = trainer.mesh
         checkpoint = tag == "fsdp"
         if not checkpoint:  # train()'s final model_last is written in the fsdp phase only
@@ -4853,7 +4947,7 @@ def mesh_rank_main(rank: int, world: int, port: int, root: Path, tags: list) -> 
         result = {
             "tag": tag, "axes": axes, "rank": rank, "transport": mesh.transport,
             "coords": mesh.coords, "metrics": seen["metrics"], "walls": seen["walls"],
-            "counts": seen["counts"], "expected": mesh_expected(axes),
+            "counts": seen["counts"], "expected": mesh_expected(axes, kind),
             "k1_shapes": sorted(set(shapes)),
             "eval": (mesh_eval(trainer, ts, pmesh.shard_batch(batch_np, mesh)) if checkpoint
                      else None),
@@ -4863,6 +4957,11 @@ def mesh_rank_main(rank: int, world: int, port: int, root: Path, tags: list) -> 
             "local_blocks": len(ts.params["blocks"]), "updates": info["updates"],
             "checkpoint": checkpoint,
         }
+        if kind == "f5e":  # the running statistics, the same on every rank
+            want_bn = torch.load(root / "ref_f5e_state.pt", weights_only=True)["ppg_bn"]
+            result["bn"] = {k: max(float((got[k].cpu() - w[k]).abs().max() / w[k].abs().max())
+                                   for got, w in zip(ts.model_state["ppg_bn"], want_bn))
+                            for k in ("mean", "var")}
         result["seconds"] = {"setup": t1 - t0, "train": t2 - t1,
                              "check": time.perf_counter() - t2}
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -4949,6 +5048,12 @@ def mesh_report(tag: str, results: list, ref: dict, runs: dict) -> None:
             raise AssertionError(f"{name}: fixed-draw loss off the single run's")
         if res["updates"] != MESH_UPDATES or res["transport"] != MESH_TRANSPORT:
             raise AssertionError(f"{name}: {res['updates']} updates over {res['transport']}")
+        if "bn" in res:
+            log(f"[{name}] BatchNorm running statistics vs the single run's after "
+                f"{MESH_UPDATES} updates: max|diff| / max|single| mean {res['bn']['mean']:.2e}, "
+                f"var {res['bn']['var']:.2e} (limit {MESH_BN_REL})")
+            if max(res["bn"].values()) > MESH_BN_REL:
+                raise AssertionError(f"{name}: BatchNorm statistics off the single run's")
     runs[f"mesh_{tag.replace(' ', '_')}_step"] = results[0]["counts"][-1]
 
 
@@ -4984,10 +5089,32 @@ def nccl_world_one() -> None:
         dist.destroy_process_group()
 
 
-def mesh_phase(v1, root: Path, runs: dict) -> None:
-    """The single-process reference, then the five two-rank meshes, each
-    against it; the fsdp phase's model_last into the single-process Trainer;
-    NCCL through a world of one."""
+def mesh_single(model, save_dir: Path, batch_np: dict, bnb: bool = False, draws=None):
+    """Two single-process Trainer.train updates of `model` from the seeded
+    params on `batch_np` (the 8-bit AdamW with `bnb`, `draws` injected when
+    given), saving nothing: (trainer, train state, [(loss, grad norm)])."""
+    from f5e_tts_tpu_torch.train.trainer import Trainer
+    from f5e_tts_tpu_torch.utils.text import list_str_to_bytes
+
+    trainer = Trainer(model, mesh_train_cfg(save_dir, {}, bnb), vocab_size=256,
+                      tokenize=list_str_to_bytes, device="cuda")
+    metrics = []
+    trainer.log_fn = lambda m, u: metrics.append((m["loss"], m["grad_norm"]))
+    trainer.save_checkpoint = lambda ts, last=False: None
+    if draws is not None:
+        inject_draws(trainer, draws)
+    with modulated_init():
+        trainer.init_state(MESH_UPDATES, rng_seed=0)
+    ts, _ = trainer.train(_OneBatch(batch_np), epochs=MESH_UPDATES, resume=False,
+                          max_updates=MESH_UPDATES)
+    return trainer, ts, metrics
+
+
+def mesh_phase(v1, root: Path, runs: dict, f5e_batch: dict) -> None:
+    """The single-process references (v1; v1 with the 8-bit AdamW; the F5E
+    model on `f5e_batch`, which carries its PPG), then the two-rank meshes,
+    each against its reference; the fsdp phase's model_last into the
+    single-process Trainer; NCCL through a world of one."""
     from f5e_tts_tpu_torch.train import step as fstep
     from f5e_tts_tpu_torch.train.trainer import Trainer
     from f5e_tts_tpu_torch.utils.text import list_str_to_bytes
@@ -4998,17 +5125,12 @@ def mesh_phase(v1, root: Path, runs: dict) -> None:
     assert (model.arch.dim, model.arch.depth, model.arch.heads, model.arch.dim_head) == (
         1024, DEPTH, 16, 64), model.arch
     t0 = time.perf_counter()
-    trainer = Trainer(model, mesh_train_cfg(root / "single", {}), vocab_size=256,
-                      tokenize=list_str_to_bytes, device="cuda")
-    batch_np = next(iter(training_loader(trainer, trainer.train_cfg)))
+    tc = mesh_train_cfg(root / "single", {})
+    batch_np = next(iter(training_loader(Trainer(model, tc, vocab_size=256,
+                                                 tokenize=list_str_to_bytes, device="cuda"),
+                                         tc)))
     torch.save(batch_np, root / "batch.pt")
-    metrics = []
-    trainer.log_fn = lambda m, u: metrics.append((m["loss"], m["grad_norm"]))
-    trainer.save_checkpoint = lambda ts, last=False: None
-    with modulated_init():
-        trainer.init_state(MESH_UPDATES, rng_seed=0)
-    ts, _ = trainer.train(_OneBatch(batch_np), epochs=MESH_UPDATES, resume=False,
-                          max_updates=MESH_UPDATES)
+    trainer, ts, metrics = mesh_single(model, root / "single", batch_np)
     ref = {"metrics": metrics, "eval": mesh_eval(trainer, ts, batch_np)}
     torch.save(fstep.tree_map(lambda t: t.detach().cpu(), ts.params), root / "ref.pt")
     log(f"[mesh] single-process reference: two updates of F5TTS_v1_Base at full width "
@@ -5017,13 +5139,35 @@ def mesh_phase(v1, root: Path, runs: dict) -> None:
         f"{time.perf_counter() - t0:.1f} s")
     del trainer, ts
     torch.cuda.empty_cache()
-    log(f"[mesh] transport {MESH_TRANSPORT}: {len(MESH_AXES)} meshes of 2 ranks in one world; "
+    refs = {}
+    for tag, kind in (("fsdp 8bit", "8bit"), ("f5e data", "f5e")):
+        t0 = time.perf_counter()
+        if kind == "8bit":
+            trainer, ts, metrics = mesh_single(model, root / "single_8bit", batch_np, bnb=True)
+            what = "F5TTS_v1_Base with the 8-bit AdamW"
+        else:
+            torch.save(f5e_batch, root / "batch_f5e.pt")
+            trainer, ts, metrics = mesh_single(mesh_f5e_model(), root / "single_f5e", f5e_batch,
+                                               draws=mesh_f5e_draws())
+            torch.save(fstep.tree_map(lambda t: t.cpu(), ts.model_state),
+                       root / "ref_f5e_state.pt")
+            what = f"the F5E model (depth {F5E_DEPTH}, remat, fixed draws)"
+        torch.save(fstep.tree_map(lambda t: t.detach().cpu(), ts.params), root / f"ref_{kind}.pt")
+        refs[tag] = {"metrics": metrics, "eval": None}
+        log(f"[mesh] single-process reference of {what}: losses "
+            f"{[round(m[0], 6) for m in metrics]}, grad norms {[round(m[1], 5) for m in metrics]}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        del trainer, ts
+        torch.cuda.empty_cache()
+    tags = [tag for tag, _ in MESH_AXES + MESH_REPAIRED]
+    log(f"[mesh] transport {MESH_TRANSPORT}: {len(tags)} meshes of 2 ranks in one world; "
         f"every rank computes on cuda:0")
     t0 = time.perf_counter()
-    two = mesh_world(2, root, [tag for tag, _ in MESH_AXES])
-    log(f"[mesh] the two-rank world: {time.perf_counter() - t0:.1f} s")
-    for tag, _ in MESH_AXES:
-        mesh_report(tag, two[tag], ref, runs)
+    two = mesh_world(2, root, tags)
+    walls = ", ".join(f"{t} {sum(two[t][0]['seconds'].values()):.1f} s" for t in tags)
+    log(f"[mesh] the two-rank world: {time.perf_counter() - t0:.1f} s (rank 0 by mesh: {walls})")
+    for tag in tags:
+        mesh_report(tag, two[tag], refs.get(tag, ref), runs)
     # the checkpoint written under fsdp (rank 0, gathered) into the single-process Trainer
     single = Trainer(model, mesh_train_cfg(root / "fsdp", {}), vocab_size=256,
                      tokenize=list_str_to_bytes, device="cuda")
@@ -5148,6 +5292,8 @@ def main() -> int:
     f5e = cut_depth(f5e_model_config(), F5E_DEPTH)
     assert (f5e.arch.depth, f5e.arch.heads, f5e.arch.pe_attn_head) == (F5E_DEPTH, 12, 1)
     extractor = phase("ppg extraction", f5e_extractor_phase)
+    # the mesh phase's F5E batch, its PPG extracted here once
+    f5e_batch = f5e_mesh_batch(mesh_f5e_model(), extractor)
     # under remat "block" each block's forward kernels run again in the recompute
     runs["f5e_training_step"], _ = phase("f5e training", lambda: training_phase(
         "f5e training", f5e,
@@ -5216,7 +5362,7 @@ def main() -> int:
     runs["quality_proxy"] = phase("quality proxy", lambda: proxy_phase(smoke / "proxy"))
     # parallel training: F5TTS_v1_Base over the data, model, seq, fsdp and pipe
     # axes in a world of 2 ranks on this card
-    phase("mesh training", lambda: mesh_phase(v1, smoke / "mesh", runs))
+    phase("mesh training", lambda: mesh_phase(v1, smoke / "mesh", runs, f5e_batch))
 
     # which paths launched each kernel, and how often in one run of the path
     paths = {name: {p: c[name] for p, c in runs.items() if c[name]} for name in COUNTERS}

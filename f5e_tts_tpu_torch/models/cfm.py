@@ -415,13 +415,21 @@ def row_draws(d: LossDraws, b: int, n: int, mel_dim: int, mel_lens: torch.Tensor
     return span, x0, draw(d.time, (bg,))
 
 
-def _local_dit_draws(d: LossDraws, bm) -> dict:
+def _local_dit_draws(d: LossDraws, bm, arch, n: int, generator, dev) -> dict:
     """The DiT's draws of `d` with the per-row ones cut to this shard's rows
-    under a batch mesh (the permutations and the cross mask's coin are the
-    batch's)."""
+    under a batch mesh. The permutations and the cross mask's coin are the
+    batch's: where `d` has none, they are drawn here from `generator`, whose
+    state every rank of the batch shares, so every rank uses the same."""
     out = {f: getattr(d, f) for f in fdit.DiTDraws._fields}
     if bm is None:
         return out
+    if arch.codebook.use_codebook:
+        wanted = (("perm_text", "perm_ppg") if arch.codebook.use_perplex_loss else ()) + (
+            ("cross_apply",) if arch.ppg.use_cross_mask else ())
+        for f in wanted:
+            if out[f] is None:
+                out[f] = (torch.rand((), generator=generator, device=dev) if f == "cross_apply"
+                          else torch.randperm(n, generator=generator, device=dev))
     for f in ("gumbel_text", "gumbel_ppg", "cross_ratio", "cross_start"):
         if out[f] is not None:
             out[f] = pmesh.local_rows(out[f], bm)
@@ -451,13 +459,14 @@ def cfm_loss(params, arch, cfm: CFMConfig, *, mel: torch.Tensor,
 
     Under a batch mesh (parallel/mesh.py: active) the batch is
     this rank's rows of the global batch: the per-row draws are the global
-    run's (`row_draws`), the two batch-shared ones alike on every rank, the
+    run's (`row_draws`), the batch-shared ones (the drop coins, the
+    codebook's permutations and cross-mask coin) alike on every rank, the
     flow loss the global span-frame mean (`global_mean`: its gradients
-    summed over the shards are the global loss's), and the forward's
-    dropout draws from a generator folded with the shard's index. The
-    codebook's extra losses are the mean of the shards' (JAX takes them
-    over the global batch) and each shard updates the BatchNorm statistics
-    from its own rows.
+    summed over the shards are the global loss's), and the forward's other
+    draws (dropout, gumbel noise, the cross mask's spans) come from a
+    generator folded with the shard's index. The codebook's extra losses
+    and the BatchNorm statistics are the global batch's, as in JAX
+    (ops/nn.py: batchnorm, ops/vq.py, models/dit.py: _calc_align_loss).
     """
     b, n, mel_dim = mel.shape
     dev = mel.device
@@ -482,7 +491,8 @@ def cfm_loss(params, arch, cfm: CFMConfig, *, mel: torch.Tensor,
     if fbb.uses_ppg(arch):
         dit_kw = dict(ppg=ppg, drop_ppg=drop_ppg.expand(b), text_len=text_lens, ppg_len=ppg_lens,
                       vq_temperature=vq_temperature,
-                      draws=fdit.DiTDraws(**_local_dit_draws(d, bm)))
+                      draws=fdit.DiTDraws(**_local_dit_draws(d, bm, arch, n, generator,
+                                                                       dev)))
     if bm is not None:
         generator = pmesh.fold_generator(generator, bm.index(pmesh.BATCH_AXES))
     pred, extras = fbb.forward_train(
@@ -494,8 +504,6 @@ def cfm_loss(params, arch, cfm: CFMConfig, *, mel: torch.Tensor,
     se = (pred.float() - flow).square()
     w = span[:, :, None].float()
     flow_loss = pmesh.global_mean((se * w).sum(), w.sum() * mel_dim, bm, min_den=1.0)
-    extra, align, perplex = (pmesh.shard_mean(x, bm) for x in (
-        extras.extra_loss, extras.align_loss, extras.perplex_loss))
-    return CFMLossOut(loss=flow_loss + extra, flow_loss=flow_loss, cond=cond,
-                      pred=pred, extra_loss=extra, new_state=extras.new_state,
-                      align_loss=align, perplex_loss=perplex)
+    return CFMLossOut(loss=flow_loss + extras.extra_loss, flow_loss=flow_loss, cond=cond,
+                      pred=pred, extra_loss=extras.extra_loss, new_state=extras.new_state,
+                      align_loss=extras.align_loss, perplex_loss=extras.perplex_loss)

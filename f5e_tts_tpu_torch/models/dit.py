@@ -603,7 +603,8 @@ def _align_text_ppg(text_embed, text_len, ppg_embed, ppg_len) -> torch.Tensor:
 def _calc_align_loss(params, cb, attn, text_embed, text_len, ppg_embed, temperature, gt, gp):
     """The MSE between each text token's straight-through quantized embedding
     and the attn-averaged quantized PPG embeddings over it, over the valid
-    text tokens, times align_loss_weight (dit.py:333-360)."""
+    text tokens, times align_loss_weight (dit.py:333-360); under a batch mesh
+    the mean over the global batch's valid tokens (`global_mean`)."""
     te, pe = text_embed.float(), ppg_embed.float()
     tq = fvq.gumbel_vq_apply(params["quantizer"], cb, te, training=True, temperature=temperature,
                              uniform=gt).x
@@ -614,7 +615,8 @@ def _calc_align_loss(params, cb, attn, text_embed, text_len, ppg_embed, temperat
     avg_ppg = torch.einsum("btp,bpd->btd", attn, pq) / attn.sum(dim=2).clamp(min=1e-8)[:, :, None]
     loss = (tq - avg_ppg).square().mean(dim=2)
     m = lens_to_mask(text_len, text_embed.shape[1]).float()
-    return (loss * m).sum() / (m.sum() + 1e-8) * cb.align_loss_weight
+    return pmesh.global_mean((loss * m).sum(), m.sum(), pmesh.batch_mesh(),
+                             eps=1e-8) * cb.align_loss_weight
 
 
 def _perplex_loss(params, cb, text_embed, ppg_embed, drop_text, drop_ppg, temperature, gt, gp,

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from f5e_tts_tpu_torch.ops.quant import int8_linear
+from f5e_tts_tpu_torch.parallel import mesh as pmesh
 
 
 def _uniform(shape, bound: float, generator, device) -> torch.Tensor:
@@ -180,12 +181,27 @@ def batchnorm(p, state, x: torch.Tensor, training: bool, momentum: float = 0.1,
     the running variance with the unbiased one; eval normalises with the
     running statistics and returns `state` itself. fp32 inside, y in x's
     dtype; the running statistics stay fp32 and carry no gradient
-    (f5e_tts_tpu ops/nn.py:239-262)."""
+    (f5e_tts_tpu ops/nn.py:239-262).
+
+    Under a batch mesh (parallel/mesh.py: batch_mesh) the statistics are the
+    global batch's, as the JAX function's under pjit: the per-feature sums
+    (of x, then of the centred squares) are all-reduced over the batch axes
+    and divided by the global count, and their backward sums the gradients
+    over the ranks (SyncBatchNorm's rule: every shard's loss reads them).
+    The running statistics are then the same on every rank."""
     xf = x.float()
     if training:
-        mean = xf.mean(dim=(0, 1))
-        var = (xf - mean).square().mean(dim=(0, 1))
-        n = x.shape[0] * x.shape[1]
+        bm = pmesh.batch_mesh()
+        if bm is None:
+            mean = xf.mean(dim=(0, 1))
+            var = (xf - mean).square().mean(dim=(0, 1))
+            n = x.shape[0] * x.shape[1]
+        else:
+            n = x.shape[0] * x.shape[1] * bm.size(pmesh.BATCH_AXES)
+            pooled = lambda t: pmesh.AllReduceBoth.apply(  # noqa: E731
+                t.sum(dim=(0, 1)), bm, pmesh.BATCH_AXES) / n
+            mean = pooled(xf)
+            var = pooled((xf - mean).square())
         unbiased = var.detach() * n / max(n - 1, 1)
         new_state = {"mean": (1 - momentum) * state["mean"] + momentum * mean.detach(),
                      "var": (1 - momentum) * state["var"] + momentum * unbiased,

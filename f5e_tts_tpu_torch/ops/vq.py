@@ -4,7 +4,9 @@ reference: src/f5_tts/model/modules.py:744-950, GumbelVectorQuantizer).
 The codebook is `vars` (1, groups * num_vars, var_dim); the logits come from
 the `weight_proj` linears (GELU between them when there are several);
 training takes a hard straight-through gumbel-softmax, eval the argmax; the
-code and prob perplexities are computed over the B * T pool.
+code and prob perplexities are computed over the B * T pool, which under a
+batch mesh (parallel/mesh.py: batch_mesh) is the global batch's, as the
+JAX function's under pjit.
 
 The reference Trainer never calls `set_num_updates`, so the temperature stays
 at `temp_start`; `decayed_temperature` is the schedule it would follow.
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 
 from f5e_tts_tpu_torch.config import CodebookConfig
 from f5e_tts_tpu_torch.ops import nn as fnn
+from f5e_tts_tpu_torch.parallel import mesh as pmesh
 
 
 class VQResult(NamedTuple):
@@ -63,6 +66,16 @@ def _perplexity(probs: torch.Tensor) -> torch.Tensor:
     return torch.exp(-(probs * torch.log(probs + 1e-7)).sum(dim=-1)).sum()
 
 
+def _pool_mean(rows: torch.Tensor) -> torch.Tensor:
+    """(rows, groups, num_vars) -> their mean over the rows, the global
+    batch's under a batch mesh (`global_mean`: each shard's gradient is its
+    own rows' part, so the summed gradients are the global mean's)."""
+    bm = pmesh.batch_mesh()
+    if bm is None:
+        return rows.mean(dim=0)
+    return pmesh.global_mean(rows.sum(dim=0), rows.shape[0], bm)
+
+
 def gumbel_uniform(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     """U[1e-10, 1) draws for the gumbel noise (jax.random.uniform(minval=1e-10))."""
     return 1e-10 + (1.0 - 1e-10) * torch.rand(shape, generator=generator, device=device)
@@ -83,8 +96,8 @@ def gumbel_vq_apply(params, cfg: CodebookConfig, x: torch.Tensor, *, training: b
     logits = _weight_proj(params, x.float()).reshape(b * t * g, v)
 
     hard = F.one_hot(logits.argmax(dim=-1), v).float()
-    code_ppl = _perplexity(hard.reshape(b * t, g, v).mean(dim=0))
-    prob_ppl = _perplexity(torch.softmax(logits.reshape(b * t, g, v), dim=-1).mean(dim=0))
+    code_ppl = _perplexity(_pool_mean(hard.reshape(b * t, g, v)))
+    prob_ppl = _perplexity(_pool_mean(torch.softmax(logits.reshape(b * t, g, v), dim=-1)))
 
     if training:
         if uniform is None:

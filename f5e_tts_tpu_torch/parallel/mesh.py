@@ -420,27 +420,18 @@ def batch_mesh() -> Optional[Mesh]:
 # ---------------------------------------------------------------------------
 
 
-def global_mean(num: torch.Tensor, den: torch.Tensor, mesh: Optional[Mesh],
-                min_den: float = 0.0) -> torch.Tensor:
-    """sum(num) / max(sum(den), min_den) over the batch shards. The value is
+def global_mean(num: torch.Tensor, den, mesh: Optional[Mesh], min_den: float = 0.0,
+                eps: float = 0.0) -> torch.Tensor:
+    """sum(num) / max(sum(den) + eps, min_den) over the batch shards (num
+    may be a tensor of such sums, den a tensor or a number). The value is
     the global quotient, the same bits on every rank; its gradient is this
     shard's num / global den, so the gradients summed over the shards are
     the global loss's."""
+    den = torch.as_tensor(den, dtype=torch.float32, device=num.device)
     if mesh is None:
-        return num / torch.clamp(den, min=min_den)
-    den_all = torch.clamp(mesh.all_reduce(den.detach().float(), BATCH_AXES), min=min_den)
+        return num / torch.clamp(den + eps, min=min_den)
+    den_all = torch.clamp(mesh.all_reduce(den.detach().float(), BATCH_AXES) + eps, min=min_den)
     local = num / den_all
-    total = mesh.all_reduce(local.detach().clone(), BATCH_AXES)
-    return total + (local - local.detach())
-
-
-def shard_mean(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """The mean of a per-shard scalar over the batch shards, differentiable
-    as x / shards on each (so the summed gradients are the mean's)."""
-    if mesh is None or x is None:
-        return x
-    n = mesh.size(BATCH_AXES)
-    local = x / n
     total = mesh.all_reduce(local.detach().clone(), BATCH_AXES)
     return total + (local - local.detach())
 
@@ -758,10 +749,3 @@ class GradSync:
         for g, s in zip(grads, self.specs):
             sq = sq + g.float().square().sum() / self._copies(s)
         return self.mesh.all_reduce(sq, AXES).sqrt()
-
-    def mean_(self, tensors: List[torch.Tensor]) -> None:
-        """The mean over the batch shards, in place (a PPG DiT's BatchNorm
-        statistics, which each shard updates from its own rows)."""
-        n = self.mesh.size(BATCH_AXES)
-        for t in tensors:
-            t.copy_(self.mesh.all_reduce(t.float(), BATCH_AXES).div_(n).to(t.dtype))

@@ -137,7 +137,9 @@ class AdamW:
         self.schedule, self.max_grad_norm, self.grad_accum = schedule, max_grad_norm, grad_accum
         self.b1, self.b2, self.eps = b1, b2, eps
 
-    def init(self, params: List[torch.Tensor]) -> AdamWState:
+    def init(self, params) -> AdamWState:
+        """Zero moments for the tensors of `params` (a tree or a list)."""
+        params = tree_leaves(params)
         zeros = lambda: [torch.zeros_like(p, dtype=torch.float32) for p in params]  # noqa: E731
         return AdamWState(mu=zeros(), nu=zeros(), acc=zeros() if self.grad_accum > 1 else None)
 
@@ -186,15 +188,19 @@ class AdamW:
         torch._foreach_add_(params, step, alpha=-lr)
 
 
-def make_optimizer(train: TrainConfig, total_updates: int, num_replicas: int = 1) -> AdamW:
+def make_optimizer(train: TrainConfig, total_updates: int, num_replicas: int = 1, mesh=None,
+                   specs=None) -> AdamW:
     """The JAX optimizer chain; `bnb_optimizer` swaps AdamW for the
-    block-wise 8-bit one (train/adamw8bit.py; reference trainer.py:134-137).
-    `num_replicas` (data x fsdp) scales the warmup."""
+    block-wise 8-bit one (train/adamw8bit.py; reference trainer.py:134-137),
+    which reads how a mesh splits the params from `mesh` and the leaves'
+    `specs` (parallel/mesh.py: leaf_specs). `num_replicas` (data x fsdp)
+    scales the warmup."""
     schedule = make_schedule(train, total_updates, num_replicas)
     if train.bnb_optimizer:
         from f5e_tts_tpu_torch.train.adamw8bit import AdamW8bit
 
-        return AdamW8bit(schedule, train.max_grad_norm, train.grad_accumulation_steps)
+        return AdamW8bit(schedule, train.max_grad_norm, train.grad_accumulation_steps,
+                         mesh=mesh, specs=specs)
     return AdamW(schedule, train.max_grad_norm, train.grad_accumulation_steps)
 
 
@@ -213,7 +219,7 @@ def init_train_state(params: dict, optimizer: AdamW, model_state: Optional[dict]
                      ) -> TrainState:
     params = tree_map(lambda t: t.detach().float().requires_grad_(True), params)
     ema = tree_map(lambda t: t.detach().clone(), params)
-    return TrainState(params=params, ema_params=ema, opt_state=optimizer.init(tree_leaves(params)),
+    return TrainState(params=params, ema_params=ema, opt_state=optimizer.init(params),
                       model_state=model_state or {})
 
 
@@ -247,8 +253,9 @@ def apply_gradients(ts: TrainState, out: fcfm.CFMLossOut, grads: List[torch.Tens
     state, EMA. Updates `ts` in place and returns (ts, StepMetrics); the new
     model state is kept only when the step passes the gate (JAX step.py:140-148).
     `sync` (parallel/mesh.py: GradSync) under a mesh: the gradients are
-    summed over the batch axes first, the norm of the clip and the gate is
-    the whole gradient's, and the new model state the shards' mean."""
+    summed over the batch axes first, and the norm of the clip and the gate
+    is the whole gradient's. The new model state (a PPG DiT's BatchNorm
+    statistics, taken over the global batch) is the same on every rank."""
     norm_fn = global_norm
     if sync is not None:
         sync.reduce_(grads)
@@ -257,8 +264,6 @@ def apply_gradients(ts: TrainState, out: fcfm.CFMLossOut, grads: List[torch.Tens
     ok = bool(torch.isfinite(out.loss) & torch.isfinite(grad_norm))
     if ok:
         if out.new_state:
-            if sync is not None:
-                sync.mean_(tree_leaves(out.new_state))
             ts.model_state = out.new_state
         leaves = tree_leaves(ts.params)
         # one device: any optimizer with update_(state, params, grads) (make_distill_step's)

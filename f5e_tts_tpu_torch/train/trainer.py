@@ -17,8 +17,9 @@ reference: src/f5_tts/model/trainer.py:25-494.
   waits; every rank resumes from them, sharding them again. The model's
   ops shard only inside the step (`mesh_context`): the sample hook runs on
   rank 0, unsharded, on the gathered EMA. The 8-bit
-  AdamW's blocks cover a whole tensor, so it refuses a mesh that splits
-  tensors (fsdp or model > 1).
+  AdamW keeps each rank's codes of a split leaf and the scales of the whole
+  leaf (train/adamw8bit.py); a checkpoint holds its codes and scales in the
+  single-device layout, gathered and split again without decoding.
 
 - the log-mel frontend runs on the card inside the step, from the raw audio
   the loader carries (`loss_with_device_mel`); a PPG model's PPG comes from
@@ -161,9 +162,6 @@ class Trainer:
         if mc.pipe > 1 and kind != "dit":
             raise ValueError("mesh.pipe > 1 is only supported for the DiT backbone (the UNetT's "
                              "cross-depth skips are pipeline-hostile; the MMDiT keeps its loop)")
-        if self.train_cfg.bnb_optimizer and kind == "dit" and max(mc.fsdp, mc.model) > 1:
-            raise NotImplementedError("the 8-bit AdamW quantizes whole tensors in blocks; a mesh "
-                                      "with fsdp or model > 1 splits them")
         self.mesh = pmesh.make_mesh(mc, self.device, self.transport)
         self.kind = kind
         # the DiT's params are sharded along dit_param_spec; other backbones are replicated
@@ -205,6 +203,24 @@ class Trainer:
         tree = self.shard(pmesh._unflatten(full_template, items))
         return _subtrees(local_template, tree)
 
+    def _gather_moments(self, local: dict, full: dict, entries: list) -> list:
+        """A moment list of this rank's layout -> the single-device layout's
+        (the 8-bit codes gathered as int8 tensors in their params' shapes,
+        the scales taken as they are: every rank holds the whole leaf's)."""
+        if not self.train_cfg.bnb_optimizer:
+            return self._gather_list(local, full, entries)
+        items, scales = self.optimizer.layout.items(entries)
+        full_layout = self.optimizer.make_layout(full, single=True)
+        return full_layout.from_items(self._gather_list(local, full, items), scales)
+
+    def _shard_moments(self, full: dict, local: dict, entries: list) -> list:
+        """`_gather_moments`' inverse: the single-device layout's moment list
+        -> this rank's, the codes cut as the params are."""
+        if not self.train_cfg.bnb_optimizer:
+            return self._shard_list(full, local, entries)
+        items, scales = self.optimizer.make_layout(full, single=True).items(entries)
+        return self.optimizer.layout.from_items(self._shard_list(full, local, items), scales)
+
     # ------------------------------------------------------------------
     # state setup
     # ------------------------------------------------------------------
@@ -229,10 +245,13 @@ class Trainer:
         params, model_state = fbb.split_state(self.arch, made)
         self._full_template = fstep.tree_map(lambda t: t.to("meta"), params)  # the layout only
         params = self.shard(params)
-        self.sync = (pmesh.GradSync(self.mesh, pmesh.leaf_specs(params, self.sharded_cfg, self.mesh))
-                     if self.mesh.world > 1 else None)
+        specs, mesh = None, None
+        if self.mesh.world > 1:
+            specs, mesh = pmesh.leaf_specs(params, self.sharded_cfg, self.mesh), self.mesh
+        self.sync = None if mesh is None else pmesh.GradSync(mesh, specs)
         self.optimizer = fstep.make_optimizer(self.train_cfg, total_updates,
-                                              num_replicas=self.mesh.size(pmesh.BATCH_AXES))
+                                              num_replicas=self.mesh.size(pmesh.BATCH_AXES),
+                                              mesh=mesh, specs=specs)
         ts = fstep.init_train_state(params, self.optimizer, model_state)
         self._init_ts = ts
         return ts
@@ -304,7 +323,7 @@ class Trainer:
             return ts
         full = self._full_template
         opt = ts.opt_state
-        moments = {k: self._gather_list(ts.params, full, getattr(opt, k)) for k in ("mu", "nu")}
+        moments = {k: self._gather_moments(ts.params, full, getattr(opt, k)) for k in ("mu", "nu")}
         acc = None if opt.acc is None else self._gather_list(ts.params, full, opt.acc)
         return dataclasses.replace(
             ts, params=self.gather(ts.params), ema_params=self.gather(ts.ema_params),
@@ -368,19 +387,16 @@ class Trainer:
         dev = lambda t: t.to(self.device)  # noqa: E731
         opt = st["opt_state"]
         full = st["params"]
-
-        def moments(items):  # the full tree's leaf order -> this rank's
-            return self._shard_list(full, ts.params, items)
-
+        # the full tree's layout -> this rank's (the 8-bit moments' groups too)
+        mu, nu = (self._shard_moments(full, ts.params, opt[k]) for k in ("mu", "nu"))
         return fstep.TrainState(
             params=fstep.tree_map(lambda t: dev(t).requires_grad_(True), self.shard(full)),
             ema_params=fstep.tree_map(dev, self.shard(st["ema_params"])),
-            # the 8-bit moments are {"codes", "scale"} dicts, AdamW's tensors
             opt_state=fstep.AdamWState(
-                mu=fstep.tree_map(dev, moments(opt["mu"])),
-                nu=fstep.tree_map(dev, moments(opt["nu"])),
+                mu=fstep.tree_map(dev, mu), nu=fstep.tree_map(dev, nu),
                 count=opt["count"], mini_step=opt["mini_step"],
-                acc=None if opt["acc"] is None else [dev(t) for t in moments(opt["acc"])]),
+                acc=None if opt["acc"] is None else
+                [dev(t) for t in self._shard_list(full, ts.params, opt["acc"])]),
             update=st["update"], micro=st["micro"], skipped=st["skipped"],
             model_state=fstep.tree_map(dev, st.get("model_state", {})))
 

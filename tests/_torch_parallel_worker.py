@@ -265,13 +265,101 @@ def preempt_resume(inp, out, root):
                       "c_update": ts_c.update}
 
 
+def decoded(layout, entries: list, signed: bool) -> list:
+    """Per parameter of an 8-bit AdamW's `layout`, in leaf order: its fp32
+    moment (decoded when int8)."""
+    out = [None] * sum(len(g.members) for g in layout.groups)
+    for g, entry in zip(layout.groups, entries):
+        for i, x in zip(g.members, layout.decode(g, entry, signed)):
+            out[i] = x
+    return out
+
+
+def _full_8bit(tr, ts) -> dict:
+    """Copies of the full params, EMA and 8-bit moments (their entries and
+    decoded): a leaf that no axis splits is this rank's own tensor, which
+    the next update changes in place."""
+    full = tr.full_state(ts)
+    layout = tr.optimizer.make_layout(full.params, single=True)
+    opt = full.opt_state
+    copy = lambda tree: tstep.tree_map(lambda x: x.detach().clone(), tree)  # noqa: E731
+    return {"params": copy(full.params), "ema": copy(full.ema_params), "mu_q": copy(opt.mu),
+            "nu_q": copy(opt.nu), "mu": decoded(layout, opt.mu, True),
+            "nu": decoded(layout, opt.nu, False)}
+
+
+def bnb_mesh_steps(inp, out, root):
+    """The 8-bit AdamW under data 2 x fsdp 2 and data 2 x model 2: two
+    updates from the reference params on the JAX steps' batch and draws;
+    the full params, EMA and moments after them. Under fsdp also model_last
+    after update 2, then a third update (the eval draws): its loss and the
+    params after it, which the single-process Trainer repeats from that file."""
+    t = inp["train"]
+    for name in ("fsdp2", "dp2_tp2"):
+        tr = make_trainer(inp, MeshConfig(**{"data": 1, **t["meshes"][name]}),
+                          os.path.join(root, f"bnb_{name}"), bnb=True)
+        ts = tr.init_state(t["total"], pretrained_path=t["pretrained"])
+        step = tr.make_step()
+        batch = tr.device_batch(pmesh.shard_batch(t["batch"], tr.mesh))
+        metrics = []
+        for draws in t["draws"]:
+            ts, m = step(ts, batch, tr.step_generator(ts), draws=tcfm.LossDraws(**draws))
+            metrics.append((m.loss, m.grad_norm, m.skipped))
+        got = {"metrics": metrics, **_full_8bit(tr, ts)}
+        if name == "fsdp2":
+            tr.save_checkpoint(ts, last=True)
+            ts, m = step(ts, batch, tr.step_generator(ts), draws=tcfm.LossDraws(**t["eval_draws"]))
+            got["next"] = {"loss": m.loss, "params": tstep.tree_map(
+                lambda x: x.detach(), tr.full_state(ts).params)}
+        out[f"bnb_{name}"] = got
+
+
+def ppg_mesh_steps(inp, out, root):
+    """A PPG DiT with the codebook (align and perplexity losses, cross mask)
+    under data 2 x fsdp 2, the PPG in the batch: two updates from its
+    reference params and BatchNorm state on the JAX steps' batch and draws;
+    the full params, the running statistics and the extra losses. Then one
+    loss with no injected codebook draws: the permutations and the cross
+    mask's coin that each rank's codebook branch used."""
+    t, p = inp["train"], inp["ppg"]
+    model = ModelConfig(name="tiny_ppg", backbone="DiT", arch=p["arch"], mel=MelConfig(**t["mel"]),
+                        cfm=CFMConfig())
+    tc = TrainConfig(**{**t["tc"], "mesh": MeshConfig(data=2, fsdp=2),
+                        "save_dir": os.path.join(root, "ppg_fsdp2")})
+    tr = Trainer(model, tc, vocab_size=t["vocab"], tokenize=None, device="cpu")
+    ts = tr.init_state(t["total"], pretrained_path=p["pretrained"])
+    step = tr.make_step()
+    batch = tr.device_batch(pmesh.shard_batch(p["batch"], tr.mesh))
+    metrics, biases = [], []
+    for draws in p["draws"]:
+        ts, m = step(ts, batch, tr.step_generator(ts), draws=tcfm.LossDraws(**draws))
+        metrics.append((m.loss, m.grad_norm, m.skipped, m.align_loss, m.perplex_loss))
+        biases.append([c["b"].detach().clone() for c in ts.params["ppg_embed"]["convs"]])
+    full = tr.full_state(ts)
+    got = {"params": tstep.tree_map(lambda x: x.detach().clone(), full.params),
+           "state": tstep.tree_map(lambda x: x.clone(), full.model_state)}
+    seen = []
+    branch = tdit._codebook_branch
+
+    def spy(*args):
+        d = args[-1]
+        seen.append({"perm_text": d.perm_text, "perm_ppg": d.perm_ppg,
+                     "cross_apply": d.cross_apply})
+        return branch(*args)
+
+    tdit._codebook_branch = spy
+    try:
+        with torch.no_grad(), tr.mesh_context():
+            loss_with_device_mel(ts.params, tr.arch, tr.cfm, tr.model_cfg.mel, batch,
+                                 generator=tr.step_generator(ts), compute_dtype=torch.float32,
+                                 state=ts.model_state)
+    finally:
+        tdit._codebook_branch = branch
+    out["ppg_fsdp2"] = {"metrics": metrics, "biases": biases, "batch_draws": seen, **got}
+
+
 def bnb_checks(inp, out, root):
     t = inp["train"]
-    refused = ""
-    try:
-        make_trainer(inp, MeshConfig(data=2, fsdp=2), os.path.join(root, "bnb_f"), bnb=True)
-    except NotImplementedError as e:
-        refused = str(e)
     tr = make_trainer(inp, MeshConfig(data=2, pipe=2), os.path.join(root, "bnb_p"), bnb=True)
     ts = tr.init_state(t["total"], pretrained_path=t["pretrained"])
     step = tr.make_step()
@@ -284,7 +372,7 @@ def bnb_checks(inp, out, root):
     same = all(torch.equal(a, b) for a, b in zip(
         tstep.tree_leaves([full.params, full.opt_state.mu, full.opt_state.nu]),
         tstep.tree_leaves([back.params, back.opt_state.mu, back.opt_state.nu])))
-    out["bnb"] = {"refused": refused, "roundtrip": same, "loss": m.loss}
+    out["bnb"] = {"roundtrip": same, "loss": m.loss}
 
 
 def sample_checks(inp, out, root):
@@ -337,6 +425,8 @@ def main():
                 trainer_steps(inp, out, name, MeshConfig(**{"data": 1, **axes}), ckpts)
             sample_checks(inp, out, ckpts)
             bnb_checks(inp, out, ckpts)
+            bnb_mesh_steps(inp, out, ckpts)
+            ppg_mesh_steps(inp, out, ckpts)
             preempt_resume(inp, out, ckpts)
             cli_run(inp, out)
     except Exception:

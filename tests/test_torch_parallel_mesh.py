@@ -112,8 +112,9 @@ def test_world_of_one_trainer_and_the_trainer_refusals(tmp_path):
     with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
         pmesh.make_mesh(tconfig.MeshConfig(data=2))
     # refused from the config, before any group: a pipeline over a UNetT (the
-    # JAX trainer asserts the same, trainer.py:122-133); the 8-bit AdamW under
-    # a mesh that splits tensors
+    # JAX trainer asserts the same, trainer.py:122-133). The 8-bit AdamW under
+    # a mesh that splits tensors is not refused (JAX's runs under any mesh):
+    # such a Trainer goes on to its mesh, which a world of one cannot hold
     unett = tconfig.ModelConfig(name="t", backbone="UNetT", arch=tconfig.UNetTConfig(
         dim=32, depth=2, heads=1, dim_head=32))
     with pytest.raises(ValueError, match="only supported for the DiT"):
@@ -121,7 +122,7 @@ def test_world_of_one_trainer_and_the_trainer_refusals(tmp_path):
                                            mesh=tconfig.MeshConfig(pipe=2)),
                 vocab_size=8, tokenize=None, device="cpu")
     for axes in ({"fsdp": 2}, {"model": 2}):
-        with pytest.raises(NotImplementedError, match="8-bit AdamW"):
+        with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
             Trainer(dit, tconfig.TrainConfig(save_dir=str(tmp_path), bnb_optimizer=True,
-                                             mesh=tconfig.MeshConfig(**axes)),
+                                             mesh=tconfig.MeshConfig(data=1, **axes)),
                     vocab_size=8, tokenize=None, device="cpu")
