@@ -37,16 +37,33 @@
    with this script swapping the wrappers for their plain versions: loss
    within 1e-2 relative, each parameter's gradient at cosine >= 0.99.
    Depth: v1's synthesis (3), training (4), distillation (35) and mesh
-   (44) phases run all 22 blocks; the other models are cut to fewer blocks
-   at full width so the whole run stays inside its time: the MMDiT to
-   MMDIT_DEPTH, F5TTS_Base to BASE_DEPTH, E2TTS_Base to E2_DEPTH, the F5E
-   model to F5E_DEPTH (its CLI phase's YAML to F5E_CLI_DEPTH), the
-   v1 serving model of 10-12, 15, 16, 27 and 30-34 to SERVE_DEPTH; "depth"
-   below is the phase's model's.
+   (44) phases run all 22 blocks, and the captured MMDiT (6a) all 8 of its
+   own; the other models are cut to fewer blocks at full width so the whole
+   run stays inside its time: the MMDiT to MMDIT_DEPTH, F5TTS_Base to
+   BASE_DEPTH, E2TTS_Base to E2_DEPTH, the F5E model to F5E_DEPTH (its CLI
+   phase's YAML to F5E_CLI_DEPTH), the v1 serving model of 10-12, 15, 16,
+   27 and 30-34 to SERVE_DEPTH; "depth" below is the phase's model's.
 6. MMDiT synthesis at full width (MMDiTConfig(depth=MMDIT_DEPTH): dim 1024,
    16 x 64) through TTSEngine.infer: the same reference and bucket, a text
    padded to 128 tokens (N + Nt = 1664). depth x NFE launches of K7, 0 of
    every other attention kernel; the checks and measurements of 3.
+6a. Captured MMDiT synthesis (after 6) at full width and depth
+   (MMDiTConfig(): 1024 x 8, 16 x 64), seeded as 6: the sampler of bucket
+   1536 captured per text length, at 128 (the request's padded length) and
+   256 (the JAX export's default), with each capture's seconds, the memory
+   it reserved and its launches (8 x (NFE + 1) of K7, none of any other
+   kernel). The request picks _t128, and with it removed _t256, whose
+   replay from the eager run's noise gives the bits of the eager sampler at
+   the text widened to 256 (the max |diff| against the eager run at 128
+   printed: the widening changes an MMDiT's output). The sampler's device
+   busy eager and replayed, one replay's kernels from _t128's graph nodes
+   (8 x NFE of K7's two kernels), three timed warm syntheses eagerly and
+   three on _t128 (wall, RTF, busy share, device kernels), the latter's wav
+   the eager run's.
+   Then a batcher of max_batch 2: two concurrent requests (64 padded ids)
+   eagerly, warm_up_buckets capturing the (1, 1536) and (2, 1536) engines
+   at the warm-up text's 64 ids, and the two again, replayed on the (2,
+   1536, 64) engine with no launch and the eager batch's bits.
 7. MMDiT training at full width through Trainer.train: four updates on the
    same 8 clips; depth launches of K9 and of K10 a step and 0 of K7/K8; the
    checks and measurements of 4 without the resumed run, the EMA export in
@@ -68,8 +85,12 @@
     seconds, the memory it reserved and its launch counts (depth x (steps +
     1) of K1 and K2 an engine: the loop and one warm-up step). A replay from
     the eager run's noise gives the eager sampler output's bits and counts
-    no launch; one replay under torch.profiler runs K1's pre-pass and main
-    kernel and K2's kernel depth x NFE times each. The sampler's device time
+    no launch; one replay runs K1's pre-pass and main kernel and K2's
+    kernel depth x NFE times each, counted from the graph's own kernel
+    nodes (CUDAGraph.debug_dump of the engine captured once more with
+    keep_graph, only for the count, the engines timed being torch's own
+    CUDAGraph; every captured phase counts one engine so), the profiled
+    replay's trace count printed beside. The sampler's device time
     eager and replayed, then three timed warm syntheses through F5TTS.infer
     on each engine (wall, RTF, busy share, device kernels) whose wav is the
     eager run's.
@@ -252,7 +273,8 @@
     must give the same bits in two runs. K1 and K2 are also held at the
     batcher's batch of 4: K1 at (8, 1536, 16, 64) with four key lengths, K2
     at (8, 1536, 1024); K1 at the distillation teacher's (16, 2304) and the
-    cfg-free synthesis' (1, 1536).
+    cfg-free synthesis' (1, 1536); K7 at the captured MMDiT engine's (2,
+    1536 + 256), n_audio 1536.
 41. fp32 compute (after 5): the fp32 kernels (csrc/attention_fp32.cuh and
     K2/K5's fp32 instantiations) through a loss and all its gradients of
     2-block full-width models in fp32, against the plain versions
@@ -312,6 +334,7 @@ False), so the plain versions are full fp32 references.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -645,9 +668,10 @@ def preset_synthesis_phase(tag: str, tts, expected: dict, runs: int) -> dict:
     return synthesis_phase(tag, infer, expected, runs)
 
 
-def mmdit_synthesis_phase(expected: dict) -> dict:
-    """Full-width MMDiT through TTSEngine.infer (no preset names an MMDiT, so
-    the engine is built here as F5TTS builds its own)."""
+def mmdit_engine(tag: str, depth: int):
+    """A full-width MMDiT TTSEngine cut to `depth` blocks, seeded as F5TTS
+    seeds its own (no preset names an MMDiT, so the engine is built here),
+    and the reference: (engine, wav, sr, ref_text)."""
     from f5e_tts_tpu_torch.api import _cast, load_vocoder
     from f5e_tts_tpu_torch.config import MMDiTConfig
     from f5e_tts_tpu_torch.infer import audio as faudio
@@ -655,7 +679,7 @@ def mmdit_synthesis_phase(expected: dict) -> dict:
     from f5e_tts_tpu_torch.models.mmdit import init_mmdit
 
     t0 = time.perf_counter()
-    arch = MMDiTConfig(depth=MMDIT_DEPTH)
+    arch = MMDiTConfig(depth=depth)
     assert (arch.dim, arch.heads, arch.dim_head) == (1024, 16, 64), arch
     params = init_mmdit(arch, 256, torch.Generator(device="cuda").manual_seed(0), "cuda")
     seed_modulation_(params, torch.Generator(device="cuda").manual_seed(1))
@@ -663,9 +687,15 @@ def mmdit_synthesis_phase(expected: dict) -> dict:
                        vocoder_decode=load_vocoder(None, torch.bfloat16, "cuda", 0),
                        compute_dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
-    log(f"[mmdit synthesis] MMDiT built in {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] MMDiT of {depth} blocks built in {time.perf_counter() - t0:.1f} s")
     wav, sr = faudio.read_wav(str(reference_wav()))
-    wav, ref_text = preprocess_ref_audio_text(wav, sr, REF_TEXT)
+    wav, ref_text = preprocess_ref_audio_text(wav, sr, REF_TEXT, show_info=lambda *_: None)
+    return engine, wav, sr, ref_text
+
+
+def mmdit_synthesis_phase(expected: dict) -> dict:
+    """Full-width MMDiT through TTSEngine.infer."""
+    engine, wav, sr, ref_text = mmdit_engine("mmdit synthesis", MMDIT_DEPTH)
 
     def infer():
         return engine.infer(wav, sr, ref_text, GEN_TEXT, seed=7, fix_duration=FIX_DURATION,
@@ -1345,6 +1375,9 @@ def f5e_serving_phase(extractor) -> dict:
     check_counts("f5e captured synthesis replay", read_counts(), expected_counts())
     if not torch.equal(replayed, outs["cfg"]):
         raise AssertionError("the captured PPG model's replay differs from its eager run")
+    count_graph_kernels("f5e captured synthesis", engine,
+                        dict.fromkeys(("K1/K3 pre-pass", "K1/K3 main", "K2"), F5E_DEPTH * NFE),
+                        nfe=NFE)
     check("f5e captured synthesis", replayed)
     walls, again = timed("f5e captured synthesis", modes["cfg"])
     check_counts("f5e captured synthesis timed", again, expected_counts())
@@ -1884,6 +1917,9 @@ def attention_rows(mods, paths: dict, text_len: int, splits) -> list:
         rows.append(attention_kernel_phase(
             "joint_attention", "joint_attention", f"{PALLAS}:1201", paths["joint_attention"], False,
             [("synthesis", case("joint", 2, 1536 + 128, (1416, 1100), n_audio=1536), True),
+             # J': the captured MMDiT engine of text length 256 (the JAX export's)
+             ("captured synthesis, text length 256",
+              case("joint", 2, 1536 + 256, (1416, 1100), n_audio=1536), True),
              ("ragged", case("joint", 3, 200 + 32, (0, 200, 57), n_audio=200), False)]))
         rows.append(attention_kernel_phase(
             "masked_attention", "masked_attention", f"{PALLAS}:86", paths["masked_attention"],
@@ -2223,6 +2259,111 @@ def device_busy(tag: str, fn) -> tuple:
     return busy, len(kernels), by_kernel
 
 
+# kernel-name fragments (lower case, all must occur) of the kernels a
+# captured graph's kernel nodes are counted by
+GRAPH_PARTS = {"K1/K3 pre-pass": ("attention_fwd_prep_kernel", "ropeattn"),
+               "K1/K3 main": ("attention_fwd_kernel", "ropeattn"),
+               "K7 pre-pass": ("attention_fwd_prep_kernel", "jointattn"),
+               "K7 main": ("attention_fwd_kernel", "jointattn"),
+               "K2": ("gated_adaln_kernel",)}
+GRAPH_DIR = ROOT / "build" / "smoke" / "graphs"
+
+
+@contextlib.contextmanager
+def kept_graphs():
+    """Inside, every CUDA graph is captured with its node list kept
+    (`keep_graph=True`, instantiated as the capture ends, as without it), so
+    `graph_kernel_nodes` can read the nodes; torch.cuda.CUDAGraph is
+    restored on leaving, so no other graph runs on the patched class."""
+    plain = torch.cuda.CUDAGraph
+
+    class KeptGraph(plain):
+        def __new__(cls, keep_graph: bool = False):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph: bool = False):
+            super().__init__(True)
+
+        def capture_end(self):
+            super().capture_end()
+            self.instantiate()
+
+    torch.cuda.CUDAGraph = KeptGraph
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = plain
+
+
+def graph_kernel_nodes(graph):
+    """The lower-cased labels of the kernel nodes of a captured graph, one a
+    launch, from the graph itself: CUDAGraph.debug_dump writes the node list
+    that `kept_graphs` keeps as a DOT file (cudaGraphDebugDotPrint,
+    verbose), which is read and removed. None when the dump is unusable (no
+    file, or no kernel node in it)."""
+    GRAPH_DIR.mkdir(parents=True, exist_ok=True)
+    path = GRAPH_DIR / f"graph_{id(graph)}.dot"
+    t0 = time.perf_counter()
+    try:
+        graph.debug_dump(str(path))
+        text = path.read_text(errors="replace")
+    except (OSError, RuntimeError) as e:
+        log(f"[graph nodes] debug_dump failed: {e}")
+        return None
+    finally:
+        path.unlink(missing_ok=True)
+    labels = [m.group(1).lower() for m in re.finditer(r'\[[^\[\]]*?label="(.*?)"\s*\]',
+                                                         text, re.S)]
+    kernels = [lab for lab in labels if "kernel" in lab.split("|")[0] or "<<<" in lab
+               or "\\<\\<\\<" in lab]
+    if not kernels:
+        log(f"[graph nodes] the dump ({len(text)} bytes, {len(labels)} labelled nodes) shows no "
+            f"kernel node; its head: {text[:600]!r}")
+        return None
+    log(f"[graph nodes] {len(kernels)} kernel nodes of {len(labels)} read from a "
+        f"{len(text) / 2**20:.1f} MiB dump in {time.perf_counter() - t0:.2f} s")
+    return kernels
+
+
+def check_graph_kernels(tag: str, graph, want: dict) -> dict:
+    """Count a captured graph's kernels by `GRAPH_PARTS` from its own kernel
+    nodes (`graph_kernel_nodes`) and hold them to `want` {part: count}, the
+    parts not named at 0; where the dump is unusable, from one profiled
+    replay instead (a trace may miss a kernel as the profiler starts).
+    Returns {part: count} and the graph's kernel nodes under "all"."""
+    nodes = graph_kernel_nodes(graph)
+    source = "the graph's kernel nodes"
+    if nodes is None:
+        source = "a profiled replay (the graph's dump was unusable)"
+        _, _, by_kernel = device_busy(f"{tag} one replay", graph.replay)
+        nodes = [name.lower() for name, c in by_kernel.items() for _ in range(c)]
+    seen = {part: sum(all(f in lab for f in frags) for lab in nodes)
+            for part, frags in GRAPH_PARTS.items()}
+    log(f"[{tag}] kernels of one replay, from {source}: {len(nodes)} in all, "
+        f"{ {k: v for k, v in seen.items() if v} }")
+    expected = {part: want.get(part, 0) for part in GRAPH_PARTS}
+    if seen != expected:
+        raise AssertionError(f"{tag}: one replay runs {seen}, expected {expected}")
+    return {**seen, "all": len(nodes)}
+
+
+def count_graph_kernels(tag: str, engine, want: dict, **capture) -> dict:
+    """Capture the engine that `capture` (capture_sampler_buckets' keywords)
+    names once more, inside `kept_graphs`, count its kernels by
+    `check_graph_kernels` and drop it: the phase's own engines, the timed
+    ones, are captured and replayed on torch's own CUDAGraph."""
+    from f5e_tts_tpu_torch.utils.aot import capture_sampler_buckets
+
+    engines, engine.engines = engine.engines, {}
+    try:
+        with kept_graphs():
+            (name,) = capture_sampler_buckets(engine, buckets=(1536,), **capture)
+        return check_graph_kernels(f"{tag} {name}", engine.engines[name].graph, want)
+    finally:
+        engine.engines = engines
+        reset_counts()
+
+
 def epss_phase(sv: Serving) -> dict:
     """F5TTS.infer on the EPSS grid; then the full keep set against the
     default 32-step run, bit for bit."""
@@ -2283,14 +2424,11 @@ def captured_phase(sv: Serving) -> dict:
         reset_counts()
 
     graph = engine.engines[names[0]].graph
-    _, _, by_kernel = device_busy("captured synthesis one replay", graph.replay)
-    seen = {part: sum(c for k, c in by_kernel.items() if frag in k)
-            for part, frag in (("K1 pre-pass", "attention_fwd_prep_kernel"),
-                               ("K1 main", "attention_fwd_kernel"),
-                               ("K2", "gated_adaln_kernel"))}
-    log(f"[captured synthesis] one profiled replay: {seen}")
-    if any(c != SERVE_DEPTH * NFE for c in seen.values()):
-        raise AssertionError(f"one replay ran {seen}, expected {SERVE_DEPTH * NFE} of each")
+    _, traced, _ = device_busy("captured synthesis one replay", graph.replay)
+    seen = count_graph_kernels("captured synthesis", engine, dict.fromkeys(
+        ("K1/K3 pre-pass", "K1/K3 main", "K2"), SERVE_DEPTH * NFE), nfe=NFE)
+    log(f"[captured synthesis] one profiled replay's trace shows {traced} device kernels, the "
+        f"graph {seen['all']} kernel nodes")
 
     for timesteps, nfe in ((None, NFE), (sv.grid, EPSS_NFE)):
         tag = f"captured synthesis nfe {nfe}"
@@ -2354,6 +2492,8 @@ def e2_captured_phase(sv: Serving) -> dict:
         diff = (replayed.float() - eager.float()).abs().max().item()
         raise AssertionError(f"e2: the replay differs from the eager sampler (max {diff})")
     log("[e2 captured synthesis] the replay from the eager run's noise gives its bits")
+    count_graph_kernels("e2 captured synthesis", engine,
+                        dict.fromkeys(("K1/K3 pre-pass", "K1/K3 main"), E2_DEPTH * NFE), nfe=NFE)
     device_busy("e2 eager sampler", lambda: sv.sampler_out(eager=True))
     device_busy("e2 replayed sampler", sv.sampler_out)
     reset_counts()
@@ -2381,6 +2521,208 @@ def e2_captured_phase(sv: Serving) -> dict:
     profile_run("e2 captured synthesis profile", sv.infer, wall)
     reset_counts()
     return counts
+
+
+# the captured MMDiT phase runs MMDiTConfig()'s own depth; its engines'
+# text lengths: the request's own padded length and the JAX export's default
+MMDIT_CAPTURE_DEPTH = 8
+MMDIT_TEXT_LENS = (128, 256)
+# the batcher's two requests: texts of 33-64 bytes, so each pads to the
+# warm-up text's 64 ids, the text length the batcher's engines are captured at
+MMDIT_BATCH_TEXTS = ("Some call me nature, others call me mother nature.",
+                     "I love the way the light falls across the water.")
+
+
+def mmdit_captured_phase() -> dict:
+    """The MMDiT's sampler captured per (bucket, text length) at full width
+    and depth (MMDiTConfig(): 1024 x 8, 16 x 64): engines of bucket 1536 at
+    text lengths 128 and 256 (depth x (NFE + 1) of K7 an engine at capture,
+    no other kernel), a replay from the eager run's noise against the eager
+    sampler at the same widened text, bit for bit; the request (128 padded
+    ids) picks _t128 and, with it gone, _t256; device busy eager and
+    replayed, one replay's kernels from _t128's graph nodes, three timed
+    warm syntheses eagerly and three on the engine; then a batcher of
+    max_batch 2 warmed by warm_up_buckets: two concurrent requests replay
+    the (2, 1536, 64) engine with the eager batch's bits. Returns {path: launch counts}."""
+    from f5e_tts_tpu_torch.config import MMDiTConfig
+    from f5e_tts_tpu_torch.utils.aot import capture_sampler_buckets, engine_name
+
+    tag = "mmdit captured synthesis"
+    depth = MMDIT_CAPTURE_DEPTH
+    engine, wav, sr, ref_text = mmdit_engine(tag, depth)
+    assert engine.arch == dataclasses.replace(MMDiTConfig(), depth=depth) == MMDiTConfig()
+    ref_mel = engine._reference(wav, sr)[2]
+    text = ref_text + GEN_TEXT
+    nt = -(-len(text.encode()) // engine.text_pad_to) * engine.text_pad_to
+    assert nt == MMDIT_TEXT_LENS[0], nt
+    runs: dict = {}
+
+    def sampler(eager=False, pad_to=None):
+        """The chunk's sampler output; with `pad_to`, eagerly at the text
+        padded to that length, the ids an engine of that length is handed."""
+        pad = engine.text_pad_to
+        engine.text_pad_to = pad_to or pad
+        try:
+            return chunk_out(engine, ref_mel, text, 2.0, eager or pad_to is not None)
+        finally:
+            engine.text_pad_to = pad
+
+    eager = {nt: sampler(eager=True)}
+    check_counts(f"{tag} eager", read_counts(), expected_counts(joint_attention=depth * NFE))
+    eager[256] = sampler(pad_to=256)
+    reset_counts()
+    widening = (eager[256].float() - eager[nt].float()).abs().max().item()
+    log(f"[{tag}] eager sampler at the text widened to 256 against at its padded {nt}: "
+        f"max|diff| {widening:.4e} (max|out| {eager[nt].float().abs().max().item():.3f})")
+
+    names, counts = [], expected_counts()
+    for tl in MMDIT_TEXT_LENS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved, t0 = torch.cuda.memory_reserved(), time.perf_counter()
+        names += capture_sampler_buckets(engine, buckets=(1536,), nfe=NFE, text_len=tl)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        got = read_counts()
+        log(f"[{tag}] captured {names[-1]} in {seconds:.2f} s; memory reserved "
+            f"{(torch.cuda.memory_reserved() - reserved) / 2**20:.1f} MiB more; launches counted "
+            f"at capture { {k: v for k, v in got.items() if v} }")
+        check_counts(f"{tag} capture at text length {tl}", got,
+                     expected_counts(joint_attention=depth * (NFE + 1)))
+        counts = {k: counts[k] + v for k, v in got.items()}
+    if names != [engine_name(NFE, 1536, text_len=tl) for tl in MMDIT_TEXT_LENS]:
+        raise AssertionError(f"captured {names}")
+    runs["mmdit_captured_capture"] = counts
+
+    # the request picks the smallest engine that holds its text, widened to it
+    for tl in MMDIT_TEXT_LENS:
+        picked = engine._aot_sampler(NFE, 1536, text_len=nt)
+        if picked is not engine.engines[engine_name(NFE, 1536, text_len=tl)]:
+            raise AssertionError(f"a request of {nt} ids did not pick the _t{tl} engine")
+        replayed = sampler()
+        check_counts(f"{tag} replay on _t{tl}", read_counts(), expected_counts())
+        diff_nt = (replayed.float() - eager[nt].float()).abs().max().item()
+        if not torch.equal(replayed, eager[tl]):
+            diff = (replayed.float() - eager[tl].float()).abs().max().item()
+            raise AssertionError(f"{tag}: the _t{tl} replay differs from the eager sampler at "
+                                 f"the same text (max {diff})")
+        log(f"[{tag}] a request of {nt} padded ids picks _t{tl}: the replay from the eager "
+            f"run's noise gives the eager bits at the text widened to {tl}; max|diff| against "
+            f"the eager run at {nt}: {diff_nt:.4e}")
+        if tl == MMDIT_TEXT_LENS[0]:
+            kept = engine.engines.pop(names[0])  # gone: the request takes _t256
+    engine.engines[names[0]] = kept
+
+    busy_eager = device_busy(f"{tag} eager sampler", lambda: sampler(eager=True))[0]
+    busy_replay = device_busy(f"{tag} replayed sampler", sampler)[0]
+    reset_counts()
+    log(f"[{tag}] sampler device busy: eager {busy_eager:.1f} ms, replayed {busy_replay:.1f} ms")
+    count_graph_kernels(tag, engine, {"K7 pre-pass": depth * NFE, "K7 main": depth * NFE},
+                        nfe=NFE, text_len=MMDIT_TEXT_LENS[0])
+
+    def infer():
+        return engine.infer(wav, sr, ref_text, GEN_TEXT, seed=7, fix_duration=FIX_DURATION,
+                            nfe_steps=NFE, cfg_strength=2.0, sway=-1.0)
+
+    def timed(label, want):
+        """A warm-up and three timed syntheses, each's launches held to
+        `want` (wall, RTF, then a profiled run's busy share); the wav."""
+        walls = []
+        for run in ["warm-up"] + [f"timed {i + 1}" for i in range(3)]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = infer()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check_counts(f"{label} {run}", read_counts(), want)
+            log(f"[{label}] {run}: wall {wall:.3f} s")
+            if run != "warm-up":
+                walls.append(wall)
+        wav_out, sr_out, _ = out
+        if not (np.isfinite(wav_out).all() and np.sqrt(np.mean(np.square(wav_out))) > 0):
+            raise AssertionError(f"{label}: non-finite or silent wav")
+        audio_s = len(wav_out) / sr_out
+        wall = float(np.median(walls))
+        log(f"[{label}] wav {audio_s:.3f} s; one warm synthesis (median of 3): wall {wall:.3f} "
+            f"s, RTF {wall / audio_s:.5f}; RTF of each: {[round(w / audio_s, 5) for w in walls]}")
+        profile_run(f"{label} profile", infer, wall)
+        reset_counts()
+        return wav_out
+
+    # the same synthesis eagerly (no engine) and on _t128, in this run
+    engines, engine.engines = engine.engines, {}
+    eager_wav = timed(f"{tag} eager", expected_counts(joint_attention=depth * NFE))
+    engine.engines = engines
+    wav_out = timed(tag, expected_counts())
+    if not np.array_equal(wav_out, eager_wav):
+        raise AssertionError(f"{tag}: the wav on _t{nt} differs from the eager run's")
+    log(f"[{tag}] the wav on _t{nt} is the eager run's bits")
+    reset_counts()
+    runs.update(mmdit_batcher_check(engine, ref_mel))
+    engine.engines.clear()
+    return runs
+
+
+def mmdit_batcher_check(engine, ref_mel) -> dict:
+    """A batcher of max_batch 2 on the MMDiT engine: two concurrent requests
+    eagerly (one batch, depth x NFE of K7), then warm_up_buckets captures
+    the (1, 1536) and (2, 1536) engines at the warm-up text's padded length
+    64, and the two requests (64 padded ids) replay the (2, 1536, 64) engine
+    with no launch and the eager batch's bits. Returns {path: counts}."""
+    from f5e_tts_tpu_torch.serving import http_server as fhttp
+    from f5e_tts_tpu_torch.utils.aot import engine_name
+
+    tag = "mmdit batched serving"
+    depth = engine.arch.depth
+    ids = [engine.tokenize([t])[0] for t in MMDIT_BATCH_TEXTS]
+    frames = ref_mel.shape[1]
+
+    def batch():
+        futs = [bt.submit(ref_mel[0], i[i >= 0], FIX_FRAMES, seed=s)
+                for i, s in zip(ids, (11, 23))]
+        return [f.result(timeout=600)[1] for f in futs]
+
+    direct = engine.engines
+    engine.engines = {}  # the eager batch: no engine at all
+    bt = engine.enable_batching(max_batch=2, window_ms=500.0, nfe_steps=NFE)
+    try:
+        eager = batch()
+        counts = read_counts()
+        check_counts(f"{tag} eager batch", counts, expected_counts(joint_attention=depth * NFE))
+        if bt.batch_sizes != [2]:
+            raise AssertionError(f"{tag}: batches {bt.batch_sizes}, expected [2]")
+        engine.engines = direct
+        t0 = time.perf_counter()
+        names = fhttp.warm_up_buckets(engine, ref_mel, REF_TEXT, NFE, buckets=(1536,))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        capture = read_counts()
+        want = [engine_name(NFE, 1536, batch=b, text_len=64) for b in (1, 2)]
+        log(f"[{tag}] warm_up_buckets captured {names} (prompt {frames} frames) and ran batches "
+            f"{bt.batch_sizes} in {seconds:.2f} s; launches at capture "
+            f"{ {k: v for k, v in capture.items() if v} }")
+        if names != want or bt.batch_sizes != [2, 1, 2]:
+            raise AssertionError(f"{tag}: warm-up captured {names}, ran {bt.batch_sizes}")
+        check_counts(f"{tag} warm-up", capture,
+                     expected_counts(joint_attention=2 * depth * (NFE + 1)))
+        if (bt.engine_for(2, 1536, 64) is not engine.engines[want[1]]
+                or bt.engine_for(2, 1536, 128) is not None):
+            raise AssertionError(f"{tag}: the batcher's engine lookup is not tl == nt")
+        bt.batch_sizes.clear()
+        replayed = batch()
+        check_counts(f"{tag} replayed batch", read_counts(), expected_counts())
+        same = [bool(np.array_equal(r, e)) for r, e in zip(replayed, eager)]
+        log(f"[{tag}] two concurrent requests of 64 padded ids: one batch {bt.batch_sizes}, "
+            f"replayed on {want[1]} with no launch; against the eager batch: bitwise {same}")
+        if bt.batch_sizes != [2] or not all(same):
+            raise AssertionError(f"{tag}: the (2, 1536, 64) replay differs from the eager batch")
+    finally:
+        bt.stop()
+        engine.batcher = None
+        engine.engines = direct
+    reset_counts()
+    return {"mmdit_batched_synthesis": counts, "mmdit_batcher_capture": capture}
 
 
 # alpha_spk = alpha_txt = 1 + cfg gives the TTS sampler plain CFG's branch
@@ -3285,6 +3627,9 @@ def int8_phase(sv: Serving) -> dict:
         diff = (replayed.float() - q_out.float()).abs().max().item()
         raise AssertionError(f"int8: the replay differs from the eager sampler (max {diff})")
     log(f"[int8 synthesis] captured {names} in {capture_s:.2f} s; the replay gives the eager bits")
+    count_graph_kernels("int8 captured synthesis", engine,
+                        dict.fromkeys(("K1/K3 pre-pass", "K1/K3 main", "K2"), SERVE_DEPTH * NFE),
+                        nfe=NFE)
     busy_qr = device_busy("int8 replayed sampler", lambda: sv.sampler_out(engine=engine))[0]
     log(f"[int8 synthesis] replayed sampler device busy: int8 {busy_qr:.1f} ms, bf16 "
         f"{busy_br:.1f} ms ({busy_qr / busy_br:.3f}x)")
@@ -3578,6 +3923,8 @@ def batched_serving_phase(sv: Serving) -> dict:
         log(f"[batched serving] the (4, 1536) replay against the eager batch of 4: bitwise {same}")
         if not all(same):
             raise AssertionError("the (4, 1536) replay differs from the eager batch of 4")
+        count_graph_kernels("batched serving", eng, dict.fromkeys(
+            ("K1/K3 pre-pass", "K1/K3 main", "K2"), SERVE_DEPTH * NFE), nfe=NFE, batches=(4,))
         log(f"[batched serving] four concurrent requests: wall {wall_eager:.3f} s eager, "
             f"{wall_replayed:.3f} s replayed")
 
@@ -4168,6 +4515,9 @@ def cfg_free_phase(student: Path, wav_path: Path, ra) -> dict:
                  expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE))
     if not torch.equal(replayed, eager):
         raise AssertionError("the cfg-0 replay differs from the eager sampler")
+    count_graph_kernels("cfg-free captured synthesis", engine,
+                        dict.fromkeys(("K1/K3 pre-pass", "K1/K3 main", "K2"), DEPTH * NFE),
+                        nfe=NFE, cfg_strength=0.0)
     busy_eager = device_busy("cfg-free eager sampler",
                              lambda: chunk_out(engine, ref_mel, text, 0.0, eager=True))[0]
     busy_replay = device_busy("cfg-free replayed sampler",
@@ -5249,6 +5599,8 @@ def main() -> int:
     with torch.inference_mode():
         runs["mmdit_synthesis"] = phase("mmdit synthesis", lambda: mmdit_synthesis_phase(
             expected_counts(joint_attention=MMDIT_DEPTH * NFE)))
+        # its sampler captured per (bucket, text length), at full depth
+        runs.update(phase("mmdit captured synthesis", mmdit_captured_phase))
     mmdit = ModelConfig(name="MMDiT", backbone="MMDiT", tokenizer="byte", vocab_size=256,
                         arch=MMDiTConfig(depth=MMDIT_DEPTH))
     runs["mmdit_training_step"], text_len = phase("mmdit training", lambda: training_phase(

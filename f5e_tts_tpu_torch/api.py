@@ -123,11 +123,13 @@ class F5TTS:
         `transcribe(wav, sr) -> str` when given, else by the Whisper pipeline
         of `asr_model` (or F5E_ASR_MODEL), behind a `CachedTranscriber`;
         with neither it raises. `capture_buckets` captures the default
-        sampler (NFE 32) of each of those buckets, `engine_dir` one sampler
-        for each (NFE, bucket, grid, guidance) that a JAX engine directory's
-        file names list (`utils.aot.capture_engine_dir`: a CUDA graph cannot
-        be read from a file); `utils.aot.capture_sampler_buckets(self.engine,
-        ...)` captures others."""
+        sampler (NFE 32) of each of those buckets (an MMDiT's at text length
+        256, the JAX export's default), `engine_dir` one sampler for each
+        (NFE, bucket, grid, guidance) that a JAX engine directory's file
+        names list, and for an MMDiT each text length too
+        (`utils.aot.capture_engine_dir`: a CUDA graph cannot be read from a
+        file); `utils.aot.capture_sampler_buckets(self.engine, ...)`
+        captures others."""
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r} (use 'int8')")
         self.device = resolve_device(device)

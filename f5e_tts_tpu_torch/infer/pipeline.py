@@ -30,7 +30,7 @@ from f5e_tts_tpu_torch.infer import audio as faudio
 from f5e_tts_tpu_torch.models import cfm as fcfm
 from f5e_tts_tpu_torch.ops.mel import mel_spectrogram
 from f5e_tts_tpu_torch.utils import text as ftext
-from f5e_tts_tpu_torch.utils.aot import find_sampler_engine
+from f5e_tts_tpu_torch.utils.aot import find_sampler_engine, text_shaped
 from f5e_tts_tpu_torch.utils.device import resolve_device
 
 # the log-mel silence floor (ops/mel.py clamps at 1e-5): vocoder padding
@@ -98,6 +98,19 @@ def slice_gen(out: torch.Tensor, starts: torch.Tensor, gen_lens: torch.Tensor,
     g = torch.gather(opad, 1, idx[:, :, None].expand(b, L, d))
     keep = torch.arange(L, device=out.device)[None, :] < gen_lens.to(out.device)[:, None]
     return torch.where(keep[:, :, None], g, torch.full((), MEL_FLOOR, device=out.device))
+
+
+def widen_text_ids(padded: np.ndarray, text_len: int) -> np.ndarray:
+    """(B, nt) text ids, -1 padded, widened with -1 to (B, text_len): the
+    text of an MMDiT engine captured at `text_len` >= nt (reference:
+    f5e_tts_tpu/infer/pipeline.py:393-395). The MMDiT's output depends on
+    the widening: see utils/aot.py."""
+    b, nt = padded.shape
+    if text_len < nt:
+        raise ValueError(f"text of {nt} ids does not fit an engine of text length {text_len}")
+    wide = np.full((b, text_len), -1, np.int32)
+    wide[:, :nt] = padded
+    return wide
 
 
 def cross_fade_stitch(waves: List[np.ndarray], sr: int, cross_fade_duration: float) -> np.ndarray:
@@ -250,12 +263,15 @@ class TTSEngine:
         return self.batcher
 
     def _aot_sampler(self, nfe: int, bucket: int, timesteps=None, cfg_strength=None,
-                     batch: int = 1):
+                     batch: int = 1, text_len: Optional[int] = None):
         """The captured engine for (nfe or grid, bucket, variant, batch), or
-        None (the JAX engine-file match without the prompt and text lengths,
-        which are data here, not shape)."""
+        None (the JAX engine-file match without the prompt length, which is
+        data here, not shape). For an MMDiT, `text_len` is the request's
+        padded text length nt: the engine of the smallest text length >= nt;
+        a DiT's or UNetT's text is data, and `text_len` is not read."""
         found = find_sampler_engine(self.engines, nfe, bucket, timesteps=timesteps,
-                                    cfg_strength=cfg_strength, batch=batch)
+                                    cfg_strength=cfg_strength, batch=batch,
+                                    text_len=text_len if text_shaped(self.arch) else None)
         return self.engines[found] if found else None
 
     def synthesize_chunk(self, ref_mel: np.ndarray, full_text: str, duration: int, *,
@@ -274,7 +290,10 @@ class TTSEngine:
         in every mode (zeros when None). A captured engine for this
         configuration is replayed when one matches (plain CFG at the
         engine's default sway, with no `ppg`, as the JAX engines), else the
-        sampler runs eagerly; the noise comes from `seed` either way.
+        sampler runs eagerly; the noise comes from `seed` either way. An
+        MMDiT replays the engine of the smallest text length that holds the
+        padded text, widened to it (`widen_text_ids`); eagerly the text
+        keeps its padded length.
 
         With `device_out` returns (out (1, bucket, mel) on the device,
         ref_frames, duration) and copies nothing to the host."""
@@ -297,6 +316,14 @@ class TTSEngine:
         padded = np.full((1, nt), -1, np.int32)
         padded[0, : min(text_ids.shape[1], nt)] = text_ids[0, :nt]
 
+        engine = None
+        if mode not in ("tts", "vc") and ppg is None and sway == icfg.sway_sampling_coef:
+            engine = self._aot_sampler(nfe, bucket, timesteps=timesteps,
+                                       cfg_strength=None if cfg == icfg.cfg_strength else cfg,
+                                       text_len=nt)
+        if engine is not None and text_shaped(self.arch):
+            padded = widen_text_ids(padded, engine.text_len)
+
         dev = self.device
         inputs = fcfm.prepare_inputs(
             torch.as_tensor(np.asarray(ref_mel, np.float32), device=dev),
@@ -304,10 +331,6 @@ class TTSEngine:
             bucket, text_ids=torch.as_tensor(padded, device=dev),
             ppg=None if ppg is None else torch.as_tensor(np.asarray(ppg, np.float32), device=dev))
         gen = torch.Generator(device=dev).manual_seed(seed)
-        engine = None
-        if mode not in ("tts", "vc") and ppg is None and sway == icfg.sway_sampling_coef:
-            engine = self._aot_sampler(nfe, bucket, timesteps=timesteps,
-                                       cfg_strength=None if cfg == icfg.cfg_strength else cfg)
         kw = dict(steps=nfe, sway_coef=sway, generator=gen, timesteps=timesteps,
                   compute_dtype=self.compute_dtype, device=dev, state=self.state)
         if engine is not None:

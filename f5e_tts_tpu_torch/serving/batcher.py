@@ -10,7 +10,10 @@ request's future.
 The sampler of a batch: on the card, the captured (b, bucket) engine of the
 batcher's configuration when the TTSEngine holds one (`utils/aot.py:
 capture_sampler_buckets(batches=)`; the servers' `warm_up_buckets` captures
-them before serving), else `cfm.sample` eagerly. Either way each request's
+them before serving), else `cfm.sample` eagerly. An MMDiT's engine is
+replayed only when its text length is the batch's padded text length nt:
+the JAX batcher computes at nt and never widens the text, which would
+change an MMDiT's output. Either way each request's
 noise comes from its own seed (`draw_noise`), so a request's output does not
 depend on its batch-mates or its slot, and equals the direct path's
 (`TTSEngine.synthesize_chunk(seed=)` draws the same bits). The JAX batcher
@@ -42,6 +45,7 @@ import torch
 
 from f5e_tts_tpu_torch.infer.pipeline import MEL_FLOOR, pick_bucket, slice_gen
 from f5e_tts_tpu_torch.models import cfm as fcfm
+from f5e_tts_tpu_torch.utils.aot import engine_name, text_shaped
 
 
 def draw_noise(batch: int, length: int, channels: int, durations: torch.Tensor,
@@ -172,16 +176,18 @@ class DynamicBatcher:
         self.finish_queue.put(None)
         self.finisher.join(timeout)
 
-    def engine_for(self, batch: int, bucket: int):
+    def engine_for(self, batch: int, bucket: int, text_len: int):
         """The captured sampler engine of (batch, bucket) at this batcher's
-        configuration, or None. Engines are captured at the engine's default
-        sway, and name a non-default guidance weight."""
+        configuration, for an MMDiT of exactly the batch's padded text
+        length `text_len`, or None. Engines are captured at the engine's
+        default sway, and name a non-default guidance weight."""
         icfg = self.engine.infer_cfg
         if self.sway != icfg.sway_sampling_coef:
             return None
         cfg = None if self.cfg_strength == icfg.cfg_strength else self.cfg_strength
-        return self.engine._aot_sampler(self.nfe, bucket, timesteps=self.timesteps,
-                                        cfg_strength=cfg, batch=batch)
+        tl = text_len if text_shaped(self.engine.arch) else None
+        return self.engine.engines.get(
+            engine_name(self.nfe, bucket, self.timesteps, cfg, batch, tl))
 
     # ------------------------------------------------------------------
 
@@ -262,7 +268,7 @@ class DynamicBatcher:
         clock = _SamplerClock(dev)
         clock.start()
         y0 = draw_noise(b, bucket, mel_dim, inputs.duration, seeds)
-        graph = self.engine_for(b, bucket)
+        graph = self.engine_for(b, bucket, nt)
         if graph is not None:
             out = graph.sample(inputs, y0)
         else:

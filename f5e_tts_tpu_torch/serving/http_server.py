@@ -27,9 +27,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from f5e_tts_tpu_torch.models import backbone as fbb
 from f5e_tts_tpu_torch.serving.batcher import batch_sizes_served
-from f5e_tts_tpu_torch.utils.aot import CAPTURED_KINDS, capture_sampler_buckets
+from f5e_tts_tpu_torch.utils.aot import capture_sampler_buckets
 
 
 def wav_bytes(wav: np.ndarray, sr: int) -> bytes:
@@ -54,16 +53,20 @@ def warm_up_buckets(engine, ref_mel: np.ndarray, ref_text: str, nfe: int,
     With a batcher attached whose nfe is `nfe`, its configuration is
     captured for every batch size it runs (1, 2, 4, ..., max_batch) and
     each is run through the batcher by that many requests at once;
-    otherwise the direct path's batch of one. A capture records in CUDA's
-    global mode, so this must run before a server takes requests, and a
-    failed capture raises. On the CPU, and for the MMDiT (whose text length
-    is a shape of its graph), nothing is captured and the requests run
-    eagerly. `ref_mel` is (1, frames, mel)."""
+    otherwise the direct path's batch of one. An MMDiT's engines take a
+    text length: the direct path's the JAX export's default (256, which
+    holds every text of up to 256 padded ids), the batcher's the padded
+    length of the warm-up text, the shape the JAX warm-up compiles (the
+    batcher replays an engine only at its batch's own text length). A
+    capture records in CUDA's global mode, so this must run before a
+    server takes requests, and a failed capture raises. On the CPU nothing
+    is captured and the requests run eagerly. `ref_mel` is (1, frames,
+    mel)."""
     buckets = buckets or engine.buckets
     ref_frames = ref_mel.shape[1]
     icfg = engine.infer_cfg
     bt = engine.batcher if engine.batcher is not None and nfe == engine.batcher.nfe else None
-    capture = engine.device.type == "cuda" and fbb.backbone_kind(engine.arch) in CAPTURED_KINDS
+    capture = engine.device.type == "cuda"
     names = []
     for bucket in buckets:
         if bucket <= ref_frames:
@@ -71,13 +74,14 @@ def warm_up_buckets(engine, ref_mel: np.ndarray, ref_text: str, nfe: int,
         duration = min(bucket, icfg.max_duration)
         if bt is not None:
             sizes = batch_sizes_served(bt.max_batch)
-            if capture and bt.sway == icfg.sway_sampling_coef:
-                cfg = None if bt.cfg_strength == icfg.cfg_strength else bt.cfg_strength
-                names += capture_sampler_buckets(engine, [bucket], nfe=bt.nfe,
-                                                 timesteps=bt.timesteps, cfg_strength=cfg,
-                                                 batches=sizes)
             ids = engine.tokenize([ref_text + " warm up."])[0]
             ids = ids[ids >= 0]
+            if capture and bt.sway == icfg.sway_sampling_coef:
+                cfg = None if bt.cfg_strength == icfg.cfg_strength else bt.cfg_strength
+                nt = -(-len(ids) // bt.text_pad_to) * bt.text_pad_to  # the batcher's text length
+                names += capture_sampler_buckets(engine, [bucket], nfe=bt.nfe,
+                                                 timesteps=bt.timesteps, cfg_strength=cfg,
+                                                 batches=sizes, text_len=nt)
             for k in sizes:
                 futs = [bt.submit(ref_mel[0], ids, duration, seed=0) for _ in range(k)]
                 for f in futs:

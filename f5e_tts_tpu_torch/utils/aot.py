@@ -9,10 +9,10 @@ ODE loop of `cfm.sample` once per bucket as a `torch.cuda.CUDAGraph`, which
 then replays every launch of the loop in one call. A graph cannot be
 written to a file, so an engine lives in memory, in `TTSEngine.engines`,
 under a name built like the JAX file names:
-`sampler_nfe{nfe}{tag}_b{bucket}` (`variant_tag`). An engine of a batch of
-b > 1 requests (the serving batcher's, `serving/batcher.py`) adds
-`_x{b}`: the JAX batcher jit-compiles each (batch, bucket), the port
-captures one graph for each.
+`sampler_nfe{nfe}{tag}_b{bucket}` (`variant_tag`), with `_t{text_len}` for
+an MMDiT. An engine of a batch of b > 1 requests (the serving batcher's,
+`serving/batcher.py`) adds `_x{b}`: the JAX batcher jit-compiles each
+(batch, bucket), the port captures one graph for each.
 
 What the graph holds is the loop only: NFE folded-CFG backbone calls and the
 Euler (or midpoint) updates, each step's time fixed in it. The text
@@ -21,12 +21,24 @@ plain CFG without a PPG), cond, mask, drop flags and CFG weights
 (`cfm.fold_inputs`) and the noise are computed eagerly for each request and
 copied into the engine's static input buffers. The prompt length and the duration are data, not
 shape, so one graph serves every reference length in its bucket (the JAX
-files are keyed on the prompt length and the text length only because
-their shapes are static). The text is no shape of the DiT's graph either:
-its embedding is computed eagerly, padded to the bucket's length, so any
-request of the bucket matches. The same holds for the UNetT, whose text
-embedding is the DiT's. The graph reads the params by address: update them
-in place, never rebind them.
+files are keyed on the prompt length because their shapes are static). The
+text is no shape of the DiT's graph: its embedding is computed eagerly,
+padded to the bucket's length, so any request of the bucket matches. The
+same holds for the UNetT, whose text embedding is the DiT's.
+
+The MMDiT's text stream keeps its own length through every block, so its
+text length is a shape of the graph, as it is of the JAX engine files
+(`sampler_..._t{text_len}`, 256 by default): one graph per (bucket, text
+length). A request of padded text length nt replays the engine of the
+smallest text length >= nt, its ids widened with -1 to that length
+(`infer/pipeline.py: widen_text_ids`), the JAX rule. The widened text is
+not filler for the MMDiT: its padded positions have a zero embedding but
+enter the joint attention after the AdaLN shift, so the engine gives the
+eager sampler's output at the widened text, not at nt (the JAX engine file
+gives the same).
+
+Every graph reads the params by address: update them in place, never
+rebind them.
 
 Memory: every engine of a TTSEngine is captured into one pool
 (`TTSEngine.graph_pool`), so the engines share their intermediates. That is
@@ -58,7 +70,16 @@ from f5e_tts_tpu_torch.models import backbone as fbb
 from f5e_tts_tpu_torch.models import cfm as fcfm
 from f5e_tts_tpu_torch.models import dit as fdit
 
-CAPTURED_KINDS = ("dit", "unett")  # the MMDiT's text length is a shape of its graph
+CAPTURED_KINDS = ("dit", "unett", "mmdit")
+# the text length an MMDiT engine is captured for unless asked otherwise:
+# export_sampler_buckets' default (f5e_tts_tpu/utils/aot.py:55-58)
+DEFAULT_TEXT_LEN = 256
+
+
+def text_shaped(arch) -> bool:
+    """Whether the text length is a shape of the sampler's graph: the MMDiT's
+    text stream keeps it, the DiT and UNetT pad the text to the bucket."""
+    return fbb.backbone_kind(arch) == "mmdit"
 
 
 def variant_tag(timesteps=None, cfg_strength=None) -> str:
@@ -75,37 +96,63 @@ def variant_tag(timesteps=None, cfg_strength=None) -> str:
 
 
 def engine_name(nfe: int, bucket: int, timesteps: Optional[Sequence[float]] = None,
-                cfg_strength: Optional[float] = None, batch: int = 1) -> str:
-    """The name of the engine for (nfe, bucket, variant, batch). With
-    `timesteps`, nfe is len(timesteps) - 1; a batch of one has no suffix."""
+                cfg_strength: Optional[float] = None, batch: int = 1,
+                text_len: Optional[int] = None) -> str:
+    """The name of the engine for (nfe, bucket, variant, batch) and, for an
+    MMDiT, its text length. With `timesteps`, nfe is len(timesteps) - 1; a
+    batch of one has no suffix, nor has a DiT or UNetT engine (`text_len`
+    None) a text length."""
     if timesteps is not None:
         nfe = len(tuple(timesteps)) - 1
+    tl = f"_t{text_len}" if text_len is not None else ""
     suffix = f"_x{batch}" if batch != 1 else ""
-    return f"sampler_nfe{nfe}{variant_tag(timesteps, cfg_strength)}_b{bucket}{suffix}"
+    return f"sampler_nfe{nfe}{variant_tag(timesteps, cfg_strength)}_b{bucket}{tl}{suffix}"
 
 
 def find_sampler_engine(engines: Mapping[str, object], nfe: int, bucket: int,
                         timesteps: Optional[Sequence[float]] = None,
-                        cfg_strength: Optional[float] = None, batch: int = 1) -> Optional[str]:
+                        cfg_strength: Optional[float] = None, batch: int = 1,
+                        text_len: Optional[int] = None) -> Optional[str]:
     """The name of the engine for (nfe, bucket, variant, batch) in `engines`,
-    or None (reference: f5e_tts_tpu/utils/aot.py:108-134, without the prompt
-    and text lengths, which are data here, not shape)."""
-    name = engine_name(nfe, bucket, timesteps, cfg_strength, batch)
-    return name if name in engines else None
+    or None (reference: f5e_tts_tpu/utils/aot.py:107-134, without the
+    prompt length, which is data here, not shape).
+
+    `text_len` is an MMDiT request's padded text length nt: the engine of
+    the smallest text length >= nt is found, JAX's rule. None (a DiT or
+    UNetT) finds the engine without a text length."""
+    if text_len is None:
+        name = engine_name(nfe, bucket, timesteps, cfg_strength, batch)
+        return name if name in engines else None
+    # the name with the text length as a group: engine_name's fields around it
+    head, tail = engine_name(nfe, bucket, timesteps, cfg_strength, batch, text_len=0).rsplit(
+        "_t0", 1)
+    pat = re.compile(rf"^{re.escape(head)}_t(\d+){re.escape(tail)}$")
+    best = None
+    for name in engines:
+        m = pat.match(name)
+        if m and int(m.group(1)) >= text_len and (best is None or int(m.group(1)) < best[1]):
+            best = (name, int(m.group(1)))
+    return best[0] if best else None
 
 
 class SamplerGraph:
-    """The captured ODE loop of one (bucket, grid, guidance, batch) on a DiT
-    or UNetT engine: the folded CFG loop of `batch` requests, 2 x batch rows
-    with guidance. `sample(inputs, y0)` is `cfm.sample(..., y0=y0)` for
-    `batch` requests in this bucket, with the same bits."""
+    """The captured ODE loop of one (bucket, grid, guidance, batch) on a DiT,
+    UNetT or MMDiT engine, for an MMDiT at one text length `text_len`: the
+    folded CFG loop of `batch` requests, 2 x batch rows with guidance.
+    `sample(inputs, y0)` is `cfm.sample(..., y0=y0)` for `batch` requests in
+    this bucket (an MMDiT's text ids at `text_len`), with the same bits.
+    `text_len` is None for a DiT or UNetT engine."""
 
     def __init__(self, engine, bucket: int, grid: np.ndarray, cfg_strength: float,
-                 batch: int = 1):
+                 batch: int = 1, text_len: Optional[int] = None):
         if engine.device.type != "cuda":
             raise RuntimeError(f"CUDA-graph capture needs an engine on a CUDA device, not "
                                f"{engine.device}")
+        if text_shaped(engine.arch) != (text_len is not None):
+            raise ValueError("an MMDiT engine is captured at a text length, a DiT or UNetT "
+                             f"engine at none (text_len={text_len})")
         self.bucket, self.grid, self.cfg_strength, self.batch = bucket, grid, cfg_strength, batch
+        self.text_len = text_len
         self._lock = engine.graph_lock
         self.params, self.arch, self.compute_dtype = engine.params, engine.arch, engine.compute_dtype
         self.state = engine.state
@@ -118,7 +165,7 @@ class SamplerGraph:
         placeholder = fcfm.prepare_inputs(
             torch.zeros((b, 1, mel_dim), device=dev), torch.ones(b, dtype=torch.long, device=dev),
             torch.full((b,), n, device=dev), n,
-            text_ids=torch.full((b, 1), -1, dtype=torch.int32, device=dev))
+            text_ids=torch.full((b, self.text_len or 1), -1, dtype=torch.int32, device=dev))
         # the static inputs, allocated outside the graph's pool
         self._inputs = self._fold(placeholder)
         self._y0 = torch.zeros((b, n, mel_dim), device=dev)
@@ -132,9 +179,11 @@ class SamplerGraph:
             step_fn(float(self.grid[0]), self._y0)
         torch.cuda.current_stream(dev).wait_stream(side)
         # the graph reads the cached RoPE tables by address (N+1 rows long for
-        # the UNetT's time token): hold them, so a cache eviction cannot free them
-        self._rope = fdit._rope_tables(self.arch.dim_head, fbb.attention_rows(self.arch, n),
-                                       self.params["proj_out"]["w"].device)
+        # the UNetT's time token; the MMDiT's text stream has its own, text_len
+        # rows): hold them, so a cache eviction cannot free them
+        rows = [fbb.attention_rows(self.arch, n)] + ([self.text_len] if self.text_len else [])
+        self._rope = [fdit._rope_tables(self.arch.dim_head, r, self.params["proj_out"]["w"].device)
+                      for r in rows]
         if engine.graph_pool is None:
             engine.graph_pool = torch.cuda.graph_pool_handle()
         self._stream = torch.cuda.current_stream(dev)
@@ -155,6 +204,10 @@ class SamplerGraph:
         if tuple(inputs.cond.shape[:2]) != (self.batch, self.bucket):
             raise ValueError(f"engine of batch {self.batch}, bucket {self.bucket} got cond "
                              f"{tuple(inputs.cond.shape)}")
+        if self.text_len is not None and inputs.text_ids.shape[1] != self.text_len:
+            raise ValueError(f"MMDiT engine of text length {self.text_len} got text ids "
+                             f"{tuple(inputs.text_ids.shape)}: widen them first "
+                             "(infer.pipeline.widen_text_ids)")
         stream = torch.cuda.current_stream(self._y0.device)
         if stream != self._stream:
             raise RuntimeError(f"engine captured on {self._stream} replayed on {stream}: the "
@@ -172,22 +225,23 @@ class SamplerGraph:
 def capture_sampler_buckets(engine, buckets: Optional[Sequence[int]] = None, nfe: int = 32,
                             timesteps: Optional[Sequence[float]] = None,
                             cfg_strength: Optional[float] = None,
-                            batches: Sequence[int] = (1,)) -> list:
+                            batches: Sequence[int] = (1,),
+                            text_len: int = DEFAULT_TEXT_LEN) -> list:
     """Capture the folded-CFG sampler of `engine` (a TTSEngine on the card
-    with a DiT or a UNetT) for each bucket (default: `engine.buckets`) and
-    each batch size in `batches` into `engine.engines`; returns the
-    engines' names. `timesteps` bakes an explicit grid (nfe becomes len -
-    1), `cfg_strength` a non-default guidance weight; the sway is the
-    engine's default. A capture that fails raises (reference:
+    with a DiT, a UNetT or an MMDiT) for each bucket (default:
+    `engine.buckets`) and each batch size in `batches` into
+    `engine.engines`; returns the engines' names. `timesteps` bakes an
+    explicit grid (nfe becomes len - 1), `cfg_strength` a non-default
+    guidance weight; the sway is the engine's default. An MMDiT's engines
+    take the text length `text_len` (JAX's export parameter and default); a
+    DiT or UNetT ignores it. A capture that fails raises (reference:
     f5e_tts_tpu/utils/aot.py:55-105).
 
     A capture records in CUDA's global mode: a CUDA call from any other
     thread while it runs fails it. Capture before a server takes requests."""
     if engine.device.type != "cuda":
         raise RuntimeError(f"CUDA-graph capture needs an engine on a CUDA device, not {engine.device}")
-    if fbb.backbone_kind(engine.arch) not in CAPTURED_KINDS:
-        raise NotImplementedError("only DiT and UNetT samplers are captured: the MMDiT's text "
-                                  "length is a shape of its graph")
+    tl = text_len if text_shaped(engine.arch) else None
     ts_grid = tuple(float(t) for t in timesteps) if timesteps is not None else None
     cfg = engine.infer_cfg.cfg_strength if cfg_strength is None else cfg_strength
     if ts_grid is not None:
@@ -201,8 +255,8 @@ def capture_sampler_buckets(engine, buckets: Optional[Sequence[int]] = None, nfe
     with engine.graph_lock:
         for bucket in buckets or engine.buckets:
             for batch in batches:
-                name = engine_name(len(grid) - 1, bucket, ts_grid, cfg_strength, batch)
-                engine.engines[name] = SamplerGraph(engine, bucket, grid, cfg, batch)
+                name = engine_name(len(grid) - 1, bucket, ts_grid, cfg_strength, batch, tl)
+                engine.engines[name] = SamplerGraph(engine, bucket, grid, cfg, batch, tl)
                 names.append(name)
     return names
 
@@ -215,16 +269,20 @@ def capture_sampler_buckets(engine, buckets: Optional[Sequence[int]] = None, nfe
 # sampler_nfe{nfe}{tag}_ref{ref}_b{bucket}_t{text}.jaxexport, the tag as
 # `variant_tag` makes it
 JAX_ENGINE_FILE = re.compile(r"^sampler_nfe(?P<nfe>\d+)(?P<ts>_ts[0-9a-f]{8})?"
-                             r"(?:_cfg(?P<cfg>[^_]+))?_ref\d+_b(?P<bucket>\d+)_t\d+\.jaxexport$")
+                             r"(?:_cfg(?P<cfg>[^_]+))?_ref\d+_b(?P<bucket>\d+)_t(?P<tl>\d+)"
+                             r"\.jaxexport$")
 # the EPSS grids (keep indices into the 32-step sway grid) that the JAX
 # package's scripts name: scripts/quality_proxy.py's epss16 and epss8
 EPSS_KEEPS = (tuple(range(0, 33, 2)), (0, 1, 2, 3, 4, 6, 10, 18, 32))
 
 
-def engine_dir_variants(engine_dir: str) -> list:
+def engine_dir_variants(engine_dir: str, text_lengths: bool = False) -> list:
     """The distinct (nfe, bucket, timesteps, cfg_strength) of the sampler
     engines a JAX engine directory names, sorted; timesteps and
-    cfg_strength are None for the default variant.
+    cfg_strength are None for the default variant. With `text_lengths` (an
+    MMDiT's directory) each variant also carries its text length, a fifth
+    element: the distinct (nfe, bucket, timesteps, cfg_strength, text_len).
+    Without, the files of one variant at several text lengths are one.
 
     A `_ts<hash>` tag is matched against the grids the port builds: the
     EPSS_KEEPS grids of `pruned_sway_timesteps`. A CUDA graph cannot be
@@ -250,23 +308,28 @@ def engine_dir_variants(engine_dir: str) -> list:
                                  "(utils.aot.EPSS_KEEPS); capture it with "
                                  "utils.aot.capture_sampler_buckets(engine, timesteps=...); "
                                  "F5TTS(capture_buckets=) captures the default grid")
-        variants.add((nfe, bucket, ts, float(m["cfg"]) if m["cfg"] is not None else None))
-    return sorted(variants, key=lambda v: (v[0], v[1], v[2] or (), -1.0 if v[3] is None else v[3]))
+        variant = (nfe, bucket, ts, float(m["cfg"]) if m["cfg"] is not None else None)
+        variants.add(variant + (int(m["tl"]),) if text_lengths else variant)
+    return sorted(variants, key=lambda v: (v[0], v[1], v[2] or (),
+                                           -1.0 if v[3] is None else v[3], *v[4:]))
 
 
 def capture_engine_dir(engine, engine_dir: str) -> list:
     """Capture, on the card, a `SamplerGraph` for each (nfe, bucket, grid,
-    guidance) that the JAX engine directory `engine_dir` names
+    guidance) that the JAX engine directory `engine_dir` names, and for an
+    MMDiT each (nfe, bucket, grid, guidance, text length)
     (`engine_dir_variants`), the counterpart of `TTSEngine(engine_dir=)`;
     returns the engines' names. Raises as `engine_dir_variants` and
     `capture_sampler_buckets` do, so a directory the port cannot serve is
     never taken for one that leaves every request to the eager sampler."""
     groups: dict = {}
-    for nfe, bucket, ts, cfg in engine_dir_variants(engine_dir):
-        groups.setdefault((nfe, ts, cfg), []).append(bucket)
+    for nfe, bucket, ts, cfg, *tl in engine_dir_variants(engine_dir, text_shaped(engine.arch)):
+        groups.setdefault((nfe, ts, cfg, *tl), []).append(bucket)
     names = []
-    for (nfe, ts, cfg), buckets in groups.items():
-        names += capture_sampler_buckets(engine, buckets, nfe=nfe, timesteps=ts, cfg_strength=cfg)
+    for (nfe, ts, cfg, *tl), buckets in groups.items():
+        kw = {"text_len": tl[0]} if tl else {}
+        names += capture_sampler_buckets(engine, buckets, nfe=nfe, timesteps=ts, cfg_strength=cfg,
+                                         **kw)
     return names
 
 

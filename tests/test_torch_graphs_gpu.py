@@ -1,7 +1,8 @@
 """Captured sampler engines (f5e_tts_tpu_torch/utils/aot.py) against the
 eager sampler on the card: a replay from a request's seed gives the eager
 run's bits, for any prompt and text length of the bucket (a PPG model's
-too, with no PPG; a batch of two, the serving batcher's); engines sharing
+too, with no PPG; a batch of two, the serving batcher's; an MMDiT's at the
+text widened to its engine's text length); engines sharing
 one memory pool keep their own bits in either order of replay, and from
 several threads at once; a replay on another stream raises.
 
@@ -315,3 +316,67 @@ def test_ppg_engine_replay_gives_the_eager_bits():
         want, want_len = ext.mel_to_ppg(feats, lens)
         assert torch.equal(ppg, want) and torch.equal(true_len, want_len)
     assert find_ppg_engine(engines, 1, 201) is None
+
+
+def test_mmdit_engine_replays_the_eager_bits_at_its_text_length():
+    """An MMDiT at full width (1024, 16 x 64; 2 blocks): engines of text
+    length 64 and 128 in one bucket and one pool. A request of 32 padded ids
+    replays the _t64 engine with the eager sampler's bits at the text widened
+    to 64, which differ from its eager bits at 32; with the _t64 engine gone
+    it replays _t128 with the bits at 128; a request longer than both runs
+    eagerly. K7 counts depth x (NFE + 1) at each capture and nothing on
+    replay; an engine refuses text ids of another length."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from f5e_tts_tpu_torch.config import MMDiTConfig
+    from f5e_tts_tpu_torch.kernels import attention as ka
+    from f5e_tts_tpu_torch.models import cfm as fcfm
+    from f5e_tts_tpu_torch.models.mmdit import init_mmdit
+
+    arch = MMDiTConfig(depth=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_mmdit(arch, 256, gen, "cuda")
+    for blk in (*params["blocks"], params["final_block"]):  # AdaLN-zero: seed the modulation
+        for name in ("attn_norm_x", "attn_norm_c"):
+            blk[name]["w"].normal_(0.0, 0.02, generator=gen)
+    params["proj_out"]["w"].normal_(0.0, 0.02, generator=gen)
+    engine = TTSEngine(params=_cast(params, torch.bfloat16), arch=arch, vocab=None,
+                       infer_cfg=InferConfig(nfe_steps=NFE, max_duration=1024),
+                       compute_dtype=torch.bfloat16, buckets=(256,), device="cuda")
+    text = "hello there, this is a test."  # 28 bytes: 32 padded ids
+
+    def eager_at(pad_to, **kw):
+        """The eager sampler with the text padded to `pad_to`: the ids a
+        widened request hands an engine of that length."""
+        pad, engine.text_pad_to = engine.text_pad_to, pad_to
+        try:
+            return _eager(engine, text=text, **kw)
+        finally:
+            engine.text_pad_to = pad
+
+    want32, want64, want128 = eager_at(32), eager_at(64), eager_at(128)
+    assert not torch.equal(want32, want64)  # the widened text changes the output
+    ka.joint_launches = 0
+    names = capture_sampler_buckets(engine, buckets=(256,), nfe=NFE, text_len=64)
+    names += capture_sampler_buckets(engine, buckets=(256,), nfe=NFE, text_len=128)
+    assert names == [f"sampler_nfe{NFE}_b256_t64", f"sampler_nfe{NFE}_b256_t128"]
+    assert ka.joint_launches == 2 * arch.depth * (NFE + 1)
+    ka.joint_launches = 0
+    for _ in range(2):
+        assert torch.equal(_chunk(engine, text=text), want64)
+    assert ka.joint_launches == 0  # replays count nothing
+    short = engine.engines.pop(names[0])
+    assert torch.equal(_chunk(engine, text=text), want128)
+    engine.engines[names[0]] = short
+    assert torch.equal(_chunk(engine, text=text), want64)  # _t128 kept its own bits
+    assert ka.joint_launches == 0
+    long_text = "a much longer sentence, with well over one hundred and thirty bytes. " * 2
+    got = _chunk(engine, text=long_text)  # 160 padded ids: no engine holds them
+    assert ka.joint_launches == arch.depth * NFE
+    assert torch.equal(got, _eager(engine, text=long_text))
+    inputs = fcfm.prepare_inputs(torch.zeros((1, 256, 100), device="cuda"),
+                                 torch.tensor([80], device="cuda"),
+                                 torch.tensor([200], device="cuda"), 256,
+                                 text_ids=torch.full((1, 32), 5, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="text length 64"):
+        short.sample(inputs, torch.zeros((1, 256, 100), device="cuda"))
