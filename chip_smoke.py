@@ -19,6 +19,17 @@
    time and RTF, the median and each), then one run under torch.profiler:
    device time by layer and by kernel, and the device's busy share of the
    timed run's wall time.
+3a. The g2p-mix text front end (after 3): F5TTS("F5TTS_v1_Base") at full
+   width and depth from a config whose tokenizer is "g2p-mix": a text table
+   of 217 rows, the phonemes from a fixture phonemizer put in through the
+   engine's `_g2p` seam (the g2p_mix package is absent there). The
+   synthesis of 3 with one timed run and one profiled: its phone ids equal
+   a CPU engine's tokenize of the same text, all inside the inventory, and
+   depth x NFE launches of K1 and K2. Then gradio_app.generate_multistyle_core
+   over F5TTS.infer with two seeded voices and a three-segment script (one
+   segment with an explicit seed): 3 x depth x NFE of K1 and K2, a finite
+   wav that concatenates the segments, the seeded segment's rerun its bits;
+   one finetune_gradio.system_stats() row naming the card.
 4. Full-width training through the user entry point: Trainer("F5TTS_v1_Base",
    device="cuda").train(loader, ...) with fp32 master weights, bf16 compute,
    dropout 0.1 and the byte tokenizer, on one batch of 8 seeded speech-like
@@ -634,17 +645,23 @@ def cut_depth(model_cfg, depth: int):
     return dataclasses.replace(model_cfg, arch=dataclasses.replace(model_cfg.arch, depth=depth))
 
 
-def preset_tts(tag: str, model: str, depth: int = DEPTH, **kw):
+def preset_tts(tag: str, model: str, depth: int = DEPTH, tokenizer=None, **kw):
     """Full-width F5TTS(model, **kw) on the card with seeded weights, the
-    preset cut to `depth` blocks (the same weights for one model and depth
-    whatever `kw` asks: `quantize` codes them before the modulation is
-    seeded, which it leaves as it is)."""
+    preset cut to `depth` blocks and given `tokenizer` when one is named (the
+    same weights for one model, depth and tokenizer whatever `kw` asks:
+    `quantize` codes them before the modulation is seeded, which it leaves
+    as it is)."""
     from f5e_tts_tpu_torch import api
     from f5e_tts_tpu_torch.api import F5TTS
 
     t0 = time.perf_counter()
     full = api.preset
-    api.preset = lambda name: cut_depth(full(name), depth)
+
+    def cut(name):
+        cfg = cut_depth(full(name), depth)
+        return dataclasses.replace(cfg, tokenizer=tokenizer) if tokenizer else cfg
+
+    api.preset = cut
     try:
         tts = F5TTS(model=model, device="cuda", compute_dtype=torch.bfloat16, seed=0, **kw)
     finally:
@@ -666,6 +683,146 @@ def preset_synthesis_phase(tag: str, tts, expected: dict, runs: int) -> dict:
                          sway_sampling_coef=-1.0, fix_duration=FIX_DURATION, seed=7)
 
     return synthesis_phase(tag, infer, expected, runs)
+
+
+# ---------------------------------------------------------------------------
+# the g2p-mix text front end and the multi-style core of the inference UI
+# ---------------------------------------------------------------------------
+
+G2P_TEXT = "I love the light on the water, 你好, at 7 in the morning."
+OTHER_REF_TEXT = "Take a seat by the window, please."
+MULTISTYLE_SCRIPT = ('{Regular} I love the light on the water. '
+                     '{"name": "Other", "seed": 11, "speed": 1.0} 你好, see you at 7. '
+                     "{Regular} Early in the morning, by the lake.")
+
+
+class FixtureG2p:
+    """A g2p_mix-shaped phonemizer (the g2p_mix package is not installed on
+    the card's machine): `.g2p(text)` -> tokens with `.phones` and `.lang`.
+    A CJK char is a ZH token (an initial and a toned single-vowel final), an
+    ASCII word an EN token (one ARPAbet phone a letter), a digit run a NUM
+    token, other punctuation a SYM token; every phone is in the g2p-mix
+    inventory but a NUM token of two digits or more."""
+
+    EN = {"a": "AH0", "e": "EH1", "i": "IY1", "o": "OW1", "u": "UW1", "y": "IH0"}
+    CONSONANTS = "BDFGKLMNPRSTVWZ"
+
+    def g2p(self, text):
+        from types import SimpleNamespace as Tok
+
+        out = []
+        for m in re.finditer(r"[\u4e00-\u9fff]|[A-Za-z']+|\d+|[^\sA-Za-z\d]", text):
+            s = m.group()
+            if "\u4e00" <= s <= "\u9fff":
+                out.append(Tok(phones=["zh", "aeiou"[ord(s) % 5] + str(ord(s) % 4 + 1)],
+                               lang="ZH"))
+            elif s[0].isalpha() or s[0] == "'":
+                out.append(Tok(phones=[self.EN.get(c, c.upper() if c.upper() in self.CONSONANTS
+                                                   else "HH") for c in s.lower()], lang="EN"))
+            elif s.isdigit():
+                out.append(Tok(phones=[s], lang="NUM"))
+            else:
+                out.append(Tok(phones=[s], lang="SYM"))
+        return out
+
+
+def g2p_mix_phase() -> dict:
+    """F5TTS over F5TTS_v1_Base at full width and depth with the g2p-mix
+    tokenizer (a 217-row text table), phonemizing through the engine's
+    `_g2p` seam: the synthesis of 3 (one timed run and a profiled one), the
+    phone ids of every tokenize call on the card equal to a CPU engine's;
+    then gradio_app.generate_multistyle_core over F5TTS.infer with two
+    voices and three segments, one seeded (its rerun gives the same bits);
+    one finetune_gradio.system_stats() row. Returns the launch counts of one
+    synthesis and of the multi-style run."""
+    from f5e_tts_tpu_torch.infer import gradio_app
+    from f5e_tts_tpu_torch.infer.pipeline import TTSEngine
+    from f5e_tts_tpu_torch.train import finetune_gradio
+    from f5e_tts_tpu_torch.utils import text as ftext
+
+    tag = "g2p-mix synthesis"
+    t0 = time.perf_counter()
+    tts = preset_tts(tag, "F5TTS_v1_Base", tokenizer="g2p-mix")
+    vocab = ftext.g2p_mix_vocab()
+    rows = tts.engine.params["text_embed"]["embed"]["w"].shape[0]
+    if (tts.engine.tokenizer, tts.engine.vocab, rows) != ("g2p-mix", vocab, 217):
+        raise AssertionError(f"g2p-mix model: tokenizer {tts.engine.tokenizer}, {rows} rows")
+    try:
+        import g2p_mix  # noqa: F401
+        have = "installed, not used"
+    except ImportError:
+        have = "not installed"
+    tts.engine._g2p = FixtureG2p()
+    log(f"[{tag}] text table of {rows} rows; phonemes from a fixture phonemizer put in "
+        f"through engine._g2p (the g2p_mix package is {have})")
+    seen = []
+    tokenize = tts.engine.tokenize
+
+    def recording_tokenize(texts):
+        ids = tokenize(texts)
+        seen.append((list(texts), ids))
+        return ids
+
+    tts.engine.tokenize = recording_tokenize
+    ref = str(reference_wav())
+    counts = synthesis_phase(tag, lambda: tts.infer(
+        ref, REF_TEXT, G2P_TEXT, nfe_step=NFE, cfg_strength=2.0, sway_sampling_coef=-1.0,
+        fix_duration=FIX_DURATION, seed=7), expected_counts(
+            rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE), runs=1)
+    cpu = TTSEngine(params={}, arch=None, vocab=vocab, tokenizer="g2p-mix", device="cpu",
+                    _g2p=FixtureG2p())
+    for texts, ids in seen:
+        if not np.array_equal(ids, cpu.tokenize(texts)):
+            raise AssertionError(f"phone ids of {texts} differ from the CPU engine's")
+        phones = ftext.g2p_mix_phonemize(texts, split_rimes=False, g2p=FixtureG2p())
+        if not all(p in vocab for row in phones for p in row) or (ids[ids >= 0] == 0).any():
+            raise AssertionError(f"a phone of {texts} is outside the inventory")
+    log(f"[{tag}] {len(seen)} tokenize calls, {seen[0][1].shape[1]} phone ids each, equal "
+        f"to the CPU engine's and inside the 216-phone inventory")
+
+    # the inference UI's multi-style generation over F5TTS.infer
+    other = ROOT / "build" / "smoke" / "other.wav"
+    write_reference_wav(other, seconds=4.0, seed=3)
+    voices = {"Regular": {"audio": ref, "ref_text": REF_TEXT},
+              "Other": {"audio": str(other), "ref_text": OTHER_REF_TEXT}}
+    segments = []
+
+    def infer_fn(audio, ref_text, text, seed, speed, remove_silence):
+        wav, sr, _ = tts.infer(audio, ref_text, text, nfe_step=NFE, cfg_strength=2.0,
+                               sway_sampling_coef=-1.0, speed=speed, seed=seed)
+        segments.append((text, seed, wav))
+        return wav, sr, ref_text
+
+    draws = iter(range(100, 200))
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    wav, sr, _, meta = gradio_app.generate_multistyle_core(
+        infer_fn, MULTISTYLE_SCRIPT, voices, seed_fn=lambda: next(draws))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    ms_counts = read_counts()
+    check_counts("multi-style generation", ms_counts, expected_counts(
+        rope_attention=3 * DEPTH * NFE, gated_adaln=3 * DEPTH * NFE))
+    if [(t, s) for t, s, _ in segments] != [
+            ("I love the light on the water.", 100), ("你好, see you at 7.", 11),
+            ("Early in the morning, by the lake.", 101)]:
+        raise AssertionError(f"unexpected segments {[(t, s) for t, s, _ in segments]}")
+    if len(wav) != sum(len(w) for _, _, w in segments) or not np.isfinite(wav).all():
+        raise AssertionError("the multi-style wav is not the finite concatenation of its segments")
+    again = infer_fn(voices["Other"]["audio"], OTHER_REF_TEXT, segments[1][0], 11, 1.0, False)[0]
+    if not np.array_equal(again, segments[1][2]):
+        raise AssertionError("the seeded segment's rerun differs")
+    log(f"[multi-style generation] 3 segments (voices Regular, Other, Regular; seeds 100, 11, "
+        f"101) in {wall:.3f} s for {len(wav) / sr:.3f} s of audio (RTF {wall / (len(wav) / sr):.5f});"
+        f" the wav is their concatenation, finite; the seeded segment's rerun gives its bits; "
+        f"metadata: {meta.strip().splitlines()}")
+    row = finetune_gradio.system_stats()["devices"][0]
+    if (row["kind"], row["platform"]) != (torch.cuda.get_device_name(0), "gpu"):
+        raise AssertionError(f"system_stats row {row}")
+    log(f"[system stats] {row}")
+    log(f"[{tag}] phase took {time.perf_counter() - t0:.1f} s")
+    return {"g2p_mix_synthesis": counts, "multistyle_generation": ms_counts}
 
 
 def mmdit_engine(tag: str, depth: int):
@@ -5581,6 +5738,9 @@ def main() -> int:
         runs["synthesis"] = phase("synthesis", lambda: preset_synthesis_phase(
             "synthesis", preset_tts("synthesis", "F5TTS_v1_Base"),
             expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE), runs=3))
+    # the g2p-mix text front end through F5TTS, and the UI's multi-style core
+    with torch.inference_mode():
+        runs.update(phase("g2p-mix synthesis", g2p_mix_phase))
     v1 = byte_model(preset("F5TTS_v1_Base"))
     assert (v1.arch.depth, v1.arch.dropout) == (DEPTH, 0.1), v1.arch
     smoke = ROOT / "build" / "smoke"

@@ -129,7 +129,10 @@ class F5TTS:
         names list, and for an MMDiT each text length too
         (`utils.aot.capture_engine_dir`: a CUDA graph cannot be read from a
         file); `utils.aot.capture_sampler_buckets(self.engine, ...)`
-        captures others."""
+        captures others. Without `vocab_file`, a config whose tokenizer is
+        "g2p-mix" takes the 216-phone inventory (the engine phonemizes
+        through `engine._g2p`, the g2p_mix package's G2pMix when None); any
+        other tokenizes UTF-8 bytes into `vocab_size` rows."""
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r} (use 'int8')")
         self.device = resolve_device(device)
@@ -144,8 +147,12 @@ class F5TTS:
         if vocab_file:
             vocab, vocab_size = ftext.get_tokenizer(vocab_file, "custom")
             tokenizer = "custom"
+        elif self.model_cfg.tokenizer == "g2p-mix":
+            vocab, vocab_size = ftext.get_tokenizer("", "g2p-mix")
+            tokenizer = "g2p-mix"
         else:
-            # no vocab.txt: the byte tokenizer, as the JAX API falls back to
+            # no vocab: the engine tokenizes UTF-8 bytes into a table of the
+            # config's vocab_size rows, as the JAX API's engine does
             vocab, vocab_size, tokenizer = None, self.model_cfg.vocab_size, "byte"
 
         if ckpt_file:

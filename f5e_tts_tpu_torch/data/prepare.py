@@ -8,14 +8,13 @@ contract (data/{name}_{tokenizer}/raw.arrow + duration.json + vocab.txt);
 per-corpus front-ends are thin manifest builders.
 
 Usage:
-  python -m f5e_tts_tpu_torch.data.prepare csv --input corpus_dir --output data/my_char \
-      --tokenizer char
+  python -m f5e_tts_tpu_torch.data.prepare csv --input corpus_dir --output data/my_pinyin
   python -m f5e_tts_tpu_torch.data.prepare ljspeech --input LJSpeech-1.1 --output ...
 
-The vocab of the "pinyin" tokenizer needs pypinyin, which the port's
-tokenizers do not use: that tokenizer raises NotImplementedError here, as
-`utils/text.py: get_tokenizer` does; "char" (and any other name) takes the
-texts' characters.
+The "pinyin" tokenizer (the default) takes its vocab from the texts'
+`convert_char_to_pinyin` tokens; when jieba or pypinyin is absent it takes
+the texts' characters, which is the JAX package's rule. Every other name
+takes the characters.
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ import os
 from concurrent.futures import ProcessPoolExecutor
 from typing import Iterable, Tuple
 
-from f5e_tts_tpu_torch.utils.text import repetition_found
+from f5e_tts_tpu_torch.utils.text import convert_char_to_pinyin, repetition_found
 
 
 def _duration_of(path: str) -> float:
@@ -188,10 +187,6 @@ def prepare(
 ) -> dict:
     """Write raw.arrow + duration.json + vocab.txt (the load_dataset contract,
     reference dataset.py:309-373)."""
-    if tokenizer == "pinyin":
-        raise NotImplementedError(
-            "the pinyin vocab needs pypinyin, which the port does not use; prepare with "
-            "--tokenizer char (or byte) instead")
     os.makedirs(output_dir, exist_ok=True)
     import functools
 
@@ -224,7 +219,14 @@ def prepare(
 
     # vocab from the tokenized texts; space pinned at index 0 (utils.py:153)
     texts = [r["text"] for r in processed]
-    chars = sorted({c for t in texts for c in t})
+    if tokenizer == "pinyin":
+        try:
+            tokenized = convert_char_to_pinyin(texts)
+            chars = sorted({c for row in tokenized for c in row})
+        except ImportError:  # no jieba/pypinyin: the characters, as the JAX package does
+            chars = sorted({c for t in texts for c in t})
+    else:
+        chars = sorted({c for t in texts for c in t})
     vocab = [" "] + [c for c in chars if c != " "]
     with open(os.path.join(output_dir, "vocab.txt"), "w", encoding="utf-8") as f:
         f.write("\n".join(vocab) + "\n")

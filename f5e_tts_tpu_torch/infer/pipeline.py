@@ -221,20 +221,28 @@ class TTSEngine:
     graph_lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
     batcher: Optional[object] = field(default=None, repr=False)
     _ref_mel_cache: dict = field(default_factory=dict, repr=False)
+    _g2p: Optional[object] = field(default=None, repr=False)  # a g2p_mix phonemizer for "g2p-mix"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
 
     def tokenize(self, texts: Sequence[str]) -> np.ndarray:
-        """(B, NT) int32 ids, -1 padded: UTF-8 bytes without a vocab, else the
-        characters of each text (char/custom), interspersed when
-        `use_intersperse`. The pinyin and g2p-mix front ends are not ported."""
+        """(B, NT) int32 ids, -1 padded: UTF-8 bytes without a vocab; else
+        TONE3 pinyin ("pinyin", "char-level-pinyin"), split pinyin
+        ("phone-level-pinyin"), the raw g2p-mix phones through `_g2p` (the
+        module's G2pMix when None: the inference side's convention,
+        eval/utils_eval.py:135-137) or the characters (char/custom),
+        interspersed when `use_intersperse`."""
         if self.vocab is None:
             return ftext.list_str_to_bytes(list(texts))
-        if self.tokenizer in ("pinyin", "char-level-pinyin", "phone-level-pinyin", "g2p-mix"):
-            raise NotImplementedError(f"tokenizer {self.tokenizer!r} is not ported yet "
-                                      "(it needs pypinyin or g2p_mix)")
-        toks = [list(t) for t in texts]
+        if self.tokenizer in ("pinyin", "char-level-pinyin"):
+            toks = ftext.convert_char_to_pinyin(list(texts))
+        elif self.tokenizer == "phone-level-pinyin":
+            toks = ftext.convert_char_to_finer_pinyin(list(texts))
+        elif self.tokenizer == "g2p-mix":
+            toks = ftext.g2p_mix_phonemize(list(texts), split_rimes=False, g2p=self._g2p)
+        else:
+            toks = [list(t) for t in texts]
         if self.use_intersperse:
             toks = ftext.intersperse(toks)
         return ftext.list_str_to_idx(toks, self.vocab)

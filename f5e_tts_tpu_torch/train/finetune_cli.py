@@ -9,8 +9,9 @@ deletes, and training starts from its EMA weights. The run directory is
 relative to the working directory. The card unless --device cpu; launched
 once per rank under torchrun, the ranks train data-parallel (each on
 cuda:<LOCAL_RANK>, its rows of every batch; --transport as train/train.py).
-The pinyin tokenizers raise (pypinyin is not installed); pass --tokenizer
-char, custom or byte.
+Texts become ids as in the JAX CLI (`finetune_tokenize`): "pinyin" (the
+default; it needs jieba and pypinyin) and "char-level-pinyin" through
+`convert_char_to_pinyin`, "byte" as UTF-8, any other name as characters.
 
     python -m f5e_tts_tpu_torch.train.finetune_cli --dataset_name my_set \\
         --tokenizer char --finetune --pretrain model_1250000.pt [--device cpu]
@@ -54,6 +55,26 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def finetune_tokenize(tokenizer: str, vocab):
+    """This CLI's texts -> (B, NT) ids, the JAX CLI's closure
+    (finetune_cli.py:82-92): TONE3 pinyin for "pinyin" and
+    "char-level-pinyin", UTF-8 bytes for "byte", the characters for every
+    other name ("phone-level-pinyin" and "g2p-mix" included, as there; the
+    YAML CLI's `train.make_tokenize` phonemizes those two)."""
+    from f5e_tts_tpu_torch.utils import text as ftext
+
+    def tokenize(texts):
+        if tokenizer in ("pinyin", "char-level-pinyin"):
+            toks = ftext.convert_char_to_pinyin(list(texts))
+        elif tokenizer == "byte":
+            return ftext.list_str_to_bytes(list(texts))
+        else:
+            toks = [list(t) for t in texts]
+        return ftext.list_str_to_idx(toks, vocab)
+
+    return tokenize
+
+
 def main(argv=None):
     import dataclasses
 
@@ -61,7 +82,6 @@ def main(argv=None):
     from f5e_tts_tpu_torch.data.dataset import ArrowSpeechDataset, build_loader
     from f5e_tts_tpu_torch.parallel import multihost
     from f5e_tts_tpu_torch.parallel.mesh import ShardedLoader
-    from f5e_tts_tpu_torch.train.train import make_tokenize
     from f5e_tts_tpu_torch.train.trainer import Trainer
     from f5e_tts_tpu_torch.utils import text as ftext
 
@@ -97,14 +117,14 @@ def main(argv=None):
 
     vocab, vocab_size = ftext.get_tokenizer(args.tokenizer_path or args.dataset_name,
                                             args.tokenizer, data_dir=args.data_dir)
+    tokenize = finetune_tokenize(args.tokenizer, vocab)
     dataset = ArrowSpeechDataset.from_dir(
         os.path.join(args.data_dir, f"{args.dataset_name}_{args.tokenizer}"), mel=model_cfg.mel)
-    loader = build_loader(dataset, make_tokenize(model_cfg, vocab),
-                          frames_threshold=args.batch_size_per_gpu, max_samples=args.max_samples,
-                          seed=train_cfg.seed)
+    loader = build_loader(dataset, tokenize, frames_threshold=args.batch_size_per_gpu,
+                          max_samples=args.max_samples, seed=train_cfg.seed)
 
-    trainer = Trainer(model_cfg, train_cfg, vocab_size=vocab_size,
-                      tokenize=make_tokenize(model_cfg, vocab), device=device,
+    trainer = Trainer(model_cfg, train_cfg, vocab_size=vocab_size, tokenize=tokenize,
+                      device=device,
                       transport=args.transport,
                       log_fn=lambda m, u: main_rank and u % 50 == 0 and print(
                           f"update {u}: {m['loss']:.4f}"))

@@ -10,8 +10,9 @@ cuda:<LOCAL_RANK> over NCCL (ranks that share one card: --device cuda:0
 batch; rank 0 prints and writes the checkpoints.
 
 As in the JAX CLI, the Trainer gets no PPG extractor and the dataset no PPG,
-so a `use_ppg` model trains on zero PPG (`ppg_embed_fn` of no PPG); the
-pinyin and g2p-mix tokenizers raise (pypinyin and g2p_mix are absent).
+so a `use_ppg` model trains on zero PPG (`ppg_embed_fn` of no PPG). The
+pinyin tokenizers need jieba and pypinyin, "g2p-mix" the g2p_mix package:
+without them the first batch raises ImportError naming the package.
 
     python -m f5e_tts_tpu_torch.train.train --config configs/example.yaml \\
         [--data_dir data] [--device cpu]
@@ -26,18 +27,25 @@ import os
 
 def make_tokenize(model_cfg, vocab):
     """The training side's texts -> (B, NT) ids of a model config (the
-    reference's in-dataset tokenization, model/dataset.py:128-181): bytes,
-    or the characters of a char/custom vocab, interspersed when the align
-    loss or the cross mask reads them (cfm.py:509-510)."""
+    reference's in-dataset tokenization, model/dataset.py:128-181): TONE3
+    pinyin, split pinyin ("phone-level-pinyin"), bytes, g2p-mix phones in
+    the training convention (rimes and numbers split, through the module's
+    `_g2p_singleton`), or the characters of a char/custom vocab;
+    interspersed when the align loss or the cross mask reads them
+    (cfm.py:509-510)."""
     from f5e_tts_tpu_torch.utils import text as ftext
 
     def tokenize(texts):
-        if model_cfg.tokenizer in ("pinyin", "char-level-pinyin", "phone-level-pinyin", "g2p-mix"):
-            raise NotImplementedError(f"tokenizer {model_cfg.tokenizer!r} needs pypinyin / "
-                                      "g2p_mix, which the port does not have")
-        if model_cfg.tokenizer == "byte":
+        if model_cfg.tokenizer in ("pinyin", "char-level-pinyin"):
+            toks = ftext.convert_char_to_pinyin(list(texts))
+        elif model_cfg.tokenizer == "phone-level-pinyin":
+            toks = ftext.convert_char_to_finer_pinyin(list(texts))
+        elif model_cfg.tokenizer == "byte":
             return ftext.list_str_to_bytes(list(texts))
-        toks = [list(t) for t in texts]
+        elif model_cfg.tokenizer == "g2p-mix":
+            toks = ftext.g2p_mix_phonemize(list(texts), split_rimes=True)
+        else:
+            toks = [list(t) for t in texts]
         arch = model_cfg.arch
         if getattr(arch, "codebook", None) and (arch.codebook.use_align_loss
                                                 or arch.ppg.use_cross_mask):

@@ -14,6 +14,7 @@ both sides, or the same port arithmetic down two paths).
 import collections
 import functools
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -157,7 +158,7 @@ def test_split_rime_without_tone_raises_as_jax():
 
 
 @pytest.mark.parametrize("use_intersperse", [False, True])
-def test_char_tokenizer_matches_jax(use_intersperse):
+def test_char_tokenizer_matches_jax(use_intersperse, monkeypatch):
     vocab = {c: i for i, c in enumerate(" _abcdefghijklmnopqrstuvwxyz.,")}
     texts = ["hello, world.", "Zebra!", ""]
     jeng = jpipe.TTSEngine(params=None, state=None, arch=None, vocab=vocab, tokenizer="char",
@@ -165,9 +166,12 @@ def test_char_tokenizer_matches_jax(use_intersperse):
     teng = tpipe.TTSEngine(params={}, arch=None, vocab=vocab, tokenizer="char",
                            use_intersperse=use_intersperse, device="cpu")
     np.testing.assert_array_equal(teng.tokenize(texts), jeng.tokenize(texts))
-    teng.tokenizer = "pinyin"
-    with pytest.raises(NotImplementedError):
-        teng.tokenize(texts)
+    # without pypinyin the pinyin front end raises ImportError naming it, in both
+    monkeypatch.setitem(sys.modules, "pypinyin", None)
+    for eng in (jeng, teng):
+        eng.tokenizer = "pinyin"
+        with pytest.raises(ImportError, match="pypinyin"):
+            eng.tokenize(texts)
 
 
 # ---------------------------------------------------------------------------

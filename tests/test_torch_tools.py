@@ -12,8 +12,9 @@ modules on the CPU: `utils/seed.py`, `utils/profiling.py`, `scripts.py`,
   `edit` run with --device cpu (`edit` on a tiny stand-in model, its wav the
   one `edit_speech` gives on the same engine, bit for bit).
 - prepare: the csv corpus through both packages with the char tokenizer
-  gives the same Arrow rows, duration.json and vocab.txt; the pinyin
-  tokenizer raises, as the port's tokenizers do.
+  gives the same Arrow rows, duration.json and vocab.txt, and with the
+  pinyin tokenizer the same vocab.txt (without pypinyin both take the
+  characters).
 - native: every name against the JAX module's Python fallbacks (its C++
   library not loaded), exactly.
 - voice chat: `VoiceChat` over a tiny port engine with a stand-in LLM and
@@ -23,6 +24,7 @@ modules on the CPU: `utils/seed.py`, `utils/profiling.py`, `scripts.py`,
 import json
 import os
 import random
+import sys
 
 import jax
 import numpy as np
@@ -138,7 +140,7 @@ def test_edit_cli_on_a_stand_in_model(tmp_path, monkeypatch):
     assert sr == want_sr and np.array_equal(wav, want)
 
 
-def test_prepare_csv_matches_jax(tmp_path):
+def test_prepare_csv_matches_jax(tmp_path, monkeypatch):
     sr = 8000
     for i in range(3):
         write_wav(str(tmp_path / f"w{i}.wav"),
@@ -158,8 +160,12 @@ def test_prepare_csv_matches_jax(tmp_path):
                               for r in rows],
                       (out / "duration.json").read_text(), (out / "vocab.txt").read_text())
     assert outs["torch"] == outs["jax"] and outs["torch"][0]["rows"] == 3
-    with pytest.raises(NotImplementedError, match="pypinyin"):
-        tprep.prepare(tprep.rows_from_csv(str(tmp_path)), str(tmp_path / "p"), workers=1)
+    monkeypatch.setitem(sys.modules, "pypinyin", None)  # the JAX package's fall-through
+    vocabs = []
+    for name, mod in (("jax", jprep), ("torch", tprep)):
+        mod.prepare(mod.rows_from_csv(str(tmp_path)), str(tmp_path / f"p_{name}"), workers=1)
+        vocabs.append((tmp_path / f"p_{name}" / "vocab.txt").read_bytes())
+    assert vocabs[0] == vocabs[1] == outs["jax"][3].encode()
 
 
 def test_native_names_match_jax_fallbacks(monkeypatch):
