@@ -305,9 +305,13 @@
     the JAX package's.
 43. The fp32 kernels' rows (after 40): each fp32 attention kernel against
     its plain version at T and S (FP32_ATOL, FP32_RTOL, FP32_BWD_REL), its
-    time, bound at the fp32 FMA peak and SDPA's fp32 time; K2 in fp32 at T,
-    S and the proxy's (16, 168, 128) and (128, 192, 128); K5 at T, S and
-    the proxy's training shape.
+    time, bound at the three-pass TF32 rate (PEAK_TF32_FLOPS / 3) with the
+    fp32 FMA peak's beside it, its device time by kernel at T (pre-pass /
+    main, pre-pass / dq / dkdv, measured with the bf16 splits) and SDPA's
+    fp32 time, with the backend the default call takes (the one of
+    EFFICIENT_ATTENTION and MATH, each timed under sdpa_kernel, whose time
+    the default's matches); K2 in fp32 at T, S and the proxy's (16, 168,
+    128) and (128, 192, 128); K5 at T, S and the proxy's training shape.
 44. Parallel training (after 42): F5TTS_v1_Base at full width and depth,
     dropout 0, two Trainer.train updates on the 8 x 2304 batch, first in
     this process (the reference), then under each mesh axis in a world of
@@ -363,9 +367,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 outside
-# them, HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor cores,
+# fp32 outside them, HBM3 bandwidth. The fp32 attention kernels sum each
+# product in three TF32 passes: their bound is at PEAK_TF32_FLOPS / 3.
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 DEPTH, NFE = 22, 32
@@ -381,9 +387,11 @@ ATOL, RTOL = 2e-2, 1e-2
 # in fp32: max |kernel - plain| <= BWD_REL * max |plain| for each of dq, dk, dv
 BWD_REL = 2e-2
 # fp32 operands run the fp32 kernels: the same sums in fp32 with no bf16
-# rounding, so kernel and plain version differ by summation order alone;
-# 100x tighter than bf16 (forwards, K2, K5: |diff| <= FP32_ATOL +
-# FP32_RTOL |plain|; attention backwards: FP32_BWD_REL x max |plain|)
+# rounding (the attention kernels' products in three TF32 passes, ~2^-21
+# relative a product), so kernel and plain version differ by summation
+# order and that; 100x tighter than bf16 (forwards, K2, K5: |diff| <=
+# FP32_ATOL + FP32_RTOL |plain|; attention backwards: FP32_BWD_REL x max
+# |plain|)
 FP32_ATOL, FP32_RTOL, FP32_BWD_REL = 2e-4, 1e-4, 2e-4
 TRAIN_CLIPS, TRAIN_N = 8, 2304
 REF_TEXT = "Some call me nature, others call me mother nature."
@@ -1877,18 +1885,37 @@ class AttentionCase:
         gt = self.g.transpose(1, 2)
         return lambda: torch.autograd.grad(o, (q, k, v), gt, retain_graph=True)
 
+    def flops(self, backward: bool) -> float:
+        """The 2 (forward) or 5 (backward) N x keys x dh products over the
+        valid keys."""
+        return (10.0 if backward else 4.0) * self.h * self.dh * self.n * self.keys
+
     def bound(self, backward: bool):
-        """(operation seconds, byte seconds): the 2 (forward) or 5 (backward)
-        N x keys x dh products over the valid keys, at the bf16 tensor-core
-        peak or, for fp32 operands, the fp32 FMA peak; q, k, v, out (forward)
-        or q, k, v, g, dq, dk, dv (backward), the tables and the lengths."""
-        flops = (10.0 if backward else 4.0) * self.h * self.dh * self.n * self.keys
+        """(operation seconds, byte seconds): `flops` at the bf16 tensor-core
+        peak or, for fp32 operands, at the three-pass TF32 rate
+        (PEAK_TF32_FLOPS / 3); q, k, v, out (forward) or q, k, v, g, dq, dk,
+        dv (backward), the tables and the lengths."""
         size = torch.finfo(self.dtype).bits // 8
         nbytes = (7 if backward else 4) * self.b * self.n * self.h * self.dh * size + self.b * 4
         if self.rope:
             nbytes += 2 * self.n * self.dh * 4
-        peak = PEAK_FP32_FLOPS if self.dtype == torch.float32 else PEAK_BF16_FLOPS
-        return flops / peak, nbytes / PEAK_BYTES
+        peak = PEAK_TF32_FLOPS / 3 if self.dtype == torch.float32 else PEAK_BF16_FLOPS
+        return self.flops(backward) / peak, nbytes / PEAK_BYTES
+
+    def sdpa_backend(self, backward: bool, default_ms: float) -> dict:
+        """SDPA's time under sdpa_kernel(EFFICIENT_ATTENTION) and under
+        sdpa_kernel(MATH), and the one of the two whose time the default
+        call's (`default_ms`) matches: the backend the default takes."""
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        times = {}
+        for name in ("EFFICIENT_ATTENTION", "MATH"):
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                fn = self.library_backward() if backward else self.library
+                times[name] = cuda_ms([fn], iters=6, warmup=2)
+        backend = min(times, key=lambda k: abs(math.log(times[k] / default_ms)))
+        return {"library_backend": backend, "library_efficient_ms": times["EFFICIENT_ATTENTION"],
+                "library_math_ms": times["MATH"]}
 
     def describe(self) -> str:
         extra = f", n_audio {self.n_audio}" if self.n_audio is not None else ""
@@ -1896,10 +1923,14 @@ class AttentionCase:
         return f"({self.b}, {self.n}, {self.h}, {self.dh}), lens {self.lens_list}{extra}"
 
 
-# (part, kernel-name fragment) of one forward and one backward call
+# (part, kernel-name fragment) of one forward and one backward call, bf16
+# and fp32
 FWD_PARTS = (("pre-pass", "attention_fwd_prep_kernel"), ("main", "attention_fwd_kernel"))
 BWD_PARTS = (("pre-pass", "attention_bwd_prep_kernel"), ("dq", "attention_bwd_dq_kernel"),
              ("dkdv", "attention_bwd_dkdv_kernel"))
+FWD32_PARTS = (("pre-pass", "attention_fwd_prep_f32_kernel"), ("main", "attention_fwd_f32_kernel"))
+BWD32_PARTS = (("pre-pass", "attention_bwd_prep_f32_kernel"),
+               ("dq", "attention_bwd_dq_f32_kernel"), ("dkdv", "attention_bwd_dkdv_f32_kernel"))
 # the two passes of one K5 call
 K5_PARTS = (("row pass", "gated_adaln_bwd_kernel"), ("combine", "gated_adaln_bwd_reduce_kernel"))
 
@@ -1947,15 +1978,24 @@ def adaln_bwd_operands(seed: int = 6, d: int = 1024, b: int = TRAIN_CLIPS, n: in
 
 def split_phase(mods, ga):
     """K1's, K4's and K5's device time by kernel at the training shape T,
-    measured before the model phases: in a profiled window this short late in
-    the run the profiler saw no device kernel at all."""
-    case = AttentionCase(mods, "rope", TRAIN_CLIPS, TRAIN_N, (TRAIN_N,) * TRAIN_CLIPS,
-                         torch.Generator(device="cuda").manual_seed(7), rope_heads=16)
-    out, stats = case.fwd(return_stats=True)
-    adaln = adaln_bwd_operands()
-    return (kernel_split("forward split", case.fwd, FWD_PARTS),
-            kernel_split("backward split", lambda: case.bwd(out, stats), BWD_PARTS),
-            kernel_split("gated_adaln_bwd split", lambda: ga.gated_adaln_bwd(*adaln), K5_PARTS))
+    then K1's and K4's on fp32 operands, measured before the model phases:
+    in a profiled window this short late in the run the profiler saw no
+    device kernel at all."""
+    splits = []
+    for dtype, tag, parts in ((torch.bfloat16, "", (FWD_PARTS, BWD_PARTS)),
+                              (torch.float32, "fp32 ", (FWD32_PARTS, BWD32_PARTS))):
+        case = AttentionCase(mods, "rope", TRAIN_CLIPS, TRAIN_N, (TRAIN_N,) * TRAIN_CLIPS,
+                             torch.Generator(device="cuda").manual_seed(7), rope_heads=16,
+                             dtype=dtype)
+        out, stats = case.fwd(return_stats=True)
+        splits += [kernel_split(f"{tag}forward split", case.fwd, parts[0]),
+                   kernel_split(f"{tag}backward split", lambda: case.bwd(out, stats), parts[1])]
+        if dtype == torch.bfloat16:
+            adaln = adaln_bwd_operands()
+            splits.append(kernel_split("gated_adaln_bwd split",
+                                       lambda: ga.gated_adaln_bwd(*adaln), K5_PARTS))
+        del case, out, stats
+    return tuple(splits)
 
 
 def attention_kernel_phase(name, source, replaces, launches, backward, cases, iters=24,
@@ -2000,13 +2040,23 @@ def attention_kernel_phase(name, source, replaces, launches, backward, cases, it
                 library_ms = cuda_ms([case.library], iters=iters)
                 extra["host_us"] = host_us(case.fwd)
             ops_s, bytes_s = case.bound(backward)
+            if fp32:
+                # beside the TF32 bound, the fp32 FMA peak's; and SDPA's backend
+                extra["fma_bound_ms"] = case.flops(backward) / PEAK_FP32_FLOPS * 1e3
+                extra["fma_bound_share"] = extra["fma_bound_ms"] / ms
+                torch.cuda.empty_cache()
+                extra.update(case.sdpa_backend(backward, library_ms))
             numbers[tag] = {"shape": case.describe(), "ms": ms, "plain_ms": plain_ms,
                             "library_ms": library_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
                             "bound_share": max(ops_s, bytes_s) * 1e3 / ms,
                             **extra, "ops_s": ops_s, "bytes_s": bytes_s}
             log(f"[{name} {tag}] {case.describe()}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"library {library_ms:.4f} ms, bound {max(ops_s, bytes_s) * 1e3:.4f} ms" +
-                (f", host {extra['host_us']:.1f} us a call" if extra else ""))
+                (f", host {extra['host_us']:.1f} us a call" if "host_us" in extra else "") +
+                (f", bound at the fp32 FMA peak {extra['fma_bound_ms']:.4f} ms; SDPA takes "
+                 f"{extra['library_backend']} (EFFICIENT_ATTENTION "
+                 f"{extra['library_efficient_ms']:.4f} ms, MATH {extra['library_math_ms']:.4f} ms)"
+                 if fp32 else ""))
         del case, out, stats
         torch.cuda.empty_cache()
     first, *rest = numbers.items()
@@ -2014,6 +2064,10 @@ def attention_kernel_phase(name, source, replaces, launches, backward, cases, it
     also = {tag: {k: v for k, v in d.items() if k not in ("ops_s", "bytes_s")} for tag, d in rest}
     if "host_us" in main:
         also["host_us_per_call"] = main["host_us"]
+    for key in ("fma_bound_ms", "fma_bound_share", "library_backend", "library_efficient_ms",
+                "library_math_ms"):
+        if key in main:
+            also[key] = main[key]
     if split is not None:
         also["device_ms_by_kernel"] = split
     return kernel_row(name, source, replaces, launches, err, main["ms"], main["plain_ms"],
@@ -2221,14 +2275,16 @@ def adaln_bwd_phase(ga, launches: dict, split) -> dict:
 PROXY_TRAIN_SHAPE, PROXY_EVAL_SHAPE = (16, 168, 128), (128, 192, 128)
 
 
-def fp32_rows(mods, ga, paths: dict) -> list:
+def fp32_rows(mods, ga, paths: dict, splits) -> list:
     """The rows of the fp32 kernels (fp32 operands: csrc/attention_fp32.cuh
     and K2/K5's fp32 instantiations), each held against its plain version
-    with the fp32 tolerances and timed beside its bound at the fp32 FMA peak
-    (bytes at 4 an element) and, for attention, SDPA in fp32: every attention
-    kernel at T and S (the joint ones at T and S with 128 text keys), K2 at T,
-    S and the quality proxy's training and folded-evaluation shapes, K5 at
-    T, S and the proxy's training shape."""
+    with the fp32 tolerances and timed beside its bound (attention: at the
+    three-pass TF32 rate, the fp32 FMA peak's beside it; K2/K5: the fp32 FMA
+    peak; bytes at 4 an element) and, for attention, SDPA in fp32 with the
+    backend it takes: every attention kernel at T and S (the joint ones at T
+    and S with 128 text keys), K2 at T, S and the quality proxy's training
+    and folded-evaluation shapes, K5 at T, S and the proxy's training shape.
+    splits: the fp32 K1's and K4's device ms by kernel from `split_phase`."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     src, h = "attention_fp32.cuh", 16
 
@@ -2250,8 +2306,9 @@ def fp32_rows(mods, ga, paths: dict) -> list:
                 ("partial_rope_attention_fp32", "fp32_partial_rope_attention", 183, "rope",
                  {"rope_heads": 1}),
                 ("masked_attention_fp32", "fp32_masked_attention", 86, "masked", {})):
-            rows.append(attention_kernel_phase(name, src, f"{PALLAS}:{line}", paths[counter],
-                                               False, both(kind, t_, s_, **kw), fp32=True))
+            rows.append(attention_kernel_phase(
+                name, src, f"{PALLAS}:{line}", paths[counter], False, both(kind, t_, s_, **kw),
+                split=splits[0] if name == "rope_attention_fp32" else None, fp32=True))
         rows.append(attention_kernel_phase(
             "joint_attention_fp32", src, f"{PALLAS}:1201", paths["fp32_joint_attention"], False,
             [("synthesis", case("joint", *js, n_audio=1536), True),
@@ -2266,8 +2323,9 @@ def fp32_rows(mods, ga, paths: dict) -> list:
             ("partial_rope_attention_bwd_fp32", "fp32_partial_rope_attention_bwd", 906, "rope",
              {"rope_heads": 1}),
             ("masked_attention_bwd_fp32", "fp32_masked_attention_bwd", 770, "masked", {})):
-        rows.append(attention_kernel_phase(name, src, f"{PALLAS}:{line}", paths[counter], True,
-                                           both(kind, t_, s_, **kw), fp32=True))
+        rows.append(attention_kernel_phase(
+            name, src, f"{PALLAS}:{line}", paths[counter], True, both(kind, t_, s_, **kw),
+            split=splits[1] if name == "rope_attention_bwd_fp32" else None, fp32=True))
     rows.append(attention_kernel_phase(
         "joint_attention_bwd_fp32", src, f"{PALLAS}:1298", paths["fp32_joint_attention_bwd"],
         True, [("training shape", case("joint", *jt, n_audio=TRAIN_N), True),
@@ -2324,10 +2382,11 @@ def build_report(libs: dict, ra) -> None:
             elif kernel and "registers" in line:
                 log(f"[build] {name}: {kernel}: {line.split(':', 1)[-1].strip()}")
     for dh in (64, 128):
-        log(f"[build] dynamic shared memory at dh {dh}: forward main kernel "
-            f"{ra._lib().attention_smem(dh, 0)} bytes, backward dq kernel "
-            f"{ra._lib().attention_smem(dh, 1)} bytes, dkdv kernel "
-            f"{ra._lib().attention_smem(dh, 2)} bytes")
+        for kind, first in (("", 0), (" fp32", 3)):
+            log(f"[build] dynamic shared memory at dh {dh}:{kind} forward main kernel "
+                f"{ra._lib().attention_smem(dh, first)} bytes, backward dq kernel "
+                f"{ra._lib().attention_smem(dh, first + 1)} bytes, dkdv kernel "
+                f"{ra._lib().attention_smem(dh, first + 2)} bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -5729,7 +5788,8 @@ def main() -> int:
             f"({time.perf_counter() - t_start:.0f} s since the start)")
         return result
 
-    # K1's, K4's and K5's device time by kernel, for their rows (launches here count on no path)
+    # K1's, K4's and K5's device time by kernel, then fp32 K1's and K4's, for their rows
+    # (launches here count on no path)
     splits = phase("kernel splits", lambda: split_phase((ra, ka), ga))
     reset_counts()
 
@@ -5885,7 +5945,7 @@ def main() -> int:
     with torch.inference_mode():
         rows.append(adaln_phase(ga, paths["gated_adaln"]))
     rows.append(adaln_bwd_phase(ga, paths["gated_adaln_bwd"], splits[2]))
-    rows += phase("fp32 kernels", lambda: fp32_rows((ra, ka), ga, paths))
+    rows += phase("fp32 kernels", lambda: fp32_rows((ra, ka), ga, paths, splits[3:]))
     log(f"[total] {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

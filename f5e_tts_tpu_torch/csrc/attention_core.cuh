@@ -203,12 +203,12 @@ __device__ __forceinline__ bool all_masked(int len, int n_audio, int n) {
   return MASK == kMaskPrefix ? len <= 0 : (len <= 0 && n_audio >= n);
 }
 
-// True when no column of the key tile [k0, k0 + 64) is valid although some
+// True when no column of the key tile [k0, k0 + KT) is valid although some
 // column of the row is: its probabilities are exactly 0. k0 < n.
-template <int MASK>
+template <int MASK, int KT = kBlockK>
 __device__ __forceinline__ bool tile_dead(int k0, int len, int n_audio, int n) {
   if (all_masked<MASK>(len, n_audio, n)) return false;
-  return MASK == kMaskPrefix ? k0 >= len : (k0 >= len && min(k0 + kBlockK, n) <= n_audio);
+  return MASK == kMaskPrefix ? k0 >= len : (k0 >= len && min(k0 + KT, n) <= n_audio);
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -236,6 +236,136 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[kBlockK / 16][4],
     a[kk][1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
     a[kk][2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
     a[kk][3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+}
+
+// One key tile of the forward's online softmax, in place: the scores sc of
+// this thread's rows (r0: elements 0, 1; r1: 2, 3) over the KT keys from k0
+// become p = exp(s - m) under the running maxima m0, m1, which move to take
+// the tile in; l0, l1 (this thread's share of the rows' sums) are rescaled
+// and take the tile's p; a0, a1 are the rescale factors exp(m_old - m_new)
+// of the rows' output. Column c of the tile is key k0 + c: past n not a key
+// at all (-inf), masked -1e30; only a tile on an edge of the valid columns
+// is masked, with selects, not a branch per element.
+template <int KT, int MASK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[KT / 8][4], int k0, int n, int len,
+                                             int n_audio, float& m0, float& m1, float& l0,
+                                             float& l1, float& a0, float& a1) {
+  const int t = threadIdx.x & 3;
+  const int c_n = n - k0, c_len = len - k0, c_audio = n_audio - k0;
+  const bool edge = MASK == kMaskPrefix ? KT > min(c_len, c_n)
+                                        : !(KT <= c_n && (KT <= c_len || c_audio <= 0));
+  float tm0 = -INFINITY, tm1 = -INFINITY;
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t + (e & 1);
+        const bool valid = MASK == kMaskPrefix ? c < c_len : (c < c_len || c >= c_audio);
+        sc[j][e] = c >= c_n ? -INFINITY : (valid ? sc[j][e] : kMaskValue);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j) {
+    tm0 = fmaxf(tm0, fmaxf(sc[j][0], sc[j][1]));
+    tm1 = fmaxf(tm1, fmaxf(sc[j][2], sc[j][3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    tm0 = fmaxf(tm0, __shfl_xor_sync(0xffffffffu, tm0, off));
+    tm1 = fmaxf(tm1, __shfl_xor_sync(0xffffffffu, tm1, off));
+  }
+  // every tile holds a key < n, so the new max is finite
+  const float mn0 = fmaxf(m0, tm0), mn1 = fmaxf(m1, tm1);
+  a0 = __expf(m0 - mn0);
+  a1 = __expf(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  // p = 2^(s log2(e) - m log2(e)): one FFMA and one ex2 a score. A row
+  // whose keys are all masked so far (max -1e30) takes the scale 0, so each
+  // of its masked keys gives exactly 1, as exp(s - m) does; its keys past n
+  // (-inf * 0) are set to 0 below.
+  const float e0 = mn0 == kMaskValue ? 0.f : kLog2e, e1 = mn1 == kMaskValue ? 0.f : kLog2e;
+  const float b0 = -mn0 * e0, b1 = -mn1 * e1;
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j) {
+    sc[j][0] = ex2_approx(fmaf(sc[j][0], e0, b0));
+    sc[j][1] = ex2_approx(fmaf(sc[j][1], e0, b0));
+    sc[j][2] = ex2_approx(fmaf(sc[j][2], e1, b1));
+    sc[j][3] = ex2_approx(fmaf(sc[j][3], e1, b1));
+  }
+  if (c_n < KT) {
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = j * 8 + 2 * t + (e & 1) < c_n ? sc[j][e] : 0.f;
+    }
+  }
+  float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j) {
+    ls0 += sc[j][0] + sc[j][1];
+    ls1 += sc[j][2] + sc[j][3];
+  }
+  l0 = l0 * a0 + ls0;
+  l1 = l1 * a1 + ls1;
+}
+
+// P = exp(S - m) * linv of this thread's rows (r0: elements 0, 1; r1: 2, 3)
+// of a tile of KT keys, in place of S: the backward's dq kernels.
+template <int KT>
+__device__ __forceinline__ void probs(float (&sc)[KT / 8][4], float mx0, float mx1, float li0,
+                                      float li1) {
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sc[j][e] = __expf(sc[j][e] - (e < 2 ? mx0 : mx1)) * (e < 2 ? li0 : li1);
+  }
+}
+
+// dS = P (dP - delta) at the valid keys of the tile from k0, 0 elsewhere, in
+// place of P: column c of the tile is key k0 + c; selects, not a branch per
+// element.
+template <int KT, int MASK>
+__device__ __forceinline__ void dscores(float (&sc)[KT / 8][4], const float (&dp)[KT / 8][4],
+                                        int k0, int n, int len, int n_audio, float dl0,
+                                        float dl1) {
+  const int t = threadIdx.x & 3;
+  const int c_n = n - k0, c_len = len - k0, c_audio = n_audio - k0;
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = j * 8 + 2 * t + (e & 1);
+      const bool valid =
+          c < c_n && (MASK == kMaskPrefix ? c < c_len : (c < c_len || c >= c_audio));
+      sc[j][e] = valid ? sc[j][e] * (dp[j][e] - (e < 2 ? dl0 : dl1)) : 0.f;
+    }
+  }
+}
+
+// P^T and dS^T of a tile of QT queries in place of S^T and dP^T: the
+// backward's dk/dv kernels, whose rows are this thread's keys r0 (elements
+// 0, 1: valid0) and r1 (2, 3: valid1) and whose columns are queries, with
+// each query's m, linv and delta at m_s, l_s, d_s.
+template <int QT>
+__device__ __forceinline__ void probs_t(float (&st)[QT / 8][4], float (&dpt)[QT / 8][4],
+                                        bool valid0, bool valid1, const float* m_s,
+                                        const float* l_s, const float* d_s) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < QT / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = j * 8 + 2 * t + (e & 1);  // query within the tile
+      const bool valid = e < 2 ? valid0 : valid1;
+      const float p = __expf((valid ? st[j][e] : kMaskValue) - m_s[qi]) * l_s[qi];
+      st[j][e] = p;
+      dpt[j][e] = valid ? p * (dpt[j][e] - d_s[qi]) : 0.f;  // dS^T
+    }
   }
 }
 
@@ -751,68 +881,8 @@ __global__ void __launch_bounds__(fwd_groups<DH>() * 128 + 32, 1) attention_fwd_
     wgmma_wait<1>();
     fence_regs(sc);
 
-    // column c of the tile is key k0 + c: past n not a key at all (-inf),
-    // masked -1e30; only a tile on an edge of the valid columns is masked,
-    // with selects, not a branch per element
-    const int c_n = n - k0, c_len = len - k0, c_audio = n_audio - k0;
-    const bool edge = MASK == kMaskPrefix
-                          ? kBlockK > min(c_len, c_n)
-                          : !(kBlockK <= c_n && (kBlockK <= c_len || c_audio <= 0));
-    float tm0 = -INFINITY, tm1 = -INFINITY;
-    if (edge) {
-#pragma unroll
-      for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = j * 8 + 2 * t + (e & 1);
-          const bool valid = MASK == kMaskPrefix ? c < c_len : (c < c_len || c >= c_audio);
-          sc[j][e] = c >= c_n ? -INFINITY : (valid ? sc[j][e] : kMaskValue);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-      tm0 = fmaxf(tm0, fmaxf(sc[j][0], sc[j][1]));
-      tm1 = fmaxf(tm1, fmaxf(sc[j][2], sc[j][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      tm0 = fmaxf(tm0, __shfl_xor_sync(0xffffffffu, tm0, off));
-      tm1 = fmaxf(tm1, __shfl_xor_sync(0xffffffffu, tm1, off));
-    }
-    // every tile holds a key < n, so the new max is finite
-    const float mn0 = fmaxf(m0, tm0), mn1 = fmaxf(m1, tm1);
-    const float a0 = __expf(m0 - mn0), a1 = __expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    // p = 2^(s log2(e) - m log2(e)): one FFMA and one ex2 a score. A row
-    // whose keys are all masked so far (max -1e30) takes the scale 0, so each
-    // of its masked keys gives exactly 1, as exp(s - m) does; its keys past n
-    // (-inf * 0) are set to 0 below.
-    const float e0 = mn0 == kMaskValue ? 0.f : kLog2e, e1 = mn1 == kMaskValue ? 0.f : kLog2e;
-    const float b0 = -mn0 * e0, b1 = -mn1 * e1;
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-      sc[j][0] = ex2_approx(fmaf(sc[j][0], e0, b0));
-      sc[j][1] = ex2_approx(fmaf(sc[j][1], e0, b0));
-      sc[j][2] = ex2_approx(fmaf(sc[j][2], e1, b1));
-      sc[j][3] = ex2_approx(fmaf(sc[j][3], e1, b1));
-    }
-    if (c_n < kBlockK) {
-#pragma unroll
-      for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] = j * 8 + 2 * t + (e & 1) < c_n ? sc[j][e] : 0.f;
-      }
-    }
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-      ls0 += sc[j][0] + sc[j][1];
-      ls1 += sc[j][2] + sc[j][3];
-    }
-    l0 = l0 * a0 + ls0;
-    l1 = l1 * a1 + ls1;
+    float a0, a1;  // exp(m_old - m_new) of rows r0 and r1
+    softmax_tile<kBlockK, MASK>(sc, k0, n, len, n_audio, m0, m1, l0, l1, a0, a1);
 
     wgmma_wait<0>();
     fence_regs(o);
@@ -967,27 +1037,10 @@ __global__ void __launch_bounds__(dq_groups<DH>() * 128 + 32, 1) attention_bwd_d
     issue_pair<DH>(sc, dp, qt, kt, gt, vt);
     wgmma_wait<1>();
     fence_regs(sc);
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sc[j][e] = __expf(sc[j][e] - (e < 2 ? mx0 : mx1)) * (e < 2 ? li0 : li1);  // P
-    }
+    probs<kBlockK>(sc, mx0, mx1, li0, li1);
     wgmma_wait<0>();
     fence_regs(dp);
-    // dS = P (dP - delta) at the valid keys, 0 elsewhere: column c of the
-    // tile is key k0 + c; selects, not a branch per element
-    const int c_n = n - k0, c_len = len - k0, c_audio = n_audio - k0;
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * t + (e & 1);
-        const bool valid =
-            c < c_n && (MASK == kMaskPrefix ? c < c_len : (c < c_len || c >= c_audio));
-        sc[j][e] = valid ? sc[j][e] * (dp[j][e] - (e < 2 ? dl0 : dl1)) : 0.f;
-      }
-    }
+    dscores<kBlockK, MASK>(sc, dp, k0, n, len, n_audio, dl0, dl1);
     // dQ += dS K': dS as register A fragments, K' read transposed
     uint32_t da[kBlockK / 16][4];
     acc_to_a(da, sc);
@@ -1141,17 +1194,7 @@ __global__ void __launch_bounds__(dkdv_groups<DH>() * 128 + 32, 1) attention_bwd
       fence_regs(st);
       fence_regs(dpt);
 
-#pragma unroll
-      for (int j = 0; j < kRows / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = j * 8 + 2 * t + (e & 1);  // query within the tile
-          const bool valid = e < 2 ? valid0 : valid1;
-          const float p = __expf((valid ? st[j][e] : kMaskValue) - m_s[qi]) * l_s[qi];
-          st[j][e] = p;
-          dpt[j][e] = valid ? p * (dpt[j][e] - d_s[qi]) : 0.f;  // dS^T
-        }
-      }
+      probs_t<kRows>(st, dpt, valid0, valid1, m_s, l_s, d_s);
       // dV += P^T dO and dK += dS^T q': P^T and dS^T as register A
       // fragments, dO and q' read transposed
       uint32_t pa[kRows / 16][4], da[kRows / 16][4];

@@ -61,11 +61,18 @@ extern "C" int rope_attention_bwd(const void* q, const void* k, const void* v, c
 }
 
 // Dynamic shared memory of the forward's main kernel (kernel 0), the
-// backward's dq (1) or dkdv (2) kernel at head width dh, in bytes; -1 for
-// what is not built.
+// backward's dq (1) or dkdv (2) kernel at head width dh, in bytes, and of
+// their fp32 counterparts (3, 4, 5); -1 for what is not built.
 extern "C" int attention_smem(int dh, int kernel) {
-  if (dh == 64) return kernel == 0 ? fwd_smem<64>() : kernel == 1 ? dq_smem<64>() : dkdv_smem<64>();
-  if (dh == 128)
-    return kernel == 0 ? fwd_smem<128>() : kernel == 1 ? dq_smem<128>() : dkdv_smem<128>();
+  if (dh == 64) {
+    const int all[6] = {fwd_smem<64>(),     dq_smem<64>(),     dkdv_smem<64>(),
+                        fwd_f32_smem<64>(), dq_f32_smem<64>(), dkdv_f32_smem<64>()};
+    return kernel >= 0 && kernel < 6 ? all[kernel] : -1;
+  }
+  if (dh == 128) {
+    const int all[6] = {fwd_smem<128>(),     dq_smem<128>(),     dkdv_smem<128>(),
+                        fwd_f32_smem<128>(), dq_f32_smem<128>(), dkdv_f32_smem<128>()};
+    return kernel >= 0 && kernel < 6 ? all[kernel] : -1;
+  }
   return -1;
 }

@@ -231,11 +231,25 @@ def prep_scratch(q: torch.Tensor, rotated: int, delta: bool = False):
     """What a kernel's pre-pass writes, for either direction: q' and, where
     RoPE is compiled in (rotated = 2), k', head-major (B, H, N, dh) views of
     one buffer in q's dtype; then delta, fp32 (B, H, N), for the backward
-    (`delta`), else None."""
+    (`delta`), else None. For fp32 operands the first `rotated` entries are
+    one buffer, the whole scratch of the fp32 kernels (`f32_scratch_size`)."""
     b, n, h, dh = q.shape
+    dl = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if delta else None
+    if q.dtype == torch.float32:
+        buf = torch.empty(f32_scratch_size(b, n, h, dh, delta), dtype=q.dtype, device=q.device)
+        return (buf,) * rotated + (dl,)
     rot = torch.empty((rotated, b, h, n, dh), dtype=q.dtype, device=q.device)
-    return (*rot.unbind(0),
-            torch.empty((b, h, n), dtype=torch.float32, device=q.device) if delta else None)
+    return (*rot.unbind(0), dl)
+
+
+def f32_scratch_size(b: int, n: int, h: int, dh: int, backward: bool) -> int:
+    """fp32 values the fp32 kernels' pre-pass writes (csrc/attention_fp32.cuh:
+    layout_f32): each operand the three-pass products read, split into tf32
+    hi and lo parts, as row layouts (2, B, H, N, dh) (forward: q', k';
+    backward: q', k', v, dO) and column layouts (2, B, H, dh, NP), NP = N
+    rounded up to 8 (forward: v; backward: q', k', dO)."""
+    rows, cols = (4, 3) if backward else (2, 1)
+    return 2 * b * h * dh * (rows * n + cols * (-(-n // 8) * 8))
 
 
 def stream(t: torch.Tensor) -> int:

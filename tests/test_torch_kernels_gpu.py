@@ -30,10 +30,12 @@ scores of bf16 operands; a row with every key masked has m = -1e30 on both
 sides).
 
 fp32 operands launch the fp32 kernels (csrc/attention_fp32.cuh, and K2/K5's
-fp32 instantiations), held 100x tighter than bf16: the same sums in fp32
-with no bf16 rounding, so they differ from the plain versions by summation
-order alone: |diff| <= 2e-4 + 1e-4 * |plain| (forwards, K2, K5),
-max |diff| <= 2e-4 * max |plain| (attention backwards).
+fp32 instantiations), held 100x tighter than bf16: |diff| <= 2e-4 + 1e-4 *
+|plain| (forwards, K2, K5), max |diff| <= 2e-4 * max |plain| (attention
+backwards). K2/K5 differ from their plain versions by summation order alone;
+the attention kernels sum each product in three TF32 passes (hi.lo + lo.hi +
+hi.hi, ~2^-21 relative a product), which a case with scores of about +-30
+holds to those limits where one or two passes would fail them.
 """
 
 import pytest
@@ -559,25 +561,33 @@ def _counts16():
 
 
 # (kind, b, n, h, dh, lens, rope_heads or n_audio, fused)
+# (kind, b, n, h, dh, lens, rope_heads or n_audio, fused, scale of q and k)
 FP32_CASES = [
-    ("rope", 2, 1536, 16, 64, (1416, 1100), 16, True),  # S, the v1 sampler hook's shape
-    ("rope", 2, 130, 3, 128, (130, 1), 3, False),       # dh 128, ragged tile, one valid key
-    ("rope", 2, 256, 4, 64, (256, 77), 1, True),        # RoPE on the first head (K3/K6)
-    ("rope", 1, 200, 2, 64, (0,), 2, False),            # every key masked
-    ("masked", 3, 300, 2, 64, (300, 0, 129), 0, True),  # K9/K10, a row with len 0
-    ("masked", 2, 96, 2, 128, (96, 40), 0, False),      # dh 128
-    ("joint", 2, 240, 2, 64, (10, 200), 200, False),    # K7/K8, text from mid-tile
-    ("joint", 3, 232, 2, 128, (0, 200, 57), 200, False),  # dh 128, audio_len 0
+    ("rope", 2, 1536, 16, 64, (1416, 1100), 16, True, 1.0),  # S, the v1 sampler hook's shape
+    ("rope", 2, 130, 3, 128, (130, 1), 3, False, 1.0),       # dh 128, ragged tile, one valid key
+    ("rope", 2, 256, 4, 64, (256, 77), 1, True, 1.0),        # RoPE on the first head (K3/K6)
+    ("rope", 1, 200, 2, 64, (0,), 2, False, 1.0),            # every key masked
+    ("masked", 3, 300, 2, 64, (300, 0, 129), 0, True, 1.0),  # K9/K10, a row with len 0
+    ("masked", 2, 96, 2, 128, (96, 40), 0, False, 1.0),      # dh 128
+    ("joint", 2, 240, 2, 64, (10, 200), 200, False, 1.0),    # K7/K8, text from mid-tile
+    ("joint", 3, 232, 2, 128, (0, 200, 57), 200, False, 1.0),  # dh 128, audio_len 0
+    # q and k of standard deviation 2.5: scores of deviation ~6 spanning about
+    # +-30, where one or two TF32 passes err by ~2^-11 x 30 (test_torch_tf32_split.py)
+    ("rope", 2, 512, 4, 64, (512, 389), 4, True, 2.5),
+    ("rope", 2, 2305, 2, 64, (2305, 2000), 2, False, 1.0),   # a one-row last tile
 ]
 
 
-def _fp32_case(gen, kind, b, n, h, dh, lens, extra, fused):
-    """(forward(return_stats), plain, backward(out, stats), plain backward)."""
+def _fp32_case(gen, kind, b, n, h, dh, lens, extra, fused, scale=1.0):
+    """(forward(return_stats), plain, backward(out, stats), plain backward);
+    q and k times `scale`."""
     if fused:
         qkv = torch.randn((b, n, 3 * h * dh), generator=gen, device="cuda")
+        qkv[..., :2 * h * dh] *= scale
         q, k, v = (t.unflatten(-1, (h, dh)) for t in qkv.chunk(3, dim=-1))
     else:
         q, k, v = (torch.randn((b, n, h, dh), generator=gen, device="cuda") for _ in range(3))
+        q, k = q * scale, k * scale
     g = torch.randn((b, n, h, dh), generator=gen, device="cuda")
     lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     if kind == "rope":
@@ -597,9 +607,9 @@ def _fp32_case(gen, kind, b, n, h, dh, lens, extra, fused):
             lambda: ka.joint_attention_core_bwd_plain(q, k, v, lens, extra, g))
 
 
-@pytest.mark.parametrize("kind,b,n,h,dh,lens,extra,fused", FP32_CASES)
-def test_fp32_attention_kernels_match_plain(cuda, kind, b, n, h, dh, lens, extra, fused):
-    fwd, plain, bwd, bwd_plain = _fp32_case(cuda, kind, b, n, h, dh, lens, extra, fused)
+@pytest.mark.parametrize("kind,b,n,h,dh,lens,extra,fused,scale", FP32_CASES)
+def test_fp32_attention_kernels_match_plain(cuda, kind, b, n, h, dh, lens, extra, fused, scale):
+    fwd, plain, bwd, bwd_plain = _fp32_case(cuda, kind, b, n, h, dh, lens, extra, fused, scale)
     before32, before16 = _counts32(), _counts16()
     out, stats = fwd(return_stats=True)
     torch.cuda.synchronize()
@@ -617,6 +627,24 @@ def test_fp32_attention_kernels_match_plain(cuda, kind, b, n, h, dh, lens, extra
                      2 if partial else 0, 0, 0, 0, 0),
             "masked": (0, 0, 0, 0, 1, 2, 0, 0), "joint": (0, 0, 0, 0, 0, 0, 1, 2)}[kind]
     assert moved == [*want, 0, 0]
+
+
+@pytest.mark.parametrize("kind,extra", [("rope", 16), ("rope", 1), ("masked", 0), ("joint", 2304)])
+def test_fp32_attention_kernels_repeat_bits(cuda, kind, extra):
+    """The fp32 forward, its row statistics and the backward give the same
+    bits in two runs (no atomics; every sum in a fixed order), at the v1
+    training step's shape T (the joint rule over T's audio and 128 text keys)."""
+    n = 2304 + (128 if kind == "joint" else 0)
+    lens = (2304, 2000, 1337, 2304, 900, 1, 2303, 64)
+    fwd, _, bwd, _ = _fp32_case(cuda, kind, 8, n, 16, 64, lens, extra, kind == "rope")
+    out, stats = fwd(return_stats=True)
+    grads = bwd(out, stats)
+    out2, stats2 = fwd(return_stats=True)
+    grads2 = bwd(out2, stats2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and all(torch.equal(x, y) for x, y in zip(stats, stats2))
+    assert all(torch.equal(x, y) for x, y in zip(grads, grads2))
+    assert all(torch.isfinite(x).all() for x in (out, *grads))
 
 
 @pytest.mark.parametrize("b,n,d,strided", [
