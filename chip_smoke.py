@@ -18,7 +18,14 @@
    K2, 0 of every other kernel. A warm-up run, then three timed runs (wall
    time and RTF, the median and each), then one run under torch.profiler:
    device time by layer and by kernel, and the device's busy share of the
-   timed run's wall time.
+   timed run's wall time. Before it, the sampler noise's draw on the card
+   (ops/prng.py, JAX's threefry stream; plain torch integer and f32 ops, no
+   hand kernel): normal(fold_in(prng_key(s), 0), (1536, 100)) for each of
+   PRNG_SEEDS and a batch of four seeds, the bits and uniforms equal to the
+   CPU's draw and the normals within PRNG_ULP ulp of it; one draw's device
+   ms, host us and device kernel launches printed beside the card's name
+   and power limit. Every run's y0 is the CPU's draw for the run's seed
+   (within PRNG_ULP ulp), so the card synthesises the JAX package's noise.
 3a. The g2p-mix text front end (after 3): F5TTS("F5TTS_v1_Base") at full
    width and depth from a config whose tokenizer is "g2p-mix": a text table
    of 217 rows, the phonemes from a fixture phonemizer put in through the
@@ -198,7 +205,8 @@
     card in bf16 against the CPU in fp32 from the same y0 (OPTIONS_REL),
     2 x steps of K1 and K2; use_mask=False changes the output's bits.
 30. Per-request seeds: one seed's noise alone, in slot 2 of a batch of
-    three and as synthesize_chunk's draw, the same bits on the card; the
+    three and as synthesize_chunk's draw, the same bits on the card, and
+    within PRNG_ULP ulp of the CPU's draw for that seed; the
     full-width sampler of the lone request gives synthesize_chunk(seed=)'s
     eager bits, the batch's slot 2 agrees with it within SEED_REL (a batch's
     device busy against one request's: 34).
@@ -294,8 +302,8 @@
     Trainer.train update at compute_dtype float32 on the 8 x 2304 batch
     (DEPTH fp32 launches each of K1, K2, K4, K5, none in bf16; wall, peak
     memory); the trainer's sample hook (make_sample_logger, fp32 on the
-    card) at NFE 32, and at HOOK_CHECK_NFE on the card against the CPU from
-    one y0 (HOOK_REL).
+    card) at NFE 32, and at HOOK_CHECK_NFE on the card against the CPU, each
+    drawing the hook's noise under prng_key(update) (HOOK_REL).
 42. The quality proxy (after 39): quality_proxy_cli all on PROXY_STEPS
     training and PROXY_DISTILL_STEPS distillation steps at the JAX runner's
     widths (dim 128, depth 4, heads of 32: attention outside the kernels)
@@ -398,6 +406,12 @@ REF_TEXT = "Some call me nature, others call me mother nature."
 GEN_TEXT = "I love the way the light falls across the water early in the morning."
 FIX_DURATION = 15.11  # int(15.11 * 24000 / 256) = 1416 frames -> bucket 1536
 PALLAS = "f5e_tts_tpu/ops/pallas_attention.py"
+# the sampler noise's seeds checked on the card against the CPU (ops/prng.py):
+# bits and uniforms equal, normals within PRNG_ULP ulp (the f32 log1p inside
+# XLA's erf_inv rounds differently on each device's math library)
+PRNG_SEEDS = (0, 42, 2**31 - 1)
+PRNG_BATCH_SEEDS = (3, 7, 42, 2**31 - 1)
+PRNG_ULP = 4
 
 
 def log(msg: str) -> None:
@@ -639,6 +653,91 @@ def synthesis_phase(tag: str, infer, expected: dict, runs: int, text_len=None,
     if profile:
         profile_run(f"{tag} profile", infer, wall)
     reset_counts()
+    return counts
+
+
+def ulp_distance(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest distance in float32 ulps between two tensors of one shape."""
+    def ordered(x):
+        i = x.detach().float().cpu().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes {tuple(got.shape)} and {tuple(want.shape)}")
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def prng_draw_check(smi: str) -> None:
+    """The sampler noise's draw (ops/prng.py) on the card against the CPU's:
+    fold_in(prng_key(s), 0)'s bits and uniforms equal and its normals within
+    PRNG_ULP ulp at (1536, 100) for each of PRNG_SEEDS, and a batch of
+    PRNG_BATCH_SEEDS at (4, 1536, 100); then one draw's device busy and
+    kernel time, host us and device kernel launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from f5e_tts_tpu_torch.ops import prng as fprng
+
+    shape, lo = (1536, 100), float(np.nextafter(np.float32(-1), np.float32(0)))
+    cases = [(f"seed {s}", lambda d, s=s: fprng.fold_in(fprng.prng_key(s, d), 0))
+             for s in PRNG_SEEDS]
+    cases.append((f"seeds {list(PRNG_BATCH_SEEDS)}",
+                  lambda d: fprng.fold_in(fprng.prng_keys(PRNG_BATCH_SEEDS, d), 0)))
+    for tag, key_on in cases:
+        card, cpu = key_on("cuda"), key_on("cpu")
+        same_bits = torch.equal(fprng.random_bits(card, shape).cpu(),
+                                fprng.random_bits(cpu, shape))
+        same_u = torch.equal(fprng.uniform(card, shape, lo, 1.0).cpu().view(torch.int32),
+                             fprng.uniform(cpu, shape, lo, 1.0).view(torch.int32))
+        normal = fprng.normal(card, shape)
+        ulps = ulp_distance(normal, fprng.normal(cpu, shape))
+        log(f"[prng] {tag}: {tuple(normal.shape)} on the card against the CPU: bits equal "
+            f"{same_bits}, uniforms equal {same_u}, normals within {ulps} ulp (limit {PRNG_ULP})")
+        if not (same_bits and same_u and ulps <= PRNG_ULP and torch.isfinite(normal).all()):
+            raise AssertionError(f"prng {tag}: the card's draw differs from the CPU's")
+    key = fprng.fold_in(fprng.prng_key(7, "cuda"), 0)
+    draw = lambda: fprng.normal(key, shape)  # noqa: E731
+    # two draws a batch: more would fill the launch queue behind the sleep
+    us = host_us(draw, calls=2, batches=10)
+    # device time from the profiler's kernels: a draw's host time is longer
+    # than its kernels', so CUDA events around queued draws would time the host
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        draw()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    log(f"[prng] one normal draw at (1536, 100): device busy {busy_ms(kernels):.4f} ms "
+        f"(kernel time {kernel_ms(kernels):.4f} ms), host {us:.1f} us, {len(kernels)} device "
+        f"kernel launches ({smi})")
+
+
+def seeded_synthesis_phase(tag: str, tts, expected: dict, runs: int, smi: str) -> dict:
+    """`prng_draw_check`, then `preset_synthesis_phase` with every run's y0
+    held against the CPU's draw for the run's seed (7) within PRNG_ULP ulp."""
+    from f5e_tts_tpu_torch.models import cfm as fcfm
+    from f5e_tts_tpu_torch.ops import prng as fprng
+
+    prng_draw_check(smi)
+    drawn, noise_like = [], fcfm.noise_like
+
+    def recording(*a, **kw):
+        drawn.append((noise_like(*a, **kw), a, kw))
+        return drawn[-1][0]
+
+    fcfm.noise_like = recording
+    try:
+        counts = preset_synthesis_phase(tag, tts, expected, runs)
+    finally:
+        fcfm.noise_like = noise_like
+    want = None
+    for y0, (key, batch, length, channels, durations), kw in drawn:
+        if want is None:
+            want = noise_like(fprng.prng_key(7), 1, 1536, 100, durations.cpu())
+        if not torch.equal(key.cpu(), fprng.prng_key(7)) or kw.get("seeds") is not None:
+            raise AssertionError(f"{tag}: the noise was not drawn under prng_key(7)")
+        ulps = ulp_distance(y0, want)
+        if ulps > PRNG_ULP or not torch.equal(y0.cpu() == 0, want == 0):
+            raise AssertionError(f"{tag}: y0 is {ulps} ulp from the CPU's draw for seed 7")
+    log(f"[{tag}] y0 of each of the {len(drawn)} runs is the CPU's draw under prng_key(7) "
+        f"within {PRNG_ULP} ulp (JAX's threefry stream for seed 7)")
     return counts
 
 
@@ -891,7 +990,8 @@ def device_kernels(prof) -> list:
     from torch.autograd import DeviceType
 
     return [e for e in prof.events()
-            if e.device_type == DeviceType.CUDA and "sleep" not in e.name.lower()]
+            if e.device_type == DeviceType.CUDA
+            and not any(s in e.name.lower() for s in ("sleep", "spin_kernel"))]
 
 
 def kernel_ms(kernels) -> float:
@@ -3709,24 +3809,27 @@ def sampler_options_phase(sv: Serving) -> dict:
 def seeded_phase(sv: Serving) -> dict:
     """Per-request seeds on the card: noise_like(seeds=) of one seed alone,
     in slot 2 of a batch of three and as synthesize_chunk's batch-of-one
-    draw, the same bits; the full-width v1 sampler (NFE 32, cfg 2) of the
+    draw, the same bits, within PRNG_ULP ulp of the CPU's draw; the full-width v1 sampler (NFE 32, cfg 2) of the
     lone request gives synthesize_chunk(seed=)'s eager bits, and the batch's
     slot 2 agrees with it within SEED_REL; each run depth x NFE of K1, K2."""
     from f5e_tts_tpu_torch.models import cfm as fcfm
+    from f5e_tts_tpu_torch.ops import prng as fprng
 
     inputs, kw = sv.sampler_inputs()
     engine, rf = sv.engine, sv.ref_mel.shape[1]
     three = fcfm.SamplerInputs(*(None if t is None else t.repeat(3, *[1] * (t.dim() - 1))
                                  for t in inputs))
     alone = fcfm.noise_like(None, 1, 1536, 100, inputs.duration, seeds=[7])
-    drawn = fcfm.noise_like(torch.Generator(device="cuda").manual_seed(7), 1, 1536, 100,
-                            inputs.duration)
+    drawn = fcfm.noise_like(fprng.prng_key(7, "cuda"), 1, 1536, 100, inputs.duration)
+    cpu = fcfm.noise_like(None, 1, 1536, 100, inputs.duration.cpu(), seeds=[7])
     batch = fcfm.noise_like(None, 3, 1536, 100, three.duration,
                             seeds=torch.tensor([11, 23, 7], device="cuda"))
-    if not (torch.equal(batch[2:], alone) and torch.equal(alone, drawn)):
-        raise AssertionError("seeded noise differs alone, in a batch and as the pipeline draws it")
+    ulps = ulp_distance(alone, cpu)
+    if not (torch.equal(batch[2:], alone) and torch.equal(alone, drawn) and ulps <= PRNG_ULP):
+        raise AssertionError("seeded noise differs alone, in a batch, as the pipeline draws it "
+                             f"or from the CPU's draw ({ulps} ulp)")
     log("[seeded requests] seed 7's noise alone, in slot 2 of a batch of three and as "
-        "synthesize_chunk's draw: the same bits")
+        f"synthesize_chunk's draw: the same bits, {ulps} ulp from the CPU's draw")
     run = dict(steps=NFE, cfg_strength=2.0, sway_coef=-1.0, compute_dtype=torch.bfloat16,
                device="cuda", timesteps=kw.get("timesteps"))
     want = expected_counts(rope_attention=SERVE_DEPTH * NFE, gated_adaln=SERVE_DEPTH * NFE)
@@ -5049,7 +5152,6 @@ def fp32_training_phase(v1) -> dict:
     at NFE 32 (DEPTH x NFE of fp32 K1 and K2), and at HOOK_CHECK_NFE on the
     card and on the CPU from the same y0 (HOOK_REL). Returns {path: launches}."""
     from f5e_tts_tpu_torch.config import TrainConfig
-    from f5e_tts_tpu_torch.models import cfm as fcfm
     from f5e_tts_tpu_torch.ops.mel import mel_spectrogram
     from f5e_tts_tpu_torch.train import step as fstep
     from f5e_tts_tpu_torch.train.trainer import Trainer, make_sample_logger
@@ -5095,14 +5197,6 @@ def fp32_training_phase(v1) -> dict:
     ema = ts.ema_params
     del ts, trainer
     torch.cuda.empty_cache()
-    real_noise = fcfm.noise_like
-
-    def fixed_noise(generator, batch, length, channels, durations, seeds=None):
-        """One y0 on every device: drawn on the CPU from seed 1234."""
-        y0 = real_noise(torch.Generator().manual_seed(1234), batch, length, channels,
-                        durations.cpu())
-        return y0.to(durations.device)
-
     def hook_mel(params, nfe: int, device: str, tag: str) -> np.ndarray:
         out = save_dir / tag
         out.mkdir(parents=True)
@@ -5125,16 +5219,12 @@ def fp32_training_phase(v1) -> dict:
         log(f"[sample hook] {tag}: NFE {nfe}, mel {mel.shape}, wall {wall:.2f} s")
         return mel
 
-    fcfm.noise_like = fixed_noise
-    try:
-        hook_mel(ema, NFE, "cuda", "card")
-        card = hook_mel(ema, HOOK_CHECK_NFE, "cuda", "card_check")
-        cpu = hook_mel(fstep.tree_map(lambda t: t.detach().cpu(), ema), HOOK_CHECK_NFE, "cpu",
-                       "cpu_check")
-    finally:
-        fcfm.noise_like = real_noise
+    hook_mel(ema, NFE, "cuda", "card")
+    card = hook_mel(ema, HOOK_CHECK_NFE, "cuda", "card_check")
+    cpu = hook_mel(fstep.tree_map(lambda t: t.detach().cpu(), ema), HOOK_CHECK_NFE, "cpu",
+                   "cpu_check")
     rel = float(np.linalg.norm(card - cpu) / np.linalg.norm(cpu))
-    log(f"[sample hook] card vs CPU at NFE {HOOK_CHECK_NFE}, fp32, one y0: relative L2 "
+    log(f"[sample hook] card vs CPU at NFE {HOOK_CHECK_NFE}, fp32, the seed's y0: relative L2 "
         f"{rel:.3e} (tolerance {HOOK_REL})")
     if card.shape != cpu.shape or not rel <= HOOK_REL:
         raise AssertionError("the sample hook on the card disagrees with the CPU's")
@@ -5795,9 +5885,10 @@ def main() -> int:
 
     # F5TTS_v1_Base: K1/K2 in synthesis, K1/K2/K4/K5 in training
     with torch.inference_mode():
-        runs["synthesis"] = phase("synthesis", lambda: preset_synthesis_phase(
+        runs["synthesis"] = phase("synthesis", lambda: seeded_synthesis_phase(
             "synthesis", preset_tts("synthesis", "F5TTS_v1_Base"),
-            expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE), runs=3))
+            expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE), runs=3,
+            smi=smi.splitlines()[0] if smi else "nvidia-smi: no output"))
     # the g2p-mix text front end through F5TTS, and the UI's multi-style core
     with torch.inference_mode():
         runs.update(phase("g2p-mix synthesis", g2p_mix_phase))

@@ -4,7 +4,9 @@ copy of `f5e_tts_tpu/config.py`).
 The inference configs and the training config with its device mesh
 (`MeshConfig`: data, fsdp, model, seq and pipe axes over torch.distributed's
 ranks, parallel/mesh.py) and pipeline microbatching are kept; the JAX PRNG
-choice has no counterpart (torch generators).
+choice for training (`prng_impl`) has no counterpart: training draws from
+torch generators, and inference's noise is JAX's threefry stream
+(ops/prng.py).
 """
 
 from __future__ import annotations

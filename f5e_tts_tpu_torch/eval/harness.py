@@ -8,9 +8,8 @@ reference: src/f5_tts/eval/utils_eval.py:21-219 (meta lists and the
 between processes by `torch.distributed`'s rank when a process group is up
 (the reference's accelerator.split_between_processes).
 
-The noise of a batch is drawn from a generator seeded with `seed` (torch's
-stream, not the JAX package's `PRNGKey(seed)`; tests inject the JAX noise
-through `draw_noise`).
+The noise of every batch is drawn under `prng_key(seed)` (`cfm.noise_like`
+on JAX's threefry stream), as the JAX harness draws it under `PRNGKey(seed)`.
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ import torch
 from f5e_tts_tpu_torch.infer import audio as faudio
 from f5e_tts_tpu_torch.infer.pipeline import pick_bucket
 from f5e_tts_tpu_torch.models import cfm as fcfm
+from f5e_tts_tpu_torch.ops import prng as fprng
 from f5e_tts_tpu_torch.ops.mel import mel_spectrogram
 
 
@@ -159,14 +159,6 @@ def shard_for_host(items: Sequence, process_index: Optional[int] = None,
     return list(items[pi::pc])
 
 
-def draw_noise(seed: int, batch: int, length: int, channels: int,
-               durations: torch.Tensor) -> torch.Tensor:
-    """The sampler's y0 for one batch: a generator seeded with `seed` on the
-    durations' device (`cfm.noise_like`), zero past each duration."""
-    gen = torch.Generator(device=durations.device).manual_seed(seed)
-    return fcfm.noise_like(gen, batch, length, channels, durations)
-
-
 def run_batch_inference(engine, batches: Sequence[PromptBatch], output_dir: str, *,
                         nfe_steps: int = 32, cfg_strength: float = 2.0, sway: float = -1.0,
                         seed: int = 0, mode: str = "cfg", alpha_spk: float = 1.0,
@@ -191,9 +183,8 @@ def run_batch_inference(engine, batches: Sequence[PromptBatch], output_dir: str,
                 torch.as_tensor(batch.ref_mel_lens, device=dev),
                 torch.as_tensor(np.minimum(batch.total_mel_lens, bucket), device=dev), bucket,
                 text_ids=torch.as_tensor(batch.text_ids, device=dev))
-            y0 = draw_noise(seed, len(batch.utts), bucket, inputs.cond.shape[-1], inputs.duration)
-            kw = dict(steps=nfe_steps, sway_coef=sway, y0=y0, compute_dtype=engine.compute_dtype,
-                      device=dev, state=engine.state)
+            kw = dict(steps=nfe_steps, sway_coef=sway, key=fprng.prng_key(seed, dev),
+                      compute_dtype=engine.compute_dtype, device=dev, state=engine.state)
             if mode == "tts":
                 out, _ = fcfm.sample_tts(engine.params, engine.arch, engine.cfm, inputs,
                                          alpha_spk=alpha_spk, alpha_txt=alpha_txt, **kw)

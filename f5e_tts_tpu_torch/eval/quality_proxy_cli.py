@@ -194,13 +194,12 @@ def make_levers(params: dict, student: Optional[dict], int8: bool = True) -> dic
 
 
 def score_levers(levers: dict, arch, cfm, inputs, texts, n_toks, gt_mels, prompt_tokens: int,
-                 *, seeds=None, noise: Optional[torch.Tensor] = None, device="cuda",
-                 log=print) -> dict:
+                 *, seeds, device="cuda", log=print) -> dict:
     """Sample every lever (fp32, sway -1, the key mask on) from the same noise
     and score it: {name: {ter_pct, mel_mse, mcd_db, lsd, mcd_vs_teacher_db}}
     over the generated frames, the first lever being the teacher. The noise
-    is drawn per utterance from `seeds` (B,) or, when given, is `noise`
-    (B, 192, mel), the same for every lever (scripts/quality_proxy.py:226-253)."""
+    is drawn per utterance from `seeds` (B,), the JAX script's for the same
+    seeds and the same for every lever (scripts/quality_proxy.py:226-253)."""
     from f5e_tts_tpu_torch.eval import proxy_quality as pq
     from f5e_tts_tpu_torch.models import cfm as fcfm
 
@@ -210,8 +209,7 @@ def score_levers(levers: dict, arch, cfm, inputs, texts, n_toks, gt_mels, prompt
         with torch.no_grad():
             out, _ = fcfm.sample(lv["p"], arch, cfm, inputs, steps=lv["steps"],
                                  cfg_strength=lv["cfg"], sway_coef=-1.0, use_mask=True,
-                                 seeds=None if noise is not None else seeds, y0=noise,
-                                 timesteps=lv["ts"], compute_dtype=torch.float32,
+                                 seeds=seeds, timesteps=lv["ts"], compute_dtype=torch.float32,
                                  device=device)
         out = out.float().cpu().numpy()
         if teacher_out is None:

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from f5e_tts_tpu_torch.config import CFMConfig, InferConfig, MelConfig
 from f5e_tts_tpu_torch.infer import audio as faudio
 from f5e_tts_tpu_torch.models import cfm as fcfm
+from f5e_tts_tpu_torch.ops import prng as fprng
 from f5e_tts_tpu_torch.ops.mel import mel_spectrogram
 from f5e_tts_tpu_torch.utils import text as ftext
 from f5e_tts_tpu_torch.utils.aot import find_sampler_engine, text_shaped
@@ -298,7 +299,8 @@ class TTSEngine:
         in every mode (zeros when None). A captured engine for this
         configuration is replayed when one matches (plain CFG at the
         engine's default sway, with no `ppg`, as the JAX engines), else the
-        sampler runs eagerly; the noise comes from `seed` either way. An
+        sampler runs eagerly; the noise is the JAX package's for `seed`
+        (`noise_like` under `prng_key(seed)`) either way. An
         MMDiT replays the engine of the smallest text length that holds the
         padded text, widened to it (`widen_text_ids`); eagerly the text
         keeps its padded length.
@@ -338,11 +340,11 @@ class TTSEngine:
             torch.tensor([ref_frames], device=dev), torch.tensor([duration], device=dev),
             bucket, text_ids=torch.as_tensor(padded, device=dev),
             ppg=None if ppg is None else torch.as_tensor(np.asarray(ppg, np.float32), device=dev))
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        kw = dict(steps=nfe, sway_coef=sway, generator=gen, timesteps=timesteps,
+        key = fprng.prng_key(seed, dev)
+        kw = dict(steps=nfe, sway_coef=sway, key=key, timesteps=timesteps,
                   compute_dtype=self.compute_dtype, device=dev, state=self.state)
         if engine is not None:
-            out = engine.sample(inputs, fcfm.noise_like(gen, 1, bucket, inputs.cond.shape[-1],
+            out = engine.sample(inputs, fcfm.noise_like(key, 1, bucket, inputs.cond.shape[-1],
                                                         inputs.duration))
         elif mode == "tts":
             out, _ = fcfm.sample_tts(self.params, self.arch, self.cfm, inputs,

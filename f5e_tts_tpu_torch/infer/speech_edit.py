@@ -24,6 +24,7 @@ from f5e_tts_tpu_torch.config import MelConfig
 from f5e_tts_tpu_torch.infer.audio import resample
 from f5e_tts_tpu_torch.infer.pipeline import pick_bucket
 from f5e_tts_tpu_torch.models import cfm as fcfm
+from f5e_tts_tpu_torch.ops import prng as fprng
 from f5e_tts_tpu_torch.ops.mel import mel_spectrogram
 
 
@@ -109,14 +110,14 @@ def edit_speech(engine, wav: np.ndarray, sr: int, orig_text: str, target_text: s
                 parts_to_edit: Sequence[Tuple[float, float]], *,
                 fix_durations: Optional[Sequence[float]] = None, seed: int = 0,
                 nfe_steps: Optional[int] = None, cfg_strength: Optional[float] = None,
-                sway: Optional[float] = None, generator: Optional[torch.Generator] = None,
+                sway: Optional[float] = None,
                 y0: Optional[torch.Tensor] = None) -> Tuple[np.ndarray, int]:
     """Infill the edit spans of `wav` with `target_text`; returns (wav, sr).
 
     engine: a `TTSEngine`; the cond mel is computed on its device, the
     sampler is its plain-CFG `cfm.sample` (eager), the decode its
-    `decode_mel`. The noise is `y0` when given, else drawn from `generator`,
-    else from a generator seeded with `seed` on the engine's device.
+    `decode_mel`. The noise is `y0` when given, else the JAX package's for
+    `seed` (`cfm.noise_like` under `prng_key(seed)`).
     `orig_text` is unused, as in the reference (the target text covers the
     whole utterance)."""
     icfg = engine.infer_cfg
@@ -150,9 +151,7 @@ def edit_speech(engine, wav: np.ndarray, sr: int, orig_text: str, target_text: s
                                  text_ids=torch.as_tensor(engine.tokenize([target_text]),
                                                           device=dev),
                                  edit_mask=edit_mask)
-    if y0 is None and generator is None:
-        generator = torch.Generator(device=dev).manual_seed(seed)
     out, _ = fcfm.sample(engine.params, engine.arch, engine.cfm, inputs, steps=nfe,
-                         cfg_strength=cfg, sway_coef=sway, generator=generator, y0=y0,
+                         cfg_strength=cfg, sway_coef=sway, key=fprng.prng_key(seed, dev), y0=y0,
                          compute_dtype=engine.compute_dtype, device=dev, state=engine.state)
     return engine.decode_mel(out[0, :n_frames]), sr

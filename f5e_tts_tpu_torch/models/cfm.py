@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from f5e_tts_tpu_torch.config import CFMConfig
 from f5e_tts_tpu_torch.models import backbone as fbb
 from f5e_tts_tpu_torch.models import dit as fdit
+from f5e_tts_tpu_torch.ops import prng as fprng
 from f5e_tts_tpu_torch.parallel import mesh as pmesh
 from f5e_tts_tpu_torch.utils.device import resolve_device
 from f5e_tts_tpu_torch.utils.masks import lens_to_mask, mask_from_frac_lengths
@@ -51,31 +52,28 @@ def pruned_sway_timesteps(keep, base_steps: int = 32, sway_coef: Optional[float]
     return tuple(float(grid[i]) for i in keep)
 
 
-def noise_like(generator: Optional[torch.Generator], batch: int, length: int, channels: int,
+def noise_like(key: Optional[torch.Tensor], batch: int, length: int, channels: int,
                durations: torch.Tensor, seeds=None) -> torch.Tensor:
     """Standard normal (B, length, channels) noise, zero past each sample's
-    duration: drawn from `generator` on its device, or with `seeds` (B,)
-    sample i's from its own `torch.Generator(device).manual_seed(seeds[i])`
-    as one (length, channels) draw, on the durations' device.
+    duration, drawn on the durations' device from JAX's threefry stream
+    (`ops/prng.py`), as f5e_tts_tpu/models/cfm.py: noise_like draws it:
+    sample i's from `fold_in(key, i)`, or, with `seeds` (B,), from
+    `fold_in(prng_key(seeds[i]), 0)`.
 
     A seeded sample's noise then depends on its seed alone, not on its
-    batch-mates or its slot: it has the bits of the batch-of-one draw
-    `noise_like(torch.Generator(device).manual_seed(seed), 1, ...)` that
-    `TTSEngine.synthesize_chunk(seed=)` makes (the contract of
-    f5e_tts_tpu/models/cfm.py: noise_like; torch's streams are not JAX's)."""
+    batch-mates or its slot: it has the bits of the batch-of-one draw under
+    `prng_key(seed)` that `TTSEngine.synthesize_chunk(seed=)` makes, and the
+    JAX package's for the same seed."""
+    device = durations.device
     if seeds is not None:
-        device = durations.device
-        seeds = [int(s) for s in (seeds.tolist() if torch.is_tensor(seeds) else seeds)]
-        if len(seeds) != batch:
-            raise ValueError(f"{len(seeds)} seeds for a batch of {batch}")
-        y0 = torch.stack([torch.randn((length, channels), dtype=torch.float32, device=device,
-                                      generator=torch.Generator(device=device).manual_seed(s))
-                          for s in seeds])
+        keys = fprng.prng_keys(seeds, device)
+        if keys.shape[0] != batch:
+            raise ValueError(f"{keys.shape[0]} seeds for a batch of {batch}")
+        keys = fprng.fold_in(keys, 0)
     else:
-        device = generator.device
-        y0 = torch.randn((batch, length, channels), generator=generator, device=device,
-                         dtype=torch.float32)
-    keep = lens_to_mask(durations.to(device), length)
+        keys = fprng.fold_in(key.to(device), torch.arange(batch, device=device))
+    y0 = fprng.normal(keys, (length, channels))
+    keep = lens_to_mask(durations, length)
     return y0.masked_fill(~keep[:, :, None], 0.0)
 
 
@@ -240,7 +238,7 @@ def folded_step_fn(params, arch, folded: FoldedInputs, compute_dtype) -> Callabl
 def sample(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
            steps: int = 32, cfg_strength: float = 2.0, sway_coef: Optional[float] = -1.0,
            use_mask: bool = True, t_start: float = 0.0, test_cond: Optional[torch.Tensor] = None,
-           seeds=None, generator: Optional[torch.Generator] = None,
+           seeds=None, key: Optional[torch.Tensor] = None,
            y0: Optional[torch.Tensor] = None, timesteps: Optional[Sequence[float]] = None,
            compute_dtype: torch.dtype = torch.bfloat16, device="cuda", state=None):
     """2-branch CFG sampler: (1 + cfg) * cond_flow - cfg * null_flow; a single
@@ -249,8 +247,8 @@ def sample(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
     `pruned_sway_timesteps`; it overrides `steps` and `sway_coef`, NFE =
     len - 1), else over the `steps`-step sway grid from `t_start`.
 
-    The noise is `y0` when given, else drawn per sample from `seeds` (B,)
-    (`noise_like`), else from `generator`. `use_mask=False` passes no key
+    The noise is `y0` when given, else drawn per sample from `seeds` (B,),
+    else from the threefry `key` (`noise_like`). `use_mask=False` passes no key
     mask to the trunk. The duplicate_test probe: `t_start` > 0 cuts the
     steps to max(int(steps (1 - t_start)), 1) so the step density matches
     the full [0, 1] grid, and with `test_cond` (B, N, mel) the ODE starts
@@ -261,7 +259,7 @@ def sample(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
         steps = max(int(steps * (1.0 - t_start)), 1)
     return _sample_branches(params, arch, cfm, inputs, *cfg_branches(cfg_strength), steps=steps,
                             sway_coef=sway_coef, use_mask=use_mask, t_start=t_start,
-                            test_cond=test_cond, seeds=seeds, generator=generator, y0=y0,
+                            test_cond=test_cond, seeds=seeds, key=key, y0=y0,
                             timesteps=timesteps, compute_dtype=compute_dtype, device=device,
                             state=state)
 
@@ -269,24 +267,24 @@ def sample(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
 def sample_tts(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
                steps: int = 32, alpha_spk: float = 1.0, alpha_txt: float = 1.0,
                sway_coef: Optional[float] = None, use_mask: bool = True, seeds=None,
-               generator: Optional[torch.Generator] = None, y0: Optional[torch.Tensor] = None,
+               key: Optional[torch.Tensor] = None, y0: Optional[torch.Tensor] = None,
                timesteps: Optional[Sequence[float]] = None,
                compute_dtype: torch.dtype = torch.bfloat16, device="cuda", state=None):
     """MegaTTS3-style dual-alpha TTS CFG: the null, text and speaker+text
     branches folded into one (3B) batch a step (`tts_branches`). Noise
-    (`y0`, `seeds`, `generator`), mask, grid and output as `sample`
+    (`y0`, `seeds`, `key`), mask, grid and output as `sample`
     (reference: f5e_tts_tpu cfm.py:285-327, whose sway defaults to None, a
     plain linspace grid)."""
     return _sample_branches(params, arch, cfm, inputs, *tts_branches(alpha_spk, alpha_txt),
                             steps=steps, sway_coef=sway_coef, use_mask=use_mask, seeds=seeds,
-                            generator=generator, y0=y0, timesteps=timesteps,
+                            key=key, y0=y0, timesteps=timesteps,
                             compute_dtype=compute_dtype, device=device, state=state)
 
 
 def sample_vc(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
               steps: int = 32, alpha_spk: float = 1.0, alpha_ppg: float = 1.0,
               sway_coef: Optional[float] = None, use_mask: bool = True, seeds=None,
-              generator: Optional[torch.Generator] = None, y0: Optional[torch.Tensor] = None,
+              key: Optional[torch.Tensor] = None, y0: Optional[torch.Tensor] = None,
               timesteps: Optional[Sequence[float]] = None,
               compute_dtype: torch.dtype = torch.bfloat16, device="cuda", state=None):
     """Voice-conversion CFG over the PPG, the text dropped in every branch:
@@ -297,12 +295,12 @@ def sample_vc(params, arch, cfm: CFMConfig, inputs: SamplerInputs, *,
         raise ValueError("sample_vc needs a PPG DiT (arch.ppg.use_ppg)")
     return _sample_branches(params, arch, cfm, inputs, *vc_branches(alpha_spk, alpha_ppg),
                             steps=steps, sway_coef=sway_coef, use_mask=use_mask, seeds=seeds,
-                            generator=generator, y0=y0, timesteps=timesteps,
+                            key=key, y0=y0, timesteps=timesteps,
                             compute_dtype=compute_dtype, device=device, state=state)
 
 
 def _sample_branches(params, arch, cfm: CFMConfig, inputs: SamplerInputs, branches, weights, *,
-                     steps, sway_coef, use_mask, seeds, generator, y0, timesteps, compute_dtype,
+                     steps, sway_coef, use_mask, seeds, key, y0, timesteps, compute_dtype,
                      device, state, t_start: float = 0.0, test_cond=None):
     """The ODE over the flow sum_k weights[k] * flow_k of the folded
     branches; returns (out, trajectory) as `sample` does."""
@@ -318,9 +316,9 @@ def _sample_branches(params, arch, cfm: CFMConfig, inputs: SamplerInputs, branch
     step_fn = folded_step_fn(params, arch, folded, compute_dtype)
 
     if y0 is None:
-        if seeds is None and generator is None:
-            raise ValueError("sample needs seeds, a generator or an explicit y0")
-        y0 = noise_like(generator, b, n, mel_dim, inputs.duration, seeds=seeds)
+        if seeds is None and key is None:
+            raise ValueError("sample needs seeds, a key or an explicit y0")
+        y0 = noise_like(key, b, n, mel_dim, inputs.duration, seeds=seeds)
     y0 = y0.to(device=dev, dtype=torch.float32)
     if test_cond is not None:
         y0 = (1.0 - t_start) * y0 + t_start * test_cond.to(device=dev, dtype=torch.float32)

@@ -14,10 +14,11 @@ them before serving), else `cfm.sample` eagerly. An MMDiT's engine is
 replayed only when its text length is the batch's padded text length nt:
 the JAX batcher computes at nt and never widens the text, which would
 change an MMDiT's output. Either way each request's
-noise comes from its own seed (`draw_noise`), so a request's output does not
-depend on its batch-mates or its slot, and equals the direct path's
-(`TTSEngine.synthesize_chunk(seed=)` draws the same bits). The JAX batcher
-jit-compiles each (b, bucket) instead.
+noise comes from its own seed (`cfm.noise_like(seeds=)`, JAX's threefry
+stream), so a request's output does not depend on its batch-mates or its
+slot, and equals the direct path's (`TTSEngine.synthesize_chunk(seed=)`
+draws the same bits) and the JAX batcher's for the same seed. The JAX
+batcher jit-compiles each (b, bucket) instead.
 
 Threads: inference mode and the current CUDA stream belong to a thread, so
 both threads enter inference mode. The worker launches on its default
@@ -46,13 +47,6 @@ import torch
 from f5e_tts_tpu_torch.infer.pipeline import MEL_FLOOR, pick_bucket, slice_gen
 from f5e_tts_tpu_torch.models import cfm as fcfm
 from f5e_tts_tpu_torch.utils.aot import engine_name, text_shaped
-
-
-def draw_noise(batch: int, length: int, channels: int, durations: torch.Tensor,
-               seeds: Sequence[int]) -> torch.Tensor:
-    """The sampler's y0 of a batch: each slot's noise from its own seed
-    (`cfm.noise_like(seeds=)`), zero past its duration."""
-    return fcfm.noise_like(None, batch, length, channels, durations, seeds=list(seeds))
 
 
 def batch_sizes_served(max_batch: int) -> List[int]:
@@ -267,7 +261,7 @@ class DynamicBatcher:
                                      text_ids=torch.as_tensor(ids, device=dev))
         clock = _SamplerClock(dev)
         clock.start()
-        y0 = draw_noise(b, bucket, mel_dim, inputs.duration, seeds)
+        y0 = fcfm.noise_like(None, b, bucket, mel_dim, inputs.duration, seeds=seeds)
         graph = self.engine_for(b, bucket, nt)
         if graph is not None:
             out = graph.sample(inputs, y0)

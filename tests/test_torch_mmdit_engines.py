@@ -14,8 +14,9 @@ output is not the eager sampler's at the request's own length.
   against the port's replay path: a stand-in engine of text length 16 that
   runs the port's eager sampler on the inputs it is handed (the CPU cannot
   capture), which must be the text widened by the port's own
-  `widen_text_ids`; the noise on both sides is the JAX `noise_like` draw
-  under `PRNGKey(seed)`, which the JAX engine draws inside. Tolerance: atol
+  `widen_text_ids`; each side draws its own noise for the seed (the JAX
+  engine inside, under `PRNGKey(seed)`; the port under `prng_key(seed)`, the
+  same threefry stream; nothing injected). Tolerance: atol
   1e-3 (8 fp32 Euler steps, as test_torch_mmdit.py's sampler test).
 - (b) the same request on the port's eager path, at its padded length 8,
   differs from (a) by more than that tolerance, and equals the JAX jit path
@@ -33,7 +34,6 @@ from __future__ import annotations
 import os
 from types import SimpleNamespace
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,7 +43,6 @@ from f5e_tts_tpu.config import CFMConfig as JCFMConfig
 from f5e_tts_tpu.config import InferConfig as JInferConfig
 from f5e_tts_tpu.config import MelConfig as JMelConfig
 from f5e_tts_tpu.infer import pipeline as jpipe
-from f5e_tts_tpu.models import cfm as jcfm
 from f5e_tts_tpu.utils import aot as jaot
 from f5e_tts_tpu_torch.config import CFMConfig, DiTConfig, InferConfig, MelConfig
 from f5e_tts_tpu_torch.infer import pipeline as tpipe
@@ -82,13 +81,6 @@ def _port_engine():
                            device="cpu", **ENGINE_KW)
 
 
-def _jax_noise(seed: int = SEED):
-    """The noise the JAX engine draws inside: `noise_like` under PRNGKey(seed)."""
-    y0 = jcfm.noise_like(jax.random.PRNGKey(seed), 1, BUCKET, TINY["mel_dim"],
-                         jnp.asarray([DURATION]))
-    return torch.from_numpy(np.array(y0))
-
-
 class EagerEngine:
     """Stands in for a captured engine of `text_len` on the CPU: runs the
     port's eager sampler on the inputs it is handed, and records their text
@@ -121,10 +113,9 @@ def jax_outputs(tmp_path_factory):
 
 
 @pytest.fixture
-def port_run(monkeypatch):
-    """synthesize_chunk of the request on the port's engine, with the JAX
-    noise in place of the port's draw (both paths take it from noise_like)."""
-    monkeypatch.setattr(tcfm, "noise_like", lambda *a, **k: _jax_noise())
+def port_run():
+    """synthesize_chunk of the request on the port's engine, which draws
+    the JAX engine's noise for the seed."""
     engine = _port_engine()
     return engine, lambda: engine.synthesize_chunk(_ref_mel(), TEXT, DURATION, seed=SEED)
 

@@ -60,6 +60,7 @@ from f5e_tts_tpu_torch.models import backbone as tbb
 from f5e_tts_tpu_torch.models import cfm as tcfm
 from f5e_tts_tpu_torch.models import dit as tdit
 from f5e_tts_tpu_torch.ops import nn as tnn
+from f5e_tts_tpu_torch.ops import prng as tprng
 from f5e_tts_tpu_torch.train import step as tstep
 from f5e_tts_tpu_torch.train.trainer import Trainer
 from f5e_tts_tpu_torch.utils.convert import (dit_from_jax, dit_from_reference_state_dict,
@@ -250,13 +251,13 @@ def test_synthesize_chunk_vc_mode(model):
     got = engine.synthesize_chunk(ref_mel, text, 50, seed=5, mode="vc", alpha_spk=1.5,
                                   alpha_ppg=2.0, ppg=ppg, device_out=True)[0]
     want, _ = tcfm.sample_vc(params, arch_t, CFMConfig(), inputs, alpha_spk=1.5, alpha_ppg=2.0,
-                             generator=torch.Generator().manual_seed(5), **common)
+                             key=tprng.prng_key(5), **common)
     assert torch.equal(got, want) and torch.equal(got[0, :14], inputs.cond[0, :14])
     # plain CFG with a PPG runs eagerly, with the PPG
     cfg = engine.synthesize_chunk(ref_mel, text, 50, seed=5, mode="cfg", ppg=ppg,
                                   device_out=True)[0]
     want, _ = tcfm.sample(params, arch_t, CFMConfig(), inputs, cfg_strength=2.0,
-                          generator=torch.Generator().manual_seed(5), **common)
+                          key=tprng.prng_key(5), **common)
     assert torch.equal(cfg, want)
     # without a PPG, plain CFG replays the captured engine
     with pytest.raises(AssertionError, match="captured"):

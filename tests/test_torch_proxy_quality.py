@@ -13,8 +13,8 @@
   computes them (the JAX `cfm.sample` with seeds, then the JAX proxy's
   decoder and metrics): seeded JAX weights of the proxy's DiT at dim 64 (4
   heads of 16: the unfused route) converted by `dit_from_jax`, four eval
-  utterances, few steps; the port's noise injected as the JAX
-  `noise_like(seeds=)` draw. TER equal; each metric within two units of
+  utterances, few steps; both sides draw their noise from the same seeds
+  (the port's `noise_like(seeds=)` is JAX's threefry draw). TER equal; each metric within two units of
   its rounding (the rows are rounded as the JAX runner rounds them) plus
   1e-4 relative (fp32 sampling on both sides).
 - The ground-truth decoder's TER on the CLI's default evaluation set (64
@@ -169,11 +169,8 @@ def test_score_levers_rows_match_jax_levers():
 
     inputs_t, texts_t, n_toks_t, gt_t = cli.eval_inputs(EVAL_UTTS, PROMPT, "cpu")
     assert (texts_t, n_toks_t) == (texts, n_toks)
-    noise = jcfm.noise_like(jax.random.PRNGKey(0), EVAL_UTTS, inputs_t.cond.shape[1],
-                            arch_j.mel_dim, inputs_j.duration, seeds=seeds)
     got = cli.score_levers(levers_t, arch_t, CFMConfig(), inputs_t, texts_t, n_toks_t, gt_t,
-                           PROMPT, noise=torch.from_numpy(np.asarray(noise)), device="cpu",
-                           log=lambda m: None)
+                           PROMPT, seeds=seeds.tolist(), device="cpu", log=lambda m: None)
     assert list(got) == list(want)
     units = {"ter_pct": 0.0, "mel_mse": 2e-4, "mcd_db": 2e-3, "lsd": 2e-4,
              "mcd_vs_teacher_db": 2e-3}

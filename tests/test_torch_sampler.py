@@ -20,6 +20,7 @@ from f5e_tts_tpu.models import cfm as jcfm
 from f5e_tts_tpu.models import dit as jdit
 from f5e_tts_tpu_torch.config import CFMConfig, DiTConfig
 from f5e_tts_tpu_torch.models import cfm as tcfm
+from f5e_tts_tpu_torch.ops import prng as tprng
 from f5e_tts_tpu_torch.utils.convert import dit_from_jax
 
 TINY = dict(dim=64, depth=2, heads=2, dim_head=32, ff_mult=2, mel_dim=20, text_dim=32,
@@ -77,10 +78,9 @@ def test_sway_grid_and_ode_methods_match_jax():
 
 
 def test_noise_is_zero_past_duration_and_seeded():
-    gen = lambda: torch.Generator().manual_seed(3)  # noqa: E731
-    a = tcfm.noise_like(gen(), 2, 16, 4, torch.tensor([16, 9]))
+    a = tcfm.noise_like(tprng.prng_key(3), 2, 16, 4, torch.tensor([16, 9]))
     assert not a[1, 9:].any() and a[1, :9].abs().sum() > 0
-    assert torch.equal(a, tcfm.noise_like(gen(), 2, 16, 4, torch.tensor([16, 9])))
+    assert torch.equal(a, tcfm.noise_like(tprng.prng_key(3), 2, 16, 4, torch.tensor([16, 9])))
 
 
 def test_sample_refuses_cuda_without_a_card(tiny):
@@ -90,4 +90,4 @@ def test_sample_refuses_cuda_without_a_card(tiny):
     t_in = tcfm.prepare_inputs(torch.from_numpy(cond), torch.tensor([40]), torch.tensor([57]), 64)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcfm.sample(dit_from_jax(params, DiTConfig(**TINY)), DiTConfig(**TINY), CFMConfig(), t_in,
-                    steps=2, generator=torch.Generator().manual_seed(0))
+                    steps=2, key=tprng.prng_key(0))

@@ -35,6 +35,7 @@ from f5e_tts_tpu.models import dit as jdit
 from f5e_tts_tpu_torch.config import CFMConfig, CodebookConfig, DiTConfig, PPGConfig
 from f5e_tts_tpu_torch.infer import pipeline as tpipe
 from f5e_tts_tpu_torch.models import cfm as tcfm
+from f5e_tts_tpu_torch.ops import prng as tprng
 from f5e_tts_tpu_torch.utils.convert import dit_from_jax
 
 TINY = dict(dim=64, depth=2, heads=2, dim_head=32, ff_mult=2, mel_dim=20, text_dim=32,
@@ -164,8 +165,7 @@ def test_seeded_noise_is_the_same_alone_and_in_any_slot(slot):
     durations = torch.tensor([50, 64, 31])
     alone = tcfm.noise_like(None, 1, N, 20, durations[slot:slot + 1], seeds=[seed])
     # the pipeline's batch-of-one draw (TTSEngine.synthesize_chunk(seed=))
-    pipe = tcfm.noise_like(torch.Generator().manual_seed(seed), 1, N, 20,
-                           durations[slot:slot + 1])
+    pipe = tcfm.noise_like(tprng.prng_key(seed), 1, N, 20, durations[slot:slot + 1])
     assert torch.equal(alone, pipe)
     seeds = others[:slot] + [seed] + others[slot:]
     batch = tcfm.noise_like(None, 3, N, 20, durations, seeds=torch.tensor(seeds))
@@ -189,13 +189,13 @@ def test_a_seeded_request_samples_the_same_alone_and_batched(tiny):
     one = tcfm.SamplerInputs(*(x[1:2] for x in t3[:4]))
     alone, _ = tcfm.sample(params, DiTConfig(**TINY), CFMConfig(), one, seeds=[21], **kw)
     np.testing.assert_allclose(batch[1:2].numpy(), alone.numpy(), rtol=0, atol=1e-5)
-    # y0 takes precedence over seeds and the generator
+    # y0 takes precedence over seeds and the key
     y0 = tcfm.noise_like(None, 1, N, 20, one.duration, seeds=[3])
     a, _ = tcfm.sample(params, DiTConfig(**TINY), CFMConfig(), one, y0=y0, seeds=[21],
-                       generator=torch.Generator().manual_seed(21), **kw)
+                       key=tprng.prng_key(21), **kw)
     b, _ = tcfm.sample(params, DiTConfig(**TINY), CFMConfig(), one, seeds=[3], **kw)
     assert torch.equal(a, b)
-    with pytest.raises(ValueError, match="seeds, a generator or an explicit y0"):
+    with pytest.raises(ValueError, match="seeds, a key or an explicit y0"):
         tcfm.sample(params, DiTConfig(**TINY), CFMConfig(), one, **kw)
 
 
