@@ -709,6 +709,326 @@ def prng_draw_check(smi: str) -> None:
         f"kernel launches ({smi})")
 
 
+def prng_key(seed: int) -> torch.Tensor:
+    """A threefry key (ops/prng.py) on the CPU, where the port's training and
+    init keys live (the kernel reads a key's words on the host)."""
+    from f5e_tts_tpu_torch.ops import prng as fprng
+
+    return fprng.prng_key(seed)
+
+
+# the threefry kernel's least time by operations: an element's hash is ~75
+# integer instructions (20 rounds of add, rotate and xor, 5 key injections),
+# of which the rotations (SHF.L.W) and xors (LOP3) run on the ALU pipe only,
+# while an add may issue as IMAD on the FMA pipe beside it (ptxas does so:
+# `threefry_sass` reads the rotations and xors off the kernel's SASS). At
+# the CUDA programming guide's rates for compute capability 9.0, 64 lanes an
+# SM a clock on each pipe and four warp instructions issued a clock (128
+# lanes), an element takes at least max(ALU-only / 64, all / 128) SM clocks;
+# 132 SMs at ~1.98 GHz. An assumption: the measurement guide lists no INT32
+# rate.
+SM_CLOCKS_S = 132 * 1.98e9
+THREEFRY_OPS_PER_ELEMENT = 75
+# the compiled loop's instructions by pipe, logged beside the bound
+SASS_PIPES = (("mufu", r"MUFU"), ("imad", r"IMAD|IMUL"), ("fp32", r"FFMA|FADD|FMUL"),
+              ("alu", r"IADD3|LOP3|SHF|SHL|SHR|ISETP|FSETP|SEL|FSEL|IMNMX|FMNMX|PRMT|LEA|"
+                      r"IABS|PLOP3|F2FP|BMSK|SGXT|FLO|POPC"))
+# PR 21's first bound, kept beside it: all ~75 at 64 lanes
+INT32_OPS_S = 64 * SM_CLOCKS_S
+THREEFRY_COUNTERS = ("uniform_launches", "dropout_launches", "dropout_bwd_launches")
+THREEFRY_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# the threefry launches of one v1 micro-step: the loss's six uniform draws (its
+# noise's among them), dropout on the attention output and the FF hidden of
+# every block, forward and backward
+V1_THREEFRY = {"uniform_launches": 6, "dropout_launches": 2 * DEPTH,
+               "dropout_bwd_launches": 2 * DEPTH}
+
+
+def threefry_counts(reset: bool = True) -> dict:
+    from f5e_tts_tpu_torch.kernels import threefry as tf
+
+    counts = {name: getattr(tf, name) for name in THREEFRY_COUNTERS}
+    if reset:
+        for name in THREEFRY_COUNTERS:
+            setattr(tf, name, 0)
+    return counts
+
+
+def threefry_sass(lib: Path) -> dict:
+    """{dtype name: per element of the threefry dropout kernel (cuobjdump
+    -sass of its instantiation), over the body of its grid-stride loop
+    (from the target of the loop's backward branch to that branch) and the
+    elements one pass of it hashes (its funnel-shift rotations over 20):
+    "rotations" and "xors" (LOP3 with the xor tables 0x3c and 0x96), the
+    ALU-only work of the hash; the body's instructions on each pipe of
+    SASS_PIPES and in all ("issue"), an upper estimate of the compiled
+    work (its rarely taken branches, the ragged tail's and the slow
+    division's, included); and "clocks", the least SM clocks an element
+    takes: max((rotations + xors) / 64, THREEFRY_OPS_PER_ELEMENT / 128)}."""
+    from f5e_tts_tpu_torch.kernels import _build
+
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
+        found = re.search(r"threefry_kernel\S*?(DropoutBF16|DropoutF32)", fn)
+        if not found:
+            continue
+        ins, labels = [], {}  # (address, opcode, operands)
+        for line in body.splitlines():
+            label = re.match(r"\s*(\.L_x_\d+):", line)
+            if label:
+                labels[label.group(1)] = None
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
+                          line)
+            if m:
+                addr = int(m.group(1), 16)
+                for name in [k for k, v in labels.items() if v is None]:
+                    labels[name] = addr
+                ins.append((addr, m.group(2), m.group(3)))
+        loops = []
+        for i, (addr, op, args) in enumerate(ins):
+            target = re.search(r"0x([0-9a-f]+)|(\.L_x_\d+)", args) if op.startswith("BRA") else None
+            if target:
+                to = int(target.group(1), 16) if target.group(1) else labels.get(target.group(2))
+                if to is not None and to <= addr:
+                    loop = [(o, r) for a, o, r in ins[:i + 1] if a >= to]
+                    loops.append((sum(bool(re.match(r"SHF\.[LR]\.W", o)) for o, _ in loop), loop))
+        rotations, loop = max(loops, key=lambda lp: lp[0]) if loops else (0, [])
+        if rotations == 0 or rotations % 20:
+            raise AssertionError(f"threefry SASS of {fn}: no loop of whole hashes "
+                                 f"({rotations} rotations)")
+        n = rotations // 20
+        xors = sum(o.startswith("LOP3") and bool(re.search(r",\s*0x(3c|96)\s*,", r))
+                   for o, r in loop)
+        per = {"elements_a_pass": n, "rotations": rotations / n, "xors": xors / n,
+               "issue": sum(o != "NOP" for o, _ in loop) / n}
+        for pipe, pat in SASS_PIPES:
+            per[pipe] = sum(bool(re.match(pat, o)) for o, _ in loop) / n
+        per["clocks"] = max((per["rotations"] + per["xors"]) / 64, THREEFRY_OPS_PER_ELEMENT / 128)
+        out["bf16" if found.group(1) == "DropoutBF16" else "f32"] = per
+    if sorted(out) != ["bf16", "f32"]:
+        raise AssertionError(f"threefry SASS: dropout instantiations {sorted(out)}")
+    return out
+
+
+def threefry_check(smi: str, sass: dict) -> dict:
+    """The threefry kernel (kernels/threefry.py) against its plain versions
+    (ops/prng.py) at the v1 step's dropout shapes, (TRAIN_CLIPS, TRAIN_N,
+    1024) and (..., 2048), in bf16 (the bf16 step) and f32 (the fp32 step):
+    uniforms, keep masks and dropout outputs bit for bit against the card's
+    twin at the full shape, and against the CPU's at a block at an offset of
+    it (the last clip's rows, the second half of the columns: a mesh rank's
+    part); one permutation at n = TRAIN_N, card == CPU. Then the dropout
+    kernel's and its plain twin's device times at both shapes and dtypes,
+    its bound by operations from `sass` (`threefry_sass`) and, beside it,
+    PR 21's first one (THREEFRY_OPS_PER_ELEMENT at 64 lanes): {(width, dtype
+    name): (ms, plain ms, ops s, bytes s, first ops s)}."""
+    from f5e_tts_tpu_torch.kernels import threefry as tf
+    from f5e_tts_tpu_torch.ops import prng as fprng
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out = {}
+    for d in (1024, 2048):
+        shape = (TRAIN_CLIPS, TRAIN_N, d)
+        key = fprng.fold_in(prng_key(11), d)
+        ckey = key.cuda()
+        last, half = slice(TRAIN_CLIPS - 1, None), slice(d // 2, None)
+        block, off = (1, TRAIN_N, d // 2), (TRAIN_CLIPS - 1, 0, d // 2)
+        x32 = torch.randn(shape, generator=gen, device="cuda")
+        checks = {
+            "uniforms": torch.equal(tf.uniform(key, shape, "cuda").view(torch.int32),
+                                    fprng.uniform(ckey, shape).view(torch.int32)),
+            "block uniforms == CPU": torch.equal(
+                tf.uniform(key, block, "cuda", 0.0, 1.0, shape, off).cpu().view(torch.int32),
+                fprng.uniform(key, block, 0.0, 1.0, shape, off).view(torch.int32)),
+        }
+        for dtype in (torch.bfloat16, torch.float32):
+            name = THREEFRY_DTYPES[dtype]
+            x = x32.to(dtype)
+            full = tf.dropout(key, x, 0.1)
+            got = tf.dropout(key, x[last, :, half], 0.1, shape, off)
+            checks.update({
+                f"{name} keep masks": torch.equal(tf.dropout(key, torch.ones_like(x), 0.1) != 0,
+                                                  fprng.bernoulli(ckey, 0.9, shape)),
+                f"{name} dropout": torch.equal(full, fprng.dropout(ckey, x, 0.1)),
+                f"{name} block == full's part": torch.equal(got, full[last, :, half]),
+                f"{name} block dropout == CPU": torch.equal(got.cpu(), fprng.dropout(
+                    key, x[last, :, half].cpu(), 0.1, shape, off)),
+            })
+            del full, got
+            ms = cuda_ms([lambda: tf.dropout(key, x, 0.1)])
+            plain_ms = cuda_ms([lambda: fprng.dropout(ckey, x, 0.1)], iters=3, warmup=1)
+            ops_s = x.numel() * sass[name]["clocks"] / SM_CLOCKS_S
+            bytes_s = 2 * x.numel() * x.element_size() / PEAK_BYTES
+            out[d, name] = (ms, plain_ms, ops_s, bytes_s,
+                            x.numel() * THREEFRY_OPS_PER_ELEMENT / INT32_OPS_S)
+            log(f"[threefry] dropout {shape} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, bound {max(ops_s, bytes_s) * 1e3:.4f} ms (operations {ops_s * 1e3:.4f} "
+                f"from the SASS, bytes {bytes_s * 1e3:.4f}; {THREEFRY_OPS_PER_ELEMENT} INT32 "
+                f"an element at 64 lanes {out[d, name][4] * 1e3:.4f}) ({smi})")
+        log(f"[threefry] {shape} at rate 0.1: {checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"threefry kernel at {shape}: {checks}")
+    key = prng_key(5)
+    if not torch.equal(fprng.permutation(key.cuda(), TRAIN_N).cpu(),
+                       fprng.permutation(key, TRAIN_N)):
+        raise AssertionError("the permutation on the card differs from the CPU's")
+    log(f"[threefry] permutation({TRAIN_N}) on the card == the CPU's")
+    threefry_counts()  # these launches count on no path
+    return out
+
+
+def threefry_row(times: dict, sass: dict) -> dict:
+    """The threefry kernel's row: bf16 dropout at the v1 step's attention
+    output (its FF hidden's width and the f32 cases beside it), its launches
+    a v1 training step in bf16 and in fp32 (forward and backward dropout;
+    kernel and twins agree bit for bit)."""
+    launches = {path: c["dropout_launches"] + c["dropout_bwd_launches"]
+                for path, c in THREEFRY_PATHS.items()}
+    if not all(launches.values()):
+        raise AssertionError(f"the threefry dropout kernel was not launched: {THREEFRY_PATHS}")
+    ms, plain_ms, ops_s, bytes_s, _ = times[1024, "bf16"]
+    also = {f"({TRAIN_CLIPS}, {TRAIN_N}, {d}) {name}": {
+        "ms": t[0], "plain_ms": t[1], "bound_ms": max(t[2], t[3]) * 1e3,
+        "bound_by": "operations" if t[2] >= t[3] else "bytes",
+        "int32_75_at_64_lanes_bound_ms": max(t[4], t[3]) * 1e3}
+        for (d, name), t in times.items()}
+    also["sass_per_element"] = sass
+    return kernel_row("threefry_dropout", "threefry", "f5e_tts_tpu/ops/nn.py:266", launches,
+                      0.0, ms, plain_ms, ops_s, bytes_s, None, also=also)
+
+
+class DrawRecorder:
+    """Records the threefry kernel's draws while on: each uniform and
+    normal draw's key, arguments and output, and each dropout forward's key
+    and arguments (kernels/threefry.py's module functions, which the port's
+    draws call through the module)."""
+
+    def __init__(self):
+        from f5e_tts_tpu_torch.kernels import threefry as tf
+
+        self.tf, self.on, self.calls, self.depth = tf, False, [], 0
+        self.real = {name: getattr(tf, name) for name in ("uniform", "normal", "dropout")}
+
+        def wrap(name):
+            def call(key, *a, **kw):
+                self.depth += 1  # a normal's own uniform draw is not a draw of the caller's
+                try:
+                    out = self.real[name](key, *a, **kw)
+                finally:
+                    self.depth -= 1
+                if self.on and self.depth == 0 and not kw.get("backward"):
+                    args = tuple(tuple(t.shape) if torch.is_tensor(t) else t for t in a)
+                    self.calls.append((name, key.clone(), args,
+                                       None if name == "dropout" else out.detach().clone()))
+                return out
+            return call
+
+        for name in self.real:
+            setattr(tf, name, wrap(name))
+
+    def close(self):
+        for name, fn in self.real.items():
+            setattr(self.tf, name, fn)
+
+
+def first_update_draws_check(tag: str, arch, cfm, calls: list, seed: int) -> None:
+    """The first update's draws, recorded in the training run, against the
+    JAX key chain from PRNGKey(seed) folded with 0 (trainer.py:222) and the
+    CPU's draws under it: the loss's frac, span, noise, time and drop coins
+    (cfm.py:410-429), then block 0's attention and FF dropout keys
+    (dit.py:268, 282, 303, 479) and masks. Uniforms and masks bit for bit,
+    the noise within PRNG_ULP ulp."""
+    from f5e_tts_tpu_torch.ops import prng as fprng
+
+    b, n = TRAIN_CLIPS, TRAIN_N
+    r_frac, r_span, r_time, r_noise, r_drop1, r_drop2, r_model = fprng.split(
+        fprng.fold_in(prng_key(seed), 0), 7)
+    lo, hi = cfm.frac_lengths_mask
+    want = [("uniform", r_frac, (b,), lo, hi), ("uniform", r_span, (b,), 0.0, 1.0),
+            ("normal", r_noise, (b, n, arch.mel_dim)), ("uniform", r_time, (b,), 0.0, 1.0),
+            ("uniform", r_drop1, (), 0.0, 1.0), ("uniform", r_drop2, (), 0.0, 1.0)]
+    layer = fprng.split(fprng.split(r_model, 7)[6], arch.depth)[0]
+    layer, attn_key = fprng.split(layer)
+    _, ff_key = fprng.split(layer)
+    want += [("dropout", attn_key, (b, n, arch.dim)),
+             ("dropout", ff_key, (b, n, int(arch.dim * arch.ff_mult)))]
+    if len(calls) < len(want):
+        raise AssertionError(f"{tag}: update 1 made {len(calls)} threefry draws")
+    for (name, key, *spec), (g_name, g_key, args, out) in zip(want, calls):
+        shape = tuple(args[0] if name == "dropout" else spec[0])
+        if name != g_name or not torch.equal(key, g_key.cpu()) or shape != spec[0]:
+            raise AssertionError(f"{tag}: draw {name} {spec} not under the JAX key chain "
+                                 f"(recorded {g_name} {args})")
+        if name == "uniform":
+            same = torch.equal(out.cpu().view(torch.int32),
+                               fprng.uniform(key, spec[0], spec[1], spec[2]).view(torch.int32))
+        elif name == "normal":
+            same = ulp_distance(out, fprng.normal(key, spec[0])) <= PRNG_ULP
+        else:
+            same = torch.equal(card_keep_mask(key, spec[0], arch.dropout).cpu(),
+                               fprng.bernoulli(key, 1.0 - arch.dropout, spec[0]))
+        if not same:
+            raise AssertionError(f"{tag}: the card's {name} draw {spec} differs from the CPU's")
+    log(f"[{tag}] update 1's draws are the JAX key chain's and equal the CPU's: frac, span, "
+        f"noise (within {PRNG_ULP} ulp), time, the two drop coins, and block 0's attention "
+        f"and FF dropout masks")
+
+
+def card_keep_mask(key, shape, rate: float) -> torch.Tensor:
+    """The keep mask of the kernel's dropout: where it keeps ones."""
+    from f5e_tts_tpu_torch.kernels import threefry as tf
+
+    return tf.dropout(key, torch.ones(shape, dtype=torch.bfloat16, device="cuda"), rate) != 0
+
+
+def seeded_init_check(tag: str, tts) -> None:
+    """`F5TTS` built with no checkpoint (seed 0): its text embedding, block 0
+    and last block on the card (fp32, through the kernel) against the CPU's
+    init under the JAX key chain (models/dit.py:38-108: PRNGKey(0) split in
+    64 + 2 depth; the embedding's key third, the blocks' after the ConvNeXt
+    blocks and the input embedding's three): uniform tensors bit for bit,
+    the normal embedding within PRNG_ULP ulp; and the engine's bf16 weights
+    are the card's fp32 init cast and fused."""
+    from f5e_tts_tpu_torch.api import _cast
+    from f5e_tts_tpu_torch.models import dit as fdit
+    from f5e_tts_tpu_torch.ops import nn as fnn
+    from f5e_tts_tpu_torch.ops import prng as fprng
+    from f5e_tts_tpu_torch.train import step as fstep
+
+    t0 = time.perf_counter()
+    arch, engine = tts.engine.arch, tts.engine.params
+    keys = fprng.split(prng_key(0), 64 + 2 * arch.depth)
+    first = 3 + arch.conv_layers + 3
+    emb = engine["text_embed"]["embed"]["w"]
+    pieces = {
+        "text embedding": (lambda dev: {"w": fnn.embedding_init(
+            emb.shape[0], emb.shape[1], keys[2], dev)["w"]}, {"w": emb}),
+        "block 0": (lambda dev: fdit.init_block(arch, keys[first], dev), engine["blocks"][0]),
+        f"block {arch.depth - 1}": (lambda dev: fdit.init_block(
+            arch, keys[first + arch.depth - 1], dev), engine["blocks"][-1]),
+    }
+    for name, (make, served) in pieces.items():
+        card, cpu = make("cuda"), make("cpu")
+        for a, b in zip(fstep.tree_leaves(card), fstep.tree_leaves(cpu)):
+            same = (ulp_distance(a, b) <= PRNG_ULP if name == "text embedding"
+                    else torch.equal(a.cpu().view(torch.int32), b.view(torch.int32)))
+            if not same:
+                raise AssertionError(f"{tag}: {name}'s seeded init on the card differs from "
+                                     f"the CPU's")
+        cast = _cast(card, torch.bfloat16)
+        if "attn" in cast:
+            cast = {**cast, "attn": fdit._fused_attn(cast["attn"], None)}
+        if not all(torch.equal(a, b) for a, b in zip(fstep.tree_leaves(cast),
+                                                     fstep.tree_leaves(served))):
+            raise AssertionError(f"{tag}: the engine's {name} is not the seeded init")
+    log(f"[{tag}] F5TTS with no checkpoint: the text embedding (within {PRNG_ULP} ulp), block 0 "
+        f"and block {arch.depth - 1} (bit for bit) on the card are the CPU's seeded init under "
+        f"PRNGKey(0), and the engine's bf16 weights are them ({time.perf_counter() - t0:.1f} s)")
+
+
 def seeded_synthesis_phase(tag: str, tts, expected: dict, runs: int, smi: str) -> dict:
     """`prng_draw_check`, then `preset_synthesis_phase` with every run's y0
     held against the CPU's draw for the run's seed (7) within PRNG_ULP ulp."""
@@ -752,12 +1072,14 @@ def cut_depth(model_cfg, depth: int):
     return dataclasses.replace(model_cfg, arch=dataclasses.replace(model_cfg.arch, depth=depth))
 
 
-def preset_tts(tag: str, model: str, depth: int = DEPTH, tokenizer=None, **kw):
+def preset_tts(tag: str, model: str, depth: int = DEPTH, tokenizer=None, check_init=False,
+               **kw):
     """Full-width F5TTS(model, **kw) on the card with seeded weights, the
     preset cut to `depth` blocks and given `tokenizer` when one is named (the
     same weights for one model, depth and tokenizer whatever `kw` asks:
     `quantize` codes them before the modulation is seeded, which it leaves
-    as it is)."""
+    as it is). `check_init`: `seeded_init_check` before the modulation is
+    seeded."""
     from f5e_tts_tpu_torch import api
     from f5e_tts_tpu_torch.api import F5TTS
 
@@ -775,9 +1097,11 @@ def preset_tts(tag: str, model: str, depth: int = DEPTH, tokenizer=None, **kw):
         api.preset = full
     arch = tts.engine.arch
     assert (arch.dim, arch.depth, arch.heads, arch.dim_head) == (1024, depth, 16, 64), arch
+    log(f"[{tag}] {model} built in {time.perf_counter() - t0:.1f} s")
+    if check_init:
+        seeded_init_check(tag, tts)
     seed_modulation_(tts.engine.params, torch.Generator(device="cuda").manual_seed(1))
     torch.cuda.synchronize()
-    log(f"[{tag}] {model} built in {time.perf_counter() - t0:.1f} s")
     return tts
 
 
@@ -945,7 +1269,7 @@ def mmdit_engine(tag: str, depth: int):
     t0 = time.perf_counter()
     arch = MMDiTConfig(depth=depth)
     assert (arch.dim, arch.heads, arch.dim_head) == (1024, 16, 64), arch
-    params = init_mmdit(arch, 256, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    params = init_mmdit(arch, 256, prng_key(0), "cuda")
     seed_modulation_(params, torch.Generator(device="cuda").manual_seed(1))
     engine = TTSEngine(params=_cast(params, torch.bfloat16), arch=arch, vocab=None,
                        vocoder_decode=load_vocoder(None, torch.bfloat16, "cuda", 0),
@@ -1112,24 +1436,24 @@ def fixed_draws(gen, b: int, n: int, mel_dim: int, k: int, ppg: bool = False):
             for _ in range(k)]
 
 
-def drawn_cell(seed: int, b: int, n: int, mel_dim: int, table) -> str:
-    """The drop-table cell a training step with generator seed `seed` draws:
-    cfm_loss draws frac, span, x0, time, u1 and u2 in this order."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    for shape in ((b,), (b,)):
-        torch.rand(shape, generator=gen, device="cuda")
-    torch.randn((b, n, mel_dim), generator=gen, device="cuda")
-    torch.rand((b,), generator=gen, device="cuda")
-    torch.rand((), generator=gen, device="cuda")
-    u2 = float(torch.rand((), generator=gen, device="cuda"))
+def drawn_cell(seed: int, micro: int, table) -> str:
+    """The drop-table cell micro-step `micro` of a Trainer seeded `seed`
+    draws: u2 = uniform(split(fold_in(PRNGKey(seed), micro), 7)[5]) (JAX
+    cfm.py:410, 429)."""
+    from f5e_tts_tpu_torch.ops import prng as fprng
+
+    u2 = float(fprng.uniform(fprng.split(fprng.fold_in(prng_key(seed), micro), 7)[5], ()))
     edges = np.cumsum(table)[:3]
     return ("keep both", "drop text", "drop ppg", "drop all")[int(np.searchsorted(edges, u2,
                                                                                    "right"))]
 
 
+THREEFRY_PATHS: dict = {}  # path -> threefry kernel launches in one run of it
+
+
 def training_phase(tag: str, model_cfg, expected: dict, updates: int, warmup: int,
                    checkpoints: bool = True, resume: bool = False, extractor=None,
-                   keep: Path = None) -> dict:
+                   keep: Path = None, threefry: dict = None) -> dict:
     """`updates` full-width Trainer.train steps of `model_cfg` (the first is
     the warm-up); returns (the launch counts of the last step, the batch's
     text length). Without `checkpoints` the trainer's save is switched off
@@ -1138,7 +1462,10 @@ def training_phase(tag: str, model_cfg, expected: dict, updates: int, warmup: in
     loader carries 16 kHz audio and the trainer extracts the PPG on the
     card; each step's codebook loss and BatchNorm state are checked too.
     `keep` is a path the last model_last.pt is moved to before the save
-    directory is removed (the distillation phase's teacher)."""
+    directory is removed (the distillation phase's teacher). With `threefry`,
+    the threefry kernel's launches a step ({counter: launches}) are held to
+    it, and update 1's draws to the JAX key chain and the CPU's
+    (`first_update_draws_check`)."""
     from f5e_tts_tpu_torch.config import TrainConfig
     from f5e_tts_tpu_torch.models.backbone import split_state
     from f5e_tts_tpu_torch.train import step as fstep
@@ -1203,23 +1530,27 @@ def training_phase(tag: str, model_cfg, expected: dict, updates: int, warmup: in
     def check_step(metrics: dict, update: int) -> None:
         """train()'s log_fn: the counts of this step alone, then reset."""
         counts = seen["counts"] = read_counts()
+        drawn = seen["threefry"] = threefry_counts()
+        recorder.on = False
         wall = metrics["step_seconds"]  # the step ends in a host read of its loss
         log(f"[{tag}] step {len(seen['walls']) + 1}: update {update}, wall {wall:.3f} s, "
             f"loss {metrics['loss']:.5f}, grad norm {metrics['grad_norm']:.4f}, "
-            f"launches { {k: v for k, v in counts.items() if v} }")
+            f"launches { {k: v for k, v in counts.items() if v} }, threefry { {k: v for k, v in drawn.items() if v} }")
         if update != len(seen["walls"]) + 1:
             raise AssertionError(f"update {update} after {len(seen['walls']) + 1} steps")
         check_counts(f"{tag} step {update}", counts, expected)
+        if threefry is not None and drawn != threefry:
+            raise AssertionError(f"{tag} step {update}: threefry launches {drawn}, expected "
+                                 f"{threefry}")
         if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])):
             raise AssertionError(f"non-finite step: {metrics}")
         if any(torch.equal(b, p) for b, p in zip(seen["before"], probe)):
             raise AssertionError("a probed parameter did not change")
         seen["before"] = [p.detach().clone() for p in probe]
         if ppg:
-            # the step's drop cell, from its generator; the perplexity loss
-            # acts on each kept modality, so it is 0 only when all is dropped
-            cell = drawn_cell(tc.seed * 1_000_003 + update - 1, TRAIN_CLIPS, TRAIN_N,
-                              arch.mel_dim, arch.ppg.combined_cond_drop_prob)
+            # the step's drop cell, from its key; the perplexity loss acts
+            # on each kept modality, so it is 0 only when all is dropped
+            cell = drawn_cell(tc.seed, update - 1, arch.ppg.combined_cond_drop_prob)
             bn = ts.model_state["ppg_bn"]
             log(f"[{tag}] step {update}: drop cell {cell!r}, flow loss "
                 f"{metrics['flow_loss']:.5f}, codebook loss {metrics['extra_loss']:.5f}; "
@@ -1244,12 +1575,22 @@ def training_phase(tag: str, model_cfg, expected: dict, updates: int, warmup: in
         seen["walls"].append(wall)
 
     trainer.log_fn = check_step
+    recorder = DrawRecorder()
+    recorder.on = threefry is not None
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     reset_counts()
+    threefry_counts()
     t1 = time.perf_counter()
-    ts, info = trainer.train(loader, epochs=updates, resume=False, max_updates=updates)
+    try:
+        ts, info = trainer.train(loader, epochs=updates, resume=False, max_updates=updates)
+    finally:
+        recorder.close()
     train_s = time.perf_counter() - t1
+    if threefry is not None:
+        THREEFRY_PATHS[tag] = seen["threefry"]
+        first_update_draws_check(tag, arch, model_cfg.cfm, recorder.calls, tc.seed)
+    del recorder
     peak = torch.cuda.max_memory_allocated()
     if (ts.update, info["updates"], len(seen["walls"])) != (updates,) * 3:
         raise AssertionError(f"train() ran {info} over {len(seen['walls'])} logged steps")
@@ -1305,7 +1646,7 @@ def training_phase(tag: str, model_cfg, expected: dict, updates: int, warmup: in
     profiled = {}
     step = trainer.make_step()
     profile_run(f"{tag} profile", lambda: profiled.setdefault(
-        "loss", step(ts, batch, trainer.step_generator(ts))[1].loss), wall)
+        "loss", step(ts, batch, trainer.step_key(ts))[1].loss), wall)
 
     if resume:
         # resume from model_last: train() fast-forwards the consumed batch and
@@ -1449,7 +1790,7 @@ def f5e_gradient_phase(swaps: dict) -> None:
         ppg=dataclasses.replace(cfg.arch.ppg, use_cross_mask=True),
         codebook=dataclasses.replace(cfg.arch.codebook, use_align_loss=True))
     gen = torch.Generator(device="cuda").manual_seed(9)
-    params, state = init_dit(arch, 256, gen, "cuda")
+    params, state = init_dit(arch, 256, prng_key(9), "cuda")
     seed_modulation_(params, gen)
     params = fstep.tree_map(lambda t: t.requires_grad_(True), params)
     wav = torch.from_numpy(np.stack([speech_like(n * 256 / 24_000, seed=s) for s in (13, 14)])
@@ -1465,7 +1806,8 @@ def f5e_gradient_phase(swaps: dict) -> None:
     shape = (b * n * cb.groups, cb.num_vars)
     draws = fixed_draws(gen, b, n, arch.mel_dim, 1, ppg=True)[0]._replace(
         ppg_keep=[torch.rand((b, n, pd), generator=gen, device="cuda") < 0.5 for _ in range(3)],
-        gumbel_text=gumbel_uniform(shape, gen, "cuda"), gumbel_ppg=gumbel_uniform(shape, gen, "cuda"),
+        gumbel_text=gumbel_uniform(prng_key(12), shape, "cuda"),
+        gumbel_ppg=gumbel_uniform(prng_key(13), shape, "cuda"),
         perm_text=torch.randperm(n, generator=gen, device="cuda"),
         perm_ppg=torch.randperm(n, generator=gen, device="cuda"),
         cross_apply=torch.zeros((), device="cuda"),  # < cross_mask_prob: the cross mask acts
@@ -1560,7 +1902,7 @@ def f5e_serving_phase(extractor) -> dict:
     cfg = cut_depth(f5e_model_config(), F5E_DEPTH)
     arch = cfg.arch
     t0 = time.perf_counter()
-    params, state = init_dit(arch, 256, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    params, state = init_dit(arch, 256, prng_key(0), "cuda")
     seed_modulation_(params, torch.Generator(device="cuda").manual_seed(1))
     engine = TTSEngine(params=fuse_qkv(_cast(params, torch.bfloat16)), state=state, arch=arch,
                        vocab=None, vocoder_decode=load_vocoder(None, torch.bfloat16, "cuda", 0),
@@ -1742,7 +2084,7 @@ def gradient_phase(swaps: dict) -> None:
     b, n = 2, 1024
     arch = dataclasses.replace(preset("F5TTS_v1_Base").arch, depth=2, dropout=0.0)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    params = init_dit(arch, 256, gen, "cuda")
+    params = init_dit(arch, 256, prng_key(7), "cuda")
     seed_modulation_(params, gen)
     params = fstep.tree_map(lambda t: t.requires_grad_(True), params)
     wav = torch.from_numpy(np.stack([speech_like(n * 256 / 24_000, seed=s) for s in (11, 12)])
@@ -1781,7 +2123,7 @@ def mmdit_gradient_phase(swaps: dict) -> dict:
     b, n, nt = MMDIT_GRAD_SHAPE
     arch = MMDiTConfig(depth=2)
     gen = torch.Generator(device="cuda").manual_seed(8)
-    params = init_mmdit(arch, 256, gen, "cuda")
+    params = init_mmdit(arch, 256, prng_key(8), "cuda")
     seed_modulation_(params, gen)
     params = fstep.tree_map(lambda t: t.requires_grad_(True), params)
     x, cond, target = (torch.randn((b, n, arch.mel_dim), generator=gen, device="cuda")
@@ -1856,7 +2198,7 @@ def fp32_gradient_phase(swaps: dict) -> dict:
         return expected
 
     base = dataclasses.replace(preset("F5TTS_Base").arch, depth=2, dropout=0.0)
-    params = init_dit(base, 256, gen, "cuda")
+    params = init_dit(base, 256, prng_key(2), "cuda")
     seed_modulation_(params, gen)
     runs["fp32_base_gradient"] = run(
         f"fp32 gradients Base DiT, 2 blocks, B={b}, N={n}", params,
@@ -1866,7 +2208,7 @@ def fp32_gradient_phase(swaps: dict) -> dict:
                         fp32_gated_adaln=2, fp32_gated_adaln_bwd=2))
     del params
     mm = MMDiTConfig(depth=2)
-    params = init_mmdit(mm, 256, gen, "cuda")
+    params = init_mmdit(mm, 256, prng_key(3), "cuda")
     seed_modulation_(params, gen)
     runs["fp32_mmdit_gradient"] = run(
         f"fp32 gradients MMDiT, 2 blocks, B={b}, N={n}", params,
@@ -5167,10 +5509,15 @@ def fp32_training_phase(v1) -> dict:
 
     def check_step(metrics: dict, update: int) -> None:
         counts = read_counts()
+        drawn = THREEFRY_PATHS["fp32 training"] = threefry_counts()
         log(f"[fp32 training] update {update}: wall {metrics['step_seconds']:.3f} s, loss "
             f"{metrics['loss']:.5f}, grad norm {metrics['grad_norm']:.4f}, launches "
-            f"{ {k: v for k, v in counts.items() if v} }")
+            f"{ {k: v for k, v in counts.items() if v} }, threefry "
+            f"{ {k: v for k, v in drawn.items() if v} } (f32)")
         check_counts("fp32 training step", counts, step_expected)
+        if drawn != V1_THREEFRY:
+            raise AssertionError(f"fp32 training: threefry launches {drawn}, expected "
+                                 f"{V1_THREEFRY}")
         if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])):
             raise AssertionError(f"non-finite fp32 step: {metrics}")
         seen["wall"] = metrics["step_seconds"]
@@ -5185,6 +5532,7 @@ def fp32_training_phase(v1) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    threefry_counts()
     ts, info = trainer.train(loader, epochs=1, resume=False, max_updates=1)
     if info["updates"] != 1 or "wall" not in seen:
         raise AssertionError(f"fp32 training ran {info['updates']} updates")
@@ -5340,8 +5688,7 @@ MESH_UPDATE_COS, MESH_UPDATE_REL = 0.9999, 0.015
 # and depth; each rank codes its shard's moments with the whole leaf's block
 # scales) and the F5E model of configs/example.yaml under data (full width,
 # depth F5E_DEPTH, remat; the PPG extracted once on the single-process side
-# and carried in the batch; fixed draws, as its PPG dropout and codebook
-# noise would otherwise come from each rank's generator), whose BatchNorm
+# and carried in the batch; fixed draws, planted alike in both runs), whose BatchNorm
 # statistics and perplexity are the global batch's
 MESH_REPAIRED = (("fsdp 8bit", {"fsdp": 2}), ("f5e data", {"data": 2}))
 # the F5E mesh's BatchNorm running mean and variance after two updates
@@ -5354,9 +5701,10 @@ MESH_BN_REL = 5e-3
 
 
 def mesh_model(v1):
-    """F5TTS_v1_Base at full width and depth, dropout 0: the mesh's steps and
-    the single-process one draw alike only without dropout (each rank has
-    its own generator)."""
+    """F5TTS_v1_Base at full width and depth, dropout 0: the steps are held
+    to the single-process one at the limits above, which were set without
+    dropout (each rank draws its rows and columns of the unsharded masks;
+    the CPU tests hold that under data x model)."""
     return dataclasses.replace(v1, arch=dataclasses.replace(v1.arch, dropout=0.0))
 
 
@@ -5388,7 +5736,8 @@ def mesh_f5e_draws() -> list:
     shape = (b * n * cb.groups, cb.num_vars)
     return [d._replace(
         ppg_keep=[torch.rand((b, n, pd), generator=gen, device="cuda") < 0.5 for _ in range(3)],
-        gumbel_text=gumbel_uniform(shape, gen, "cuda"), gumbel_ppg=gumbel_uniform(shape, gen, "cuda"),
+        gumbel_text=gumbel_uniform(prng_key(12), shape, "cuda"),
+        gumbel_ppg=gumbel_uniform(prng_key(13), shape, "cuda"),
         perm_text=torch.randperm(n, generator=gen, device="cuda"),
         perm_ppg=torch.randperm(n, generator=gen, device="cuda"))
         for d in fixed_draws(gen, b, n, arch.mel_dim, MESH_UPDATES, ppg=True)]
@@ -5400,7 +5749,7 @@ def inject_draws(trainer, draws: list) -> None:
 
     def make():
         step, it = make_step(), iter(draws)
-        return lambda ts, batch, generator, draws=None: step(ts, batch, generator, next(it))
+        return lambda ts, batch, rng, draws=None: step(ts, batch, rng, next(it))
 
     trainer.make_step = make
 
@@ -5857,7 +6206,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    log(smi.splitlines()[0] if smi else "nvidia-smi: no output")
+    smi_line = smi.splitlines()[0] if smi else "nvidia-smi: no output"
+    log(smi_line)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
 
@@ -5865,6 +6215,10 @@ def main() -> int:
     log(f"[build] {len(libs)} kernel libraries built in {time.perf_counter() - t_start:.1f} s")
     build_report(libs, ra)
     k2_sass_check(libs["gated_adaln"])
+    threefry_pipes = threefry_sass(libs["threefry"])
+    for name, per in threefry_pipes.items():
+        log(f"[build] threefry dropout {name} SASS, per element of its loop: "
+            f"{ {k: round(v, 3) for k, v in per.items()} }")
     register_counters(ra, ga, ka, fa)
     swaps = plain_swaps(ra, ga, ka)
     byte_model = lambda cfg: dataclasses.replace(cfg, tokenizer="byte", vocab_size=256)  # noqa: E731
@@ -5886,9 +6240,9 @@ def main() -> int:
     # F5TTS_v1_Base: K1/K2 in synthesis, K1/K2/K4/K5 in training
     with torch.inference_mode():
         runs["synthesis"] = phase("synthesis", lambda: seeded_synthesis_phase(
-            "synthesis", preset_tts("synthesis", "F5TTS_v1_Base"),
+            "synthesis", preset_tts("synthesis", "F5TTS_v1_Base", check_init=True),
             expected_counts(rope_attention=DEPTH * NFE, gated_adaln=DEPTH * NFE), runs=3,
-            smi=smi.splitlines()[0] if smi else "nvidia-smi: no output"))
+            smi=smi_line))
     # the g2p-mix text front end through F5TTS, and the UI's multi-style core
     with torch.inference_mode():
         runs.update(phase("g2p-mix synthesis", g2p_mix_phase))
@@ -5896,10 +6250,13 @@ def main() -> int:
     assert (v1.arch.depth, v1.arch.dropout) == (DEPTH, 0.1), v1.arch
     smoke = ROOT / "build" / "smoke"
     teacher = smoke / "teacher" / "model_last.pt"  # the distillation phase's teacher
+    # the threefry kernel against its twins, then the v1 step's draws through it
+    # (V1_THREEFRY), in bf16 here and in f32 in the fp32 phase
+    threefry_times = phase("threefry", lambda: threefry_check(smi_line, threefry_pipes))
     runs["training_step"], _ = phase("training", lambda: training_phase(
         "training", v1, expected_counts(rope_attention=DEPTH, rope_attention_bwd=DEPTH,
                                         gated_adaln=DEPTH, gated_adaln_bwd=DEPTH),
-        updates=4, warmup=1, resume=True, keep=teacher))
+        updates=4, warmup=1, resume=True, keep=teacher, threefry=V1_THREEFRY))
     phase("gradients", lambda: gradient_phase(swaps))
     # fp32 compute: the fp32 kernels through losses and gradients, a v1
     # training step and the trainer's sample hook
@@ -6037,6 +6394,7 @@ def main() -> int:
         rows.append(adaln_phase(ga, paths["gated_adaln"]))
     rows.append(adaln_bwd_phase(ga, paths["gated_adaln_bwd"], splits[2]))
     rows += phase("fp32 kernels", lambda: fp32_rows((ra, ka), ga, paths, splits[3:]))
+    rows.append(threefry_row(threefry_times, threefry_pipes))
     log(f"[total] {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -26,6 +26,7 @@ import torch
 from f5e_tts_tpu_torch.config import CFMConfig, ModelConfig, load_yaml, preset
 from f5e_tts_tpu_torch.infer import audio as faudio
 from f5e_tts_tpu_torch.infer import transcribe as ftranscribe
+from f5e_tts_tpu_torch.ops import prng
 from f5e_tts_tpu_torch.infer.pipeline import (CachedTranscriber, TTSEngine,
                                               preprocess_ref_audio_text, slice_gen)
 from f5e_tts_tpu_torch.models import backbone as fbb
@@ -63,7 +64,7 @@ def load_vocoder(vocoder_path: Optional[str] = None, compute_dtype=torch.bfloat1
             sd = torch.load(vocoder_path, map_location="cpu", weights_only=True)
         params = to_tensors(vocos_from_torch(sd, cfg), dev)
     else:
-        params = init_vocos(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        params = init_vocos(cfg, prng.prng_key(seed), dev)
     return make_vocoder(params, cfg, compute_dtype, dev)
 
 
@@ -159,9 +160,7 @@ class F5TTS:
             made = to_tensors(backbone_from_reference_state_dict(
                 load_state_dict(ckpt_file, use_ema), arch), self.device)
         else:
-            made = fbb.init_backbone(arch, vocab_size,
-                                     torch.Generator(device=self.device).manual_seed(seed),
-                                     self.device)
+            made = fbb.init_backbone(arch, vocab_size, prng.prng_key(seed), self.device)
         params, state = fbb.split_state(arch, made)  # a PPG DiT's BatchNorm state stays fp32
         params = fbb.fuse_qkv(_cast(params, compute_dtype), arch)
         if quantize == "int8":

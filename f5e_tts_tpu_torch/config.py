@@ -4,9 +4,10 @@ copy of `f5e_tts_tpu/config.py`).
 The inference configs and the training config with its device mesh
 (`MeshConfig`: data, fsdp, model, seq and pipe axes over torch.distributed's
 ranks, parallel/mesh.py) and pipeline microbatching are kept; the JAX PRNG
-choice for training (`prng_impl`) has no counterpart: training draws from
-torch generators, and inference's noise is JAX's threefry stream
-(ops/prng.py).
+choice for training (`prng_impl`) has no field: every draw of the port,
+training's and the seeded init's as inference's, is the stream of JAX's
+default threefry (ops/prng.py); "rbg", the TPU's hardware generator, has
+no counterpart.
 """
 
 from __future__ import annotations

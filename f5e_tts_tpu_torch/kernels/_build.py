@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NAMES = ("rope_attention", "masked_attention", "joint_attention", "gated_adaln")
+NAMES = ("rope_attention", "masked_attention", "joint_attention", "gated_adaln", "threefry")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

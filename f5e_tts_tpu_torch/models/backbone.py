@@ -23,16 +23,17 @@ def backbone_kind(arch) -> str:
     raise TypeError(f"unknown arch config {type(arch)}")
 
 
-def init_backbone(arch, vocab_size: int, generator: torch.Generator, device="cpu"):
-    """fp32 parameters of the backbone from `generator` (backbone.py:28-34);
+def init_backbone(arch, vocab_size: int, key: torch.Tensor, device="cpu"):
+    """fp32 parameters of the backbone from the threefry `key` (ops/prng.py),
+    the JAX package's weights for the same key (backbone.py:28-34);
     (params, state) for a PPG DiT, whose state is its BatchNorms' running
     statistics (see `split_state`)."""
     kind = backbone_kind(arch)
     if kind == "dit":
-        return fdit.init_dit(arch, vocab_size, generator, device)
+        return fdit.init_dit(arch, vocab_size, key, device)
     if kind == "unett":
-        return funett.init_unett(arch, vocab_size, generator, device)
-    return fmmdit.init_mmdit(arch, vocab_size, generator, device)
+        return funett.init_unett(arch, vocab_size, key, device)
+    return fmmdit.init_mmdit(arch, vocab_size, key, device)
 
 
 def fuse_qkv(params, arch) -> dict:
@@ -108,12 +109,12 @@ def sample_step(params, arch, *, x, cond, text_embed, time, drop_audio_cond, mas
 
 
 def forward_train(params, arch, *, x, cond, text_ids, time, drop_audio_cond, drop_text,
-                  mask=None, training: bool = False, generator=None,
+                  mask=None, training: bool = False, rng=None,
                   compute_dtype=torch.bfloat16, return_extras: bool = False, state=None,
                   **dit_kw):
     """Full training forward (backbone.py:69-90): the predicted flow, or
     with `return_extras` (pred, DiTExtras). The UNetT and MMDiT forwards
-    have no dropout, state or extra losses, so `training`, `generator`,
+    have no dropout, state or extra losses, so `training`, the key `rng`,
     `state` and the DiT's PPG / codebook keywords (`dit_kw`: ppg, drop_ppg,
     text_len, ppg_len, vq_temperature, draws) reach only the DiT; the
     others' extras are zero losses and `state` as given."""
@@ -121,7 +122,7 @@ def forward_train(params, arch, *, x, cond, text_ids, time, drop_audio_cond, dro
     if kind == "dit":
         return fdit.dit_forward(params, arch, x=x, cond=cond, text_ids=text_ids, time=time,
                                 drop_audio_cond=drop_audio_cond, drop_text=drop_text, mask=mask,
-                                training=training, generator=generator,
+                                training=training, rng=rng,
                                 compute_dtype=compute_dtype, state=state,
                                 return_extras=return_extras, **dit_kw)
     if kind == "unett":

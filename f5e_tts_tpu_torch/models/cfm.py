@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from f5e_tts_tpu_torch.config import CFMConfig
 from f5e_tts_tpu_torch.models import backbone as fbb
+from f5e_tts_tpu_torch.kernels import threefry as fthreefry
 from f5e_tts_tpu_torch.models import dit as fdit
 from f5e_tts_tpu_torch.ops import prng as fprng
 from f5e_tts_tpu_torch.parallel import mesh as pmesh
@@ -347,8 +348,8 @@ class CFMLossOut(NamedTuple):
 
 class LossDraws(NamedTuple):
     """The random draws of one `cfm_loss` call. Fields left None are drawn
-    from the call's generator; tests hand over draws made from a JAX key.
-    The fields after u2 are the PPG DiT's (see `dit.DiTDraws`)."""
+    from the call's key, as the JAX loss draws them; tests plant specific
+    draws here. The fields after u2 are the PPG DiT's (see `dit.DiTDraws`)."""
 
     frac: Optional[torch.Tensor] = None  # (B,) span fraction in [frac_lo, frac_hi)
     span: Optional[torch.Tensor] = None  # (B,) U[0, 1) placing each span's start
@@ -384,50 +385,41 @@ def drop_flags(arch, cfm: CFMConfig, u1: torch.Tensor, u2: torch.Tensor):
 
 
 def row_draws(d: LossDraws, b: int, n: int, mel_dim: int, mel_lens: torch.Tensor,
-              cfm: CFMConfig, generator: Optional[torch.Generator], dev):
-    """(span mask, x0, time) of a loss call, drawn in the reference's order
-    (frac, span, x0, time) from `generator` where `d` gives none. Under a batch mesh
-    (parallel/mesh.py: active) each is drawn at the global
-    batch's shape (this rank's b rows times the shards), as the
-    single-process run of the global batch draws it, and sliced to this
-    shard's rows; given draws are global too."""
+              cfm: CFMConfig, keys, dev):
+    """(span mask, x0, time) of a loss call from `keys` = (frac, span, noise,
+    time) keys (JAX's r_frac, r_span, r_noise, r_time), each drawn where `d`
+    gives none: frac U[frac_lo, frac_hi), the span's start U[0, 1), x0
+    standard normal (B, N, mel) and time U[0, 1). Under a batch mesh
+    (parallel/mesh.py: active) each rank draws its rows of the global
+    batch's draws (`batch_rows`), as the JAX loss's draws under pjit; given
+    draws are global too, and sliced to this rank's rows."""
+    k_frac, k_span, k_noise, k_time = keys
     bm = pmesh.batch_mesh()
-    bg = b * (1 if bm is None else bm.size(pmesh.BATCH_AXES))
+    rows = pmesh.batch_rows(b)
 
-    def draw(value, shape, normal=False):
-        if value is not None:
-            t = torch.as_tensor(value, dtype=torch.float32).to(dev)
-        elif normal:
-            t = torch.randn(shape, generator=generator, device=dev)
-        else:
-            t = torch.rand(shape, generator=generator, device=dev)
-        return pmesh.local_rows(t, bm)
+    def given(value):
+        return pmesh.local_rows(torch.as_tensor(value, dtype=torch.float32).to(dev), bm)
 
     lo, hi = cfm.frac_lengths_mask
-    frac = (pmesh.local_rows(d.frac.to(dev).float(), bm) if d.frac is not None
-            else pmesh.local_rows(lo + (hi - lo) * torch.rand((bg,), generator=generator,
-                                                                device=dev), bm))
-    span = mask_from_frac_lengths(mel_lens.to(dev), frac, n, rand=draw(d.span, (bg,))) \
-        & lens_to_mask(mel_lens.to(dev), n)
-    x0 = draw(d.x0, (bg, n, mel_dim), normal=True)
-    return span, x0, draw(d.time, (bg,))
+    frac = (given(d.frac) if d.frac is not None
+            else fthreefry.uniform(k_frac, (b,), dev, lo, hi, *fprng.slab((b,), rows)))
+    span = mask_from_frac_lengths(k_span, mel_lens.to(dev), frac, n,
+                                  rand=None if d.span is None else given(d.span))
+    span = span & lens_to_mask(mel_lens.to(dev), n)
+    x0 = (given(d.x0) if d.x0 is not None
+          else fthreefry.normal(k_noise, (b, n, mel_dim), dev, *fprng.slab((b, n, mel_dim), rows)))
+    time = (given(d.time) if d.time is not None
+            else fthreefry.uniform(k_time, (b,), dev, 0.0, 1.0, *fprng.slab((b,), rows)))
+    return span, x0, time
 
 
-def _local_dit_draws(d: LossDraws, bm, arch, n: int, generator, dev) -> dict:
+def _local_dit_draws(d: LossDraws, bm) -> dict:
     """The DiT's draws of `d` with the per-row ones cut to this shard's rows
-    under a batch mesh. The permutations and the cross mask's coin are the
-    batch's: where `d` has none, they are drawn here from `generator`, whose
-    state every rank of the batch shares, so every rank uses the same."""
+    under a batch mesh (the permutations and the cross mask's coin are the
+    batch's)."""
     out = {f: getattr(d, f) for f in fdit.DiTDraws._fields}
     if bm is None:
         return out
-    if arch.codebook.use_codebook:
-        wanted = (("perm_text", "perm_ppg") if arch.codebook.use_perplex_loss else ()) + (
-            ("cross_apply",) if arch.ppg.use_cross_mask else ())
-        for f in wanted:
-            if out[f] is None:
-                out[f] = (torch.rand((), generator=generator, device=dev) if f == "cross_apply"
-                          else torch.randperm(n, generator=generator, device=dev))
     for f in ("gumbel_text", "gumbel_ppg", "cross_ratio", "cross_start"):
         if out[f] is not None:
             out[f] = pmesh.local_rows(out[f], bm)
@@ -438,7 +430,7 @@ def _local_dit_draws(d: LossDraws, bm, arch, n: int, generator, dev) -> dict:
 
 def cfm_loss(params, arch, cfm: CFMConfig, *, mel: torch.Tensor,
              mel_lens: torch.Tensor, text_ids: Optional[torch.Tensor],
-             generator: Optional[torch.Generator] = None, draws: Optional[LossDraws] = None,
+             rng: Optional[torch.Tensor] = None, draws: Optional[LossDraws] = None,
              training: bool = True, compute_dtype=torch.bfloat16, state=None,
              text_lens: Optional[torch.Tensor] = None, ppg: Optional[torch.Tensor] = None,
              ppg_lens: Optional[torch.Tensor] = None, vq_temperature: float = 2.0) -> CFMLossOut:
@@ -452,31 +444,38 @@ def cfm_loss(params, arch, cfm: CFMConfig, *, mel: torch.Tensor,
     DiT takes its BatchNorm `state`, the PPG and the lengths (`text_lens`,
     `ppg_lens`: the codebook branch's); `new_state` is the state after the
     step. As the reference, training passes no attention mask, so every key
-    is valid, padding included. Draws missing from `draws` come from
-    `generator`, as does the trunk's dropout.
+    is valid, padding included.
 
-    Under a batch mesh (parallel/mesh.py: active) the batch is
-    this rank's rows of the global batch: the per-row draws are the global
-    run's (`row_draws`), the batch-shared ones (the drop coins, the
-    codebook's permutations and cross-mask coin) alike on every rank, the
-    flow loss the global span-frame mean (`global_mean`: its gradients
-    summed over the shards are the global loss's), and the forward's other
-    draws (dropout, gumbel noise, the cross mask's spans) come from a
-    generator folded with the shard's index. The codebook's extra losses
-    and the BatchNorm statistics are the global batch's, as in JAX
-    (ops/nn.py: batchnorm, ops/vq.py, models/dit.py: _calc_align_loss).
+    The draws are the JAX loss's (models/cfm.py:410-429): the threefry key
+    `rng` (PRNGKey(0) when None) split in 7 into the frac, span, time, noise
+    and two drop-coin keys and the model's key (the backbone's dropout,
+    gumbel noise, permutations and cross mask); fields of `draws` replace
+    the draws they name.
+
+    Under a batch mesh (parallel/mesh.py: active) the batch is this rank's
+    rows of the global batch: every per-row draw, the model's included, is
+    this rank's rows of the global batch's draw (`row_draws`, ops/prng.py:
+    slab), the batch-shared ones (the drop coins, the codebook's
+    permutations and cross-mask coin) alike on every rank, and the flow
+    loss the global span-frame mean (`global_mean`: its gradients summed
+    over the shards are the global loss's). The codebook's extra losses and
+    the BatchNorm statistics are the global batch's, as in JAX (ops/nn.py:
+    batchnorm, ops/vq.py, models/dit.py: _calc_align_loss).
     """
     b, n, mel_dim = mel.shape
     dev = mel.device
     d = draws or LossDraws()
     bm = pmesh.batch_mesh()
+    rng = fprng.prng_key(0) if rng is None else rng
+    r_frac, r_span, r_time, r_noise, r_drop1, r_drop2, r_model = fprng.split(rng, 7)
 
-    def uniform(value, shape):
+    def coin(value, key):
         if value is not None:
             return torch.as_tensor(value, dtype=torch.float32).to(dev)
-        return torch.rand(shape, generator=generator, device=dev)
+        return fthreefry.uniform(key, (), dev)
 
-    span, x0, time = row_draws(d, b, n, mel_dim, mel_lens, cfm, generator, dev)
+    span, x0, time = row_draws(d, b, n, mel_dim, mel_lens, cfm, (r_frac, r_span, r_noise, r_time),
+                               dev)
     x1 = mel.float()
     x0 = x0.float()
     t = time[:, None, None]
@@ -484,19 +483,17 @@ def cfm_loss(params, arch, cfm: CFMConfig, *, mel: torch.Tensor,
     flow = x1 - x0
     cond = x1.masked_fill(span[:, :, None], 0.0)
 
-    drop_audio, drop_text, drop_ppg = drop_flags(arch, cfm, uniform(d.u1, ()), uniform(d.u2, ()))
+    drop_audio, drop_text, drop_ppg = drop_flags(arch, cfm, coin(d.u1, r_drop1),
+                                                 coin(d.u2, r_drop2))
     dit_kw = {}
     if fbb.uses_ppg(arch):
         dit_kw = dict(ppg=ppg, drop_ppg=drop_ppg.expand(b), text_len=text_lens, ppg_len=ppg_lens,
                       vq_temperature=vq_temperature,
-                      draws=fdit.DiTDraws(**_local_dit_draws(d, bm, arch, n, generator,
-                                                                       dev)))
-    if bm is not None:
-        generator = pmesh.fold_generator(generator, bm.index(pmesh.BATCH_AXES))
+                      draws=fdit.DiTDraws(**_local_dit_draws(d, bm)))
     pred, extras = fbb.forward_train(
         params, arch, x=phi.to(compute_dtype), cond=cond.to(compute_dtype), text_ids=text_ids,
         time=time, drop_audio_cond=drop_audio.expand(b), drop_text=drop_text.expand(b),
-        mask=None, training=training, generator=generator, compute_dtype=compute_dtype,
+        mask=None, training=training, rng=r_model, compute_dtype=compute_dtype,
         return_extras=True, state=state, **dit_kw)
 
     se = (pred.float() - flow).square()

@@ -33,11 +33,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from f5e_tts_tpu_torch.config import DiTConfig
+from f5e_tts_tpu_torch.kernels import threefry as fthreefry
 from f5e_tts_tpu_torch.kernels.gated_adaln import GatedAdaLN
 from f5e_tts_tpu_torch.ops import attention as fattn
 from f5e_tts_tpu_torch.ops import convnext as fcnx
 from f5e_tts_tpu_torch.ops import mas as fmas
 from f5e_tts_tpu_torch.ops import nn as fnn
+from f5e_tts_tpu_torch.ops import prng
 from f5e_tts_tpu_torch.ops import vq as fvq
 from f5e_tts_tpu_torch.ops.attention import attention
 from f5e_tts_tpu_torch.ops.rope import rotary_cos_sin_half
@@ -48,28 +50,15 @@ from f5e_tts_tpu_torch.utils.masks import lens_to_mask
 
 # ---------------------------------------------------------------------------
 # init: torch's default rules (U(+-1/sqrt(fan_in)), N(0, 1) embeddings) and
-# AdaLN-zero (modulation linears and proj_out zero), as the JAX init.
+# AdaLN-zero (modulation linears and proj_out zero), from a threefry key split
+# as the JAX init splits it, so a seed gives the JAX package's weights.
 # ---------------------------------------------------------------------------
 
 
-_linear_init = fnn.linear_init
-_conv_init = fnn.conv1d_init
-
-
-def _convnext_v2_init(dim, inter, gen, device):
-    return {
-        "dwconv": _conv_init(dim, dim, 7, dim, gen, device),
-        "norm": {"g": torch.ones(dim, device=device), "b": torch.zeros(dim, device=device)},
-        "pwconv1": _linear_init(dim, inter, gen, device),
-        "grn": {"gamma": torch.zeros(inter, device=device),
-                "beta": torch.zeros(inter, device=device)},
-        "pwconv2": _linear_init(inter, dim, gen, device),
-    }
-
-
-def init_dit(cfg: DiTConfig, vocab_size: int, generator: torch.Generator,
-             device="cpu"):
-    """fp32 parameters of the given shapes from `generator` (on `device`).
+def init_dit(cfg: DiTConfig, vocab_size: int, key: torch.Tensor, device="cpu"):
+    """fp32 parameters of the given shapes from the threefry `key` (ops/prng.py)
+    on `device`: the JAX init's key chain (models/dit.py:38-108), `key` split
+    in 64 + 2 depth and consumed in order, each block's own key split in 4.
 
     A PPG DiT (`cfg.ppg.use_ppg`) also has state, the running statistics of
     its PPG embedding's BatchNorms, and `init_dit` returns (params, state)
@@ -80,51 +69,53 @@ def init_dit(cfg: DiTConfig, vocab_size: int, generator: torch.Generator,
     `quantizer` (dit.py:296-307).
     """
     text_dim = cfg.text_dim if cfg.text_dim is not None else cfg.mel_dim
-    g, dev = generator, device
-    inner = cfg.heads * cfg.dim_head
-    ff = int(cfg.dim * cfg.ff_mult)
+    keys, dev = iter(prng.split(key, 64 + 2 * cfg.depth)), device
+    lin = fnn.linear_init
     params = {
-        "time_embed": {"mlp1": _linear_init(256, cfg.dim, g, dev),
-                       "mlp2": _linear_init(cfg.dim, cfg.dim, g, dev)},
+        "time_embed": {"mlp1": lin(256, cfg.dim, next(keys), dev),
+                       "mlp2": lin(cfg.dim, cfg.dim, next(keys), dev)},
         "text_embed": {
-            "embed": {"w": torch.randn(vocab_size + 1, text_dim, generator=g, device=dev)},
-            "blocks": [_convnext_v2_init(text_dim, text_dim * 2, g, dev)
+            "embed": fnn.embedding_init(vocab_size + 1, text_dim, next(keys), dev),
+            "blocks": [fcnx.convnext_v2_init(text_dim, text_dim * 2, next(keys), dev)
                        for _ in range(cfg.conv_layers)],
         },
     }
     state = {}
     if cfg.ppg.use_ppg:
         pd = cfg.ppg.ppg_dim
-        convs = [_conv_init(pd, pd, 5, 1, g, dev) for _ in range(3)]
+        convs = [fnn.conv1d_init(pd, pd, 5, 1, next(keys), dev) for _ in range(3)]
         bns = [fnn.batchnorm_init(pd, dev) for _ in range(3)]
-        params["ppg_embed"] = {"pre": _linear_init(pd, pd, g, dev), "convs": convs,
+        params["ppg_embed"] = {"pre": lin(pd, pd, next(keys), dev), "convs": convs,
                                "bns": [p for p, _ in bns],
-                               "post": _linear_init(pd, text_dim, g, dev)}
+                               "post": lin(pd, text_dim, next(keys), dev)}
         state["ppg_bn"] = [s for _, s in bns]
     params["input_embed"] = {
-        "proj": _linear_init(cfg.mel_dim * 2 + text_dim * (2 if cfg.ppg.use_ppg else 1),
-                             cfg.dim, g, dev),
-        "conv1": _conv_init(cfg.dim, cfg.dim, 31, 16, g, dev),
-        "conv2": _conv_init(cfg.dim, cfg.dim, 31, 16, g, dev),
+        "proj": lin(cfg.mel_dim * 2 + text_dim * (2 if cfg.ppg.use_ppg else 1), cfg.dim,
+                    next(keys), dev),
+        "conv1": fnn.conv1d_init(cfg.dim, cfg.dim, 31, 16, next(keys), dev),
+        "conv2": fnn.conv1d_init(cfg.dim, cfg.dim, 31, 16, next(keys), dev),
     }
-    params["blocks"] = [
-        {
-            "attn_norm": _linear_init(cfg.dim, cfg.dim * 6, g, dev, zero=True),
-            "attn": {name: _linear_init(cfg.dim, inner, g, dev)
-                     for name in ("to_q", "to_k", "to_v")}
-            | {"to_out": _linear_init(inner, cfg.dim, g, dev)},
-            "ff1": _linear_init(cfg.dim, ff, g, dev),
-            "ff2": _linear_init(ff, cfg.dim, g, dev),
-        }
-        for _ in range(cfg.depth)
-    ]
+    params["blocks"] = [init_block(cfg, next(keys), dev) for _ in range(cfg.depth)]
     if cfg.long_skip_connection:
-        params["long_skip"] = _linear_init(cfg.dim * 2, cfg.dim, g, dev, bias=False)
-    params["norm_out"] = _linear_init(cfg.dim, cfg.dim * 2, g, dev, zero=True)
-    params["proj_out"] = _linear_init(cfg.dim, cfg.mel_dim, g, dev, zero=True)
+        params["long_skip"] = lin(cfg.dim * 2, cfg.dim, next(keys), dev, bias=False)
+    params["norm_out"] = lin(cfg.dim, cfg.dim * 2, None, dev, zero=True)
+    params["proj_out"] = lin(cfg.dim, cfg.mel_dim, None, dev, zero=True)
     if cfg.codebook.use_codebook:
-        params["quantizer"] = fvq.gumbel_vq_init(cfg.codebook, text_dim, g, dev)
+        params["quantizer"] = fvq.gumbel_vq_init(cfg.codebook, text_dim, next(keys), dev)
     return (params, state) if cfg.ppg.use_ppg else params
+
+
+def init_block(cfg: DiTConfig, key: torch.Tensor, device="cpu") -> dict:
+    """One block's fp32 parameters from its key, split in 4 as the JAX
+    init's (models/dit.py:91): the attention from the first, the FF linears
+    from the third and fourth; the AdaLN modulation zero."""
+    k1, _, k3, k4 = prng.split(key, 4)
+    ff = int(cfg.dim * cfg.ff_mult)
+    return {"attn_norm": fnn.linear_init(cfg.dim, cfg.dim * 6, None, device, zero=True),
+            "attn": fattn.attention_init(cfg.dim, cfg.heads, cfg.dim_head, k1, device,
+                                         cfg.qk_norm),
+            "ff1": fnn.linear_init(cfg.dim, ff, k3, device),
+            "ff2": fnn.linear_init(ff, cfg.dim, k4, device)}
 
 
 def fuse_qkv(params: dict, compute_dtype: Optional[torch.dtype] = None) -> dict:
@@ -213,7 +204,7 @@ def text_embed_fn(params, cfg: DiTConfig, text_ids: Optional[torch.Tensor], batc
 
 def ppg_embed_fn(params, state, cfg: DiTConfig, ppg: Optional[torch.Tensor], batch: int,
                  seq_len: int, drop_ppg: torch.Tensor, training: bool = False,
-                 generator: Optional[torch.Generator] = None,
+                 rng: Optional[torch.Tensor] = None,
                  keep: Optional[Sequence[torch.Tensor]] = None, compute_dtype=torch.bfloat16):
     """PPG (B, NP, ppg_dim) -> ((B, N, text_dim), new state): the conv
     projector (dit.py:93-153), linear -> 3 x (conv k5 + BatchNorm + ReLU +
@@ -222,8 +213,10 @@ def ppg_embed_fn(params, state, cfg: DiTConfig, ppg: Optional[torch.Tensor], bat
     ~10.7 ms mel grid; the JAX package pads it so too), and the rows of
     `drop_ppg` are zeroed; None is all zeros. The BatchNorms pool (B, N),
     padding included, and update the state in training. Dropout acts only
-    in training and only with a `generator` or the 3 boolean `keep` masks
-    (B, N, ppg_dim) (the JAX function's rule: training and an rng)."""
+    in training and only with a key `rng`, split before each of the three
+    (the JAX function's chain), or the 3 boolean `keep` masks (B, N,
+    ppg_dim); under a batch mesh each rank draws its rows of the global
+    batch's masks."""
     pd = cfg.ppg.ppg_dim
     pp = params["ppg_embed"]
     device = pp["pre"]["w"].device
@@ -234,7 +227,7 @@ def ppg_embed_fn(params, state, cfg: DiTConfig, ppg: Optional[torch.Tensor], bat
         npg = ppg.shape[1]
         x = ppg[:, :seq_len] if npg >= seq_len else F.pad(ppg, (0, 0, 0, seq_len - npg))
         x = x.masked_fill(drop_ppg.to(device)[:, None, None], 0.0).to(compute_dtype)
-    dropping = training and (generator is not None or keep is not None)
+    dropping = training and (rng is not None or keep is not None)
     h = fnn.linear(pp["pre"], x, compute_dtype)
     new_bns = []
     for i in range(3):
@@ -243,7 +236,11 @@ def ppg_embed_fn(params, state, cfg: DiTConfig, ppg: Optional[torch.Tensor], bat
         new_bns.append(ns)
         h = torch.relu(h)
         if dropping:
-            h = fnn.dropout(h, 0.5, True, generator, None if keep is None else keep[i])
+            sub = None
+            if keep is None:
+                rng, sub = prng.split(rng)
+            h = fnn.dropout(sub, h, 0.5, True, *prng.slab(h.shape, pmesh.batch_rows(h.shape[0])),
+                            keep=None if keep is None else keep[i])
     return fnn.linear(pp["post"], h, compute_dtype), {"ppg_bn": new_bns}
 
 
@@ -303,14 +300,18 @@ class _KeptLinear(torch.autograd.Function):
 
 def _dit_block(blk, x, t_emb, mask, rope_cos, rope_sin, cfg: DiTConfig,
                compute_dtype=torch.bfloat16, training: bool = False,
-               generator: Optional[torch.Generator] = None, kept: Optional[dict] = None):
+               rng: Optional[torch.Tensor] = None, rows=None, kept: Optional[dict] = None):
     """One DiT block (modules.py:610-641), with K2/K5 after the attention.
-    In training, dropout (cfg.dropout, drawn from `generator`) acts on the
-    attention output and on the FF hidden, as in the JAX block. `kept`
-    (remat, see `_checkpointed_block`) holds what the policy keeps from the
-    block's first forward: the attention output and, under save_attn_ff,
-    the FF hidden."""
+    In training with a key `rng`, dropout (cfg.dropout) acts on the
+    attention output and on the FF hidden, each under its own split of the
+    key, as in the JAX block (models/dit.py:268, 282). `rows` (global rows,
+    first row) places x's rows in the batch whose masks are drawn (a rank's
+    share of the global batch; None: x is the whole batch). `kept` (remat,
+    see `_checkpointed_block`) holds what the policy keeps from the block's
+    first forward: the attention output and, under save_attn_ff, the FF
+    hidden."""
     policy_ff = kept is not None and cfg.remat_policy == "save_attn_ff"
+    dropping = training and rng is not None and cfg.dropout > 0
     mod = fnn.linear(blk["attn_norm"], fnn.silu(t_emb), compute_dtype)  # (B, 6D)
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
 
@@ -319,7 +320,10 @@ def _dit_block(blk, x, t_emb, mask, rope_cos, rope_sin, cfg: DiTConfig,
     attn_out = attention(blk["attn"], norm, cfg.heads, mask=mask, rope_cos=rope_cos,
                          rope_sin=rope_sin, pe_attn_head=cfg.pe_attn_head, qk_norm=cfg.qk_norm,
                          compute_dtype=compute_dtype, kept=kept, sharded_heads=True)
-    attn_out = fnn.dropout(attn_out, cfg.dropout, training, generator)
+    if dropping:
+        rng, sub = prng.split(rng)
+        attn_out = fnn.dropout(sub, attn_out, cfg.dropout, True,
+                               *prng.slab(attn_out.shape, rows))
     # x += gate * attn_out; LN; * (1 + scale) + shift, in one pass (K2, K5)
     x, norm = GatedAdaLN.apply(x, attn_out, gate_msa, scale_mlp, shift_mlp)
     norm = fattn.tp_copy(norm.to(compute_dtype))  # ff1 is column-parallel under TP
@@ -327,94 +331,81 @@ def _dit_block(blk, x, t_emb, mask, rope_cos, rope_sin, cfg: DiTConfig,
         h = _KeptLinear.apply(norm, blk["ff1"]["w"], blk["ff1"]["b"], kept, compute_dtype)
     else:
         h = fnn.linear(blk["ff1"], norm, compute_dtype)
-    h = _ff_dropout(fnn.gelu(h, approximate="tanh"), cfg.dropout, training, generator)
+    h = fnn.gelu(h, approximate="tanh")
+    if dropping:
+        rng, sub = prng.split(rng)
+        h = fnn.dropout(sub, h, cfg.dropout, True, *prng.slab(h.shape, rows, _ff_cols(h)))
     h = fattn.row_parallel_linear(blk["ff2"], h, compute_dtype)
     return (x + gate_mlp[:, None, :] * h).to(compute_dtype)
 
 
-def _ff_dropout(h, rate: float, training: bool, generator):
-    """Dropout on the FF hidden. Under TP, h is this rank's columns: the keep
-    mask is drawn at the full width, as every rank of the model axis draws
-    it from the same generator state, and sliced, so the masks are those of
-    the unsharded block."""
+def _ff_cols(h: torch.Tensor):
+    """(global columns, first column) of the FF hidden `h` under TP, where
+    h holds this rank's columns: its masks are then its columns of the
+    unsharded block's. None without TP."""
     tp = fattn._tp_shards()
-    if tp == 1 or not training or rate == 0.0:
-        return fnn.dropout(h, rate, training, generator)
-    full = h.shape[:-1] + (h.shape[-1] * tp,)
-    keep = torch.rand(full, generator=generator, device=h.device) < 1.0 - rate
-    r = pmesh.current().mesh.index("model")
-    return fnn.dropout(h, rate, training, keep=keep[..., r * h.shape[-1]:(r + 1) * h.shape[-1]])
+    if tp == 1:
+        return None
+    return h.shape[-1] * tp, h.shape[-1] * pmesh.current().mesh.index("model")
 
 
 REMAT_POLICIES = ("block", "save_attn", "save_attn_ff")
 
 
 def _checkpointed_block(blk, x, t_emb, mask, rope_cos, rope_sin, cfg: DiTConfig,
-                        compute_dtype, training: bool, generator: Optional[torch.Generator]):
+                        compute_dtype, training: bool, rng: Optional[torch.Tensor], rows):
     """`_dit_block` under torch.utils.checkpoint (non-reentrant): its
     activations are dropped after the forward and recomputed in the
     backward (dit.py:329-354). `block` recomputes everything, K3 and K2
     included; `save_attn` keeps the attention output (K3's output and row
     statistics), so the recompute rebuilds q/k/v by GEMMs and skips K3;
     `save_attn_ff` keeps the FF hidden as well. K2 runs again under every
-    policy: the FF's weight gradient needs its output.
-
-    Dropout draws from an explicit generator, which the checkpoint does not
-    stash (it stashes the global RNGs only). So the block draws from a
-    private generator set to `generator`'s state at its start, in the
-    forward and again in the recompute, and `generator` is then moved past
-    the block's draws: the masks are those of the unchecked block."""
+    policy: the FF's weight gradient needs its output. The recompute draws
+    its dropout masks from the same key, so they are the forward's."""
     if cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; one of {REMAT_POLICIES}")
     kept = None if cfg.remat_policy == "block" else {}
-    start = generator.get_state() if generator is not None else None
-    end = {}
 
     def run(x, t_emb):
-        g = None
-        if start is not None:
-            g = torch.Generator(device=generator.device)
-            g.set_state(start)
-        y = _dit_block(blk, x, t_emb, mask, rope_cos, rope_sin, cfg, compute_dtype, training,
-                       g, kept)
-        if g is not None:
-            end.setdefault("state", g.get_state())
-        return y
+        return _dit_block(blk, x, t_emb, mask, rope_cos, rope_sin, cfg, compute_dtype, training,
+                          rng, rows, kept)
 
-    y = checkpoint(run, x, t_emb, use_reentrant=False, preserve_rng_state=generator is None)
-    if start is not None:
-        generator.set_state(end["state"])
-    return y
+    return checkpoint(run, x, t_emb, use_reentrant=False, preserve_rng_state=False)
 
 
 def dit_trunk(params, cfg: DiTConfig, x, t_emb, mask, seq_len, compute_dtype=torch.bfloat16,
-              training: bool = False, generator: Optional[torch.Generator] = None):
+              training: bool = False, rng: Optional[torch.Tensor] = None):
     """The blocks, the long skip when configured (the trunk's input
     concatenated to its output and projected back to dim), then the final
     AdaLN and projection; fp32 out (dit.py:459-472). Blocks without a fused
     `to_qkv` get it concatenated per call (training keeps to_q/to_k/to_v as
     the fp32 master weights). With `checkpoint_activations`, and while
-    autograd records, each block is checkpointed (`_checkpointed_block`)."""
+    autograd records, each block is checkpointed (`_checkpointed_block`).
+    In training with a key `rng`, block i draws its dropout under
+    split(rng, depth)[i] (models/dit.py:303)."""
     rope_cos, rope_sin = _rope_tables(cfg.dim_head, seq_len, x.device)
     remat = cfg.checkpoint_activations and torch.is_grad_enabled()
     residual = x
     fsdp = _fsdp_gather(cfg)
+    layer_keys = ([None] * cfg.depth if not training or rng is None
+                  else list(prng.split(rng, cfg.depth)))
 
-    def block(h, blk, t_e, mk, cos, sin, gen):
+    def block(h, blk, t_e, mk, cos, sin, key, rows):
         blk = fsdp(blk)
         if "to_qkv" not in blk["attn"]:
             blk = {**blk, "attn": _fused_attn(blk["attn"], compute_dtype)}
         if remat:
             return _checkpointed_block(blk, h, t_e, mk, cos, sin, cfg, compute_dtype, training,
-                                       gen)
-        return _dit_block(blk, h, t_e, mk, cos, sin, cfg, compute_dtype, training, gen)
+                                       key, rows)
+        return _dit_block(blk, h, t_e, mk, cos, sin, cfg, compute_dtype, training, key, rows)
 
     if ppipe.pp_shards() > 1:
-        x = _pipelined_trunk(block, params["blocks"], x, t_emb, mask, rope_cos, rope_sin, cfg,
-                             training, generator)
+        x = _pipelined_trunk(block, params["blocks"], x, t_emb, mask, rope_cos, rope_sin,
+                             layer_keys)
     else:
-        for blk in params["blocks"]:
-            x = block(x, blk, t_emb, mask, rope_cos, rope_sin, generator)
+        rows = pmesh.batch_rows(x.shape[0])
+        for blk, key in zip(params["blocks"], layer_keys):
+            x = block(x, blk, t_emb, mask, rope_cos, rope_sin, key, rows)
     if cfg.long_skip_connection:
         x = fnn.linear(params["long_skip"], torch.cat([x, residual], dim=-1), compute_dtype)
 
@@ -441,30 +432,26 @@ def _fsdp_gather(cfg: DiTConfig):
     return lambda blk: pmesh.tree_map_with_spec(gather, blk, spec)
 
 
-def _pipelined_trunk(block, blocks, x, t_emb, mask, rope_cos, rope_sin, cfg: DiTConfig,
-                     training: bool, generator):
-    """The blocks of this rank's pipeline stage through `gpipe_scan`. With
-    dropout in training each layer gets a seed, drawn alike on every stage
-    from `generator`, and each microbatch folds its index into the seeds
-    (`fold_scanned`): microbatches and stages draw independent masks."""
+def _pipelined_trunk(block, blocks, x, t_emb, mask, rope_cos, rope_sin, layer_keys):
+    """The blocks of this rank's pipeline stage through `gpipe_scan`, each
+    with its layer's key of the whole trunk (the stage's slice of
+    `layer_keys`), into which each microbatch folds its index (JAX's
+    `fold_scanned`, models/dit.py:388): microbatches and stages draw
+    independent masks. As in the JAX package, where the pipeline runs in a
+    shard_map over the stage's local microbatch, a block draws its masks at
+    the microbatch's own shape."""
     mesh, axis, n_micro = ppipe.pp_context()
-    seeds = [None] * len(blocks)
-    if training and cfg.dropout > 0.0 and generator is not None:
-        drawn = torch.randint(0, 2 ** 62, (len(blocks) * mesh.size(axis),), generator=generator,
-                              device=generator.device).tolist()
-        s = mesh.index(axis)
-        seeds = drawn[s * len(blocks):(s + 1) * len(blocks)]
+    s = mesh.index(axis)
+    keys = layer_keys[s * len(blocks):(s + 1) * len(blocks)]
 
     def fold(items, m):
-        return [(blk, None if seed is None else (seed * 1_000_003 + m + 1) % (2 ** 63))
-                for blk, seed in items]
+        return [(blk, None if key is None else prng.fold_in(key, m)) for blk, key in items]
 
     def body(h, item, t_e, mk, cos, sin):
-        blk, seed = item
-        gen = None if seed is None else torch.Generator(device=h.device).manual_seed(seed)
-        return block(h, blk, t_e, mk, cos, sin, gen)
+        blk, key = item
+        return block(h, blk, t_e, mk, cos, sin, key, None)
 
-    return ppipe.gpipe_scan(body, x, list(zip(blocks, seeds)), mesh, axis=axis, n_micro=n_micro,
+    return ppipe.gpipe_scan(body, x, list(zip(blocks, keys)), mesh, axis=axis, n_micro=n_micro,
                             batched=(t_emb, mask), const=(rope_cos, rope_sin), fold_scanned=fold)
 
 
@@ -489,9 +476,8 @@ class DiTExtras(NamedTuple):
 
 class DiTDraws(NamedTuple):
     """The random draws of the PPG embedding and of the codebook branch in
-    one `dit_forward`. Fields left None are drawn from the call's generator
-    (in this order, each only where the config uses it); tests hand over
-    draws made from a JAX key."""
+    one `dit_forward`. Fields left None are drawn from the call's key, as
+    the JAX forward draws them; tests plant specific draws here."""
 
     ppg_keep: Optional[Sequence[torch.Tensor]] = None  # 3 x (B, N, ppg_dim) bool dropout keeps
     gumbel_text: Optional[torch.Tensor] = None  # (B * N * groups, num_vars) U[1e-10, 1)
@@ -504,7 +490,7 @@ class DiTDraws(NamedTuple):
 
 
 def dit_forward(params, cfg: DiTConfig, *, x, cond, text_ids, time, drop_audio_cond, drop_text,
-                mask=None, training: bool = False, generator: Optional[torch.Generator] = None,
+                mask=None, training: bool = False, rng: Optional[torch.Tensor] = None,
                 compute_dtype=torch.bfloat16, state: Optional[dict] = None,
                 ppg: Optional[torch.Tensor] = None, drop_ppg: Optional[torch.Tensor] = None,
                 text_len: Optional[torch.Tensor] = None, ppg_len: Optional[torch.Tensor] = None,
@@ -523,9 +509,15 @@ def dit_forward(params, cfg: DiTConfig, *, x, cond, text_ids, time, drop_audio_c
     modality for the whole batch) and the cross mask. The align loss and the
     cross mask act only when no sample drops its text or its PPG; MAS runs
     only when one of them is configured (it is off for the F5E config).
-    Random draws come from `draws` where given, else from `generator`."""
+
+    The threefry key `rng` (PRNGKey(0) when None, as JAX) is split in 7 as
+    the JAX forward splits it (models/dit.py:479): the gumbel noise of each
+    modality, the two permutations, the cross mask, the PPG dropout and the
+    trunk; fields of `draws` replace the draws they name."""
     b, n, _ = x.shape
     d = draws or DiTDraws()
+    rng = prng.prng_key(0) if rng is None else rng
+    r_vq_t, r_vq_p, r_perm_t, r_perm_p, r_cross, r_ppgdrop, r_trunk = prng.split(rng, 7)
     t_emb = time_embed(params, time, compute_dtype)
     te = text_embed_fn(params, cfg, text_ids, b, n, drop_text, compute_dtype)
     zero = torch.zeros((), device=x.device)
@@ -534,13 +526,13 @@ def dit_forward(params, cfg: DiTConfig, *, x, cond, text_ids, time, drop_audio_c
         if drop_ppg is None:
             drop_ppg = torch.zeros(b, dtype=torch.bool, device=x.device)
         pe, new_state = ppg_embed_fn(params, state, cfg, ppg, b, n, drop_ppg, training,
-                                     generator, d.ppg_keep, compute_dtype)
+                                     r_ppgdrop, d.ppg_keep, compute_dtype)
         if cfg.codebook.use_codebook and training:
             te, pe, align_loss, perplex_loss = _codebook_branch(
                 params, cfg, te, pe, drop_text, drop_ppg, text_len, ppg_len, vq_temperature,
-                generator, d)
+                (r_vq_t, r_vq_p, r_perm_t, r_perm_p, r_cross), d)
     h = input_embed_fn(params, cfg, x, cond, te, drop_audio_cond, compute_dtype, ppg_embed=pe)
-    pred = dit_trunk(params, cfg, h, t_emb, mask, n, compute_dtype, training, generator)
+    pred = dit_trunk(params, cfg, h, t_emb, mask, n, compute_dtype, training, r_trunk)
     if not return_extras:
         return pred
     return pred, DiTExtras(extra_loss=align_loss + perplex_loss, new_state=new_state,
@@ -553,11 +545,15 @@ def dit_forward(params, cfg: DiTConfig, *, x, cond, text_ids, time, drop_audio_c
 
 
 def _codebook_branch(params, cfg: DiTConfig, te, pe, drop_text, drop_ppg, text_len, ppg_len,
-                     temperature, generator, d: DiTDraws):
+                     temperature, keys, d: DiTDraws):
     """(text embed, PPG embed, align loss, perplexity loss) after the
-    codebook branch of `dit_forward`."""
+    codebook branch of `dit_forward`; `keys` = its gumbel, permutation and
+    cross-mask keys. Under a batch mesh the per-row draws (gumbel noise,
+    the cross mask's spans) are this rank's rows of the global batch's, the
+    permutations and the cross mask's coin the batch's own."""
     if text_len is None or ppg_len is None:
         raise ValueError("the codebook branch needs text_len and ppg_len")
+    r_vq_t, r_vq_p, r_perm_t, r_perm_p, r_cross = keys
     cb, dev = cfg.codebook, te.device
     b, n, _ = te.shape
     zero = torch.zeros((), device=dev)
@@ -570,8 +566,8 @@ def _codebook_branch(params, cfg: DiTConfig, te, pe, drop_text, drop_ppg, text_l
 
     if cb.use_align_loss or cb.use_perplex_loss:
         shape = (b * n * cb.groups, cb.num_vars)
-        gt = draw(d.gumbel_text, lambda: fvq.gumbel_uniform(shape, generator, dev))
-        gp = draw(d.gumbel_ppg, lambda: fvq.gumbel_uniform(shape, generator, dev))
+        gt = draw(d.gumbel_text, lambda: fvq.gumbel_uniform(r_vq_t, shape, dev))
+        gp = draw(d.gumbel_ppg, lambda: fvq.gumbel_uniform(r_vq_p, shape, dev))
     attn = None
     if cb.use_align_loss or cfg.ppg.use_cross_mask:
         attn = _align_text_ppg(te, text_len.to(dev), pe, ppg_len.to(dev))
@@ -579,14 +575,17 @@ def _codebook_branch(params, cfg: DiTConfig, te, pe, drop_text, drop_ppg, text_l
         al = _calc_align_loss(params, cb, attn, te, text_len.to(dev), pe, temperature, gt, gp)
         align_loss = torch.where(use_both & ~torch.isnan(al), al, zero)  # NaN guard (:511-514)
     if cb.use_perplex_loss:
-        perm_t = draw(d.perm_text, lambda: torch.randperm(n, generator=generator, device=dev))
-        perm_p = draw(d.perm_ppg, lambda: torch.randperm(n, generator=generator, device=dev))
+        perm_t = draw(d.perm_text, lambda: prng.permutation(r_perm_t, n).to(dev))
+        perm_p = draw(d.perm_ppg, lambda: prng.permutation(r_perm_p, n).to(dev))
         te, pe, perplex_loss = _perplex_loss(params, cb, te, pe, drop_text, drop_ppg,
                                              temperature, gt, gp, perm_t, perm_p)
     if cfg.ppg.use_cross_mask:
-        u_apply = draw(d.cross_apply, lambda: torch.rand((), generator=generator, device=dev))
-        u_ratio = draw(d.cross_ratio, lambda: torch.rand(b, generator=generator, device=dev))
-        u_start = draw(d.cross_start, lambda: torch.rand(b, generator=generator, device=dev))
+        r_apply, r_mask = prng.split(r_cross)
+        r_ratio, r_start = prng.split(r_mask)
+        rows = prng.slab((b,), pmesh.batch_rows(b))
+        u_apply = draw(d.cross_apply, lambda: fthreefry.uniform(r_apply, (), dev))
+        u_ratio = draw(d.cross_ratio, lambda: fthreefry.uniform(r_ratio, (b,), dev, 0.0, 1.0, *rows))
+        u_start = draw(d.cross_start, lambda: fthreefry.uniform(r_start, (b,), dev, 0.0, 1.0, *rows))
         apply_cm = use_both & (u_apply < cfg.ppg.cross_mask_prob)
         mt, mp = _cross_mask(attn, te, text_len.to(dev), pe, ppg_len.to(dev), u_ratio, u_start)
         te, pe = torch.where(apply_cm, mt, te), torch.where(apply_cm, mp, pe)

@@ -25,49 +25,53 @@ import torch
 from f5e_tts_tpu_torch.config import MMDiTConfig
 from f5e_tts_tpu_torch.models.dit import _abs_pos_table, _rope_tables, time_embed
 from f5e_tts_tpu_torch.ops import nn as fnn
+from f5e_tts_tpu_torch.ops import prng
 from f5e_tts_tpu_torch.ops.attention import joint_attention, joint_attention_init
 
 TEXT_MAX_POS = 1024  # rows of the text stream's absolute position table (mmdit.py:29-37)
 
 
-def init_mmdit(cfg: MMDiTConfig, vocab_size: int, generator: torch.Generator,
-               device="cpu") -> dict:
-    """fp32 parameters of the given shapes from `generator` (on `device`):
-    torch's default rules and AdaLN-zero, as the JAX init."""
-    g, dev = generator, device
+def init_mmdit(cfg: MMDiTConfig, vocab_size: int, key: torch.Tensor, device="cpu") -> dict:
+    """fp32 parameters of the given shapes from the threefry `key` (on
+    `device`): torch's default rules and AdaLN-zero under the JAX init's key
+    chain (models/mmdit.py:23-59: `key` split in 8 + 2 depth and consumed in
+    order; a block's key serves its joint attention, and its FF linears
+    take fold_in(key, 1..4))."""
+    keys, dev = iter(prng.split(key, 8 + 2 * cfg.depth)), device
     ff = int(cfg.dim * cfg.ff_mult)
+    lin = fnn.linear_init
 
-    def block(context_pre_only: bool) -> dict:
+    def block(k, context_pre_only: bool) -> dict:
         blk = {
-            "attn_norm_x": fnn.linear_init(cfg.dim, cfg.dim * 6, g, dev, zero=True),
-            "attn_norm_c": fnn.linear_init(cfg.dim, cfg.dim * (2 if context_pre_only else 6),
-                                           g, dev, zero=True),
-            "attn": joint_attention_init(cfg.dim, cfg.dim, cfg.heads, cfg.dim_head, g, dev,
+            "attn_norm_x": lin(cfg.dim, cfg.dim * 6, None, dev, zero=True),
+            "attn_norm_c": lin(cfg.dim, cfg.dim * (2 if context_pre_only else 6), None, dev,
+                               zero=True),
+            "attn": joint_attention_init(cfg.dim, cfg.dim, cfg.heads, cfg.dim_head, k, dev,
                                          context_pre_only=context_pre_only,
                                          qk_norm=cfg.qk_norm),
-            "ff1_x": fnn.linear_init(cfg.dim, ff, g, dev),
-            "ff2_x": fnn.linear_init(ff, cfg.dim, g, dev),
+            "ff1_x": lin(cfg.dim, ff, prng.fold_in(k, 1), dev),
+            "ff2_x": lin(ff, cfg.dim, prng.fold_in(k, 2), dev),
         }
         if not context_pre_only:
-            blk["ff1_c"] = fnn.linear_init(cfg.dim, ff, g, dev)
-            blk["ff2_c"] = fnn.linear_init(ff, cfg.dim, g, dev)
+            blk["ff1_c"] = lin(cfg.dim, ff, prng.fold_in(k, 3), dev)
+            blk["ff2_c"] = lin(ff, cfg.dim, prng.fold_in(k, 4), dev)
         return blk
 
-    return {
-        "time_embed": {"mlp1": fnn.linear_init(256, cfg.dim, g, dev),
-                       "mlp2": fnn.linear_init(cfg.dim, cfg.dim, g, dev)},
-        "text_embed": {"embed": {"w": torch.randn(vocab_size + 1, cfg.dim, generator=g,
-                                                  device=dev)}},
+    params = {
+        "time_embed": {"mlp1": lin(256, cfg.dim, next(keys), dev),
+                       "mlp2": lin(cfg.dim, cfg.dim, next(keys), dev)},
+        "text_embed": {"embed": fnn.embedding_init(vocab_size + 1, cfg.dim, next(keys), dev)},
         "audio_embed": {
-            "proj": fnn.linear_init(cfg.mel_dim * 2, cfg.dim, g, dev),
-            "conv1": fnn.conv1d_init(cfg.dim, cfg.dim, 31, 16, g, dev),
-            "conv2": fnn.conv1d_init(cfg.dim, cfg.dim, 31, 16, g, dev),
+            "proj": lin(cfg.mel_dim * 2, cfg.dim, next(keys), dev),
+            "conv1": fnn.conv1d_init(cfg.dim, cfg.dim, 31, 16, next(keys), dev),
+            "conv2": fnn.conv1d_init(cfg.dim, cfg.dim, 31, 16, next(keys), dev),
         },
-        "blocks": [block(False) for _ in range(cfg.depth - 1)],
-        "final_block": block(True),
-        "norm_out": fnn.linear_init(cfg.dim, cfg.dim * 2, g, dev, zero=True),
-        "proj_out": fnn.linear_init(cfg.dim, cfg.mel_dim, g, dev, zero=True),
     }
+    params["blocks"] = [block(next(keys), False) for _ in range(cfg.depth - 1)]
+    params["final_block"] = block(next(keys), True)
+    params["norm_out"] = lin(cfg.dim, cfg.dim * 2, None, dev, zero=True)
+    params["proj_out"] = lin(cfg.dim, cfg.mel_dim, None, dev, zero=True)
+    return params
 
 
 def text_embed_fn(params, cfg: MMDiTConfig, text_ids: torch.Tensor, drop_text: torch.Tensor,

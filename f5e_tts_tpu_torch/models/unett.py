@@ -26,53 +26,58 @@ import torch
 
 from f5e_tts_tpu_torch.config import DiTConfig, UNetTConfig
 from f5e_tts_tpu_torch.models import dit as fdit
+from f5e_tts_tpu_torch.ops import attention as fattn
+from f5e_tts_tpu_torch.ops import convnext as fcnx
 from f5e_tts_tpu_torch.ops import nn as fnn
+from f5e_tts_tpu_torch.ops import prng
 from f5e_tts_tpu_torch.ops.attention import attention
 
 RMS_EPS = 1e-12  # x_transformers' RMSNorm
 
 
-def init_unett(cfg: UNetTConfig, vocab_size: int, generator: torch.Generator,
-               device="cpu") -> dict:
-    """fp32 parameters of the given shapes from `generator` (on `device`):
-    torch's default rules, RMSNorm gains of one, as the JAX init."""
+def init_unett(cfg: UNetTConfig, vocab_size: int, key: torch.Tensor, device="cpu") -> dict:
+    """fp32 parameters of the given shapes from the threefry `key` (on
+    `device`): torch's default rules, RMSNorm gains of one, under the JAX
+    init's key chain (models/unett.py:27-72: `key` split in 16 + 4 depth and
+    consumed in order, each layer's own key split in 4)."""
     if cfg.depth % 2:
         raise ValueError(f"UNetT depth must be even, got {cfg.depth}")
     text_dim = cfg.text_dim if cfg.text_dim is not None else cfg.mel_dim
-    g, dev = generator, device
-    inner = cfg.heads * cfg.dim_head
+    keys, dev = iter(prng.split(key, 16 + 4 * cfg.depth)), device
     ff = int(cfg.dim * cfg.ff_mult)
     lin, ones = fnn.linear_init, lambda d: {"g": torch.ones(d, device=dev)}
 
-    def layer(with_skip_proj: bool) -> dict:
-        attn = {name: lin(cfg.dim, inner, g, dev) for name in ("to_q", "to_k", "to_v")}
-        attn["to_out"] = lin(inner, cfg.dim, g, dev)
-        if cfg.qk_norm == "rms_norm":
-            attn["q_norm"], attn["k_norm"] = ones(cfg.dim_head), ones(cfg.dim_head)
-        p = {"attn_norm": ones(cfg.dim), "attn": attn, "ff_norm": ones(cfg.dim),
-             "ff1": lin(cfg.dim, ff, g, dev), "ff2": lin(ff, cfg.dim, g, dev)}
+    def layer(k, with_skip_proj: bool) -> dict:
+        k1, k2, k3, k4 = prng.split(k, 4)
+        p = {"attn_norm": ones(cfg.dim),
+             "attn": fattn.attention_init(cfg.dim, cfg.heads, cfg.dim_head, k1, dev, cfg.qk_norm),
+             "ff_norm": ones(cfg.dim), "ff1": lin(cfg.dim, ff, k2, dev),
+             "ff2": lin(ff, cfg.dim, k3, dev)}
         if with_skip_proj:
-            p["skip_proj"] = lin(cfg.dim * 2, cfg.dim, g, dev, bias=False)
+            p["skip_proj"] = lin(cfg.dim * 2, cfg.dim, k4, dev, bias=False)
         return p
 
     half = cfg.depth // 2
-    return {
-        "time_embed": {"mlp1": lin(256, cfg.dim, g, dev), "mlp2": lin(cfg.dim, cfg.dim, g, dev)},
+    params = {
+        "time_embed": {"mlp1": lin(256, cfg.dim, next(keys), dev),
+                       "mlp2": lin(cfg.dim, cfg.dim, next(keys), dev)},
         "text_embed": {
-            "embed": {"w": torch.randn(vocab_size + 1, text_dim, generator=g, device=dev)},
-            "blocks": [fdit._convnext_v2_init(text_dim, text_dim * 2, g, dev)
+            "embed": fnn.embedding_init(vocab_size + 1, text_dim, next(keys), dev),
+            "blocks": [fcnx.convnext_v2_init(text_dim, text_dim * 2, next(keys), dev)
                        for _ in range(cfg.conv_layers)],
         },
         "input_embed": {
-            "proj": lin(cfg.mel_dim * 2 + text_dim, cfg.dim, g, dev),
-            "conv1": fnn.conv1d_init(cfg.dim, cfg.dim, 31, 16, g, dev),
-            "conv2": fnn.conv1d_init(cfg.dim, cfg.dim, 31, 16, g, dev),
+            "proj": lin(cfg.mel_dim * 2 + text_dim, cfg.dim, next(keys), dev),
+            "conv1": fnn.conv1d_init(cfg.dim, cfg.dim, 31, 16, next(keys), dev),
+            "conv2": fnn.conv1d_init(cfg.dim, cfg.dim, 31, 16, next(keys), dev),
         },
-        "first_half": [layer(False) for _ in range(half)],
-        "second_half": [layer(cfg.skip_connect_type == "concat") for _ in range(half)],
-        "norm_out": ones(cfg.dim),
-        "proj_out": lin(cfg.dim, cfg.mel_dim, g, dev),
     }
+    params["first_half"] = [layer(next(keys), False) for _ in range(half)]
+    params["second_half"] = [layer(next(keys), cfg.skip_connect_type == "concat")
+                             for _ in range(half)]
+    params["norm_out"] = ones(cfg.dim)
+    params["proj_out"] = lin(cfg.dim, cfg.mel_dim, next(keys), dev)
+    return params
 
 
 def fuse_qkv(params: dict) -> dict:

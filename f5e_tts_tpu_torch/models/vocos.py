@@ -8,7 +8,6 @@ phase -> centred ISTFT. (reference: src/f5_tts/infer/utils_infer.py:101-124)
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Dict
 
@@ -18,6 +17,7 @@ import torch
 from f5e_tts_tpu_torch.ops import convnext as fcnx
 from f5e_tts_tpu_torch.ops import mel as fmel
 from f5e_tts_tpu_torch.ops import nn as fnn
+from f5e_tts_tpu_torch.ops import prng
 
 
 @dataclass(frozen=True)
@@ -31,31 +31,24 @@ class VocosConfig:
     sample_rate: int = 24_000
 
 
-def init_vocos(cfg: VocosConfig, generator: torch.Generator, device="cpu") -> dict:
-    """fp32 parameters from `generator` under torch's default init rules."""
-    def uniform(shape, fan_in):
-        bound = 1.0 / math.sqrt(fan_in)
-        return (torch.rand(shape, generator=generator, device=device) * 2.0 - 1.0) * bound
+def init_vocos(cfg: VocosConfig, key: torch.Tensor, device="cpu") -> dict:
+    """fp32 parameters from the threefry `key` under torch's default init
+    rules and the JAX init's key chain (models/vocos.py:39-54: `key` split
+    in num_layers + 2 for the embedding conv, the blocks and the head)."""
+    ks = prng.split(key, cfg.num_layers + 2)
+    d = cfg.dim
 
-    def lin(d_in, d_out):
-        return {"w": uniform((d_in, d_out), d_in), "b": uniform((d_out,), d_in)}
-
-    def ln(d):
+    def ln():
         return {"g": torch.ones(d, device=device), "b": torch.zeros(d, device=device)}
 
-    d, inter = cfg.dim, cfg.intermediate_dim
     return {
-        "embed": {"w": uniform((7, cfg.input_channels, d), 7 * cfg.input_channels),
-                  "b": uniform((d,), 7 * cfg.input_channels)},
-        "norm": ln(d),
-        "blocks": [
-            {"dwconv": {"w": uniform((7, 1, d), 7), "b": uniform((d,), 7)},
-             "norm": ln(d), "pwconv1": lin(d, inter), "pwconv2": lin(inter, d),
-             "gamma": torch.full((d,), 1.0 / cfg.num_layers, device=device)}
-            for _ in range(cfg.num_layers)
-        ],
-        "final_norm": ln(d),
-        "head": lin(d, cfg.n_fft + 2),
+        "embed": fnn.conv1d_init(cfg.input_channels, d, 7, 1, ks[0], device),
+        "norm": ln(),
+        "blocks": [fcnx.convnext_v1_init(d, cfg.intermediate_dim, ks[i + 1], device,
+                                         layer_scale_init=1.0 / cfg.num_layers)
+                   for i in range(cfg.num_layers)],
+        "final_norm": ln(),
+        "head": fnn.linear_init(d, cfg.n_fft + 2, ks[-1], device),
     }
 
 

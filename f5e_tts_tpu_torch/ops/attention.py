@@ -43,6 +43,7 @@ import torch
 from f5e_tts_tpu_torch.kernels.attention import JointAttention, MaskedAttention
 from f5e_tts_tpu_torch.kernels.rope_attention import RopeAttention
 from f5e_tts_tpu_torch.ops import nn as fnn
+from f5e_tts_tpu_torch.ops import prng
 from f5e_tts_tpu_torch.ops.ring_attention import ring_attention
 from f5e_tts_tpu_torch.ops.rope import apply_rotary_half
 from f5e_tts_tpu_torch.parallel import mesh as pmesh
@@ -294,18 +295,37 @@ def joint_attention(
     return xo, co
 
 
-def joint_attention_init(dim: int, context_dim: int, heads: int, dim_head: int,
-                         generator: torch.Generator, device="cpu",
-                         context_pre_only: bool = False, qk_norm: Optional[str] = None) -> dict:
-    """fp32 parameters of `joint_attention` from `generator`, torch's default
-    linear rule U(+-1/sqrt(fan_in)) as the JAX init."""
+def attention_init(dim: int, heads: int, dim_head: int, key, device="cpu",
+                   qk_norm: Optional[str] = None) -> dict:
+    """fp32 parameters of `attention`: `key` split in 4 for to_q, to_k, to_v
+    and to_out, torch's default linear rule U(+-1/sqrt(fan_in)), RMSNorm
+    gains of one (JAX ops/attention.py:298-310)."""
+    ks = prng.split(key, 4)
     inner = heads * dim_head
-    p = {name: fnn.linear_init(d_in, inner, generator, device)
-         for name, d_in in (("to_q", dim), ("to_k", dim), ("to_v", dim), ("to_q_c", context_dim),
-                            ("to_k_c", context_dim), ("to_v_c", context_dim))}
-    p["to_out"] = fnn.linear_init(inner, dim, generator, device)
+    p = {name: fnn.linear_init(dim, inner, k, device)
+         for name, k in zip(("to_q", "to_k", "to_v"), ks[:3])}
+    p["to_out"] = fnn.linear_init(inner, dim, ks[3], device)
+    if qk_norm == "rms_norm":
+        for name in ("q_norm", "k_norm"):
+            p[name] = {"g": torch.ones(dim_head, device=device)}
+    return p
+
+
+def joint_attention_init(dim: int, context_dim: int, heads: int, dim_head: int, key,
+                         device="cpu", context_pre_only: bool = False,
+                         qk_norm: Optional[str] = None) -> dict:
+    """fp32 parameters of `joint_attention`: `key` split in 8 (to_q, to_k,
+    to_v, their context twins, to_out, to_out_c), torch's default linear
+    rule as the JAX init (ops/attention.py:398-418)."""
+    ks = prng.split(key, 8)
+    inner = heads * dim_head
+    p = {name: fnn.linear_init(d_in, inner, k, device)
+         for (name, d_in), k in zip((("to_q", dim), ("to_k", dim), ("to_v", dim),
+                                     ("to_q_c", context_dim), ("to_k_c", context_dim),
+                                     ("to_v_c", context_dim)), ks[:6])}
+    p["to_out"] = fnn.linear_init(inner, dim, ks[6], device)
     if not context_pre_only:
-        p["to_out_c"] = fnn.linear_init(inner, context_dim, generator, device)
+        p["to_out_c"] = fnn.linear_init(inner, context_dim, ks[7], device)
     if qk_norm == "rms_norm":
         for name in ("q_norm", "k_norm", "c_q_norm", "c_k_norm"):
             p[name] = {"g": torch.ones(dim_head, device=device)}

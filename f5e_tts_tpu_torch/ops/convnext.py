@@ -10,8 +10,37 @@ import torch
 
 from f5e_tts_tpu_torch.ops import attention as fattn
 from f5e_tts_tpu_torch.ops import nn as fnn
+from f5e_tts_tpu_torch.ops import prng
 from f5e_tts_tpu_torch.parallel import mesh as pmesh
 from f5e_tts_tpu_torch.parallel.mesh import AllReduceBoth
+
+
+def _layernorm_init(dim: int, device) -> dict:
+    return {"g": torch.ones(dim, device=device), "b": torch.zeros(dim, device=device)}
+
+
+def convnext_v2_init(dim: int, inter: int, key, device="cpu") -> dict:
+    """fp32 params of a V2 block: `key` split in 3 for the depthwise conv and
+    the two pointwise linears, GRN zero (JAX ops/convnext.py:33-41)."""
+    ks = prng.split(key, 3)
+    return {"dwconv": fnn.conv1d_init(dim, dim, 7, dim, ks[0], device),
+            "norm": _layernorm_init(dim, device),
+            "pwconv1": fnn.linear_init(dim, inter, ks[1], device),
+            "grn": {"gamma": torch.zeros(inter, device=device),
+                    "beta": torch.zeros(inter, device=device)},
+            "pwconv2": fnn.linear_init(inter, dim, ks[2], device)}
+
+
+def convnext_v1_init(dim: int, inter: int, key, device="cpu",
+                     layer_scale_init: float = 1e-6) -> dict:
+    """fp32 params of a V1 block: as V2's with a layer-scale gamma in place
+    of GRN (JAX ops/convnext.py:61-70)."""
+    ks = prng.split(key, 3)
+    return {"dwconv": fnn.conv1d_init(dim, dim, 7, dim, ks[0], device),
+            "norm": _layernorm_init(dim, device),
+            "pwconv1": fnn.linear_init(dim, inter, ks[1], device),
+            "pwconv2": fnn.linear_init(inter, dim, ks[2], device),
+            "gamma": torch.full((dim,), layer_scale_init, device=device)}
 
 
 def grn(p, x: torch.Tensor, channels=None) -> torch.Tensor:

@@ -20,49 +20,74 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from f5e_tts_tpu_torch.kernels import threefry as fthreefry
+from f5e_tts_tpu_torch.ops import prng
 from f5e_tts_tpu_torch.ops.quant import int8_linear
 from f5e_tts_tpu_torch.parallel import mesh as pmesh
 
 
-def _uniform(shape, bound: float, generator, device) -> torch.Tensor:
-    return (torch.rand(shape, generator=generator, device=device) * 2.0 - 1.0) * bound
+def _uniform(shape, bound: float, key, device) -> torch.Tensor:
+    """U[-bound, bound) f32: `jax.random.uniform(key, shape, minval=-bound,
+    maxval=bound)` for a threefry key (on the card through the kernel), or
+    torch's draw from a `torch.Generator` (the nets whose seeded init is not
+    on JAX's threefry yet: the PPG front end and the nets beside it)."""
+    if isinstance(key, torch.Generator):
+        return (torch.rand(shape, generator=key, device=device) * 2.0 - 1.0) * bound
+    return fthreefry.uniform(key, shape, device, -bound, bound)
 
 
-def linear_init(d_in: int, d_out: int, generator: torch.Generator, device="cpu",
-                zero: bool = False, bias: bool = True) -> dict:
+def _split2(key):
+    """(weight key, bias key) as JAX's initialisers split them; a generator
+    serves both draws in turn."""
+    if isinstance(key, torch.Generator):
+        return key, key
+    kw, kb = prng.split(key)
+    return kw, kb
+
+
+def linear_init(d_in: int, d_out: int, key, device="cpu", zero: bool = False,
+                bias: bool = True) -> dict:
     """fp32 linear params: torch's default rule U(+-1/sqrt(fan_in)) for the
     weight and the bias (none without `bias`), or zeros (AdaLN-zero), as the
-    JAX init."""
+    JAX init (ops/nn.py: linear_init, linear_zero_init): `key` split into the
+    weight's and the bias's."""
     if zero:
         return {"w": torch.zeros(d_in, d_out, device=device),
                 "b": torch.zeros(d_out, device=device)}
     bound = 1.0 / math.sqrt(d_in)
-    p = {"w": _uniform((d_in, d_out), bound, generator, device)}
+    kw, kb = _split2(key)
+    p = {"w": _uniform((d_in, d_out), bound, kw, device)}
     if bias:
-        p["b"] = _uniform((d_out,), bound, generator, device)
+        p["b"] = _uniform((d_out,), bound, kb, device)
     return p
 
 
-def conv1d_init(d_in: int, d_out: int, kernel: int, groups: int, generator: torch.Generator,
-                device="cpu", bias: bool = True) -> dict:
+def embedding_init(num: int, dim: int, key, device="cpu") -> dict:
+    """torch.nn.Embedding's default N(0, 1) (JAX ops/nn.py: embedding_init)."""
+    return {"w": fthreefry.normal(key, (num, dim), device)}
+
+
+def conv1d_init(d_in: int, d_out: int, kernel: int, groups: int, key, device="cpu",
+                bias: bool = True) -> dict:
     """torch.nn.Conv1d's default rule U(+-1/sqrt(in/groups * k)) for the
     weight (k, in/groups, out) and the bias (none without `bias`)."""
     bound = 1.0 / math.sqrt(d_in // groups * kernel)
-    p = {"w": _uniform((kernel, d_in // groups, d_out), bound, generator, device)}
+    kw, kb = _split2(key)
+    p = {"w": _uniform((kernel, d_in // groups, d_out), bound, kw, device)}
     if bias:
-        p["b"] = _uniform((d_out,), bound, generator, device)
+        p["b"] = _uniform((d_out,), bound, kb, device)
     return p
 
 
-def conv_transpose1d_init(d_in: int, d_out: int, kernel: int, generator: torch.Generator,
-                          device="cpu") -> dict:
+def conv_transpose1d_init(d_in: int, d_out: int, kernel: int, key, device="cpu") -> dict:
     """A transposed conv's params in the pre-flipped (k, in, out) layout of
     `conv_transpose1d`, drawn by torch.nn.ConvTranspose1d's default rule:
     its fan-in is out_channels * k, so U(+-1/sqrt(out * k)) for the weight
     and the bias (f5e_tts_tpu ops/nn.py:222-230)."""
     bound = 1.0 / math.sqrt(d_out * kernel)
-    return {"w": _uniform((kernel, d_in, d_out), bound, generator, device),
-            "b": _uniform((d_out,), bound, generator, device)}
+    kw, kb = _split2(key)
+    return {"w": _uniform((kernel, d_in, d_out), bound, kw, device),
+            "b": _uniform((d_out,), bound, kb, device)}
 
 
 def linear(p, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -213,17 +238,21 @@ def batchnorm(p, state, x: torch.Tensor, training: bool, momentum: float = 0.1,
     return y.to(x.dtype), new_state
 
 
-def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator] = None,
-            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """where(keep, x / (1 - rate), 0) with keep ~ Bernoulli(1 - rate) drawn
-    from `generator` (uniform < 1 - rate, as jax.random.bernoulli), or the
-    given boolean `keep` mask."""
+def dropout(key, x: torch.Tensor, rate: float, training: bool,
+            global_shape=None, offset=None, keep: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """The JAX package's dropout (ops/nn.py:264-268): where(keep, x / c, 0)
+    with keep ~ bernoulli(key, 1 - rate, x.shape) and c = 1 - rate rounded to
+    x's dtype (see `prng.dropout`), through the threefry kernel on the card
+    (`ThreefryDropout`: its backward draws the same mask again). `x` may be
+    the block of a larger array at `offset` of `global_shape` (a rank's part
+    of a sharded activation), and then draws its part of the larger
+    array's mask. A given boolean `keep` mask replaces the draw."""
     if not training or rate == 0.0:
         return x
-    if keep is None:
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+    if keep is not None:
+        return prng.scaled_where(keep.to(x.device), x, rate)
+    return fthreefry.ThreefryDropout.apply(x, key, rate, global_shape, offset)
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,9 @@ import torch
 import torch.nn.functional as F
 
 from f5e_tts_tpu_torch.config import CodebookConfig
+from f5e_tts_tpu_torch.kernels import threefry as fthreefry
 from f5e_tts_tpu_torch.ops import nn as fnn
+from f5e_tts_tpu_torch.ops import prng
 from f5e_tts_tpu_torch.parallel import mesh as pmesh
 
 
@@ -31,24 +33,26 @@ class VQResult(NamedTuple):
     num_vars: int  # num_vars * groups
 
 
-def gumbel_vq_init(cfg: CodebookConfig, dim: int, generator: torch.Generator,
-                   device="cpu") -> dict:
+def gumbel_vq_init(cfg: CodebookConfig, dim: int, key, device="cpu") -> dict:
     """fp32 parameters for input and output width `dim` (reference
-    dit.py:296-307): `vars` ~ U(0, 1); one `weight_proj` layer N(0, 1) with a
-    zero bias, or weight_proj_depth torch-default linears."""
+    dit.py:296-307), from `key` split in two as the JAX init (ops/vq.py:33-52):
+    `vars` ~ U(0, 1) from the first; from the second, one `weight_proj`
+    layer N(0, 1) with a zero bias, or weight_proj_depth torch-default
+    linears, one key each."""
+    k1, k2 = prng.split(key)
     groups = 1 if cfg.combine_groups else cfg.groups
-    params = {"vars": torch.rand((1, groups * cfg.num_vars, dim // cfg.groups),
-                                 generator=generator, device=device)}
+    params = {"vars": fthreefry.uniform(k1, (1, groups * cfg.num_vars, dim // cfg.groups),
+                                        device)}
     out = cfg.groups * cfg.num_vars
     if cfg.weight_proj_depth > 1:
         inner = dim * cfg.weight_proj_factor
         sizes = [dim] + [inner] * (cfg.weight_proj_depth - 1) + [out]
-        params["weight_proj"] = {f"layer_{i}": fnn.linear_init(a, b, generator, device)
+        kk = prng.split(k2, cfg.weight_proj_depth)
+        params["weight_proj"] = {f"layer_{i}": fnn.linear_init(a, b, kk[i], device)
                                  for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:]))}
     else:
-        params["weight_proj"] = {"layer_0": {
-            "w": torch.randn((dim, out), generator=generator, device=device),
-            "b": torch.zeros(out, device=device)}}
+        params["weight_proj"] = {"layer_0": {"w": fthreefry.normal(k2, (dim, out), device),
+                                             "b": torch.zeros(out, device=device)}}
     return params
 
 
@@ -76,18 +80,22 @@ def _pool_mean(rows: torch.Tensor) -> torch.Tensor:
     return pmesh.global_mean(rows.sum(dim=0), rows.shape[0], bm)
 
 
-def gumbel_uniform(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
-    """U[1e-10, 1) draws for the gumbel noise (jax.random.uniform(minval=1e-10))."""
-    return 1e-10 + (1.0 - 1e-10) * torch.rand(shape, generator=generator, device=device)
+def gumbel_uniform(key, shape, device) -> torch.Tensor:
+    """The gumbel noise's U[1e-10, 1) draw (jax.random.uniform(minval=1e-10))
+    of (rows, num_vars), through the threefry kernel on the card. Under a
+    batch mesh the rows are this rank's equal share of the global batch's
+    (batch-major), and it draws its rows of the global draw."""
+    global_shape, offset = prng.slab(shape, rows=pmesh.batch_rows(shape[0]))
+    return fthreefry.uniform(key, shape, device, 1e-10, 1.0, global_shape, offset)
 
 
 def gumbel_vq_apply(params, cfg: CodebookConfig, x: torch.Tensor, *, training: bool,
-                    temperature, generator: Optional[torch.Generator] = None,
+                    temperature, rng: Optional[torch.Tensor] = None,
                     uniform: Optional[torch.Tensor] = None) -> VQResult:
     """Quantize (B, T, D) -> (B, T, D) in fp32 (reference: modules.py:881-950).
 
     Training adds gumbel noise -log(-log(u)) to the logits, u = `uniform`
-    ((B * T * groups, num_vars) in [1e-10, 1)) or drawn from `generator`,
+    ((B * T * groups, num_vars) in [1e-10, 1)) or drawn from the key `rng`,
     and takes the hard one-hot of softmax((logits + noise) / temperature)
     with the soft one's gradient; eval takes the argmax one-hot.
     """
@@ -101,7 +109,7 @@ def gumbel_vq_apply(params, cfg: CodebookConfig, x: torch.Tensor, *, training: b
 
     if training:
         if uniform is None:
-            uniform = gumbel_uniform(logits.shape, generator, logits.device)
+            uniform = gumbel_uniform(rng, logits.shape, logits.device)
         gumbels = -torch.log(-torch.log(uniform.to(logits.device).float()))
         y_soft = torch.softmax((logits + gumbels) / temperature, dim=-1)
         y_hard = F.one_hot(y_soft.argmax(dim=-1), v).float()

@@ -370,8 +370,8 @@ class Active:
     """The mesh the ops read while `active` holds it (none: unsharded).
 
     - its batch axes (data, fsdp) split the batch dim: losses reduce over the
-      global batch and draw their per-row randomness at its shape
-      (models/cfm.py), and a DiT block all-gathers its fsdp-split matrices;
+      global batch and each rank draws its rows of the global batch's draws
+      (`batch_rows`), and a DiT block all-gathers its fsdp-split matrices;
     - "model" splits a DiT's heads and FF hidden when `model` is set (a
       backbone other than the DiT computes replicated over it);
     - "seq" sends sequences of n >= `min_seq` frames through ring attention
@@ -436,16 +436,16 @@ def global_mean(num: torch.Tensor, den, mesh: Optional[Mesh], min_den: float = 0
     return total + (local - local.detach())
 
 
-def fold_generator(generator: Optional[torch.Generator], index: int
-                   ) -> Optional[torch.Generator]:
-    """A generator of its own for shard `index`: seeded from one draw of
-    `generator` (the same draw on every rank that shares its state) and the
-    index, so shards and microbatches draw independent masks."""
-    if generator is None:
+def batch_rows(rows: int) -> Optional[Tuple[int, int]]:
+    """(global rows, this rank's first row) of an array whose dim 0 holds
+    `rows` rows, this rank's equal share of the global batch under the batch
+    mesh; None without one. A draw of such an array takes them
+    (ops/prng.py: slab), so each rank draws its rows of the global batch's
+    draw, as the JAX package's partitionable threefry does under pjit."""
+    mesh = batch_mesh()
+    if mesh is None:
         return None
-    base = int(torch.randint(0, 2 ** 62, (), generator=generator, device=generator.device))
-    return torch.Generator(device=generator.device).manual_seed(
-        (base * 1_000_003 + index + 1) % (2 ** 63))
+    return rows * mesh.size(BATCH_AXES), rows * mesh.index(BATCH_AXES)
 
 
 def local_rows(x: torch.Tensor, mesh: Optional[Mesh], dim: int = 0) -> torch.Tensor:

@@ -28,6 +28,7 @@ import torch
 from f5e_tts_tpu_torch.config import CFMConfig, MelConfig
 from f5e_tts_tpu_torch.models import backbone as fbb
 from f5e_tts_tpu_torch.models import cfm as fcfm
+from f5e_tts_tpu_torch.ops import prng
 from f5e_tts_tpu_torch.parallel import mesh as pmesh
 from f5e_tts_tpu_torch.train import step as fstep
 
@@ -41,7 +42,7 @@ class DistillLossOut(NamedTuple):
 def cfg_distill_loss(student_params, teacher_params, arch, cfm: CFMConfig, *,
                      mel: torch.Tensor, mel_lens: torch.Tensor,
                      text_ids: Optional[torch.Tensor],
-                     generator: Optional[torch.Generator] = None,
+                     rng: Optional[torch.Tensor] = None,
                      draws: Optional[fcfm.LossDraws] = None, cfg_strength: float = 2.0,
                      training: bool = True, compute_dtype=torch.bfloat16,
                      state: Optional[dict] = None) -> DistillLossOut:
@@ -52,14 +53,19 @@ def cfg_distill_loss(student_params, teacher_params, arch, cfm: CFMConfig, *,
     The teacher's rows are [cond | uncond]: drop_audio_cond = drop_text =
     [False..., True...] and the PPG dropped in both; its flow is (1 + w)
     v_cond - w v_uncond in fp32, with no gradient. The student drops
-    nothing but the PPG and runs in training mode when `training`. Draws
-    missing from `draws` (frac, span, x0, time) come from `generator`, as
-    does the student's dropout. A PPG DiT reads its BatchNorm `state`."""
+    nothing but the PPG and runs in training mode when `training`. The
+    threefry key `rng` (PRNGKey(0) when None) is split in 5 as the JAX loss
+    splits it (distill.py:66): frac, span, time, noise (`cfm.row_draws`;
+    fields of `draws` replace them) and the student's dropout. A PPG DiT
+    reads its BatchNorm `state`."""
     b, n, _ = mel.shape
     dev = mel.device
     d = draws or fcfm.LossDraws()
     bm = pmesh.batch_mesh()  # a batch mesh: the global run's draws and loss, as cfm_loss
-    span, x0, time = fcfm.row_draws(d, b, n, mel.shape[-1], mel_lens, cfm, generator, dev)
+    rng = prng.prng_key(0) if rng is None else rng
+    r_frac, r_span, r_time, r_noise, r_model = prng.split(rng, 5)
+    span, x0, time = fcfm.row_draws(d, b, n, mel.shape[-1], mel_lens, cfm,
+                                    (r_frac, r_span, r_noise, r_time), dev)
     x1 = mel.float()
     x0 = x0.float()
     t = time[:, None, None]
@@ -82,12 +88,10 @@ def cfg_distill_loss(student_params, teacher_params, arch, cfm: CFMConfig, *,
         v_cond, v_uncond = pred2[:b].float(), pred2[b:].float()
         teacher_flow = (1.0 + cfg_strength) * v_cond - cfg_strength * v_uncond
 
-    if bm is not None:
-        generator = pmesh.fold_generator(generator, bm.index(pmesh.BATCH_AXES))
     student_pred = fbb.forward_train(
         student_params, arch, x=phi.to(compute_dtype), cond=cond.to(compute_dtype),
         text_ids=text_ids, time=time, drop_audio_cond=zeros, drop_text=zeros, mask=None,
-        training=training, generator=generator, compute_dtype=compute_dtype, state=state,
+        training=training, rng=r_model, compute_dtype=compute_dtype, state=state,
         **(dict(drop_ppg=ones) if ppg else {}))
 
     se = (student_pred.float() - teacher_flow).square()
@@ -98,7 +102,7 @@ def cfg_distill_loss(student_params, teacher_params, arch, cfm: CFMConfig, *,
 
 def distill_loss_with_device_mel(student_params, teacher_params, arch, cfm: CFMConfig,
                                  mel_cfg: MelConfig, batch: dict,
-                                 generator: Optional[torch.Generator] = None,
+                                 rng: Optional[torch.Tensor] = None,
                                  draws: Optional[fcfm.LossDraws] = None,
                                  compute_dtype=torch.bfloat16, cfg_strength: float = 2.0,
                                  state: Optional[dict] = None) -> fcfm.CFMLossOut:
@@ -116,7 +120,7 @@ def distill_loss_with_device_mel(student_params, teacher_params, arch, cfm: CFMC
         mel = mel_spectrogram(batch["audio"], mel_cfg)[:, :n, :]
     out = cfg_distill_loss(student_params, teacher_params, arch, cfm, mel=mel,
                            mel_lens=batch["mel_lens"], text_ids=batch.get("text_ids"),
-                           generator=generator, draws=draws, cfg_strength=cfg_strength,
+                           rng=rng, draws=draws, cfg_strength=cfg_strength,
                            training=True, compute_dtype=compute_dtype, state=state)
     zero = torch.zeros((), device=mel.device)
     return fcfm.CFMLossOut(loss=out.loss, flow_loss=out.loss, cond=out.teacher_flow,
@@ -140,17 +144,17 @@ def init_distill(teacher_params: dict, optimizer) -> DistillState:
 
 def make_distill_step(teacher_params, arch, cfm: CFMConfig, optimizer,
                       cfg_strength: float = 2.0, compute_dtype=torch.bfloat16):
-    """step(ds, mel, mel_lens, text_ids, generator=None, draws=None) -> (ds,
+    """step(ds, mel, mel_lens, text_ids, rng=None, draws=None) -> (ds,
     StepMetrics): one distillation update of the student in place with
     `optimizer` (`train.step.AdamW` or `AdamW8bit`: init(list) and
     update_(state, params, grads)), through the Trainer's update
     (reference: f5e_tts_tpu distill.py:146-179)."""
 
-    def step(ds: DistillState, mel, mel_lens, text_ids, generator=None, draws=None):
+    def step(ds: DistillState, mel, mel_lens, text_ids, rng=None, draws=None):
         batch = {"mel": mel, "mel_lens": mel_lens, "text_ids": text_ids}
         return fstep.backward_and_apply(
             ds, lambda params: distill_loss_with_device_mel(
-                params, teacher_params, arch, cfm, None, batch, generator, draws,
+                params, teacher_params, arch, cfm, None, batch, rng, draws,
                 compute_dtype, cfg_strength=cfg_strength, state=ds.model_state),
             optimizer=optimizer, ema=fstep.EMASettings())
 

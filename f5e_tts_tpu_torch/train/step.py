@@ -39,6 +39,7 @@ import torch
 
 from f5e_tts_tpu_torch.config import CFMConfig, TrainConfig
 from f5e_tts_tpu_torch.models import cfm as fcfm
+from f5e_tts_tpu_torch.ops import prng
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -299,14 +300,18 @@ def backward_and_apply(ts: TrainState, loss_fn: Callable[[dict], fcfm.CFMLossOut
 
 def train_step(ts: TrainState, batch: dict, *, arch, cfm: CFMConfig,
                optimizer: AdamW, ema: EMASettings = EMASettings(),
-               generator: Optional[torch.Generator] = None,
+               rng: Optional[torch.Tensor] = None,
                draws: Optional[fcfm.LossDraws] = None, compute_dtype=torch.bfloat16):
     """One micro-step on batch {mel (B, N, D), mel_lens, text_ids[, text_lens,
-    ppg, ppg_lens]}; draws not given come from `generator`. Returns (ts,
-    StepMetrics)."""
+    ppg, ppg_lens]}: the loss draws under the threefry key `rng` folded with
+    the micro-steps consumed (micro + skipped), as the JAX step folds it
+    (step.py:199); fields of `draws` replace the draws they name. Returns
+    (ts, StepMetrics)."""
+    key = prng.fold_in(prng.prng_key(0) if rng is None else rng, ts.micro + ts.skipped)
+
     def loss_fn(params):
         return fcfm.cfm_loss(params, arch, cfm, mel=batch["mel"], mel_lens=batch["mel_lens"],
-                             text_ids=batch.get("text_ids"), generator=generator, draws=draws,
+                             text_ids=batch.get("text_ids"), rng=key, draws=draws,
                              training=True, compute_dtype=compute_dtype, state=ts.model_state,
                              text_lens=batch.get("text_lens"), ppg=batch.get("ppg"),
                              ppg_lens=batch.get("ppg_lens"))

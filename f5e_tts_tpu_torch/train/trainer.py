@@ -63,6 +63,7 @@ import torch
 from f5e_tts_tpu_torch.config import MelConfig, ModelConfig, TrainConfig
 from f5e_tts_tpu_torch.models import backbone as fbb
 from f5e_tts_tpu_torch.models import cfm as fcfm
+from f5e_tts_tpu_torch.ops import prng
 from f5e_tts_tpu_torch.ops.mel import mel_spectrogram
 from f5e_tts_tpu_torch.parallel import mesh as pmesh
 from f5e_tts_tpu_torch.train import step as fstep
@@ -103,7 +104,7 @@ def make_sample_logger(model_cfg: ModelConfig, vocab, tokenizer: str, save_dir: 
 
 
 def loss_with_device_mel(params, arch, cfm, mel_cfg: MelConfig, batch: dict,
-                         generator: Optional[torch.Generator] = None,
+                         rng: Optional[torch.Tensor] = None,
                          draws: Optional[fcfm.LossDraws] = None,
                          compute_dtype=torch.bfloat16, training: bool = True,
                          state: Optional[dict] = None) -> fcfm.CFMLossOut:
@@ -122,7 +123,7 @@ def loss_with_device_mel(params, arch, cfm, mel_cfg: MelConfig, batch: dict,
         kw = dict(state=state, text_lens=batch.get("text_lens"), ppg=batch.get("ppg"),
                   ppg_lens=batch.get("ppg_lens"))
     return fcfm.cfm_loss(params, arch, cfm, mel=mel, mel_lens=batch["mel_lens"],
-                         text_ids=batch.get("text_ids"), generator=generator, draws=draws,
+                         text_ids=batch.get("text_ids"), rng=rng, draws=draws,
                          training=training, compute_dtype=compute_dtype, **kw)
 
 
@@ -240,8 +241,8 @@ class Trainer:
                 load_state_dict(pretrained_path, use_ema=True), self.arch)
             made = fstep.tree_map(lambda t: t.to(self.device), made)
         else:
-            gen = torch.Generator(device=self.device).manual_seed(rng_seed)
-            made = fbb.init_backbone(self.arch, self.vocab_size, gen, self.device)
+            made = fbb.init_backbone(self.arch, self.vocab_size, prng.prng_key(rng_seed),
+                                     self.device)
         params, model_state = fbb.split_state(self.arch, made)
         self._full_template = fstep.tree_map(lambda t: t.to("meta"), params)  # the layout only
         params = self.shard(params)
@@ -276,7 +277,7 @@ class Trainer:
             self.distill_cfg_strength = cfg_strength
 
     def make_step(self):
-        """step(ts, batch, generator) -> (ts, StepMetrics) for a batch of
+        """step(ts, batch, rng) -> (ts, StepMetrics) for a batch of
         device tensors carrying audio or mel (this rank's rows under a mesh),
         run under `mesh_context`; with a teacher set, the step's loss is the
         distillation loss (`distill_loss_with_device_mel`)."""
@@ -285,15 +286,15 @@ class Trainer:
         ema = fstep.EMASettings.from_train_cfg(self.train_cfg)
         teacher, cfg_w = self.teacher_params, self.distill_cfg_strength
 
-        def step(ts, batch, generator, draws=None):
+        def step(ts, batch, rng, draws=None):
             def loss_fn(params):
                 if teacher is not None:
                     from f5e_tts_tpu_torch.train.distill import distill_loss_with_device_mel
 
                     return distill_loss_with_device_mel(
-                        params, teacher, arch, cfm, mel_cfg, batch, generator, draws, dtype,
+                        params, teacher, arch, cfm, mel_cfg, batch, rng, draws, dtype,
                         cfg_strength=cfg_w, state=ts.model_state)
-                return loss_with_device_mel(params, arch, cfm, mel_cfg, batch, generator, draws,
+                return loss_with_device_mel(params, arch, cfm, mel_cfg, batch, rng, draws,
                                             dtype, state=ts.model_state)
 
             with self.mesh_context():
@@ -302,12 +303,12 @@ class Trainer:
 
         return step
 
-    def step_generator(self, ts: fstep.TrainState) -> torch.Generator:
-        """The draws of micro-step micro + skipped: a generator seeded from
-        (seed, consumed batches), so a resumed run repeats them (the JAX step
-        folds the same count into its key)."""
-        seed = self.train_cfg.seed * 1_000_003 + ts.micro + ts.skipped
-        return torch.Generator(device=self.device).manual_seed(seed)
+    def step_key(self, ts: fstep.TrainState) -> torch.Tensor:
+        """The key of micro-step micro + skipped: PRNGKey(seed) folded with
+        the batches consumed, as the JAX trainer folds it (trainer.py:222,
+        402), so a resumed run repeats the draws. A key on the CPU: the
+        draws read its words on the host."""
+        return prng.fold_in(prng.prng_key(self.train_cfg.seed), ts.micro + ts.skipped)
 
     # ------------------------------------------------------------------
     # checkpointing (reference semantics: trainer.py:150-263)
@@ -462,7 +463,7 @@ class Trainer:
                 for batch in batch_iter:
                     t_step = time.time()
                     prev_update = ts.update
-                    ts, metrics = step(ts, self.device_batch(batch), self.step_generator(ts))
+                    ts, metrics = step(ts, self.device_batch(batch), self.step_key(ts))
                     if self.log_fn is not None:
                         self.log_fn({"loss": metrics.loss, "grad_norm": metrics.grad_norm,
                                      "flow_loss": metrics.flow_loss,

@@ -99,10 +99,11 @@ def report_model_stats(cfg, vocab_size: int = 2545, seconds: float = 20.0,
     (the reference prints DiT-Base 335.8M / 363.4 GFLOPs at 20 s); the params
     are made from a seed on `device` to be counted."""
     from f5e_tts_tpu_torch.models import backbone as fbb
+    from f5e_tts_tpu_torch.ops import prng
     from f5e_tts_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
-    made = fbb.init_backbone(cfg, vocab_size, torch.Generator(device=dev).manual_seed(0), dev)
+    made = fbb.init_backbone(cfg, vocab_size, prng.prng_key(0), dev)
     params = made[0] if isinstance(made, tuple) else made
     n = int(seconds * sr / hop)
     return {"params_m": count_params(params) / 1e6, "gflops_fwd": dit_flops(cfg, n) / 1e9,

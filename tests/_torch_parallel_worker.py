@@ -21,6 +21,7 @@ from f5e_tts_tpu_torch.config import (CFMConfig, DiTConfig, MelConfig, MeshConfi
                                       ModelConfig, TrainConfig)
 from f5e_tts_tpu_torch.models import cfm as tcfm  # noqa: E402
 from f5e_tts_tpu_torch.models import dit as tdit  # noqa: E402
+from f5e_tts_tpu_torch.ops import prng as tprng  # noqa: E402
 from f5e_tts_tpu_torch.ops.ring_attention import ring_attention  # noqa: E402
 from f5e_tts_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from f5e_tts_tpu_torch.parallel import multihost  # noqa: E402
@@ -91,7 +92,7 @@ def dit_forward_checks(inp, out):
         out["dit_tp4_dropout"] = tdit.dit_forward(
             pmesh.shard_dit_params(d["params"], mesh, cfg), cfg, x=d["x"], cond=d["cond"],
             text_ids=d["text"], time=d["time"], drop_audio_cond=f, drop_text=f, training=True,
-            generator=torch.Generator().manual_seed(5), compute_dtype=torch.float32)
+            rng=tprng.prng_key(5), compute_dtype=torch.float32)
 
 
 def _gpipe_body(h, sl, t_emb, mask):
@@ -126,11 +127,11 @@ def gpipe_checks(inp, out):
     f = torch.zeros(d["x"].shape[0], dtype=torch.bool)
 
     def fwd(seed):
-        gen = torch.Generator().manual_seed(seed)
         with torch.no_grad(), pmesh.active(mesh, n_micro=4):
             return tdit.dit_forward(params, cfg, x=d["x"], cond=d["cond"], text_ids=d["text"],
                                     time=d["time"], drop_audio_cond=f, drop_text=f,
-                                    training=True, generator=gen, compute_dtype=torch.float32)
+                                    training=True, rng=tprng.prng_key(seed),
+                                    compute_dtype=torch.float32)
 
     out["pp_dropout"] = {"a": fwd(5), "b": fwd(5), "other_seed": fwd(6)}
     # refused: TP inside a stage, an active SP context
@@ -193,7 +194,7 @@ def trainer_steps(inp, out, name, mesh_cfg, root):
     metrics = []
     for i, draws in enumerate(t["draws"]):
         batch = pmesh.shard_batch(t["batch"], tr.mesh)
-        ts, m = step(ts, tr.device_batch(batch), tr.step_generator(ts),
+        ts, m = step(ts, tr.device_batch(batch), tr.step_key(ts),
                      draws=tcfm.LossDraws(**draws))
         metrics.append((m.loss, m.grad_norm, m.skipped))
     full = tr.full_state(ts)
@@ -303,12 +304,12 @@ def bnb_mesh_steps(inp, out, root):
         batch = tr.device_batch(pmesh.shard_batch(t["batch"], tr.mesh))
         metrics = []
         for draws in t["draws"]:
-            ts, m = step(ts, batch, tr.step_generator(ts), draws=tcfm.LossDraws(**draws))
+            ts, m = step(ts, batch, tr.step_key(ts), draws=tcfm.LossDraws(**draws))
             metrics.append((m.loss, m.grad_norm, m.skipped))
         got = {"metrics": metrics, **_full_8bit(tr, ts)}
         if name == "fsdp2":
             tr.save_checkpoint(ts, last=True)
-            ts, m = step(ts, batch, tr.step_generator(ts), draws=tcfm.LossDraws(**t["eval_draws"]))
+            ts, m = step(ts, batch, tr.step_key(ts), draws=tcfm.LossDraws(**t["eval_draws"]))
             got["next"] = {"loss": m.loss, "params": tstep.tree_map(
                 lambda x: x.detach(), tr.full_state(ts).params)}
         out[f"bnb_{name}"] = got
@@ -332,7 +333,7 @@ def ppg_mesh_steps(inp, out, root):
     batch = tr.device_batch(pmesh.shard_batch(p["batch"], tr.mesh))
     metrics, biases = [], []
     for draws in p["draws"]:
-        ts, m = step(ts, batch, tr.step_generator(ts), draws=tcfm.LossDraws(**draws))
+        ts, m = step(ts, batch, tr.step_key(ts), draws=tcfm.LossDraws(**draws))
         metrics.append((m.loss, m.grad_norm, m.skipped, m.align_loss, m.perplex_loss))
         biases.append([c["b"].detach().clone() for c in ts.params["ppg_embed"]["convs"]])
     full = tr.full_state(ts)
@@ -342,20 +343,45 @@ def ppg_mesh_steps(inp, out, root):
     branch = tdit._codebook_branch
 
     def spy(*args):
-        d = args[-1]
-        seen.append({"perm_text": d.perm_text, "perm_ppg": d.perm_ppg,
-                     "cross_apply": d.cross_apply})
+        _, _, r_perm_t, r_perm_p, r_cross = args[-2]
+        n = args[2].shape[1]
+        seen.append({"perm_text": tprng.permutation(r_perm_t, n),
+                     "perm_ppg": tprng.permutation(r_perm_p, n),
+                     "cross_apply": tprng.uniform(tprng.split(r_cross)[0], ())})
         return branch(*args)
 
     tdit._codebook_branch = spy
     try:
         with torch.no_grad(), tr.mesh_context():
             loss_with_device_mel(ts.params, tr.arch, tr.cfm, tr.model_cfg.mel, batch,
-                                 generator=tr.step_generator(ts), compute_dtype=torch.float32,
+                                 rng=tr.step_key(ts), compute_dtype=torch.float32,
                                  state=ts.model_state)
     finally:
         tdit._codebook_branch = branch
     out["ppg_fsdp2"] = {"metrics": metrics, "biases": biases, "batch_draws": seen, **got}
+
+
+def dropout_mesh_steps(inp, out, root):
+    """Two updates at dropout 0.1 under data 2 x model 2 from the reference
+    params, every draw from the step's key (nothing injected): each rank
+    draws its rows of the global batch's draws and its columns of the FF
+    hidden's masks. The losses and the full params after them."""
+    t = inp["train"]
+    model = ModelConfig(name="tiny", backbone="DiT",
+                        arch=DiTConfig(**{**t["arch"], "dropout": 0.1}),
+                        mel=MelConfig(**t["mel"]), cfm=CFMConfig())
+    tc = TrainConfig(**{**t["tc"], "mesh": MeshConfig(data=2, model=2),
+                        "save_dir": os.path.join(root, "dropout_dp2_tp2")})
+    tr = Trainer(model, tc, vocab_size=t["vocab"], tokenize=None, device="cpu")
+    ts = tr.init_state(t["total"], pretrained_path=t["pretrained"])
+    step = tr.make_step()
+    batch = tr.device_batch(pmesh.shard_batch(t["batch"], tr.mesh))
+    metrics = []
+    for _ in range(2):
+        ts, m = step(ts, batch, tr.step_key(ts))
+        metrics.append((m.loss, m.grad_norm))
+    out["dropout_dp2_tp2"] = {"metrics": metrics, "params": tstep.tree_map(
+        lambda x: x.detach(), tr.full_state(ts).params)}
 
 
 def bnb_checks(inp, out, root):
@@ -365,7 +391,7 @@ def bnb_checks(inp, out, root):
     step = tr.make_step()
     for draws in t["draws"]:
         ts, m = step(ts, tr.device_batch(pmesh.shard_batch(t["batch"], tr.mesh)),
-                     tr.step_generator(ts), draws=tcfm.LossDraws(**draws))
+                     tr.step_key(ts), draws=tcfm.LossDraws(**draws))
     full = tr.full_state(ts)
     tr.save_checkpoint(ts, last=True)
     back = tr.full_state(tr.load_checkpoint(tr.init_state(t["total"])))
@@ -427,6 +453,7 @@ def main():
             bnb_checks(inp, out, ckpts)
             bnb_mesh_steps(inp, out, ckpts)
             ppg_mesh_steps(inp, out, ckpts)
+            dropout_mesh_steps(inp, out, ckpts)
             preempt_resume(inp, out, ckpts)
             cli_run(inp, out)
     except Exception:

@@ -8,13 +8,13 @@ dim 32, PPG dim 16, 2 groups x 10 codes), fp32.
   lengths (the JAX grid is the input of both), the grid to 1e-4 relative.
 - `dit_forward` with the align loss, the perplexity loss and the cross mask
   on: pred and every extra, and the gradients of pred + extras against
-  jax.value_and_grad. The draws (PPG dropout keeps, gumbel uniforms,
-  permutations, cross-mask uniforms) repeat the JAX split order on the same
-  key (dit.py:476-533), dropout 0 in the trunk. Tolerances as the training tests':
+  jax.value_and_grad, each side drawing from the same key (the PPG dropout
+  keeps, gumbel uniforms, permutations and cross-mask uniforms; ops/prng.py),
+  dropout 0 in the trunk. Tolerances as the training tests':
   values rtol 1e-5 (atol 1e-6), gradients atol 1e-5 * max|grad| + rtol 1e-3.
 - `cfm_loss` in each of the four cells of the drop table (keep both, drop
   the text, drop the PPG, drop everything): loss, extras, new BatchNorm
-  state and gradients against the JAX function.
+  state and gradients against the JAX function, under one key.
 - Remat: with dropout 0.1 the loss and every gradient under each policy
   equal those without (bit for bit in fp32), and the kernel wrappers run as
   derived: under `block` K3 and K2 twice a block, under `save_attn` and
@@ -46,6 +46,7 @@ from f5e_tts_tpu_torch.models import cfm as tcfm
 from f5e_tts_tpu_torch.models import dit as tdit
 from f5e_tts_tpu_torch.ops import attention as tattn
 from f5e_tts_tpu_torch.ops import mas as tmas
+from f5e_tts_tpu_torch.ops import prng as tprng
 from f5e_tts_tpu_torch.ops import vq as tvq
 from f5e_tts_tpu_torch.train import step as tstep
 from f5e_tts_tpu_torch.utils.convert import dit_from_jax
@@ -120,20 +121,6 @@ def _dit_draws(key, arch_j, b=B, n=N) -> tdit.DiTDraws:
         perm_ppg=t(jax.random.permutation(r_perm_p, n)).long(),
         cross_apply=t(jax.random.uniform(r_apply)), cross_ratio=t(jax.random.uniform(r1, (b,))),
         cross_start=t(jax.random.uniform(r2, (b,))))
-
-
-def _loss_draws(key, arch_j) -> tcfm.LossDraws:
-    """The draws of f5e_tts_tpu cfm_loss for `key` (cfm.py:410-460), the
-    model's own from its key."""
-    r_frac, r_span, r_time, r_noise, r_drop1, r_drop2, r_model = jax.random.split(key, 7)
-    lo, hi = JCFMConfig().frac_lengths_mask
-    return tcfm.LossDraws(
-        frac=t(jax.random.uniform(r_frac, (B,), minval=lo, maxval=hi)),
-        span=t(jax.random.uniform(r_span, (B,))),
-        x0=t(jax.random.normal(r_noise, (B, N, 20), jnp.float32)),
-        time=t(jax.random.uniform(r_time, (B,), jnp.float32)),
-        u1=t(jax.random.uniform(r_drop1)), u2=t(jax.random.uniform(r_drop2)),
-        **_dit_draws(r_model, arch_j)._asdict())
 
 
 def _close_tree(got, want, rtol=1e-3, atol_frac=1e-5, floor=0.0):
@@ -248,7 +235,7 @@ def test_dit_forward_codebook_branch_value_and_grads_match_jax(model):
         params, arch_t, x=t(x), cond=t(cond), text_ids=t(inp["text_ids"]), time=t(time),
         drop_audio_cond=t(keep), drop_text=t(keep), drop_ppg=t(keep), ppg=t(inp["ppg"]),
         text_len=t(inp["text_lens"]), ppg_len=t(inp["ppg_lens"]), training=True, state=state,
-        vq_temperature=2.0, draws=_dit_draws(key, arch_j), compute_dtype=torch.float32,
+        vq_temperature=2.0, rng=tprng.prng_key(9), compute_dtype=torch.float32,
         return_extras=True)
     loss = (pred * t(cond)).mean() + ex.extra_loss
     loss.backward()
@@ -265,15 +252,14 @@ def test_dit_forward_codebook_branch_value_and_grads_match_jax(model):
 _JITTED: dict = {}  # the drop-table test's compiled JAX loss (its inputs are the module's)
 
 
-def _key_in_cell(lo: float, hi: float):
-    """The first PRNGKey(s) whose cfm_loss draws keep the audio (u1 >= 0.3)
-    and put u2 in [lo, hi)."""
+def _key_in_cell(lo: float, hi: float) -> int:
+    """The first seed s whose cfm_loss draws under PRNGKey(s) keep the audio
+    (u1 >= 0.3) and put u2 in [lo, hi)."""
     for s in range(1000):
-        key = jax.random.PRNGKey(s)
-        r_drop1, r_drop2 = jax.random.split(key, 7)[4:6]
+        r_drop1, r_drop2 = jax.random.split(jax.random.PRNGKey(s), 7)[4:6]
         u1, u2 = float(jax.random.uniform(r_drop1)), float(jax.random.uniform(r_drop2))
         if u1 >= 0.3 and lo <= u2 < hi:
-            return key
+            return s
     raise AssertionError("no key found")
 
 
@@ -283,7 +269,7 @@ def _key_in_cell(lo: float, hi: float):
 def test_cfm_loss_drop_table_cells_match_jax(model, cell, lo, hi):
     arch_j, arch_t, params_np, state_np = model
     inp = _inputs(3)
-    key = _key_in_cell(lo, hi)
+    seed = _key_in_cell(lo, hi)
 
     if "cells" not in _JITTED:  # one compile serves the four cells: the key is an argument
         def loss_j(p, key):
@@ -297,11 +283,11 @@ def test_cfm_loss_drop_table_cells_match_jax(model, cell, lo, hi):
             return out.loss, out
 
         _JITTED["cells"] = jax.jit(jax.value_and_grad(loss_j, has_aux=True))
-    (want, out_j), grads_j = _JITTED["cells"](params_np, key)
+    (want, out_j), grads_j = _JITTED["cells"](params_np, jax.random.PRNGKey(seed))
     params, state = _torch_params(params_np, state_np, arch_t)
     out = tcfm.cfm_loss(params, arch_t, CFMConfig(), mel=t(inp["mel"]),
                         mel_lens=t(inp["mel_lens"]), text_ids=t(inp["text_ids"]),
-                        draws=_loss_draws(key, arch_j), compute_dtype=torch.float32, state=state,
+                        rng=tprng.prng_key(seed), compute_dtype=torch.float32, state=state,
                         text_lens=t(inp["text_lens"]), ppg=t(inp["ppg"]),
                         ppg_lens=t(inp["ppg_lens"]), vq_temperature=2.0)
     out.loss.backward()
@@ -349,7 +335,7 @@ def test_remat_equals_no_remat_with_dropout(model, policy, monkeypatch):
         calls.update(attn=0, adaln=0)
         out = tcfm.cfm_loss(params, arch, CFMConfig(), mel=t(inp["mel"]),
                             mel_lens=t(inp["mel_lens"]), text_ids=t(inp["text_ids"]),
-                            generator=torch.Generator().manual_seed(5),
+                            rng=tprng.prng_key(5),
                             draws=tcfm.LossDraws(u1=torch.tensor(0.9), u2=torch.tensor(0.1)),
                             compute_dtype=torch.float32, state=state,
                             text_lens=t(inp["text_lens"]), ppg=t(inp["ppg"]),
@@ -365,10 +351,10 @@ def test_remat_equals_no_remat_with_dropout(model, policy, monkeypatch):
     assert calls_on == {"attn": (2 if policy == "block" else 1) * depth, "adaln": 2 * depth}
     assert torch.equal(remat.loss, base.loss) and float(base.extra_loss) > 0
     assert len(grads) == len(grads_r) and all(torch.equal(a, b) for a, b in zip(grads, grads_r))
-    # dropout acted: another generator gives another loss
+    # dropout acted: another key gives another loss
     other = tcfm.cfm_loss(*_torch_params(params_np, state_np, arch_t)[:1], arch_t, CFMConfig(),
                           mel=t(inp["mel"]), mel_lens=t(inp["mel_lens"]),
-                          text_ids=t(inp["text_ids"]), generator=torch.Generator().manual_seed(6),
+                          text_ids=t(inp["text_ids"]), rng=tprng.prng_key(6),
                           draws=tcfm.LossDraws(u1=torch.tensor(0.9), u2=torch.tensor(0.1)),
                           compute_dtype=torch.float32, state=_torch_params(
                               params_np, state_np, arch_t)[1], text_lens=t(inp["text_lens"]),
@@ -383,6 +369,6 @@ def test_unknown_remat_policy_raises(model):
     inp = _inputs()
     with pytest.raises(ValueError, match="remat_policy"):
         tcfm.cfm_loss(params, arch, CFMConfig(), mel=t(inp["mel"]), mel_lens=t(inp["mel_lens"]),
-                      text_ids=t(inp["text_ids"]), generator=torch.Generator().manual_seed(0),
+                      text_ids=t(inp["text_ids"]), rng=tprng.prng_key(0),
                       compute_dtype=torch.float32, state=state, text_lens=t(inp["text_lens"]),
                       ppg=t(inp["ppg"]), ppg_lens=t(inp["ppg_lens"]))

@@ -27,8 +27,9 @@ from f5e_tts_tpu.config import MelConfig as JMelConfig
 from f5e_tts_tpu.models import dit as jdit
 from f5e_tts_tpu.train import trainer as jtrainer
 from f5e_tts_tpu_torch.config import CFMConfig, MelConfig
+from f5e_tts_tpu_torch.ops import prng as tprng
 from f5e_tts_tpu_torch.train import trainer as ttrainer
-from tests.test_torch_codebook import (VOCAB, _close_grads, _inputs, _key_in_cell, _loss_draws,
+from tests.test_torch_codebook import (VOCAB, _close_grads, _inputs, _key_in_cell,
                                        _randomized, _torch_params, configs, t)
 
 
@@ -50,19 +51,19 @@ def test_trainer_loss_uses_the_jax_trainers_temperature():
                             "var": (1 + 0.2 * rng.random(16)).astype(np.float32),
                             "count": np.asarray(3, np.int32)} for _ in range(3)]}
     batch = _inputs(4)
-    key = _key_in_cell(0.0, 0.3)  # both codebook branches kept
+    seed = _key_in_cell(0.0, 0.3)  # both codebook branches kept
 
     def loss_j(p):
         out = jtrainer.loss_with_device_mel(
             p, jax.tree.map(jnp.asarray, state_np), arch_j, JCFMConfig(), JMelConfig(),
-            {k: jnp.asarray(v) for k, v in batch.items()}, key, jnp.float32)
+            {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(seed), jnp.float32)
         return out.loss, out
 
     (want, out_j), grads_j = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(params_np)
     params, state = _torch_params(params_np, state_np, arch_t)
     out = ttrainer.loss_with_device_mel(params, arch_t, CFMConfig(), MelConfig(),
                                         {k: t(v) for k, v in batch.items()},
-                                        draws=_loss_draws(key, arch_j),
+                                        rng=tprng.prng_key(seed),
                                         compute_dtype=torch.float32, state=state)
     out.loss.backward()
     assert out.extra_loss.item() > 0  # the codebook branches ran

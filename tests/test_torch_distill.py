@@ -1,9 +1,9 @@
 """CFG distillation in the port against the JAX package on the CPU: the
 loss, `init_distill` / `make_distill_step`, the Trainer's teacher route and
 the distillation and finetune CLIs, on a tiny DiT (dim 32, depth 2, 2 x 16
-heads, mel 8), fp32, dropout 0, with the JAX step's draws injected (torch
-cannot reproduce JAX's PRNG streams; the test repeats the JAX split order of
-f5e_tts_tpu/train/distill.py:80-81 and cfm.py:410-429 on the same key).
+heads, mel 8), fp32, dropout 0, each side drawing from the same key
+(ops/prng.py: JAX's threefry; distill.py:66's split and the Trainer's
+fold_in of the micro-steps consumed).
 
 - `cfg_distill_loss` at cfg 2: the loss (rtol 1e-5), the teacher's flow
   (atol 1e-5) and every student gradient (atol 1e-5 * max|grad| + rtol
@@ -18,7 +18,7 @@ f5e_tts_tpu/train/distill.py:80-81 and cfm.py:410-429 on the same key).
 - `distill_cli.main` (--device cpu) through `Trainer.set_teacher` (a
   checkpoint path in both packages) and the distill route against the JAX
   CLI and Trainer in distill mode (tests/test_distill.py:100,
-  tests/test_train_cli.py:127), over the same data, checkpoint and draws:
+  tests/test_train_cli.py:127), over the same data, checkpoint and seed:
   two updates at cfg 2, the losses within 1e-5 relative, then 1e-4 after
   an update; the teacher bit for bit the file's weights after the steps,
   sharing no storage with the student; the student's model_last re-ingests.
@@ -50,7 +50,7 @@ from f5e_tts_tpu.train import distill as jdist
 from f5e_tts_tpu.utils.torch_ckpt import dit_to_torch
 from f5e_tts_tpu_torch import config as tconfig
 from f5e_tts_tpu_torch.config import CFMConfig, DiTConfig
-from f5e_tts_tpu_torch.models import cfm as tcfm
+from f5e_tts_tpu_torch.ops import prng as tprng
 from f5e_tts_tpu_torch.train import distill as tdist
 from f5e_tts_tpu_torch.train import step as tstep
 from f5e_tts_tpu_torch.train import trainer as ttrainer
@@ -95,17 +95,6 @@ def _batch(seed=0):
     return mel, np.asarray([N, 20, 16], np.int32), ids
 
 
-def distill_draws(key, b, n, mel_dim, cfm) -> tcfm.LossDraws:
-    """The draws of f5e_tts_tpu.train.distill.cfg_distill_loss for `key`."""
-    r_frac, r_span, r_time, r_noise, _ = jax.random.split(key, 5)
-    lo, hi = cfm.frac_lengths_mask
-    a = lambda x: t(np.array(x))  # noqa: E731
-    return tcfm.LossDraws(frac=a(jax.random.uniform(r_frac, (b,), minval=lo, maxval=hi)),
-                          span=a(jax.random.uniform(r_span, (b,))),
-                          x0=a(jax.random.normal(r_noise, (b, n, mel_dim), jnp.float32)),
-                          time=a(jax.random.uniform(r_time, (b,), jnp.float32)))
-
-
 def _close_trees(got, want, rtol, atol_frac):
     for g, w in zip(tstep.tree_leaves(got), tstep.tree_leaves(want)):
         w = w.numpy()
@@ -145,7 +134,7 @@ def test_cfg_distill_loss_flow_and_grads_match_jax(model, jax_distill, cfg):
     sp = tstep.tree_map(lambda x: x.requires_grad_(True), dit_from_jax(student, arch_t))
     tp = dit_from_jax(teacher, arch_t)
     out = tdist.cfg_distill_loss(sp, tp, arch_t, CFMConfig(), mel=t(mel), mel_lens=t(lens),
-                                 text_ids=t(ids), draws=distill_draws(key, B, N, 8, JCFMConfig()),
+                                 text_ids=t(ids), rng=tprng.prng_key(7),
                                  cfg_strength=cfg, training=True, compute_dtype=torch.float32)
     out.loss.backward()
     np.testing.assert_allclose(out.teacher_flow.numpy(), np.asarray(flow_j), atol=1e-5)
@@ -196,8 +185,7 @@ def test_make_distill_step_matches_jax_and_keeps_the_teacher(model, jax_distill)
         key = jax.random.PRNGKey(100 + i)
         (loss_j, _), grads_j = jax_distill(sp_j, teacher, key, 2.0)
         sp_j = jax.tree.map(lambda p, g: p - 0.1 * g, sp_j, grads_j)
-        ds_t, m = step_t(ds_t, t(mel), t(lens), t(ids),
-                         draws=distill_draws(key, B, N, 8, JCFMConfig()))
+        ds_t, m = step_t(ds_t, t(mel), t(lens), t(ids), rng=tprng.prng_key(100 + i))
         np.testing.assert_allclose(m.loss, float(loss_j), rtol=1e-5)
     assert ds_t.update == 3
     for g, w in zip(tstep.tree_leaves(ds_t.params),
@@ -232,42 +220,14 @@ def _rows(n=6, sr=8000):
     return rows
 
 
-def _jax_key_draws(seed, b, n, cfm, distill=True):
-    """draws(ts) of the JAX Trainer's step for (micro + skipped) of ts."""
-    def draws(ts):
-        key = jax.random.fold_in(jax.random.PRNGKey(seed), ts.micro + ts.skipped)
-        if distill:
-            return distill_draws(key, b, n, 8, cfm)
-        r_frac, r_span, r_time, r_noise, r_d1, r_d2, _ = jax.random.split(key, 7)
-        lo, hi = cfm.frac_lengths_mask
-        a = lambda x: t(np.array(x))  # noqa: E731
-        return tcfm.LossDraws(frac=a(jax.random.uniform(r_frac, (b,), minval=lo, maxval=hi)),
-                              span=a(jax.random.uniform(r_span, (b,))),
-                              x0=a(jax.random.normal(r_noise, (b, n, 8), jnp.float32)),
-                              time=a(jax.random.uniform(r_time, (b,), jnp.float32)),
-                              u1=a(jax.random.uniform(r_d1)), u2=a(jax.random.uniform(r_d2)))
-    return draws
-
-
-def _recording(base, seen, draws_of=None):
-    """A Trainer subclass that logs (update, loss) into `seen` and, with
-    `draws_of`, injects the JAX step's draws (the batch's shape decides b, n)."""
+def _recording(base, seen):
+    """A Trainer subclass that logs (update, loss) into `seen`."""
 
     class Recording(base):
         def __post_init__(self):
             inner = self.log_fn
             self.log_fn = lambda m, u: (seen.append((u, m["loss"])), inner and inner(m, u))
             super().__post_init__()
-
-        if draws_of is not None:
-            def make_step(self):
-                step, seed, cfm = super().make_step(), self.train_cfg.seed, self.cfm
-
-                def with_jax_draws(ts, batch, generator, draws=None):
-                    b, n = batch["audio"].shape[0], batch["audio"].shape[1] // 64
-                    return step(ts, batch, generator, draws_of(seed, b, n, cfm)(ts))
-
-                return with_jax_draws
 
     return Recording
 
@@ -361,7 +321,7 @@ def test_trainer_set_teacher_and_distill_cli_match_the_jax_cli(tmp_path, model, 
     monkeypatch.setattr(jtrainer, "Trainer", _recording(jtrainer.Trainer, seen_j))
     trainers = []
 
-    class Kept(_recording(ttrainer.Trainer, seen_t, _jax_key_draws)):
+    class Kept(_recording(ttrainer.Trainer, seen_t)):
         def set_teacher(self, teacher, cfg_strength=None):
             super().set_teacher(teacher, cfg_strength)
             trainers.append(self)
@@ -416,9 +376,7 @@ def test_finetune_cli_matches_the_jax_cli(tmp_path, model, monkeypatch):
                         functools.partial(tconfig.TrainConfig, compute_dtype="float32"))
     seen_j, seen_t = [], []
     monkeypatch.setattr(jtrainer, "Trainer", _recording(jtrainer.Trainer, seen_j))
-    monkeypatch.setattr(ttrainer, "Trainer",
-                        _recording(ttrainer.Trainer, seen_t,
-                                   functools.partial(_jax_key_draws, distill=False)))
+    monkeypatch.setattr(ttrainer, "Trainer", _recording(ttrainer.Trainer, seen_t))
     args = ["--dataset_name", "Toy", "--data_dir", data_dir, "--tokenizer", "byte", "--finetune",
             "--pretrain", ckpt, "--learning_rate", "1e-3", "--batch_size_per_gpu", "300",
             "--max_samples", "2", "--num_warmup_updates", "2", "--epochs", "1",

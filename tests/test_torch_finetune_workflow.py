@@ -23,6 +23,7 @@ from f5e_tts_tpu.train import finetune_gradio as jfg
 from f5e_tts_tpu_torch.config import DiTConfig
 from f5e_tts_tpu_torch.infer.audio import write_wav
 from f5e_tts_tpu_torch.models import dit as tdit
+from f5e_tts_tpu_torch.ops import prng as tprng
 from f5e_tts_tpu_torch.train import finetune_gradio as tfg
 from f5e_tts_tpu_torch.utils.convert import dit_to_reference_state_dict, load_state_dict
 from f5e_tts_tpu_torch.utils.text import load_vocab_file
@@ -97,7 +98,7 @@ def ckpt(tmp_path_factory):
     """A tiny DiT's EMA export, as a training run writes it."""
     cfg = DiTConfig(dim=32, depth=1, heads=1, dim_head=32, ff_mult=2, mel_dim=8, text_dim=16,
                     conv_layers=0, dropout=0.0)
-    params = tdit.init_dit(cfg, 10, torch.Generator().manual_seed(0))
+    params = tdit.init_dit(cfg, 10, tprng.prng_key(0))
     sd = {k: v.numpy() for k, v in dit_to_reference_state_dict(params, cfg).items()}
     path = str(tmp_path_factory.mktemp("ckpt") / "in.safetensors")
     save_file({f"ema_model.{k}": v for k, v in sd.items()}, path)

@@ -28,6 +28,7 @@ from f5e_tts_tpu_torch.kernels import gated_adaln as ga
 from f5e_tts_tpu_torch.kernels import rope_attention as ra
 from f5e_tts_tpu_torch.models.cfm import pruned_sway_timesteps
 from f5e_tts_tpu_torch.models.dit import fuse_qkv, init_dit
+from f5e_tts_tpu_torch.ops import prng
 from f5e_tts_tpu_torch.utils.aot import capture_sampler_buckets
 
 pytestmark = pytest.mark.gpu
@@ -43,7 +44,7 @@ def engine():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = init_dit(ARCH, 256, gen, "cuda")
+    params = init_dit(ARCH, 256, prng.prng_key(0), "cuda")
     for blk in params["blocks"]:  # AdaLN-zero would make every block an identity
         blk["attn_norm"]["w"].normal_(0.0, 0.02, generator=gen)
     params["proj_out"]["w"].normal_(0.0, 0.02, generator=gen)
@@ -205,7 +206,7 @@ def test_unett_engine_replay_gives_the_eager_bits():
 
     arch = UNetTConfig(dim=256, depth=4, heads=4, dim_head=64, ff_mult=2, mel_dim=100,
                        dropout=0.0)
-    params = fbb.init_backbone(arch, 256, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    params = fbb.init_backbone(arch, 256, prng.prng_key(0), "cuda")
     engine = TTSEngine(params=fbb.fuse_qkv(_cast(params, torch.bfloat16), arch), arch=arch,
                        vocab=None, infer_cfg=InferConfig(nfe_steps=NFE, max_duration=1024),
                        compute_dtype=torch.bfloat16, buckets=(256, 512), device="cuda")
@@ -237,7 +238,7 @@ def test_ppg_model_engine_replay_gives_the_eager_bits():
                      text_mask_padding=False, ppg=PPGConfig(use_ppg=True, ppg_dim=64),
                      codebook=CodebookConfig(use_codebook=True))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params, state = init_dit(arch, 256, gen, "cuda")
+    params, state = init_dit(arch, 256, prng.prng_key(0), "cuda")
     for blk in params["blocks"]:
         blk["attn_norm"]["w"].normal_(0.0, 0.02, generator=gen)
     params["proj_out"]["w"].normal_(0.0, 0.02, generator=gen)
@@ -335,7 +336,7 @@ def test_mmdit_engine_replays_the_eager_bits_at_its_text_length():
 
     arch = MMDiTConfig(depth=2)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = init_mmdit(arch, 256, gen, "cuda")
+    params = init_mmdit(arch, 256, prng.prng_key(0), "cuda")
     for blk in (*params["blocks"], params["final_block"]):  # AdaLN-zero: seed the modulation
         for name in ("attn_norm_x", "attn_norm_c"):
             blk[name]["w"].normal_(0.0, 0.02, generator=gen)

@@ -37,6 +37,7 @@ from f5e_tts_tpu_torch.kernels import rope_attention as ra
 from f5e_tts_tpu_torch.models import dit as tdit
 from f5e_tts_tpu_torch.ops import attention as tattn
 from f5e_tts_tpu_torch.ops import nn as tnn
+from f5e_tts_tpu_torch.ops import prng as tprng
 from f5e_tts_tpu_torch.ops.rope import rotary_cos_sin_half
 from f5e_tts_tpu_torch.train import step as tstep
 from f5e_tts_tpu_torch.utils.convert import dit_from_jax
@@ -151,7 +152,7 @@ def test_unfused_route_and_its_counter(monkeypatch):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
 
     # joint attention (the MMDiT's) at head width 32, with and without a mask
-    jp2 = tattn.joint_attention_init(64, 48, 2, 32, gen)
+    jp2 = tattn.joint_attention_init(64, 48, 2, 32, tprng.prng_key(4))
     c = torch.randn((2, 9, 48), generator=gen)
     for m in (mask, None):
         xo, co = tattn.joint_attention(jp2, x.detach(), c, 2, mask=m, compute_dtype=torch.float32)

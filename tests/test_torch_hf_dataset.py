@@ -21,7 +21,6 @@ import dataclasses
 import json
 import os
 
-import jax
 import numpy as np
 import pytest
 
@@ -30,7 +29,7 @@ from f5e_tts_tpu.data import dataset as jdata
 from f5e_tts_tpu_torch import config as tconfig
 from f5e_tts_tpu_torch.data import dataset as tdata
 from f5e_tts_tpu_torch.train import trainer as ttrainer
-from tests.test_torch_train_cli import _draws, _pretrained, _write_yaml
+from tests.test_torch_train_cli import _pretrained, _write_yaml
 
 MEL_KW = dict(n_fft=256, hop_length=64, win_length=256, n_mel_channels=8, target_sample_rate=8000)
 SECONDS = (0.5, 0.2, 0.8, 31.0, 0.6, 0.25)  # two too short and one too long to train on
@@ -159,16 +158,6 @@ def test_train_cli_on_an_hf_dataset_matches_jax_cli(tmp_path, monkeypatch):
             inner = self.log_fn
             self.log_fn = lambda m, u: (seen["port"].append(m["loss"]), inner(m, u))
             super().__post_init__()
-
-        def make_step(self):
-            step, cfm, seed = super().make_step(), self.cfm, self.train_cfg.seed
-
-            def with_jax_draws(ts, batch, generator, draws=None):
-                key = jax.random.fold_in(jax.random.PRNGKey(seed), ts.micro + ts.skipped)
-                b, n = batch["audio"].shape[0], batch["audio"].shape[1] // 64
-                return step(ts, batch, generator, _draws(key, b, n, 8, cfm))
-
-            return with_jax_draws
 
     monkeypatch.setattr(jtrainer, "Trainer", JRecording)
     monkeypatch.setattr(ttrainer, "Trainer", TRecording)

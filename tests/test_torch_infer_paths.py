@@ -39,6 +39,7 @@ from f5e_tts_tpu_torch.infer import pipeline as tpipe
 from f5e_tts_tpu_torch.models import cfm as tcfm
 from f5e_tts_tpu_torch.models import dit as tdit
 from f5e_tts_tpu_torch.ops import nn as tnn
+from f5e_tts_tpu_torch.ops import prng as tprng
 from f5e_tts_tpu_torch.utils import aot as taot
 from f5e_tts_tpu_torch.utils import text as ttext
 from f5e_tts_tpu_torch.utils.convert import dit_from_jax
@@ -256,7 +257,7 @@ def device_vocoder():
 
 @pytest.fixture(scope="module")
 def tiny_params():
-    params = tdit.init_dit(ARCH, len(VOCAB), torch.Generator().manual_seed(0))
+    params = tdit.init_dit(ARCH, len(VOCAB), tprng.prng_key(0))
     params["proj_out"]["w"] = 0.05 * torch.randn(params["proj_out"]["w"].shape,
                                                  generator=torch.Generator().manual_seed(9))
     return params

@@ -708,3 +708,75 @@ def test_head_width_32_takes_the_unfused_route(cuda):
     assert _counts16() == before16 and _counts32() == before32
     assert (got.cpu() - want).abs().max().item() <= 1e-5
     assert torch.isfinite(xc.grad).all()
+
+
+# ---------------------------------------------------------------------------
+# the threefry kernel (kernels/threefry.py) against its plain versions
+# (ops/prng.py), on the card and on the CPU: bit for bit
+# ---------------------------------------------------------------------------
+
+THREEFRY_CASES = [  # (shape, global shape, offset)
+    ((1,), None, None),  # one element
+    ((3, 5, 7), None, None),  # 105: not a multiple of the vector width
+    ((7, 13), (9, 40), (2, 27)),  # a ragged block inside a larger array
+    ((3, 2, 3), (2**20, 2**7, 2**9), (2**19 + 5, 100, 400)),  # counters past 2^32
+    ((2, 64, 1024), (8, 64, 1024), (4, 0, 0)),  # a rank's rows of a batch
+    ((2, 64, 512), (2, 64, 2048), (0, 0, 1024)),  # a rank's columns of an FF hidden
+]
+
+
+def _threefry_key(seed):
+    from f5e_tts_tpu_torch.ops import prng
+
+    return prng.fold_in(prng.prng_key(seed), 7)
+
+
+@pytest.mark.parametrize("shape,glob,off", THREEFRY_CASES, ids=str)
+def test_threefry_kernel_matches_its_twins_bitwise(cuda, shape, glob, off):
+    from f5e_tts_tpu_torch.kernels import threefry as tf
+    from f5e_tts_tpu_torch.ops import prng
+
+    key = _threefry_key(len(shape) + shape[0])
+    ckey = key.cuda()
+    for lo, hi in ((0.0, 1.0), (1e-10, 1.0), (-0.125, 0.125), (-2.0, 3.0)):
+        u = tf.uniform(key, shape, "cuda", lo, hi, glob, off)
+        assert torch.equal(u.view(torch.int32), prng.uniform(ckey, shape, lo, hi, glob,
+                                                             off).view(torch.int32))
+        assert torch.equal(u.cpu().view(torch.int32),
+                           prng.uniform(key, shape, lo, hi, glob, off).view(torch.int32))
+    assert torch.equal(tf.normal(key, shape, "cuda", glob, off),
+                       prng.normal(ckey, shape, glob, off))
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+        for rate in (0.1, 0.5):
+            got = tf.dropout(key, x, rate, glob, off)
+            assert got.dtype == dtype
+            assert torch.equal(got, prng.dropout(ckey, x, rate, glob, off))
+            assert torch.equal(got.cpu(), prng.dropout(key, x.cpu(), rate, glob, off))
+
+
+def test_threefry_dropout_backward_redraws_the_mask(cuda):
+    from f5e_tts_tpu_torch.kernels import threefry as tf
+    from f5e_tts_tpu_torch.ops import prng
+
+    key = _threefry_key(1)
+    x = torch.randn((4, 96, 1024), generator=cuda, device="cuda").bfloat16().requires_grad_(True)
+    g = torch.randn((4, 96, 1024), generator=cuda, device="cuda").bfloat16()
+    fwd, bwd = tf.dropout_launches, tf.dropout_bwd_launches
+    y = tf.ThreefryDropout.apply(x, key, 0.1, None, None)
+    y.backward(g)
+    assert (tf.dropout_launches, tf.dropout_bwd_launches) == (fwd + 1, bwd + 1)
+    assert torch.equal(x.grad, prng.dropout(key.cuda(), g, 0.1))
+    assert torch.equal(y, prng.dropout(key.cuda(), x.detach(), 0.1))
+
+
+def test_threefry_kernel_refuses_what_it_does_not_take(cuda):
+    from f5e_tts_tpu_torch.kernels import threefry as tf
+
+    key = _threefry_key(2)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        tf.dropout(key, torch.ones(8, device="cuda", dtype=torch.float16), 0.1)
+    with pytest.raises(ValueError, match="one key"):
+        tf.uniform(key[None], (4,), "cuda")
+    with pytest.raises(ValueError, match="three dims"):
+        tf.uniform(key, (2, 2, 2, 2), "cuda", 0.0, 1.0, (2, 4, 2, 2), (0, 1, 0, 0))

@@ -42,6 +42,7 @@ from f5e_tts_tpu_torch.models import backbone as tbb
 from f5e_tts_tpu_torch.models import cfm as tcfm
 from f5e_tts_tpu_torch.models import mmdit as tmmdit
 from f5e_tts_tpu_torch.ops import attention as tattn
+from f5e_tts_tpu_torch.ops import prng as tprng
 from f5e_tts_tpu_torch.train import step as tstep
 from f5e_tts_tpu_torch.train.trainer import Trainer
 from f5e_tts_tpu_torch.utils.convert import (backbone_from_reference_state_dict,
@@ -51,7 +52,6 @@ from f5e_tts_tpu_torch.utils.convert import (backbone_from_reference_state_dict,
 from f5e_tts_tpu_torch.utils.text import list_str_to_idx
 from tests.test_parity_mmdit import mmdit_forward_torch
 from tests.test_torch_convert import _flat
-from tests.test_torch_training import _draws_from_key  # B, N and mel_dim are the same here
 
 TINY = dict(dim=64, depth=3, heads=2, dim_head=32, ff_mult=2, mel_dim=20, dropout=0.0)
 VOCAB = 16
@@ -170,7 +170,7 @@ def test_joint_attention_matches_jax(masked, qk_norm, pre_only):
 
 
 def test_joint_attention_init_shapes():
-    p = tattn.joint_attention_init(64, 48, 2, 32, torch.Generator().manual_seed(0),
+    p = tattn.joint_attention_init(64, 48, 2, 32, tprng.prng_key(0),
                                    context_pre_only=True, qk_norm="rms_norm")
     want = jattn.joint_attention_init(jax.random.PRNGKey(0), 64, 48, 2, 32,
                                       context_pre_only=True, qk_norm="rms_norm")
@@ -253,7 +253,7 @@ def test_backbone_dispatch_kinds():
     assert tbb.backbone_kind(UNetTConfig()) == "unett"
     with pytest.raises(TypeError):
         tbb.backbone_kind(object())
-    params = tbb.init_backbone(MMDiTConfig(**TINY), VOCAB, torch.Generator().manual_seed(0))
+    params = tbb.init_backbone(MMDiTConfig(**TINY), VOCAB, tprng.prng_key(0))
     want, _ = jmmdit.init_mmdit(jax.random.PRNGKey(0), JMMDiTConfig(**TINY), VOCAB)
     want = _flat(mmdit_from_jax(jax.tree.map(np.asarray, want), MMDiTConfig(**TINY)))
     got = _flat(params)
@@ -308,7 +308,7 @@ def test_cfm_loss_and_grads_with_mmdit_match_jax(model, cfm_kw):
     params = tstep.tree_map(lambda t: t.requires_grad_(True), mmdit_from_jax(params_np, arch_t))
     out = tcfm.cfm_loss(params, arch_t, cfm_t, mel=torch.from_numpy(mel),
                         mel_lens=torch.from_numpy(mel_lens), text_ids=torch.from_numpy(ids),
-                        draws=_draws_from_key(key, cfm_j), compute_dtype=torch.float32)
+                        rng=tprng.prng_key(3), compute_dtype=torch.float32)
     out.loss.backward()
     np.testing.assert_allclose(out.loss.item(), float(want), rtol=1e-5)
     _assert_tree_close(tstep.tree_map(lambda t: t.grad, params),
@@ -329,8 +329,7 @@ def test_mmdit_loaders_and_export_match_jax(qk_norm, tmp_path):
     via_ref = _flat(mmdit_from_reference_state_dict(sd, arch_t))
     assert direct.keys() == via_ref.keys()
     # the loader keeps init_mmdit's leaf order, so two trees compare leaf by leaf
-    assert list(via_ref) == list(_flat(tmmdit.init_mmdit(arch_t, VOCAB,
-                                                         torch.Generator().manual_seed(0))))
+    assert list(via_ref) == list(_flat(tmmdit.init_mmdit(arch_t, VOCAB, tprng.prng_key(0))))
     for k in direct:
         assert direct[k].dtype == via_ref[k].dtype == torch.float32, k
         assert torch.equal(direct[k], via_ref[k]), k

@@ -42,6 +42,7 @@ from f5e_tts_tpu.ops.ring_attention import ring_attention as jring
 from f5e_tts_tpu.ops.rope import rotary_cos_sin_half
 from f5e_tts_tpu_torch.config import DiTConfig
 from f5e_tts_tpu_torch.models import dit as tdit
+from f5e_tts_tpu_torch.ops import prng as tprng
 from f5e_tts_tpu_torch.utils.convert import dit_from_jax
 from tests._torch_parallel_worker import collect, launch
 
@@ -127,7 +128,7 @@ def _port_forwards(dit_t, dit):
     out = {}
     for name, kw in (("dit_peNone", {}), ("dit_pe1", {"pe_attn_head": 1}),
                      ("dit_dropout", {"dropout": 0.3})):
-        train = dict(training=True, generator=torch.Generator().manual_seed(5)) if kw.get(
+        train = dict(training=True, rng=tprng.prng_key(5)) if kw.get(
             "dropout") else {}
         with torch.no_grad():
             out[name] = tdit.dit_forward(

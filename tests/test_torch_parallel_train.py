@@ -458,7 +458,7 @@ def test_8bit_model_last_under_fsdp_resumes_in_one_process(world, tmp_path):
         want = tstep.tree_leaves(got[f"{which}_q"])
         have = tstep.tree_leaves(getattr(ts.opt_state, which))
         assert len(have) == len(want) and all(torch.equal(a, b) for a, b in zip(have, want))
-    ts, m = tr.make_step()(ts, tr.device_batch(batch), tr.step_generator(ts),
+    ts, m = tr.make_step()(ts, tr.device_batch(batch), tr.step_key(ts),
                            draws=tcfm.LossDraws(**eval_draws))
     np.testing.assert_allclose(m.loss, got["next"]["loss"], rtol=1e-6)
     _tree_close(ts.params, got["next"]["params"], 2e-6)
@@ -505,7 +505,7 @@ def test_ppg_codebook_dit_under_fsdp_matches_jax(world):
 
 def test_codebook_batch_draws_are_the_same_on_every_rank(world):
     """With no injected draws, the permutations and the cross mask's coin come
-    from the generator every rank shares (models/cfm.py: _local_dit_draws)."""
+    from the key every rank shares (models/dit.py: _codebook_branch)."""
     _, outs, *_ = world
     seen = [out["ppg_fsdp2"]["batch_draws"] for out in outs]
     assert all(len(s) == 1 for s in seen)
@@ -514,6 +514,37 @@ def test_codebook_batch_draws_are_the_same_on_every_rank(world):
     for s in seen[1:]:
         for k, v in first.items():
             assert torch.equal(s[0][k], v), k
+
+
+def test_dropout_under_data_and_model_matches_one_process(world, tmp_path):
+    """Dropout 0.1 under data 2 x model 2, every draw from the step's key:
+    each rank's rows of the loss's draws and of the attention output's
+    masks, and its columns of the FF hidden's, make the update of the
+    unsharded run in one process (the losses 1e-5 relative, the params 2e-6,
+    as the mesh steps above). The mesh's warmup is scaled by its data x
+    fsdp replicas (2), as JAX's, so the one-process run's is set to 2."""
+    _, outs, root, batch, *_ = world
+    model = ModelConfig(name="tiny", backbone="DiT", arch=DiTConfig(**{**ARCH, "dropout": 0.1}),
+                        mel=MelConfig(**MEL), cfm=CFMConfig())
+    tc = TrainConfig(**{**TC, "num_warmup_updates": 2 * TC["num_warmup_updates"]},
+                     save_dir=str(tmp_path))
+    tr = Trainer(model, tc, vocab_size=VOCAB, tokenize=None, device="cpu")
+    ts = tr.init_state(TOTAL, pretrained_path=str(root / "pretrained.pt"))
+    step = tr.make_step()
+    want = []
+    for _ in range(2):
+        ts, m = step(ts, tr.device_batch(batch), tr.step_key(ts))
+        want.append((m.loss, m.grad_norm))
+    for rank in range(WORLD):
+        got = outs[rank]["dropout_dp2_tp2"]
+        np.testing.assert_allclose(np.asarray(got["metrics"]), np.asarray(want), rtol=1e-5)
+    _tree_close(outs[0]["dropout_dp2_tp2"]["params"], tstep.tree_map(
+        lambda x: x.detach(), ts.params), 2e-6)
+    # dropout acted: the run at dropout 0 from the same key differs
+    plain = _port_trainer(str(tmp_path / "plain"))
+    ts0 = plain.init_state(TOTAL, pretrained_path=str(root / "pretrained.pt"))
+    _, m0 = plain.make_step()(ts0, plain.device_batch(batch), plain.step_key(ts0))
+    assert abs(m0.loss - want[0][0]) > 1e-4
 
 
 def test_preemption_and_resume_across_ranks(world):

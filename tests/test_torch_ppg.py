@@ -1,6 +1,6 @@
 """The F5E model's PPG conditioning in the port against the JAX package on
 the CPU, at a tiny PPG + codebook DiT (dim 64, depth 2, heads 2 x 32, text
-dim 32, PPG dim 16), fp32, noise and draws injected from the JAX keys.
+dim 32, PPG dim 16), fp32, each side drawing its noise and draws from one key.
 
 - `batchnorm` in training (batch statistics over (B, N), the running
   statistics moved with the unbiased variance, count + 1) and in eval:
@@ -13,7 +13,8 @@ dim 32, PPG dim 16), fp32, noise and draws injected from the JAX keys.
   sampler tolerance).
 - `synthesize_chunk(mode="vc")` hands `sample_vc` the chunk's inputs and
   PPG and never a captured engine; plain CFG with a PPG runs eagerly too.
-- `train_step` over the PPG model against the JAX step, with a NaN
+- `train_step` over the PPG model against the JAX step under one key (its
+  PPG dropout, gumbel noise and permutations drawn on each side), with a NaN
   micro-step: params, EMA and the BatchNorm state to atol 2e-6, the state
   untouched by the NaN step.
 - The Trainer with a stub extractor over `with_16k_audio` batches: the
@@ -165,7 +166,7 @@ def test_ppg_embed_fn_matches_jax(model, np_len, training, none):
 
 def test_init_dit_shapes_match_jax(model):
     arch_j, arch_t, params_np, _ = model
-    made = tdit.init_dit(arch_t, VOCAB, torch.Generator().manual_seed(0))
+    made = tdit.init_dit(arch_t, VOCAB, tprng.prng_key(0))
     params, state = tbb.split_state(arch_t, made)
     want, want_state = jdit.init_dit(jax.random.PRNGKey(0), arch_j, VOCAB)
     mine = dit_from_jax(jax.tree.map(np.asarray, want), arch_t, jax.tree.map(np.asarray,
@@ -220,7 +221,7 @@ def test_samplers_with_ppg_match_jax(model, which):
 
 def test_sample_vc_needs_a_ppg_model():
     arch = DiTConfig(**TINY)
-    params = tdit.init_dit(arch, VOCAB, torch.Generator().manual_seed(0))
+    params = tdit.init_dit(arch, VOCAB, tprng.prng_key(0))
     inputs = tcfm.prepare_inputs(torch.zeros(1, 4, 20), torch.tensor([4]), torch.tensor([8]), 16)
     with pytest.raises(ValueError, match="PPG DiT"):
         tcfm.sample_vc(params, arch, CFMConfig(), inputs, steps=2, y0=torch.zeros(1, 16, 20),
@@ -281,30 +282,6 @@ def _batch(rng, nan=False):
             "ppg_lens": np.asarray([NP, 15], np.int32)}
 
 
-def _draws(key, arch_j) -> tcfm.LossDraws:
-    """cfm_loss's draws for `key` in the JAX split order (cfm.py:410-429,
-    dit.py:476-533): the PPG dropout keeps, gumbel uniforms and perplexity
-    permutations (no align loss or cross mask in this config)."""
-    r_frac, r_span, r_time, r_noise, r_drop1, r_drop2, r_model = jax.random.split(key, 7)
-    r_vq_t, r_vq_p, r_perm_t, r_perm_p, _, r_ppgdrop, _ = jax.random.split(r_model, 7)
-    keeps, r = [], r_ppgdrop
-    for _ in range(3):
-        r, sub = jax.random.split(r)
-        keeps.append(t(jax.random.bernoulli(sub, 0.5, (B, N, 16))))
-    shape = (B * N * 2, 10)
-    lo, hi = JCFMConfig().frac_lengths_mask
-    return tcfm.LossDraws(
-        frac=t(jax.random.uniform(r_frac, (B,), minval=lo, maxval=hi)),
-        span=t(jax.random.uniform(r_span, (B,))),
-        x0=t(jax.random.normal(r_noise, (B, N, 20), jnp.float32)),
-        time=t(jax.random.uniform(r_time, (B,), jnp.float32)),
-        u1=t(jax.random.uniform(r_drop1)), u2=t(jax.random.uniform(r_drop2)), ppg_keep=keeps,
-        gumbel_text=t(jax.random.uniform(r_vq_t, shape, jnp.float32, 1e-10, 1.0)),
-        gumbel_ppg=t(jax.random.uniform(r_vq_p, shape, jnp.float32, 1e-10, 1.0)),
-        perm_text=t(jax.random.permutation(r_perm_t, N)).long(),
-        perm_ppg=t(jax.random.permutation(r_perm_p, N)).long())
-
-
 def _ppg_conv_biases(params_t):
     return [c["b"].detach().clone() for c in params_t["ppg_embed"]["convs"]]
 
@@ -335,14 +312,14 @@ def test_train_step_keeps_bn_state_like_jax(model):
     mean_gap = [torch.zeros(16) for _ in range(3)]  # what the bias differences put in the means
     for i in range(3):
         batch = _batch(rng, nan=(i == 1))
-        draws = _draws(jax.random.fold_in(key, int(ts_j.micro) + int(ts_j.skipped)), arch_j)
         before = tstep.tree_map(lambda x: x.clone(), ts_t.model_state)
         bias_t = _ppg_conv_biases(ts_t.params)
         bias_j = _ppg_conv_biases(dit_from_jax(jax.tree.map(np.asarray, ts_j.params), arch_t,
                                                state_np)[0])
         ts_j, m_j = step_j(ts_j, {k: jnp.asarray(v) for k, v in batch.items()}, key)
         ts_t, m_t = tstep.train_step(ts_t, {k: t(v) for k, v in batch.items()}, arch=arch_t,
-                                     cfm=CFMConfig(), optimizer=opt_t, ema=ema_t, draws=draws,
+                                     cfm=CFMConfig(), optimizer=opt_t, ema=ema_t,
+                                     rng=tprng.prng_key(9),
                                      compute_dtype=torch.float32)
         assert m_t.skipped == int(m_j.skipped) == int(i == 1)
         moved = [not torch.equal(a, b) for a, b in zip(tstep.tree_leaves(before),

@@ -34,11 +34,11 @@ from f5e_tts_tpu_torch.data import dataset as tdata
 from f5e_tts_tpu_torch.infer import audio as taudio
 from f5e_tts_tpu_torch.models import cfm as tcfm
 from f5e_tts_tpu_torch.models import dit as tdit
+from f5e_tts_tpu_torch.ops import prng as tprng
 from f5e_tts_tpu_torch.train import step as tstep
 from f5e_tts_tpu_torch.train.trainer import Trainer
 from f5e_tts_tpu_torch.utils.convert import dit_from_jax
 from f5e_tts_tpu_torch.utils.text import list_str_to_bytes
-from tests.test_torch_training import _draws_from_key  # B, N and mel_dim are the same here
 
 # F5TTS_Base's shape, narrowed: RoPE on one head of two, unmasked text padding
 TINY = dict(dim=64, depth=2, heads=2, dim_head=32, ff_mult=2, mel_dim=20, text_dim=32,
@@ -131,7 +131,7 @@ def test_partial_rope_cfm_loss_and_grads_match_jax(model):
     params = tstep.tree_map(lambda t: t.requires_grad_(True), dit_from_jax(params_np, arch_t))
     out = tcfm.cfm_loss(params, arch_t, CFMConfig(), mel=torch.from_numpy(mel),
                         mel_lens=torch.from_numpy(mel_lens), text_ids=torch.from_numpy(ids),
-                        draws=_draws_from_key(key, JCFMConfig()), compute_dtype=torch.float32)
+                        rng=tprng.prng_key(5), compute_dtype=torch.float32)
     out.loss.backward()
     np.testing.assert_allclose(out.loss.item(), float(want), rtol=1e-5)
     got = tstep.tree_leaves(tstep.tree_map(lambda t: t.grad, params))

@@ -21,6 +21,18 @@ package's with nothing injected: each side draws its own noise for the seed.
   test_torch_samplers.py, test_torch_batcher.py,
   test_torch_eval_harness.py, test_torch_mmdit_engines.py and
   test_torch_text_frontend.py.
+- Training's draws: `bernoulli`, `permutation` (n = 1000 and 2304: one
+  and two sort rounds), the codebook's gumbel uniforms on [1e-10, 1) and a
+  block at an offset of a larger draw (a mesh rank's rows or columns), bit
+  for bit against `jax.random`; dropout on bf16 divides by 1 - rate in
+  bf16, as JAX's weakly typed scalar: with the keep mask read off JAX's
+  output, the port's output is JAX's bit for bit (the parent port divided
+  in f32 and missed it by a bf16 ulp).
+- The seeded init weights, with nothing injected: `init_backbone` of a
+  DiT, the F5E model's DiT (PPG embedding and codebook), a UNetT and an
+  MMDiT, `init_vocos`, and `F5TTS` with no checkpoint, against JAX's under
+  the same key: every uniform-initialised tensor bit for bit, the normal
+  ones (the text embedding, a one-layer codebook projection) within 4 ulp.
 """
 
 from __future__ import annotations
@@ -33,20 +45,32 @@ import torch
 import yaml
 
 from f5e_tts_tpu.api import F5TTS as JF5TTS
+from f5e_tts_tpu.config import CodebookConfig as JCodebookConfig
 from f5e_tts_tpu.config import DiTConfig as JDiTConfig
 from f5e_tts_tpu.config import InferConfig as JInferConfig
 from f5e_tts_tpu.config import MelConfig as JMelConfig
+from f5e_tts_tpu.config import MMDiTConfig as JMMDiTConfig
 from f5e_tts_tpu.config import PPGConfig as JPPGConfig
+from f5e_tts_tpu.config import UNetTConfig as JUNetTConfig
 from f5e_tts_tpu.infer import pipeline as jpipe
+from f5e_tts_tpu.models import backbone as jbb
 from f5e_tts_tpu.models import cfm as jcfm
 from f5e_tts_tpu.models import dit as jdit
+from f5e_tts_tpu.models import vocos as jvocos
+from f5e_tts_tpu.ops import nn as jfnn
 from f5e_tts_tpu_torch import api as tapi
-from f5e_tts_tpu_torch.config import DiTConfig, InferConfig, MelConfig, PPGConfig
+from f5e_tts_tpu_torch.config import (CodebookConfig, DiTConfig, InferConfig, MelConfig,
+                                      MMDiTConfig, PPGConfig, UNetTConfig)
 from f5e_tts_tpu_torch.infer import audio as taudio
 from f5e_tts_tpu_torch.infer import pipeline as tpipe
+from f5e_tts_tpu_torch.models import backbone as tbb
 from f5e_tts_tpu_torch.models import cfm as tcfm
+from f5e_tts_tpu_torch.models import vocos as tvocos
+from f5e_tts_tpu_torch.ops import nn as tnn
 from f5e_tts_tpu_torch.ops import prng as tprng
-from f5e_tts_tpu_torch.utils.convert import dit_from_jax
+from f5e_tts_tpu_torch.ops import vq as tvq
+from f5e_tts_tpu_torch.utils.convert import (dit_from_jax, mmdit_from_jax, unett_from_jax,
+                                             vocos_from_jax)
 
 SEEDS = (0, 1, 42, 2**31 - 1, -1)
 SHAPES = ((1,), (7,), (3, 5, 7), (1536, 100))
@@ -170,6 +194,7 @@ def f5tts_pair(tmp_path_factory):
                                               "tokenizer": "byte", "arch": F5_ARCH}}), "utf-8")
     jtts = JF5TTS(config_file=str(path), compute_dtype=jnp.float32)
     ttts = tapi.F5TTS(config_file=str(path), compute_dtype=torch.float32, device="cpu")
+    jtts.initial_params, ttts.initial_params = jtts.engine.params, ttts.engine.params
     params = _filled(jtts.engine.params, 0)
     jtts.engine.params = jax.tree.map(jnp.asarray, params)
     ttts.engine.params = dit_from_jax(params, ttts.engine.arch)
@@ -242,3 +267,129 @@ def test_synthesize_chunk_with_a_seed_matches_jax(ppg_engines, mode):
     got = teng.synthesize_chunk(ref_mel, "some text.", 50, **kw)
     assert got.shape == want.shape == (36, 20) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# training's draws
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", (0, 42))
+def test_bernoulli_permutation_and_gumbel_uniforms_match_jax(seed):
+    jkey, key = jax.random.PRNGKey(seed), tprng.prng_key(seed)
+    np.testing.assert_array_equal(tprng.bernoulli(key, 0.9, (33, 17)).numpy(),
+                                  np.asarray(jax.random.bernoulli(jkey, 0.9, (33, 17))))
+    for n in (1000, 2304):
+        np.testing.assert_array_equal(tprng.permutation(key, n).numpy(),
+                                      np.asarray(jax.random.permutation(jkey, n)))
+    shape = (2 * 64 * 2, 320)  # (B * N * groups, num_vars)
+    got = tvq.gumbel_uniform(key, shape, "cpu").numpy()
+    want = np.asarray(jax.random.uniform(jkey, shape, jnp.float32, 1e-10, 1.0))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_a_block_at_an_offset_draws_its_part_of_the_global_draw():
+    jkey, key = jax.random.PRNGKey(5), tprng.prng_key(5)
+    glob, off, shape = (6, 10, 12), (3, 4, 7), (2, 3, 5)
+    part = tuple(slice(o, o + n) for o, n in zip(off, shape))
+    np.testing.assert_array_equal(tprng.random_bits(key, shape, glob, off).numpy(),
+                                  np.asarray(jax.random.bits(jkey, glob, jnp.uint32))[part])
+    want = np.asarray(jax.random.uniform(jkey, glob, jnp.float32, -0.5, 0.5))[part]
+    np.testing.assert_array_equal(tprng.uniform(key, shape, -0.5, 0.5, glob, off).numpy(), want)
+    assert _ulp(tprng.normal(key, shape, glob, off).numpy(),
+                np.asarray(jax.random.normal(jkey, glob))[part]) <= MAX_ULP
+    x = np.random.default_rng(1).standard_normal(glob).astype(np.float32)
+    want = np.asarray(jfnn.dropout(jkey, jnp.asarray(x), 0.1, True))[part]
+    got = tnn.dropout(key, torch.from_numpy(x[part]), 0.1, True, glob, off)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_bf16_dropout_divides_by_the_rate_in_bf16():
+    x = (3.0 * np.random.default_rng(2).standard_normal((64, 257))).astype(np.float32)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    want = np.asarray(jfnn.dropout(jax.random.PRNGKey(4), xj, 0.1, True).astype(jnp.float32))
+    keep = torch.from_numpy(want != 0)
+    got = tnn.dropout(None, torch.from_numpy(x).bfloat16(), 0.1, True, keep=keep)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# the seeded init weights
+# ---------------------------------------------------------------------------
+
+INIT_VOCAB = 30
+INIT_DIT = dict(dim=64, depth=2, heads=2, dim_head=32, ff_mult=2, mel_dim=8, text_dim=16,
+                conv_layers=1)
+INIT_PPG = dict(use_ppg=True, ppg_dim=16)
+INIT_CB = dict(use_codebook=True, num_vars=10, groups=2)
+INIT_UNETT = dict(dim=64, depth=4, heads=2, dim_head=32, ff_mult=2, mel_dim=8, text_dim=16,
+                  conv_layers=1, skip_connect_type="concat")
+INIT_MMDIT = dict(dim=64, depth=2, heads=2, dim_head=32, ff_mult=2, mel_dim=8)
+INIT_VOCOS = dict(input_channels=8, dim=32, intermediate_dim=48, num_layers=2, n_fft=64,
+                  hop_length=16)
+# the normal-initialised leaves (N(0, 1)): the text embedding, a one-layer
+# codebook projection
+NORMAL_LEAVES = ("text_embed/embed/w", "quantizer/weight_proj/layer_0/w")
+INIT_CASES = {
+    "dit": (JDiTConfig(**INIT_DIT), DiTConfig(**INIT_DIT), dit_from_jax),
+    "f5e_dit": (JDiTConfig(**INIT_DIT, ppg=JPPGConfig(**INIT_PPG),
+                           codebook=JCodebookConfig(**INIT_CB)),
+                DiTConfig(**INIT_DIT, ppg=PPGConfig(**INIT_PPG),
+                          codebook=CodebookConfig(**INIT_CB)), dit_from_jax),
+    "unett": (JUNetTConfig(**INIT_UNETT), UNetTConfig(**INIT_UNETT), unett_from_jax),
+    "mmdit": (JMMDiTConfig(**INIT_MMDIT), MMDiTConfig(**INIT_MMDIT), mmdit_from_jax),
+}
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _flat(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flat(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def assert_jax_init(got, want) -> None:
+    """Two port trees of one layout: the normal-initialised leaves within
+    MAX_ULP, every other leaf bit for bit."""
+    got, want = dict(_flat(got)), dict(_flat(want))
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        g, w = got[k].detach().cpu().numpy(), np.asarray(w)
+        assert g.shape == w.shape and g.dtype == w.dtype, k
+        if k.endswith(NORMAL_LEAVES):
+            assert _ulp(g, w) <= MAX_ULP, k
+        else:
+            np.testing.assert_array_equal(np.atleast_1d(g).view(np.uint8),
+                                          np.atleast_1d(w).view(np.uint8), err_msg=k)
+
+
+@pytest.mark.parametrize("name", list(INIT_CASES))
+def test_init_backbone_matches_jax(name):
+    arch_j, arch_t, convert = INIT_CASES[name]
+    params, state = jbb.init_backbone(jax.random.PRNGKey(7), arch_j, INIT_VOCAB)
+    params, state = jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, state)
+    made = tbb.init_backbone(arch_t, INIT_VOCAB, tprng.prng_key(7))
+    if name == "f5e_dit":
+        want = convert(params, arch_j, state)
+        assert_jax_init(made[1], want[1])
+        made, want = made[0], want[0]
+    else:
+        want = convert(params, arch_j)
+    assert_jax_init(made, want)
+
+
+def test_init_vocos_matches_jax():
+    cfg_j, cfg_t = jvocos.VocosConfig(**INIT_VOCOS), tvocos.VocosConfig(**INIT_VOCOS)
+    params = jax.tree.map(np.asarray, jvocos.init_vocos(jax.random.PRNGKey(0), cfg_j))
+    assert_jax_init(tvocos.init_vocos(cfg_t, tprng.prng_key(0)), vocos_from_jax(params, cfg_t))
+
+
+def test_f5tts_without_a_checkpoint_has_jax_initial_weights(f5tts_pair):
+    jtts, ttts, _ = f5tts_pair
+    want = dit_from_jax(jax.tree.map(np.asarray, jtts.initial_params), ttts.engine.arch)
+    assert_jax_init(ttts.initial_params, tbb.fuse_qkv(want, ttts.engine.arch))

@@ -32,6 +32,7 @@ from f5e_tts_tpu_torch.config import CFMConfig, DiTConfig, InferConfig, MelConfi
 from f5e_tts_tpu_torch.infer.pipeline import TTSEngine  # noqa: E402
 from f5e_tts_tpu_torch.models.cfm import pruned_sway_timesteps  # noqa: E402
 from f5e_tts_tpu_torch.models.dit import init_dit  # noqa: E402
+from f5e_tts_tpu_torch.ops import prng  # noqa: E402
 from f5e_tts_tpu_torch.serving import benchmark as tbench  # noqa: E402
 from f5e_tts_tpu_torch.serving import grpc_client as tgrpc_client  # noqa: E402
 from f5e_tts_tpu_torch.serving import http_server as thttp  # noqa: E402
@@ -55,7 +56,7 @@ def _vocoder(m):
 
 def make_engine(buckets=(128, 256, 512)):
     gen = torch.Generator().manual_seed(0)
-    params = init_dit(ARCH, len(VOCAB), gen, "cpu")
+    params = init_dit(ARCH, len(VOCAB), prng.prng_key(0), "cpu")
     params["proj_out"]["w"].normal_(0.0, 0.05, generator=gen)
     return TTSEngine(params=params, arch=ARCH, vocab=VOCAB, mel=MEL, cfm=CFMConfig(),
                      infer_cfg=InferConfig(nfe_steps=2, max_duration=512), tokenizer="char",

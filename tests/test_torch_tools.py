@@ -46,6 +46,7 @@ from f5e_tts_tpu_torch.infer import pipeline as tpipe
 from f5e_tts_tpu_torch.infer.audio import write_wav
 from f5e_tts_tpu_torch.infer.voice_chat import DEFAULT_SYSTEM_PROMPT, VoiceChat, load_chat_model
 from f5e_tts_tpu_torch.models import dit as tdit
+from f5e_tts_tpu_torch.ops import prng as tprng
 from f5e_tts_tpu_torch.utils import profiling as tprof
 from f5e_tts_tpu_torch.utils import seed as tseed
 
@@ -75,7 +76,7 @@ def test_flops_params_and_stats_match_jax():
     want = jprof.report_model_stats(JDiTConfig(**TINY), vocab_size=30, seconds=2.0)
     assert got == pytest.approx(want, rel=0, abs=0)
     params, _ = jbb.init_backbone(jax.random.PRNGKey(0), JDiTConfig(**TINY), 30)
-    made = tdit.init_dit(DiTConfig(**TINY), 30, torch.Generator().manual_seed(0))
+    made = tdit.init_dit(DiTConfig(**TINY), 30, tprng.prng_key(0))
     assert tprof.count_params(made) == jprof.count_params(params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tprof.report_model_stats(DiTConfig(**TINY))  # the card by default
@@ -186,7 +187,7 @@ def test_native_names_match_jax_fallbacks(monkeypatch):
 
 def _engine():
     arch = DiTConfig(**TINY)
-    params = tdit.init_dit(arch, len(VOCAB), torch.Generator().manual_seed(0))
+    params = tdit.init_dit(arch, len(VOCAB), tprng.prng_key(0))
     return tpipe.TTSEngine(params=params, arch=arch, vocab=VOCAB, mel=MEL, cfm=CFMConfig(),
                            infer_cfg=InferConfig(nfe_steps=2, max_duration=512),
                            tokenizer="char",

@@ -40,7 +40,6 @@ from f5e_tts_tpu.train import adamw8bit as j8
 from f5e_tts_tpu.utils.torch_ckpt import dit_to_torch
 from f5e_tts_tpu_torch import config as tconfig
 from f5e_tts_tpu_torch.data import dataset as tdata
-from f5e_tts_tpu_torch.models import cfm as tcfm
 from f5e_tts_tpu_torch.train import adamw8bit as t8
 from f5e_tts_tpu_torch.train import step as tstep
 from f5e_tts_tpu_torch.train import trainer as ttrainer
@@ -260,19 +259,6 @@ def test_init_state_pretrained_and_sample_hook(tmp_path):
     assert mel.shape == (20, 8) and np.isfinite(mel).all()
 
 
-def _draws(key, b, n, mel_dim, cfm):
-    """The draws of f5e_tts_tpu.models.cfm.cfm_loss for `key`, in its split order."""
-    r_frac, r_span, r_time, r_noise, r_drop1, r_drop2, _ = jax.random.split(key, 7)
-    lo, hi = cfm.frac_lengths_mask
-    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
-    return tcfm.LossDraws(
-        frac=t(jax.random.uniform(r_frac, (b,), minval=lo, maxval=hi)),
-        span=t(jax.random.uniform(r_span, (b,))),
-        x0=t(jax.random.normal(r_noise, (b, n, mel_dim), jnp.float32)),
-        time=t(jax.random.uniform(r_time, (b,), jnp.float32)),
-        u1=t(jax.random.uniform(r_drop1)), u2=t(jax.random.uniform(r_drop2)))
-
-
 def test_train_cli_matches_jax_cli(tmp_path, monkeypatch):
     from f5e_tts_tpu.train import train as jtrain_cli
     from f5e_tts_tpu.train import trainer as jtrainer
@@ -301,16 +287,6 @@ def test_train_cli_matches_jax_cli(tmp_path, monkeypatch):
             inner = self.log_fn
             self.log_fn = lambda m, u: (seen["port"].append((u, m["loss"])), inner(m, u))
             super().__post_init__()
-
-        def make_step(self):
-            step, cfm, seed = super().make_step(), self.cfm, self.train_cfg.seed
-
-            def with_jax_draws(ts, batch, generator, draws=None):
-                key = jax.random.fold_in(jax.random.PRNGKey(seed), ts.micro + ts.skipped)
-                b, n = batch["audio"].shape[0], batch["audio"].shape[1] // 64
-                return step(ts, batch, generator, _draws(key, b, n, 8, cfm))
-
-            return with_jax_draws
 
     monkeypatch.setattr(jtrainer, "Trainer", JRecording)
     monkeypatch.setattr(ttrainer, "Trainer", TRecording)

@@ -2,18 +2,17 @@
 DiT (dim 64, depth 2, heads 2 x 32), fp32, dropout 0.
 
 - `cfm_loss`: value and every parameter's gradient vs jax.value_and_grad of
-  f5e_tts_tpu.models.cfm.cfm_loss. Torch cannot reproduce JAX's PRNG
-  streams, so the test repeats the JAX split order (cfm.py:410-429,
-  masks.py:36-39) on the same key and hands the draws to the port.
-  Tolerance: loss rtol 1e-5; gradients atol 1e-5 * max|grad| + rtol 1e-3
+  f5e_tts_tpu.models.cfm.cfm_loss, each side drawing from the same key
+  (ops/prng.py: JAX's threefry). Tolerance: loss rtol 1e-5; gradients atol 1e-5 * max|grad| + rtol 1e-3
   (fp32 on both sides, the attention's softmax and the sums over N and D
   run in another order; the JAX side's attention is jax.nn.dot_product_attention).
 - `train_step`: 3 optimizer updates with grad accumulation 2 and one NaN
-  micro-step vs the JAX train_step: params and EMA to atol 2e-6 (an Adam
+  micro-step vs the JAX train_step under one key, each folding the
+  micro-steps consumed into it: params and EMA to atol 2e-6 (an Adam
   step moves a weight by ~lr = 1e-3; the tolerance is 0.2% of it), and the
   counters exactly.
-- dropout and the span mask: shapes, rates and bounds (they draw from torch
-  generators, which cannot match JAX's bits).
+- dropout and the span mask: shapes, rates and bounds, and their draws
+  bit for bit JAX's for the key.
 """
 
 from functools import partial
@@ -29,10 +28,13 @@ from f5e_tts_tpu.config import DiTConfig as JDiTConfig
 from f5e_tts_tpu.config import TrainConfig as JTrainConfig
 from f5e_tts_tpu.models import cfm as jcfm
 from f5e_tts_tpu.models import dit as jdit
+from f5e_tts_tpu.ops import nn as jfnn
 from f5e_tts_tpu.train import step as jstep
+from f5e_tts_tpu.utils import masks as jmasks
 from f5e_tts_tpu_torch.config import CFMConfig, DiTConfig, TrainConfig
 from f5e_tts_tpu_torch.models import cfm as tcfm
 from f5e_tts_tpu_torch.ops import nn as tnn
+from f5e_tts_tpu_torch.ops import prng as tprng
 from f5e_tts_tpu_torch.train import step as tstep
 from f5e_tts_tpu_torch.utils import masks as tmasks
 from f5e_tts_tpu_torch.utils.convert import dit_from_jax
@@ -67,19 +69,6 @@ def _batch(rng, nan=False):
     return {"mel": mel, "mel_lens": np.asarray([N, 27], np.int32), "text_ids": ids}
 
 
-def _draws_from_key(key, cfm: JCFMConfig) -> tcfm.LossDraws:
-    """The draws of f5e_tts_tpu.models.cfm.cfm_loss for `key`, in its split order."""
-    r_frac, r_span, r_time, r_noise, r_drop1, r_drop2, _ = jax.random.split(key, 7)
-    lo, hi = cfm.frac_lengths_mask
-    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
-    return tcfm.LossDraws(
-        frac=t(jax.random.uniform(r_frac, (B,), minval=lo, maxval=hi)),
-        span=t(jax.random.uniform(r_span, (B,))),
-        x0=t(jax.random.normal(r_noise, (B, N, TINY["mel_dim"]), jnp.float32)),
-        time=t(jax.random.uniform(r_time, (B,), jnp.float32)),
-        u1=t(jax.random.uniform(r_drop1)), u2=t(jax.random.uniform(r_drop2)))
-
-
 def _torch_batch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
@@ -110,7 +99,7 @@ def test_cfm_loss_and_grads_match_jax(model, cfm_kw):
     params = tstep.tree_map(lambda t: t.requires_grad_(True), dit_from_jax(params_np, arch_t))
     tb = _torch_batch(batch)
     out = tcfm.cfm_loss(params, arch_t, cfm_t, mel=tb["mel"], mel_lens=tb["mel_lens"],
-                        text_ids=tb["text_ids"], draws=_draws_from_key(key, cfm_j),
+                        text_ids=tb["text_ids"], rng=tprng.prng_key(3),
                         compute_dtype=torch.float32)
     out.loss.backward()
     np.testing.assert_allclose(out.loss.item(), float(want), rtol=1e-5)
@@ -137,11 +126,9 @@ def test_train_step_matches_jax(model):
     rng, key = np.random.default_rng(2), jax.random.PRNGKey(11)
     for i in range(7):
         batch = _batch(rng, nan=(i == 2))
-        draws = _draws_from_key(jax.random.fold_in(key, int(ts_j.micro) + int(ts_j.skipped)),
-                                JCFMConfig())
         ts_j, m_j = step_j(ts_j, {k: jnp.asarray(v) for k, v in batch.items()}, key)
         ts_t, m_t = tstep.train_step(ts_t, _torch_batch(batch), arch=arch_t, cfm=CFMConfig(),
-                                     optimizer=opt_t, ema=ema_t, draws=draws,
+                                     optimizer=opt_t, ema=ema_t, rng=tprng.prng_key(11),
                                      compute_dtype=torch.float32)
         assert m_t.skipped == int(m_j.skipped) == int(i == 2)
         if i != 2:
@@ -173,18 +160,23 @@ def test_schedule_and_ema_decay_match_jax():
 
 
 def test_dropout_and_span_mask():
-    gen = torch.Generator().manual_seed(0)
+    key, jkey = tprng.prng_key(0), jax.random.PRNGKey(0)
     x = torch.ones(4, 256, 64)
-    y = tnn.dropout(x, 0.1, True, gen)
+    y = tnn.dropout(key, x, 0.1, True)
     assert set(torch.unique(y).tolist()) <= {0.0, torch.tensor(1.0 / 0.9).item()}
     assert abs((y == 0).float().mean().item() - 0.1) < 0.01
-    assert tnn.dropout(x, 0.1, False, gen) is x and tnn.dropout(x, 0.0, True, gen) is x
+    assert tnn.dropout(key, x, 0.1, False) is x and tnn.dropout(key, x, 0.0, True) is x
+    want = jfnn.dropout(jkey, jnp.ones((4, 256, 64)), 0.1, True)
+    np.testing.assert_array_equal(y.numpy(), np.asarray(want))
 
     lens = torch.tensor([100, 37, 1])
     frac = torch.tensor([0.7, 1.0, 0.85])
-    span = tmasks.mask_from_frac_lengths(lens, frac, 128, generator=gen)
+    span = tmasks.mask_from_frac_lengths(key, lens, frac, 128)
+    np.testing.assert_array_equal(span.numpy(), np.asarray(jmasks.mask_from_frac_lengths(
+        jkey, jnp.asarray(lens.numpy()), jnp.asarray(frac.numpy()), 128)))
     assert span.sum(1).tolist() == [70, 37, 0]
     assert not span[:, 100:].any() and not span[1, 37:].any()
-    span = tmasks.mask_from_frac_lengths(lens, frac, 128, rand=torch.tensor([0.999, 0.0, 0.5]))
+    span = tmasks.mask_from_frac_lengths(None, lens, frac, 128,
+                                         rand=torch.tensor([0.999, 0.0, 0.5]))
     # start = floor(0.999 * (100 - 70)) = 29
     assert span[0, 29:99].all() and span.sum(1).tolist() == [70, 37, 0] and span[1, :37].all()

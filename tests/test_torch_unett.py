@@ -35,6 +35,7 @@ from f5e_tts_tpu_torch.models import backbone as tbb
 from f5e_tts_tpu_torch.models import cfm as tcfm
 from f5e_tts_tpu_torch.models import dit as tdit
 from f5e_tts_tpu_torch.models import unett as tunett
+from f5e_tts_tpu_torch.ops import prng as tprng
 from f5e_tts_tpu_torch.train import step as tstep
 from f5e_tts_tpu_torch.utils.convert import (backbone_from_reference_state_dict,
                                              backbone_to_reference_state_dict, unett_from_jax,
@@ -85,19 +86,6 @@ def _assert_tree_close(got: dict, want: dict, rtol, atol_frac=None, atol=None):
         w = w.numpy()
         a = atol if atol is not None else atol_frac * max(np.abs(w).max(), 1e-12)
         np.testing.assert_allclose(flat_g[key].detach().numpy(), w, rtol=rtol, atol=a, err_msg=key)
-
-
-def _draws_from_key(key, cfm: JCFMConfig, b, n, mel_dim) -> tcfm.LossDraws:
-    """The draws of f5e_tts_tpu.models.cfm.cfm_loss for `key`, in its split order."""
-    r_frac, r_span, r_time, r_noise, r_drop1, r_drop2, _ = jax.random.split(key, 7)
-    lo, hi = cfm.frac_lengths_mask
-    a = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
-    return tcfm.LossDraws(
-        frac=a(jax.random.uniform(r_frac, (b,), minval=lo, maxval=hi)),
-        span=a(jax.random.uniform(r_span, (b,))),
-        x0=a(jax.random.normal(r_noise, (b, n, mel_dim), jnp.float32)),
-        time=a(jax.random.uniform(r_time, (b,), jnp.float32)),
-        u1=a(jax.random.uniform(r_drop1)), u2=a(jax.random.uniform(r_drop2)))
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +177,7 @@ def test_unett_dispatch_init_and_fused_qkv():
     arch_j, arch_t, params_np = _model("concat", seed=2, conv_layers=1, text_dim=16)
     assert tbb.backbone_kind(arch_t) == "unett"
     assert tbb.attention_rows(arch_t, 1536) == 1537 and tbb.attention_rows(DiTConfig(), 7) == 7
-    init = tbb.init_backbone(arch_t, VOCAB, torch.Generator().manual_seed(0))
+    init = tbb.init_backbone(arch_t, VOCAB, tprng.prng_key(0))
     want = _flat(unett_from_jax(params_np, arch_t))
     # init_unett's leaves and shapes are the JAX init's
     assert {k: tuple(v.shape) for k, v in _flat(init).items()} == \
@@ -214,7 +202,7 @@ def test_unett_dispatch_init_and_fused_qkv():
     np.testing.assert_allclose(tbb.forward_train(fused, arch_t, **kw).numpy(),
                                tbb.forward_train(params, arch_t, **kw).numpy(), rtol=0, atol=1e-5)
     with pytest.raises(ValueError, match="even"):
-        tunett.init_unett(UNetTConfig(**{**TINY, "depth": 3}), VOCAB, torch.Generator())
+        tunett.init_unett(UNetTConfig(**{**TINY, "depth": 3}), VOCAB, tprng.prng_key(0))
 
 
 @pytest.mark.parametrize("cfg", [2.0, 0.0])
@@ -257,8 +245,7 @@ def test_cfm_loss_and_grads_with_unett_match_jax(cfm_kw):
     want, grads_j = jax.jit(jax.value_and_grad(loss_fn))(params_np)
     params = tstep.tree_map(lambda a: a.requires_grad_(True), unett_from_jax(params_np, arch_t))
     out = tcfm.cfm_loss(params, arch_t, cfm_t, mel=t(mel), mel_lens=t(mel_lens), text_ids=t(ids),
-                        draws=_draws_from_key(key, cfm_j, B, N, TINY["mel_dim"]),
-                        generator=torch.Generator().manual_seed(0), compute_dtype=torch.float32)
+                        rng=tprng.prng_key(3), compute_dtype=torch.float32)
     out.loss.backward()
     np.testing.assert_allclose(out.loss.item(), float(want), rtol=1e-5)
     _assert_tree_close(tstep.tree_map(lambda a: a.grad, params),
@@ -275,7 +262,7 @@ def test_unett_converters_match_jax_and_round_trip(skip, conv_layers):
     via_ref = _flat(unett_from_reference_state_dict(sd, arch_t))
     want = _flat(unett_from_jax(jax.tree.map(np.asarray, unett_from_torch(sd, arch_j)[0]), arch_t))
     # the loader keeps init_unett's leaf order, and each tensor is the JAX loader's
-    assert list(via_ref) == list(_flat(tunett.init_unett(arch_t, VOCAB, torch.Generator())))
+    assert list(via_ref) == list(_flat(tunett.init_unett(arch_t, VOCAB, tprng.prng_key(0))))
     assert via_ref.keys() == direct.keys() == want.keys()
     for k in direct:
         assert via_ref[k].dtype == torch.float32 and torch.equal(via_ref[k], want[k]), k

@@ -35,6 +35,7 @@ from f5e_tts_tpu_torch.infer import cli as tcli
 from f5e_tts_tpu_torch.models import backbone as tbb
 from f5e_tts_tpu_torch.models import dit as tdit
 from f5e_tts_tpu_torch.models import durpred as tdur
+from f5e_tts_tpu_torch.ops import prng as tprng
 from f5e_tts_tpu_torch.train.trainer import Trainer
 from f5e_tts_tpu_torch.utils.convert import (dit_from_jax, dit_from_reference_state_dict,
                                              dit_to_reference_state_dict, to_tensors,
@@ -79,7 +80,7 @@ def test_long_skip_dit_forward_and_converters_match_jax():
     assert all(np.array_equal(ours[k].numpy(), v) for k, v in sd.items())
     back = _flat(dit_from_reference_state_dict(sd, arch_t))
     direct = _flat(dit_from_jax(jax.tree.map(np.asarray, dit_from_torch(sd, arch_j)[0]), arch_t))
-    assert list(back) == list(_flat(tdit.init_dit(arch_t, VOCAB, torch.Generator())))
+    assert list(back) == list(_flat(tdit.init_dit(arch_t, VOCAB, tprng.prng_key(0))))
     assert back.keys() == direct.keys() and all(torch.equal(back[k], direct[k]) for k in back)
 
 
